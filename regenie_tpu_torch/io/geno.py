@@ -1,0 +1,182 @@
+"""Genotype data model + block lists (the port's copy of the BED branch
+of regenie_tpu/io/geno.py).
+
+File metadata, sample/variant filters and the chromosome map. The fused
+Step-2 path reads packed bytes straight from the BedFile, so there is no
+decoding block reader here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..config import Params
+from .bed import BedFile, SampleInfo, SnpInfo, chr_to_int, open_bed
+from .files import iter_lines
+
+
+@dataclass
+class GenoData:
+    """Genotype file handle + metadata after filters."""
+
+    params: Params
+    snps: List[SnpInfo] = field(default_factory=list)  # kept variants, file order
+    samples: List[SampleInfo] = field(default_factory=list)  # kept samples
+    sample_keep_idx: np.ndarray = None  # indices into raw file sample order
+    chr_read: List[int] = field(default_factory=list)  # chroms in file order
+    chr_counts: Dict[int, int] = field(default_factory=dict)  # chrom -> #snps kept
+    sex: np.ndarray = None  # [N] 1=male 0=other
+    _bed: Optional[BedFile] = None
+    _keep_all_samples: bool = True
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.samples)
+
+    @property
+    def n_variants(self) -> int:
+        return len(self.snps)
+
+    def sample_index(self) -> Dict[str, int]:
+        """Map "FID_IID" -> row index (reference FID_IID_to_ind)."""
+        return {s.key: i for i, s in enumerate(self.samples)}
+
+    def close(self):
+        self._bed.close()
+
+
+def _read_id_file(path: str) -> set:
+    ids = set()
+    for toks in iter_lines(path):
+        if len(toks) >= 2:
+            ids.add(f"{toks[0]}_{toks[1]}")
+        else:
+            ids.add(f"{toks[0]}_{toks[0]}")
+    return ids
+
+
+def _read_snp_file(path: str) -> set:
+    return {toks[0] for toks in iter_lines(path)}
+
+
+def open_geno(params: Params) -> GenoData:
+    """Open PLINK BED files, apply sample/variant filters, build chr map.
+
+    Reference: file_read_initialization (Data.cpp:155) +
+    check_snps_include_exclude (Geno.cpp:1128) +
+    check_samples_include_exclude (Geno.cpp:1263).
+    """
+    if params.file_type != "bed":
+        raise NotImplementedError(
+            f"{params.file_type.upper()} input is not yet ported to "
+            "regenie_tpu_torch")
+    bed = open_bed(params.bed_prefix, params.ref_first)
+    gd = GenoData(params=params)
+    gd._bed = bed
+    _apply_filters(params, gd, bed.snps, bed.samples)
+    return gd
+
+
+def _apply_filters(params, gd, raw_snps, raw_samples):
+    # ---- sample filters (keep/remove) ----
+    keep_mask = np.ones(len(raw_samples), dtype=bool)
+    if params.keep_files:
+        keep_ids = set()
+        for f in params.keep_files:
+            keep_ids |= _read_id_file(f)
+        for i, s in enumerate(raw_samples):
+            keep_mask[i] = s.key in keep_ids
+    if params.remove_files:
+        rm_ids = set()
+        for f in params.remove_files:
+            rm_ids |= _read_id_file(f)
+        for i, s in enumerate(raw_samples):
+            if s.key in rm_ids:
+                keep_mask[i] = False
+    # sex-specific analyses (--sex-specific, Geno.cpp:1287)
+    if params.sex_specific:
+        for i, s in enumerate(raw_samples):
+            if s.sex != params.sex_specific:
+                keep_mask[i] = False
+    gd.sample_keep_idx = np.flatnonzero(keep_mask)
+    gd._keep_all_samples = bool(keep_mask.all())
+    gd.samples = [raw_samples[i] for i in gd.sample_keep_idx]
+    gd.sex = np.array([1 if s.sex == 1 else 0 for s in gd.samples], dtype=np.int32)
+
+    # ---- variant filters (extract/exclude) ----
+    snp_keep = np.ones(len(raw_snps), dtype=bool)
+    # --range window (check_snps_include_exclude, Geno.cpp:2790)
+    if params.range_chr != -1:
+        for i, s in enumerate(raw_snps):
+            if (s.chrom != params.range_chr or s.physpos < params.range_min
+                    or s.physpos > params.range_max):
+                snp_keep[i] = False
+    if params.extract_files:
+        ids = set()
+        for f in params.extract_files:
+            ids |= _read_snp_file(f)
+        for i, s in enumerate(raw_snps):
+            snp_keep[i] = s.ID in ids
+    if params.exclude_files:
+        ids = set()
+        for f in params.exclude_files:
+            ids |= _read_snp_file(f)
+        for i, s in enumerate(raw_snps):
+            if s.ID in ids:
+                snp_keep[i] = False
+    # chromosome filters (step 2 --chr/--chrList)
+    if params.chr_list:
+        chrs = {chr_to_int(c) for c in params.chr_list}
+        for i, s in enumerate(raw_snps):
+            if s.chrom not in chrs:
+                snp_keep[i] = False
+    gd.snps = [s for s, k in zip(raw_snps, snp_keep) if k]
+
+    # --extract-or/--exclude-or: gate which variants the MAC filter
+    # applies to (check_snps_include_exclude_or, Geno.cpp:1225-1241)
+    if params.exclude_or_files:
+        ids = set()
+        for f in params.exclude_or_files:
+            ids |= _read_snp_file(f)
+        for s in gd.snps:
+            s.mac_fail_if_checked = s.ID in ids
+    elif params.extract_or_files:
+        ids = set()
+        for f in params.extract_or_files:
+            ids |= _read_snp_file(f)
+        for s in gd.snps:
+            s.mac_fail_if_checked = s.ID not in ids
+
+    # --force-mac-filter snpfile,MAC: separate threshold for a subset
+    # (check_forced_MAC_file, Geno.cpp:1249)
+    if params.forced_mac_snpfile:
+        ids = _read_snp_file(params.forced_mac_snpfile)
+        for s in gd.snps:
+            s.forced_mac_filter = s.ID in ids
+
+    # ---- chromosome map, file order (reference chr_read) ----
+    for s in gd.snps:
+        if s.chrom not in gd.chr_counts:
+            gd.chr_counts[s.chrom] = 0
+            gd.chr_read.append(s.chrom)
+        gd.chr_counts[s.chrom] += 1
+
+    params.n_samples = gd.n_samples
+    params.n_variants = gd.n_variants
+
+
+def make_blocks(gd: GenoData, block_size: int) -> List[Tuple[int, List[SnpInfo]]]:
+    """Split kept variants into per-chromosome blocks of `block_size`
+    (reference set_blocks, Data.cpp:311). Returns [(chrom, snps)]."""
+    blocks = []
+    by_chr: Dict[int, List[SnpInfo]] = {}
+    for s in gd.snps:
+        by_chr.setdefault(s.chrom, []).append(s)
+    for chrom in gd.chr_read:
+        snps = by_chr[chrom]
+        for i in range(0, len(snps), block_size):
+            blocks.append((chrom, snps[i : i + block_size]))
+    return blocks

@@ -1,0 +1,245 @@
+"""Step-2 summary-statistic writers (the port's copy of
+regenie_tpu/io/output.py, trimmed to quantitative traits in the split
+single-trait and HTPv4 formats).
+
+Mirrors Step2_Models.cpp print_header_output* (:2306) and
+print_sum_stats* (:2410-2646) with C++ default 6-significant-digit
+formatting. Whole blocks render through the native formatter
+(native/decoder.cpp); the per-row functions are the fallback when the
+library is unavailable and render byte-identical rows.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..config import Params
+from ..prep import fmt
+from ..utils.stats import convert_logp_raw
+from .bed import SnpInfo
+from .native import get_lib
+
+
+def header_single(params: Params) -> str:
+    cols = ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ"]
+    if params.dosage_mode:
+        cols += ["INFO"]
+    cols += ["N", "TEST", "BETA", "SE", "CHISQ", "LOG10P", "EXTRA"]
+    return " ".join(cols) + "\n"
+
+
+def sumstat_line_single(
+    params: Params,
+    snp: SnpInfo,
+    test: str,
+    af: float,
+    info: Optional[float],
+    n: int,
+    beta: float,
+    se: float,
+    chisq: float,
+    logp: float,
+    test_pass: bool = True,
+) -> str:
+    """One association row, single-pheno format (print_sum_stats_single,
+    Step2_Models.cpp:2505-2544)."""
+    parts = [str(snp.chrom), str(snp.physpos), snp.ID, snp.allele1, snp.allele2]
+    parts.append(fmt(af) if af >= 0 else "NA")
+    if params.dosage_mode:
+        parts.append(fmt(info) if info is not None and info >= 0 else "NA")
+    parts.append(str(n))
+    parts.append(test)
+    print_se = (se >= 0) and not np.isnan(se)
+    print_pv = (chisq >= 0) and test_pass and not np.isnan(logp)
+    if print_se:
+        parts += [fmt(beta), fmt(se)]
+    else:
+        parts += ["NA", "NA"]
+    if print_pv:
+        parts += [fmt(chisq), fmt(logp)]
+    else:
+        parts += ["NA", "NA"]
+    parts.append("NA" if test_pass else "TEST_FAIL")
+    return " ".join(parts) + "\n"
+
+
+def block_prefixes(bsnps) -> tuple:
+    """Concatenated per-variant row prefixes "CHROM GENPOS ID A0 A1"
+    for the native batch formatter (built once per block, reused by
+    every trait column)."""
+    buf = bytearray()
+    off = np.empty(len(bsnps) + 1, np.int64)
+    off[0] = 0
+    for i, s in enumerate(bsnps):
+        buf += f"{s.chrom} {s.physpos} {s.ID} {s.allele1} {s.allele2}".encode()
+        off[i + 1] = len(buf)
+    return np.frombuffer(bytes(buf), np.uint8), off
+
+
+def _f64(x):
+    return np.ascontiguousarray(x, np.float64)
+
+
+def native_formatter(name: str):
+    """The native lib if it exports `name`, else None — callers probe
+    this once before building per-block operands."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, name):
+        return None
+    return lib
+
+
+def format_block_single(params, prefix_buf, prefix_off, test, skip, af,
+                        info, n, beta, se, chisq, logp,
+                        test_fail) -> Optional[str]:
+    """Native batch renderer for the split single-pheno format: one call
+    formats a whole [B] block x trait column (format_sumstat_single in
+    native/decoder.cpp), byte-identical to sumstat_line_single. Returns
+    None when the native lib is unavailable."""
+    lib = native_formatter("format_sumstat_single")
+    if lib is None or len(test) > 40:
+        return None
+    B = len(prefix_off) - 1
+    af = _f64(af)
+    beta, se = _f64(beta), _f64(se)
+    chisq, logp = _f64(chisq), _f64(logp)
+    n = np.ascontiguousarray(n, np.int32)
+    skip = np.ascontiguousarray(skip, np.uint8)
+    test_fail = np.ascontiguousarray(test_fail, np.uint8)
+    has_info = bool(params.dosage_mode)
+    if has_info:
+        # reference prints INFO=1 when the format carries no INFO
+        info = _f64(info if info is not None else np.ones(B))
+    budget = int(lib.sumstat_field_budget())
+    out = np.empty(int(prefix_off[-1]) + B * budget, np.uint8)
+    row_len = np.empty(B, np.int64)
+    pb = np.ascontiguousarray(prefix_buf, np.uint8)
+    po = np.ascontiguousarray(prefix_off, np.int64)
+    total = lib.format_sumstat_single(
+        pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, test.encode(),
+        None, None, 0, int(has_info), af.ctypes.data, None, None,
+        info.ctypes.data if has_info else None, n.ctypes.data, None, None,
+        beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
+        test_fail.ctypes.data, out.ctypes.data, row_len.ctypes.data,
+    )
+    return out[:total].tobytes().decode("utf-8")
+
+
+def htp_prefixes(bsnps) -> tuple:
+    """Concatenated per-variant HTP row prefixes "Name\\tChr\\tPos\\tRef\\tAlt"."""
+    buf = bytearray()
+    off = np.empty(len(bsnps) + 1, np.int64)
+    off[0] = 0
+    for i, s in enumerate(bsnps):
+        buf += f"{s.ID}\t{s.chrom}\t{s.physpos}\t{s.allele1}\t{s.allele2}".encode()
+        off[i + 1] = len(buf)
+    return np.frombuffer(bytes(buf), np.uint8), off
+
+
+def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
+                     beta, se, chisq, logp, af, mac, genocounts, neff,
+                     test_fail) -> Optional[str]:
+    """Native batch renderer for the HTPv4 format (format_sumstat_htp in
+    native/decoder.cpp), byte-identical to sumstat_line_htp. Returns
+    None when the native lib is unavailable."""
+    lib = native_formatter("format_sumstat_htp")
+    if lib is None:
+        return None
+    B = len(prefix_off) - 1
+    mid = f"\t{pheno_name}\t{params.cohort_name}\t{model}"
+    beta, se = _f64(beta), _f64(se)
+    chisq, logp, af = _f64(chisq), _f64(logp), _f64(af)
+    mac = _f64(mac if mac is not None else np.full(B, -1.0))
+    skip = np.ascontiguousarray(skip, np.uint8)
+    test_fail = np.ascontiguousarray(test_fail, np.uint8)
+    gc = (np.ascontiguousarray(genocounts, np.int64)
+          if genocounts is not None else None)
+    budget = int(lib.htp_field_budget()) + len(mid.encode())
+    out = np.empty(int(prefix_off[-1]) + B * budget, np.uint8)
+    row_len = np.empty(B, np.int64)
+    pb = np.ascontiguousarray(prefix_buf, np.uint8)
+    po = np.ascontiguousarray(prefix_off, np.int64)
+    total = lib.format_sumstat_htp(
+        pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, mid.encode(),
+        0, int(bool(params.firth)), int(bool(params.uncapped_pvals)),
+        0, float(params.zcrit),
+        beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
+        af.ctypes.data, None, mac.ctypes.data,
+        gc.ctypes.data if gc is not None else None,
+        int(neff) if neff is not None else -1,
+        test_fail.ctypes.data, out.ctypes.data, row_len.ctypes.data,
+    )
+    return out[:total].tobytes().decode("utf-8")
+
+
+def header_htp() -> str:
+    """HTPv4 header (print_header_output_htp, Step2_Models.cpp:2400)."""
+    cols = [
+        "Name", "Chr", "Pos", "Ref", "Alt", "Trait", "Cohort", "Model",
+        "Effect", "LCI_Effect", "UCI_Effect", "Pval", "AAF",
+        "Num_Cases", "Cases_Ref", "Cases_Het", "Cases_Alt",
+        "Num_Controls", "Controls_Ref", "Controls_Het", "Controls_Alt", "Info",
+    ]
+    return "\t".join(cols) + "\n"
+
+
+def sumstat_line_htp(
+    params: Params,
+    snp: SnpInfo,
+    pheno_name: str,
+    model: str,
+    beta: float,
+    se: float,
+    chisq: float,
+    logp: float,
+    af: float,
+    mac: float,
+    genocounts,  # [6] ints (all-sample RR/RA/AA first) or None
+    test_pass: bool = True,
+    neff=None,
+) -> str:
+    """One HTPv4 row for a quantitative trait (print_sum_stats_htp,
+    Step2_Models.cpp:2548-2646)."""
+    zcrit = params.zcrit
+    print_beta = test_pass and se >= 0 and not np.isnan(se)
+    print_pv = test_pass and chisq >= 0 and not np.isnan(logp)
+    outp = "NA"
+    if print_pv:
+        cap = 308.0  # -log10(dbl_min)-ish cap
+        if not params.uncapped_pvals and logp > cap:
+            outp = convert_logp_raw(cap)
+        elif logp > 0:
+            outp = convert_logp_raw(logp)
+        else:
+            outp = "0.9999999"
+
+    parts = [snp.ID, str(snp.chrom), str(snp.physpos), snp.allele1, snp.allele2,
+             pheno_name, params.cohort_name, model]
+    if print_pv and not print_beta:
+        parts += ["NA", "NA", "NA", outp]
+    elif not print_pv and not print_beta:
+        parts += ["NA", "NA", "NA", "NA"]
+    else:
+        parts += [fmt(beta), fmt(beta - zcrit * se), fmt(beta + zcrit * se)]
+        parts.append(outp if print_pv else "NA")
+
+    parts.append(fmt(af) if af >= 0 else "NA")
+
+    if mac > 0 and genocounts is not None:
+        g = genocounts
+        parts += [str(g[0] + g[1] + g[2]), str(g[0]), str(g[1]), str(g[2])]
+        parts += ["NA", "NA", "NA", "NA"]
+    else:
+        parts += [str(int(neff)) if neff is not None else "NA", "NA", "NA", "NA",
+                  "NA", "NA", "NA", "NA"]
+
+    infoCol = []
+    if print_beta:
+        infoCol.append(f"REGENIE_SE={fmt(se)}")
+    if mac >= 0:
+        infoCol.append(f"MAC={fmt(mac)}")
+    infoCol.append(f"LOG10P={fmt(logp)}" if print_pv else "LOG10P=NA")
+    parts.append(";".join(infoCol))
+    return "\t".join(parts) + "\n"

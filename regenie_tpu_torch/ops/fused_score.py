@@ -1,0 +1,503 @@
+"""Fused Step-2 QT scorer in PyTorch: packed 2-bit PLINK bytes -> score
+statistics, with the genotype matrix never materialized (the port of
+regenie_tpu/ops/fused_score.py, plane-packed hardcall half).
+
+The kernel streams the raw packed bytes ([B, nbp] uint8), decodes each
+2-bit plane on chip and accumulates three products against a combined
+per-sample operand
+
+    Wext = [cov (K) | res (P) | cov_k*maskf_p (K*nI) | maskf (P) | ind (1)]
+
+(rows of excluded samples zeroed on the host; CM columns only for the
+nI traits with missing phenotype values, `FusedConsts.inc`):
+
+    S1[b, :] = sum_n  g0[b, n]      * Wext[n, :]   (missing coded as 0)
+    SQ[b, :] = sum_n  g0[b, n]^2    * Wext[n, :]
+    SM[b, :] = sum_n  miss[b, n]    * Wext[n, :]
+
+Everything the score test needs is then a [B, C] epilogue: mean
+imputation is the rank-1 update S1 + m_b*SM / SQ + m_b^2*SM, allele
+flips are algebraic in the same products, and the covariate projection
+follows the one-pass algebra of compute_score_qt (Step2_Models.cpp:343).
+
+Operands keep the JAX package's layouts: the plane-packed [4, nbp, Cp]
+float operand and the int8 limb operand [4, nbp, 4*Cp] ([l0|l1|l2|l3]),
+so the same constants feed both packages. On CUDA the limb operand runs
+through the hand-written kernel (ops/kernels.py); on the CPU the
+operand is float64 and the products use the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import kernels
+
+# byte-padding multiple of the plane-packed operand (matches the JAX
+# package's layout; the CUDA kernel needs no particular multiple)
+_TC = 256
+
+
+class FusedConsts(NamedTuple):
+    """Precomputed constants for the fused scorer (one per
+    run/chromosome, shapes independent of the SNP block)."""
+
+    Wp: object  # [4, nbp, Cp] float tensor, or an I8Operand
+    usum: torch.Tensor  # [Cp] column sums of ind-masked Wext (for flips)
+    covt_res: torch.Tensor  # [K, P]
+    Mmat: torch.Tensor  # [nI, K, K]
+    n_ind: float  # number of included samples
+    K: int
+    P: int
+    scale_denom: float  # n_analyzed - ncov
+    split: bool = False  # True for the int8 limb operand
+    inc: tuple = None  # incomplete-trait indices (None = all P traits)
+    has_male: bool = False  # chrX male tail columns (not built by the port)
+
+    def n_inc(self) -> int:
+        return self.P if self.inc is None else len(self.inc)
+
+    def layout_C(self) -> int:
+        """Used columns: [cov K | res P | CM K*n_inc | maskf P | ind
+        | male | maskf*male P (chrX only)]."""
+        c = self.K + self.P + self.K * self.n_inc() + self.P + 1
+        if self.has_male:
+            c += self.P + 1
+        return c
+
+
+class I8Operand(NamedTuple):
+    """int8 fixed-point operand for the s8xs8->s32 fused kernel.
+
+    limbs: [..., 4*Cp] int8 — each column quantized as
+        w ~= scale * (l0 + l1/128 + l2/128^2 + l3/128^3)
+    with a power-of-two per-column `scale` ([Cp] float32): ~28
+    fixed-point bits relative to the column max, and EXACT int32
+    accumulation in the kernel (one fold at the end).
+
+    Overflow bound: |dot| <= N * 127 per limb needs N < 8.4M samples for
+    int32 — asserted at build time."""
+
+    limbs: torch.Tensor  # int8, trailing dim 4*Cp: [l0 | l1 | l2 | l3]
+    scale: torch.Tensor  # float32 [Cp] power-of-two column scales
+
+
+_I8_FOLDW = (1.0, 2.0**-7, 2.0**-14, 2.0**-21)
+
+
+def _i8_quantize_np(W):
+    """Host quantization: f64 [..., Cp] -> (limbs int8 [..., 4*Cp],
+    scale f32 [Cp], Wq f64 exact quantized values)."""
+    absmax = np.abs(W).reshape(-1, W.shape[-1]).max(axis=0)
+    e = np.ceil(np.log2(np.maximum(absmax, 1e-300) / 127.0))
+    s = np.exp2(e)
+    s[absmax == 0] = 1.0
+    q = W / s
+    limbs = []
+    for _ in range(4):
+        l = np.rint(q)
+        limbs.append(l.astype(np.int8))
+        q = (q - l) * 128.0
+    Wq = s * sum(l.astype(np.float64) * w for l, w in zip(limbs, _I8_FOLDW))
+    return np.concatenate(limbs, axis=-1), s.astype(np.float32), Wq
+
+
+def _i8_quantize_torch(W, s=None):
+    """Device-side quantization in float32 (per-chromosome residual
+    patches); log2 is taken as log(x)/log(2) as jnp.log2 does, so both
+    packages pick the same power-of-two scales."""
+    W = W.to(torch.float32)
+    if s is None:
+        absmax = W.abs().reshape(-1, W.shape[-1]).amax(dim=0)
+        ln2 = torch.log(torch.tensor(2.0, dtype=torch.float32, device=W.device))
+        e = torch.ceil(torch.log(torch.clamp(absmax, min=1e-30) / 127.0) / ln2)
+        s = torch.where(absmax == 0, torch.ones_like(absmax), torch.exp2(e))
+    q = W / s
+    limbs = []
+    for _ in range(4):
+        l = torch.round(q)  # half to even, as np.rint / jnp.rint
+        limbs.append(l.to(torch.int8))
+        q = (q - l) * 128.0
+    return torch.cat(limbs, dim=-1), s
+
+
+def i8_fold(parts, scale, dtype=torch.float32):
+    """[..., 4*Cp] int32 limb products -> [..., Cp] values in `dtype`
+    (float32 as the JAX package folds; float64 is exact for int32)."""
+    Cp = parts.shape[-1] // 4
+    out = torch.zeros(parts.shape[:-1] + (Cp,), dtype=dtype,
+                      device=parts.device)
+    for k, w in enumerate(_I8_FOLDW):
+        out = out + parts[..., k * Cp : (k + 1) * Cp].to(dtype) * w
+    return out * scale.to(dtype)
+
+
+def split_mode(on_gpu):
+    """Operand encoding: int8 limbs ("i8") on CUDA, full-precision
+    float64 (False) on the CPU — as the JAX package picks per backend."""
+    return "i8" if on_gpu else False
+
+
+def op_nbp(Wp):
+    """Contraction length (packed bytes) of a fused operand."""
+    return (Wp.limbs if isinstance(Wp, I8Operand) else Wp).shape[-2]
+
+
+def _plane_order(X, nb, nbp):
+    """[N, C] -> [4, nbp, C] float64: plane p, byte c <- sample 4c + p."""
+    N, C = X.shape
+    out = np.zeros((4, nbp, C), dtype=np.float64)
+    for p in range(4):
+        src = 4 * np.arange(nb) + p
+        valid = src < N
+        out[p, np.nonzero(valid)[0]] = X[src[valid]]
+    return out
+
+
+def _to_dev(a, device, dtype=None):
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch tensors may not alias read-only memory
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
+               nbp_tile=None):
+    """[N, C] per-sample operand -> plane-ordered kernel operand.
+
+    Returns (Wp, usum): Wp is the [4, nbp, Cp] tensor (dtype) or an
+    I8Operand (split="i8"); usum is the padded [Cp] numpy column-sum
+    vector used by the flip algebra (for "i8" it sums the QUANTIZED
+    values so the flip transform stays exact in the quantized system).
+    Rows must already be zeroed for excluded samples. nbp_tile: byte
+    padding multiple (default _TC)."""
+    N, C = Wext.shape
+    Cp = -(-C // 128) * 128
+    tile = nbp_tile or _TC
+    nbp = -(-nb // tile) * tile
+    Wp = np.zeros((4, nbp, Cp), dtype=np.float64)
+    Wp[..., :C] = _plane_order(Wext, nb, nbp)
+    usum = np.pad(Wext.sum(axis=0), (0, Cp - C))
+    if split == "i8":
+        assert N < 8_000_000, "int8 fused path: int32 accumulator bound"
+        limbs, s, Wq = _i8_quantize_np(Wp)
+        usum = Wq.sum(axis=(0, 1))
+        return I8Operand(_to_dev(limbs, device), _to_dev(s, device)), usum
+    if split:
+        raise NotImplementedError(
+            "the bf16 split operand is not yet ported to regenie_tpu_torch")
+    return _to_dev(Wp, device, dtype), usum
+
+
+def plane_order_rows(X, nb, nbp_tile=None):
+    """[N, C] -> plane-ordered [4, nbp, C] float64 (the row permutation
+    used by plane_pack, without padding columns)."""
+    tile = nbp_tile or _TC
+    return _plane_order(X, nb, -(-nb // tile) * tile)
+
+
+def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
+    """Per-chromosome operand update: overwrite the residual columns
+    [K:K+P] of a plane-packed Wext with the new LOCO residuals — a device
+    slice update instead of re-packing and re-uploading the operand.
+    Returns a new operand; the input is left unchanged.
+
+    Wp_dev: [4, nbp, Cp] tensor or I8Operand; res_planes: [4, nbp, P]
+    tensor (float32 for the int8 operand, which is re-quantized on the
+    device with fresh column scales)."""
+    if isinstance(Wp_dev, I8Operand):
+        limbs, s = _i8_quantize_torch(res_planes)
+        W = Wp_dev.limbs.clone()
+        for k in range(4):
+            W[..., k * Cp + K : k * Cp + K + P] = limbs[..., k * P : (k + 1) * P]
+        scale = Wp_dev.scale.clone()
+        scale[K : K + P] = s
+        return I8Operand(W, scale)
+    W = Wp_dev.clone()
+    W[..., K : K + P] = res_planes.to(W.dtype)
+    return W
+
+
+def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
+                 dtype=torch.float64, split=False, nbp_tile=None):
+    """Build FusedConsts from per-sample arrays (numpy, float64 in).
+
+    cov: [N, K] orthonormal covariate basis (rows of excluded samples
+    arbitrary — zeroed here); res: [N, P] phenotype residuals;
+    maskf: [N, P] per-trait inclusion; ind: [N] bool sample inclusion;
+    nb: number of packed bytes per SNP (defaults to ceil(N/4)).
+    """
+    cov = np.asarray(cov, np.float64)
+    res = np.asarray(res, np.float64)
+    maskf = np.asarray(maskf, np.float64)
+    ind = np.asarray(ind)
+    N, K = cov.shape
+    P = res.shape[1]
+    if nb is None:
+        nb = (N + 3) // 4
+    indf = ind.astype(np.float64)
+    covz = cov * indf[:, None]
+    resz = res * indf[:, None]
+    maskz = maskf * indf[:, None]
+    # CM interaction columns exist only for traits with MISSING phenotype
+    # values: for a complete trait the masked Gram is the identity
+    # (orthonormal cov) and denum collapses to g2m - ||A||^2
+    inc = tuple(
+        int(p) for p in range(P)
+        if maskz[:, p].sum() < indf.sum() - 0.5
+    )
+    CM = (
+        covz[:, :, None] * maskz[:, None, list(inc)]
+    ).reshape(N, K * len(inc))
+    Wext = np.concatenate([covz, resz, CM, maskz, indf[:, None]], axis=1)
+    Wp_out, usum = plane_pack(Wext, nb, split, device, dtype, nbp_tile)
+    Mmat = np.einsum("nk,np,nl->pkl", covz, maskz[:, list(inc)], covz)
+    covt_res = covz.T @ resz
+    return FusedConsts(
+        Wp=Wp_out,
+        usum=_to_dev(usum, device, dtype),
+        covt_res=_to_dev(covt_res, device, dtype),
+        Mmat=_to_dev(Mmat, device, dtype),
+        n_ind=float(indf.sum()),
+        K=K,
+        P=P,
+        scale_denom=float(scale_denom),
+        split=bool(split),
+        inc=inc,
+    )
+
+
+def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
+                      Mmat, n_ind, K, P, scale_denom, split=False, inc=None,
+                      has_male=False, device="cpu", dtype=torch.float64):
+    """FusedConsts from the JAX package's FusedConsts fields as numpy
+    arrays: the float operand `Wp`, or `limbs` + `scale` for the int8
+    operand. Float fields land in `dtype` on `device`; the int8 limbs
+    and their float32 scales keep their types."""
+    if (Wp is None) == (limbs is None):
+        raise ValueError("give exactly one of Wp or limbs/scale")
+    if limbs is not None:
+        op = I8Operand(_to_dev(limbs, device, torch.int8),
+                       _to_dev(scale, device, torch.float32))
+    else:
+        op = _to_dev(Wp, device, dtype)
+    return FusedConsts(
+        Wp=op, usum=_to_dev(usum, device, dtype),
+        covt_res=_to_dev(covt_res, device, dtype),
+        Mmat=_to_dev(Mmat, device, dtype), n_ind=float(n_ind), K=int(K),
+        P=int(P), scale_denom=float(scale_denom), split=bool(split),
+        inc=None if inc is None else tuple(int(i) for i in inc),
+        has_male=bool(has_male),
+    )
+
+
+def fused_products(raw, Wp, dtype=torch.float32):
+    """raw: [B, nbp] packed uint8 (zero-padded rows/cols); Wp: an
+    I8Operand, or on the CPU a [4, nbp, C] float operand. Returns
+    (S1, SQ, SM) each [B, Cp]: from the int8 operand in `dtype`, else in
+    the operand's dtype.
+
+    The int8 operand goes through kernels.fused_i8_products — the CUDA
+    kernel for a CUDA tensor, its plain version for a CPU tensor — and
+    is folded as the JAX package does: S1 = 2H+E, SQ = 4H+E, SM = M.
+    Padding safety: pad bytes decode to code 0 (hom-alt), but the
+    corresponding operand rows are zero, so padded samples contribute 0
+    to every product."""
+    if isinstance(Wp, I8Operand):
+        H, E, M = kernels.fused_i8_products(raw, Wp.limbs)
+        Hf, Ef, Mf = (i8_fold(x, Wp.scale, dtype) for x in (H, E, M))
+        return 2.0 * Hf + Ef, 4.0 * Hf + Ef, Mf
+    if raw.is_cuda:
+        raise NotImplementedError(
+            "f32/bf16 fused kernels not yet ported to regenie_tpu_torch")
+    return fused_products_plain(raw, Wp)
+
+
+def _decode_planes(raw):
+    """[B, nbp] uint8 -> 4 per-plane [B, nbp] 2-bit code tensors."""
+    r = raw.to(torch.int32)
+    return [(r >> (2 * p)) & 3 for p in range(4)]
+
+
+def fused_products_plain(raw, Wp, dtype=torch.float32):
+    """Plain PyTorch version of fused_products (the counterpart of the
+    JAX package's fused_products_xla): decode the planes to dosage g,
+    g^2 and missing indicators in the operand's dtype and take three
+    matmuls per plane. An I8Operand folds its limbs to the quantized
+    values in `dtype` first."""
+    if isinstance(Wp, I8Operand):
+        Wp = i8_fold(Wp.limbs.to(torch.int32), Wp.scale, dtype)
+    dt = Wp.dtype
+    S1 = SQ = SM = 0.0
+    for p, codes in enumerate(_decode_planes(raw)):
+        # PLINK bed 2-bit codes: 0->hom alt (2), 1->missing, 2->het (1),
+        # 3->hom ref (0)  (buildLookupTable semantics, Geno.cpp:2414)
+        h = (codes == 0).to(dt)
+        e = (codes == 2).to(dt)
+        m = (codes == 1).to(dt)
+        w = Wp[p]
+        S1 = S1 + (2.0 * h + e) @ w
+        SQ = SQ + (4.0 * h + e) @ w
+        SM = SM + m @ w
+    return S1, SQ, SM
+
+
+def fused_epilogue(S1, SQ, SM, flip, usum, covt_res, Mmat, K, P, scale_denom,
+                   n_ind, test_type=0, inc=None, strict=False):
+    """[B, C] products -> (stats, denum, scale_fac, low, af_num) on the
+    score_qt_block_onepass contract.
+
+    Applies (1) mean imputation as a rank-1 update in product space,
+    (2) minor-allele flip G -> 2*ind - G algebraically (ADD) or the
+    DOM/REC recoding via the class-product identities, (3) the
+    orthonormal-covariate projection identities. Traits NOT in `inc`
+    (= complete phenotypes) have no CM columns: their denum is exactly
+    g2m - ||A||^2; Mmat covers only the `inc` traits.
+    flip: [B] bool. af_num: [B] imputed allele-count sum (for AF/MAC).
+    """
+    if inc is None:
+        inc = tuple(range(P))
+    nI = len(inc)
+    C_used = K + P + K * nI + P + 1
+    S1f, SQf = finalized_products(
+        S1[:, :C_used], SQ[:, :C_used], SM[:, :C_used], flip,
+        usum[:C_used], C_used - 1, n_ind, test_type,
+    )
+    icol = C_used - 1
+    af_num = S1f[:, icol]
+
+    A = S1f[:, :K]
+    numY = S1f[:, K : K + P]
+    g2m = SQf[:, K + P + K * nI : K + P + K * nI + P]
+    g2 = SQf[:, icol]
+    A2 = (A**2).sum(dim=1)
+    scale2 = (g2 - A2) / scale_denom
+    scale_fac = torch.sqrt(torch.clamp(scale2, min=0.0))
+    low = scale_fac < 1e-8
+    num_raw = numY - A @ covt_res
+    denum_raw = g2m - A2[:, None]  # exact for complete traits
+    if nI:
+        idx = torch.tensor(inc, device=S1.device)
+        T = S1f[:, K + P : K + P + K * nI].reshape(-1, K, nI)
+        denum_inc = (
+            g2m[:, idx]
+            - 2.0 * torch.einsum("bk,bkp->bp", A, T)
+            + torch.einsum("bk,pkl,bl->bp", A, Mmat, A)
+        )
+        denum_raw = denum_raw.clone()
+        denum_raw[:, idx] = denum_inc
+    denum_raw = torch.clamp(denum_raw, min=1e-30)
+    if strict:
+        # --strict (and single-pheno runs, Pheno.cpp:201): every trait
+        # is complete on ind, so the reference shortcuts denum to the
+        # CONSTANT n_analyzed - ncov (compute_score_qt strict branch,
+        # Step2_Models.cpp:352)
+        denum = torch.full_like(num_raw, scale_denom)
+        sf_safe = torch.where(low, torch.ones_like(scale_fac), scale_fac)
+        stats = num_raw / sf_safe[:, None] / torch.sqrt(
+            torch.tensor(scale_denom, dtype=num_raw.dtype, device=num_raw.device))
+        return stats, denum, scale_fac, low, af_num
+    stats = num_raw / torch.sqrt(denum_raw)
+    denum = denum_raw / torch.where(low, torch.ones_like(scale2), scale2)[:, None]
+    return stats, denum, scale_fac, low, af_num
+
+
+def ref_first_products(S1, SQ, SM, usum):
+    """--ref-first: alleles are swapped at decode (G -> 2 - G on
+    NONMISSING entries). In product space:
+    S1' = 2*(usum - SM) - S1, SQ' = 4*(usum - SM) - 4*S1 + SQ."""
+    nm = usum[None, :] - SM  # per-SNP nonmissing-included column sums
+    return 2.0 * nm - S1, 4.0 * nm - 4.0 * S1 + SQ
+
+
+def finalized_products(S1, SQ, SM, flip, usum, icol, n_ind, test_type=0):
+    """Products of the TESTED genotype coding, from the raw ADD products.
+
+    test_type 0 (ADD): mean-impute + optional minor-allele flip
+    (impute_flip_products). 1 (DOM, G==2 -> 1) and 2 (REC, G>=1 -> G-1):
+    the observed part is a linear combination of the class products
+    H = (SQ-S1)/2 and E = 2*S1-SQ, and the imputed slots carry the
+    transformed mean v (the recoding applies AFTER imputation, so v = m
+    unless m==2 for DOM / v = m-1 if m>=1 for REC)."""
+    if test_type == 0:
+        return impute_flip_products(S1, SQ, SM, flip, usum, icol, n_ind)
+    n_obs = n_ind - SM[:, icol]
+    m_b = S1[:, icol] / torch.clamp(n_obs, min=1.0)
+    H = (SQ - S1) / 2.0
+    if test_type == 1:
+        E = 2.0 * S1 - SQ
+        v = torch.where(m_b == 2.0, torch.ones_like(m_b), m_b)
+        base = H + E
+    else:
+        v = torch.where(m_b >= 1.0, m_b - 1.0, m_b)
+        base = H
+    S1f = base + v[:, None] * SM
+    SQf = base + (v**2)[:, None] * SM
+    return S1f, SQf
+
+
+def impute_flip_products(S1, SQ, SM, flip, usum, icol, n_ind):
+    """Mean imputation + minor-allele flip applied IN PRODUCT SPACE to
+    the raw (missing-as-zero) products, for any Wext column layout
+    (mean_impute_g + flip_geno semantics, Geno.cpp:1983-2072).
+
+    S1/SQ/SM: [B, C]; flip: [B] bool; usum: [C] ind-masked column sums;
+    icol: index of the `ind` column; n_ind: number of included samples.
+    Returns (S1f, SQf)."""
+    n_obs = n_ind - SM[:, icol]  # included & nonmissing per SNP
+    m_b = S1[:, icol] / torch.clamp(n_obs, min=1.0)
+    # imputation: G += m_b at missing slots; G^2 += m_b^2 there
+    S1i = S1 + m_b[:, None] * SM
+    SQi = SQ + (m_b**2)[:, None] * SM
+    # flip: G' = 2*ind - G on included samples
+    #   G'@w  = 2*u - G@w ;  G'^2@w = 4*u - 4*G@w + G^2@w
+    f = flip[:, None].to(S1.dtype)
+    S1f = (1.0 - f) * S1i + f * (2.0 * usum[None, :] - S1i)
+    SQf = (1.0 - f) * SQi + f * (4.0 * usum[None, :] - 4.0 * S1i + SQi)
+    return S1f, SQf
+
+
+def make_qt_block_fn(consts: FusedConsts, use_kernel: bool = True,
+                     test_type=0, ref_first=False, mesh=None, strict=False):
+    """QT block function: products + epilogue + the raw-product slices
+    the host needs for per-variant stats. Built once per chromosome.
+    use_kernel=False takes the plain products on any device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh (multi-device) scoring is not yet ported to regenie_tpu_torch")
+    prod = fused_products if use_kernel else fused_products_plain
+    C_used = consts.layout_C()
+
+    def run(raw):
+        # an int8 operand folds its exact int32 products into the dtype
+        # of the constants, so the epilogue runs in one dtype
+        S1, SQ, SM = prod(raw, consts.Wp, consts.usum.dtype)
+        S1c, SQc, SMc = S1[:, :C_used], SQ[:, :C_used], SM[:, :C_used]
+        usum = consts.usum.to(S1c.dtype)
+        if ref_first:
+            S1c, SQc = ref_first_products(S1c, SQc, SMc, usum[:C_used])
+        flip = torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device)
+        stats, denum, scale_fac, low, _af = fused_epilogue(
+            S1c, SQc, SMc, flip, usum, consts.covt_res.to(S1c.dtype),
+            consts.Mmat.to(S1c.dtype), consts.K, consts.P,
+            consts.scale_denom, consts.n_ind, test_type, consts.inc, strict,
+        )
+        return stats, denum, scale_fac, low, S1c, SQc, SMc
+
+    return run
+
+
+def pad_raw(raw: np.ndarray, nbp: int | None = None) -> np.ndarray:
+    """Zero-pad packed bytes to the operand's byte-tile multiple."""
+    B, nb = raw.shape
+    if nbp is None:
+        nbp = -(-nb // _TC) * _TC
+    if nbp == nb:
+        return raw
+    out = np.zeros((B, nbp), dtype=np.uint8)
+    out[:, :nb] = raw
+    return out

@@ -1,0 +1,704 @@
+"""Step 2 on quantitative traits from PLINK BED hardcalls, through the
+fused packed-bytes scorer (the port of the QT/BED slice of
+regenie_tpu/run_step2.py).
+
+Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
+compute_res (:2386) and the .regenie writers: per chromosome the LOCO
+residuals enter the fused operand, and each block of packed genotype
+bytes is scored by three products and a small epilogue on the device
+(ops/fused_score.py), with AF/MAC/genotype counts read from the same
+product columns.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import QT, Params
+from .io.files import iter_lines, open_read, open_write, string_split
+from .io.geno import make_blocks
+from .io.output import (block_prefixes, format_block_htp,
+                        format_block_single, header_htp, header_single,
+                        htp_prefixes, native_formatter, sumstat_line_htp,
+                        sumstat_line_single)
+from .models import step2 as m2
+from .ops import fused_score as fsc
+from .prep import prepare
+from .utils.device import resolve_device
+from .utils.stats import chisq_neglog10, ttest_neglog10, usage_info_line
+
+
+def unported(params: Params) -> Optional[str]:
+    """Name of the first requested mode this port cannot run yet, or
+    None. Every such mode raises NotImplementedError before any work."""
+    checks = (
+        (params.step != 2, "Step 1"),
+        (params.trait_mode != QT,
+         "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
+        (params.file_type != "bed", f"{params.file_type.upper()} input"),
+        (bool(params.set_list), "gene-based tests (--set-list)"),
+        (bool(params.interaction_var), "interaction tests"),
+        (params.trait_set, "multi-trait tests (--mt)"),
+        (params.multiphen, "MultiPhen (--multiphen)"),
+        (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
+        (params.mcc_test, "the MCC test (--mcc)"),
+        (not params.split_by_pheno, "merged output (--no-split)"),
+        (params.gz_out, "gzipped output (--gz)"),
+        (params.af_cc, "--af-cc"),
+        (params.write_samples, "--write-samples"),
+        (params.print_cov_betas, "--print-cov-betas"),
+        (bool(params.condition_list or params.condition_file),
+         "conditional analysis"),
+        (params.transposed_pheno, "--tpheno-file"),
+        (params.ltco_chr > 0, "--force-ltco"),
+        (params.debug, "--debug"),
+    )
+    for hit, name in checks:
+        if hit:
+            return name
+    return None
+
+
+def read_pred_list(path: str) -> Dict[str, str]:
+    """_pred.list: 'phenoname locopath' per line (check_blup, Pheno.cpp:1204)."""
+    out = {}
+    for toks in iter_lines(path):
+        if len(toks) != 2:
+            raise ValueError("wrongly formatted blup list file")
+        if toks[0] in out:
+            raise ValueError(f"phenotype '{toks[0]}' appears twice in blup list")
+        out[toks[0]] = toks[1]
+    return out
+
+
+def read_loco_chr(
+    path: str, chrom: int, id_to_ind: Dict[str, int], n_samples: int,
+    mask: np.ndarray, use_prs: bool = False,
+) -> np.ndarray:
+    """Read one chromosome row from a .loco file (blup_read_chr,
+    Step2_Models.cpp:51-150). Returns [N] blup vector (0 where masked).
+
+    With use_prs (--use-prs), the file is a whole-genome .prs written by
+    --print-prs: a single row labeled 0 used for every chromosome
+    (blup_read, Pheno.cpp:1297-1312; blup_read_chr skips per-chromosome
+    reads, Step2_Models.cpp:60)."""
+    blup = np.zeros(n_samples)
+    with open_read(path) as fh:
+        header = string_split(fh.readline())
+        if header[0] != "FID_IID":
+            raise ValueError("header of blup file must start with FID_IID")
+        if not use_prs:
+            for _ in range(chrom - 1):
+                fh.readline()
+        toks = string_split(fh.readline())
+        if len(toks) != len(header):
+            raise ValueError("blup file row length mismatch")
+        expect = 0 if use_prs else chrom
+        if int(toks[0]) != expect:
+            raise ValueError(f"blup file row starts with {toks[0]} instead of {expect}")
+        for col in range(1, len(header)):
+            key = header[col]
+            if key not in id_to_ind:
+                continue
+            idx = id_to_ind[key]
+            if not mask[idx]:
+                continue
+            v = toks[col]
+            if v == "NA":
+                raise ValueError(
+                    f"individual {key} has missing predictions for chr {chrom}"
+                )
+            blup[idx] = float(v)
+    return blup
+
+
+def mask_samples_missing_loco(params, pd, blup_files, id_to_ind):
+    """Mask samples absent (or NA) in each trait's .loco file
+    (blup_read, Pheno.cpp:1241-1330)."""
+    for ph, name in enumerate(pd.pheno_names):
+        if name not in blup_files:
+            continue
+        path = blup_files[name]
+        with open_read(path) as fh:
+            header = string_split(fh.readline())
+            vals = string_split(fh.readline())
+        if params.use_prs and vals[0] != "0":
+            # --use-prs expects whole-genome .prs files (blup_read,
+            # Pheno.cpp:1297)
+            raise ValueError(f"second line must start with 0 (={vals[0]})")
+        present = np.zeros(params.n_samples, dtype=bool)
+        for col in range(1, len(header)):
+            key = header[col]
+            if key in id_to_ind and vals[col] != "NA":
+                present[id_to_ind[key]] = True
+        pd.masked_indivs[:, ph] &= present
+        if pd.masked_indivs[:, ph].sum() < 1:
+            pd.pheno_pass[ph] = False
+
+
+@dataclass
+class BlockResult:
+    """Per-variant test outputs for a block, all phenos."""
+
+    bhat: np.ndarray
+    se: np.ndarray
+    chisq: np.ndarray
+    logp: np.ndarray
+    test_fail: np.ndarray
+    ignored: np.ndarray
+    ignored_trait: np.ndarray
+    af_t: np.ndarray
+    ns_t: np.ndarray
+    scale_fac: np.ndarray
+    mac_t: np.ndarray  # [B, P]
+    af1: np.ndarray
+    ns1: np.ndarray
+    n_rr: np.ndarray
+    n_aa: np.ndarray
+    genocounts: Optional[np.ndarray] = None  # [B, 6, P] (htp mode)
+
+
+def _fetch_packed(vals: dict) -> dict:
+    """Fetch a dict of [B]/[B, X] device tensors in ONE device->host copy:
+    concatenate on the device in the products' float dtype, copy, split
+    and cast back (exact: every value is in that dtype already or an
+    integer count far below its mantissa limit)."""
+    names = list(vals)
+    fdt = vals["s1"].dtype
+    parts = [(v[:, None] if v.dim() == 1 else v).to(fdt) for v in vals.values()]
+    packed = torch.cat(parts, dim=1).cpu().numpy()
+    out, o = {}, 0
+    for k, p, v in zip(names, parts, vals.values()):
+        sl = packed[:, o : o + p.shape[1]]
+        o += p.shape[1]
+        a = sl[:, 0] if v.dim() == 1 else sl
+        out[k] = a.astype(bool) if v.dtype == torch.bool else np.ascontiguousarray(a)
+    return out
+
+
+class Step2Engine:
+    """Association-test state and per-block fused scoring (QT, BED).
+
+    device: where the operand lives and the products run (resolved by
+    utils.device.resolve_device). kernel=False keeps a float64 operand
+    and the plain products on any device — the on-card reference the
+    kernel path is checked against."""
+
+    def __init__(self, params: Params, gd, pd, blup_files, log, device=None,
+                 kernel: bool = True):
+        self.params = params
+        self.gd = gd
+        self.pd = pd
+        self.blup_files = blup_files
+        self.log = log
+        self.device = resolve_device(device)
+        self.kernel = kernel
+        on_gpu = self.device.type == "cuda"
+        self.split = fsc.split_mode(on_gpu) if kernel else False
+        self.id_to_ind = {s.key: i for i, s in enumerate(gd.samples)}
+        self.maskf = pd.masked_indivs.astype(np.float64)
+        self.strict = bool(params.strict_mode)
+        self.scale_denom = float(params.n_analyzed - params.ncov)
+        self.cur_chrom = None
+        self.res = None
+        self.p_sd_yres = None
+        self.scf_sv = None
+        self.n_ignored = 0
+        self._fused_chrom = None
+        self._fused_static = None
+
+    def refresh_masks(self):
+        """Re-derive cached per-trait mask arrays after pd.masked_indivs
+        changed (mask_samples_missing_loco runs post-construction)."""
+        self.maskf = self.pd.masked_indivs.astype(np.float64)
+        self._fused_chrom = None
+        self._fused_static = None
+
+    def prep_chrom(self, chrom: int):
+        """LOCO residuals of every trait for `chrom` (compute_res,
+        Data.cpp:2386-2425)."""
+        if chrom == self.cur_chrom:
+            return
+        self.cur_chrom = chrom
+        params, pd, N, P = self.params, self.pd, self.params.n_samples, self.params.n_pheno
+        blups = np.zeros((N, P))
+        if self.blup_files is not None:
+            for ph, name in enumerate(pd.pheno_names):
+                if not pd.pheno_pass[ph] or name not in self.blup_files:
+                    continue
+                blups[:, ph] = read_loco_chr(
+                    self.blup_files[name], chrom, self.id_to_ind, N,
+                    pd.masked_indivs[:, ph], use_prs=params.use_prs,
+                )
+        if params.blup_cov:
+            # --prs-cov: project the PRS out by a per-trait LM fit instead
+            # of the unit-slope offset (get_lm_resid, Pheno.cpp:1854)
+            denom = (blups**2).sum(axis=0)
+            beta_lm = np.where(
+                denom > 0, (blups * pd.phenotypes).sum(axis=0) / np.where(denom > 0, denom, 1.0), 0.0
+            )
+            res = (pd.phenotypes - blups * beta_lm[None, :]) * pd.masked_indivs
+        else:
+            res = (pd.phenotypes - blups) * pd.masked_indivs
+        # two-stage RINT of residuals (Sofer et al. 2020;
+        # residualize_res, Data.cpp:2408-2425)
+        if params.rerint or params.rerint_cov:
+            from .io.pheno import rint_values
+
+            for ph in range(P):
+                if pd.pheno_pass[ph]:
+                    m = pd.masked_indivs[:, ph]
+                    res[:, ph] = rint_values(res[:, ph], m) * m
+            if params.rerint_cov:
+                beta = res.T @ pd.new_cov
+                res = (res - pd.new_cov @ beta.T) * pd.masked_indivs
+        self.p_sd_yres = np.linalg.norm(res, axis=0) / np.sqrt(
+            pd.Neff - params.ncov_analyzed
+        )
+        self.res = res / self.p_sd_yres[None, :]
+        self.scf_sv = pd.scale_Y * self.p_sd_yres
+
+    def non_par_flags(self, bsnps) -> np.ndarray:
+        """[B] bool: variant on chrX outside PAR1/PAR2 (in_non_par,
+        Geno.cpp:2802)."""
+        p = self.params
+        return np.array([
+            (s.chrom == p.n_chrom)
+            and (p.par1_max_bound < s.physpos < p.par2_min_bound)
+            for s in bsnps
+        ])
+
+    def model_type(self) -> str:
+        """HTP Model string (Data.cpp:2093-2102)."""
+        test = {0: "ADD", 1: "DOM", 2: "REC"}[self.params.test_type]
+        wgr = "" if self.params.skip_blups else "-WGR"
+        return test + wgr + "-LR"
+
+    def _qt_post(self, stats, denum, scale_fac, flipped):
+        """Shared QT tail: effect sizes + --mse-full + --t-test + logp
+        (compute_score_qt tail, Step2_Models.cpp:434-460)."""
+        params, pd = self.params, self.pd
+        bhat, se, chisq = m2.finalize_qt(stats, denum, scale_fac, self.scf_sv, flipped)
+        if params.mse_full:
+            # full-model MSE: Var(y|g) shrinks by the SNP's own fit
+            nk = params.n_analyzed - params.ncov_analyzed
+            adj = (nk - np.asarray(stats) ** 2) / (nk - 1.0)
+            adj = np.maximum(adj, 1e-12)
+            stats = np.asarray(stats) / np.sqrt(adj)
+            chisq = chisq / adj
+            se = se * np.sqrt(adj)
+        if params.t_test:
+            # --t-test: p from the t distribution with Neff-K-1 df
+            # (get_logp_ttest, Regenie.cpp:1827)
+            df_t = pd.Neff - params.ncov_analyzed - 1
+            logp = ttest_neglog10(np.asarray(stats), df_t[None, :])
+        else:
+            logp = chisq_neglog10(chisq)
+        return bhat, se, chisq, logp
+
+    def fused_ok(self) -> bool:
+        """Whether the fused packed-bytes scorer can run this QT/BED
+        analysis: it is the port's only Step-2 path, so everything the
+        reference keeps on its dense path (--nocov-approx, --mcc) is not
+        yet ported."""
+        params = self.params
+        return (params.trait_mode == QT and self.gd._bed is not None
+                and not params.skip_cov_res and not params.mcc_test)
+
+    def read_block_raw(self, bsnps) -> np.ndarray:
+        """[B, nb] packed 2-bit genotype bytes of a block on the FILE
+        sample axis: the unpadded mmap view when the variants are
+        consecutive in the file (no host copy); byte-tile padding
+        happens on the device in _fused_upload."""
+        offsets = np.array([s.offset for s in bsnps])
+        start, stop = int(offsets[0]), int(offsets[-1]) + 1
+        raw = self.gd._bed.read_block_bytes(start, stop - start)
+        if len(offsets) != stop - start:
+            raw = raw[offsets - start]
+        return np.ascontiguousarray(raw)
+
+    def _fused_nfile(self) -> int:
+        """Sample count on the BED file's sample axis."""
+        return self.gd._bed.n_samples
+
+    def _scatter_file(self, x):
+        """Map a kept-sample-axis array onto the genotype file's sample
+        axis (zeros at dropped samples)."""
+        gd = self.gd
+        if gd._keep_all_samples:
+            return x
+        idx = np.asarray(gd.sample_keep_idx)
+        out = np.zeros((self._fused_nfile(),) + x.shape[1:], dtype=np.float64)
+        out[idx] = x
+        return out
+
+    def _ensure_fused_consts(self):
+        """(Re)build the fused-scorer constants; the residual columns
+        change per chromosome, so keyed on cur_chrom. The chromosome-
+        independent columns (cov/CM/mask/ind) are packed once; residual
+        columns start at zero and are patched on the device."""
+        if self._fused_chrom == self.cur_chrom:
+            return
+        pd, params = self.pd, self.params
+        nb = (self._fused_nfile() + 3) // 4
+        res_f = self._scatter_file(self.res)
+        if self._fused_static is None:
+            cov_f = self._scatter_file(pd.new_cov)
+            mask_f = self._scatter_file(self.maskf)
+            ind_f = self._scatter_file(
+                pd.ind_in_analysis.astype(np.float64)).astype(bool)
+            base = fsc.build_consts(
+                cov_f, np.zeros_like(res_f), mask_f, ind_f, self.scale_denom,
+                nb=nb, device=self.device, split=self.split,
+            )
+            covz_f = cov_f * ind_f.astype(np.float64)[:, None]
+            Cp = -(-base.layout_C() // 128) * 128
+            self._fused_static = (
+                base, covz_f,
+                base.usum.cpu().numpy().astype(np.float64), Cp,
+            )
+        base, covz_f, usum_static, Cp = self._fused_static
+        K, P = base.K, base.P
+        res_pl = torch.from_numpy(fsc.plane_order_rows(res_f, nb)).to(
+            self.device, torch.float32 if self.split == "i8" else torch.float64)
+        Wp = fsc.patch_res_columns(base.Wp, res_pl, K, P, Cp)
+        u = usum_static.copy()
+        u[K : K + P] = res_f.sum(axis=0)
+        self._fused_consts = fsc.FusedConsts(
+            Wp=Wp, usum=torch.from_numpy(u).to(self.device),
+            covt_res=torch.from_numpy(covz_f.T @ res_f).to(self.device),
+            Mmat=base.Mmat, n_ind=base.n_ind, K=K, P=P,
+            scale_denom=base.scale_denom, split=base.split, inc=base.inc,
+        )
+        # --ref-first swaps alleles of the raw BED bytes in product space
+        self._fused_fn = fsc.make_qt_block_fn(
+            self._fused_consts, self.kernel, params.test_type,
+            bool(params.ref_first), strict=self.strict,
+        )
+        self._fused_op_nbp = fsc.op_nbp(Wp)
+        self._fused_chrom = self.cur_chrom
+
+    @staticmethod
+    def _mac_filters(params, bsnps, mac1, mac_t, B):
+        """Shared MAC gating (compute_mac, Geno.cpp:3100-3107)."""
+        mac_gate = np.array([s.mac_fail_if_checked for s in bsnps])
+        mac_thr = np.array([
+            params.forced_mac if s.forced_mac_filter and params.forced_mac > 0
+            else params.min_mac
+            for s in bsnps
+        ])
+        mac_ignored = (mac1 < mac_thr) & mac_gate
+        ignored_trait = (mac_t < mac_thr[:, None]) & mac_gate[:, None]
+        return mac_ignored, ignored_trait
+
+    def _rec_min_homs(self, S1h, SQh, SMh, icol, total1, ns1):
+        """--minHOMs recessive hom-carrier filter from the raw product
+        columns (parseSnpfromBed, Geno.cpp:2518): positive entries of the
+        REC-coded finalized G sum to hom_count + v*nmiss."""
+        with np.errstate(divide="ignore", invalid="ignore"):
+            m_b = np.where(ns1 > 0, total1 / np.maximum(ns1, 1.0), 0.0)
+        v = np.where(m_b >= 1.0, m_b - 1.0, m_b)
+        H1 = (SQh[:, icol] - total1) / 2.0
+        return (H1 + v * SMh[:, icol]) < self.params.min_homs
+
+    def _fused_upload(self, raw) -> torch.Tensor:
+        """Packed block -> device tensor, zero-padded to the operand's
+        byte count. Idempotent, so the prefetch thread can upload block
+        k+1 while the device scores block k."""
+        if isinstance(raw, torch.Tensor):
+            return raw
+        with warnings.catch_warnings():
+            # mmap views are read-only; nothing writes through them
+            warnings.simplefilter("ignore", UserWarning)
+            raw_t = torch.from_numpy(raw)
+        raw_t = raw_t.to(self.device)
+        nbp = self._fused_op_nbp
+        if raw_t.shape[1] < nbp:
+            out = torch.zeros((raw_t.shape[0], nbp), dtype=torch.uint8,
+                              device=self.device)
+            out[:, : raw_t.shape[1]] = raw_t
+            raw_t = out
+        return raw_t
+
+    def test_raw_block_fused(self, raw, bsnps) -> Tuple[BlockResult, np.ndarray]:
+        """Fused pipeline for a packed BED block: three products over the
+        raw bytes replace decode/impute/residualize/score AND the
+        per-variant stat pass — AF/MAC/genotype counts all come from the
+        same product columns."""
+        params, pd = self.params, self.pd
+        self._ensure_fused_consts()
+        consts = self._fused_consts
+        B, P = len(bsnps), consts.P
+        stats, denum, scale_fac, low_var, S1, SQ, SM = self._fused_fn(
+            self._fused_upload(raw))
+        f = _fetch_packed(dict(s1=S1, sq=SQ, sm=SM, st=stats, d=denum,
+                               g=scale_fac, l=low_var))
+        S1h, SQh, SMh = f["s1"], f["sq"], f["sm"]
+        stats, denum, scale_fac, low_var = f["st"], f["d"], f["g"], f["l"]
+        flipped = np.zeros(B, dtype=bool)  # QT never flips (with_flip=False)
+
+        # per-variant stats from the raw (pre-imputation) products
+        icol = consts.layout_C() - 1
+        msl = slice(icol - P, icol)
+        total1 = S1h[:, icol]
+        ns1 = consts.n_ind - SMh[:, icol]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            af1 = total1 / (2.0 * ns1)
+        mac1 = np.minimum(total1, 2.0 * ns1 - total1)
+        total_t = S1h[:, msl]
+        ns_t = pd.Neff[None, :] - SMh[:, msl]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            af_t = total_t / (2.0 * ns_t)
+        mac_t = np.minimum(total_t, 2.0 * ns_t - total_t)
+        n_aa1 = (SQh[:, icol] - total1) / 2.0
+        n_rr1 = ns1 - total1 + n_aa1
+
+        mac_ignored, ignored_trait = self._mac_filters(params, bsnps, mac1, mac_t, B)
+        if params.test_type == 2 and params.min_homs > 0:
+            mac_ignored = mac_ignored | self._rec_min_homs(
+                S1h, SQh, SMh, icol, total1, ns1
+            )
+        # low_var excluded from the tally (it counts MAC/minHOMs only)
+        self.n_ignored += int(mac_ignored.sum())
+        ignored = mac_ignored | low_var
+
+        bhat, se, chisq, logp = self._qt_post(stats, denum, scale_fac, flipped)
+        result = BlockResult(
+            bhat=bhat, se=se, chisq=chisq, logp=logp,
+            test_fail=np.zeros((B, P), dtype=bool),
+            ignored=ignored, ignored_trait=ignored_trait,
+            af_t=af_t, ns_t=ns_t, scale_fac=scale_fac, mac_t=mac_t,
+            af1=af1, ns1=np.round(ns1).astype(np.int64),
+            n_rr=np.round(n_rr1).astype(np.int64),
+            n_aa=np.round(n_aa1).astype(np.int64),
+        )
+        if params.htp_out:
+            a_t = (SQh[:, msl] - total_t) / 2.0
+            het_t = total_t - 2.0 * a_t
+            rr_t = ns_t - het_t - a_t
+            gc = np.zeros((B, 6, P))
+            gc[:, 0, :] = rr_t
+            gc[:, 1, :] = het_t
+            gc[:, 2, :] = a_t
+            result.genocounts = np.round(gc).astype(np.int64)
+        return result, flipped
+
+
+def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None):
+    """One output file per trait: split .regenie (default) or HTPv4."""
+    writers, out_paths = [], []
+    hdr = header_htp() if params.htp_out else header_single(params)
+    for ip, name in enumerate(pheno_names):
+        if pheno_pass is not None and not pheno_pass[ip]:
+            writers.append(None)
+            continue
+        path = f"{params.out_prefix}_{name}.regenie"
+        fh = open_write(path)
+        fh.write(hdr)
+        writers.append(fh)
+        out_paths.append(path)
+    return writers, out_paths
+
+
+def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD",
+                     model_type=None):
+    B = len(bsnps)
+    if params.htp_out:
+        # hot path: whole-column native rendering, one call per trait
+        if native_formatter("format_sumstat_htp") is not None:
+            prefix = htp_prefixes(bsnps)
+            for ph in range(params.n_pheno):
+                if not pd.pheno_pass[ph] or writers[ph] is None:
+                    continue
+                writers[ph].write(format_block_htp(
+                    params, prefix[0], prefix[1], pd.pheno_names[ph],
+                    model_type or test_name,
+                    skip=r.ignored | r.ignored_trait[:, ph],
+                    beta=r.bhat[:, ph], se=r.se[:, ph], chisq=r.chisq[:, ph],
+                    logp=r.logp[:, ph], af=r.af_t[:, ph], mac=r.mac_t[:, ph],
+                    genocounts=r.genocounts[:, :, ph],
+                    neff=pd.Neff[ph], test_fail=r.test_fail[:, ph],
+                ))
+            return
+        for b in range(B):
+            if r.ignored[b]:
+                continue
+            for ph in range(params.n_pheno):
+                if not pd.pheno_pass[ph] or r.ignored_trait[b, ph] or writers[ph] is None:
+                    continue
+                writers[ph].write(sumstat_line_htp(
+                    params, bsnps[b], pd.pheno_names[ph],
+                    model_type or test_name,
+                    r.bhat[b, ph], r.se[b, ph], r.chisq[b, ph], r.logp[b, ph],
+                    r.af_t[b, ph], r.mac_t[b, ph], r.genocounts[b, :, ph],
+                    test_pass=not r.test_fail[b, ph], neff=pd.Neff[ph],
+                ))
+        return
+    # hot path: whole-column native rendering (OpenMP snprintf), one call
+    # per trait; byte-identical to the per-row loop below
+    if (native_formatter("format_sumstat_single") is not None
+            and len(test_name) <= 40):
+        prefix = block_prefixes(bsnps)
+        for ph in range(params.n_pheno):
+            if not pd.pheno_pass[ph] or writers[ph] is None:
+                continue
+            writers[ph].write(format_block_single(
+                params, prefix[0], prefix[1], test_name,
+                skip=r.ignored | r.ignored_trait[:, ph],
+                af=r.af_t[:, ph], info=None, n=r.ns_t[:, ph],
+                beta=r.bhat[:, ph], se=r.se[:, ph], chisq=r.chisq[:, ph],
+                logp=r.logp[:, ph], test_fail=r.test_fail[:, ph],
+            ))
+        return
+    for b in range(B):
+        if r.ignored[b]:
+            continue
+        for ph in range(params.n_pheno):
+            if not pd.pheno_pass[ph] or r.ignored_trait[b, ph] or writers[ph] is None:
+                continue
+            writers[ph].write(sumstat_line_single(
+                params, bsnps[b], test_name, r.af_t[b, ph], None,
+                int(r.ns_t[b, ph]), r.bhat[b, ph], r.se[b, ph],
+                r.chisq[b, ph], r.logp[b, ph],
+                test_pass=not r.test_fail[b, ph],
+            ))
+
+
+def open_engine(params: Params, log=print, device=None):
+    """The run-up of run_step2 before its block loop: the mode check, the
+    --pred list, data preparation, the engine and the LOCO sample masks.
+    Returns (engine, blocks); `device` as in utils.device.resolve_device."""
+    why = unported(params)
+    if why is not None:
+        raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
+    device = resolve_device(device)
+    params.test_mode = True
+
+    blup_files = None
+    blup_names = None
+    if not params.skip_blups:
+        blup_files = read_pred_list(params.pred_list)
+        blup_names = list(blup_files.keys())
+
+    rd = prepare(params, blup_pheno_names=blup_names, log=log)
+    gd, pd = rd.geno, rd.pheno
+
+    eng = Step2Engine(params, gd, pd, blup_files, log, device)
+    if not eng.fused_ok():
+        raise NotImplementedError(
+            "--nocov-approx with a single trait: not yet ported to "
+            "regenie_tpu_torch (the fused scorer is its only Step-2 path)")
+    if blup_files is not None:
+        mask_samples_missing_loco(params, pd, blup_files, eng.id_to_ind)
+        pd.Neff = pd.masked_indivs.sum(axis=0).astype(np.float64)
+        eng.refresh_masks()
+
+    blocks = make_blocks(gd, params.block_size)
+    if any(eng.non_par_flags(bsnps).any() for _, bsnps in blocks):
+        raise NotImplementedError(
+            "chrX non-PAR variants (hemizygous male stats): not yet ported "
+            "to regenie_tpu_torch")
+    return eng, blocks
+
+
+def run_step2(params: Params, log=print, device=None) -> None:
+    """Step 2 QT on a BED file: one output file per trait. `device` as in
+    utils.device.resolve_device (CUDA unless the CPU is asked for)."""
+    eng, blocks = open_engine(params, log, device)
+    device, pd = eng.device, eng.pd
+    params.total_n_block = len(blocks)
+    log(f" * block size: [{params.block_size}]")
+    log(usage_info_line(params))
+    log(f" * # blocks: [{params.total_n_block}]")
+    log(f" * # tested variants: [{params.n_variants}]")
+    log(f" * fused packed-bytes scorer on {device} "
+        f"({'int8 kernel' if eng.split == 'i8' else 'float64 plain products'})")
+
+    test_name = {0: "ADD", 1: "DOM", 2: "REC"}[params.test_type]
+    writers, out_paths = setup_writers(params, pd.pheno_names, pd.pheno_pass)
+
+    # --starting-block / --nb window (Data.cpp:2275)
+    todo = []
+    for block_idx, (chrom, bsnps) in enumerate(blocks, start=1):
+        if block_idx < params.starting_block:
+            continue
+        if params.nb is not None and block_idx >= params.starting_block + params.nb:
+            break
+        todo.append((chrom, bsnps))
+
+    # one-block lookahead: the read (and, once the operand exists, the
+    # device upload) of block k+1 overlaps the scoring and output of
+    # block k (the reference's multithreaded readChunk, Data.cpp:2944)
+    upload_ready = threading.Event()
+
+    def _fetch(bsnps):
+        raw = eng.read_block_raw(bsnps)
+        if upload_ready.is_set():
+            raw = eng._fused_upload(raw)
+        return raw
+
+    t0 = time.time()
+    pool = ThreadPoolExecutor(max_workers=1)
+    # ordered async output: a single writer thread renders + writes block
+    # k's rows while the device scores block k+1; bounded queue
+    wpool = ThreadPoolExecutor(max_workers=1)
+    wpending: list = []
+    try:
+        fut = pool.submit(_fetch, todo[0][1]) if todo else None
+        tblk = time.time()
+        for i, (chrom, bsnps) in enumerate(todo):
+            raw = fut.result()
+            eng.prep_chrom(chrom)
+            eng._ensure_fused_consts()
+            upload_ready.set()
+            if i + 1 < len(todo):
+                fut = pool.submit(_fetch, todo[i + 1][1])
+            if params.verbose:
+                now = time.time()
+                log(f"   -block {i + 1}/{len(todo)} chr{chrom} "
+                    f"[{len(bsnps)} snps, {now - tblk:.2f}s]")
+                tblk = now
+            result, _ = eng.test_raw_block_fused(raw, bsnps)
+            while len(wpending) > 4:
+                wpending.pop(0).result()
+            wpending.append(wpool.submit(
+                write_block_rows, params, pd, writers, bsnps, result,
+                test_name, eng.model_type(),
+            ))
+        for w in wpending:
+            w.result()
+        wpending = []
+    finally:
+        # drain the writer even when scoring raised, so output files
+        # close deterministically; a writer error surfaces unless a
+        # scoring error is already propagating
+        pool.shutdown(wait=True)
+        werr = None
+        for w in wpending:
+            try:
+                w.result()
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                werr = werr or e
+        wpool.shutdown(wait=True)
+        for fh in writers:
+            if fh is not None:
+                fh.close()
+        if werr is not None and sys.exc_info()[0] is None:
+            raise werr
+    dt = time.time() - t0
+    log("\nAssociation results stored separately for each trait in files:")
+    for p_ in out_paths:
+        log(f"* [{p_}]")
+    log(f"Number of ignored tests due to low MAC : {eng.n_ignored * params.n_pheno}")
+    log(f" * block loop: {len(todo)} blocks, "
+        f"{sum(len(b) for _, b in todo)} variants in {dt:.3f}s")
+    log(f" * done ({dt:.1f}s)")

@@ -1,0 +1,45 @@
+"""Device and dtype policy of the port (its counterpart of
+regenie_tpu/utils/dtypes.py).
+
+- Entry points run on CUDA. The CPU is used only when the caller asks
+  for it: device="cpu" in Python, or REGENIE_TPU_TORCH_DEVICE=cpu for
+  the CLI (the counterpart of REGENIE_TPU_PLATFORM=cpu).
+- With no CUDA device and no such request, resolve_device raises: an
+  entry point never carries on on the CPU by itself.
+- On CUDA, TF32 is switched off for matmuls and convolutions (the
+  reference's dots run at Precision.HIGHEST).
+- The working dtype is float64 on both devices. On the card the int8
+  kernel's int32 products fold exactly into float64 and the epilogue
+  runs there: in float32, the incomplete-trait denominators cancel
+  enough at biobank N (400,000 samples) to move LOG10P by more than the
+  1e-5 cross-backend bar against the float64 reference, and the
+  epilogue is a few [B, C] operations, so float64 costs nothing there.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+DEVICE_ENV = "REGENIE_TPU_TORCH_DEVICE"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` if given, else
+    $REGENIE_TPU_TORCH_DEVICE, else CUDA. Raises when CUDA is asked for
+    (explicitly or by default) and there is none."""
+    if device is None:
+        device = os.environ.get(DEVICE_ENV) or "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "regenie_tpu_torch runs on CUDA and found no CUDA device; "
+                f"pass device='cpu' or set {DEVICE_ENV}=cpu to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+

@@ -1,0 +1,195 @@
+"""Slice tests of the PyTorch port (regenie_tpu_torch): the Step-2 QT CLI
+on a synthetic PLINK BED against the JAX package's fused path on the CPU,
+the no-jax import guarantee, and the device policy."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from chip_smoke import write_dataset
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(module, args, env_extra, cwd):
+    env = dict(os.environ)
+    env.update(env_extra)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-m", module] + args, cwd=cwd,
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    return r.stdout
+
+
+def _assert_rows_equiv(f, g, rtol=1e-9):
+    """Same header, row count and NA pattern; every numeric field equal
+    within rtol (the rule of tests/test_fused_score.py:585). Returns
+    whether the files are byte-identical."""
+    la = open(f).read().splitlines()
+    lb = open(g).read().splitlines()
+    assert len(la) == len(lb), (f, len(la), len(lb))
+    assert la[0] == lb[0]
+    for ra, rb in zip(la[1:], lb[1:]):
+        ta, tb = ra.replace(";", " ").replace("=", " ").split(), \
+            rb.replace(";", " ").replace("=", " ").split()
+        assert len(ta) == len(tb), (ra, rb)
+        for xa, xb in zip(ta, tb):
+            if xa == xb:
+                continue
+            fa, fb = float(xa), float(xb)  # raises on an NA mismatch
+            assert abs(fa - fb) <= rtol * max(1.0, abs(fa)), (ra, rb)
+    return open(f, "rb").read() == open(g, "rb").read()
+
+
+def _tiny_dataset(tmp_path):
+    return write_dataset(str(tmp_path), seed=0, N=40, chroms=((1, 8),), P=3,
+                         n_inc=1, n_cov=3)
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("torch_step2"))
+    prefix = write_dataset(d, seed=7, N=600, chroms=((1, 200), (2, 100)),
+                           P=3, n_inc=1, n_cov=3, na_rate=0.1,
+                           n_remove=5, effect_sd=1.0)
+    # LOCO predictions from the JAX Step 1 on the same data
+    _run("regenie_tpu", [
+        "--step", "1", "--bed", prefix, "--phenoFile", f"{d}/pheno.txt",
+        "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
+        "--bsize", "100", "--out", f"{d}/fit"],
+        {"REGENIE_TPU_PLATFORM": "cpu"}, d)
+    return d, prefix
+
+
+@pytest.mark.parametrize("scenario", ["plain", "htp", "minmac", "pred",
+                                      "ref_first_dom", "rec_strict"])
+def test_cli_matches_jax_fused(dataset, scenario):
+    """The port's CLI on the CPU writes the same rows as the JAX package's
+    fused path on the CPU: same header, row count and NA pattern, numeric
+    fields within rel 1e-9 (float64 on both sides; the products differ
+    only in matmul summation order)."""
+    d, prefix = dataset
+    common = ["--step", "2", "--bed", prefix, "--phenoFile", f"{d}/pheno.txt",
+              "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
+              "--bsize", "170"]
+    extra = {"plain": ["--ignore-pred"],
+             "htp": ["--ignore-pred", "--htp", "X"],
+             "minmac": ["--ignore-pred", "--minMAC", "20"],
+             "pred": ["--pred", f"{d}/fit_pred.list"],
+             "ref_first_dom": ["--ignore-pred", "--ref-first", "--test",
+                               "dominant"],
+             "rec_strict": ["--ignore-pred", "--test", "recessive",
+                            "--strict"]}[scenario]
+    jx, pt = f"{d}/jax_{scenario}", f"{d}/pt_{scenario}"
+    out = _run("regenie_tpu", common + extra + ["--out", jx],
+               {"REGENIE_TPU_PLATFORM": "cpu", "REGENIE_TPU_FUSED": "1"}, d)
+    assert "fused packed-bytes scorer active" in out
+    out = _run("regenie_tpu_torch", common + extra + ["--out", pt],
+               {"REGENIE_TPU_TORCH_DEVICE": "cpu"}, d)
+    assert "fused packed-bytes scorer on cpu" in out
+    identical = []
+    for ph in ("Y1", "Y2", "Y3"):
+        f, g = f"{jx}_{ph}.regenie", f"{pt}_{ph}.regenie"
+        identical.append(_assert_rows_equiv(f, g))
+    n_rows = len(open(f"{pt}_Y1.regenie").read().splitlines()) - 1
+    assert 200 < n_rows <= 300
+    if scenario == "minmac":
+        assert n_rows < 300  # the rare variants fall under --minMAC 20
+    print(f"{scenario}: byte-identical per trait = {identical}")
+
+
+def test_port_imports_no_jax():
+    """The port and its run_step2 / ops modules import with jax made
+    unimportable, and pull in no regenie_tpu module."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import regenie_tpu_torch, regenie_tpu_torch.run_step2, "
+        "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
+        "regenie_tpu_torch.ops.kernels\n"
+        "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
+        "or m.startswith('regenie_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_port_sources_import_no_jax():
+    """No import statement anywhere in the port or chip_smoke.py, lazy
+    ones inside functions included, names jax or regenie_tpu."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(REPO, "regenie_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 15
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "regenie_tpu"), (path, name)
+
+
+def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
+    """With no CUDA device and no CPU request, the entry point raises
+    before doing any work; asking for the CPU runs."""
+    import torch
+
+    from regenie_tpu_torch.utils.device import DEVICE_ENV, resolve_device
+
+    monkeypatch.delenv(DEVICE_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    assert resolve_device().type == "cpu"
+    prefix = _tiny_dataset(tmp_path)
+    monkeypatch.delenv(DEVICE_ENV)
+    from regenie_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--step", "2", "--bed", prefix, "--phenoFile",
+                  f"{tmp_path}/pheno.txt", "--ignore-pred",
+                  "--out", f"{tmp_path}/o"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--step", "1"], ["--bt"], ["--t2e", "--phenoColList", "Y1",
+                                "--eventColList", "Y2"],
+    ["--no-split"], ["--interaction", "C1"], ["--mcc"],
+    ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
+    ["--ct"], ["--compute-corr"], ["--gz"],
+    ["--condition-list", "c.txt"],
+    # a single trait keeps --nocov-approx, which the fused scorer rejects
+    ["--nocov-approx", "--phenoColList", "Y2"],
+])
+def test_unported_mode_raises(tmp_path, monkeypatch, flags):
+    """Every mode the port does not have raises NotImplementedError, on
+    the CPU too; none silently runs something else."""
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.utils.device import DEVICE_ENV
+
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+
+    prefix = _tiny_dataset(tmp_path)
+    argv = ["--bed", prefix, "--phenoFile", f"{tmp_path}/pheno.txt",
+            "--ignore-pred", "--out", f"{tmp_path}/o"]
+    if "--step" not in flags:
+        argv = ["--step", "2"] + argv
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(argv + flags)
