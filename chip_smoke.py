@@ -5,22 +5,30 @@
 
 Phases, each of which must pass:
 
-1. build: compile every CUDA kernel of the port from ops/csrc/ with nvcc.
+1. build: compile every CUDA kernel of the port from ops/csrc/ with nvcc
+   (one process per source, started together), and report whether the
+   native libraries (the root native/ library, the port's BGEN plane
+   extractor) load, and with which symbols.
 2. kernel: hold each kernel against its plain PyTorch version on the card
-   (the int8 fused products must be exactly equal, int32 for int32) on
-   ragged shapes and at the full width of the repository's UKB shape
-   (N=400,000 samples, P=50 traits of which 10 incomplete, K=20, blocks of
-   2048 variants), and time the kernel, its plain version, its bound and
-   the library yardstick.
-3. slice: write a synthetic PLINK BED at that shape (M = 4 blocks of 2048
-   variants, null phenotypes) and run the port's Step-2 CLI on the card
-   in this process; check the output files, that the kernel launched once
-   per block, and that the first block agrees with the port's plain path
-   (float64 operand, plain products) on the card: max |dLOG10P| <= 1e-5,
-   max |dBETA| <= 1e-6, the repository's cross-backend bar.
-4. cross-check: a small --htp run (N=2,000, M=600, two chromosomes) through
-   the port on the card and on the CPU; every output field meets the same
-   bar.
+   (integer products exactly equal) on ragged shapes and at the full width
+   of the repository's UKB shape (N=400,000 samples, P=50 traits of which
+   10 incomplete, K=20, blocks of 2048 variants), and time the kernel,
+   its plain version, its bound and the library yardstick.
+3. BED slice: write a synthetic PLINK BED at that shape (M = 2 blocks of
+   2048 variants, null phenotypes) and run the port's Step-2 CLI on the
+   card in this process; check the output files, that fused_i8 launched
+   once per block (and bgen_i8 never), and that the first block agrees
+   with the port's plain path (float64 operand, plain products) on the
+   card: max |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6, the repository's
+   cross-backend bar.
+4. BGEN slice: the same on a synthetic 8-bit zlib BGEN at that shape
+   (imputed-like probabilities, 1% missing; M = 2 blocks), through
+   --bgen/--sample: bgen_i8 launches once per block (and fused_i8
+   never); the first block meets the same bar, and its INFO and A1FREQ
+   agree with the plain path within rel 1e-9.
+5. cross-check: small runs through the port on the card and on the CPU,
+   a BED --htp run and a two-chromosome BGEN --minINFO run (N=2,000,
+   M=600 each); every output field meets the same bar.
 
 The last lines of standard output are a JSON line with every kernel's
 numbers, the card's name and power limit (nvidia-smi), and
@@ -46,7 +54,20 @@ PEAK_BYTES = 3.35e12
 
 # the repository's UKB shape (bench.py, BENCH_NOTES.md)
 FULL = dict(N=400_000, P=50, n_inc=10, K=20, B=2048)
+SLICE_BLOCKS = 2  # variant blocks of each full-width slice run
 LOG10P_TOL, BETA_TOL = 1e-5, 1e-6
+
+
+def run_cli(argv):
+    """The port's CLI in this process, its console lines kept out of the
+    smoke's output (the CLI writes them to <out>.log as well)."""
+    import contextlib
+    import io
+
+    from regenie_tpu_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
 
 
 def card_line() -> str:
@@ -105,6 +126,14 @@ def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
             v += n
     with open(prefix + ".fam", "w") as fh:
         fh.write("".join(f"F{i} I{i} 0 0 {1 + i % 2} -9\n" for i in range(N)))
+    _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove)
+    return prefix
+
+
+def _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove):
+    """d/pheno.txt (the first n_inc traits with na_rate NA), d/covar.txt
+    and d/remove.txt (n_remove samples) for samples F{i} I{i}."""
+    N, P = Y.shape
     for p in range(n_inc):
         Y[rng.random(N) < na_rate, p] = np.nan
 
@@ -116,11 +145,89 @@ def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                              + "\n" for i, v in enumerate(V)))
 
     table(os.path.join(d, "pheno.txt"), [f"Y{p + 1}" for p in range(P)], Y)
-    table(os.path.join(d, "covar.txt"), [f"C{k + 1}" for k in range(n_cov)], X)
+    table(os.path.join(d, "covar.txt"), [f"C{k + 1}" for k in range(X.shape[1])], X)
     with open(os.path.join(d, "remove.txt"), "w") as fh:
         for i in rng.choice(N, size=n_remove, replace=False):
             fh.write(f"F{i} I{i}\n")
-    return prefix
+
+
+def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
+                       uncertain=0.1, na_rate=0.05, n_remove=0, effect_sd=0.0,
+                       chunk=32, workers=8):
+    """Synthetic BGEN v1.2 (layout 2, zlib, 8-bit, unphased diploid, with
+    sample IDs) at d/geno.bgen, its Oxford sample file d/geno.sample (with
+    a sex column), and the phenotype, covariate and remove files of
+    write_dataset, for samples F{i} I{i}.
+
+    Probabilities are imputed-like: genotypes follow Hardy-Weinberg at
+    allele frequencies uniform in [0.01, 0.5] (every 17th variant rare);
+    on a share `uncertain` of each variant's samples up to half of the
+    called genotype's probability moves to the neighbouring genotype, the
+    others carry a hard call; a share `miss` is missing (ploidy byte
+    0x82). k0 + k1 <= 255 always. Variants are drawn `chunk` at a time and
+    compressed in a pool of `workers` threads, so memory stays small at
+    biobank N. Returns the .bgen path."""
+    import struct
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(seed)
+    M = sum(n for _, n in chroms)
+    chrom_of = np.concatenate([np.full(n, c) for c, n in chroms])
+    af = rng.uniform(0.01, 0.5, size=M)
+    af[::17] = max(0.004, 5.0 / N)
+    beta = rng.normal(size=(M, P)) * effect_sd * (rng.random((M, P)) < 0.02)
+    X = rng.normal(size=(N, n_cov))
+    Y = X @ rng.normal(size=(n_cov, P)) + rng.normal(size=(N, P))
+    ids = [f"I{i}" for i in range(N)]
+    lsi = 8 + sum(2 + len(s) for s in ids)
+    path = os.path.join(d, "geno.bgen")
+    head = np.frombuffer(struct.pack("<IHBB", N, 2, 2, 2), np.uint8)
+    with open(path, "wb") as fh, ThreadPoolExecutor(workers) as pool:
+        fh.write(struct.pack("<IIII", 20 + lsi, 20, M, N) + b"bgen")
+        fh.write(struct.pack("<I", 1 | (2 << 2) | (1 << 31)))
+        fh.write(struct.pack("<II", lsi, N) + b"".join(
+            struct.pack("<H", len(s)) + s.encode() for s in ids))
+        for s in range(0, M, chunk):
+            a = af[s : s + chunk, None]
+            c = len(a)
+            u = rng.random((c, N), dtype=np.float32)
+            g = ((u < (a * a).astype(np.float32)).astype(np.uint8)
+                 + (u < (1 - (1 - a) ** 2).astype(np.float32)))  # first-allele count
+            # j/255 of the called genotype's probability moves to its
+            # neighbour on uncertain samples
+            u = rng.random((c, N), dtype=np.float32)
+            j = np.where(u < uncertain, rng.integers(0, 128, (c, N), dtype=np.uint8),
+                         np.uint8(0))
+            gmiss = u > 1 - miss
+            body = np.empty((c, 10 + 3 * N), np.uint8)
+            body[:, :8] = head
+            body[:, 8 : 8 + N] = np.where(gmiss, np.uint8(0x82), np.uint8(2))
+            body[:, 8 + N] = 0
+            body[:, 9 + N] = 8
+            k = body[:, 10 + N :].reshape(c, N, 2)  # k0, k1
+            k[..., 0] = np.where(g == 2, 255 - j, np.where(g == 1, j >> 1, 0))
+            k[..., 1] = np.where(g == 2, j, np.where(g == 1, 255 - j, j))
+            causal = np.nonzero(beta[s : s + c].any(axis=1))[0]
+            if len(causal):
+                dose = (2.0 * k[causal, :, 0] + k[causal, :, 1]) / 255.0
+                Y += np.where(gmiss[causal], 0.0, dose).T @ beta[s + causal]
+            comp = pool.map(lambda row: zlib.compress(row.tobytes(), 1), body)
+            for j, z in enumerate(comp):
+                v = s + j
+                rsid = f"v{v}".encode()
+                ch = str(chrom_of[v]).encode()
+                fh.write(struct.pack("<H", len(rsid)) + rsid
+                         + struct.pack("<H", len(rsid)) + rsid
+                         + struct.pack("<H", len(ch)) + ch
+                         + struct.pack("<IH", 1000 + 10 * v, 2)
+                         + struct.pack("<I", 1) + b"A" + struct.pack("<I", 1) + b"C"
+                         + struct.pack("<II", len(z) + 4, body.shape[1]) + z)
+    with open(os.path.join(d, "geno.sample"), "w") as fh:
+        fh.write("ID_1 ID_2 missing sex\n0 0 0 D\n")
+        fh.write("".join(f"F{i} I{i} 0 {1 + i % 2}\n" for i in range(N)))
+    _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove)
+    return path
 
 
 def _time_ms(fn, reps):
@@ -162,9 +269,10 @@ def _check_i8_exact(raw, limbs, what):
     return err
 
 
-def _random_consts(rng, N, P, n_inc, K, device):
+def _random_consts(rng, N, P, n_inc, K, device, pack="plane"):
     """The port's int8 fused operand for random inputs of the given shape
-    (orthonormal covariates, n_inc traits with 5% missing)."""
+    (orthonormal covariates, n_inc traits with 5% missing); for
+    pack="sample" with the narrow [maskf | ind] operand in Wq."""
     from regenie_tpu_torch.ops import fused_score as fsc
 
     ind = np.ones(N, bool)
@@ -173,12 +281,17 @@ def _random_consts(rng, N, P, n_inc, K, device):
         maskf[rng.random(N) < 0.05, p] = 0.0
     res = rng.normal(size=(N, P)) * maskf
     cov = np.linalg.qr(rng.normal(size=(N, K)))[0]
-    return fsc.build_consts(cov, res, maskf, ind, float(N - K),
-                           device=device, split="i8")
+    c = fsc.build_consts(cov, res, maskf, ind, float(N - K), device=device,
+                         split="i8", pack=pack)
+    if pack == "sample":
+        tail = np.concatenate([maskf, ind[:, None].astype(float)], axis=1)
+        c = c._replace(Wq=fsc.sample_pack(tail, "i8", device)[0])
+    return c
 
 
-def kernel_phase(dev, reps=10):
-    """Exactness on ragged and full-width shapes; times at full width."""
+def fused_i8_phase(dev, reps=10):
+    """fused_i8: exactness on ragged and full-width shapes; times at full
+    width."""
     import torch
 
     from regenie_tpu_torch.ops import fused_score as fsc
@@ -243,6 +356,113 @@ def kernel_phase(dev, reps=10):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def _check_bgen_exact(planes, wp, wq, what):
+    """bgen_i8 against its plain version on the same card tensors: the six
+    int64 products must be equal. Returns the max abs difference (0)."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels
+
+    got = kernels.bgen_i8_products(planes, wp, wq)
+    want = kernels.bgen_i8_products_plain(planes, wp, wq)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"  bgen_i8 {what}: B={planes.shape[0]} Np={planes.shape[2]} "
+          f"Cw={wp.shape[1]} Cq={wq.shape[1]} max|kernel-plain|={err}")
+    if err != 0:
+        raise AssertionError(f"bgen_i8 kernel differs from its plain version "
+                             f"({what}): max abs {err}")
+    return err
+
+
+def _imputed_planes(gen, B, N, Np, dev, miss=0.01):
+    """[B, 2, Np] uint8 probability planes drawn on the card: k0 uniform,
+    k1 uniform below 256 - k0 (so k0 + k1 <= 255), a share `miss` of the
+    pairs missing (255/255), pad samples zero."""
+    import torch
+
+    k0 = torch.randint(0, 256, (B, N), generator=gen, device=dev)
+    k1 = (torch.rand((B, N), generator=gen, device=dev) * (256 - k0)).long()
+    m = torch.rand((B, N), generator=gen, device=dev) < miss
+    planes = torch.zeros((B, 2, Np), dtype=torch.uint8, device=dev)
+    planes[:, 0, :N] = torch.where(m, 255, k0).to(torch.uint8)
+    planes[:, 1, :N] = torch.where(m, 255, k1).to(torch.uint8)
+    return planes
+
+
+def bgen_i8_phase(dev, reps=10):
+    """bgen_i8: exactness on ragged shapes, on an operand built by the
+    port at a small N, and at full width; times at full width."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    errs = []
+    # ragged: rows off the row tile, samples ending mid-stage, columns off
+    # the column tile, every byte pair (about half of them missing)
+    planes = torch.from_numpy(rng.integers(0, 256, (37, 2, 272), dtype=np.uint8)).to(dev)
+    wp, wq = (torch.from_numpy(rng.integers(-128, 128, (272, c), dtype=np.int8)).to(dev)
+              for c in (400, 144))
+    errs.append(_check_bgen_exact(planes, wp, wq, "ragged, random limbs"))
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, pack="sample")
+    Np = fsc.op_nbp(c.Wp)
+    errs.append(_check_bgen_exact(_imputed_planes(gen, 37, 1025, Np, dev),
+                                  c.Wp.limbs, c.Wq.limbs, "ragged, N=1025 operand"))
+
+    # full width: the main path's shapes (C_used = 321 -> Cp = 384; the
+    # [maskf | ind] tail of 51 columns -> Cqp = 128), random limbs
+    f = FULL
+    Np = -(-f["N"] // 256) * 256
+    B, Cw, Cq = f["B"], 4 * 384, 4 * 128
+    planes = _imputed_planes(gen, B, f["N"], Np, dev)
+    wp, wq = (torch.randint(-128, 128, (Np, cw), generator=gen, device=dev,
+                            dtype=torch.int8) for cw in (Cw, Cq))
+    errs.append(_check_bgen_exact(planes, wp, wq, "full width"))
+    ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp, wq), reps)
+    plain_ms = _time_ms(lambda: kernels.bgen_i8_products_plain(planes, wp, wq), 3)
+    # where the kernel's time goes: each operand's tiles with the other
+    # operand cut to one 16-column tile (not checked)
+    wp16, wq16 = wp[:, :16].contiguous(), wq[:, :16].contiguous()
+    wp_ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp, wq16), reps)
+    wq_ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp16, wq), reps)
+    print(f"  bgen_i8 full width, Wp tiles with one 16-column Wq tile: {wp_ms:.3f} ms; "
+          f"Wq tiles with one 16-column Wp tile: {wq_ms:.3f} ms")
+
+    # yardstick: six library int8 GEMMs of the byte planes shifted by -128
+    # (the TPU kernel's operands), built beforehand and not timed; its
+    # int32 sums overflow at this N, so only its time is used
+    k0 = planes[:, 0].to(torch.int32)
+    k1 = planes[:, 1].to(torch.int32)
+    miss = (k0 + k1) > 255
+    k0, k1 = torch.where(miss, 0, k0), torch.where(miss, 0, k1)
+    d2 = (2 * k0 + k1) ** 2
+    A = [(x - 128).to(torch.int8) for x in (k0, k1, d2 & 255, (d2 >> 8) & 255,
+                                             d2 >> 16)] + [miss.to(torch.int8)]
+    del k0, k1, miss, d2
+    W = [wp, wp, wq, wq, wq, wp]
+    library_ms = _time_ms(lambda: [torch._int_mm(a, w) for a, w in zip(A, W)], reps)
+    del A
+
+    ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
+    nbytes = 2 * B * Np + Np * (Cw + Cq) + 8 * B * (3 * Cw + 3 * Cq)
+    bound_ms = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes"
+    print(f"  bgen_i8 full width: {ms:.3f} ms (median of {reps}), plain "
+          f"{plain_ms:.3f} ms, library: six int8 GEMMs of the shifted planes "
+          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+          f"{ops:.3e} int8 ops, {nbytes / 1e9:.3f} GB); "
+          f"{ops / ms / 1e9:.1f} TOP/s = {bound_ms / ms:.1%} of the bound")
+    return dict(name="bgen_i8", route="cuda",
+                source="regenie_tpu_torch/ops/csrc/bgen_i8.cu",
+                replaces="regenie_tpu/ops/fused_score.py:1093",
+                launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 def _assert_close(name, a, b, tol):
     """Same NaN pattern, max |a - b| over the finite entries <= tol."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -256,33 +476,67 @@ def _assert_close(name, a, b, tol):
     return err
 
 
-def slice_phase(tmp):
-    """The port's Step-2 QT CLI at full width on the card."""
+def _assert_rel(name, a, b, rtol):
+    """Same NaN pattern, max |a - b| / |b| over the finite entries <= rtol."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f"{name}: NaN patterns differ")
+    ok = ~np.isnan(a)
+    err = float(np.max(np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-300),
+                       initial=0.0))
+    print(f"  {name}: max rel |kernel path - plain path| = {err:.3e} (bar {rtol:g})")
+    if err > rtol:
+        raise AssertionError(f"{name}: {err:.3e} > {rtol:g}")
+
+
+def _reset_counts():
+    from regenie_tpu_torch.ops import kernels
+
+    for w in kernels.WRAPPERS.values():
+        w.launches = 0
+
+
+def _read_counts():
+    from regenie_tpu_torch.ops import kernels
+
+    return {name: w.launches for name, w in kernels.WRAPPERS.items()}
+
+
+def slice_phase(tmp, src):
+    """The port's Step-2 QT CLI at full width on the card, on a BED
+    (src="bed") or a BGEN (src="bgen") file. Returns the launches of the
+    slice's kernel in the CLI run."""
     import torch
 
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.ops import fused_score as fsc
-    from regenie_tpu_torch.ops import kernels
     from regenie_tpu_torch.run_step2 import Step2Engine, open_engine
 
     f = FULL
-    M = 4 * f["B"]
+    M = SLICE_BLOCKS * f["B"]
+    kernel = {"bed": "fused_i8", "bgen": "bgen_i8"}[src]
     t0 = time.time()
-    prefix = write_dataset(tmp, seed=1, N=f["N"], chroms=((1, M),), P=f["P"],
-                           n_inc=f["n_inc"], n_cov=f["K"] - 1)
-    print(f"  dataset N={f['N']} M={M} P={f['P']} K={f['K']} written in "
-          f"{time.time() - t0:.1f}s")
-    argv = ["--step", "2", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+    if src == "bed":
+        geno = ["--bed", write_dataset(tmp, seed=1, N=f["N"], chroms=((1, M),),
+                                       P=f["P"], n_inc=f["n_inc"], n_cov=f["K"] - 1)]
+    else:
+        geno = ["--bgen", write_bgen_dataset(
+            tmp, seed=3, N=f["N"], chroms=((1, M),), P=f["P"],
+            n_inc=f["n_inc"], n_cov=f["K"] - 1),
+            "--sample", f"{tmp}/geno.sample"]
+    print(f"  {src.upper()} dataset N={f['N']} M={M} P={f['P']} K={f['K']} "
+          f"written in {time.time() - t0:.1f}s")
+    argv = ["--step", "2", *geno, "--phenoFile", f"{tmp}/pheno.txt",
             "--covarFile", f"{tmp}/covar.txt", "--ignore-pred",
             "--bsize", str(f["B"]), "--verbose", "--out", f"{tmp}/slice"]
     os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
 
-    kernels.fused_i8_products.launches = 0
+    _reset_counts()
     t0 = time.time()
-    cli.main(argv)
+    run_cli(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = kernels.fused_i8_products.launches
+    counts = _read_counts()
 
     n_blocks = math.ceil(M / f["B"])
     for p in range(f["P"]):
@@ -290,17 +544,22 @@ def slice_phase(tmp):
             n = sum(1 for _ in fh) - 1
         if n != M:
             raise AssertionError(f"slice_Y{p + 1}.regenie has {n} rows, not {M}")
-    print(f"  {f['P']} output files of {M} rows; fused_i8 launches {launches} "
-          f"for {n_blocks} blocks")
-    if launches != n_blocks:
-        raise AssertionError(f"fused_i8 launched {launches} times for "
-                             f"{n_blocks} blocks")
+    print(f"  {f['P']} output files of {M} rows; launches {counts} for "
+          f"{n_blocks} blocks")
+    want = {name: n_blocks if name == kernel else 0 for name in counts}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
     with open(f"{tmp}/slice.log") as fh:
-        loop = [ln.strip(" *\n") for ln in fh if "block loop:" in ln][0]
+        log = fh.read().splitlines()
+    for ln in log:
+        if ln.startswith("   -block"):
+            print(f"  {ln.strip()}")
+    loop = [ln.strip(" *") for ln in log if "block loop:" in ln][0]
+    reads = [ln.strip(" *") for ln in log if "host block reads:" in ln][0]
     loop_s = float(loop.rsplit(" in ", 1)[1].rstrip("s"))
     print(f"  CLI wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up "
           f"and output included); {loop} = {M / loop_s:.1f} variants/s; "
-          f"on {card_line()}")
+          f"{reads}; on {card_line()}")
 
     # first block: the kernel path against the plain path, both on the card
     params = cli.args_to_params(cli.build_parser().parse_args(argv))
@@ -313,39 +572,52 @@ def slice_phase(tmp):
     for e in (eng, plain):
         e.prep_chrom(chrom)
         out.append(e.test_raw_block_fused(raw, bsnps)[0])
-    # for the record, not checked: the same products folded and scored in
-    # float32, as the JAX package does on a TPU (why the port uses float64)
-    c = eng._fused_consts
-    c32 = c._replace(usum=c.usum.float(), covt_res=c.covt_res.float(),
-                     Mmat=c.Mmat.float())
-    st, den, sf = (x.double().cpu().numpy() for x in fsc.make_qt_block_fn(
-        c32, True)(eng._fused_upload(raw))[:3])
-    bhat32, _, _, logp32 = eng._qt_post(st, den, sf, np.zeros(len(bsnps), bool))
-    inc = list(c.inc)
-    for name, a, b in (("LOG10P", logp32, out[1].logp), ("BETA", bhat32, out[1].bhat)):
-        d = np.abs(a - b)
-        print(f"  first block {name}, float32 fold and epilogue: max |diff| "
-              f"{np.nanmax(d):.3e} (incomplete traits {np.nanmax(d[:, inc]):.3e}, "
-              f"complete {np.nanmax(np.delete(d, inc, axis=1)):.3e}); not checked")
+    if src == "bed":
+        # for the record, not checked: the same products folded and scored
+        # in float32, as the JAX package does on a TPU (why the port uses
+        # float64)
+        c = eng._fused_consts
+        c32 = c._replace(usum=c.usum.float(), covt_res=c.covt_res.float(),
+                         Mmat=c.Mmat.float())
+        st, den, sf = (x.double().cpu().numpy() for x in fsc.make_qt_block_fn(
+            c32, True)(eng._fused_upload(raw))[:3])
+        bhat32, _, _, logp32 = eng._qt_post(st, den, sf, np.zeros(len(bsnps), bool))
+        inc = list(c.inc)
+        for name, a, b in (("LOG10P", logp32, out[1].logp),
+                           ("BETA", bhat32, out[1].bhat)):
+            d = np.abs(a - b)
+            print(f"  first block {name}, float32 fold and epilogue: max |diff| "
+                  f"{np.nanmax(d):.3e} (incomplete traits {np.nanmax(d[:, inc]):.3e}, "
+                  f"complete {np.nanmax(np.delete(d, inc, axis=1)):.3e}); not checked")
     _assert_close("first block LOG10P", out[0].logp, out[1].logp, LOG10P_TOL)
     _assert_close("first block BETA", out[0].bhat, out[1].bhat, BETA_TOL)
+    if src == "bgen":
+        # the mask and ind columns quantize exactly, so these are exact
+        # integer sums on both paths
+        _assert_rel("first block INFO", out[0].info_t, out[1].info_t, 1e-9)
+        _assert_rel("first block A1FREQ", out[0].af_t, out[1].af_t, 1e-9)
     eng.gd.close()
-    return launches
+    return counts[kernel]
 
 
-def _compare_htp(f_gpu, f_cpu):
-    """Field-by-field comparison of two HTP files: text fields equal,
-    LOG10P within 1e-5, every other number within 1e-6, each beyond the
-    half-unit of the 6 significant digits the files print. Returns the
-    largest excess ratio (<= 1 passes)."""
+def _compare_files(f_gpu, f_cpu):
+    """Field-by-field comparison of two output files (HTP or split
+    .regenie): text fields equal, LOG10P within 1e-5, every other number
+    within 1e-6, each beyond the half-unit of the 6 significant digits the
+    files print. Returns the largest excess ratio (<= 1 passes)."""
     la = open(f_gpu).read().splitlines()
     lb = open(f_cpu).read().splitlines()
     if len(la) != len(lb) or la[0] != lb[0]:
         raise AssertionError(f"{f_gpu}: header or row count differs")
+    htp = "\t" in la[0]
+    names = la[0].split()
     worst = 0.0
     for ra, rb in zip(la[1:], lb[1:]):
-        ta = ra.replace(";", "\t").replace("=", "\t").split("\t")
-        tb = rb.replace(";", "\t").replace("=", "\t").split("\t")
+        if htp:
+            ta = ra.replace(";", "\t").replace("=", "\t").split("\t")
+            tb = rb.replace(";", "\t").replace("=", "\t").split("\t")
+        else:
+            ta, tb = ra.split(), rb.split()
         if len(ta) != len(tb):
             raise AssertionError(f"field count differs:\n{ra}\n{rb}")
         for i, (x, y) in enumerate(zip(ta, tb)):
@@ -355,9 +627,9 @@ def _compare_htp(f_gpu, f_cpu):
                 fx, fy = float(x), float(y)
             except ValueError:
                 raise AssertionError(f"field differs:\n{ra}\n{rb}") from None
-            if ta[i - 1] == "LOG10P":
+            if (ta[i - 1] if htp else names[i]) == "LOG10P":
                 tol = LOG10P_TOL
-            elif i == 11:  # Pval: compare as -log10
+            elif htp and i == 11:  # Pval: compare as -log10
                 fx, fy, tol = -math.log10(fx), -math.log10(fy), LOG10P_TOL
             else:
                 tol = BETA_TOL
@@ -369,26 +641,55 @@ def _compare_htp(f_gpu, f_cpu):
 
 
 def cross_check_phase(tmp):
-    """Small --htp run through the port on the card and on the CPU."""
-    from regenie_tpu_torch import cli
-
+    """Small runs through the port on the card and on the CPU: a BED
+    --htp run and a two-chromosome BGEN --minINFO run."""
     P = 4
     prefix = write_dataset(tmp, seed=2, N=2000, chroms=((1, 400), (2, 200)),
                            P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
-    common = ["--step", "2", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
-              "--covarFile", f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt",
-              "--ignore-pred", "--bsize", "256", "--htp", "SMOKE"]
-    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
-    cli.main(common + ["--out", f"{tmp}/gpu"])
-    os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
-    try:
-        cli.main(common + ["--out", f"{tmp}/cpu"])
-    finally:
-        os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
-    worst = max(_compare_htp(f"{tmp}/gpu_Y{p + 1}.regenie",
-                             f"{tmp}/cpu_Y{p + 1}.regenie") for p in range(P))
-    print(f"  card vs CPU, {P} traits x 600 variants: every field within its "
-          f"bar (largest share of the bar used {worst:.3f})")
+    bgen_dir = os.path.join(tmp, "bgen")
+    os.makedirs(bgen_dir)
+    bgen = write_bgen_dataset(bgen_dir, seed=4, N=2000,
+                              chroms=((1, 400), (2, 200)), P=P, n_inc=2,
+                              n_cov=3, n_remove=10, effect_sd=0.1)
+    runs = {
+        "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"]),
+        "BGEN --minINFO": (bgen_dir, ["--bgen", bgen, "--sample",
+                                      f"{bgen_dir}/geno.sample",
+                                      "--minINFO", "0.8"]),
+    }
+    for what, (d, args) in runs.items():
+        common = ["--step", "2", *args, "--phenoFile", f"{d}/pheno.txt",
+                  "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
+                  "--ignore-pred", "--bsize", "256"]
+        os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        run_cli(common + ["--out", f"{d}/gpu"])
+        os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
+        try:
+            run_cli(common + ["--out", f"{d}/cpu"])
+        finally:
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
+        worst = max(_compare_files(f"{d}/gpu_Y{p + 1}.regenie",
+                                   f"{d}/cpu_Y{p + 1}.regenie") for p in range(P))
+        rows = len(open(f"{d}/gpu_Y1.regenie").read().splitlines()) - 1
+        print(f"  {what}: card vs CPU, {P} traits x {rows} variants: every "
+              f"field within its bar (largest share of the bar used {worst:.3f})")
+
+
+def native_report():
+    """Which native libraries load, with which symbols."""
+    from regenie_tpu_torch.io import native
+
+    lib = native.get_lib()
+    syms = [n for n in ("bed_decode", "format_sumstat_single",
+                        "format_sumstat_htp", "bgen12_extract_planes")
+            if lib is not None and hasattr(lib, n)]
+    print("  root native library (make -C native): "
+          + (f"loaded, symbols {', '.join(syms)}" if lib is not None else
+             "not built here; output rows render in Python"))
+    t0 = time.time()
+    native.planes_lib()
+    print(f"  BGEN plane extractor (regenie_tpu_torch/io/csrc/bgen_planes.cpp, "
+          f"g++): loaded, symbol {native.PLANES_SYMBOL} ({time.time() - t0:.1f}s)")
 
 
 def main() -> int:
@@ -414,16 +715,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("   ", line.strip())
+    native_report()
     print(f"  build phase {time.time() - t0:.1f}s")
 
     print("[kernel]")
-    rows = [kernel_phase(dev)]
+    rows = [fused_i8_phase(dev), bgen_i8_phase(dev)]
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        print("[slice]")
-        launches = slice_phase(tmp)
-        rows[0]["launches"] = launches
-    torch.cuda.empty_cache()
+    for row, src in zip(rows, ("bed", "bgen")):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            print(f"[{src} slice]")
+            row["launches"] = slice_phase(tmp, src)
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[cross-check]")
         cross_check_phase(tmp)

@@ -8,9 +8,9 @@ kernel (ops/kernels.py, sources under ops/csrc/); plain tensor code is
 PyTorch. Entry points run on CUDA; the CPU is used only when the caller
 asks for it (device="cpu", or REGENIE_TPU_TORCH_DEVICE=cpu for the CLI).
 
-Ported so far: Step 2 on quantitative traits from PLINK BED hardcalls
-through the fused packed-bytes scorer. Every other mode raises
-NotImplementedError.
+Ported so far: Step 2 on quantitative traits through the fused scorer,
+from PLINK BED hardcalls and from BGEN v1.2 8-bit (zlib) dosages. Every
+other mode raises NotImplementedError.
 """
 
 __version__ = "0.1.0"

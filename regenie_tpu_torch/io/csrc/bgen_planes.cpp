@@ -1,0 +1,89 @@
+// BGEN v1.2 8-bit probability-plane extraction for the fused Step-2
+// scorer: inflate only, no parse. The port's own copy of
+// bgen12_extract_planes in native/decoder.cpp, restricted to zlib
+// compression so that it builds against zlib alone.
+//
+// For each variant it emits the two per-sample probability bytes
+// de-interleaved (k0 = P(hom first allele), k1 = P(het)), with missing
+// samples (ploidy byte bit 0x80) marked by the impossible pair
+// k0 = k1 = 255. The device kernel reconstructs dosage = (2 k0 + k1)/255
+// (ref-last coding) and its square from the byte planes.
+//
+// Returns the number of variants it could not extract (> 0 fails the
+// whole block): a zlib error or size mismatch, a variant that is not
+// unphased diploid biallelic 8-bit, or a non-missing sample with
+// k0 + k1 > 255 (p2 would clip, and the linear ref-first identity
+// 2 - dosage would break).
+//
+// Single-threaded and reentrant: the caller runs calls on disjoint
+// variant ranges in parallel threads (io/native.py), so the build needs
+// no OpenMP runtime.
+//
+// Build: g++ -O3 -fPIC -shared -o libbgen_planes.so bgen_planes.cpp -lz
+
+#include <stdint.h>
+#include <string.h>
+#include <zlib.h>
+
+extern "C" int64_t bgen12_extract_planes(const uint8_t* comp,
+                                         const int64_t* offsets,
+                                         const int64_t* csizes,
+                                         const int64_t* usizes, int64_t n_var,
+                                         int64_t n_samples, int compression,
+                                         uint8_t* planes_out) {
+  int64_t n_fail = 0;
+  for (int64_t v = 0; v < n_var; v++) {
+    const uint8_t* src = comp + offsets[v];
+    const int64_t usize = usizes[v];
+    uint8_t* buf = new uint8_t[usize > 0 ? usize : 1];
+    bool ok = false;
+    if (compression == 1) {
+      uLongf dlen = (uLongf)usize;
+      ok = (uncompress(buf, &dlen, src, (uLong)csizes[v]) == Z_OK) &&
+           ((int64_t)dlen == usize);
+    }
+    uint8_t* k0 = planes_out + v * 2 * n_samples;
+    uint8_t* k1 = k0 + n_samples;
+    if (ok && usize >= 10) {
+      uint32_t N;
+      memcpy(&N, buf, 4);
+      uint16_t K;
+      memcpy(&K, buf + 4, 2);
+      const uint8_t minp = buf[6], maxp = buf[7];
+      // validate the whole header and body extent before reading at the
+      // N-dependent offsets
+      if ((int64_t)N != n_samples || K != 2 || minp != 2 || maxp != 2 ||
+          usize < (int64_t)(10 + (uint64_t)N + 2 * (uint64_t)N)) {
+        ok = false;
+      } else {
+        const uint8_t* ploidy = buf + 8;
+        const uint8_t phased = buf[8 + N];
+        const uint8_t bits = buf[9 + N];
+        if (phased != 0 || bits != 8) {
+          ok = false;
+        } else {
+          const uint8_t* body = buf + 10 + N;
+          for (int64_t i = 0; i < n_samples; i++) {
+            if (ploidy[i] & 0x80) {
+              k0[i] = 255;
+              k1[i] = 255;
+              continue;
+            }
+            const uint8_t a = body[2 * i], b = body[2 * i + 1];
+            if ((int)a + (int)b > 255) {
+              ok = false;
+              break;
+            }
+            k0[i] = a;
+            k1[i] = b;
+          }
+        }
+      }
+    } else {
+      ok = false;
+    }
+    if (!ok) n_fail += 1;
+    delete[] buf;
+  }
+  return n_fail;
+}

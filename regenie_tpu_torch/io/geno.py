@@ -1,9 +1,10 @@
-"""Genotype data model + block lists (the port's copy of the BED branch
-of regenie_tpu/io/geno.py).
+"""Genotype data model + block lists (the port's copy of the BED and BGEN
+branches of regenie_tpu/io/geno.py).
 
 File metadata, sample/variant filters and the chromosome map. The fused
-Step-2 path reads packed bytes straight from the BedFile, so there is no
-decoding block reader here.
+Step-2 path reads packed bytes straight from the BedFile, or probability
+planes from the BgenFile (io/bgen.py), so there is no decoding block
+reader here.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class GenoData:
     chr_counts: Dict[int, int] = field(default_factory=dict)  # chrom -> #snps kept
     sex: np.ndarray = None  # [N] 1=male 0=other
     _bed: Optional[BedFile] = None
+    _bgen: Optional[object] = None  # io.bgen.BgenFile
     _keep_all_samples: bool = True
 
     @property
@@ -45,7 +47,9 @@ class GenoData:
         return {s.key: i for i, s in enumerate(self.samples)}
 
     def close(self):
-        self._bed.close()
+        for f in (self._bed, self._bgen):
+            if f is not None:
+                f.close()
 
 
 def _read_id_file(path: str) -> set:
@@ -63,12 +67,17 @@ def _read_snp_file(path: str) -> set:
 
 
 def open_geno(params: Params) -> GenoData:
-    """Open PLINK BED files, apply sample/variant filters, build chr map.
+    """Open PLINK BED files (or a BGEN file), apply sample/variant
+    filters, build chr map.
 
     Reference: file_read_initialization (Data.cpp:155) +
     check_snps_include_exclude (Geno.cpp:1128) +
     check_samples_include_exclude (Geno.cpp:1263).
     """
+    if params.file_type == "bgen":
+        from .bgen import open_bgen_geno
+
+        return open_bgen_geno(params)
     if params.file_type != "bed":
         raise NotImplementedError(
             f"{params.file_type.upper()} input is not yet ported to "

@@ -25,10 +25,23 @@ float operand and the int8 limb operand [4, nbp, 4*Cp] ([l0|l1|l2|l3]),
 so the same constants feed both packages. On CUDA the limb operand runs
 through the hand-written kernel (ops/kernels.py); on the CPU the
 operand is float64 and the products use the plain version.
+
+BGEN v1.2 8-bit input takes the sample-ordered operand [Np, Cp]
+(sample_pack) instead: the host ships the two probability byte planes
+k0, k1 of each variant ([B, 2, Np] uint8; missing = 255/255) and six
+products rebuild every dosage moment exactly (bgen_fused_products,
+_bgen_combine):
+
+    d*255 = 2*k0 + k1,  (d*255)^2 = 65536*h2 + 256*h1 + h0  (bytes of d2),
+    info-linear 4*p0 + p1 = (4*k0 + k1)/255.
+
+The squared-dosage products feed only the [maskf | ind] tail, so they
+run against a narrow operand Wq (FusedConsts.Wq) of those columns.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +69,7 @@ class FusedConsts(NamedTuple):
     split: bool = False  # True for the int8 limb operand
     inc: tuple = None  # incomplete-trait indices (None = all P traits)
     has_male: bool = False  # chrX male tail columns (not built by the port)
+    Wq: object = None  # BGEN: narrow [Np, 4*Cqp] I8Operand of [maskf | ind]
 
     def n_inc(self) -> int:
         return self.P if self.inc is None else len(self.inc)
@@ -137,8 +151,17 @@ def i8_fold(parts, scale, dtype=torch.float32):
 
 def split_mode(on_gpu):
     """Operand encoding: int8 limbs ("i8") on CUDA, full-precision
-    float64 (False) on the CPU — as the JAX package picks per backend."""
-    return "i8" if on_gpu else False
+    float64 (False) on the CPU — as the JAX package picks per backend.
+    REGENIE_TPU_I8=0 asks for the f32 operand on the accelerator, whose
+    kernels are not ported: on CUDA it raises rather than run another
+    computation than the one asked for."""
+    if not on_gpu:
+        return False
+    if os.environ.get("REGENIE_TPU_I8") == "0":
+        raise NotImplementedError(
+            "REGENIE_TPU_I8=0 selects the f32 fused kernels _fused_kernel and "
+            "_bgen_kernel_split, not yet ported to regenie_tpu_torch")
+    return "i8"
 
 
 def op_nbp(Wp):
@@ -193,6 +216,28 @@ def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
     return _to_dev(Wp, device, dtype), usum
 
 
+def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
+    """[N, C] per-sample operand -> sample-ordered padded operand for the
+    BGEN byte planes: the [Np, Cp] tensor (dtype), or an I8Operand with
+    limbs [Np, 4*Cp] (split="i8"), and the padded [Cp] numpy usum (for
+    "i8" the sum of the QUANTIZED values, as plane_pack). Np pads to a
+    multiple of _TC samples, Cp to 128 columns."""
+    N, C = Wext.shape
+    Cp = -(-C // 128) * 128
+    Np = -(-N // _TC) * _TC
+    W = np.zeros((Np, Cp), dtype=np.float64)
+    W[:N, :C] = Wext
+    usum = np.pad(Wext.sum(axis=0), (0, Cp - C))
+    if split == "i8":
+        limbs, s, Wq = _i8_quantize_np(W)
+        usum = Wq.sum(axis=0)
+        return I8Operand(_to_dev(limbs, device), _to_dev(s, device)), usum
+    if split:
+        raise NotImplementedError(
+            "the bf16 split operand is not yet ported to regenie_tpu_torch")
+    return _to_dev(W, device, dtype), usum
+
+
 def plane_order_rows(X, nb, nbp_tile=None):
     """[N, C] -> plane-ordered [4, nbp, C] float64 (the row permutation
     used by plane_pack, without padding columns)."""
@@ -202,13 +247,14 @@ def plane_order_rows(X, nb, nbp_tile=None):
 
 def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
     """Per-chromosome operand update: overwrite the residual columns
-    [K:K+P] of a plane-packed Wext with the new LOCO residuals — a device
-    slice update instead of re-packing and re-uploading the operand.
-    Returns a new operand; the input is left unchanged.
+    [K:K+P] of a plane- or sample-packed Wext with the new LOCO residuals
+    — a device slice update instead of re-packing and re-uploading the
+    operand. Returns a new operand; the input is left unchanged.
 
-    Wp_dev: [4, nbp, Cp] tensor or I8Operand; res_planes: [4, nbp, P]
-    tensor (float32 for the int8 operand, which is re-quantized on the
-    device with fresh column scales)."""
+    Wp_dev: [4, nbp, Cp] or [Np, Cp] tensor, or I8Operand; res_planes:
+    the matching [4, nbp, P] or [Np, P] tensor (float32 for the int8
+    operand, which is re-quantized on the device with fresh column
+    scales)."""
     if isinstance(Wp_dev, I8Operand):
         limbs, s = _i8_quantize_torch(res_planes)
         W = Wp_dev.limbs.clone()
@@ -223,13 +269,15 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
 
 
 def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
-                 dtype=torch.float64, split=False, nbp_tile=None):
+                 dtype=torch.float64, split=False, nbp_tile=None,
+                 pack="plane"):
     """Build FusedConsts from per-sample arrays (numpy, float64 in).
 
     cov: [N, K] orthonormal covariate basis (rows of excluded samples
     arbitrary — zeroed here); res: [N, P] phenotype residuals;
     maskf: [N, P] per-trait inclusion; ind: [N] bool sample inclusion;
-    nb: number of packed bytes per SNP (defaults to ceil(N/4)).
+    nb: number of packed bytes per SNP (defaults to ceil(N/4));
+    pack: "plane" (PLINK bytes) or "sample" (BGEN byte planes).
     """
     cov = np.asarray(cov, np.float64)
     res = np.asarray(res, np.float64)
@@ -254,7 +302,10 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
         covz[:, :, None] * maskz[:, None, list(inc)]
     ).reshape(N, K * len(inc))
     Wext = np.concatenate([covz, resz, CM, maskz, indf[:, None]], axis=1)
-    Wp_out, usum = plane_pack(Wext, nb, split, device, dtype, nbp_tile)
+    if pack == "plane":
+        Wp_out, usum = plane_pack(Wext, nb, split, device, dtype, nbp_tile)
+    else:
+        Wp_out, usum = sample_pack(Wext, split, device, dtype)
     Mmat = np.einsum("nk,np,nl->pkl", covz, maskz[:, list(inc)], covz)
     covt_res = covz.T @ resz
     return FusedConsts(
@@ -273,18 +324,22 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
 
 def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
                       Mmat, n_ind, K, P, scale_denom, split=False, inc=None,
-                      has_male=False, device="cpu", dtype=torch.float64):
+                      has_male=False, wq_limbs=None, wq_scale=None,
+                      device="cpu", dtype=torch.float64):
     """FusedConsts from the JAX package's FusedConsts fields as numpy
     arrays: the float operand `Wp`, or `limbs` + `scale` for the int8
-    operand. Float fields land in `dtype` on `device`; the int8 limbs
-    and their float32 scales keep their types."""
+    operand, and for BGEN the narrow SQ operand's `wq_limbs` +
+    `wq_scale` (the JAX package's separate Wq I8Operand). Float fields
+    land in `dtype` on `device`; the int8 limbs and their float32 scales
+    keep their types."""
     if (Wp is None) == (limbs is None):
         raise ValueError("give exactly one of Wp or limbs/scale")
-    if limbs is not None:
-        op = I8Operand(_to_dev(limbs, device, torch.int8),
-                       _to_dev(scale, device, torch.float32))
-    else:
-        op = _to_dev(Wp, device, dtype)
+
+    def i8(lb, sc):
+        return I8Operand(_to_dev(lb, device, torch.int8),
+                         _to_dev(sc, device, torch.float32))
+
+    op = i8(limbs, scale) if limbs is not None else _to_dev(Wp, device, dtype)
     return FusedConsts(
         Wp=op, usum=_to_dev(usum, device, dtype),
         covt_res=_to_dev(covt_res, device, dtype),
@@ -292,6 +347,7 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
         P=int(P), scale_denom=float(scale_denom), split=bool(split),
         inc=None if inc is None else tuple(int(i) for i in inc),
         has_male=bool(has_male),
+        Wq=None if wq_limbs is None else i8(wq_limbs, wq_scale),
     )
 
 
@@ -501,3 +557,119 @@ def pad_raw(raw: np.ndarray, nbp: int | None = None) -> np.ndarray:
     out = np.zeros((B, nbp), dtype=np.uint8)
     out[:, :nb] = raw
     return out
+
+
+# ---------------------------------------------------------------------------
+# BGEN v1.2 8-bit fused scorer (sample-ordered operand)
+# ---------------------------------------------------------------------------
+
+
+def _bgen_combine(outs):
+    """(D0, D1, Q0, Q1, Q2, M) byte-plane products -> (S1, SQ, SM, IL):
+    dosage, squared-dosage, missing and info-linear (4*p0 + p1)
+    products of the raw (missing-as-zero) dosages."""
+    D0, D1, Q0, Q1, Q2, M = outs
+    S1 = (2.0 * D0 + D1) / 255.0
+    SQ = (65536.0 * Q2 + 256.0 * Q1 + Q0) / (255.0 * 255.0)
+    IL = (4.0 * D0 + D1) / 255.0
+    return S1, SQ, M, IL
+
+
+def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
+                        dtype=torch.float64):
+    """planes: [B, 2, Np] uint8 (Np a multiple of _TC, pad samples zero);
+    Wp: the sample_pack operand, an I8Operand (or on the CPU a float
+    [Np, Cp] tensor); Wq: the narrow SQ-consumer I8Operand (sample_pack
+    of Wext[:, qs:], given with qs and C_used), or None to use the full
+    width. Returns (S1, SQ, SM, IL) each [B, Cp]; with a narrow Wq, SQ's
+    columns outside [qs:C_used] are ZERO.
+
+    The int8 operand goes through kernels.bgen_i8_products — the CUDA
+    kernel for CUDA tensors, its plain version for CPU tensors — whose
+    exact int64 products fold into `dtype` (float64: exact for every
+    limb product)."""
+    if not isinstance(Wp, I8Operand):
+        if planes.is_cuda:
+            raise NotImplementedError(
+                "the f32/bf16 BGEN kernel (_bgen_kernel_split) is not yet "
+                "ported to regenie_tpu_torch")
+        return bgen_fused_products_plain(planes, Wp, dtype)
+    if Wq is None:
+        Wq, qs = Wp, 0
+    D0, D1, Q0, Q1, Q2, M = kernels.bgen_i8_products(planes, Wp.limbs, Wq.limbs)
+    D0, D1, M = (i8_fold(x, Wp.scale, dtype) for x in (D0, D1, M))
+    Q0, Q1, Q2 = (i8_fold(x, Wq.scale, dtype) for x in (Q0, Q1, Q2))
+    S1, SQn, SM, IL = _bgen_combine((D0, D1, Q0, Q1, Q2, M))
+    if not qs:
+        return S1, SQn, SM, IL
+    # scatter the narrow SQ back onto the full column frame (the other
+    # columns are never read downstream)
+    nq = C_used - qs
+    SQ = torch.zeros_like(S1)
+    SQ[:, qs : qs + nq] = SQn[:, :nq]
+    return S1, SQ, SM, IL
+
+
+def bgen_fused_products_plain(planes, Wp, dtype=torch.float64):
+    """Plain PyTorch version of bgen_fused_products (the counterpart of
+    the JAX package's bgen_fused_products_xla): decode the planes to the
+    six byte indicators in the operand's dtype and take six matmuls
+    against the full-width operand. An I8Operand folds its limbs to the
+    quantized values in `dtype` first."""
+    if isinstance(Wp, I8Operand):
+        Wp = i8_fold(Wp.limbs.to(torch.int32), Wp.scale, dtype)
+    step = kernels.PLAIN_CHUNK  # bounds the float planes at biobank N
+    outs = [0.0] * 6
+    for n0 in range(0, planes.shape[2], step):
+        w = Wp[n0 : n0 + step]
+        outs = [o + x.to(Wp.dtype) @ w for o, x in zip(
+            outs, kernels.bgen_indicators(planes[:, :, n0 : n0 + step]))]
+    return _bgen_combine(outs)
+
+
+def _bgen_prepare(S1, SQ, SM, IL, usum, C_used, ref_first):
+    """Slice + optional --ref-first transform of the BGEN raw products,
+    including the info-linear column set: with ds' = 2 - ds and
+    ph' = p2 (unclipped), 4*p2 + p1 = 4 - 4*p0 - 3*p1 on nonmissing, so
+    IL' = 4*(u - SM) + IL - 4*S1 (from P0 = (IL - S1)/2, P1 = 2*S1 - IL
+    given IL = 4*P0 + P1 and S1 = 2*P0 + P1)."""
+    S1c, SQc, SMc, ILc = (
+        S1[:, :C_used], SQ[:, :C_used], SM[:, :C_used], IL[:, :C_used])
+    if ref_first:
+        ILc = 4.0 * (usum[None, :] - SMc) + ILc - 4.0 * S1c
+        S1c, SQc = ref_first_products(S1c, SQc, SMc, usum)
+    return S1c, SQc, SMc, ILc
+
+
+def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
+                    ref_first=False, strict=False):
+    """QT block function over BGEN probability byte planes: the QT score
+    outputs plus the raw product slices and the info-linear products
+    (for the INFO column). With the kernel, an int8 operand's squared-
+    dosage products run against consts.Wq, the narrow [maskf | ind]
+    operand, whose columns start at qs = C_used - (P + 1).
+    use_kernel=False takes the plain products on any device."""
+    C_used = consts.layout_C()
+    Wq = consts.Wq if use_kernel else None
+    qs = C_used - (consts.P + 1) if Wq is not None else 0
+
+    def run(planes):
+        dt = consts.usum.dtype
+        if use_kernel:
+            S1, SQ, SM, IL = bgen_fused_products(planes, consts.Wp, Wq, qs,
+                                                 C_used, dt)
+        else:
+            S1, SQ, SM, IL = bgen_fused_products_plain(planes, consts.Wp, dt)
+        usum = consts.usum.to(S1.dtype)
+        S1c, SQc, SMc, ILc = _bgen_prepare(S1, SQ, SM, IL, usum[:C_used],
+                                           C_used, ref_first)
+        flip = torch.zeros(planes.shape[0], dtype=torch.bool,
+                           device=planes.device)
+        stats, denum, scale_fac, low, _af = fused_epilogue(
+            S1c, SQc, SMc, flip, usum, consts.covt_res.to(S1c.dtype),
+            consts.Mmat.to(S1c.dtype), consts.K, consts.P,
+            consts.scale_denom, consts.n_ind, 0, consts.inc, strict,
+        )
+        return stats, denum, scale_fac, low, S1c, SQc, SMc, ILc
+
+    return run

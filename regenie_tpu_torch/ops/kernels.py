@@ -5,6 +5,8 @@ Kernels (sources under ops/csrc/, one shared library each):
 
 - fused_i8 (csrc/fused_i8.cu): the int8 fused Step-2 products, replacing
   the Pallas kernel regenie_tpu/ops/fused_score.py:403 _fused_kernel_i8.
+- bgen_i8 (csrc/bgen_i8.cu): the six BGEN 8-bit dosage products, replacing
+  the Pallas kernel regenie_tpu/ops/fused_score.py:1093 _bgen_kernel_i8.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC` into regenie_tpu_torch/_build/ (git-ignored), at first
@@ -31,7 +33,14 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = {"fused_i8": "fused_i8.cu"}
+SOURCES = {"fused_i8": "fused_i8.cu", "bgen_i8": "bgen_i8.cu"}
+# argument types of each library's `<name>_launch` entry point
+_ARGTYPES = {
+    "fused_i8": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+    + [ctypes.c_void_p],
+    "bgen_i8": [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p],
+}
 _libs = {}
 
 
@@ -87,8 +96,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         fn = getattr(lib, f"{name}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         _libs[name] = lib
     return lib
 
@@ -165,3 +173,101 @@ def fused_i8_products(raw, limbs):
 
 
 fused_i8_products.launches = 0
+
+
+# samples per chunk of the plain versions' float64 products on CUDA (one
+# [2048, 400,128] float64 plane would take 6.6 GB)
+PLAIN_CHUNK = 32768
+
+
+def bgen_indicators(planes):
+    """[B, 2, n] uint8 probability planes -> the six [B, n] int32
+    multiplicands of the BGEN products, (k0, k1, h0, h1, h2, miss): miss
+    = k0 + k1 > 255, k0 = k1 = 0 there, and h0, h1, h2 the bytes 0, 1, 2
+    of d2 = (2 k0 + k1)^2."""
+    k0 = planes[:, 0].to(torch.int32)
+    k1 = planes[:, 1].to(torch.int32)
+    miss = (k0 + k1) > 255
+    k0 = torch.where(miss, 0, k0)
+    k1 = torch.where(miss, 0, k1)
+    d2 = (2 * k0 + k1) ** 2
+    return k0, k1, d2 & 255, (d2 >> 8) & 255, d2 >> 16, miss.to(torch.int32)
+
+
+def bgen_i8_products_plain(planes, wp, wq):
+    """Plain version of the bgen_i8 kernel: for planes [B, 2, Np] uint8,
+    wp [Np, Cw] int8 and wq [Np, Cq] int8 returns (D0, D1, Q0, Q1, Q2, M)
+    int64: D0, D1 and M the products of k0, k1 and miss with wp, Q0, Q1
+    and Q2 those of h0, h1 and h2 with wq (bgen_indicators). Integer
+    (int64) matmuls on the CPU; float64 on CUDA, chunked over samples,
+    exact there because every partial sum is an integer below 2^53
+    (|sum| <= 255 * 128 * Np)."""
+    cpu = planes.device.type == "cpu"
+    dt = torch.int64 if cpu else torch.float64
+    Np = planes.shape[2]
+    step = Np if cpu else PLAIN_CHUNK
+    acc = [0] * 6
+    for n0 in range(0, Np, step):
+        w = wp[n0 : n0 + step].to(dt)
+        q = wq[n0 : n0 + step].to(dt)
+        acc = [a + x.to(dt) @ op for a, x, op in zip(
+            acc, bgen_indicators(planes[:, :, n0 : n0 + step]),
+            (w, w, q, q, q, w))]
+    return tuple(a.to(torch.int64) for a in acc)
+
+
+def bgen_i8_products(planes, wp, wq):
+    """planes [B, 2, Np] uint8, wp [Np, Cw] int8, wq [Np, Cq] int8 ->
+    (D0, D1, Q0, Q1, Q2, M), int64, [B, Cw] for D0, D1, M and [B, Cq] for
+    the Q (see bgen_i8_products_plain). CUDA tensors launch the
+    csrc/bgen_i8.cu kernel on the current stream; CPU tensors take the
+    plain version."""
+    devs = {t.device for t in (planes, wp, wq)}
+    if devs == {torch.device("cpu")}:
+        return bgen_i8_products_plain(planes, wp, wq)
+    if len(devs) != 1 or not planes.is_cuda:
+        raise ValueError("bgen_i8_products: planes, wp and wq must be on the "
+                         "same CUDA device (or all on the CPU)")
+    if planes.dtype != torch.uint8 or wp.dtype != torch.int8 \
+            or wq.dtype != torch.int8:
+        raise TypeError("bgen_i8_products: planes must be uint8, wp and wq int8")
+    if planes.dim() != 3 or planes.shape[1] != 2 or wp.dim() != 2 \
+            or wq.dim() != 2:
+        raise ValueError("bgen_i8_products: planes [B, 2, Np], wp [Np, Cw], "
+                         "wq [Np, Cq]")
+    B, _, Np = planes.shape
+    Cw, Cq = wp.shape[1], wq.shape[1]
+    if wp.shape[0] != Np or wq.shape[0] != Np:
+        raise ValueError(f"bgen_i8_products: planes have {Np} samples, wp "
+                         f"{wp.shape[0]}, wq {wq.shape[0]}")
+    if Np == 0 or Np % 16 or Cw % 16 or Cq % 16:
+        raise ValueError("bgen_i8_products: Np (> 0), Cw and Cq must be "
+                         "multiples of 16")
+    if not all(t.is_contiguous() for t in (planes, wp, wq)):
+        raise ValueError("bgen_i8_products: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (planes, wp, wq)):
+        raise ValueError("bgen_i8_products: inputs must be 16-byte aligned")
+    outs = ([torch.empty((B, Cw), dtype=torch.int64, device=planes.device)
+             for _ in range(3)]
+            + [torch.empty((B, Cq), dtype=torch.int64, device=planes.device)
+               for _ in range(3)])
+    D0, D1, M, Q0, Q1, Q2 = outs
+    if B == 0:
+        return D0, D1, Q0, Q1, Q2, M
+    lib = _lib("bgen_i8")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.bgen_i8_launch(
+            planes.data_ptr(), wp.data_ptr(), wq.data_ptr(),
+            *(o.data_ptr() for o in outs), B, Np, Cw, Cq, stream)
+    if err != 0:
+        raise RuntimeError(f"bgen_i8 kernel launch failed: CUDA error {err}")
+    bgen_i8_products.launches += 1
+    return D0, D1, Q0, Q1, Q2, M
+
+
+bgen_i8_products.launches = 0
+
+# every kernel wrapper by kernel name, for code that resets or reads the
+# launch counts of a run
+WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products}

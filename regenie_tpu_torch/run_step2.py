@@ -1,13 +1,13 @@
-"""Step 2 on quantitative traits from PLINK BED hardcalls, through the
-fused packed-bytes scorer (the port of the QT/BED slice of
-regenie_tpu/run_step2.py).
+"""Step 2 on quantitative traits from PLINK BED hardcalls or BGEN v1.2
+8-bit dosages, through the fused scorer (the port of the QT/BED and
+QT/BGEN slices of regenie_tpu/run_step2.py).
 
 Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
 compute_res (:2386) and the .regenie writers: per chromosome the LOCO
 residuals enter the fused operand, and each block of packed genotype
-bytes is scored by three products and a small epilogue on the device
-(ops/fused_score.py), with AF/MAC/genotype counts read from the same
-product columns.
+bytes (three products) or of BGEN probability byte planes (six products)
+is scored with a small epilogue on the device (ops/fused_score.py), with
+AF/MAC/INFO/genotype counts read from the same product columns.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from .config import QT, Params
+from .io.bgen import extract_planes_block, require_planes
 from .io.files import iter_lines, open_read, open_write, string_split
 from .io.geno import make_blocks
+from .io.native import planes_lib
 from .io.output import (block_prefixes, format_block_htp,
                         format_block_single, header_htp, header_single,
                         htp_prefixes, native_formatter, sumstat_line_htp,
@@ -44,7 +46,16 @@ def unported(params: Params) -> Optional[str]:
         (params.step != 2, "Step 1"),
         (params.trait_mode != QT,
          "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
-        (params.file_type != "bed", f"{params.file_type.upper()} input"),
+        (params.file_type not in ("bed", "bgen"),
+         f"{params.file_type.upper()} input"),
+        # the JAX package sends these BGEN runs to its dense dosage path
+        # (fused_ok, run_step2.py:793-806), which is not ported
+        (params.file_type == "bgen" and params.htp_out,
+         "BGEN input with --htp"),
+        (params.file_type == "bgen" and not params.split_by_pheno,
+         "BGEN input with merged output (--no-split)"),
+        (params.file_type == "bgen" and params.test_type != 0,
+         "BGEN input with --test dominant/recessive"),
         (bool(params.set_list), "gene-based tests (--set-list)"),
         (bool(params.interaction_var), "interaction tests"),
         (params.trait_set, "multi-trait tests (--mt)"),
@@ -162,8 +173,7 @@ class BlockResult:
     mac_t: np.ndarray  # [B, P]
     af1: np.ndarray
     ns1: np.ndarray
-    n_rr: np.ndarray
-    n_aa: np.ndarray
+    info_t: Optional[np.ndarray] = None  # [B, P] INFO (BGEN)
     genocounts: Optional[np.ndarray] = None  # [B, 6, P] (htp mode)
 
 
@@ -186,7 +196,8 @@ def _fetch_packed(vals: dict) -> dict:
 
 
 class Step2Engine:
-    """Association-test state and per-block fused scoring (QT, BED).
+    """Association-test state and per-block fused scoring (QT; BED or
+    BGEN).
 
     device: where the operand lives and the products run (resolved by
     utils.device.resolve_device). kernel=False keeps a float64 operand
@@ -306,19 +317,25 @@ class Step2Engine:
         return bhat, se, chisq, logp
 
     def fused_ok(self) -> bool:
-        """Whether the fused packed-bytes scorer can run this QT/BED
-        analysis: it is the port's only Step-2 path, so everything the
-        reference keeps on its dense path (--nocov-approx, --mcc) is not
-        yet ported."""
+        """Whether the fused scorer can run this QT analysis on BED bytes
+        or BGEN planes: it is the port's only Step-2 path, so everything
+        the reference keeps on its dense path (--nocov-approx, --mcc) is
+        not yet ported."""
         params = self.params
-        return (params.trait_mode == QT and self.gd._bed is not None
+        src = self.gd._bed is not None or self.gd._bgen is not None
+        return (params.trait_mode == QT and src
                 and not params.skip_cov_res and not params.mcc_test)
 
     def read_block_raw(self, bsnps) -> np.ndarray:
-        """[B, nb] packed 2-bit genotype bytes of a block on the FILE
-        sample axis: the unpadded mmap view when the variants are
-        consecutive in the file (no host copy); byte-tile padding
-        happens on the device in _fused_upload."""
+        """A block's genotype source on the FILE sample axis, unpadded
+        (sample-tile padding happens on the device in _fused_upload).
+        BED: [B, nb] packed 2-bit bytes, the mmap view itself when the
+        variants are consecutive in the file (no host copy). BGEN:
+        [B, 2, N_file] probability byte planes from the native extractor,
+        which raises on a record it cannot read."""
+        if self.gd._bgen is not None:
+            return extract_planes_block(self.gd._bgen,
+                                        [s.offset for s in bsnps])
         offsets = np.array([s.offset for s in bsnps])
         start, stop = int(offsets[0]), int(offsets[-1]) + 1
         raw = self.gd._bed.read_block_bytes(start, stop - start)
@@ -327,7 +344,9 @@ class Step2Engine:
         return np.ascontiguousarray(raw)
 
     def _fused_nfile(self) -> int:
-        """Sample count on the BED file's sample axis."""
+        """Sample count on the genotype file's sample axis."""
+        if self.gd._bgen is not None:
+            return self.gd._bgen.n_samples_file
         return self.gd._bed.n_samples
 
     def _scatter_file(self, x):
@@ -344,11 +363,13 @@ class Step2Engine:
     def _ensure_fused_consts(self):
         """(Re)build the fused-scorer constants; the residual columns
         change per chromosome, so keyed on cur_chrom. The chromosome-
-        independent columns (cov/CM/mask/ind) are packed once; residual
-        columns start at zero and are patched on the device."""
+        independent columns (cov/CM/mask/ind, and for BGEN with the
+        kernel the narrow [maskf | ind] SQ operand Wq) are packed once;
+        residual columns start at zero and are patched on the device."""
         if self._fused_chrom == self.cur_chrom:
             return
         pd, params = self.pd, self.params
+        is_bgen = self.gd._bgen is not None
         nb = (self._fused_nfile() + 3) // 4
         res_f = self._scatter_file(self.res)
         if self._fused_static is None:
@@ -359,16 +380,28 @@ class Step2Engine:
             base = fsc.build_consts(
                 cov_f, np.zeros_like(res_f), mask_f, ind_f, self.scale_denom,
                 nb=nb, device=self.device, split=self.split,
+                pack="sample" if is_bgen else "plane",
             )
             covz_f = cov_f * ind_f.astype(np.float64)[:, None]
             Cp = -(-base.layout_C() // 128) * 128
+            Wq = None
+            if is_bgen and self.split == "i8":
+                indz = ind_f.astype(np.float64)[:, None]
+                Wq, _ = fsc.sample_pack(
+                    np.concatenate([mask_f * indz, indz], axis=1), "i8",
+                    self.device)
             self._fused_static = (
                 base, covz_f,
-                base.usum.cpu().numpy().astype(np.float64), Cp,
+                base.usum.cpu().numpy().astype(np.float64), Cp, Wq,
             )
-        base, covz_f, usum_static, Cp = self._fused_static
+        base, covz_f, usum_static, Cp, Wq = self._fused_static
         K, P = base.K, base.P
-        res_pl = torch.from_numpy(fsc.plane_order_rows(res_f, nb)).to(
+        if is_bgen:
+            res_pl = np.zeros((fsc.op_nbp(base.Wp), P))
+            res_pl[: res_f.shape[0]] = res_f
+        else:
+            res_pl = fsc.plane_order_rows(res_f, nb)
+        res_pl = torch.from_numpy(res_pl).to(
             self.device, torch.float32 if self.split == "i8" else torch.float64)
         Wp = fsc.patch_res_columns(base.Wp, res_pl, K, P, Cp)
         u = usum_static.copy()
@@ -378,12 +411,18 @@ class Step2Engine:
             covt_res=torch.from_numpy(covz_f.T @ res_f).to(self.device),
             Mmat=base.Mmat, n_ind=base.n_ind, K=K, P=P,
             scale_denom=base.scale_denom, split=base.split, inc=base.inc,
+            Wq=Wq,
         )
-        # --ref-first swaps alleles of the raw BED bytes in product space
-        self._fused_fn = fsc.make_qt_block_fn(
-            self._fused_consts, self.kernel, params.test_type,
-            bool(params.ref_first), strict=self.strict,
-        )
+        # --ref-first swaps alleles of the raw bytes in product space
+        if is_bgen:
+            self._fused_fn = fsc.make_qt_bgen_fn(
+                self._fused_consts, self.kernel, bool(params.ref_first),
+                strict=self.strict)
+        else:
+            self._fused_fn = fsc.make_qt_block_fn(
+                self._fused_consts, self.kernel, params.test_type,
+                bool(params.ref_first), strict=self.strict,
+            )
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
 
@@ -411,9 +450,10 @@ class Step2Engine:
         return (H1 + v * SMh[:, icol]) < self.params.min_homs
 
     def _fused_upload(self, raw) -> torch.Tensor:
-        """Packed block -> device tensor, zero-padded to the operand's
-        byte count. Idempotent, so the prefetch thread can upload block
-        k+1 while the device scores block k."""
+        """Block -> device tensor, its last (byte or sample) axis zero-
+        padded to the operand's contraction length. Idempotent, so the
+        prefetch thread can upload block k+1 while the device scores
+        block k."""
         if isinstance(raw, torch.Tensor):
             return raw
         with warnings.catch_warnings():
@@ -422,26 +462,39 @@ class Step2Engine:
             raw_t = torch.from_numpy(raw)
         raw_t = raw_t.to(self.device)
         nbp = self._fused_op_nbp
-        if raw_t.shape[1] < nbp:
-            out = torch.zeros((raw_t.shape[0], nbp), dtype=torch.uint8,
+        if raw_t.shape[-1] < nbp:
+            out = torch.zeros(raw_t.shape[:-1] + (nbp,), dtype=torch.uint8,
                               device=self.device)
-            out[:, : raw_t.shape[1]] = raw_t
+            out[..., : raw_t.shape[-1]] = raw_t
             raw_t = out
         return raw_t
 
+    def _fused_info_t(self, ILh, SQh, msl, ns_t, af_t):
+        """Per-trait MACH INFO from the product columns: the per-sample
+        info numerator 4*ph + p1 - ds^2 sums to IL - SQ over each trait
+        mask (compute_aaf_info, Geno.cpp:3110-3142)."""
+        info_num_t = ILh[:, msl] - SQh[:, msl]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            info_t = 1.0 - info_num_t / (2.0 * ns_t * af_t * (1.0 - af_t))
+        return np.where((af_t == 0) | (af_t == 1), 1.0, info_t)
+
     def test_raw_block_fused(self, raw, bsnps) -> Tuple[BlockResult, np.ndarray]:
-        """Fused pipeline for a packed BED block: three products over the
-        raw bytes replace decode/impute/residualize/score AND the
-        per-variant stat pass — AF/MAC/genotype counts all come from the
-        same product columns."""
+        """Fused pipeline for a block of packed BED bytes (three products)
+        or BGEN planes (six products): the products replace decode/
+        impute/residualize/score AND the per-variant stat pass — AF/MAC/
+        INFO/genotype counts all come from the same product columns."""
         params, pd = self.params, self.pd
         self._ensure_fused_consts()
         consts = self._fused_consts
         B, P = len(bsnps), consts.P
-        stats, denum, scale_fac, low_var, S1, SQ, SM = self._fused_fn(
-            self._fused_upload(raw))
-        f = _fetch_packed(dict(s1=S1, sq=SQ, sm=SM, st=stats, d=denum,
-                               g=scale_fac, l=low_var))
+        is_bgen = self.gd._bgen is not None
+        outs = self._fused_fn(self._fused_upload(raw))
+        stats, denum, scale_fac, low_var, S1, SQ, SM = outs[:7]
+        fd = dict(s1=S1, sq=SQ, sm=SM, st=stats, d=denum, g=scale_fac,
+                  l=low_var)
+        if is_bgen:
+            fd["il"] = outs[7]
+        f = _fetch_packed(fd)
         S1h, SQh, SMh = f["s1"], f["sq"], f["sm"]
         stats, denum, scale_fac, low_var = f["st"], f["d"], f["g"], f["l"]
         flipped = np.zeros(B, dtype=bool)  # QT never flips (with_flip=False)
@@ -459,8 +512,6 @@ class Step2Engine:
         with np.errstate(divide="ignore", invalid="ignore"):
             af_t = total_t / (2.0 * ns_t)
         mac_t = np.minimum(total_t, 2.0 * ns_t - total_t)
-        n_aa1 = (SQh[:, icol] - total1) / 2.0
-        n_rr1 = ns1 - total1 + n_aa1
 
         mac_ignored, ignored_trait = self._mac_filters(params, bsnps, mac1, mac_t, B)
         if params.test_type == 2 and params.min_homs > 0:
@@ -470,6 +521,11 @@ class Step2Engine:
         # low_var excluded from the tally (it counts MAC/minHOMs only)
         self.n_ignored += int(mac_ignored.sum())
         ignored = mac_ignored | low_var
+        info_t = None
+        if is_bgen:
+            info_t = self._fused_info_t(f["il"], SQh, msl, ns_t, af_t)
+            if params.set_min_info:
+                ignored_trait = ignored_trait | (info_t < params.min_info)
 
         bhat, se, chisq, logp = self._qt_post(stats, denum, scale_fac, flipped)
         result = BlockResult(
@@ -477,9 +533,7 @@ class Step2Engine:
             test_fail=np.zeros((B, P), dtype=bool),
             ignored=ignored, ignored_trait=ignored_trait,
             af_t=af_t, ns_t=ns_t, scale_fac=scale_fac, mac_t=mac_t,
-            af1=af1, ns1=np.round(ns1).astype(np.int64),
-            n_rr=np.round(n_rr1).astype(np.int64),
-            n_aa=np.round(n_aa1).astype(np.int64),
+            af1=af1, ns1=np.round(ns1).astype(np.int64), info_t=info_t,
         )
         if params.htp_out:
             a_t = (SQh[:, msl] - total_t) / 2.0
@@ -554,7 +608,9 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
             writers[ph].write(format_block_single(
                 params, prefix[0], prefix[1], test_name,
                 skip=r.ignored | r.ignored_trait[:, ph],
-                af=r.af_t[:, ph], info=None, n=r.ns_t[:, ph],
+                af=r.af_t[:, ph],
+                info=r.info_t[:, ph] if r.info_t is not None else None,
+                n=r.ns_t[:, ph],
                 beta=r.bhat[:, ph], se=r.se[:, ph], chisq=r.chisq[:, ph],
                 logp=r.logp[:, ph], test_fail=r.test_fail[:, ph],
             ))
@@ -566,7 +622,8 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
             if not pd.pheno_pass[ph] or r.ignored_trait[b, ph] or writers[ph] is None:
                 continue
             writers[ph].write(sumstat_line_single(
-                params, bsnps[b], test_name, r.af_t[b, ph], None,
+                params, bsnps[b], test_name, r.af_t[b, ph],
+                r.info_t[b, ph] if r.info_t is not None else 1.0,
                 int(r.ns_t[b, ph]), r.bhat[b, ph], r.se[b, ph],
                 r.chisq[b, ph], r.logp[b, ph],
                 test_pass=not r.test_fail[b, ph],
@@ -602,6 +659,12 @@ def open_engine(params: Params, log=print, device=None):
         pd.Neff = pd.masked_indivs.sum(axis=0).astype(np.float64)
         eng.refresh_masks()
 
+    if gd._bgen is not None:
+        # the plane extractor is the only BGEN reader: fail before any
+        # work when it cannot run this file
+        require_planes(gd._bgen)
+        planes_lib()
+
     blocks = make_blocks(gd, params.block_size)
     if any(eng.non_par_flags(bsnps).any() for _, bsnps in blocks):
         raise NotImplementedError(
@@ -611,8 +674,9 @@ def open_engine(params: Params, log=print, device=None):
 
 
 def run_step2(params: Params, log=print, device=None) -> None:
-    """Step 2 QT on a BED file: one output file per trait. `device` as in
-    utils.device.resolve_device (CUDA unless the CPU is asked for)."""
+    """Step 2 QT on a BED or BGEN file: one output file per trait. `device`
+    as in utils.device.resolve_device (CUDA unless the CPU is asked
+    for)."""
     eng, blocks = open_engine(params, log, device)
     device, pd = eng.device, eng.pd
     params.total_n_block = len(blocks)
@@ -620,8 +684,9 @@ def run_step2(params: Params, log=print, device=None) -> None:
     log(usage_info_line(params))
     log(f" * # blocks: [{params.total_n_block}]")
     log(f" * # tested variants: [{params.n_variants}]")
-    log(f" * fused packed-bytes scorer on {device} "
-        f"({'int8 kernel' if eng.split == 'i8' else 'float64 plain products'})")
+    src = "BGEN" if eng.gd._bgen is not None else "BED"
+    log(f" * fused packed-bytes scorer on {device} ({src}, "
+        f"{'int8 kernel' if eng.split == 'i8' else 'float64 plain products'})")
 
     test_name = {0: "ADD", 1: "DOM", 2: "REC"}[params.test_type]
     writers, out_paths = setup_writers(params, pd.pheno_names, pd.pheno_pass)
@@ -639,9 +704,12 @@ def run_step2(params: Params, log=print, device=None) -> None:
     # device upload) of block k+1 overlaps the scoring and output of
     # block k (the reference's multithreaded readChunk, Data.cpp:2944)
     upload_ready = threading.Event()
+    read_s = []  # host seconds of each block's read (BGEN: inflate)
 
     def _fetch(bsnps):
+        t = time.time()
         raw = eng.read_block_raw(bsnps)
+        read_s.append(time.time() - t)
         if upload_ready.is_set():
             raw = eng._fused_upload(raw)
         return raw
@@ -701,4 +769,7 @@ def run_step2(params: Params, log=print, device=None) -> None:
     log(f"Number of ignored tests due to low MAC : {eng.n_ignored * params.n_pheno}")
     log(f" * block loop: {len(todo)} blocks, "
         f"{sum(len(b) for _, b in todo)} variants in {dt:.3f}s")
+    if read_s:
+        log(f" * host block reads: {len(read_s)} in {sum(read_s):.3f}s "
+            f"(mean {sum(read_s) / len(read_s):.3f}s, max {max(read_s):.3f}s)")
     log(f" * done ({dt:.1f}s)")

@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from chip_smoke import write_dataset
+from chip_smoke import write_bgen_dataset, write_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,7 +107,10 @@ def test_port_imports_no_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import regenie_tpu_torch, regenie_tpu_torch.run_step2, "
         "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
-        "regenie_tpu_torch.ops.kernels\n"
+        "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.io.bgen, "
+        "regenie_tpu_torch.io.native\n"
+        "from regenie_tpu_torch.io import native\n"
+        "native.planes_lib()\n"
         "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
         "or m.startswith('regenie_tpu.'))\n"
         "assert not bad, bad\n"
@@ -177,18 +180,28 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     ["--condition-list", "c.txt"],
     # a single trait keeps --nocov-approx, which the fused scorer rejects
     ["--nocov-approx", "--phenoColList", "Y2"],
+    # BGEN runs the JAX package keeps on its dense dosage path
+    ["bgen", "--htp", "X"], ["bgen", "--no-split"],
+    ["bgen", "--test", "dominant"],
 ])
 def test_unported_mode_raises(tmp_path, monkeypatch, flags):
     """Every mode the port does not have raises NotImplementedError, on
-    the CPU too; none silently runs something else."""
+    the CPU too; none silently runs something else. Flags after "bgen"
+    run on a BGEN input."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
     monkeypatch.setenv(DEVICE_ENV, "cpu")
 
-    prefix = _tiny_dataset(tmp_path)
-    argv = ["--bed", prefix, "--phenoFile", f"{tmp_path}/pheno.txt",
-            "--ignore-pred", "--out", f"{tmp_path}/o"]
+    if flags[0] == "bgen":
+        flags = flags[1:]
+        bgen = write_bgen_dataset(str(tmp_path), seed=0, N=40,
+                                  chroms=((1, 8),), P=3, n_inc=1, n_cov=3)
+        src = ["--bgen", bgen, "--sample", f"{tmp_path}/geno.sample"]
+    else:
+        src = ["--bed", _tiny_dataset(tmp_path)]
+    argv = src + ["--phenoFile", f"{tmp_path}/pheno.txt",
+                  "--ignore-pred", "--out", f"{tmp_path}/o"]
     if "--step" not in flags:
         argv = ["--step", "2"] + argv
     with pytest.raises(NotImplementedError, match="not yet ported"):
