@@ -10,25 +10,30 @@ Phases, each of which must pass:
    native libraries (the root native/ library, the port's BGEN plane
    extractor) load, and with which symbols.
 2. kernel: hold each kernel against its plain PyTorch version on the card
-   (integer products exactly equal) on ragged shapes and at the full width
-   of the repository's UKB shape (N=400,000 samples, P=50 traits of which
-   10 incomplete, K=20, blocks of 2048 variants), and time the kernel,
-   its plain version, its bound and the library yardstick.
+   on ragged shapes and at the full width of the repository's UKB shape
+   (N=400,000 samples, P=50 traits of which 10 incomplete, K=20, blocks
+   of 2048 variants): the int8 kernels' integer products exactly equal,
+   the float32-operand kernels' float64 products within 1e-12 of the same
+   product against |W|; and time the kernel, its plain version, its
+   bound and the library yardstick.
 3. BED slice: write a synthetic PLINK BED at that shape (M = 2 blocks of
    2048 variants, null phenotypes) and run the port's Step-2 CLI on the
-   card in this process; check the output files, that fused_i8 launched
-   once per block (and bgen_i8 never), and that the first block agrees
-   with the port's plain path (float64 operand, plain products) on the
-   card: max |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6, the repository's
-   cross-backend bar.
+   card in this process, twice: by default, where fused_i8 must launch
+   once per block and no other kernel, and with REGENIE_TPU_I8=0, where
+   fused_f32 must; check the output files, and that the first block of
+   each agrees with the port's plain path (float64 operand, plain
+   products) on the card: max |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6,
+   the repository's cross-backend bar.
 4. BGEN slice: the same on a synthetic 8-bit zlib BGEN at that shape
    (imputed-like probabilities, 1% missing; M = 2 blocks), through
-   --bgen/--sample: bgen_i8 launches once per block (and fused_i8
-   never); the first block meets the same bar, and its INFO and A1FREQ
-   agree with the plain path within rel 1e-9.
-5. cross-check: small runs through the port on the card and on the CPU,
-   a BED --htp run and a two-chromosome BGEN --minINFO run (N=2,000,
-   M=600 each); every output field meets the same bar.
+   --bgen/--sample: bgen_i8 (and with REGENIE_TPU_I8=0 bgen_f32)
+   launches once per block and no other kernel; the first block meets
+   the same bar, and its INFO and A1FREQ agree with the plain path
+   within rel 1e-9.
+5. cross-check: small runs through the port on the card (by default and
+   with REGENIE_TPU_I8=0) and on the CPU, a BED --htp run and a
+   two-chromosome BGEN --minINFO run (N=2,000, M=600 each); every output
+   field meets the same bar.
 
 The last lines of standard output are a JSON line with every kernel's
 numbers, the card's name and power limit (nvidia-smi), and
@@ -38,6 +43,7 @@ before any phase.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -50,18 +56,19 @@ import numpy as np
 
 # dense rates of one H100 SXM (NVIDIA data sheet, 700 W)
 PEAK_INT8_OPS = 1979e12
+PEAK_FP64_TC_OPS = 67e12  # FP64 tensor cores
 PEAK_BYTES = 3.35e12
 
 # the repository's UKB shape (bench.py, BENCH_NOTES.md)
 FULL = dict(N=400_000, P=50, n_inc=10, K=20, B=2048)
 SLICE_BLOCKS = 2  # variant blocks of each full-width slice run
 LOG10P_TOL, BETA_TOL = 1e-5, 1e-6
+F64_SUM_BAR = 1e-12  # float64 kernel sums: share of the product against |W|
 
 
 def run_cli(argv):
     """The port's CLI in this process, its console lines kept out of the
     smoke's output (the CLI writes them to <out>.log as well)."""
-    import contextlib
     import io
 
     from regenie_tpu_torch import cli
@@ -230,6 +237,13 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     return path
 
 
+def _bound(ops, nbytes, peak_ops):
+    """(bound ms, what bounds it): the larger of the operations over the
+    peak rate of their type and the compulsory bytes over the memory rate."""
+    ms_ops, ms_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ms_ops, ms_bytes), ("operations" if ms_ops >= ms_bytes else "bytes")
+
+
 def _time_ms(fn, reps):
     """Median milliseconds of fn() on the card (CUDA events, after one
     warm-up call)."""
@@ -269,10 +283,13 @@ def _check_i8_exact(raw, limbs, what):
     return err
 
 
-def _random_consts(rng, N, P, n_inc, K, device, pack="plane"):
-    """The port's int8 fused operand for random inputs of the given shape
-    (orthonormal covariates, n_inc traits with 5% missing); for
-    pack="sample" with the narrow [maskf | ind] operand in Wq."""
+def _random_consts(rng, N, P, n_inc, K, device, pack="plane", split="i8"):
+    """The port's fused operand for random inputs of the given shape
+    (orthonormal covariates, n_inc traits with 5% missing): the int8
+    limbs, or with split=False the float32 operand; for pack="sample"
+    with the narrow [maskf | ind] operand in Wq."""
+    import torch
+
     from regenie_tpu_torch.ops import fused_score as fsc
 
     ind = np.ones(N, bool)
@@ -281,11 +298,13 @@ def _random_consts(rng, N, P, n_inc, K, device, pack="plane"):
         maskf[rng.random(N) < 0.05, p] = 0.0
     res = rng.normal(size=(N, P)) * maskf
     cov = np.linalg.qr(rng.normal(size=(N, K)))[0]
+    op = torch.float32 if split is False else None
     c = fsc.build_consts(cov, res, maskf, ind, float(N - K), device=device,
-                         split="i8", pack=pack)
+                         split=split, pack=pack, op_dtype=op)
     if pack == "sample":
         tail = np.concatenate([maskf, ind[:, None].astype(float)], axis=1)
-        c = c._replace(Wq=fsc.sample_pack(tail, "i8", device)[0])
+        c = c._replace(Wq=fsc.sample_pack(tail, split, device,
+                                          op or torch.float64)[0])
     return c
 
 
@@ -342,8 +361,7 @@ def fused_i8_phase(dev, reps=10):
 
     ops = 2.0 * 3 * B * (4 * nbp) * Cw4
     nbytes = B * nbp + 4 * nbp * Cw4 + 3 * B * Cw4 * 4
-    bound_ms = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes"
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
     print(f"  fused_i8 full width: {ms:.3f} ms (median of {reps}), plain "
           f"{plain_ms:.3f} ms, library int8 GEMM without decode "
           f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
@@ -449,8 +467,7 @@ def bgen_i8_phase(dev, reps=10):
 
     ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
     nbytes = 2 * B * Np + Np * (Cw + Cq) + 8 * B * (3 * Cw + 3 * Cq)
-    bound_ms = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes"
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
     print(f"  bgen_i8 full width: {ms:.3f} ms (median of {reps}), plain "
           f"{plain_ms:.3f} ms, library: six int8 GEMMs of the shifted planes "
           f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
@@ -459,6 +476,172 @@ def bgen_i8_phase(dev, reps=10):
     return dict(name="bgen_i8", route="cuda",
                 source="regenie_tpu_torch/ops/csrc/bgen_i8.cu",
                 replaces="regenie_tpu/ops/fused_score.py:1093",
+                launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _check_f64_sums(name, got, want, bar, what):
+    """A float32-operand kernel against its plain version on the same card
+    tensors: every product within F64_SUM_BAR of the same product taken
+    against |W| (`bar`). Returns the max abs difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    share = max(float(((g - w).abs() / (F64_SUM_BAR * b).clamp(min=1e-300)).max())
+                for g, w, b in zip(got, want, bar))
+    print(f"  {name} {what}: max|kernel-plain|={err:.3e}, largest share of "
+          f"the bar {share:.3e}")
+    if share > 1.0:
+        raise AssertionError(f"{name} kernel differs from its plain version "
+                             f"({what}) beyond {F64_SUM_BAR:g} x |W| products")
+    return err
+
+
+def _f64_matmul_ms(mats, reps):
+    """Summed median milliseconds of one float64 torch.matmul per (A, W)
+    pair, each A built just before its timing and freed after it."""
+    import torch
+
+    total = 0.0
+    for make_a, w in mats:
+        a = make_a()
+        total += _time_ms(lambda: torch.matmul(a, w), reps)
+        del a
+    return total
+
+
+def fused_f32_phase(dev, reps=10):
+    """fused_f32: within the bar on ragged shapes, on an operand built by
+    the port at a small N, and at full width; times at full width."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    errs = []
+
+    def check(raw, wp, what):
+        errs.append(_check_f64_sums(
+            "fused_f32", kernels.fused_f32_products(raw, wp),
+            kernels.fused_f32_products_plain(raw, wp),
+            kernels.fused_f32_products_plain(raw, wp.abs()), what))
+
+    # ragged: rows off the row tile, bytes ending mid-stage, Cp 384 and a
+    # column count off the column tile
+    for B, nbp, Cp in ((37, 272, 400), (130, 512, 384)):
+        raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(dev)
+        wp = torch.from_numpy(rng.normal(size=(4, nbp, Cp)).astype(np.float32)).to(dev)
+        check(raw, wp, f"ragged B={B} nbp={nbp} Cp={Cp}")
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, split=False)
+    raw = torch.from_numpy(fsc.pad_raw(
+        rng.integers(0, 256, (37, 257), dtype=np.uint8))).to(dev)
+    check(raw, c.Wp, f"ragged, N=1025 operand {tuple(c.Wp.shape)}")
+
+    # full width: the main path's shapes (C_used = 321 -> Cp = 384), a
+    # random float32 operand
+    f = FULL
+    nbp = -(-((f["N"] + 3) // 4) // 256) * 256
+    B, Cp = f["B"], 384
+    raw = torch.randint(0, 256, (B, nbp), generator=gen, device=dev, dtype=torch.uint8)
+    wp = torch.randn((4, nbp, Cp), generator=gen, device=dev)
+    check(raw, wp, "full width")
+    ms = _time_ms(lambda: kernels.fused_f32_products(raw, wp), reps)
+    plain_ms = _time_ms(lambda: kernels.fused_f32_products_plain(raw, wp), 3)
+
+    # yardstick: one float64 torch.matmul (cuBLAS DGEMM) per product, of
+    # the indicators decoded beforehand against the widened operand
+    w2 = wp.reshape(4 * nbp, Cp).double()
+
+    def indicators(code):
+        r = raw.to(torch.int32)
+        return torch.cat([((r >> (2 * p)) & 3) == code for p in range(4)],
+                         1).double()  # [B, 4*nbp], p-major columns
+
+    library_ms = _f64_matmul_ms([(lambda k=k: indicators(k), w2)
+                                 for k in (0, 2, 1)], reps)
+    del w2
+
+    ops = 2.0 * 3 * B * (4 * nbp) * Cp
+    nbytes = B * nbp + 4 * nbp * Cp * 4 + 3 * B * Cp * 8
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_FP64_TC_OPS)
+    print(f"  fused_f32 full width: {ms:.3f} ms (median of {reps}), plain "
+          f"{plain_ms:.3f} ms, library: three float64 matmuls of decoded "
+          f"indicators {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}: {ops:.3e} FP64 ops, {nbytes / 1e9:.3f} GB); "
+          f"{ops / ms / 1e9:.2f} TFLOP/s = {bound_ms / ms:.1%} of the bound")
+    return dict(name="fused_f32", route="cuda",
+                source="regenie_tpu_torch/ops/csrc/fused_f32.cu",
+                replaces="regenie_tpu/ops/fused_score.py:331",
+                launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def bgen_f32_phase(dev, reps=10):
+    """bgen_f32: within the bar on ragged shapes, on an operand built by
+    the port at a small N, and at full width; times at full width."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    errs = []
+
+    def check(planes, wp, wq, what):
+        errs.append(_check_f64_sums(
+            "bgen_f32", kernels.bgen_f32_products(planes, wp, wq),
+            kernels.bgen_f32_products_plain(planes, wp, wq),
+            kernels.bgen_f32_products_plain(planes, wp.abs(), wq.abs()), what))
+
+    # ragged: rows off the row tile, samples ending mid-stage, columns off
+    # the column tile, every byte pair (about half of them missing)
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 768, 384, 128)):
+        planes = torch.from_numpy(rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(dev)
+        wp, wq = (torch.from_numpy(rng.normal(size=(Np, cw)).astype(np.float32)).to(dev)
+                  for cw in (Cw, Cq))
+        check(planes, wp, wq, f"ragged B={B} Np={Np} Cw={Cw} Cq={Cq}")
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, pack="sample", split=False)
+    Np = fsc.op_nbp(c.Wp)
+    check(_imputed_planes(gen, 37, 1025, Np, dev), c.Wp, c.Wq,
+          f"ragged, N=1025 operand {tuple(c.Wp.shape)} / {tuple(c.Wq.shape)}")
+
+    # full width: the main path's shapes (Cp = 384; the [maskf | ind] tail
+    # of 51 columns -> Cqp = 128), random float32 operands
+    f = FULL
+    Np = -(-f["N"] // 256) * 256
+    B, Cw, Cq = f["B"], 384, 128
+    planes = _imputed_planes(gen, B, f["N"], Np, dev)
+    wp = torch.randn((Np, Cw), generator=gen, device=dev)
+    wq = torch.randn((Np, Cq), generator=gen, device=dev)
+    check(planes, wp, wq, "full width")
+    ms = _time_ms(lambda: kernels.bgen_f32_products(planes, wp, wq), reps)
+    plain_ms = _time_ms(lambda: kernels.bgen_f32_products_plain(planes, wp, wq), 3)
+
+    # yardstick: six float64 torch.matmul (cuBLAS DGEMM), of the byte
+    # multiplicands decoded beforehand against the widened operands
+    wpd, wqd = wp.double(), wq.double()
+    library_ms = _f64_matmul_ms(
+        [(lambda i=i: kernels.bgen_indicators(planes)[i].double(), w)
+         for i, w in enumerate((wpd, wpd, wqd, wqd, wqd, wpd))], reps)
+    del wpd, wqd
+
+    ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
+    nbytes = 2 * B * Np + Np * (Cw + Cq) * 4 + 8 * B * (3 * Cw + 3 * Cq)
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_FP64_TC_OPS)
+    print(f"  bgen_f32 full width: {ms:.3f} ms (median of {reps}), plain "
+          f"{plain_ms:.3f} ms, library: six float64 matmuls of decoded "
+          f"bytes {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+          f"{ops:.3e} FP64 ops, {nbytes / 1e9:.3f} GB); "
+          f"{ops / ms / 1e9:.2f} TFLOP/s = {bound_ms / ms:.1%} of the bound")
+    return dict(name="bgen_f32", route="cuda",
+                source="regenie_tpu_torch/ops/csrc/bgen_f32.cu",
+                replaces="regenie_tpu/ops/fused_score.py:1054",
                 launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -502,10 +685,99 @@ def _read_counts():
     return {name: w.launches for name, w in kernels.WRAPPERS.items()}
 
 
+@contextlib.contextmanager
+def _i8_env(off):
+    """REGENIE_TPU_I8=0 set inside the block when `off`, else unset."""
+    os.environ.pop("REGENIE_TPU_I8", None)
+    if off:
+        os.environ["REGENIE_TPU_I8"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("REGENIE_TPU_I8", None)
+
+
+def _slice_cli(argv, kernel, what):
+    """One CLI run of a slice with the launch counts set to 0 just before
+    it and read just after: `kernel` must launch once per block and no
+    other kernel. Prints the per-block lines and the run's times."""
+    import torch
+
+    f = FULL
+    M = SLICE_BLOCKS * f["B"]
+    out = argv[-1]
+    _reset_counts()
+    t0 = time.time()
+    run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+
+    n_blocks = math.ceil(M / f["B"])
+    for p in range(f["P"]):
+        with open(f"{out}_Y{p + 1}.regenie") as fh:
+            n = sum(1 for _ in fh) - 1
+        if n != M:
+            raise AssertionError(f"{out}_Y{p + 1}.regenie has {n} rows, not {M}")
+    print(f"  {what}: {f['P']} output files of {M} rows; launches {counts} "
+          f"for {n_blocks} blocks")
+    want = {name: n_blocks if name == kernel else 0 for name in counts}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    with open(f"{out}.log") as fh:
+        log = fh.read().splitlines()
+    for ln in log:
+        if ln.startswith("   -block"):
+            print(f"  {ln.strip()}")
+    loop = [ln.strip(" *") for ln in log if "block loop:" in ln][0]
+    reads = [ln.strip(" *") for ln in log if "host block reads:" in ln][0]
+    loop_s = float(loop.rsplit(" in ", 1)[1].rstrip("s"))
+    print(f"  CLI wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up "
+          f"and output included); {loop} = {M / loop_s:.1f} variants/s; "
+          f"{reads}; on {card_line()}")
+    return counts[kernel]
+
+
+def _diff_record(what, logp, bhat, ref, inc):
+    """Print, not check, the first block's gaps to the plain path."""
+    for name, a, b in (("LOG10P", logp, ref.logp), ("BETA", bhat, ref.bhat)):
+        d = np.abs(a - b)
+        print(f"  first block {name}, {what}: max |diff| {np.nanmax(d):.3e} "
+              f"(incomplete traits {np.nanmax(d[:, inc]):.3e}, complete "
+              f"{np.nanmax(np.delete(d, inc, axis=1)):.3e}); not checked")
+
+
+def _f32_sums_block(eng, raw, is_bgen):
+    """(BETA, LOG10P) of a block with the products of the float32 operand
+    summed in float32 (the plain products, TF32 off), folded and scored in
+    float64: what the float64 sums of the fused_f32 / bgen_f32 kernels
+    buy."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+
+    c = eng._fused_consts
+    x = eng._fused_upload(raw)
+    C = c.layout_C()
+    if is_bgen:
+        S1, SQ, SM, IL = (t.double() for t in fsc.bgen_fused_products_plain(
+            x, c.Wp, torch.float32))
+        S1, SQ, SM, _ = fsc._bgen_prepare(S1, SQ, SM, IL, c.usum[:C], C, False)
+    else:
+        S1, SQ, SM = (t.double() for t in fsc.fused_products_plain(x, c.Wp))
+    flip = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    st, den, sf = (t.cpu().numpy() for t in fsc.fused_epilogue(
+        S1, SQ, SM, flip, c.usum, c.covt_res, c.Mmat, c.K, c.P,
+        c.scale_denom, c.n_ind, 0, c.inc, eng.strict)[:3])
+    bhat, _, _, logp = eng._qt_post(st, den, sf, np.zeros(x.shape[0], bool))
+    return bhat, logp
+
+
 def slice_phase(tmp, src):
     """The port's Step-2 QT CLI at full width on the card, on a BED
-    (src="bed") or a BGEN (src="bgen") file. Returns the launches of the
-    slice's kernel in the CLI run."""
+    (src="bed") or a BGEN (src="bgen") file, by default (int8 kernel) and
+    with REGENIE_TPU_I8=0 (float32 kernel) on the same dataset. Returns
+    the launches of each slice kernel in its CLI run."""
     import torch
 
     from regenie_tpu_torch import cli
@@ -514,7 +786,7 @@ def slice_phase(tmp, src):
 
     f = FULL
     M = SLICE_BLOCKS * f["B"]
-    kernel = {"bed": "fused_i8", "bgen": "bgen_i8"}[src]
+    kernels = {"bed": ("fused_i8", "fused_f32"), "bgen": ("bgen_i8", "bgen_f32")}[src]
     t0 = time.time()
     if src == "bed":
         geno = ["--bed", write_dataset(tmp, seed=1, N=f["N"], chroms=((1, M),),
@@ -528,52 +800,34 @@ def slice_phase(tmp, src):
           f"written in {time.time() - t0:.1f}s")
     argv = ["--step", "2", *geno, "--phenoFile", f"{tmp}/pheno.txt",
             "--covarFile", f"{tmp}/covar.txt", "--ignore-pred",
-            "--bsize", str(f["B"]), "--verbose", "--out", f"{tmp}/slice"]
+            "--bsize", str(f["B"]), "--verbose", "--out"]
     os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    launches = {}
+    for kernel, off in zip(kernels, (False, True)):
+        with _i8_env(off):
+            launches[kernel] = _slice_cli(
+                argv + [f"{tmp}/slice_{kernel}"], kernel,
+                f"{kernel} run" + (" (REGENIE_TPU_I8=0)" if off else ""))
 
-    _reset_counts()
-    t0 = time.time()
-    run_cli(argv)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = _read_counts()
-
-    n_blocks = math.ceil(M / f["B"])
-    for p in range(f["P"]):
-        with open(f"{tmp}/slice_Y{p + 1}.regenie") as fh:
-            n = sum(1 for _ in fh) - 1
-        if n != M:
-            raise AssertionError(f"slice_Y{p + 1}.regenie has {n} rows, not {M}")
-    print(f"  {f['P']} output files of {M} rows; launches {counts} for "
-          f"{n_blocks} blocks")
-    want = {name: n_blocks if name == kernel else 0 for name in counts}
-    if counts != want:
-        raise AssertionError(f"kernel launches {counts}, expected {want}")
-    with open(f"{tmp}/slice.log") as fh:
-        log = fh.read().splitlines()
-    for ln in log:
-        if ln.startswith("   -block"):
-            print(f"  {ln.strip()}")
-    loop = [ln.strip(" *") for ln in log if "block loop:" in ln][0]
-    reads = [ln.strip(" *") for ln in log if "host block reads:" in ln][0]
-    loop_s = float(loop.rsplit(" in ", 1)[1].rstrip("s"))
-    print(f"  CLI wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up "
-          f"and output included); {loop} = {M / loop_s:.1f} variants/s; "
-          f"{reads}; on {card_line()}")
-
-    # first block: the kernel path against the plain path, both on the card
-    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    # first block: each kernel path against the plain path, all on the card
+    params = cli.args_to_params(cli.build_parser().parse_args(argv + [f"{tmp}/x"]))
     eng, blocks = open_engine(params, log=lambda *a: None)
+    with _i8_env(True):
+        eng32 = Step2Engine(params, eng.gd, eng.pd, eng.blup_files, eng.log,
+                            eng.device)
     plain = Step2Engine(params, eng.gd, eng.pd, eng.blup_files, eng.log,
                         eng.device, kernel=False)
+    if eng32.op_dtype != torch.float32:
+        raise AssertionError("REGENIE_TPU_I8=0 did not select the float32 operand")
     chrom, bsnps = blocks[0]
     raw = eng.read_block_raw(bsnps)
-    out = []
-    for e in (eng, plain):
+    out = {}
+    for name, e in (("int8", eng), ("float32", eng32), ("plain", plain)):
         e.prep_chrom(chrom)
-        out.append(e.test_raw_block_fused(raw, bsnps)[0])
+        out[name] = e.test_raw_block_fused(raw, bsnps)[0]
+    ref, inc = out["plain"], list(eng._fused_consts.inc)
     if src == "bed":
-        # for the record, not checked: the same products folded and scored
+        # for the record, not checked: the int8 products folded and scored
         # in float32, as the JAX package does on a TPU (why the port uses
         # float64)
         c = eng._fused_consts
@@ -582,22 +836,25 @@ def slice_phase(tmp, src):
         st, den, sf = (x.double().cpu().numpy() for x in fsc.make_qt_block_fn(
             c32, True)(eng._fused_upload(raw))[:3])
         bhat32, _, _, logp32 = eng._qt_post(st, den, sf, np.zeros(len(bsnps), bool))
-        inc = list(c.inc)
-        for name, a, b in (("LOG10P", logp32, out[1].logp),
-                           ("BETA", bhat32, out[1].bhat)):
-            d = np.abs(a - b)
-            print(f"  first block {name}, float32 fold and epilogue: max |diff| "
-                  f"{np.nanmax(d):.3e} (incomplete traits {np.nanmax(d[:, inc]):.3e}, "
-                  f"complete {np.nanmax(np.delete(d, inc, axis=1)):.3e}); not checked")
-    _assert_close("first block LOG10P", out[0].logp, out[1].logp, LOG10P_TOL)
-    _assert_close("first block BETA", out[0].bhat, out[1].bhat, BETA_TOL)
-    if src == "bgen":
-        # the mask and ind columns quantize exactly, so these are exact
-        # integer sums on both paths
-        _assert_rel("first block INFO", out[0].info_t, out[1].info_t, 1e-9)
-        _assert_rel("first block A1FREQ", out[0].af_t, out[1].af_t, 1e-9)
+        _diff_record("int8 operand, float32 fold and epilogue", logp32, bhat32,
+                     ref, inc)
+    bhat32, logp32 = _f32_sums_block(eng32, raw, src == "bgen")
+    _diff_record("float32 operand, products summed in float32", logp32, bhat32,
+                 ref, inc)
+    for name in ("int8", "float32"):
+        _assert_close(f"first block LOG10P, {name} operand", out[name].logp,
+                      ref.logp, LOG10P_TOL)
+        _assert_close(f"first block BETA, {name} operand", out[name].bhat,
+                      ref.bhat, BETA_TOL)
+        if src == "bgen":
+            # the mask and ind columns are exact in both operands (0/1), so
+            # these are exact sums of integer products on every path
+            _assert_rel(f"first block INFO, {name} operand", out[name].info_t,
+                        ref.info_t, 1e-9)
+            _assert_rel(f"first block A1FREQ, {name} operand", out[name].af_t,
+                        ref.af_t, 1e-9)
     eng.gd.close()
-    return counts[kernel]
+    return launches
 
 
 def _compare_files(f_gpu, f_cpu):
@@ -641,8 +898,9 @@ def _compare_files(f_gpu, f_cpu):
 
 
 def cross_check_phase(tmp):
-    """Small runs through the port on the card and on the CPU: a BED
-    --htp run and a two-chromosome BGEN --minINFO run."""
+    """Small runs through the port on the card (by default and with
+    REGENIE_TPU_I8=0) and on the CPU: a BED --htp run and a
+    two-chromosome BGEN --minINFO run."""
     P = 4
     prefix = write_dataset(tmp, seed=2, N=2000, chroms=((1, 400), (2, 200)),
                            P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
@@ -662,17 +920,22 @@ def cross_check_phase(tmp):
                   "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
                   "--ignore-pred", "--bsize", "256"]
         os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
-        run_cli(common + ["--out", f"{d}/gpu"])
+        for off in (False, True):
+            with _i8_env(off):
+                run_cli(common + ["--out", f"{d}/gpu{int(off)}"])
         os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
         try:
             run_cli(common + ["--out", f"{d}/cpu"])
         finally:
             os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
-        worst = max(_compare_files(f"{d}/gpu_Y{p + 1}.regenie",
-                                   f"{d}/cpu_Y{p + 1}.regenie") for p in range(P))
-        rows = len(open(f"{d}/gpu_Y1.regenie").read().splitlines()) - 1
-        print(f"  {what}: card vs CPU, {P} traits x {rows} variants: every "
-              f"field within its bar (largest share of the bar used {worst:.3f})")
+        for off in (False, True):
+            worst = max(_compare_files(f"{d}/gpu{int(off)}_Y{p + 1}.regenie",
+                                       f"{d}/cpu_Y{p + 1}.regenie")
+                        for p in range(P))
+            rows = len(open(f"{d}/cpu_Y1.regenie").read().splitlines()) - 1
+            print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: card vs CPU, "
+                  f"{P} traits x {rows} variants: every field within its bar "
+                  f"(largest share of the bar used {worst:.3f})")
 
 
 def native_report():
@@ -719,13 +982,18 @@ def main() -> int:
     print(f"  build phase {time.time() - t0:.1f}s")
 
     print("[kernel]")
-    rows = [fused_i8_phase(dev), bgen_i8_phase(dev)]
-    torch.cuda.empty_cache()
-    for row, src in zip(rows, ("bed", "bgen")):
+    rows = []
+    for phase in (fused_i8_phase, bgen_i8_phase, fused_f32_phase, bgen_f32_phase):
+        rows.append(phase(dev))
+        torch.cuda.empty_cache()
+    launches = {}
+    for src in ("bed", "bgen"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             print(f"[{src} slice]")
-            row["launches"] = slice_phase(tmp, src)
+            launches.update(slice_phase(tmp, src))
         torch.cuda.empty_cache()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[cross-check]")
         cross_check_phase(tmp)

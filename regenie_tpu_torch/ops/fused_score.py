@@ -22,9 +22,10 @@ follows the one-pass algebra of compute_score_qt (Step2_Models.cpp:343).
 
 Operands keep the JAX package's layouts: the plane-packed [4, nbp, Cp]
 float operand and the int8 limb operand [4, nbp, 4*Cp] ([l0|l1|l2|l3]),
-so the same constants feed both packages. On CUDA the limb operand runs
-through the hand-written kernel (ops/kernels.py); on the CPU the
-operand is float64 and the products use the plain version.
+so the same constants feed both packages. On CUDA the limb operand (the
+default) and the float32 operand (REGENIE_TPU_I8=0) run through their
+hand-written kernels (ops/kernels.py), which sum in float64; on the CPU
+the operand is float64 and the products use the plain version.
 
 BGEN v1.2 8-bit input takes the sample-ordered operand [Np, Cp]
 (sample_pack) instead: the host ships the two probability byte planes
@@ -58,7 +59,7 @@ class FusedConsts(NamedTuple):
     """Precomputed constants for the fused scorer (one per
     run/chromosome, shapes independent of the SNP block)."""
 
-    Wp: object  # [4, nbp, Cp] float tensor, or an I8Operand
+    Wp: object  # [4, nbp, Cp] / [Np, Cp] float tensor, or an I8Operand
     usum: torch.Tensor  # [Cp] column sums of ind-masked Wext (for flips)
     covt_res: torch.Tensor  # [K, P]
     Mmat: torch.Tensor  # [nI, K, K]
@@ -69,7 +70,9 @@ class FusedConsts(NamedTuple):
     split: bool = False  # True for the int8 limb operand
     inc: tuple = None  # incomplete-trait indices (None = all P traits)
     has_male: bool = False  # chrX male tail columns (not built by the port)
-    Wq: object = None  # BGEN: narrow [Np, 4*Cqp] I8Operand of [maskf | ind]
+    # BGEN: the narrow operand of [maskf | ind], an [Np, 4*Cqp] I8Operand
+    # or a float32 [Np, Cqp] tensor
+    Wq: object = None
 
     def n_inc(self) -> int:
         return self.P if self.inc is None else len(self.inc)
@@ -150,18 +153,23 @@ def i8_fold(parts, scale, dtype=torch.float32):
 
 
 def split_mode(on_gpu):
-    """Operand encoding: int8 limbs ("i8") on CUDA, full-precision
-    float64 (False) on the CPU — as the JAX package picks per backend.
-    REGENIE_TPU_I8=0 asks for the f32 operand on the accelerator, whose
-    kernels are not ported: on CUDA it raises rather than run another
-    computation than the one asked for."""
+    """Operand encoding, as the JAX package picks it per backend: int8
+    limbs ("i8") on CUDA unless REGENIE_TPU_I8=0, which selects the float
+    operand (False; float32 on CUDA, see operand_dtype); the float64
+    operand (False) on the CPU, where REGENIE_TPU_I8 has no effect."""
     if not on_gpu:
         return False
-    if os.environ.get("REGENIE_TPU_I8") == "0":
-        raise NotImplementedError(
-            "REGENIE_TPU_I8=0 selects the f32 fused kernels _fused_kernel and "
-            "_bgen_kernel_split, not yet ported to regenie_tpu_torch")
-    return "i8"
+    return False if os.environ.get("REGENIE_TPU_I8") == "0" else "i8"
+
+
+def operand_dtype(split, on_gpu, use_kernel=True):
+    """dtype of a float operand: float32 where a kernel takes it (CUDA,
+    split False: the fused_f32 / bgen_f32 kernels, as the JAX package
+    builds dtype=float32 on a TPU), else float64 (the CPU, and the
+    plain products on any device). The constants stay float64."""
+    if on_gpu and use_kernel and split is False:
+        return torch.float32
+    return torch.float64
 
 
 def op_nbp(Wp):
@@ -254,7 +262,12 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
     Wp_dev: [4, nbp, Cp] or [Np, Cp] tensor, or I8Operand; res_planes:
     the matching [4, nbp, P] or [Np, P] tensor (float32 for the int8
     operand, which is re-quantized on the device with fresh column
-    scales)."""
+    scales). A float operand gets the residuals in full at its own dtype.
+    On a TPU the JAX package does not: regenie_tpu/run_step2.py:1125-1128
+    passes split=True with its float32 operand, so its patch
+    (regenie_tpu/ops/fused_score.py:251-257) writes only the bf16 high
+    part of each residual and drops the other two parts outside the
+    operand. That fault is not copied here (ROADMAP.md §3)."""
     if isinstance(Wp_dev, I8Operand):
         limbs, s = _i8_quantize_torch(res_planes)
         W = Wp_dev.limbs.clone()
@@ -270,8 +283,11 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
 
 def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
                  dtype=torch.float64, split=False, nbp_tile=None,
-                 pack="plane"):
+                 pack="plane", op_dtype=None):
     """Build FusedConsts from per-sample arrays (numpy, float64 in).
+    The constants (usum, covt_res, Mmat) land in `dtype`, a float operand
+    in `op_dtype` (default `dtype`); usum always sums the float64 Wext,
+    as the JAX package does.
 
     cov: [N, K] orthonormal covariate basis (rows of excluded samples
     arbitrary — zeroed here); res: [N, P] phenotype residuals;
@@ -303,9 +319,10 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
     ).reshape(N, K * len(inc))
     Wext = np.concatenate([covz, resz, CM, maskz, indf[:, None]], axis=1)
     if pack == "plane":
-        Wp_out, usum = plane_pack(Wext, nb, split, device, dtype, nbp_tile)
+        Wp_out, usum = plane_pack(Wext, nb, split, device, op_dtype or dtype,
+                                  nbp_tile)
     else:
-        Wp_out, usum = sample_pack(Wext, split, device, dtype)
+        Wp_out, usum = sample_pack(Wext, split, device, op_dtype or dtype)
     Mmat = np.einsum("nk,np,nl->pkl", covz, maskz[:, list(inc)], covz)
     covt_res = covz.T @ resz
     return FusedConsts(
@@ -324,22 +341,29 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
 
 def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
                       Mmat, n_ind, K, P, scale_denom, split=False, inc=None,
-                      has_male=False, wq_limbs=None, wq_scale=None,
+                      has_male=False, wq=None, wq_limbs=None, wq_scale=None,
                       device="cpu", dtype=torch.float64):
     """FusedConsts from the JAX package's FusedConsts fields as numpy
     arrays: the float operand `Wp`, or `limbs` + `scale` for the int8
-    operand, and for BGEN the narrow SQ operand's `wq_limbs` +
-    `wq_scale` (the JAX package's separate Wq I8Operand). Float fields
-    land in `dtype` on `device`; the int8 limbs and their float32 scales
-    keep their types."""
+    operand, and for BGEN the narrow SQ operand (the JAX package's
+    separate Wq), as the float array `wq` or as `wq_limbs` + `wq_scale`.
+    The constants land in `dtype` on `device`; the float operands keep
+    their dtypes (the JAX package's float32 on a TPU), the int8 limbs and
+    their float32 scales theirs."""
     if (Wp is None) == (limbs is None):
         raise ValueError("give exactly one of Wp or limbs/scale")
+    if wq is not None and wq_limbs is not None:
+        raise ValueError("give at most one of wq or wq_limbs/wq_scale")
 
     def i8(lb, sc):
         return I8Operand(_to_dev(lb, device, torch.int8),
                          _to_dev(sc, device, torch.float32))
 
-    op = i8(limbs, scale) if limbs is not None else _to_dev(Wp, device, dtype)
+    op = i8(limbs, scale) if limbs is not None else _to_dev(Wp, device)
+    if wq is not None:
+        wq = _to_dev(wq, device)
+    elif wq_limbs is not None:
+        wq = i8(wq_limbs, wq_scale)
     return FusedConsts(
         Wp=op, usum=_to_dev(usum, device, dtype),
         covt_res=_to_dev(covt_res, device, dtype),
@@ -347,19 +371,23 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
         P=int(P), scale_denom=float(scale_denom), split=bool(split),
         inc=None if inc is None else tuple(int(i) for i in inc),
         has_male=bool(has_male),
-        Wq=None if wq_limbs is None else i8(wq_limbs, wq_scale),
+        Wq=wq,
     )
 
 
 def fused_products(raw, Wp, dtype=torch.float32):
     """raw: [B, nbp] packed uint8 (zero-padded rows/cols); Wp: an
-    I8Operand, or on the CPU a [4, nbp, C] float operand. Returns
-    (S1, SQ, SM) each [B, Cp]: from the int8 operand in `dtype`, else in
-    the operand's dtype.
+    I8Operand, a float32 [4, nbp, C] operand, or on the CPU a float64
+    one. Returns (S1, SQ, SM) each [B, Cp]: from the int8 operand in
+    `dtype`, from the float32 operand in float64, else in the operand's
+    dtype.
 
-    The int8 operand goes through kernels.fused_i8_products — the CUDA
-    kernel for a CUDA tensor, its plain version for a CPU tensor — and
-    is folded as the JAX package does: S1 = 2H+E, SQ = 4H+E, SM = M.
+    The int8 operand goes through kernels.fused_i8_products, the float32
+    operand through kernels.fused_f32_products (exact products, float64
+    sums) — each the CUDA kernel for a CUDA tensor, its plain version for
+    a CPU tensor — and the class products fold as the JAX package does:
+    S1 = 2H+E, SQ = 4H+E, SM = M. A float64 operand takes the plain
+    products on the CPU and raises on CUDA, where no kernel takes it.
     Padding safety: pad bytes decode to code 0 (hom-alt), but the
     corresponding operand rows are zero, so padded samples contribute 0
     to every product."""
@@ -367,9 +395,14 @@ def fused_products(raw, Wp, dtype=torch.float32):
         H, E, M = kernels.fused_i8_products(raw, Wp.limbs)
         Hf, Ef, Mf = (i8_fold(x, Wp.scale, dtype) for x in (H, E, M))
         return 2.0 * Hf + Ef, 4.0 * Hf + Ef, Mf
+    if Wp.dtype == torch.float32:
+        H, E, M = kernels.fused_f32_products(raw, Wp)
+        return 2.0 * H + E, 4.0 * H + E, M
     if raw.is_cuda:
-        raise NotImplementedError(
-            "f32/bf16 fused kernels not yet ported to regenie_tpu_torch")
+        raise TypeError(
+            f"fused_products: no kernel takes a {Wp.dtype} operand on CUDA "
+            "(the card's float operand is float32); use_kernel=False takes "
+            "the plain products")
     return fused_products_plain(raw, Wp)
 
 
@@ -578,27 +611,35 @@ def _bgen_combine(outs):
 def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
                         dtype=torch.float64):
     """planes: [B, 2, Np] uint8 (Np a multiple of _TC, pad samples zero);
-    Wp: the sample_pack operand, an I8Operand (or on the CPU a float
-    [Np, Cp] tensor); Wq: the narrow SQ-consumer I8Operand (sample_pack
-    of Wext[:, qs:], given with qs and C_used), or None to use the full
-    width. Returns (S1, SQ, SM, IL) each [B, Cp]; with a narrow Wq, SQ's
-    columns outside [qs:C_used] are ZERO.
+    Wp: the sample_pack operand, an I8Operand or a float32 [Np, Cp]
+    tensor (or on the CPU a float64 one); Wq: the narrow SQ-consumer
+    operand of the same kind (sample_pack of Wext[:, qs:], given with qs
+    and C_used), or None to use the full width. Returns (S1, SQ, SM, IL)
+    each [B, Cp]; with a narrow Wq, SQ's columns outside [qs:C_used] are
+    ZERO.
 
-    The int8 operand goes through kernels.bgen_i8_products — the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors — whose
-    exact int64 products fold into `dtype` (float64: exact for every
-    limb product)."""
-    if not isinstance(Wp, I8Operand):
+    The int8 operand goes through kernels.bgen_i8_products, whose exact
+    int64 products fold into `dtype` (float64: exact for every limb
+    product); the float32 operand through kernels.bgen_f32_products
+    (exact products, float64 sums) — each the CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors. A float64 operand takes
+    the plain products (full width) on the CPU and raises on CUDA."""
+    if not isinstance(Wp, I8Operand) and Wp.dtype != torch.float32:
         if planes.is_cuda:
-            raise NotImplementedError(
-                "the f32/bf16 BGEN kernel (_bgen_kernel_split) is not yet "
-                "ported to regenie_tpu_torch")
+            raise TypeError(
+                f"bgen_fused_products: no kernel takes a {Wp.dtype} operand "
+                "on CUDA (the card's float operand is float32); "
+                "use_kernel=False takes the plain products")
         return bgen_fused_products_plain(planes, Wp, dtype)
     if Wq is None:
         Wq, qs = Wp, 0
-    D0, D1, Q0, Q1, Q2, M = kernels.bgen_i8_products(planes, Wp.limbs, Wq.limbs)
-    D0, D1, M = (i8_fold(x, Wp.scale, dtype) for x in (D0, D1, M))
-    Q0, Q1, Q2 = (i8_fold(x, Wq.scale, dtype) for x in (Q0, Q1, Q2))
+    if isinstance(Wp, I8Operand):
+        D0, D1, Q0, Q1, Q2, M = kernels.bgen_i8_products(planes, Wp.limbs,
+                                                         Wq.limbs)
+        D0, D1, M = (i8_fold(x, Wp.scale, dtype) for x in (D0, D1, M))
+        Q0, Q1, Q2 = (i8_fold(x, Wq.scale, dtype) for x in (Q0, Q1, Q2))
+    else:
+        D0, D1, Q0, Q1, Q2, M = kernels.bgen_f32_products(planes, Wp, Wq)
     S1, SQn, SM, IL = _bgen_combine((D0, D1, Q0, Q1, Q2, M))
     if not qs:
         return S1, SQn, SM, IL
@@ -645,9 +686,9 @@ def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
                     ref_first=False, strict=False):
     """QT block function over BGEN probability byte planes: the QT score
     outputs plus the raw product slices and the info-linear products
-    (for the INFO column). With the kernel, an int8 operand's squared-
-    dosage products run against consts.Wq, the narrow [maskf | ind]
-    operand, whose columns start at qs = C_used - (P + 1).
+    (for the INFO column). With the kernel, the squared-dosage products
+    of an int8 or float32 operand run against consts.Wq, the narrow
+    [maskf | ind] operand, whose columns start at qs = C_used - (P + 1).
     use_kernel=False takes the plain products on any device."""
     C_used = consts.layout_C()
     Wq = consts.Wq if use_kernel else None

@@ -7,6 +7,12 @@ Kernels (sources under ops/csrc/, one shared library each):
   the Pallas kernel regenie_tpu/ops/fused_score.py:403 _fused_kernel_i8.
 - bgen_i8 (csrc/bgen_i8.cu): the six BGEN 8-bit dosage products, replacing
   the Pallas kernel regenie_tpu/ops/fused_score.py:1093 _bgen_kernel_i8.
+- fused_f32 (csrc/fused_f32.cu): the fused Step-2 products against the
+  float32 operand, summed in float64, replacing the Pallas kernel
+  regenie_tpu/ops/fused_score.py:331 _fused_kernel.
+- bgen_f32 (csrc/bgen_f32.cu): the six BGEN products against the float32
+  operands, summed in float64, replacing the Pallas kernel
+  regenie_tpu/ops/fused_score.py:1054 _bgen_kernel_split (f32 operand).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC` into regenie_tpu_torch/_build/ (git-ignored), at first
@@ -16,7 +22,9 @@ here imports or builds anything when the module is imported.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and uses the
 kernel's plain version only for CPU tensors. Each wrapper counts its
-launches in a plain integer attribute, `<wrapper>.launches`.
+launches in a plain integer attribute, `<wrapper>.launches`. The plain
+versions of the float32-operand kernels widen the operand and sum in
+float64, as the kernels do.
 """
 
 from __future__ import annotations
@@ -33,12 +41,17 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = {"fused_i8": "fused_i8.cu", "bgen_i8": "bgen_i8.cu"}
+SOURCES = {"fused_i8": "fused_i8.cu", "bgen_i8": "bgen_i8.cu",
+           "fused_f32": "fused_f32.cu", "bgen_f32": "bgen_f32.cu"}
 # argument types of each library's `<name>_launch` entry point
 _ARGTYPES = {
     "fused_i8": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
     + [ctypes.c_void_p],
     "bgen_i8": [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p],
+    "fused_f32": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+    + [ctypes.c_void_p],
+    "bgen_f32": [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
     + [ctypes.c_void_p],
 }
 _libs = {}
@@ -101,6 +114,51 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+# samples (bytes) per chunk of the plain versions' float64 products on
+# CUDA (one [2048, 400,128] float64 plane would take 6.6 GB)
+PLAIN_CHUNK = 32768
+
+
+def _chunk(n, device):
+    return n if device.type == "cpu" else PLAIN_CHUNK
+
+
+def _check_cuda_inputs(name, tensors, dtypes, col_mult):
+    """The checks every wrapper makes before a launch: one CUDA device,
+    the kernel's dtypes, contiguous, 16-byte aligned, and the last axis of
+    each operand (tensors[1:]) a multiple of col_mult (16-byte loads)."""
+    if len({t.device for t in tensors}) != 1 or not tensors[0].is_cuda:
+        raise ValueError(f"{name}: inputs must be on the same CUDA device "
+                         "(or all on the CPU)")
+    if tuple(t.dtype for t in tensors) != dtypes:
+        raise TypeError(f"{name}: input dtypes must be "
+                        f"{', '.join(str(d) for d in dtypes)}, got "
+                        f"{', '.join(str(t.dtype) for t in tensors)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    if any(t.shape[-1] % col_mult for t in tensors[1:]):
+        raise ValueError(f"{name}: operand widths must be multiples of "
+                         f"{col_mult}")
+
+
+def _launch(name, device, *args):
+    """Call the kernel library's `<name>_launch` on the current stream of
+    `device`; raise if the launch failed."""
+    lib = _lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"{name}_launch")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# PLINK bytes: fused_i8 (int8 limbs) and fused_f32 (float32 operand)
+# ---------------------------------------------------------------------------
+
+
 def _decode_indicators(raw):
     """[B, nbp] uint8 -> per plane p the (hom-alt, het, missing) boolean
     [B, nbp] masks of code_p = (raw >> 2p) & 3 == 0 / 2 / 1."""
@@ -112,6 +170,39 @@ def _decode_indicators(raw):
     return out
 
 
+def _fused_plain(raw, w, dt):
+    """The three class-indicator products of raw [B, nbp] against
+    w [4, nbp, C] as matmuls in dtype dt, chunked over bytes on CUDA."""
+    B, nbp = raw.shape
+    acc = [torch.zeros((B, w.shape[-1]), dtype=dt, device=raw.device)
+           for _ in range(3)]
+    step = _chunk(nbp, raw.device)
+    for c0 in range(0, nbp, step):
+        for p, masks in enumerate(_decode_indicators(raw[:, c0 : c0 + step])):
+            wp = w[p, c0 : c0 + step].to(dt)
+            for a, ind in zip(acc, masks):
+                a += ind.to(dt) @ wp
+    return acc
+
+
+def _fused_call(name, raw, w, wdtype, odtype, col_mult):
+    """Check raw [B, nbp] uint8 and w [4, nbp, C] and launch the fused
+    kernel `name` into three new [B, C] outputs of dtype odtype."""
+    _check_cuda_inputs(name, (raw, w), (torch.uint8, wdtype), col_mult)
+    if raw.dim() != 2 or w.dim() != 3 or w.shape[0] != 4:
+        raise ValueError(f"{name}: raw [B, nbp], operand [4, nbp, C]")
+    B, nbp = raw.shape
+    if w.shape[1] != nbp or nbp % 16:
+        raise ValueError(f"{name}: raw has {nbp} bytes per row, the operand "
+                         f"{w.shape[1]}; both a multiple of 16")
+    outs = tuple(torch.empty((B, w.shape[2]), dtype=odtype, device=raw.device)
+                 for _ in range(3))
+    if B:
+        _launch(name, raw.device, raw.data_ptr(), w.data_ptr(),
+                *(o.data_ptr() for o in outs), B, nbp, w.shape[2])
+    return outs
+
+
 def fused_i8_products_plain(raw, limbs):
     """Plain version of the fused_i8 kernel: H, E, M [B, Cw4] int32 with
     H[b, j] = sum_p sum_c [code_p(raw[b, c]) == 0] * limbs[p, c, j] (E:
@@ -119,13 +210,7 @@ def fused_i8_products_plain(raw, limbs):
     CUDA, exact there because every partial sum is an integer below
     2^53."""
     dt = torch.int64 if raw.device.type == "cpu" else torch.float64
-    B, Cw4 = raw.shape[0], limbs.shape[-1]
-    acc = [torch.zeros((B, Cw4), dtype=dt, device=raw.device) for _ in range(3)]
-    for p, masks in enumerate(_decode_indicators(raw)):
-        w = limbs[p].to(dt)
-        for a, ind in zip(acc, masks):
-            a += ind.to(dt) @ w
-    return tuple(a.to(torch.int32) for a in acc)
+    return tuple(a.to(torch.int32) for a in _fused_plain(raw, limbs, dt))
 
 
 def fused_i8_products(raw, limbs):
@@ -135,49 +220,48 @@ def fused_i8_products(raw, limbs):
     the plain version."""
     if raw.device.type == "cpu" and limbs.device.type == "cpu":
         return fused_i8_products_plain(raw, limbs)
-    if not (raw.is_cuda and limbs.is_cuda and raw.device == limbs.device):
-        raise ValueError("fused_i8_products: raw and limbs must be on the "
-                         "same CUDA device (or both on the CPU)")
-    if raw.dtype != torch.uint8 or limbs.dtype != torch.int8:
-        raise TypeError("fused_i8_products: raw must be uint8, limbs int8")
-    if raw.dim() != 2 or limbs.dim() != 3 or limbs.shape[0] != 4:
-        raise ValueError("fused_i8_products: raw [B, nbp], limbs [4, nbp, Cw4]")
-    B, nbp = raw.shape
-    Cw4 = limbs.shape[2]
-    if limbs.shape[1] != nbp:
-        raise ValueError(f"fused_i8_products: raw has {nbp} bytes per row, "
-                         f"limbs {limbs.shape[1]}")
-    if nbp % 16 or Cw4 % 16:
-        raise ValueError("fused_i8_products: nbp and Cw4 must be multiples of 16")
-    if 4 * nbp >= 8_000_000:
+    if 4 * raw.shape[-1] >= 8_000_000:
         raise ValueError("fused_i8_products: int32 accumulator bound "
                          "(N < 8,000,000 samples)")
-    if not (raw.is_contiguous() and limbs.is_contiguous()):
-        raise ValueError("fused_i8_products: inputs must be contiguous")
-    if raw.data_ptr() % 16 or limbs.data_ptr() % 16:
-        raise ValueError("fused_i8_products: inputs must be 16-byte aligned")
-    outs = [torch.empty((B, Cw4), dtype=torch.int32, device=raw.device)
-            for _ in range(3)]
-    if B == 0:
-        return tuple(outs)
-    lib = _lib("fused_i8")
-    with torch.cuda.device(raw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_i8_launch(raw.data_ptr(), limbs.data_ptr(),
-                                  outs[0].data_ptr(), outs[1].data_ptr(),
-                                  outs[2].data_ptr(), B, nbp, Cw4, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_i8 kernel launch failed: CUDA error {err}")
-    fused_i8_products.launches += 1
-    return tuple(outs)
+    outs = _fused_call("fused_i8", raw, limbs, torch.int8, torch.int32, 16)
+    if raw.shape[0]:
+        fused_i8_products.launches += 1
+    return outs
 
 
 fused_i8_products.launches = 0
 
 
-# samples per chunk of the plain versions' float64 products on CUDA (one
-# [2048, 400,128] float64 plane would take 6.6 GB)
-PLAIN_CHUNK = 32768
+def fused_f32_products_plain(raw, wp):
+    """Plain version of the fused_f32 kernel: for raw [B, nbp] uint8 and
+    wp [4, nbp, Cp] float32, H, E, M [B, Cp] float64 with H[b, j] =
+    sum_p sum_c [code_p(raw[b, c]) == 0] * wp[p, c, j] (E: code 2, M: code
+    1). The operand is widened to float64 and the products are float64
+    matmuls, chunked over bytes by PLAIN_CHUNK on CUDA."""
+    return tuple(_fused_plain(raw, wp, torch.float64))
+
+
+def fused_f32_products(raw, wp):
+    """raw [B, nbp] uint8, wp [4, nbp, Cp] float32 -> (H, E, M), each
+    [B, Cp] float64 (see fused_f32_products_plain). CUDA tensors launch
+    the csrc/fused_f32.cu kernel on the current stream; CPU tensors take
+    the plain version."""
+    if raw.device.type == "cpu" and wp.device.type == "cpu":
+        return fused_f32_products_plain(raw, wp)
+    if 4 * raw.shape[-1] >= 2**31:
+        raise ValueError("fused_f32_products: 4*nbp must be below 2^31")
+    outs = _fused_call("fused_f32", raw, wp, torch.float32, torch.float64, 4)
+    if raw.shape[0]:
+        fused_f32_products.launches += 1
+    return outs
+
+
+fused_f32_products.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# BGEN byte planes: bgen_i8 (int8 limbs) and bgen_f32 (float32 operands)
+# ---------------------------------------------------------------------------
 
 
 def bgen_indicators(planes):
@@ -194,6 +278,48 @@ def bgen_indicators(planes):
     return k0, k1, d2 & 255, (d2 >> 8) & 255, d2 >> 16, miss.to(torch.int32)
 
 
+def _bgen_plain(planes, wp, wq, dt):
+    """The six byte-plane products (D0, D1, Q0, Q1, Q2, M) as matmuls in
+    dtype dt, chunked over samples on CUDA."""
+    Np = planes.shape[2]
+    step = _chunk(Np, planes.device)
+    acc = [0] * 6
+    for n0 in range(0, Np, step):
+        w = wp[n0 : n0 + step].to(dt)
+        q = wq[n0 : n0 + step].to(dt)
+        acc = [a + x.to(dt) @ op for a, x, op in zip(
+            acc, bgen_indicators(planes[:, :, n0 : n0 + step]),
+            (w, w, q, q, q, w))]
+    return acc
+
+
+def _bgen_call(name, planes, wp, wq, wdtype, odtype, col_mult):
+    """Check planes [B, 2, Np] uint8, wp [Np, Cw] and wq [Np, Cq] and
+    launch the BGEN kernel `name` into new outputs of dtype odtype,
+    returned as (D0, D1, Q0, Q1, Q2, M)."""
+    _check_cuda_inputs(name, (planes, wp, wq), (torch.uint8, wdtype, wdtype),
+                       col_mult)
+    if planes.dim() != 3 or planes.shape[1] != 2 or wp.dim() != 2 \
+            or wq.dim() != 2:
+        raise ValueError(f"{name}: planes [B, 2, Np], wp [Np, Cw], wq [Np, Cq]")
+    B, _, Np = planes.shape
+    Cw, Cq = wp.shape[1], wq.shape[1]
+    if wp.shape[0] != Np or wq.shape[0] != Np or Np == 0 or Np % 16:
+        raise ValueError(f"{name}: planes have {Np} samples, wp {wp.shape[0]}, "
+                         f"wq {wq.shape[0]}; all a positive multiple of 16")
+    if 2 * Np >= 2**31:
+        raise ValueError(f"{name}: 2*Np must be below 2^31")
+    D0, D1, M = (torch.empty((B, Cw), dtype=odtype, device=planes.device)
+                 for _ in range(3))
+    Q0, Q1, Q2 = (torch.empty((B, Cq), dtype=odtype, device=planes.device)
+                  for _ in range(3))
+    if B:
+        _launch(name, planes.device, planes.data_ptr(), wp.data_ptr(),
+                wq.data_ptr(), *(o.data_ptr() for o in (D0, D1, M, Q0, Q1, Q2)),
+                B, Np, Cw, Cq)
+    return D0, D1, Q0, Q1, Q2, M
+
+
 def bgen_i8_products_plain(planes, wp, wq):
     """Plain version of the bgen_i8 kernel: for planes [B, 2, Np] uint8,
     wp [Np, Cw] int8 and wq [Np, Cq] int8 returns (D0, D1, Q0, Q1, Q2, M)
@@ -202,18 +328,8 @@ def bgen_i8_products_plain(planes, wp, wq):
     (int64) matmuls on the CPU; float64 on CUDA, chunked over samples,
     exact there because every partial sum is an integer below 2^53
     (|sum| <= 255 * 128 * Np)."""
-    cpu = planes.device.type == "cpu"
-    dt = torch.int64 if cpu else torch.float64
-    Np = planes.shape[2]
-    step = Np if cpu else PLAIN_CHUNK
-    acc = [0] * 6
-    for n0 in range(0, Np, step):
-        w = wp[n0 : n0 + step].to(dt)
-        q = wq[n0 : n0 + step].to(dt)
-        acc = [a + x.to(dt) @ op for a, x, op in zip(
-            acc, bgen_indicators(planes[:, :, n0 : n0 + step]),
-            (w, w, q, q, q, w))]
-    return tuple(a.to(torch.int64) for a in acc)
+    dt = torch.int64 if planes.device.type == "cpu" else torch.float64
+    return tuple(a.to(torch.int64) for a in _bgen_plain(planes, wp, wq, dt))
 
 
 def bgen_i8_products(planes, wp, wq):
@@ -222,52 +338,44 @@ def bgen_i8_products(planes, wp, wq):
     the Q (see bgen_i8_products_plain). CUDA tensors launch the
     csrc/bgen_i8.cu kernel on the current stream; CPU tensors take the
     plain version."""
-    devs = {t.device for t in (planes, wp, wq)}
-    if devs == {torch.device("cpu")}:
+    if {t.device for t in (planes, wp, wq)} == {torch.device("cpu")}:
         return bgen_i8_products_plain(planes, wp, wq)
-    if len(devs) != 1 or not planes.is_cuda:
-        raise ValueError("bgen_i8_products: planes, wp and wq must be on the "
-                         "same CUDA device (or all on the CPU)")
-    if planes.dtype != torch.uint8 or wp.dtype != torch.int8 \
-            or wq.dtype != torch.int8:
-        raise TypeError("bgen_i8_products: planes must be uint8, wp and wq int8")
-    if planes.dim() != 3 or planes.shape[1] != 2 or wp.dim() != 2 \
-            or wq.dim() != 2:
-        raise ValueError("bgen_i8_products: planes [B, 2, Np], wp [Np, Cw], "
-                         "wq [Np, Cq]")
-    B, _, Np = planes.shape
-    Cw, Cq = wp.shape[1], wq.shape[1]
-    if wp.shape[0] != Np or wq.shape[0] != Np:
-        raise ValueError(f"bgen_i8_products: planes have {Np} samples, wp "
-                         f"{wp.shape[0]}, wq {wq.shape[0]}")
-    if Np == 0 or Np % 16 or Cw % 16 or Cq % 16:
-        raise ValueError("bgen_i8_products: Np (> 0), Cw and Cq must be "
-                         "multiples of 16")
-    if not all(t.is_contiguous() for t in (planes, wp, wq)):
-        raise ValueError("bgen_i8_products: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in (planes, wp, wq)):
-        raise ValueError("bgen_i8_products: inputs must be 16-byte aligned")
-    outs = ([torch.empty((B, Cw), dtype=torch.int64, device=planes.device)
-             for _ in range(3)]
-            + [torch.empty((B, Cq), dtype=torch.int64, device=planes.device)
-               for _ in range(3)])
-    D0, D1, M, Q0, Q1, Q2 = outs
-    if B == 0:
-        return D0, D1, Q0, Q1, Q2, M
-    lib = _lib("bgen_i8")
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bgen_i8_launch(
-            planes.data_ptr(), wp.data_ptr(), wq.data_ptr(),
-            *(o.data_ptr() for o in outs), B, Np, Cw, Cq, stream)
-    if err != 0:
-        raise RuntimeError(f"bgen_i8 kernel launch failed: CUDA error {err}")
-    bgen_i8_products.launches += 1
-    return D0, D1, Q0, Q1, Q2, M
+    outs = _bgen_call("bgen_i8", planes, wp, wq, torch.int8, torch.int64, 16)
+    if planes.shape[0]:
+        bgen_i8_products.launches += 1
+    return outs
 
 
 bgen_i8_products.launches = 0
 
+
+def bgen_f32_products_plain(planes, wp, wq):
+    """Plain version of the bgen_f32 kernel: for planes [B, 2, Np] uint8,
+    wp [Np, Cw] float32 and wq [Np, Cq] float32 returns (D0, D1, Q0, Q1,
+    Q2, M) float64: D0, D1 and M the products of k0, k1 and miss with wp,
+    Q0, Q1 and Q2 those of h0, h1 and h2 with wq (bgen_indicators). The
+    operands are widened to float64 and the products are float64 matmuls,
+    chunked over samples by PLAIN_CHUNK on CUDA."""
+    return tuple(_bgen_plain(planes, wp, wq, torch.float64))
+
+
+def bgen_f32_products(planes, wp, wq):
+    """planes [B, 2, Np] uint8, wp [Np, Cw] float32, wq [Np, Cq] float32
+    -> (D0, D1, Q0, Q1, Q2, M), float64, [B, Cw] for D0, D1, M and [B, Cq]
+    for the Q (see bgen_f32_products_plain). CUDA tensors launch the
+    csrc/bgen_f32.cu kernel on the current stream; CPU tensors take the
+    plain version."""
+    if {t.device for t in (planes, wp, wq)} == {torch.device("cpu")}:
+        return bgen_f32_products_plain(planes, wp, wq)
+    outs = _bgen_call("bgen_f32", planes, wp, wq, torch.float32, torch.float64, 4)
+    if planes.shape[0]:
+        bgen_f32_products.launches += 1
+    return outs
+
+
+bgen_f32_products.launches = 0
+
 # every kernel wrapper by kernel name, for code that resets or reads the
 # launch counts of a run
-WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products}
+WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products,
+            "fused_f32": fused_f32_products, "bgen_f32": bgen_f32_products}

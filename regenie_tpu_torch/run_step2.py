@@ -200,9 +200,10 @@ class Step2Engine:
     BGEN).
 
     device: where the operand lives and the products run (resolved by
-    utils.device.resolve_device). kernel=False keeps a float64 operand
-    and the plain products on any device — the on-card reference the
-    kernel path is checked against."""
+    utils.device.resolve_device). On CUDA the operand is the int8 limbs,
+    or with REGENIE_TPU_I8=0 float32, each through its kernel.
+    kernel=False keeps a float64 operand and the plain products on any
+    device — the on-card reference the kernel path is checked against."""
 
     def __init__(self, params: Params, gd, pd, blup_files, log, device=None,
                  kernel: bool = True):
@@ -215,6 +216,7 @@ class Step2Engine:
         self.kernel = kernel
         on_gpu = self.device.type == "cuda"
         self.split = fsc.split_mode(on_gpu) if kernel else False
+        self.op_dtype = fsc.operand_dtype(self.split, on_gpu, kernel)
         self.id_to_ind = {s.key: i for i, s in enumerate(gd.samples)}
         self.maskf = pd.masked_indivs.astype(np.float64)
         self.strict = bool(params.strict_mode)
@@ -363,9 +365,10 @@ class Step2Engine:
     def _ensure_fused_consts(self):
         """(Re)build the fused-scorer constants; the residual columns
         change per chromosome, so keyed on cur_chrom. The chromosome-
-        independent columns (cov/CM/mask/ind, and for BGEN with the
-        kernel the narrow [maskf | ind] SQ operand Wq) are packed once;
-        residual columns start at zero and are patched on the device."""
+        independent columns (cov/CM/mask/ind, and for BGEN with a kernel,
+        on the int8 or the float32 operand, the narrow [maskf | ind] SQ
+        operand Wq) are packed once; residual columns start at zero and
+        are patched on the device."""
         if self._fused_chrom == self.cur_chrom:
             return
         pd, params = self.pd, self.params
@@ -380,16 +383,17 @@ class Step2Engine:
             base = fsc.build_consts(
                 cov_f, np.zeros_like(res_f), mask_f, ind_f, self.scale_denom,
                 nb=nb, device=self.device, split=self.split,
-                pack="sample" if is_bgen else "plane",
+                pack="sample" if is_bgen else "plane", op_dtype=self.op_dtype,
             )
             covz_f = cov_f * ind_f.astype(np.float64)[:, None]
             Cp = -(-base.layout_C() // 128) * 128
             Wq = None
-            if is_bgen and self.split == "i8":
+            if is_bgen and (self.split == "i8"
+                            or self.op_dtype == torch.float32):
                 indz = ind_f.astype(np.float64)[:, None]
                 Wq, _ = fsc.sample_pack(
-                    np.concatenate([mask_f * indz, indz], axis=1), "i8",
-                    self.device)
+                    np.concatenate([mask_f * indz, indz], axis=1), self.split,
+                    self.device, self.op_dtype)
             self._fused_static = (
                 base, covz_f,
                 base.usum.cpu().numpy().astype(np.float64), Cp, Wq,
@@ -401,8 +405,10 @@ class Step2Engine:
             res_pl[: res_f.shape[0]] = res_f
         else:
             res_pl = fsc.plane_order_rows(res_f, nb)
+        # float32 for the int8 operand (quantized on the device) and for
+        # the float32 operand, as the JAX package rounds them on a TPU
         res_pl = torch.from_numpy(res_pl).to(
-            self.device, torch.float32 if self.split == "i8" else torch.float64)
+            self.device, torch.float32 if self.split == "i8" else self.op_dtype)
         Wp = fsc.patch_res_columns(base.Wp, res_pl, K, P, Cp)
         u = usum_static.copy()
         u[K : K + P] = res_f.sum(axis=0)
@@ -685,8 +691,10 @@ def run_step2(params: Params, log=print, device=None) -> None:
     log(f" * # blocks: [{params.total_n_block}]")
     log(f" * # tested variants: [{params.n_variants}]")
     src = "BGEN" if eng.gd._bgen is not None else "BED"
-    log(f" * fused packed-bytes scorer on {device} ({src}, "
-        f"{'int8 kernel' if eng.split == 'i8' else 'float64 plain products'})")
+    how = ("int8 kernel" if eng.split == "i8" else
+           "float32 operand kernel" if eng.op_dtype == torch.float32 else
+           "float64 plain products")
+    log(f" * fused packed-bytes scorer on {device} ({src}, {how})")
 
     test_name = {0: "ADD", 1: "DOM", 2: "REC"}[params.test_type]
     writers, out_paths = setup_writers(params, pd.pheno_names, pd.pheno_pass)

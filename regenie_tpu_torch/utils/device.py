@@ -9,11 +9,17 @@ regenie_tpu/utils/dtypes.py).
 - On CUDA, TF32 is switched off for matmuls and convolutions (the
   reference's dots run at Precision.HIGHEST).
 - The working dtype is float64 on both devices. On the card the int8
-  kernel's int32 products fold exactly into float64 and the epilogue
+  kernels' integer products fold exactly into float64 and the epilogue
   runs there: in float32, the incomplete-trait denominators cancel
   enough at biobank N (400,000 samples) to move LOG10P by more than the
   1e-5 cross-backend bar against the float64 reference, and the
   epilogue is a few [B, C] operations, so float64 costs nothing there.
+- REGENIE_TPU_I8=0 selects, as in the JAX package, the float32 operand
+  on the card; the constants (usum, covt_res, Mmat) stay float64. Its
+  kernels take the float32 values and form exact products (an indicator
+  or a byte times an f32 value) summed in float64 on the FP64 tensor
+  cores, for the same reason: a float32 sum over 400,000 samples would
+  carry ~1e-5 relative error into the same cancelling denominators.
 """
 
 from __future__ import annotations

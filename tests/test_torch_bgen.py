@@ -262,16 +262,26 @@ def test_make_qt_bgen_fn_matches_jax(jfs, ref_first, strict):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9, atol=1e-9)
 
 
-def test_i8_off_raises_on_cuda(monkeypatch):
-    """REGENIE_TPU_I8=0 asks for the f32 kernels, which are not ported: on
-    a CUDA device split_mode raises NotImplementedError naming them; the
-    CPU keeps its float64 operand."""
-    monkeypatch.setenv("REGENIE_TPU_I8", "0")
-    with pytest.raises(NotImplementedError, match="_fused_kernel and _bgen_kernel_split"):
-        tfs.split_mode(True)
-    assert tfs.split_mode(False) is False
-    monkeypatch.setenv("REGENIE_TPU_I8", "1")
-    assert tfs.split_mode(True) == "i8"
+def test_i8_off_selects_f32_operand(jfs, monkeypatch):
+    """REGENIE_TPU_I8=0 selects the float operand, as the JAX package's
+    split_mode does: float32 on CUDA (the fused_f32 / bgen_f32 kernels),
+    float64 on the CPU, where the variable has no effect. Without it the
+    card takes the int8 limbs; the plain products (no kernel) keep
+    float64 on any device."""
+    for env, on_gpu, split, dt in (("0", True, False, torch.float32),
+                                   ("0", False, False, torch.float64),
+                                   ("1", True, "i8", None),
+                                   (None, True, "i8", None),
+                                   (None, False, False, torch.float64)):
+        if env is None:
+            monkeypatch.delenv("REGENIE_TPU_I8", raising=False)
+        else:
+            monkeypatch.setenv("REGENIE_TPU_I8", env)
+        assert tfs.split_mode(on_gpu) == split
+        assert jfs.split_mode(on_gpu) == split
+        if dt is not None:
+            assert tfs.operand_dtype(split, on_gpu) == dt
+        assert tfs.operand_dtype(split, on_gpu, use_kernel=False) == torch.float64
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +529,8 @@ def test_bgen_i8_kernel_matches_plain_on_cuda(cuda):
     torch.cuda.synchronize()
     assert int(got[0][0, 0]) == -128 * 255 * Np
     assert int(got[4][0, 0]) == -128 * (510 * 510 >> 16) * Np
-    # a float operand on the card has no kernel yet: it raises, and does
-    # not fall back to the plain version
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfs.bgen_fused_products(planes, torch.zeros((Np, 128), device=cuda))
+    # a float64 operand on the card has no kernel: it raises, and does not
+    # fall back to the plain version
+    with pytest.raises(TypeError, match="no kernel takes a torch.float64"):
+        tfs.bgen_fused_products(planes, torch.zeros((Np, 128), dtype=torch.float64,
+                                                    device=cuda))

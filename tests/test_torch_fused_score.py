@@ -299,7 +299,8 @@ def test_fused_i8_kernel_matches_plain_on_cuda(cuda):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    # a float operand on the card has no kernel yet: it raises, and does
-    # not fall back to the plain version
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfs.fused_products(raw, torch.zeros((4, nbp, 128), device=cuda))
+    # a float64 operand on the card has no kernel: it raises, and does not
+    # fall back to the plain version
+    with pytest.raises(TypeError, match="no kernel takes a torch.float64"):
+        tfs.fused_products(raw, torch.zeros((4, nbp, 128), dtype=torch.float64,
+                                            device=cuda))
