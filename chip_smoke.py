@@ -14,8 +14,10 @@ Phases, each of which must pass:
    (N=400,000 samples, P=50 traits of which 10 incomplete, K=20, blocks
    of 2048 variants): the int8 kernels' integer products exactly equal,
    the float32-operand kernels' float64 products within 1e-12 of the same
-   product against |W|; and time the kernel, its plain version, its
-   bound and the library yardstick.
+   product against |W|, the bf16 split kernels' within 4096 x 2^-23 of
+   it (one float32 partial sum of 4096 terms), the plane decode exactly
+   equal; and time the kernel, its plain version, its bound and the
+   library yardstick.
 3. BED slice: write a synthetic PLINK BED at that shape (M = 2 blocks of
    2048 variants, null phenotypes) and run the port's Step-2 CLI on the
    card in this process, twice: by default, where fused_i8 must launch
@@ -30,6 +32,12 @@ Phases, each of which must pass:
    launches once per block and no other kernel; the first block meets
    the same bar, and its INFO and A1FREQ agree with the plain path
    within rel 1e-9.
+   Split path (in each slice phase): the bf16 hi|mid|lo split consts,
+   built by build_consts(split=True) from the engine's per-sample arrays,
+   score the first block through make_qt_block_fn (BED, with
+   score_block_fused on random allele flips beside it) or
+   make_qt_bgen_fn (BGEN): fused_bf16 / bgen_bf16 launch and no other
+   kernel, and the block meets the same bars against the plain path.
 5. cross-check: small runs through the port on the card (by default and
    with REGENIE_TPU_I8=0) and on the CPU, a BED --htp run and a
    two-chromosome BGEN --minINFO run (N=2,000, M=600 each); every output
@@ -56,6 +64,7 @@ import numpy as np
 
 # dense rates of one H100 SXM (NVIDIA data sheet, 700 W)
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_FP64_TC_OPS = 67e12  # FP64 tensor cores
 PEAK_BYTES = 3.35e12
 
@@ -480,27 +489,27 @@ def bgen_i8_phase(dev, reps=10):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def _check_f64_sums(name, got, want, bar, what):
-    """A float32-operand kernel against its plain version on the same card
-    tensors: every product within F64_SUM_BAR of the same product taken
-    against |W| (`bar`). Returns the max abs difference."""
+def _check_sums(name, got, want, bar, what, rel=F64_SUM_BAR):
+    """A float-operand kernel against its plain version on the same card
+    tensors: every float64 product within `rel` times the same product
+    taken against |W| (`bar`). Returns the max abs difference."""
     import torch
 
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    share = max(float(((g - w).abs() / (F64_SUM_BAR * b).clamp(min=1e-300)).max())
+    share = max(float(((g - w).abs() / (rel * b).clamp(min=1e-300)).max())
                 for g, w, b in zip(got, want, bar))
     print(f"  {name} {what}: max|kernel-plain|={err:.3e}, largest share of "
           f"the bar {share:.3e}")
     if share > 1.0:
         raise AssertionError(f"{name} kernel differs from its plain version "
-                             f"({what}) beyond {F64_SUM_BAR:g} x |W| products")
+                             f"({what}) beyond {rel:g} x |W| products")
     return err
 
 
-def _f64_matmul_ms(mats, reps):
-    """Summed median milliseconds of one float64 torch.matmul per (A, W)
-    pair, each A built just before its timing and freed after it."""
+def _matmul_ms(mats, reps):
+    """Summed median milliseconds of one torch.matmul per (A, W) pair,
+    each A built just before its timing and freed after it."""
     import torch
 
     total = 0.0
@@ -525,7 +534,7 @@ def fused_f32_phase(dev, reps=10):
     errs = []
 
     def check(raw, wp, what):
-        errs.append(_check_f64_sums(
+        errs.append(_check_sums(
             "fused_f32", kernels.fused_f32_products(raw, wp),
             kernels.fused_f32_products_plain(raw, wp),
             kernels.fused_f32_products_plain(raw, wp.abs()), what))
@@ -561,7 +570,7 @@ def fused_f32_phase(dev, reps=10):
         return torch.cat([((r >> (2 * p)) & 3) == code for p in range(4)],
                          1).double()  # [B, 4*nbp], p-major columns
 
-    library_ms = _f64_matmul_ms([(lambda k=k: indicators(k), w2)
+    library_ms = _matmul_ms([(lambda k=k: indicators(k), w2)
                                  for k in (0, 2, 1)], reps)
     del w2
 
@@ -594,7 +603,7 @@ def bgen_f32_phase(dev, reps=10):
     errs = []
 
     def check(planes, wp, wq, what):
-        errs.append(_check_f64_sums(
+        errs.append(_check_sums(
             "bgen_f32", kernels.bgen_f32_products(planes, wp, wq),
             kernels.bgen_f32_products_plain(planes, wp, wq),
             kernels.bgen_f32_products_plain(planes, wp.abs(), wq.abs()), what))
@@ -626,7 +635,7 @@ def bgen_f32_phase(dev, reps=10):
     # yardstick: six float64 torch.matmul (cuBLAS DGEMM), of the byte
     # multiplicands decoded beforehand against the widened operands
     wpd, wqd = wp.double(), wq.double()
-    library_ms = _f64_matmul_ms(
+    library_ms = _matmul_ms(
         [(lambda i=i: kernels.bgen_indicators(planes)[i].double(), w)
          for i, w in enumerate((wpd, wpd, wqd, wqd, wqd, wpd))], reps)
     del wpd, wqd
@@ -644,6 +653,205 @@ def bgen_f32_phase(dev, reps=10):
                 replaces="regenie_tpu/ops/fused_score.py:1054",
                 launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _bf16_randn(gen, shape, dev):
+    """Standard normal values drawn on the card, rounded to bf16."""
+    import torch
+
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def fused_bf16_phase(dev, reps=10):
+    """fused_bf16: within the flush bar on ragged shapes, on a split
+    operand built by the port at a small N, and at full width; times at
+    full width."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rel = kernels.BF16_FLUSH * 2.0**-23
+    errs = []
+
+    def check(raw, wp, what):
+        errs.append(_check_sums(
+            "fused_bf16", kernels.fused_bf16_products(raw, wp),
+            kernels.fused_bf16_products_plain(raw, wp),
+            kernels.fused_bf16_products_plain(raw, wp.abs()), what, rel))
+
+    # ragged: rows off the row tile, bytes ending mid-stage, columns off
+    # the column tile; 2064 bytes = 3 float32 partial sums, the last short
+    for B, nbp, Cw in ((37, 272, 400), (130, 2064, 1152)):
+        raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(dev)
+        check(raw, _bf16_randn(gen, (4, nbp, Cw), dev),
+              f"ragged B={B} nbp={nbp} Cw={Cw}")
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, split=True)
+    raw = torch.from_numpy(fsc.pad_raw(
+        rng.integers(0, 256, (37, 257), dtype=np.uint8))).to(dev)
+    check(raw, c.Wp, f"ragged, N=1025 split operand {tuple(c.Wp.shape)}")
+
+    # full width: the main path's shapes (C_used = 321 -> Cp = 384, three
+    # thirds -> Cw = 1152), a random bf16 operand
+    f = FULL
+    nbp = -(-((f["N"] + 3) // 4) // 256) * 256
+    B, Cw = f["B"], 3 * 384
+    raw = torch.randint(0, 256, (B, nbp), generator=gen, device=dev, dtype=torch.uint8)
+    wp = _bf16_randn(gen, (4, nbp, Cw), dev)
+    check(raw, wp, "full width")
+    ms = _time_ms(lambda: kernels.fused_bf16_products(raw, wp), reps)
+    plain_ms = _time_ms(lambda: kernels.fused_bf16_products_plain(raw, wp), 3)
+
+    # yardstick: one bf16 torch.matmul (cuBLAS, float32 accumulation, bf16
+    # output) per product, of the indicators decoded beforehand
+    w2 = wp.reshape(4 * nbp, Cw)
+
+    def indicators(code):
+        r = raw.to(torch.int32)
+        return torch.cat([((r >> (2 * p)) & 3) == code for p in range(4)],
+                         1).to(torch.bfloat16)  # [B, 4*nbp], p-major columns
+
+    library_ms = _matmul_ms([(lambda k=k: indicators(k), w2)
+                             for k in (0, 2, 1)], reps)
+    del w2
+
+    ops = 2.0 * 3 * B * (4 * nbp) * Cw
+    nbytes = B * nbp + 4 * nbp * Cw * 2 + 3 * B * Cw * 8
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_BF16_OPS)
+    print(f"  fused_bf16 full width: {ms:.3f} ms (median of {reps}), plain "
+          f"{plain_ms:.3f} ms, library: three bf16 matmuls of decoded "
+          f"indicators {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}: {ops:.3e} bf16 ops, {nbytes / 1e9:.3f} GB); "
+          f"{ops / ms / 1e9:.1f} TFLOP/s = {bound_ms / ms:.1%} of the bound")
+    return dict(name="fused_bf16", route="cuda",
+                source="regenie_tpu_torch/ops/csrc/fused_bf16.cu",
+                replaces="regenie_tpu/ops/fused_score.py:364",
+                launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def bgen_bf16_phase(dev, reps=10):
+    """bgen_bf16: within the flush bar on ragged shapes, on split operands
+    built by the port at a small N, and at full width, and exactly equal
+    on 0/1 operands (the mask and ind columns); times at full width."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    rel = kernels.BF16_FLUSH * 2.0**-23
+    errs = []
+
+    def check(planes, wp, wq, what):
+        errs.append(_check_sums(
+            "bgen_bf16", kernels.bgen_bf16_products(planes, wp, wq),
+            kernels.bgen_bf16_products_plain(planes, wp, wq),
+            kernels.bgen_bf16_products_plain(planes, wp.abs(), wq.abs()),
+            what, rel))
+
+    # ragged: rows off the row tile, samples ending mid-stage, columns off
+    # the column tile, every byte pair (about half of them missing); 9232
+    # samples = 3 float32 partial sums, the last short
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 9232, 1152, 384)):
+        planes = torch.from_numpy(rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(dev)
+        check(planes, _bf16_randn(gen, (Np, Cw), dev), _bf16_randn(gen, (Np, Cq), dev),
+              f"ragged B={B} Np={Np} Cw={Cw} Cq={Cq}")
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, pack="sample", split=True)
+    Np = fsc.op_nbp(c.Wp)
+    check(_imputed_planes(gen, 37, 1025, Np, dev), c.Wp, c.Wq,
+          f"ragged, N=1025 split operands {tuple(c.Wp.shape)} / {tuple(c.Wq.shape)}")
+
+    # full width: the main path's shapes (Cp = 384, Cqp = 128, three
+    # thirds each), random bf16 operands
+    f = FULL
+    Np = -(-f["N"] // 256) * 256
+    B, Cw, Cq = f["B"], 3 * 384, 3 * 128
+    planes = _imputed_planes(gen, B, f["N"], Np, dev)
+    wp = _bf16_randn(gen, (Np, Cw), dev)
+    wq = _bf16_randn(gen, (Np, Cq), dev)
+    check(planes, wp, wq, "full width")
+    # 0/1 operands: integer partial sums below 255 x 4096 < 2^24, so
+    # exactly the plain integers (what keeps INFO and A1FREQ exact)
+    ones = (wp > 0).to(torch.bfloat16), (wq > 0).to(torch.bfloat16)
+    err01 = max(float((g - w).abs().max()) for g, w in zip(
+        kernels.bgen_bf16_products(planes, *ones),
+        kernels.bgen_bf16_products_plain(planes, *ones)))
+    print(f"  bgen_bf16 full width, 0/1 operands: max|kernel-plain|={err01}")
+    if err01 != 0:
+        raise AssertionError("bgen_bf16 differs from its plain version on 0/1 "
+                             f"operands: {err01}")
+    del ones
+    ms = _time_ms(lambda: kernels.bgen_bf16_products(planes, wp, wq), reps)
+    plain_ms = _time_ms(lambda: kernels.bgen_bf16_products_plain(planes, wp, wq), 3)
+
+    # yardstick: six bf16 torch.matmul (cuBLAS), of the byte multiplicands
+    # decoded beforehand (exact in bf16)
+    library_ms = _matmul_ms(
+        [(lambda i=i: kernels.bgen_indicators(planes)[i].to(torch.bfloat16), w)
+         for i, w in enumerate((wp, wp, wq, wq, wq, wp))], reps)
+
+    ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
+    nbytes = 2 * B * Np + Np * (Cw + Cq) * 2 + 8 * B * (3 * Cw + 3 * Cq)
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_BF16_OPS)
+    print(f"  bgen_bf16 full width: {ms:.3f} ms (median of {reps}), plain "
+          f"{plain_ms:.3f} ms, library: six bf16 matmuls of decoded bytes "
+          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+          f"{ops:.3e} bf16 ops, {nbytes / 1e9:.3f} GB); "
+          f"{ops / ms / 1e9:.1f} TFLOP/s = {bound_ms / ms:.1%} of the bound")
+    return dict(name="bgen_bf16", route="cuda",
+                source="regenie_tpu_torch/ops/csrc/bgen_bf16.cu",
+                replaces="regenie_tpu/ops/fused_score.py:1054",
+                launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def decode_planes_phase(dev, reps=10):
+    """decode_planes: exactly equal to its plain version on ragged shapes
+    (byte counts that are and are not multiples of 4) and at full width;
+    times at full width. No single PyTorch call computes the decode, so
+    there is no library time."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels
+    from regenie_tpu_torch.ops import pallas_ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    f = FULL
+    full = (f["B"], (f["N"] + 3) // 4)
+    for B, nb in ((37, 250), (5, 257), (130, 1024), full):
+        raw = torch.randint(0, 256, (B, nb), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        got = pallas_ops.decode_bed_planes(raw)
+        want = pallas_ops.decode_bed_planes_plain(raw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"  decode_planes B={B} nb={nb}: "
+              f"{'equal' if same else 'DIFFERENT'} to the plain version")
+        if not same:
+            raise AssertionError(f"decode_planes differs from its plain version "
+                                 f"at B={B} nb={nb}")
+        del got, want
+    ms = _time_ms(lambda: pallas_ops.decode_bed_planes(raw), reps)
+    plain_ms = _time_ms(lambda: pallas_ops.decode_bed_planes_plain(raw), 3)
+    B, nb = full
+    nbytes = B * nb + 16 * B * nb
+    bound_ms, bound_by = _bound(0.0, nbytes, PEAK_BF16_OPS)
+    print(f"  decode_planes full width: {ms:.3f} ms (median of {reps}), plain "
+          f"{plain_ms:.3f} ms, no library call, bound {bound_ms:.3f} ms "
+          f"({bound_by}: {nbytes / 1e9:.3f} GB); "
+          f"{nbytes / ms / 1e6:.1f} GB/s = {bound_ms / ms:.1%} of the bound")
+    return dict(name="decode_planes", route="cuda",
+                source="regenie_tpu_torch/ops/csrc/decode_planes.cu",
+                replaces="regenie_tpu/ops/pallas_ops.py:27",
+                launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _assert_close(name, a, b, tol):
@@ -853,8 +1061,110 @@ def slice_phase(tmp, src):
                         ref.info_t, 1e-9)
             _assert_rel(f"first block A1FREQ, {name} operand", out[name].af_t,
                         ref.af_t, 1e-9)
+    launches.update(split_path(eng, plain, chrom, raw, bsnps, ref))
     eng.gd.close()
     return launches
+
+
+def _split_engine(eng, chrom):
+    """A Step-2 engine of the same run scoring through the bf16 split
+    consts: build_consts(split=True) (and for BGEN the narrow split Wq)
+    from the engine's per-sample arrays on the genotype file's sample
+    axis, and make_qt_block_fn / make_qt_bgen_fn on them. No CLI option
+    selects this operand, in the JAX package as here."""
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.run_step2 import Step2Engine
+
+    sp = Step2Engine(eng.params, eng.gd, eng.pd, eng.blup_files, eng.log,
+                     eng.device)
+    sp.prep_chrom(chrom)
+    is_bgen = sp.gd._bgen is not None
+    ind_f = sp._scatter_file(sp.pd.ind_in_analysis.astype(np.float64)).astype(bool)
+    mask_f = sp._scatter_file(sp.maskf)
+    c = fsc.build_consts(
+        sp._scatter_file(sp.pd.new_cov), sp._scatter_file(sp.res), mask_f,
+        ind_f, sp.scale_denom, nb=(sp._fused_nfile() + 3) // 4,
+        device=sp.device, split=True, pack="sample" if is_bgen else "plane")
+    if is_bgen:
+        indz = ind_f.astype(np.float64)[:, None]
+        c = c._replace(Wq=fsc.sample_pack(
+            np.concatenate([mask_f * indz, indz], axis=1), True, sp.device)[0])
+        sp._fused_fn = fsc.make_qt_bgen_fn(c, True, strict=sp.strict)
+    else:
+        sp._fused_fn = fsc.make_qt_block_fn(c, True, strict=sp.strict)
+    sp._fused_consts, sp._fused_op_nbp, sp._fused_chrom = c, fsc.op_nbp(c.Wp), chrom
+    return sp
+
+
+def split_path(eng, plain, chrom, raw, bsnps, ref):
+    """The bf16 split operand's library path on the first block of a
+    slice's dataset, with the launch counts set to 0 just before it and
+    read just after: the split engine's block function (make_qt_block_fn
+    or make_qt_bgen_fn) and, on BED, score_block_fused with random allele
+    flips. Each meets the slice bars against the float64 plain path (BGEN
+    INFO and A1FREQ too). Returns the launch counts of the bf16 kernel."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+
+    is_bgen = eng.gd._bgen is not None
+    kernel = "bgen_bf16" if is_bgen else "fused_bf16"
+    print(f"[split path, {'BGEN' if is_bgen else 'BED'}]")
+    t0 = time.time()
+    sp = _split_engine(eng, chrom)
+    c = sp._fused_consts
+    print(f"  split consts built in {time.time() - t0:.1f}s: Wp "
+          f"{tuple(c.Wp.shape)} {c.Wp.dtype}"
+          + (f", Wq {tuple(c.Wq.shape)}" if is_bgen else ""))
+    x = sp._fused_upload(raw)
+    B = x.shape[0]
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(11)
+    flip = torch.rand(B, generator=gen, device=x.device) < 0.5
+
+    _reset_counts()
+    t0 = time.time()
+    res = sp.test_raw_block_fused(x, bsnps)[0]
+    flipped = None
+    if not is_bgen:
+        flipped = fsc.score_block_fused(x, flip, c)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    n_calls = 1 if is_bgen else 2
+    print(f"  first block through the split consts: {wall:.3f}s, launches {counts}")
+    want = {name: n_calls if name == kernel else 0 for name in counts}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+
+    inc = list(c.inc)
+    _assert_close("split path first block LOG10P", res.logp, ref.logp, LOG10P_TOL)
+    _assert_close("split path first block BETA", res.bhat, ref.bhat, BETA_TOL)
+    _diff_record("bf16 split operand", res.logp, res.bhat, ref, inc)
+    if is_bgen:
+        _assert_rel("split path first block INFO", res.info_t, ref.info_t, 1e-9)
+        _assert_rel("split path first block A1FREQ", res.af_t, ref.af_t, 1e-9)
+    else:
+        # score_block_fused with flips against the plain products on the
+        # plain engine's float64 consts, with the same flips
+        want_f = fsc.score_block_fused(x, flip, plain._fused_consts, use_kernel=False)
+        fl = flip.cpu().numpy()
+        # variants of (near) zero variance after projection are not
+        # tested (low); both sides leave them out
+        low = (flipped[3] | want_f[3]).cpu().numpy()
+        post = []
+        for o in (flipped, want_f):
+            bhat, _, _, logp = sp._qt_post(*(t.cpu().numpy() for t in o[:3]), fl)
+            post.append((np.where(low[:, None], np.nan, bhat),
+                         np.where(low[:, None], np.nan, logp)))
+        print(f"  score_block_fused: {int(fl.sum())} of {B} variants flipped, "
+              f"{int(low.sum())} of low variance")
+        _assert_close("score_block_fused LOG10P, flipped", post[0][1], post[1][1],
+                      LOG10P_TOL)
+        _assert_close("score_block_fused BETA, flipped", post[0][0], post[1][0],
+                      BETA_TOL)
+    del sp, c, x
+    return {kernel: counts[kernel]}
 
 
 def _compare_files(f_gpu, f_cpu):
@@ -983,7 +1293,8 @@ def main() -> int:
 
     print("[kernel]")
     rows = []
-    for phase in (fused_i8_phase, bgen_i8_phase, fused_f32_phase, bgen_f32_phase):
+    for phase in (fused_i8_phase, bgen_i8_phase, fused_f32_phase, bgen_f32_phase,
+                  fused_bf16_phase, bgen_bf16_phase, decode_planes_phase):
         rows.append(phase(dev))
         torch.cuda.empty_cache()
     launches = {}
@@ -992,6 +1303,9 @@ def main() -> int:
             print(f"[{src} slice]")
             launches.update(slice_phase(tmp, src))
         torch.cuda.empty_cache()
+    # decode_planes has no caller on any path of the port, as
+    # _decode_kernel has none in the JAX package: 0 launches there
+    launches["decode_planes"] = 0
     for row in rows:
         row["launches"] = launches[row["name"]]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

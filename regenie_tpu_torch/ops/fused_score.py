@@ -21,11 +21,15 @@ flips are algebraic in the same products, and the covariate projection
 follows the one-pass algebra of compute_score_qt (Step2_Models.cpp:343).
 
 Operands keep the JAX package's layouts: the plane-packed [4, nbp, Cp]
-float operand and the int8 limb operand [4, nbp, 4*Cp] ([l0|l1|l2|l3]),
-so the same constants feed both packages. On CUDA the limb operand (the
-default) and the float32 operand (REGENIE_TPU_I8=0) run through their
-hand-written kernels (ops/kernels.py), which sum in float64; on the CPU
-the operand is float64 and the products use the plain version.
+float operand, the int8 limb operand [4, nbp, 4*Cp] ([l0|l1|l2|l3]) and
+the bf16 split operand [4, nbp, 3*Cp] ([hi|mid|lo]), so the same
+constants feed both packages. On CUDA the limb operand (the default) and
+the float32 operand (REGENIE_TPU_I8=0) run through their hand-written
+kernels (ops/kernels.py), which sum in float64; on the CPU the operand
+is float64 and the products use the plain version. The bf16 split
+operand, as in the JAX package, is built only by build_consts(split=True)
+and taken by the block functions and score_block_fused; no CLI option
+selects it.
 
 BGEN v1.2 8-bit input takes the sample-ordered operand [Np, Cp]
 (sample_pack) instead: the host ships the two probability byte planes
@@ -59,7 +63,9 @@ class FusedConsts(NamedTuple):
     """Precomputed constants for the fused scorer (one per
     run/chromosome, shapes independent of the SNP block)."""
 
-    Wp: object  # [4, nbp, Cp] / [Np, Cp] float tensor, or an I8Operand
+    # [4, nbp, Cp] / [Np, Cp] float tensor, the bf16 [hi|mid|lo] split
+    # [4, nbp, 3*Cp] / [Np, 3*Cp], or an I8Operand
+    Wp: object
     usum: torch.Tensor  # [Cp] column sums of ind-masked Wext (for flips)
     covt_res: torch.Tensor  # [K, P]
     Mmat: torch.Tensor  # [nI, K, K]
@@ -67,11 +73,11 @@ class FusedConsts(NamedTuple):
     K: int
     P: int
     scale_denom: float  # n_analyzed - ncov
-    split: bool = False  # True for the int8 limb operand
+    split: bool = False  # True for the int8 limb or the bf16 split operand
     inc: tuple = None  # incomplete-trait indices (None = all P traits)
     has_male: bool = False  # chrX male tail columns (not built by the port)
-    # BGEN: the narrow operand of [maskf | ind], an [Np, 4*Cqp] I8Operand
-    # or a float32 [Np, Cqp] tensor
+    # BGEN: the narrow operand of [maskf | ind], an [Np, 4*Cqp] I8Operand,
+    # a float32 [Np, Cqp] tensor or a bf16 split [Np, 3*Cqp] tensor
     Wq: object = None
 
     def n_inc(self) -> int:
@@ -177,6 +183,32 @@ def op_nbp(Wp):
     return (Wp.limbs if isinstance(Wp, I8Operand) else Wp).shape[-2]
 
 
+def bf16_split3(w):
+    """float32 tensor -> (hi, mid, lo) bfloat16 tensors with hi + mid + lo
+    ~= w to 24 significant bits: hi = bf16(w), mid = bf16(w - hi),
+    lo = bf16(w - hi - mid), each rounded to nearest even and each
+    difference taken in float32, as the JAX package's bf16_split3 does."""
+    hi = w.to(torch.bfloat16)
+    r1 = w - hi.to(torch.float32)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _split_operand(W, device):
+    """float64 numpy operand [..., Cp] -> its bf16 [hi|mid|lo] split
+    [..., 3*Cp] on `device` (rounded to float32 first, as the JAX package
+    builds it)."""
+    return torch.cat(bf16_split3(_to_dev(W.astype(np.float32), device)), dim=-1)
+
+
+def fold3(x):
+    """[..., 3*C] products against the [hi|mid|lo] thirds -> [..., C]:
+    their sum, in x's dtype."""
+    C = x.shape[-1] // 3
+    return x[..., :C] + x[..., C : 2 * C] + x[..., 2 * C :]
+
+
 def _plane_order(X, nb, nbp):
     """[N, C] -> [4, nbp, C] float64: plane p, byte c <- sample 4c + p."""
     N, C = X.shape
@@ -200,12 +232,13 @@ def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
                nbp_tile=None):
     """[N, C] per-sample operand -> plane-ordered kernel operand.
 
-    Returns (Wp, usum): Wp is the [4, nbp, Cp] tensor (dtype) or an
-    I8Operand (split="i8"); usum is the padded [Cp] numpy column-sum
-    vector used by the flip algebra (for "i8" it sums the QUANTIZED
-    values so the flip transform stays exact in the quantized system).
-    Rows must already be zeroed for excluded samples. nbp_tile: byte
-    padding multiple (default _TC)."""
+    Returns (Wp, usum): Wp is the [4, nbp, Cp] tensor (dtype), the bf16
+    [4, nbp, 3*Cp] hi|mid|lo split (split=True) or an I8Operand
+    (split="i8"); usum is the padded [Cp] numpy column-sum vector used by
+    the flip algebra (for "i8" it sums the QUANTIZED values so the flip
+    transform stays exact in the quantized system; otherwise the float64
+    Wext). Rows must already be zeroed for excluded samples. nbp_tile:
+    byte padding multiple (default _TC)."""
     N, C = Wext.shape
     Cp = -(-C // 128) * 128
     tile = nbp_tile or _TC
@@ -219,17 +252,17 @@ def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
         usum = Wq.sum(axis=(0, 1))
         return I8Operand(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
-        raise NotImplementedError(
-            "the bf16 split operand is not yet ported to regenie_tpu_torch")
+        return _split_operand(Wp, device), usum
     return _to_dev(Wp, device, dtype), usum
 
 
 def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
     """[N, C] per-sample operand -> sample-ordered padded operand for the
-    BGEN byte planes: the [Np, Cp] tensor (dtype), or an I8Operand with
-    limbs [Np, 4*Cp] (split="i8"), and the padded [Cp] numpy usum (for
-    "i8" the sum of the QUANTIZED values, as plane_pack). Np pads to a
-    multiple of _TC samples, Cp to 128 columns."""
+    BGEN byte planes: the [Np, Cp] tensor (dtype), the bf16 [Np, 3*Cp]
+    hi|mid|lo split (split=True), or an I8Operand with limbs [Np, 4*Cp]
+    (split="i8"), and the padded [Cp] numpy usum (for "i8" the sum of the
+    QUANTIZED values, as plane_pack). Np pads to a multiple of _TC
+    samples, Cp to 128 columns."""
     N, C = Wext.shape
     Cp = -(-C // 128) * 128
     Np = -(-N // _TC) * _TC
@@ -241,8 +274,7 @@ def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
         usum = Wq.sum(axis=0)
         return I8Operand(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
-        raise NotImplementedError(
-            "the bf16 split operand is not yet ported to regenie_tpu_torch")
+        return _split_operand(W, device), usum
     return _to_dev(W, device, dtype), usum
 
 
@@ -259,15 +291,19 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
     — a device slice update instead of re-packing and re-uploading the
     operand. Returns a new operand; the input is left unchanged.
 
-    Wp_dev: [4, nbp, Cp] or [Np, Cp] tensor, or I8Operand; res_planes:
-    the matching [4, nbp, P] or [Np, P] tensor (float32 for the int8
-    operand, which is re-quantized on the device with fresh column
-    scales). A float operand gets the residuals in full at its own dtype.
-    On a TPU the JAX package does not: regenie_tpu/run_step2.py:1125-1128
-    passes split=True with its float32 operand, so its patch
-    (regenie_tpu/ops/fused_score.py:251-257) writes only the bf16 high
-    part of each residual and drops the other two parts outside the
-    operand. That fault is not copied here (ROADMAP.md §3)."""
+    Wp_dev: [4, nbp, Cp] or [Np, Cp] tensor, the bf16 split [4, nbp, 3*Cp]
+    or [Np, 3*Cp], or I8Operand; res_planes: the matching [4, nbp, P] or
+    [Np, P] tensor (float32 for the int8 operand, which is re-quantized on
+    the device with fresh column scales). A bf16 split operand gets the
+    hi, mid and lo parts of the float32 residuals in columns [K:K+P],
+    [Cp+K:Cp+K+P] and [2Cp+K:2Cp+K+P], as the JAX package's split patch
+    does (regenie_tpu/ops/fused_score.py:251-257). A float operand gets
+    the residuals in full at its own dtype. On a TPU the JAX package does
+    not: regenie_tpu/run_step2.py:1125-1128 passes split=True with its
+    float32 operand, so its split patch writes only the bf16 high part of
+    each residual and drops the other two parts outside the operand. The
+    port chooses the branch by the operand's dtype, so that fault is not
+    copied here (ROADMAP.md §3)."""
     if isinstance(Wp_dev, I8Operand):
         limbs, s = _i8_quantize_torch(res_planes)
         W = Wp_dev.limbs.clone()
@@ -277,6 +313,11 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
         scale[K : K + P] = s
         return I8Operand(W, scale)
     W = Wp_dev.clone()
+    if W.dtype == torch.bfloat16:
+        parts = bf16_split3(res_planes.to(torch.float32))
+        for k, part in enumerate(parts):
+            W[..., k * Cp + K : k * Cp + K + P] = part
+        return W
     W[..., K : K + P] = res_planes.to(W.dtype)
     return W
 
@@ -349,7 +390,10 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
     separate Wq), as the float array `wq` or as `wq_limbs` + `wq_scale`.
     The constants land in `dtype` on `device`; the float operands keep
     their dtypes (the JAX package's float32 on a TPU), the int8 limbs and
-    their float32 scales theirs."""
+    their float32 scales theirs. A bf16 split operand (`Wp` or `wq`)
+    comes as a 2-byte array holding the bfloat16 bits: the JAX array's
+    numpy view (ml_dtypes.bfloat16) or that viewed as uint16; its bits
+    carry across unchanged into a torch.bfloat16 tensor."""
     if (Wp is None) == (limbs is None):
         raise ValueError("give exactly one of Wp or limbs/scale")
     if wq is not None and wq_limbs is not None:
@@ -359,9 +403,16 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
         return I8Operand(_to_dev(lb, device, torch.int8),
                          _to_dev(sc, device, torch.float32))
 
-    op = i8(limbs, scale) if limbs is not None else _to_dev(Wp, device)
+    def float_op(a):
+        a = np.asarray(a)
+        if a.dtype.itemsize == 2 and a.dtype.kind in "uiV":
+            # bfloat16 bits: numpy has no bfloat16, so go through int16
+            return _to_dev(a.view(np.int16), device).view(torch.bfloat16)
+        return _to_dev(a, device)
+
+    op = i8(limbs, scale) if limbs is not None else float_op(Wp)
     if wq is not None:
-        wq = _to_dev(wq, device)
+        wq = float_op(wq)
     elif wq_limbs is not None:
         wq = i8(wq_limbs, wq_scale)
     return FusedConsts(
@@ -377,17 +428,19 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
 
 def fused_products(raw, Wp, dtype=torch.float32):
     """raw: [B, nbp] packed uint8 (zero-padded rows/cols); Wp: an
-    I8Operand, a float32 [4, nbp, C] operand, or on the CPU a float64
-    one. Returns (S1, SQ, SM) each [B, Cp]: from the int8 operand in
-    `dtype`, from the float32 operand in float64, else in the operand's
-    dtype.
+    I8Operand, a float32 [4, nbp, C] operand, the bf16 [4, nbp, 3*Cp]
+    split, or on the CPU a float64 one. Returns (S1, SQ, SM) each [B, Cp]:
+    from the int8 operand in `dtype`, from the float32 and the bf16
+    operands in float64, else in the operand's dtype.
 
     The int8 operand goes through kernels.fused_i8_products, the float32
     operand through kernels.fused_f32_products (exact products, float64
-    sums) — each the CUDA kernel for a CUDA tensor, its plain version for
-    a CPU tensor — and the class products fold as the JAX package does:
-    S1 = 2H+E, SQ = 4H+E, SM = M. A float64 operand takes the plain
-    products on the CPU and raises on CUDA, where no kernel takes it.
+    sums), the bf16 split through kernels.fused_bf16_products (float64
+    products against each third, folded hi + mid + lo in float64) — each
+    the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor
+    — and the class products fold as the JAX package does: S1 = 2H+E,
+    SQ = 4H+E, SM = M. A float64 operand takes the plain products on the
+    CPU and raises on CUDA, where no kernel takes it.
     Padding safety: pad bytes decode to code 0 (hom-alt), but the
     corresponding operand rows are zero, so padded samples contribute 0
     to every product."""
@@ -397,6 +450,9 @@ def fused_products(raw, Wp, dtype=torch.float32):
         return 2.0 * Hf + Ef, 4.0 * Hf + Ef, Mf
     if Wp.dtype == torch.float32:
         H, E, M = kernels.fused_f32_products(raw, Wp)
+        return 2.0 * H + E, 4.0 * H + E, M
+    if Wp.dtype == torch.bfloat16:
+        H, E, M = (fold3(x) for x in kernels.fused_bf16_products(raw, Wp))
         return 2.0 * H + E, 4.0 * H + E, M
     if raw.is_cuda:
         raise TypeError(
@@ -417,9 +473,12 @@ def fused_products_plain(raw, Wp, dtype=torch.float32):
     JAX package's fused_products_xla): decode the planes to dosage g,
     g^2 and missing indicators in the operand's dtype and take three
     matmuls per plane. An I8Operand folds its limbs to the quantized
-    values in `dtype` first."""
+    values in `dtype` first, a bf16 split its thirds to their float64 sum
+    (the JAX package folds them in float32)."""
     if isinstance(Wp, I8Operand):
         Wp = i8_fold(Wp.limbs.to(torch.int32), Wp.scale, dtype)
+    elif Wp.dtype == torch.bfloat16:
+        Wp = fold3(Wp.to(torch.float64))
     dt = Wp.dtype
     S1 = SQ = SM = 0.0
     for p, codes in enumerate(_decode_planes(raw)):
@@ -580,6 +639,24 @@ def make_qt_block_fn(consts: FusedConsts, use_kernel: bool = True,
     return run
 
 
+def score_block_fused(raw, flip, consts: FusedConsts, use_kernel=True):
+    """End-to-end fused scorer for one packed block (the JAX package's
+    score_block_fused, with use_kernel in place of use_pallas): products
+    + epilogue with the minor-allele flip applied in product space.
+
+    raw: [B, nbp] uint8 tensor (pad with pad_raw); flip: [B] bool tensor.
+    Returns (stats, denum, scale_fac, low, af_num). use_kernel=False takes
+    the plain products on any device."""
+    prod = fused_products if use_kernel else fused_products_plain
+    S1, SQ, SM = prod(raw, consts.Wp, consts.usum.dtype)
+    dt = S1.dtype
+    return fused_epilogue(
+        S1, SQ, SM, flip, consts.usum.to(dt), consts.covt_res.to(dt),
+        consts.Mmat.to(dt), consts.K, consts.P, consts.scale_denom,
+        consts.n_ind, 0, consts.inc,
+    )
+
+
 def pad_raw(raw: np.ndarray, nbp: int | None = None) -> np.ndarray:
     """Zero-pad packed bytes to the operand's byte-tile multiple."""
     B, nb = raw.shape
@@ -597,10 +674,14 @@ def pad_raw(raw: np.ndarray, nbp: int | None = None) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _bgen_combine(outs):
+def _bgen_combine(outs, split=False):
     """(D0, D1, Q0, Q1, Q2, M) byte-plane products -> (S1, SQ, SM, IL):
     dosage, squared-dosage, missing and info-linear (4*p0 + p1)
-    products of the raw (missing-as-zero) dosages."""
+    products of the raw (missing-as-zero) dosages. split: the products
+    are against the [hi|mid|lo] thirds of a bf16 operand, folded first
+    (in their own dtype, float64 here)."""
+    if split:
+        outs = [fold3(x) for x in outs]
     D0, D1, Q0, Q1, Q2, M = outs
     S1 = (2.0 * D0 + D1) / 255.0
     SQ = (65536.0 * Q2 + 256.0 * Q1 + Q0) / (255.0 * 255.0)
@@ -611,36 +692,42 @@ def _bgen_combine(outs):
 def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
                         dtype=torch.float64):
     """planes: [B, 2, Np] uint8 (Np a multiple of _TC, pad samples zero);
-    Wp: the sample_pack operand, an I8Operand or a float32 [Np, Cp]
-    tensor (or on the CPU a float64 one); Wq: the narrow SQ-consumer
-    operand of the same kind (sample_pack of Wext[:, qs:], given with qs
-    and C_used), or None to use the full width. Returns (S1, SQ, SM, IL)
-    each [B, Cp]; with a narrow Wq, SQ's columns outside [qs:C_used] are
-    ZERO.
+    Wp: the sample_pack operand, an I8Operand, a float32 [Np, Cp] tensor
+    or the bf16 [Np, 3*Cp] split (or on the CPU a float64 one); Wq: the
+    narrow SQ-consumer operand of the same kind (sample_pack of
+    Wext[:, qs:], given with qs and C_used), or None to use the full
+    width. Returns (S1, SQ, SM, IL) each [B, Cp]; with a narrow Wq, SQ's
+    columns outside [qs:C_used] are ZERO.
 
     The int8 operand goes through kernels.bgen_i8_products, whose exact
     int64 products fold into `dtype` (float64: exact for every limb
     product); the float32 operand through kernels.bgen_f32_products
-    (exact products, float64 sums) — each the CUDA kernel for CUDA
+    (exact products, float64 sums); the bf16 split through
+    kernels.bgen_bf16_products (float64 products against each third,
+    folded hi + mid + lo in float64) — each the CUDA kernel for CUDA
     tensors, its plain version for CPU tensors. A float64 operand takes
     the plain products (full width) on the CPU and raises on CUDA."""
-    if not isinstance(Wp, I8Operand) and Wp.dtype != torch.float32:
+    if not isinstance(Wp, I8Operand) \
+            and Wp.dtype not in (torch.float32, torch.bfloat16):
         if planes.is_cuda:
             raise TypeError(
                 f"bgen_fused_products: no kernel takes a {Wp.dtype} operand "
-                "on CUDA (the card's float operand is float32); "
+                "on CUDA (the card's float operands are float32 and bf16); "
                 "use_kernel=False takes the plain products")
         return bgen_fused_products_plain(planes, Wp, dtype)
     if Wq is None:
         Wq, qs = Wp, 0
+    split = not isinstance(Wp, I8Operand) and Wp.dtype == torch.bfloat16
     if isinstance(Wp, I8Operand):
         D0, D1, Q0, Q1, Q2, M = kernels.bgen_i8_products(planes, Wp.limbs,
                                                          Wq.limbs)
         D0, D1, M = (i8_fold(x, Wp.scale, dtype) for x in (D0, D1, M))
         Q0, Q1, Q2 = (i8_fold(x, Wq.scale, dtype) for x in (Q0, Q1, Q2))
+    elif split:
+        D0, D1, Q0, Q1, Q2, M = kernels.bgen_bf16_products(planes, Wp, Wq)
     else:
         D0, D1, Q0, Q1, Q2, M = kernels.bgen_f32_products(planes, Wp, Wq)
-    S1, SQn, SM, IL = _bgen_combine((D0, D1, Q0, Q1, Q2, M))
+    S1, SQn, SM, IL = _bgen_combine((D0, D1, Q0, Q1, Q2, M), split)
     if not qs:
         return S1, SQn, SM, IL
     # scatter the narrow SQ back onto the full column frame (the other
@@ -656,9 +743,12 @@ def bgen_fused_products_plain(planes, Wp, dtype=torch.float64):
     the JAX package's bgen_fused_products_xla): decode the planes to the
     six byte indicators in the operand's dtype and take six matmuls
     against the full-width operand. An I8Operand folds its limbs to the
-    quantized values in `dtype` first."""
+    quantized values in `dtype` first, a bf16 split its thirds to their
+    float64 sum (the JAX package folds them in float32)."""
     if isinstance(Wp, I8Operand):
         Wp = i8_fold(Wp.limbs.to(torch.int32), Wp.scale, dtype)
+    elif Wp.dtype == torch.bfloat16:
+        Wp = fold3(Wp.to(torch.float64))
     step = kernels.PLAIN_CHUNK  # bounds the float planes at biobank N
     outs = [0.0] * 6
     for n0 in range(0, planes.shape[2], step):
@@ -687,7 +777,8 @@ def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
     """QT block function over BGEN probability byte planes: the QT score
     outputs plus the raw product slices and the info-linear products
     (for the INFO column). With the kernel, the squared-dosage products
-    of an int8 or float32 operand run against consts.Wq, the narrow
+    of an int8, float32 or bf16 split operand run against consts.Wq, the
+    narrow
     [maskf | ind] operand, whose columns start at qs = C_used - (P + 1).
     use_kernel=False takes the plain products on any device."""
     C_used = consts.layout_C()

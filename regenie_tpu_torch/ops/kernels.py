@@ -13,6 +13,16 @@ Kernels (sources under ops/csrc/, one shared library each):
 - bgen_f32 (csrc/bgen_f32.cu): the six BGEN products against the float32
   operands, summed in float64, replacing the Pallas kernel
   regenie_tpu/ops/fused_score.py:1054 _bgen_kernel_split (f32 operand).
+- fused_bf16 (csrc/fused_bf16.cu): the class-indicator products against
+  the bf16 hi|mid|lo split operand, float32 sums of BF16_FLUSH terms
+  added into float64, replacing the Pallas kernel
+  regenie_tpu/ops/fused_score.py:364 _fused_kernel_split.
+- bgen_bf16 (csrc/bgen_bf16.cu): the six BGEN products against the bf16
+  split operands, summed the same way, replacing the Pallas kernel
+  regenie_tpu/ops/fused_score.py:1054 _bgen_kernel_split (bf16 operand).
+- decode_planes (csrc/decode_planes.cu): PLINK 2-bit bytes to plane-ordered
+  float32 genotypes, replacing the Pallas kernel
+  regenie_tpu/ops/pallas_ops.py:27 _decode_kernel.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC` into regenie_tpu_torch/_build/ (git-ignored), at first
@@ -23,8 +33,9 @@ here imports or builds anything when the module is imported.
 A wrapper launches its kernel for CUDA tensors (or raises) and uses the
 kernel's plain version only for CPU tensors. Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`. The plain
-versions of the float32-operand kernels widen the operand and sum in
-float64, as the kernels do.
+versions of the float32- and bf16-operand kernels widen the operand and
+sum in float64; the float32 kernels sum in float64 too, the bf16 kernels
+sum BF16_FLUSH terms at a time in float32 and add those sums in float64.
 """
 
 from __future__ import annotations
@@ -42,18 +53,24 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = {"fused_i8": "fused_i8.cu", "bgen_i8": "bgen_i8.cu",
-           "fused_f32": "fused_f32.cu", "bgen_f32": "bgen_f32.cu"}
+           "fused_f32": "fused_f32.cu", "bgen_f32": "bgen_f32.cu",
+           "fused_bf16": "fused_bf16.cu", "bgen_bf16": "bgen_bf16.cu",
+           "decode_planes": "decode_planes.cu"}
 # argument types of each library's `<name>_launch` entry point
+_FUSED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+_BGEN_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 _ARGTYPES = {
-    "fused_i8": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
-    + [ctypes.c_void_p],
-    "bgen_i8": [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
-    + [ctypes.c_void_p],
-    "fused_f32": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
-    + [ctypes.c_void_p],
-    "bgen_f32": [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
+    "fused_i8": _FUSED_ARGS, "bgen_i8": _BGEN_ARGS,
+    "fused_f32": _FUSED_ARGS, "bgen_f32": _BGEN_ARGS,
+    "fused_bf16": _FUSED_ARGS, "bgen_bf16": _BGEN_ARGS,
+    "decode_planes": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
     + [ctypes.c_void_p],
 }
+# terms per float32 partial sum of the bf16 kernels (csrc/fused_bf16.cu,
+# csrc/bgen_bf16.cu: FLUSH), added into float64 after each; such a sum
+# rounds by at most about BF16_FLUSH x 2^-23 of its terms' magnitudes (the
+# tensor cores' own accumulation does not round to nearest)
+BF16_FLUSH = 4096
 _libs = {}
 
 
@@ -259,6 +276,35 @@ def fused_f32_products(raw, wp):
 fused_f32_products.launches = 0
 
 
+def fused_bf16_products_plain(raw, wp):
+    """Plain version of the fused_bf16 kernel: for raw [B, nbp] uint8 and
+    the bf16 split operand wp [4, nbp, Cw] (Cw = 3*Cp, [hi|mid|lo]), H, E,
+    M [B, Cw] float64 with H[b, j] = sum_p sum_c [code_p(raw[b, c]) == 0]
+    * wp[p, c, j] (E: code 2, M: code 1), against each third separately.
+    The operand is widened to float64 (exactly) and the products are
+    float64 matmuls, chunked over bytes by PLAIN_CHUNK on CUDA."""
+    return tuple(_fused_plain(raw, wp, torch.float64))
+
+
+def fused_bf16_products(raw, wp):
+    """raw [B, nbp] uint8, wp [4, nbp, Cw] bfloat16 -> (H, E, M), each
+    [B, Cw] float64 (see fused_bf16_products_plain; the kernel sums
+    BF16_FLUSH terms at a time in float32). CUDA tensors launch the
+    csrc/fused_bf16.cu kernel on the current stream; CPU tensors take the
+    plain version."""
+    if raw.device.type == "cpu" and wp.device.type == "cpu":
+        return fused_bf16_products_plain(raw, wp)
+    if 4 * raw.shape[-1] >= 2**31:
+        raise ValueError("fused_bf16_products: 4*nbp must be below 2^31")
+    outs = _fused_call("fused_bf16", raw, wp, torch.bfloat16, torch.float64, 8)
+    if raw.shape[0]:
+        fused_bf16_products.launches += 1
+    return outs
+
+
+fused_bf16_products.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # BGEN byte planes: bgen_i8 (int8 limbs) and bgen_f32 (float32 operands)
 # ---------------------------------------------------------------------------
@@ -375,7 +421,75 @@ def bgen_f32_products(planes, wp, wq):
 
 bgen_f32_products.launches = 0
 
+
+def bgen_bf16_products_plain(planes, wp, wq):
+    """Plain version of the bgen_bf16 kernel: for planes [B, 2, Np] uint8
+    and the bf16 split operands wp [Np, Cw], wq [Np, Cq] ([hi|mid|lo]
+    thirds) returns (D0, D1, Q0, Q1, Q2, M) float64 against each third
+    separately: D0, D1 and M the products of k0, k1 and miss with wp, Q0,
+    Q1 and Q2 those of h0, h1 and h2 with wq (bgen_indicators). The
+    operands are widened to float64 (exactly) and the products are
+    float64 matmuls, chunked over samples by PLAIN_CHUNK on CUDA."""
+    return tuple(_bgen_plain(planes, wp, wq, torch.float64))
+
+
+def bgen_bf16_products(planes, wp, wq):
+    """planes [B, 2, Np] uint8, wp [Np, Cw] bfloat16, wq [Np, Cq] bfloat16
+    -> (D0, D1, Q0, Q1, Q2, M), float64, [B, Cw] for D0, D1, M and [B, Cq]
+    for the Q (see bgen_bf16_products_plain; the kernel sums BF16_FLUSH
+    terms at a time in float32). CUDA tensors launch the csrc/bgen_bf16.cu
+    kernel on the current stream; CPU tensors take the plain version."""
+    if {t.device for t in (planes, wp, wq)} == {torch.device("cpu")}:
+        return bgen_bf16_products_plain(planes, wp, wq)
+    outs = _bgen_call("bgen_bf16", planes, wp, wq, torch.bfloat16,
+                      torch.float64, 8)
+    if planes.shape[0]:
+        bgen_bf16_products.launches += 1
+    return outs
+
+
+bgen_bf16_products.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# PLINK bytes -> plane-ordered genotypes: decode_planes
+# ---------------------------------------------------------------------------
+
+
+def decode_planes_plain(raw):
+    """Plain version of the decode_planes kernel: raw [B, nb] uint8 ->
+    [B, 4*nb] float32 in plane order, column p*nb + c holding the genotype
+    of sample 4c + p: code_p(raw[b, c]) 0 / 1 / 2 / 3 -> 2 / -3 / 1 / 0
+    (hom-alt, missing, het, hom-ref)."""
+    lut = torch.tensor([2.0, -3.0, 1.0, 0.0], dtype=torch.float32,
+                       device=raw.device)
+    r = raw.to(torch.int64)
+    return torch.cat([lut[(r >> (2 * p)) & 3] for p in range(4)], dim=1)
+
+
+def decode_planes(raw):
+    """raw [B, nb] uint8 -> [B, 4*nb] float32 (see decode_planes_plain).
+    A CUDA tensor launches the csrc/decode_planes.cu kernel on the current
+    stream; a CPU tensor takes the plain version."""
+    if raw.device.type == "cpu":
+        return decode_planes_plain(raw)
+    _check_cuda_inputs("decode_planes", (raw,), (torch.uint8,), 1)
+    if raw.dim() != 2 or raw.shape[0] >= 65536:
+        raise ValueError("decode_planes: raw [B, nb] with B below 65,536")
+    B, nb = raw.shape
+    out = torch.empty((B, 4 * nb), dtype=torch.float32, device=raw.device)
+    if B and nb:
+        _launch("decode_planes", raw.device, raw.data_ptr(), out.data_ptr(),
+                B, nb)
+        decode_planes.launches += 1
+    return out
+
+
+decode_planes.launches = 0
+
 # every kernel wrapper by kernel name, for code that resets or reads the
 # launch counts of a run
 WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products,
-            "fused_f32": fused_f32_products, "bgen_f32": bgen_f32_products}
+            "fused_f32": fused_f32_products, "bgen_f32": bgen_f32_products,
+            "fused_bf16": fused_bf16_products, "bgen_bf16": bgen_bf16_products,
+            "decode_planes": decode_planes}

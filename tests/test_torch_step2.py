@@ -107,7 +107,8 @@ def test_port_imports_no_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import regenie_tpu_torch, regenie_tpu_torch.run_step2, "
         "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
-        "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.io.bgen, "
+        "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.ops.pallas_ops, "
+        "regenie_tpu_torch.io.bgen, "
         "regenie_tpu_torch.io.native\n"
         "from regenie_tpu_torch.io import native\n"
         "native.planes_lib()\n"
