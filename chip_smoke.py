@@ -17,7 +17,16 @@ Phases, each of which must pass:
    product against |W|, the bf16 split kernels' within 4096 x 2^-23 of
    it (one float32 partial sum of 4096 terms), the plane decode exactly
    equal; and time the kernel, its plain version, its bound and the
-   library yardstick.
+   library yardstick. The five profiling configurations of the bf16
+   products (csrc/profile_fused.cu: stacked, stacked-2dots, nodecode,
+   decode-only, pipelined, and the other Hopper configurations of stacked
+   and pipelined) are held the same way, decode-only exactly.
+2b. profile path: the port's profiling entry point
+   (regenie_tpu_torch.scripts.profile_fused.main) in this process at the
+   full width with 1 round of 2 blocks: every variant's kernel launches
+   as often as the script calls it and no other kernel, and its two
+   correctness lines (pipelined and stacked against prod) stay within
+   2 x 4096 x 2^-23 of the products against |W|.
 3. BED slice: write a synthetic PLINK BED at that shape (M = 2 blocks of
    2048 variants, null phenotypes) and run the port's Step-2 CLI on the
    card in this process, twice: by default, where fused_i8 must launch
@@ -854,6 +863,180 @@ def decode_planes_phase(dev, reps=10):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def profile_fused_phase(dev, reps=10):
+    """The five profile_fused configurations: within the flush bar (and
+    decode-only exactly equal) on ragged shapes, on a split operand built
+    by the port at a small N, and at fused_bf16's full width, where each
+    is timed beside its plain version, its bound and its library
+    yardstick. The other Hopper configurations of stacked and pipelined
+    are checked and timed too; the rows take configuration 0."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    rel = K.BF16_FLUSH * 2.0**-23
+    # (row name, label, wrapper call, plain version, TPU kernel)
+    cases = [("profile_stacked", f"stacked ({c})",
+              lambda r, w, i=i: K.profile_stacked_products(r, w, config=i),
+              K.profile_stacked_products_plain, "scripts/profile_fused.py:57")
+             for i, c in enumerate(K.PROFILE_STACKED_CONFIGS)]
+    cases += [("profile_stacked_2dots", "stacked-2dots",
+               K.profile_stacked_2dots_products,
+               K.profile_stacked_2dots_products_plain, "scripts/profile_fused.py:57"),
+              ("profile_nodecode", "nodecode", K.profile_nodecode_products,
+               K.profile_nodecode_products_plain, "scripts/profile_fused.py:82"),
+              ("profile_decode_only", "decode-only", K.profile_decode_only_products,
+               K.profile_decode_only_products_plain, "scripts/profile_fused.py:98")]
+    cases += [("profile_pipelined", f"pipelined ({c})",
+               lambda r, w, i=i: K.profile_pipelined_products(r, w, config=i),
+               K.profile_pipelined_products_plain, "scripts/profile_fused.py:123")
+              for i, c in enumerate(K.PROFILE_PIPELINED_CONFIGS)]
+    errs = {}
+
+    def check(raw, wp, what):
+        plain = {}
+        for row, label, fn, plain_fn, _ in cases:
+            if plain_fn not in plain:
+                plain[plain_fn] = (plain_fn(raw, wp), None if row == "profile_decode_only"
+                                   else plain_fn(raw, wp.abs()))
+            want, bar = plain[plain_fn]
+            got = fn(raw, wp)
+            if bar is None:
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                print(f"  {label} {what}: {'equal' if same else 'DIFFERENT'} to "
+                      "the plain version")
+                if not same:
+                    raise AssertionError(f"{label} differs from its plain version ({what})")
+                err = 0.0
+            else:
+                err = _check_sums(label, got, want, bar, what, rel)
+            errs[row] = max(errs.get(row, 0.0), err)
+
+    # ragged: rows off the row tile, bytes ending mid-stage, columns off
+    # the column tile; 2064 bytes = 3 float32 partial sums, the last short
+    for B, nbp, Cw in ((37, 272, 400), (130, 2064, 1152)):
+        raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(dev)
+        check(raw, _bf16_randn(gen, (4, nbp, Cw), dev), f"ragged B={B} nbp={nbp} Cw={Cw}")
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, split=True)
+    raw = torch.from_numpy(fsc.pad_raw(
+        rng.integers(0, 256, (37, 257), dtype=np.uint8))).to(dev)
+    check(raw, c.Wp, f"ragged, N=1025 split operand {tuple(c.Wp.shape)}")
+
+    # full width: fused_bf16's shapes (Cw = 3 x 384), a random bf16 operand
+    f = FULL
+    nbp = -(-((f["N"] + 3) // 4) // 256) * 256
+    B, Cw = f["B"], 3 * 384
+    raw = torch.randint(0, 256, (B, nbp), generator=gen, device=dev, dtype=torch.uint8)
+    wp = _bf16_randn(gen, (4, nbp, Cw), dev)
+    check(raw, wp, "full width")
+    times = {label: _time_ms(lambda fn=fn: fn(raw, wp), reps)
+             for _, label, fn, _, _ in cases}
+    bf16_ms = _time_ms(lambda: K.fused_bf16_products(raw, wp), reps)
+    for label, ms in times.items():
+        print(f"  {label} full width: {ms:.3f} ms (median of {reps})")
+    print(f"  fused_bf16 on the same inputs: {bf16_ms:.3f} ms")
+
+    # yardsticks: bf16 torch.matmul (cuBLAS) of the indicators (codes 0, 2,
+    # 1) or of the bytes, decoded beforehand, against wp as [4*nbp, Cw]
+    w2 = wp.reshape(4 * nbp, Cw)
+
+    def indicators(code):
+        r = raw.to(torch.int32)
+        return torch.cat([((r >> (2 * p)) & 3) == code for p in range(4)],
+                         1).to(torch.bfloat16)  # [B, 4*nbp], p-major columns
+
+    lib_he = _matmul_ms([(lambda k=k: indicators(k), w2) for k in (0, 2)], reps)
+    lib_m = _matmul_ms([(lambda: indicators(1), w2)], reps)
+    lib_bytes = _matmul_ms([(lambda: torch.cat([raw.to(torch.bfloat16)] * 4, 1), w2)]
+                           * 3, reps)
+    del w2
+
+    first = {}
+    for row, label, _, plain_fn, src in cases:
+        first.setdefault(row, (label, plain_fn, src))
+    ops3 = 2.0 * 3 * B * (4 * nbp) * Cw
+    nbytes = B * nbp + 4 * nbp * Cw * 2 + 3 * B * Cw * 8
+    work = {"profile_stacked": (ops3, lib_he + lib_m),
+            "profile_stacked_2dots": (ops3 * 2 / 3, lib_he),
+            "profile_nodecode": (ops3, lib_bytes),
+            "profile_decode_only": (0.0, None),
+            "profile_pipelined": (ops3, lib_he + lib_m)}
+    rows = []
+    for row, (label, plain_fn, src) in first.items():
+        ops, library_ms = work[row]
+        ms = times[label]
+        plain_ms = _time_ms(lambda plain_fn=plain_fn: plain_fn(raw, wp), 3)
+        bound_ms, bound_by = _bound(ops, nbytes, PEAK_BF16_OPS)
+        lib = "no library call" if library_ms is None else \
+            f"library {library_ms:.3f} ms"
+        print(f"  {label} full width: {ms:.3f} ms, plain {plain_ms:.3f} ms, {lib}, "
+              f"bound {bound_ms:.3f} ms ({bound_by}: {ops:.3e} bf16 ops, "
+              f"{nbytes / 1e9:.3f} GB) = {bound_ms / ms:.1%} of the bound")
+        rows.append(dict(name=row, route="cuda",
+                         source="regenie_tpu_torch/ops/csrc/profile_fused.cu",
+                         replaces=src, launches=None, max_abs_err=errs[row], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
+    st, nd, do = (times[first[r][0]] for r in ("profile_stacked", "profile_nodecode",
+                                                "profile_decode_only"))
+    print(f"  attribution (stacked {st:.3f} ms): decode ~ stacked - nodecode = "
+          f"{st - nd:.3f} ms ({(st - nd) / st:.1%}); mma ~ stacked - decode-only = "
+          f"{st - do:.3f} ms ({(st - do) / st:.1%}); on {card_line()}")
+    return rows
+
+
+def profile_path_phase():
+    """The port's profiling entry point in this process at the full UKB
+    width (1 round of 2 blocks), with the launch counts set to 0 just
+    before it and read just after: each variant's kernel launches once per
+    call the script makes (a warm-up and one per block for each line, one
+    more for prod, stacked and pipelined in the correctness lines) and no
+    other kernel; the correctness lines within 2 x BF16_FLUSH x 2^-23 of
+    the products against |W| (both sides within half that of the exact
+    products). Returns the launches of the profile_fused kernels."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels as K
+    from regenie_tpu_torch.scripts import profile_fused
+
+    f = FULL
+    rounds, blocks = 1, 2
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    out = profile_fused.main(n=f["N"], p=f["P"], k=f["K"], b=f["B"], rounds=rounds,
+                             blocks=blocks, sweep=False)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    calls = 1 + rounds * blocks
+    want = {name: 0 for name in counts}
+    want.update(fused_bf16=calls + 1, profile_stacked=calls + 1,
+                profile_stacked_2dots=calls, profile_nodecode=calls,
+                profile_decode_only=calls,
+                profile_pipelined=len(K.PROFILE_PIPELINED_CONFIGS) * calls + 1)
+    print(f"  profile_fused.main at N={f['N']} B={f['B']}: {time.time() - t0:.1f}s, "
+          f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    if not out["device"].startswith("cuda") or len(out["lines"]) != 5 + len(
+            K.PROFILE_PIPELINED_CONFIGS):
+        raise AssertionError(f"profile lines {out['lines']} on {out['device']}")
+    if not all(math.isfinite(ln["ms"]) and ln["ms"] > 0 for ln in out["lines"]):
+        raise AssertionError(f"profile times {out['lines']}")
+    bar = 2 * K.BF16_FLUSH * 2.0**-23
+    worst = max(rel for ch in out["checks"].values() for _, rel in ch.values())
+    print(f"  correctness lines: largest |d| relative to the |W| products "
+          f"{worst:.3e} (bar {bar:.3e})")
+    if worst > bar:
+        raise AssertionError(f"profile correctness lines {out['checks']} beyond {bar:g}")
+    return {name: counts[name] for name in K.WRAPPERS if name.startswith("profile_")}
+
+
 def _assert_close(name, a, b, tol):
     """Same NaN pattern, max |a - b| over the finite entries <= tol."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -1297,7 +1480,11 @@ def main() -> int:
                   fused_bf16_phase, bgen_bf16_phase, decode_planes_phase):
         rows.append(phase(dev))
         torch.cuda.empty_cache()
-    launches = {}
+    rows += profile_fused_phase(dev)
+    torch.cuda.empty_cache()
+    print("[profile path]")
+    launches = profile_path_phase()
+    torch.cuda.empty_cache()
     for src in ("bed", "bgen"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             print(f"[{src} slice]")

@@ -23,6 +23,11 @@ Kernels (sources under ops/csrc/, one shared library each):
 - decode_planes (csrc/decode_planes.cu): PLINK 2-bit bytes to plane-ordered
   float32 genotypes, replacing the Pallas kernel
   regenie_tpu/ops/pallas_ops.py:27 _decode_kernel.
+- profile_fused (csrc/profile_fused.cu, five entry points): the profiling
+  variants of fused_bf16 that scripts/profile_fused.py runs on a TPU
+  (_stacked_kernel, also without the M product, _nodecode_kernel,
+  _decode_only_kernel, _pipelined_kernel), reached through
+  regenie_tpu_torch.scripts.profile_fused.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC` into regenie_tpu_torch/_build/ (git-ignored), at first
@@ -55,8 +60,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = {"fused_i8": "fused_i8.cu", "bgen_i8": "bgen_i8.cu",
            "fused_f32": "fused_f32.cu", "bgen_f32": "bgen_f32.cu",
            "fused_bf16": "fused_bf16.cu", "bgen_bf16": "bgen_bf16.cu",
-           "decode_planes": "decode_planes.cu"}
-# argument types of each library's `<name>_launch` entry point
+           "decode_planes": "decode_planes.cu",
+           "profile_fused": "profile_fused.cu"}
+# the entry points `<entry>_launch` of a library with more than one (the
+# others have one, `<name>_launch`)
+ENTRIES = {"profile_fused": ("profile_fused_stacked", "profile_fused_stacked2",
+                             "profile_fused_nodecode", "profile_fused_decode_only",
+                             "profile_fused_pipelined")}
+_LIB_OF = {e: name for name, entries in ENTRIES.items() for e in entries}
+# argument types of each library's entry points
 _FUSED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
 _BGEN_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 _ARGTYPES = {
@@ -64,6 +76,9 @@ _ARGTYPES = {
     "fused_f32": _FUSED_ARGS, "bgen_f32": _BGEN_ARGS,
     "fused_bf16": _FUSED_ARGS, "bgen_bf16": _BGEN_ARGS,
     "decode_planes": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+    + [ctypes.c_void_p],
+    # _FUSED_ARGS with the configuration index before the stream
+    "profile_fused": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4
     + [ctypes.c_void_p],
 }
 # terms per float32 partial sum of the bf16 kernels (csrc/fused_bf16.cu,
@@ -124,9 +139,10 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(_lib_path(name))
-        fn = getattr(lib, f"{name}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
+        for entry in ENTRIES.get(name, (name,)):
+            fn = getattr(lib, f"{entry}_launch")
+            fn.restype = ctypes.c_int
+            fn.argtypes = _ARGTYPES[name]
         _libs[name] = lib
     return lib
 
@@ -161,9 +177,9 @@ def _check_cuda_inputs(name, tensors, dtypes, col_mult):
 
 
 def _launch(name, device, *args):
-    """Call the kernel library's `<name>_launch` on the current stream of
-    `device`; raise if the launch failed."""
-    lib = _lib(name)
+    """Call the entry point `<name>_launch` of its kernel library on the
+    current stream of `device`; raise if the launch failed."""
+    lib = _lib(_LIB_OF.get(name, name))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"{name}_launch")(*args, stream)
@@ -187,9 +203,10 @@ def _decode_indicators(raw):
     return out
 
 
-def _fused_plain(raw, w, dt):
+def _fused_plain(raw, w, dt, ncls=3):
     """The three class-indicator products of raw [B, nbp] against
-    w [4, nbp, C] as matmuls in dtype dt, chunked over bytes on CUDA."""
+    w [4, nbp, C] as matmuls in dtype dt, chunked over bytes on CUDA; with
+    ncls=2 the third (M) is left 0."""
     B, nbp = raw.shape
     acc = [torch.zeros((B, w.shape[-1]), dtype=dt, device=raw.device)
            for _ in range(3)]
@@ -197,14 +214,15 @@ def _fused_plain(raw, w, dt):
     for c0 in range(0, nbp, step):
         for p, masks in enumerate(_decode_indicators(raw[:, c0 : c0 + step])):
             wp = w[p, c0 : c0 + step].to(dt)
-            for a, ind in zip(acc, masks):
+            for a, ind in zip(acc[:ncls], masks):
                 a += ind.to(dt) @ wp
     return acc
 
 
-def _fused_call(name, raw, w, wdtype, odtype, col_mult):
+def _fused_call(name, raw, w, wdtype, odtype, col_mult, *extra):
     """Check raw [B, nbp] uint8 and w [4, nbp, C] and launch the fused
-    kernel `name` into three new [B, C] outputs of dtype odtype."""
+    kernel `name` (with the arguments `extra` after the shapes) into three
+    new [B, C] outputs of dtype odtype."""
     _check_cuda_inputs(name, (raw, w), (torch.uint8, wdtype), col_mult)
     if raw.dim() != 2 or w.dim() != 3 or w.shape[0] != 4:
         raise ValueError(f"{name}: raw [B, nbp], operand [4, nbp, C]")
@@ -216,7 +234,7 @@ def _fused_call(name, raw, w, wdtype, odtype, col_mult):
                  for _ in range(3))
     if B:
         _launch(name, raw.device, raw.data_ptr(), w.data_ptr(),
-                *(o.data_ptr() for o in outs), B, nbp, w.shape[2])
+                *(o.data_ptr() for o in outs), B, nbp, w.shape[2], *extra)
     return outs
 
 
@@ -487,9 +505,189 @@ def decode_planes(raw):
 
 decode_planes.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the profiling variants of fused_bf16: profile_fused (five entry points)
+# ---------------------------------------------------------------------------
+
+# the Hopper configurations of the stacked and the pipelined kernels, by
+# the `config` index of their entry points (csrc/profile_fused.cu)
+PROFILE_STACKED_CONFIGS = ("64x64 tile, 3 stages", "64x64 tile, 4 stages",
+                           "64x64 tile, 2 stages")
+PROFILE_PIPELINED_CONFIGS = ("4 decode warps, 4 stages",
+                             "2 decode warps, 4 stages")
+
+
+def _profile_inputs(name, raw, wp, config=0, n_configs=1):
+    """The checks of the profiling wrappers on any device: raw [B, nbp]
+    uint8, wp [4, nbp, Cw] bfloat16, config in 0..n_configs-1. True when
+    both tensors lie on the CPU."""
+    if not 0 <= config < n_configs:
+        raise ValueError(f"{name}: config {config} is not one of "
+                         f"0..{n_configs - 1}")
+    if raw.dtype != torch.uint8 or wp.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: raw must be torch.uint8 and wp torch.bfloat16, "
+                        f"got {raw.dtype} and {wp.dtype}")
+    if raw.dim() != 2 or wp.dim() != 3 or wp.shape[0] != 4 \
+            or wp.shape[1] != raw.shape[1]:
+        raise ValueError(f"{name}: raw [B, nbp] and wp [4, nbp, Cw], got "
+                         f"{tuple(raw.shape)} and {tuple(wp.shape)}")
+    return raw.device.type == "cpu" and wp.device.type == "cpu"
+
+
+def _profile_call(entry, raw, wp, config=0):
+    """Launch the profile_fused entry point `entry` (checked inputs)."""
+    if 4 * raw.shape[-1] >= 2**31:
+        raise ValueError(f"{entry}: 4*nbp must be below 2^31")
+    return _fused_call(entry, raw, wp, torch.bfloat16, torch.float64, 8, config)
+
+
+def profile_stacked_products_plain(raw, wp, with_m=True):
+    """Plain version of the profile_fused stacked kernel, the function of
+    fused_bf16 (fused_bf16_products_plain): H, E, M [B, Cw] float64; with
+    with_m=False, M is 0 and not computed."""
+    return tuple(_fused_plain(raw, wp, torch.float64, 3 if with_m else 2))
+
+
+def profile_stacked_2dots_products_plain(raw, wp):
+    """Plain version of the stacked kernel without the M product."""
+    return profile_stacked_products_plain(raw, wp, with_m=False)
+
+
+def profile_stacked_2dots_products(raw, wp):
+    """raw [B, nbp] uint8, wp [4, nbp, Cw] bfloat16 -> (H, E, 0), each
+    [B, Cw] float64: the stacked kernel with its M product not issued
+    (scripts/profile_fused.py's stacked-2dots). A CUDA tensor launches the
+    csrc/profile_fused.cu entry profile_fused_stacked2; CPU tensors take
+    the plain version."""
+    if _profile_inputs("profile_stacked_2dots_products", raw, wp):
+        return profile_stacked_2dots_products_plain(raw, wp)
+    outs = _profile_call("profile_fused_stacked2", raw, wp)
+    if raw.shape[0]:
+        profile_stacked_2dots_products.launches += 1
+    return outs
+
+
+profile_stacked_2dots_products.launches = 0
+
+
+def profile_stacked_products(raw, wp, with_m=True, config=0):
+    """raw [B, nbp] uint8, wp [4, nbp, Cw] bfloat16 (the hi|mid|lo split)
+    -> (H, E, M), each [B, Cw] float64: fused_bf16's function, through the
+    base of csrc/profile_fused.cu in its Hopper configuration `config`
+    (PROFILE_STACKED_CONFIGS). with_m=False goes to
+    profile_stacked_2dots_products (its own kernel and count). CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if not with_m:
+        return profile_stacked_2dots_products(raw, wp)
+    if _profile_inputs("profile_stacked_products", raw, wp, config,
+                       len(PROFILE_STACKED_CONFIGS)):
+        return profile_stacked_products_plain(raw, wp)
+    outs = _profile_call("profile_fused_stacked", raw, wp, config)
+    if raw.shape[0]:
+        profile_stacked_products.launches += 1
+    return outs
+
+
+profile_stacked_products.launches = 0
+
+
+def profile_nodecode_products_plain(raw, wp):
+    """Plain version of the nodecode kernel: H = E = M [B, Cw] float64 =
+    sum_p sum_c raw[b, c] * wp[p, c, j], the byte taken as its value: a
+    float64 matmul of raw, repeated per plane, against the widened
+    wp.reshape(4*nbp, Cw), chunked over bytes by PLAIN_CHUNK on CUDA."""
+    B, nbp = raw.shape
+    acc = torch.zeros((B, wp.shape[-1]), dtype=torch.float64, device=raw.device)
+    step = _chunk(nbp, raw.device)
+    for c0 in range(0, nbp, step):
+        r = raw[:, c0 : c0 + step].to(torch.float64)
+        w = wp[:, c0 : c0 + step].reshape(-1, wp.shape[-1]).to(torch.float64)
+        acc += torch.cat([r] * 4, dim=1) @ w
+    return acc, acc.clone(), acc.clone()
+
+
+def profile_nodecode_products(raw, wp):
+    """raw [B, nbp] uint8, wp [4, nbp, Cw] bfloat16 -> (H, E, M), three
+    equal [B, Cw] float64 (see profile_nodecode_products_plain); the kernel
+    issues the three mma chains. A CUDA tensor launches the
+    csrc/profile_fused.cu entry profile_fused_nodecode; CPU tensors take
+    the plain version."""
+    if _profile_inputs("profile_nodecode_products", raw, wp):
+        return profile_nodecode_products_plain(raw, wp)
+    outs = _profile_call("profile_fused_nodecode", raw, wp)
+    if raw.shape[0]:
+        profile_nodecode_products.launches += 1
+    return outs
+
+
+profile_nodecode_products.launches = 0
+
+
+def profile_decode_only_products_plain(raw, wp):
+    """Plain version of the decode-only kernel: H, E, M [B, Cw] float64,
+    zero but for column 0, which holds each row's count of codes 0 / 2 / 1
+    over its 4*nbp decoded samples (pad bytes are code 0), counted with
+    integer operations."""
+    B, Cw = raw.shape[0], wp.shape[-1]
+    outs = [torch.zeros((B, Cw), dtype=torch.float64, device=raw.device)
+            for _ in range(3)]
+    if Cw:
+        for masks in _decode_indicators(raw):
+            for o, m in zip(outs, masks):
+                o[:, 0] += m.sum(dim=1, dtype=torch.int64).to(torch.float64)
+    return tuple(outs)
+
+
+def profile_decode_only_products(raw, wp):
+    """raw [B, nbp] uint8, wp [4, nbp, Cw] bfloat16 -> the code counts in
+    column 0 of three [B, Cw] float64 (see
+    profile_decode_only_products_plain); the kernel loads the operand's
+    stages and issues no mma. A CUDA tensor launches the
+    csrc/profile_fused.cu entry profile_fused_decode_only; CPU tensors
+    take the plain version."""
+    if _profile_inputs("profile_decode_only_products", raw, wp):
+        return profile_decode_only_products_plain(raw, wp)
+    outs = _profile_call("profile_fused_decode_only", raw, wp)
+    if raw.shape[0]:
+        profile_decode_only_products.launches += 1
+    return outs
+
+
+profile_decode_only_products.launches = 0
+
+
+def profile_pipelined_products_plain(raw, wp):
+    """Plain version of the pipelined kernel: fused_bf16's function."""
+    return profile_stacked_products_plain(raw, wp)
+
+
+def profile_pipelined_products(raw, wp, config=0):
+    """raw [B, nbp] uint8, wp [4, nbp, Cw] bfloat16 -> (H, E, M), each
+    [B, Cw] float64: fused_bf16's function, with decode warps filling a
+    double-buffered indicator tile that the mma warps read one stage later,
+    in the Hopper configuration `config` (PROFILE_PIPELINED_CONFIGS). A
+    CUDA tensor launches the csrc/profile_fused.cu entry
+    profile_fused_pipelined; CPU tensors take the plain version."""
+    if _profile_inputs("profile_pipelined_products", raw, wp, config,
+                       len(PROFILE_PIPELINED_CONFIGS)):
+        return profile_pipelined_products_plain(raw, wp)
+    outs = _profile_call("profile_fused_pipelined", raw, wp, config)
+    if raw.shape[0]:
+        profile_pipelined_products.launches += 1
+    return outs
+
+
+profile_pipelined_products.launches = 0
+
 # every kernel wrapper by kernel name, for code that resets or reads the
 # launch counts of a run
 WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products,
             "fused_f32": fused_f32_products, "bgen_f32": bgen_f32_products,
             "fused_bf16": fused_bf16_products, "bgen_bf16": bgen_bf16_products,
-            "decode_planes": decode_planes}
+            "decode_planes": decode_planes,
+            "profile_stacked": profile_stacked_products,
+            "profile_stacked_2dots": profile_stacked_2dots_products,
+            "profile_nodecode": profile_nodecode_products,
+            "profile_decode_only": profile_decode_only_products,
+            "profile_pipelined": profile_pipelined_products}

@@ -109,7 +109,8 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
         "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.ops.pallas_ops, "
         "regenie_tpu_torch.io.bgen, "
-        "regenie_tpu_torch.io.native\n"
+        "regenie_tpu_torch.io.native, "
+        "regenie_tpu_torch.scripts.profile_fused\n"
         "from regenie_tpu_torch.io import native\n"
         "native.planes_lib()\n"
         "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
