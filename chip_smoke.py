@@ -20,13 +20,22 @@ Phases, each of which must pass:
    library yardstick. The five profiling configurations of the bf16
    products (csrc/profile_fused.cu: stacked, stacked-2dots, nodecode,
    decode-only, pipelined, and the other Hopper configurations of stacked
-   and pipelined) are held the same way, decode-only exactly.
-2b. profile path: the port's profiling entry point
-   (regenie_tpu_torch.scripts.profile_fused.main) in this process at the
-   full width with 1 round of 2 blocks: every variant's kernel launches
-   as often as the script calls it and no other kernel, and its two
-   correctness lines (pipelined and stacked against prod) stay within
-   2 x 4096 x 2^-23 of the products against |W|.
+   and pipelined) are held the same way, decode-only exactly. The seven
+   profiling variants of the BGEN int8 products (csrc/profile_bgen.cu,
+   and the other tile configurations of u8_unshift_q3) equal their plain
+   versions exactly, on planes with missing samples, on both plane
+   layouts (k0, k1 views of one [B, 2, Np] buffer, and two [B, Np]
+   tensors), on ragged shapes and at bgen_i8's full width.
+2b. profile path: the port's profiling entry points in this process at
+   the full width with 1 round of 2 blocks, the launch counts set to 0
+   just before each run and read just after:
+   regenie_tpu_torch.scripts.profile_fused.main, where every variant's
+   kernel launches as often as the script calls it and no other kernel,
+   and its two correctness lines (pipelined and stacked against prod)
+   stay within 2 x 4096 x 2^-23 of the products against |W|; then
+   regenie_tpu_torch.scripts.profile_bgen.main in each of its four modes,
+   where each line's kernel launches 4 times (a warm-up, a call a block,
+   its check) and no other kernel, and every check line is 0.
 3. BED slice: write a synthetic PLINK BED at that shape (M = 2 blocks of
    2048 variants, null phenotypes) and run the port's Step-2 CLI on the
    card in this process, twice: by default, where fused_i8 must launch
@@ -990,6 +999,171 @@ def profile_fused_phase(dev, reps=10):
     return rows
 
 
+# the kernel functions of scripts/profile_bgen.py: (function, the port's
+# profile_bgen variant, the mode of the port's script that times it,
+# whether that mode reads one [B, 2, Np] buffer, the function's line)
+PROFILE_BGEN_ROWS = (
+    ("kern_base", "i32_shift_q3", "variants", True, 174),
+    ("kern_noq", "i32_shift_noq", "variants", True, 197),
+    ("kern_u8", "u8_shift_q3", "variants", True, 216),
+    ("kern_sep", "i32_shift_q3", "variants2", False, 300),
+    ("kern_sep_noq", "i32_shift_noq", "variants2", False, 323),
+    ("kern_sep_merge", "u8_unshift_q3_stacked", "variants2", False, 343),
+    ("make_base(.., 3)", "u8_unshift_q3", "variants3", False, 477),
+    ("make_base(.., 2)", "u8_unshift_e2", "variants3", False, 477),
+    ("make_base(.., 4)", "u8_unshift_dhl", "variants3", False, 477),
+)
+
+
+def _profile_bgen_row(func, variant):
+    return f"profile_bgen_{variant} ({func})"
+
+
+def _library_pairs(planes, wp, wq, variant):
+    """The int8 multiplicands of a profile_bgen variant's dots, decoded
+    beforehand, each with its operand: s(k0), s(k1) and s(miss) or miss
+    against wp, the shifted q bytes against wq (dhl's q2 as its two
+    dots)."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels as K
+
+    shift_m, q, _ = K.PROFILE_BGEN_VARIANTS[variant]
+    k0 = planes[:, 0].to(torch.int32)
+    k1 = planes[:, 1].to(torch.int32)
+    miss = (k0 + k1) > 255
+    k0, k1 = torch.where(miss, 0, k0), torch.where(miss, 0, k1)
+    miss = miss.to(torch.int32)
+    d = 2 * k0 + k1
+    xq = {"noq": lambda: [], "q3": lambda: [d * d & 255, (d * d >> 8) & 255, d * d >> 16],
+          "e2": lambda: [(d - 255) ** 2 & 255, (d - 255) ** 2 >> 8],
+          "dhl": lambda: [(d & 255) ** 2 & 255, (d & 255) ** 2 >> 8,
+                          (d >> 8) * (d & 255), d >> 8]}[q]()
+    pairs = [((x - 128).to(torch.int8), wp) for x in (k0, k1)]
+    pairs.append(((miss - 128 if shift_m else miss).to(torch.int8), wp))
+    pairs += [((x - 128).to(torch.int8), wq) for x in xq]
+    return pairs
+
+
+def profile_bgen_phase(dev, reps=10):
+    """The seven profile_bgen variants and the other tile configurations
+    of u8_unshift_q3: exactly equal to their plain versions on both plane
+    layouts, on ragged shapes (every byte pair, about half of them
+    missing), on an operand built by the port at a small N and at
+    bgen_i8's full width (1% missing); there each is timed on both layouts
+    beside bgen_i8 on the same inputs, its plain version, its bound and
+    its library yardstick. Returns one row per kernel function of
+    scripts/profile_bgen.py, each timed on the layout its mode reads."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.ops import kernels as K
+    from regenie_tpu_torch.scripts import profile_bgen
+
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    cases = [(v, c) for v in K.PROFILE_BGEN_VARIANTS
+             for c in range(len(K.PROFILE_BGEN_CONFIGS) if v == "u8_unshift_q3" else 1)]
+    errs = {}
+
+    def label(v, c):
+        return f"{v} ({K.PROFILE_BGEN_CONFIGS[c]})" if v == "u8_unshift_q3" else v
+
+    def layouts(planes):
+        return {True: (planes[:, 0], planes[:, 1]),
+                False: (planes[:, 0].contiguous(), planes[:, 1].contiguous())}
+
+    def check(planes, wp, wq, what):
+        lay = layouts(planes)
+        for v in K.PROFILE_BGEN_VARIANTS:
+            want = K.profile_bgen_products_plain(*lay[True], wp, wq, v)
+            for vc, c in cases:
+                if vc != v:
+                    continue
+                err = 0
+                for k0, k1 in lay.values():
+                    got = K.PROFILE_BGEN[v](k0, k1, wp, wq, config=c)
+                    torch.cuda.synchronize()
+                    err = max(err, max(int((g - w).abs().max())
+                                       for g, w in zip(got, want)))
+                print(f"  {label(v, c)} {what}: both layouts, max|kernel-plain|={err}")
+                if err != 0:
+                    raise AssertionError(f"profile_bgen {label(v, c)} differs from its "
+                                         f"plain version ({what}): max abs {err}")
+                errs[v] = max(errs.get(v, 0), err)
+
+    # ragged: rows off the row tile, samples ending mid-stage, columns off
+    # the column tile, every byte pair (about half of them missing)
+    planes = torch.from_numpy(rng.integers(0, 256, (37, 2, 272), dtype=np.uint8)).to(dev)
+    wp, wq = (torch.from_numpy(rng.integers(-128, 128, (272, c), dtype=np.int8)).to(dev)
+              for c in (400, 144))
+    check(planes, wp, wq, "ragged B=37 Np=272 Cw=400 Cq=144")
+    c = _random_consts(rng, 1025, 3, 1, 4, dev, pack="sample")
+    Np = fsc.op_nbp(c.Wp)
+    check(_imputed_planes(gen, 37, 1025, Np, dev), c.Wp.limbs, c.Wq.limbs,
+          "ragged, N=1025 operand")
+
+    # full width: bgen_i8's shapes (Cw = 4 x 384, Cq = 4 x 128), random limbs
+    f = FULL
+    Np = -(-f["N"] // 256) * 256
+    B, Cw, Cq = f["B"], 4 * 384, 4 * 128
+    planes = _imputed_planes(gen, B, f["N"], Np, dev)
+    wp, wq = (torch.randint(-128, 128, (Np, cw), generator=gen, device=dev,
+                            dtype=torch.int8) for cw in (Cw, Cq))
+    check(planes, wp, wq, "full width")
+    lay = layouts(planes)
+    times = {}
+    for v, c in cases:
+        for packed, (k0, k1) in lay.items():
+            times[v, c, packed] = _time_ms(
+                lambda: K.PROFILE_BGEN[v](k0, k1, wp, wq, config=c), reps)
+        print(f"  {label(v, c)} full width: {times[v, c, True]:.3f} ms on [B, 2, Np], "
+              f"{times[v, c, False]:.3f} ms on two [B, Np] (median of {reps})")
+    i8_ms = _time_ms(lambda: K.bgen_i8_products(planes, wp, wq), reps)
+    print(f"  bgen_i8 on the same planes: {i8_ms:.3f} ms")
+    del lay
+
+    rows = []
+    work = {}
+    for v, (_, q, _) in K.PROFILE_BGEN_VARIANTS.items():
+        n_q = profile_bgen.N_Q[q]
+        ops = 2.0 * B * Np * (3 * Cw + n_q * Cq)
+        nbytes = 2 * B * Np + Np * (Cw + (Cq if n_q else 0)) + 8 * B * (3 * Cw + 3 * Cq)
+        plain_ms = _time_ms(lambda: K.profile_bgen_products_plain(
+            planes[:, 0], planes[:, 1], wp, wq, v), 3)
+        pairs = _library_pairs(planes, wp, wq, v)
+        library_ms = _time_ms(lambda: [torch._int_mm(a, w) for a, w in pairs], reps)
+        del pairs
+        work[v] = (ops, nbytes, plain_ms, library_ms)
+    for func, v, _, packed, line in PROFILE_BGEN_ROWS:
+        ops, nbytes, plain_ms, library_ms = work[v]
+        ms = times[v, 0, packed]
+        bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
+        print(f"  {_profile_bgen_row(func, v)} full width: {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library {library_ms:.3f} ms (one torch._int_mm a dot, "
+              f"time only), bound {bound_ms:.3f} ms ({bound_by}: "
+              f"{ops:.3e} int8 ops, {nbytes / 1e9:.3f} GB) = {bound_ms / ms:.1%} of the bound")
+        rows.append(dict(name=_profile_bgen_row(func, v), route="cuda",
+                         source="regenie_tpu_torch/ops/csrc/profile_bgen.cu",
+                         replaces=f"scripts/profile_bgen.py:{line}", launches=None,
+                         max_abs_err=errs[v], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    t = {v: times[v, 0, False] for v in K.PROFILE_BGEN_VARIANTS}
+    base = t["u8_unshift_q3"]
+    print(f"  attribution on two [B, Np] (u8_unshift_q3 {base:.3f} ms, bgen_i8 "
+          f"{i8_ms:.3f} ms): q products ~ i32_shift_q3 - i32_shift_noq = "
+          f"{t['i32_shift_q3'] - t['i32_shift_noq']:.3f} ms "
+          f"({1 - t['i32_shift_noq'] / t['i32_shift_q3']:.1%}); i32 / u8 decode "
+          f"{t['i32_shift_q3'] / t['u8_shift_q3']:.3f}; stacked / registers "
+          f"{t['u8_unshift_q3_stacked'] / base:.3f}; e2 / q3 {t['u8_unshift_e2'] / base:.3f}; "
+          f"dhl / q3 {t['u8_unshift_dhl'] / base:.3f}; configurations "
+          + ", ".join(f"{times['u8_unshift_q3', c, False]:.3f}"
+                      for c in range(len(K.PROFILE_BGEN_CONFIGS)))
+          + f" ms; on {card_line()}")
+    return rows
+
+
 def profile_path_phase():
     """The port's profiling entry point in this process at the full UKB
     width (1 round of 2 blocks), with the launch counts set to 0 just
@@ -1034,7 +1208,53 @@ def profile_path_phase():
           f"{worst:.3e} (bar {bar:.3e})")
     if worst > bar:
         raise AssertionError(f"profile correctness lines {out['checks']} beyond {bar:g}")
-    return {name: counts[name] for name in K.WRAPPERS if name.startswith("profile_")}
+    return {name: counts[name] for name in K.WRAPPERS
+            if name.startswith("profile_") and not name.startswith("profile_bgen_")}
+
+
+def profile_bgen_path_phase():
+    """The port's BGEN profiling entry point in this process at the full
+    UKB width (1 round of 2 blocks), in each of its four modes, with the
+    launch counts set to 0 just before each run and read just after: each
+    line's kernel (bgen_i8 for prod) launches 4 times (a warm-up, a call a
+    block, its check) and no other kernel runs; every check line is 0 (the
+    script raises otherwise). Returns the launches of each kernel function
+    of scripts/profile_bgen.py in the run of the mode that times it."""
+    import torch
+
+    from regenie_tpu_torch.scripts import profile_bgen
+
+    f = FULL
+    rounds, blocks = 1, 2
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    launches = {}
+    for mode in profile_bgen.MODES:
+        _reset_counts()
+        t0 = time.time()
+        out = profile_bgen.main(mode, n=f["N"], p=f["P"], k=f["K"], b=f["B"],
+                                rounds=rounds, blocks=blocks)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        want = {name: 0 for name in counts}
+        for _, variant, _ in profile_bgen.lines_of(mode):
+            want["bgen_i8" if variant is None else f"profile_bgen_{variant}"] += \
+                2 + rounds * blocks
+        print(f"  profile_bgen.main({mode!r}) at N={f['N']} B={f['B']}: "
+              f"{time.time() - t0:.1f}s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if counts != want:
+            raise AssertionError(f"kernel launches {counts}, expected {want}")
+        lines = out["lines"]
+        if not out["device"].startswith("cuda") or len(lines) != len(
+                profile_bgen.lines_of(mode)) or any(out["checks"].values()):
+            raise AssertionError(f"profile_bgen {mode}: {out}")
+        if not all(math.isfinite(ln["ms"]) and ln["ms"] > 0 for ln in lines):
+            raise AssertionError(f"profile times {lines}")
+        for func, variant, m, _, _ in PROFILE_BGEN_ROWS:
+            if m == mode:
+                launches[_profile_bgen_row(func, variant)] = \
+                    counts[f"profile_bgen_{variant}"]
+    return launches
 
 
 def _assert_close(name, a, b, tol):
@@ -1482,8 +1702,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     rows += profile_fused_phase(dev)
     torch.cuda.empty_cache()
+    rows += profile_bgen_phase(dev)
+    torch.cuda.empty_cache()
     print("[profile path]")
     launches = profile_path_phase()
+    torch.cuda.empty_cache()
+    print("[profile path, BGEN]")
+    launches.update(profile_bgen_path_phase())
     torch.cuda.empty_cache()
     for src in ("bed", "bgen"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -28,6 +28,11 @@ Kernels (sources under ops/csrc/, one shared library each):
   (_stacked_kernel, also without the M product, _nodecode_kernel,
   _decode_only_kernel, _pipelined_kernel), reached through
   regenie_tpu_torch.scripts.profile_fused.
+- profile_bgen (csrc/profile_bgen.cu, one entry point, seven variants):
+  the profiling variants of bgen_i8 that scripts/profile_bgen.py runs on a
+  TPU (kern_base / kern_sep, kern_noq / kern_sep_noq, kern_u8,
+  kern_sep_merge, make_base(.., 3 / 2 / 4)), reached through
+  regenie_tpu_torch.scripts.profile_bgen.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC` into regenie_tpu_torch/_build/ (git-ignored), at first
@@ -61,7 +66,7 @@ SOURCES = {"fused_i8": "fused_i8.cu", "bgen_i8": "bgen_i8.cu",
            "fused_f32": "fused_f32.cu", "bgen_f32": "bgen_f32.cu",
            "fused_bf16": "fused_bf16.cu", "bgen_bf16": "bgen_bf16.cu",
            "decode_planes": "decode_planes.cu",
-           "profile_fused": "profile_fused.cu"}
+           "profile_fused": "profile_fused.cu", "profile_bgen": "profile_bgen.cu"}
 # the entry points `<entry>_launch` of a library with more than one (the
 # others have one, `<name>_launch`)
 ENTRIES = {"profile_fused": ("profile_fused_stacked", "profile_fused_stacked2",
@@ -79,6 +84,10 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     # _FUSED_ARGS with the configuration index before the stream
     "profile_fused": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p],
+    # k0, k1, wp, wq, six outputs; row stride, B, Np, Cw, Cq, variant,
+    # config; stream
+    "profile_bgen": [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 7
     + [ctypes.c_void_p],
 }
 # terms per float32 partial sum of the bf16 kernels (csrc/fused_bf16.cu,
@@ -328,33 +337,66 @@ fused_bf16_products.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _bgen_multiplicands(k0, k1):
+    """[B, n] uint8 probability bytes k0, k1 -> int32 k0, k1 and miss (0/1):
+    miss = k0 + k1 > 255, and k0 = k1 = 0 there."""
+    k0 = k0.to(torch.int32)
+    k1 = k1.to(torch.int32)
+    miss = (k0 + k1) > 255
+    return torch.where(miss, 0, k0), torch.where(miss, 0, k1), miss.to(torch.int32)
+
+
+def _q_multiplicands(k0, k1, q="q3"):
+    """The multiplicands of the products against the narrow operand, one
+    per output, of the masked int32 k0, k1, with d = 2 k0 + k1: "q3" the
+    bytes 0, 1, 2 of d^2; "e2" the bytes 0, 1 of (d - 255)^2; "dhl" the
+    bytes 0, 1 of dlo^2 and dhi * dlo + dhi (dlo = d & 255, dhi = d >> 8:
+    two products that go to one output); "noq" none."""
+    d = 2 * k0 + k1
+    if q == "q3":
+        d2 = d * d
+        return [d2 & 255, (d2 >> 8) & 255, d2 >> 16]
+    if q == "e2":
+        e2 = (d - 255) ** 2
+        return [e2 & 255, e2 >> 8]
+    if q == "dhl":
+        dlo, dhi = d & 255, d >> 8
+        dl2 = dlo * dlo
+        return [dl2 & 255, dl2 >> 8, dhi * dlo + dhi]
+    return []
+
+
 def bgen_indicators(planes):
     """[B, 2, n] uint8 probability planes -> the six [B, n] int32
     multiplicands of the BGEN products, (k0, k1, h0, h1, h2, miss): miss
     = k0 + k1 > 255, k0 = k1 = 0 there, and h0, h1, h2 the bytes 0, 1, 2
     of d2 = (2 k0 + k1)^2."""
-    k0 = planes[:, 0].to(torch.int32)
-    k1 = planes[:, 1].to(torch.int32)
-    miss = (k0 + k1) > 255
-    k0 = torch.where(miss, 0, k0)
-    k1 = torch.where(miss, 0, k1)
-    d2 = (2 * k0 + k1) ** 2
-    return k0, k1, d2 & 255, (d2 >> 8) & 255, d2 >> 16, miss.to(torch.int32)
+    k0, k1, miss = _bgen_multiplicands(planes[:, 0], planes[:, 1])
+    return (k0, k1, *_q_multiplicands(k0, k1), miss)
 
 
-def _bgen_plain(planes, wp, wq, dt):
-    """The six byte-plane products (D0, D1, Q0, Q1, Q2, M) as matmuls in
-    dtype dt, chunked over samples on CUDA."""
-    Np = planes.shape[2]
-    step = _chunk(Np, planes.device)
-    acc = [0] * 6
-    for n0 in range(0, Np, step):
+def _bgen_plain(k0, k1, wp, wq, dt, q="q3"):
+    """The byte-plane products of k0, k1 [B, Np] uint8 as matmuls in dtype
+    dt, chunked over samples on CUDA: (k0, k1, miss) @ wp, then the
+    multiplicands of _q_multiplicands(.., q) @ wq, in that order."""
+    Np = k0.shape[1]
+    step = _chunk(Np, k0.device)
+    acc = None
+    for n0 in range(0, max(Np, 1), step):
+        a, b, miss = _bgen_multiplicands(k0[:, n0 : n0 + step], k1[:, n0 : n0 + step])
         w = wp[n0 : n0 + step].to(dt)
-        q = wq[n0 : n0 + step].to(dt)
-        acc = [a + x.to(dt) @ op for a, x, op in zip(
-            acc, bgen_indicators(planes[:, :, n0 : n0 + step]),
-            (w, w, q, q, q, w))]
+        v = wq[n0 : n0 + step].to(dt)
+        terms = [x.to(dt) @ w for x in (a, b, miss)] + [
+            x.to(dt) @ v for x in _q_multiplicands(a, b, q)]
+        acc = terms if acc is None else [s + t for s, t in zip(acc, terms)]
     return acc
+
+
+def _bgen_order(planes, wp, wq, dt):
+    """_bgen_plain of planes [B, 2, Np] in the BGEN kernels' order (D0, D1,
+    Q0, Q1, Q2, M)."""
+    D0, D1, M, Q0, Q1, Q2 = _bgen_plain(planes[:, 0], planes[:, 1], wp, wq, dt)
+    return D0, D1, Q0, Q1, Q2, M
 
 
 def _bgen_call(name, planes, wp, wq, wdtype, odtype, col_mult):
@@ -393,7 +435,7 @@ def bgen_i8_products_plain(planes, wp, wq):
     exact there because every partial sum is an integer below 2^53
     (|sum| <= 255 * 128 * Np)."""
     dt = torch.int64 if planes.device.type == "cpu" else torch.float64
-    return tuple(a.to(torch.int64) for a in _bgen_plain(planes, wp, wq, dt))
+    return tuple(a.to(torch.int64) for a in _bgen_order(planes, wp, wq, dt))
 
 
 def bgen_i8_products(planes, wp, wq):
@@ -420,7 +462,7 @@ def bgen_f32_products_plain(planes, wp, wq):
     Q0, Q1 and Q2 those of h0, h1 and h2 with wq (bgen_indicators). The
     operands are widened to float64 and the products are float64 matmuls,
     chunked over samples by PLAIN_CHUNK on CUDA."""
-    return tuple(_bgen_plain(planes, wp, wq, torch.float64))
+    return _bgen_order(planes, wp, wq, torch.float64)
 
 
 def bgen_f32_products(planes, wp, wq):
@@ -448,7 +490,7 @@ def bgen_bf16_products_plain(planes, wp, wq):
     Q1 and Q2 those of h0, h1 and h2 with wq (bgen_indicators). The
     operands are widened to float64 (exactly) and the products are
     float64 matmuls, chunked over samples by PLAIN_CHUNK on CUDA."""
-    return tuple(_bgen_plain(planes, wp, wq, torch.float64))
+    return _bgen_order(planes, wp, wq, torch.float64)
 
 
 def bgen_bf16_products(planes, wp, wq):
@@ -680,6 +722,139 @@ def profile_pipelined_products(raw, wp, config=0):
 
 profile_pipelined_products.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the profiling variants of bgen_i8: profile_bgen (one entry point)
+# ---------------------------------------------------------------------------
+
+# variant: (m shifted, q products, the scripts/profile_bgen.py functions
+# it computes), in the order of the entry point's `variant` index
+# (csrc/profile_bgen.cu); the name reads decode / m / q: i32 decodes
+# through 32-bit integers, u8 on packed bytes, "shift" takes m = (miss -
+# 128) @ wp, "unshift" miss @ wp, "stacked" decodes into shared memory
+PROFILE_BGEN_VARIANTS = {
+    "i32_shift_q3": (True, "q3", "kern_base, kern_sep"),
+    "i32_shift_noq": (True, "noq", "kern_noq, kern_sep_noq"),
+    "u8_shift_q3": (True, "q3", "kern_u8"),
+    "u8_unshift_q3_stacked": (False, "q3", "kern_sep_merge"),
+    "u8_unshift_q3": (False, "q3", "make_base(.., 3)"),
+    "u8_unshift_e2": (False, "e2", "make_base(.., 2)"),
+    "u8_unshift_dhl": (False, "dhl", "make_base(.., 4)"),
+}
+# the Hopper tile configurations of u8_unshift_q3, by the `config` index
+# (the other variants have configuration 0 only)
+PROFILE_BGEN_CONFIGS = ("64x128 tile, 8 warps of 32x32",
+                        "128x128 tile, 16 warps of 32x32",
+                        "64x128 tile, 8 warps of 16x64")
+
+
+def profile_bgen_products_plain(k0, k1, wp, wq, variant):
+    """Plain version of the profile_bgen kernel `variant`
+    (PROFILE_BGEN_VARIANTS): for k0, k1 [B, Np] uint8, wp [Np, Cw] int8 and
+    wq [Np, Cq] int8, with miss = k0 + k1 > 255, k0 = k1 = 0 there, and
+    s(x) = x - 128, returns (d0, d1, m, q0, q1, q2), int64:
+    d0 = s(k0) @ wp, d1 = s(k1) @ wp, m = s(miss) @ wp ("shift") or
+    miss @ wp ("unshift") [B, Cw]; q_i = s(x_i) @ wq for the multiplicands
+    x_i of _q_multiplicands(.., q) [B, Cq] (dhl: q2 = s(dhi dlo) @ wq +
+    s(dhi) @ wq), the q products the variant has not 0. The order is the
+    TPU script's, not bgen_i8_products' (D0, D1, Q0, Q1, Q2, M). The -128
+    shifts come off through the operands' column sums over all Np rows.
+    Integer (int64) matmuls on the CPU; float64 on CUDA, chunked over
+    samples, exact there because every partial sum is an integer below
+    2^53."""
+    shift_m, q, _ = PROFILE_BGEN_VARIANTS[variant]
+    dt = torch.int64 if k0.device.type == "cpu" else torch.float64
+    d0, d1, m, *qs = _bgen_plain(k0, k1, wp, wq, dt, q)
+    cw = 128 * wp.sum(0, dtype=torch.int64).to(dt)
+    cq = 128 * wq.sum(0, dtype=torch.int64).to(dt)
+    outs = [d0 - cw, d1 - cw, m - cw if shift_m else m]
+    outs += [x - cq for x in qs]
+    if q == "dhl":
+        outs[5] -= cq
+    B, Cq = k0.shape[0], wq.shape[1]
+    outs += [torch.zeros((B, Cq), dtype=dt, device=k0.device)
+             for _ in range(6 - len(outs))]
+    return tuple(x.to(torch.int64) for x in outs)
+
+
+def _profile_bgen_inputs(name, k0, k1, wp, wq, config, n_configs):
+    """The checks of the profile_bgen wrappers on any device: k0, k1
+    [B, Np] uint8 with unit sample stride and one row stride (Np for two
+    tensors, 2 Np for the planes of one [B, 2, Np] buffer: no copy is
+    made), a multiple of 16 at least Np; wp [Np, Cw] and wq [Np, Cq] int8,
+    contiguous; Np, Cw and Cq multiples of 16 (the kernel's 16-byte
+    loads), Np > 0; config in 0..n_configs-1. True when every tensor lies
+    on the CPU."""
+    if not 0 <= config < n_configs:
+        raise ValueError(f"{name}: config {config} is not one of "
+                         f"0..{n_configs - 1}")
+    ts = (k0, k1, wp, wq)
+    if tuple(t.dtype for t in ts) != (torch.uint8, torch.uint8, torch.int8,
+                                      torch.int8):
+        raise TypeError(f"{name}: k0, k1 must be torch.uint8 and wp, wq "
+                        f"torch.int8, got {', '.join(str(t.dtype) for t in ts)}")
+    if k0.dim() != 2 or k1.shape != k0.shape or wp.dim() != 2 or wq.dim() != 2 \
+            or wp.shape[0] != k0.shape[1] or wq.shape[0] != k0.shape[1]:
+        raise ValueError(f"{name}: k0, k1 [B, Np], wp [Np, Cw], wq [Np, Cq], "
+                         f"got {', '.join(str(tuple(t.shape)) for t in ts)}")
+    Np = k0.shape[1]
+    if Np == 0 or any(n % 16 for n in (Np, wp.shape[1], wq.shape[1])):
+        raise ValueError(f"{name}: Np, Cw and Cq must be multiples of 16 and "
+                         f"Np > 0, got {Np}, {wp.shape[1]}, {wq.shape[1]}")
+    rs = k0.stride(0)
+    if k0.stride() != k1.stride() or k0.stride(1) != 1 or rs % 16 \
+            or (k0.shape[0] > 1 and rs < Np):
+        raise ValueError(f"{name}: k0 and k1 need unit sample stride and one "
+                         f"row stride, a multiple of 16, got {k0.stride()} and "
+                         f"{k1.stride()}")
+    if not (wp.is_contiguous() and wq.is_contiguous()):
+        raise ValueError(f"{name}: wp and wq must be contiguous")
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _profile_bgen_wrapper(variant, index):
+    """The wrapper of one profile_bgen variant, with its launch count."""
+    n_configs = len(PROFILE_BGEN_CONFIGS) if variant == "u8_unshift_q3" else 1
+    name = f"profile_bgen_{variant}_products"
+
+    def wrapper(k0, k1, wp, wq, config=0):
+        if _profile_bgen_inputs(name, k0, k1, wp, wq, config, n_configs):
+            return profile_bgen_products_plain(k0, k1, wp, wq, variant)
+        if len({t.device for t in (k0, k1, wp, wq)}) != 1 or not k0.is_cuda:
+            raise ValueError(f"{name}: inputs must be on the same CUDA device "
+                             "(or all on the CPU)")
+        if any(t.data_ptr() % 16 for t in (k0, k1, wp, wq)):
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+        B, Np = k0.shape
+        Cw, Cq = wp.shape[1], wq.shape[1]
+        outs = tuple(torch.empty((B, c), dtype=torch.int64, device=k0.device)
+                     for c in (Cw, Cw, Cw, Cq, Cq, Cq))
+        if B:
+            _launch("profile_bgen", k0.device, k0.data_ptr(), k1.data_ptr(),
+                    wp.data_ptr(), wq.data_ptr(), *(o.data_ptr() for o in outs),
+                    k0.stride(0), B, Np, Cw, Cq, index, config)
+            wrapper.launches += 1
+        return outs
+
+    shift_m, q, tpu = PROFILE_BGEN_VARIANTS[variant]
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (
+        f"k0, k1 [B, Np] uint8 (two tensors, or the planes of one [B, 2, Np] "
+        f"buffer), wp [Np, Cw] int8, wq [Np, Cq] int8 -> (d0, d1, m, q0, q1, "
+        f"q2) int64: the function of scripts/profile_bgen.py's {tpu} "
+        f"(profile_bgen_products_plain with variant {variant!r}). CUDA "
+        f"tensors launch csrc/profile_bgen.cu's variant {index}"
+        + (" in its configuration `config` (PROFILE_BGEN_CONFIGS)"
+           if n_configs > 1 else "")
+        + "; CPU tensors take the plain version.")
+    wrapper.launches = 0
+    return wrapper
+
+
+# the wrapper of each variant, by variant name
+PROFILE_BGEN = {v: _profile_bgen_wrapper(v, i)
+                for i, v in enumerate(PROFILE_BGEN_VARIANTS)}
+
 # every kernel wrapper by kernel name, for code that resets or reads the
 # launch counts of a run
 WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products,
@@ -690,4 +865,5 @@ WRAPPERS = {"fused_i8": fused_i8_products, "bgen_i8": bgen_i8_products,
             "profile_stacked_2dots": profile_stacked_2dots_products,
             "profile_nodecode": profile_nodecode_products,
             "profile_decode_only": profile_decode_only_products,
-            "profile_pipelined": profile_pipelined_products}
+            "profile_pipelined": profile_pipelined_products,
+            **{f"profile_bgen_{v}": w for v, w in PROFILE_BGEN.items()}}

@@ -110,7 +110,8 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.ops.pallas_ops, "
         "regenie_tpu_torch.io.bgen, "
         "regenie_tpu_torch.io.native, "
-        "regenie_tpu_torch.scripts.profile_fused\n"
+        "regenie_tpu_torch.scripts.profile_fused, "
+        "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
         "native.planes_lib()\n"
         "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
