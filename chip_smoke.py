@@ -538,6 +538,23 @@ def _matmul_ms(mats, reps):
     return total
 
 
+def _launch_line(name, dev, *shape):
+    """Print the launch of a float32-operand kernel at `shape` as the
+    CUDA runtime reports it: blocks, blocks per SM, waves on this card's
+    SMs, registers a thread."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels
+
+    info = kernels.launch_info(name, *shape, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = info["blocks"] / (sms * info["blocks_per_sm"])
+    print(f"  {name} launch at full width: {info['blocks']} blocks of "
+          f"{info['threads']} threads, {info['blocks_per_sm']} per SM, "
+          f"{waves:.3f} waves on {sms} SMs; {info['registers']} registers "
+          f"a thread, {info['smem_bytes']} bytes of shared memory")
+
+
 def fused_f32_phase(dev, reps=10):
     """fused_f32: within the bar on ragged shapes, on an operand built by
     the port at a small N, and at full width; times at full width."""
@@ -557,9 +574,11 @@ def fused_f32_phase(dev, reps=10):
             kernels.fused_f32_products_plain(raw, wp),
             kernels.fused_f32_products_plain(raw, wp.abs()), what))
 
-    # ragged: rows off the row tile, bytes ending mid-stage, Cp 384 and a
-    # column count off the column tile
-    for B, nbp, Cp in ((37, 272, 400), (130, 512, 384)):
+    # ragged: rows off the 128-row tile, bytes ending mid-stage, Cp 384
+    # and column counts off the 48-column tile; B = 1 on a contraction of
+    # one 32-byte stage
+    for B, nbp, Cp in ((37, 272, 400), (130, 512, 384), (129, 48, 52),
+                       (1, 32, 44)):
         raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(dev)
         wp = torch.from_numpy(rng.normal(size=(4, nbp, Cp)).astype(np.float32)).to(dev)
         check(raw, wp, f"ragged B={B} nbp={nbp} Cp={Cp}")
@@ -576,6 +595,7 @@ def fused_f32_phase(dev, reps=10):
     raw = torch.randint(0, 256, (B, nbp), generator=gen, device=dev, dtype=torch.uint8)
     wp = torch.randn((4, nbp, Cp), generator=gen, device=dev)
     check(raw, wp, "full width")
+    _launch_line("fused_f32", dev, B, Cp)
     ms = _time_ms(lambda: kernels.fused_f32_products(raw, wp), reps)
     plain_ms = _time_ms(lambda: kernels.fused_f32_products_plain(raw, wp), 3)
 
@@ -627,8 +647,10 @@ def bgen_f32_phase(dev, reps=10):
             kernels.bgen_f32_products_plain(planes, wp.abs(), wq.abs()), what))
 
     # ragged: rows off the row tile, samples ending mid-stage, columns off
-    # the column tile, every byte pair (about half of them missing)
-    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 768, 384, 128)):
+    # the column tile, every byte pair (about half of them missing); B = 1
+    # on a contraction of one 128-sample stage
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 768, 384, 128),
+                          (65, 80, 68, 20), (1, 128, 4, 132)):
         planes = torch.from_numpy(rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(dev)
         wp, wq = (torch.from_numpy(rng.normal(size=(Np, cw)).astype(np.float32)).to(dev)
                   for cw in (Cw, Cq))
@@ -647,6 +669,7 @@ def bgen_f32_phase(dev, reps=10):
     wp = torch.randn((Np, Cw), generator=gen, device=dev)
     wq = torch.randn((Np, Cq), generator=gen, device=dev)
     check(planes, wp, wq, "full width")
+    _launch_line("bgen_f32", dev, B, Cw, Cq)
     ms = _time_ms(lambda: kernels.bgen_f32_products(planes, wp, wq), reps)
     plain_ms = _time_ms(lambda: kernels.bgen_f32_products_plain(planes, wp, wq), 3)
 

@@ -23,42 +23,69 @@
 // 2 x 3 x 2048 x 400,384 x 384 = 1.889e12 FP64 tensor-core operations
 // per block, 28.2 ms at the H100's 67 TFLOP/s, against 0.84 GB of
 // compulsory traffic (0.25 ms at 3.35 TB/s): bound by operations. The
-// design is the simple one that is right; making it fast is later work:
+// design aims at that rate:
 //
-// - Tensor cores: mma.sync.m8n8k4 f64 (Hopper has no f64 wgmma). The
-//   contraction index k of one mma is the 4 planes of one packed byte:
-//   lane (g, t) holds A(row g, k t) = the indicator of code_t of its
-//   row's byte and B(k t, column g) = wp[t, c, column]. One raw word per
-//   lane and row feeds 4 mma k-steps; the indicators are made in
-//   registers as the high word of 1.0 or 0.0, so no indicator tile goes
-//   through memory and no conversion instruction is spent on A.
-// - Work split: each 256-thread block owns one 64-row x 64-column output
-//   tile of H, E and M and loops over the whole nbp contraction (no
-//   split-K, no atomics): the result is deterministic. Each warp holds a
-//   32 x 16 tile of the three products (48 float64 accumulators a
-//   thread). The TPU kernel's sequential grid axis over byte tiles
-//   becomes this in-block loop.
+// - Tensor cores: mma.sync.aligned.m16n8k8 f64 (SASS DMMA.16x8x8, from
+//   cuobjdump -sass; Hopper has no f64 wgmma). On the H100 the m8n8k4
+//   shape (DMMA.8x8x4) runs at half the FP64 tensor rate, 33.5 of 67
+//   TFLOP/s, while the m16n8k4/k8/k16 shapes reach 65-67 (chains of
+//   independent mma, NVIDIA H100 80GB HBM3, 700 W).
+//   The 8 contraction terms of one mma are the 4 planes of 2 packed
+//   bytes: lane (g, t) holds A(row g + 8r, k t + 4j) = the indicator of
+//   code_t of byte 2h + j of its row's 32-bit raw word (a[2j + r]) and
+//   B(k t + 4j, column g) = wp[t, 4q + 2h + j, column] (b[j]), h = 0, 1.
+//   One raw word per lane and row feeds two k-steps of the three
+//   products; the indicators are made in registers with integer
+//   operations as the high word of 1.0 or 0.0, so no indicator tile goes
+//   through memory and no FP64-pipe instruction is spent on A.
+//   (m16n8k16 runs as fast in the chains, but its 8 A values a lane and
+//   type pushed this tile past 255 registers into spills.)
+// - Work split and waves: each 256-thread block owns one 128-row x
+//   48-column output tile of H, E and M and loops over the whole nbp
+//   contraction (no split-K, no atomics): the result is deterministic.
+//   At the main shape (B=2048, Cp=384) that is 16 x 8 = 128 blocks, one
+//   block per SM, 0.97 of one wave on 132 SMs (tiles of 64 x 64 would
+//   give 192 blocks, 2 waves, the second 45% full). The 8 warps stand
+//   in a column: each holds a 16 x 48 tile of the three products (1 x 6
+//   m16n8 tiles, 72 float64 accumulators a thread), so each raw word is
+//   decoded once per block and its indicators feed 6 column tiles; each
+//   widened operand value feeds 3 products.
+// - Registers: ptxas reports 254 a thread, 0 bytes of spill (launch bound
+//   256 threads, 1 block per SM); 123,392 bytes of shared memory.
 // - The operand is staged in shared memory as f32 (half the bytes of
-//   f64) and widened at fragment load. Stages of 32 bytes x 4 planes x 64
-//   columns arrive by 16-byte cp.async copies (zero-filled past the
-//   edges), three stages in flight. Plane p is XOR-swizzled on the column
-//   (j ^ 8p) so that the four planes' B-fragment loads of a warp fall in
-//   distinct banks; raw rows are padded to 48 bytes for the same reason.
+//   f64) and widened at fragment load (F2F.F64.F32, 24 per 36 mma a
+//   warp; replacing it by a plain move changed nothing measurable).
+//   Stages of 32 bytes x 4 planes x 48 columns arrive by 16-byte cp.async
+//   copies (zero-filled past the edges), four stages in flight. The
+//   planes are padded to 1544 floats so that the four planes' B-fragment
+//   loads of a warp fall in distinct banks; raw rows are padded to 48
+//   bytes for the same reason. The 128 blocks run in step over the same
+//   contraction range, so the 615 MB operand is read from device memory
+//   about once and served to the 16 row tiles from L2.
+// - What bounds it: the DMMA rate. Measured at full width on the H100:
+//   32.1-32.5 ms, 87-88% of the bound, at 1980 MHz and 510-580 W (no
+//   clock or power limit reached); 3% of the SMs idle; the indicators
+//   cost 2.6% (a one-operation stand-in ran 31.3 ms); the rest is the
+//   loop's loads, barriers and NOPs, 5.2 instructions a DMMA in all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;         // variant rows per block tile
-constexpr int BN = 64;         // operand columns per block tile
+constexpr int BM = 128;        // variant rows per block tile
+constexpr int BN = 48;         // operand columns per block tile
 constexpr int KC = 32;         // packed bytes per stage (4*KC contraction terms)
+constexpr int PS = KC * BN + 8;  // padded plane stride (floats)
 constexpr int RST = KC + 16;   // padded raw row stride (bytes)
-constexpr int NSTAGE = 3;      // stages in flight
-constexpr int NTHREADS = 256;  // 8 warps: 2 (rows) x 4 (columns)
+constexpr int NSTAGE = 4;      // stages in flight
+constexpr int WM = 16, WN = 48;  // warp tile
+constexpr int WARPS_N = BN / WN;  // warps along the columns
+constexpr int NTHREADS = 32 * (BM / WM) * WARPS_N;  // 8 warps: 8 (rows) x 1
+constexpr int MT = WM / 16, NT = WN / 8;
 
 struct __align__(16) Stage {
-  float w[4][KC][BN];     // plane p, byte c, column j ^ 8p
+  float w[4 * PS];        // plane p, byte c, column j at p * PS + c * BN + j
   uint8_t raw[BM][RST];   // the block's rows, bytes [0, KC)
 };
 constexpr int SMEM_BYTES = NSTAGE * (int)sizeof(Stage);
@@ -76,18 +103,18 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void mma_f64(double (&c)[2], const double a,
-                                        const double b) {
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
   asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
-      : "+d"(c[0]), "+d"(c[1])
-      : "d"(a), "d"(b));
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// 1.0 where the flag is set, else 0.0, built from the high word alone
-__device__ __forceinline__ double ind(const bool f) {
-  return __hiloint2double(f ? 0x3FF00000 : 0, 0);
+// 1.0 where bit 8j of the mask is set, else 0.0, built from the high word
+__device__ __forceinline__ double ind(const uint32_t mask, const int j) {
+  return __hiloint2double(((mask >> (8 * j)) & 1u) ? 0x3FF00000 : 0, 0);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -100,38 +127,41 @@ fused_f32_kernel(const uint8_t *__restrict__ raw, const float *__restrict__ wp,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int r0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
 
-  // one stage: 4 x KC x BN/4 operand vectors (8 a thread), BM x KC/16 raw
-  // vectors (threads 0..127)
+  // one stage: 4 x KC x BN/4 operand vectors, BM x KC/16 raw vectors
   auto load = [&](Stage &s, const int c0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 4 * KC * (BN / 4) / NTHREADS; ++i) {
       const int idx = tid + NTHREADS * i;
       const int p = idx / (KC * BN / 4), c = (idx / (BN / 4)) % KC;
       const int v = idx % (BN / 4);
       const bool ok = (c0 + c < nbp) && (j0 + 4 * v < Cp);
       const float *src =
           ok ? wp + ((long long)p * nbp + c0 + c) * Cp + j0 + 4 * v : wp;
-      cp16(&s.w[p][c][(4 * v) ^ (p << 3)], src, ok);
+      cp16(&s.w[p * PS + c * BN + 4 * v], src, ok);
     }
-    if (tid < 2 * BM) {
-      const int row = tid >> 1, half = tid & 1;
-      const bool ok = (r0 + row < B) && (c0 + 16 * half < nbp);
+#pragma unroll
+    for (int i = 0; i < BM * KC / 16 / NTHREADS; ++i) {
+      const int idx = tid + NTHREADS * i;
+      const int row = idx / (KC / 16), v = idx % (KC / 16);
+      const bool ok = (r0 + row < B) && (c0 + 16 * v < nbp);
       const uint8_t *src =
-          ok ? raw + (long long)(r0 + row) * nbp + c0 + 16 * half : raw;
-      cp16(&s.raw[row][16 * half], src, ok);
+          ok ? raw + (long long)(r0 + row) * nbp + c0 + 16 * v : raw;
+      cp16(&s.raw[row][16 * v], src, ok);
     }
   };
 
-  double acc[3][4][2][2];
+  double acc[3][MT][NT][4];
 #pragma unroll
   for (int ty = 0; ty < 3; ++ty)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) acc[ty][i][j][0] = acc[ty][i][j][1] = 0.0;
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ty][i][j][e] = 0.0;
 
   const int nk = (nbp + KC - 1) / KC;
 #pragma unroll
@@ -148,31 +178,43 @@ fused_f32_kernel(const uint8_t *__restrict__ raw, const float *__restrict__ wp,
     cp_commit();
     const Stage &s = st[k % NSTAGE];
 
-#pragma unroll
+    // one raw word (bytes 4q .. 4q+3) a row, two k-steps of 8 terms
+#pragma unroll 1
     for (int q = 0; q < KC / 4; ++q) {
-      // bytes 4q .. 4q+3 of this warp's rows g, g+8, g+16, g+24
-      uint32_t rw[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        rw[i] = *reinterpret_cast<const uint32_t *>(
-            &s.raw[wm * 32 + 8 * i + g][4 * q]);
+      for (int i = 0; i < MT; ++i) {
+        // plane t of bytes 4q .. 4q+3 of rows g and g+8 of row tile i:
+        // bit 8j of each mask marks code 0 (H), 2 (E), 1 (M) in byte j
+        uint32_t cls[3][2];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = 4 * q + b;
-        double bf[2];
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t x = *reinterpret_cast<const uint32_t *>(
+                                 &s.raw[wm * WM + 16 * i + 8 * r + g][4 * q]) >> sh;
+          const uint32_t y = x >> 1;
+          cls[0][r] = ~(x | y) & 0x01010101u;
+          cls[1][r] = y & ~x & 0x01010101u;
+          cls[2][r] = x & ~y & 0x01010101u;
+        }
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          bf[j] = (double)s.w[t][c][(wn * 16 + 8 * j + g) ^ (t << 3)];
+        for (int h = 0; h < 2; ++h) {
+          // B fragments: plane t, bytes 4q + 2h and 4q + 2h + 1, the
+          // warp's column tiles
+          double bf[NT][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t code = (rw[i] >> (8 * b + sh)) & 3u;
-          const double h = ind(code == 0), e = ind(code == 2),
-                       m = ind(code == 1);
+          for (int jt = 0; jt < NT; ++jt)
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma_f64(acc[0][i][j], h, bf[j]);
-            mma_f64(acc[1][i][j], e, bf[j]);
-            mma_f64(acc[2][i][j], m, bf[j]);
+            for (int j = 0; j < 2; ++j)
+              bf[jt][j] = (double)s.w[t * PS + (4 * q + 2 * h + j) * BN + wn * WN + 8 * jt + g];
+#pragma unroll
+          for (int ty = 0; ty < 3; ++ty) {
+            double a[4];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              a[2 * j] = ind(cls[ty][0], 2 * h + j);
+              a[2 * j + 1] = ind(cls[ty][1], 2 * h + j);
+            }
+#pragma unroll
+            for (int jt = 0; jt < NT; ++jt) mma_f64(acc[ty][i][jt], a, bf[jt]);
           }
         }
       }
@@ -184,15 +226,21 @@ fused_f32_kernel(const uint8_t *__restrict__ raw, const float *__restrict__ wp,
 #pragma unroll
   for (int ty = 0; ty < 3; ++ty)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = r0 + wm * 32 + 8 * i + g;
-        const int col = j0 + wn * 16 + 8 * j + 2 * t;
-        if (row < B && col < Cp)
-          *reinterpret_cast<double2 *>(outs[ty] + (long long)row * Cp + col) =
-              make_double2(acc[ty][i][j][0], acc[ty][i][j][1]);
-      }
+      for (int jt = 0; jt < NT; ++jt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + wm * WM + 16 * i + 8 * r + g;
+          const int col = j0 + wn * WN + 8 * jt + 2 * t;
+          if (row < B && col < Cp)
+            *reinterpret_cast<double2 *>(outs[ty] + (long long)row * Cp + col) =
+                make_double2(acc[ty][i][jt][2 * r], acc[ty][i][jt][2 * r + 1]);
+        }
+}
+
+dim3 grid_of(const long long B, const long long Cp) {
+  return dim3((unsigned)((Cp + BN - 1) / BN), (unsigned)((B + BM - 1) / BM));
 }
 
 }  // namespace
@@ -208,10 +256,32 @@ extern "C" int fused_f32_launch(const void *raw, const void *wp, void *H,
   cudaError_t err = cudaFuncSetAttribute(
       fused_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((Cp + BN - 1) / BN), (unsigned)((B + BM - 1) / BM));
-  fused_f32_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  fused_f32_kernel<<<grid_of(B, Cp), NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const uint8_t *>(raw), static_cast<const float *>(wp),
       static_cast<double *>(H), static_cast<double *>(E),
       static_cast<double *>(M), (int)B, (int)nbp, (int)Cp);
   return (int)cudaGetLastError();
+}
+
+// The launch's shape for B rows and Cp columns, as the CUDA runtime
+// reports it: info = {blocks, blocks per SM, registers a thread,
+// threads a block, dynamic shared memory bytes}. Returns a CUDA error code.
+extern "C" int fused_f32_info(long long B, long long Cp, int *info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes at;
+  err = cudaFuncGetAttributes(&at, fused_f32_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_f32_kernel,
+                                                      NTHREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = grid_of(B, Cp);
+  info[0] = (int)(grid.x * grid.y);
+  info[1] = per_sm;
+  info[2] = at.numRegs;
+  info[3] = NTHREADS;
+  info[4] = SMEM_BYTES;
+  return 0;
 }

@@ -42,10 +42,12 @@ here imports or builds anything when the module is imported.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and uses the
 kernel's plain version only for CPU tensors. Each wrapper counts its
-launches in a plain integer attribute, `<wrapper>.launches`. The plain
-versions of the float32- and bf16-operand kernels widen the operand and
-sum in float64; the float32 kernels sum in float64 too, the bf16 kernels
-sum BF16_FLUSH terms at a time in float32 and add those sums in float64.
+launches in a plain integer attribute, `<wrapper>.launches`; launch_info()
+reads the grid, occupancy and registers of the float32-operand kernels
+from their libraries. The plain versions of the float32- and
+bf16-operand kernels widen the operand and sum in float64; the float32
+kernels sum in float64 too, the bf16 kernels sum BF16_FLUSH terms at a
+time in float32 and add those sums in float64.
 """
 
 from __future__ import annotations
@@ -301,6 +303,25 @@ def fused_f32_products(raw, wp):
 
 
 fused_f32_products.launches = 0
+
+
+def launch_info(name, *shape, device=None):
+    """The launch of the float32-operand kernel `name` at `shape` (fused_f32:
+    B, Cp; bgen_f32: B, Cw, Cq) as the CUDA runtime reports it, from the
+    library's `<name>_info` entry point: {"blocks", "blocks_per_sm",
+    "registers", "threads", "smem_bytes"}. Needs the card."""
+    if name not in ("fused_f32", "bgen_f32"):
+        raise ValueError(f"launch_info: no info entry point in {name}")
+    fn = getattr(_lib(name), f"{name}_info")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong] * len(shape) + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(device or torch.device("cuda")):
+        err = fn(*shape, info)
+    if err != 0:
+        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
+    return dict(zip(("blocks", "blocks_per_sm", "registers", "threads",
+                     "smem_bytes"), info))
 
 
 def fused_bf16_products_plain(raw, wp):

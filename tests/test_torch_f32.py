@@ -356,11 +356,14 @@ def _assert_within_bar(got, want, bar):
 @pytest.mark.cuda
 def test_fused_f32_kernel_matches_plain_on_cuda(cuda):
     """fused_f32 against its plain version on the card, on ragged shapes
-    (rows, bytes and columns off the kernel's tiles; Cp 128, 384 and 400)
-    within 1e-12 of the product against |wp|; each call counts one
-    launch."""
+    (rows off the 128-row tile, bytes off the 32-byte stage and columns
+    off the 48-column tile; Cp 128, 384 and 400; B = 1; contractions of
+    one stage and of less than one) within 1e-12 of the product against
+    |wp|; each call counts one launch."""
     rng = np.random.default_rng(11)
-    for B, nbp, Cp in ((37, 272, 400), (130, 512, 384), (5, 16, 128)):
+    for B, nbp, Cp in ((37, 272, 400), (130, 512, 384), (5, 16, 128),
+                       (129, 48, 52), (1, 32, 44), (1, 16, 4),
+                       (257, 96, 100)):
         raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(cuda)
         wp = torch.from_numpy(rng.normal(size=(4, nbp, Cp)).astype(np.float32)).to(cuda)
         n0 = kernels.fused_f32_products.launches
@@ -376,11 +379,15 @@ def test_fused_f32_kernel_matches_plain_on_cuda(cuda):
 @pytest.mark.cuda
 def test_bgen_f32_kernel_matches_plain_on_cuda(cuda):
     """bgen_f32 against its plain version on the card, on ragged shapes
-    (rows, samples and columns off the kernel's tiles; Cw 384 and 400,
-    Cq 128 and 144; about half the byte pairs missing) within 1e-12 of
-    the products against |wp| and |wq|; each call counts one launch."""
+    (rows off the 64-row tile, samples off the 128-sample stage, columns
+    off the 64-column tile; Cw 384 and 400, Cq 128 and 144; B = 1;
+    contractions of one stage, of less than one and of just more than
+    one; about half the byte pairs missing) within 1e-12 of the products
+    against |wp| and |wq|; each call counts one launch."""
     rng = np.random.default_rng(12)
-    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 768, 384, 128)):
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 768, 384, 128),
+                          (65, 80, 68, 20), (1, 128, 4, 132), (1, 16, 8, 4),
+                          (66, 144, 36, 64)):
         planes = torch.from_numpy(rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(cuda)
         wp = torch.from_numpy(rng.normal(size=(Np, Cw)).astype(np.float32)).to(cuda)
         wq = torch.from_numpy(rng.normal(size=(Np, Cq)).astype(np.float32)).to(cuda)
@@ -391,3 +398,18 @@ def test_bgen_f32_kernel_matches_plain_on_cuda(cuda):
         bar = kernels.bgen_f32_products_plain(planes, wp.abs(), wq.abs())
         torch.cuda.synchronize()
         _assert_within_bar(got, want, bar)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_launch_info_on_cuda(cuda):
+    """The float32-operand kernels' launch at the main path's full width
+    (B = 2048, Cp = 384; BGEN Cw = 384, Cq = 128) as the CUDA runtime reports
+    it: fused_f32 in 16 x 8 blocks of 128 x 48 and bgen_f32 in 32 x 8
+    blocks of 64 x 64, 256 threads and one block per SM each, and the
+    registers of a thread within the 255 that one block per SM allows."""
+    for name, shape, blocks in (("fused_f32", (2048, 384), 128),
+                                ("bgen_f32", (2048, 384, 128), 256)):
+        info = kernels.launch_info(name, *shape, device=cuda)
+        assert info["blocks"] == blocks
+        assert info["threads"] == 256 and info["blocks_per_sm"] == 1
+        assert 0 < info["registers"] <= 255
