@@ -539,9 +539,10 @@ def _matmul_ms(mats, reps):
 
 
 def _launch_line(name, dev, *shape):
-    """Print the launch of a float32-operand kernel at `shape` as the
-    CUDA runtime reports it: blocks, blocks per SM, waves on this card's
-    SMs, registers a thread."""
+    """Print the launch of a kernel with an info entry point (fused_f32,
+    bgen_f32, bgen_bf16) at `shape` as the CUDA runtime reports it:
+    blocks, blocks per SM, waves on this card's SMs, registers a
+    thread."""
     import torch
 
     from regenie_tpu_torch.ops import kernels
@@ -796,13 +797,30 @@ def bgen_bf16_phase(dev, reps=10):
             kernels.bgen_bf16_products_plain(planes, wp.abs(), wq.abs()),
             what, rel))
 
-    # ragged: rows off the row tile, samples ending mid-stage, columns off
-    # the column tile, every byte pair (about half of them missing); 9232
-    # samples = 3 float32 partial sums, the last short
-    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 9232, 1152, 384)):
+    def check01(planes, ones, what):
+        # 0/1 operands: integer partial sums below 255 x 4096 < 2^24, so
+        # exactly the plain integers (what keeps INFO and A1FREQ exact)
+        err01 = max(float((g - w).abs().max()) for g, w in zip(
+            kernels.bgen_bf16_products(planes, *ones),
+            kernels.bgen_bf16_products_plain(planes, *ones)))
+        print(f"  bgen_bf16 {what}, 0/1 operands: max|kernel-plain|={err01}")
+        if err01 != 0:
+            raise AssertionError("bgen_bf16 differs from its plain version on "
+                                 f"0/1 operands ({what}): {err01}")
+
+    # ragged: rows off the 128-row tile, samples ending mid-stage, columns
+    # off the 64-column tile, every byte pair (about half of them
+    # missing); 9232 samples = 3 float32 partial sums, the last short;
+    # B = 1 on 16 samples (less than one stage), 4112 samples (one flush
+    # and 16), B = 129 (one row into a second tile)
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 9232, 1152, 384),
+                          (1, 16, 72, 8), (129, 4112, 200, 136),
+                          (129, 80, 64, 56)):
         planes = torch.from_numpy(rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(dev)
-        check(planes, _bf16_randn(gen, (Np, Cw), dev), _bf16_randn(gen, (Np, Cq), dev),
-              f"ragged B={B} Np={Np} Cw={Cw} Cq={Cq}")
+        wp, wq = _bf16_randn(gen, (Np, Cw), dev), _bf16_randn(gen, (Np, Cq), dev)
+        check(planes, wp, wq, f"ragged B={B} Np={Np} Cw={Cw} Cq={Cq}")
+        ones = (wp > 0).to(torch.bfloat16), (wq > 0).to(torch.bfloat16)
+        check01(planes, ones, f"ragged B={B} Np={Np} Cw={Cw} Cq={Cq}")
     c = _random_consts(rng, 1025, 3, 1, 4, dev, pack="sample", split=True)
     Np = fsc.op_nbp(c.Wp)
     check(_imputed_planes(gen, 37, 1025, Np, dev), c.Wp, c.Wq,
@@ -817,17 +835,9 @@ def bgen_bf16_phase(dev, reps=10):
     wp = _bf16_randn(gen, (Np, Cw), dev)
     wq = _bf16_randn(gen, (Np, Cq), dev)
     check(planes, wp, wq, "full width")
-    # 0/1 operands: integer partial sums below 255 x 4096 < 2^24, so
-    # exactly the plain integers (what keeps INFO and A1FREQ exact)
-    ones = (wp > 0).to(torch.bfloat16), (wq > 0).to(torch.bfloat16)
-    err01 = max(float((g - w).abs().max()) for g, w in zip(
-        kernels.bgen_bf16_products(planes, *ones),
-        kernels.bgen_bf16_products_plain(planes, *ones)))
-    print(f"  bgen_bf16 full width, 0/1 operands: max|kernel-plain|={err01}")
-    if err01 != 0:
-        raise AssertionError("bgen_bf16 differs from its plain version on 0/1 "
-                             f"operands: {err01}")
-    del ones
+    check01(planes, ((wp > 0).to(torch.bfloat16), (wq > 0).to(torch.bfloat16)),
+            "full width")
+    _launch_line("bgen_bf16", dev, B, Cw, Cq)
     ms = _time_ms(lambda: kernels.bgen_bf16_products(planes, wp, wq), reps)
     plain_ms = _time_ms(lambda: kernels.bgen_bf16_products_plain(planes, wp, wq), 3)
 

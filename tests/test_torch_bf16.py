@@ -497,12 +497,16 @@ def test_fused_bf16_kernel_matches_plain_on_cuda(cuda):
 @pytest.mark.cuda
 def test_bgen_bf16_kernel_matches_plain_on_cuda(cuda):
     """bgen_bf16 against its plain version on the card, on ragged shapes
-    (rows, samples and columns off the kernel's tiles; about half the
-    byte pairs missing) and a contraction of several flushes, within the
-    flush bar; 0/1 operands give exactly the plain integers; each call
-    counts one launch."""
+    (rows, samples and columns off the kernel's 128 x 64 tiles and
+    64-sample stages: B = 1 and 129, Np = 16, less than one stage, and
+    4112, one flush and 16 samples, Cw and Cq not multiples of 64; about
+    half the byte pairs missing) and a contraction of several flushes,
+    within the flush bar; 0/1 operands give exactly the plain integers;
+    each call counts one launch."""
     rng = np.random.default_rng(12)
-    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 9232, 1152, 384)):
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (130, 9232, 1152, 384),
+                          (1, 16, 72, 8), (129, 4112, 200, 136),
+                          (129, 80, 64, 56)):
         planes = torch.from_numpy(rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(cuda)
         wp, wq = _bf16(rng, (Np, Cw), cuda), _bf16(rng, (Np, Cq), cuda)
         n0 = kernels.bgen_bf16_products.launches
