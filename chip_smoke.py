@@ -540,9 +540,9 @@ def _matmul_ms(mats, reps):
 
 def _launch_line(name, dev, *shape):
     """Print the launch of a kernel with an info entry point (fused_f32,
-    bgen_f32, bgen_bf16) at `shape` as the CUDA runtime reports it:
-    blocks, blocks per SM, waves on this card's SMs, registers a
-    thread."""
+    fused_bf16, bgen_f32, bgen_bf16) at `shape` as the CUDA runtime
+    reports it: blocks, blocks per SM, waves on this card's SMs,
+    registers a thread."""
     import torch
 
     from regenie_tpu_torch.ops import kernels
@@ -706,8 +706,8 @@ def _bf16_randn(gen, shape, dev):
 
 def fused_bf16_phase(dev, reps=10):
     """fused_bf16: within the flush bar on ragged shapes, on a split
-    operand built by the port at a small N, and at full width; times at
-    full width."""
+    operand built by the port at a small N, and at full width, and
+    exactly equal on 0/1 operands; times at full width."""
     import torch
 
     from regenie_tpu_torch.ops import fused_score as fsc
@@ -725,12 +725,29 @@ def fused_bf16_phase(dev, reps=10):
             kernels.fused_bf16_products_plain(raw, wp),
             kernels.fused_bf16_products_plain(raw, wp.abs()), what, rel))
 
-    # ragged: rows off the row tile, bytes ending mid-stage, columns off
-    # the column tile; 2064 bytes = 3 float32 partial sums, the last short
-    for B, nbp, Cw in ((37, 272, 400), (130, 2064, 1152)):
+    def check01(raw, ones, what):
+        # 0/1 operands: integer partial sums below 2 x 4096, so exactly
+        # the plain integers (what shows a wrong k order or descriptor)
+        err01 = max(float((g - w).abs().max()) for g, w in zip(
+            kernels.fused_bf16_products(raw, ones),
+            kernels.fused_bf16_products_plain(raw, ones)))
+        print(f"  fused_bf16 {what}, 0/1 operand: max|kernel-plain|={err01}")
+        if err01 != 0:
+            raise AssertionError("fused_bf16 differs from its plain version "
+                                 f"on a 0/1 operand ({what}): {err01}")
+
+    # ragged: rows off the 128-row tile, bytes ending mid-stage, columns
+    # off the 64-column tile; 2064 bytes = 3 float32 partial sums, the
+    # last short; B = 1 on 16 bytes (less than one 32-byte stage), 1040
+    # bytes (one flush and 16) with B = 129 (one row into a second tile),
+    # 48 bytes (one and a half stages) on an exact tile
+    for B, nbp, Cw in ((37, 272, 400), (130, 2064, 1152), (1, 16, 72),
+                       (129, 1040, 200), (128, 48, 64)):
         raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(dev)
-        check(raw, _bf16_randn(gen, (4, nbp, Cw), dev),
-              f"ragged B={B} nbp={nbp} Cw={Cw}")
+        wp = _bf16_randn(gen, (4, nbp, Cw), dev)
+        what = f"ragged B={B} nbp={nbp} Cw={Cw}"
+        check(raw, wp, what)
+        check01(raw, (wp > 0).to(torch.bfloat16), what)
     c = _random_consts(rng, 1025, 3, 1, 4, dev, split=True)
     raw = torch.from_numpy(fsc.pad_raw(
         rng.integers(0, 256, (37, 257), dtype=np.uint8))).to(dev)
@@ -744,6 +761,8 @@ def fused_bf16_phase(dev, reps=10):
     raw = torch.randint(0, 256, (B, nbp), generator=gen, device=dev, dtype=torch.uint8)
     wp = _bf16_randn(gen, (4, nbp, Cw), dev)
     check(raw, wp, "full width")
+    check01(raw, (wp > 0).to(torch.bfloat16), "full width")
+    _launch_line("fused_bf16", dev, B, Cw)
     ms = _time_ms(lambda: kernels.fused_bf16_products(raw, wp), reps)
     plain_ms = _time_ms(lambda: kernels.fused_bf16_products_plain(raw, wp), 3)
 

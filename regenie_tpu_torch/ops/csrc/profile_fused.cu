@@ -1,5 +1,6 @@
 // Profiling variants of the fused BED products for Hopper (sm_90a): five
-// kernels built on the design of fused_bf16.cu, each with a part of that
+// kernels built on the first design of fused_bf16.cu (mma.sync, 64 x 64
+// tiles; that kernel has since moved to wgmma), each with a part of that
 // design switched off or moved, so that their times attribute the bf16
 // kernel's time to the decode, the tensor-core products and their overlap.
 //
@@ -48,8 +49,9 @@
 // Design. One templated __global__ (profile_kernel):
 //
 // - The base (stacked, stacked2, nodecode, decode_only) is fused_bf16.cu's
-//   kernel: a 256-thread block owns a 64-row x 64-column tile of H, E and M
-//   and loops over the whole contraction; each warp holds a 16 x 32 tile;
+//   first kernel: a 256-thread block owns a 64-row x 64-column tile of H,
+//   E and M and loops over the whole contraction; each warp holds a 16 x
+//   32 tile;
 //   mma.sync.m16n8k16 bf16 -> f32 with a k-step of one plane of 16 bytes;
 //   stages of 32 bytes x 4 planes x 64 columns arrive by cp.async, NSTAGE
 //   in flight (3 by default; 2 and 4 for the sweep), XOR-swizzled and read
@@ -259,7 +261,7 @@ __device__ __forceinline__ void store_tile(const double *sum,
     }
 }
 
-// The base: fused_bf16.cu's kernel with NSTAGE stages in flight and the
+// The base: fused_bf16.cu's first kernel with NSTAGE stages in flight and the
 // parts of MODE switched off.
 template <int MODE, int NSTAGE>
 __device__ __forceinline__ void base_body(const uint8_t *__restrict__ raw,

@@ -14,8 +14,9 @@ Kernels (sources under ops/csrc/, one shared library each):
   operands, summed in float64, replacing the Pallas kernel
   regenie_tpu/ops/fused_score.py:1054 _bgen_kernel_split (f32 operand).
 - fused_bf16 (csrc/fused_bf16.cu): the class-indicator products against
-  the bf16 hi|mid|lo split operand, float32 sums of BF16_FLUSH terms
-  added into float64, replacing the Pallas kernel
+  the bf16 hi|mid|lo split operand by warpgroup products (wgmma, A from
+  registers), float32 sums of BF16_FLUSH terms added into float64,
+  replacing the Pallas kernel
   regenie_tpu/ops/fused_score.py:364 _fused_kernel_split.
 - bgen_bf16 (csrc/bgen_bf16.cu): the six BGEN products against the bf16
   split operands by warpgroup products (wgmma, A from registers), summed
@@ -44,11 +45,11 @@ here imports or builds anything when the module is imported.
 A wrapper launches its kernel for CUDA tensors (or raises) and uses the
 kernel's plain version only for CPU tensors. Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`; launch_info()
-reads the grid, occupancy and registers of fused_f32, bgen_f32 and
-bgen_bf16 from their libraries. The plain versions of the float32- and
-bf16-operand kernels widen the operand and sum in float64; the float32
-kernels sum in float64 too, the bf16 kernels sum BF16_FLUSH terms at a
-time in float32 and add those sums in float64.
+reads the grid, occupancy and registers of fused_f32, fused_bf16,
+bgen_f32 and bgen_bf16 from their libraries. The plain versions of the
+float32- and bf16-operand kernels widen the operand and sum in float64;
+the float32 kernels sum in float64 too, the bf16 kernels sum BF16_FLUSH
+terms at a time in float32 and add those sums in float64.
 """
 
 from __future__ import annotations
@@ -308,11 +309,11 @@ fused_f32_products.launches = 0
 
 def launch_info(name, *shape, device=None):
     """The launch of the kernel `name` at `shape` (fused_f32: B, Cp;
-    bgen_f32 and bgen_bf16: B, Cw, Cq) as the CUDA runtime reports it,
-    from the library's `<name>_info` entry point: {"blocks",
-    "blocks_per_sm", "registers", "threads", "smem_bytes"}. Needs the
-    card."""
-    if name not in ("fused_f32", "bgen_f32", "bgen_bf16"):
+    fused_bf16: B, Cw; bgen_f32 and bgen_bf16: B, Cw, Cq) as the CUDA
+    runtime reports it, from the library's `<name>_info` entry point:
+    {"blocks", "blocks_per_sm", "registers", "threads", "smem_bytes"}.
+    Needs the card."""
+    if name not in ("fused_f32", "fused_bf16", "bgen_f32", "bgen_bf16"):
         raise ValueError(f"launch_info: no info entry point in {name}")
     fn = getattr(_lib(name), f"{name}_info")
     fn.restype = ctypes.c_int

@@ -477,11 +477,15 @@ def _bf16(rng, shape, device):
 @pytest.mark.cuda
 def test_fused_bf16_kernel_matches_plain_on_cuda(cuda):
     """fused_bf16 against its plain version on the card, on ragged shapes
-    (rows, bytes and columns off the kernel's tiles; Cw 1152, 400 and 24)
-    and a contraction of several flushes, within the flush bar; each call
-    counts one launch."""
+    (rows, bytes and columns off the kernel's 128 x 64 tiles and 32-byte
+    stages: B = 1 and 129, nbp = 16, less than one stage, 48, one and a
+    half, and 1040, one flush and 16 bytes; Cw 1152, 400, 200, 72 and 24)
+    and a contraction of several flushes, within the flush bar; 0/1
+    operands give exactly the plain integers; each call counts one
+    launch."""
     rng = np.random.default_rng(11)
-    for B, nbp, Cw in ((37, 272, 400), (130, 2064, 1152), (5, 16, 24)):
+    for B, nbp, Cw in ((37, 272, 400), (130, 2064, 1152), (5, 16, 24),
+                       (1, 16, 72), (129, 1040, 200), (128, 48, 64)):
         raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(cuda)
         wp = _bf16(rng, (4, nbp, Cw), cuda)
         n0 = kernels.fused_bf16_products.launches
@@ -492,6 +496,10 @@ def test_fused_bf16_kernel_matches_plain_on_cuda(cuda):
         torch.cuda.synchronize()
         assert all(g.dtype == torch.float64 for g in got)
         _assert_within_bar(got, want, bar)
+        ones = (wp > 0).to(torch.bfloat16)
+        for g, w in zip(kernels.fused_bf16_products(raw, ones),
+                        kernels.fused_bf16_products_plain(raw, ones)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

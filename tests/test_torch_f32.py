@@ -403,14 +403,16 @@ def test_bgen_f32_kernel_matches_plain_on_cuda(cuda):
 @pytest.mark.cuda
 def test_f32_kernels_launch_info_on_cuda(cuda):
     """The launch of the float32-operand kernels at the main path's full
-    width (B = 2048, Cp = 384; BGEN Cw = 384, Cq = 128) and of bgen_bf16
-    at the split path's (Cw = 3 x 384, Cq = 3 x 128) as the CUDA runtime
-    reports it: fused_f32 in 16 x 8 blocks of 128 x 48, bgen_f32 in 32 x 8
-    blocks of 64 x 64 and bgen_bf16 in 16 x 24 blocks of 128 x 64 (two
-    warpgroups), 256 threads and one block per SM each, and the registers
-    of a thread within the 255 that one block per SM allows."""
+    width (B = 2048, Cp = 384; BGEN Cw = 384, Cq = 128) and of the bf16
+    kernels at the split path's (Cw = 3 x 384, Cq = 3 x 128) as the CUDA
+    runtime reports it: fused_f32 in 16 x 8 blocks of 128 x 48, bgen_f32
+    in 32 x 8 blocks of 64 x 64, fused_bf16 in 16 x 18 and bgen_bf16 in
+    16 x 24 blocks of 128 x 64 (two warpgroups), 256 threads and one block
+    per SM each, and the registers of a thread within the 255 that one
+    block per SM allows."""
     for name, shape, blocks in (("fused_f32", (2048, 384), 128),
                                 ("bgen_f32", (2048, 384, 128), 256),
+                                ("fused_bf16", (2048, 3 * 384), 288),
                                 ("bgen_bf16", (2048, 3 * 384, 3 * 128), 384)):
         info = kernels.launch_info(name, *shape, device=cuda)
         assert info["blocks"] == blocks
