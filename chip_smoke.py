@@ -401,19 +401,20 @@ def fused_i8_phase(dev, reps=10):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def _check_bgen_exact(planes, wp, wq, what):
-    """bgen_i8 against its plain version on the same card tensors: the six
-    int64 products must be equal. Returns the max abs difference (0)."""
+def _check_bgen_exact(planes, wp_k, wq_k, what):
+    """bgen_i8 against its plain version on the same card tensors (the
+    K-major operands wp_k [Cw, Np], wq_k [Cq, Np]): the six int64 products
+    must be equal. Returns the max abs difference (0)."""
     import torch
 
     from regenie_tpu_torch.ops import kernels
 
-    got = kernels.bgen_i8_products(planes, wp, wq)
-    want = kernels.bgen_i8_products_plain(planes, wp, wq)
+    got = kernels.bgen_i8_products(planes, wp_k, wq_k)
+    want = kernels.bgen_i8_products_plain(planes, wp_k, wq_k)
     torch.cuda.synchronize()
     err = max(int((g - w).abs().max()) for g, w in zip(got, want))
     print(f"  bgen_i8 {what}: B={planes.shape[0]} Np={planes.shape[2]} "
-          f"Cw={wp.shape[1]} Cq={wq.shape[1]} max|kernel-plain|={err}")
+          f"Cw={wp_k.shape[0]} Cq={wq_k.shape[0]} max|kernel-plain|={err}")
     if err != 0:
         raise AssertionError(f"bgen_i8 kernel differs from its plain version "
                              f"({what}): max abs {err}")
@@ -436,8 +437,11 @@ def _imputed_planes(gen, B, N, Np, dev, miss=0.01):
 
 
 def bgen_i8_phase(dev, reps=10):
-    """bgen_i8: exactness on ragged shapes, on an operand built by the
-    port at a small N, and at full width; times at full width."""
+    """bgen_i8: exactness on ragged shapes (rows, samples and columns off
+    the 128 x 128 tiles and the 128-sample stages, more than one
+    65,536-sample int32 chunk), on an operand built by the port at a small
+    N, and at full width; times at full width. The K-major operands are
+    built before any timing."""
     import torch
 
     from regenie_tpu_torch.ops import fused_score as fsc
@@ -447,31 +451,36 @@ def bgen_i8_phase(dev, reps=10):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     errs = []
-    # ragged: rows off the row tile, samples ending mid-stage, columns off
-    # the column tile, every byte pair (about half of them missing)
-    planes = torch.from_numpy(rng.integers(0, 256, (37, 2, 272), dtype=np.uint8)).to(dev)
-    wp, wq = (torch.from_numpy(rng.integers(-128, 128, (272, c), dtype=np.int8)).to(dev)
-              for c in (400, 144))
-    errs.append(_check_bgen_exact(planes, wp, wq, "ragged, random limbs"))
+    # ragged (B, Np, Cw, Cq): rows off the row tile, samples ending
+    # mid-stage or past a chunk, columns off the column tile, every byte
+    # pair (about half of them missing)
+    for B, Np, Cw, Cq in ((37, 272, 400, 144), (1, 16, 16, 16),
+                          (129, 144, 144, 528), (200, 65536 + 144, 1552, 16)):
+        planes = torch.from_numpy(
+            rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)).to(dev)
+        wp, wq = (torch.from_numpy(rng.integers(-128, 128, (c, Np), dtype=np.int8)).to(dev)
+                  for c in (Cw, Cq))
+        errs.append(_check_bgen_exact(planes, wp, wq, "ragged, random limbs"))
     c = _random_consts(rng, 1025, 3, 1, 4, dev, pack="sample")
     Np = fsc.op_nbp(c.Wp)
     errs.append(_check_bgen_exact(_imputed_planes(gen, 37, 1025, Np, dev),
-                                  c.Wp.limbs, c.Wq.limbs, "ragged, N=1025 operand"))
+                                  c.Wp.limbs_k, c.Wq.limbs_k, "ragged, N=1025 operand"))
 
     # full width: the main path's shapes (C_used = 321 -> Cp = 384; the
-    # [maskf | ind] tail of 51 columns -> Cqp = 128), random limbs
+    # [maskf | ind] tail of 51 columns -> Cqp = 128), random K-major limbs
     f = FULL
     Np = -(-f["N"] // 256) * 256
     B, Cw, Cq = f["B"], 4 * 384, 4 * 128
     planes = _imputed_planes(gen, B, f["N"], Np, dev)
-    wp, wq = (torch.randint(-128, 128, (Np, cw), generator=gen, device=dev,
+    wp, wq = (torch.randint(-128, 128, (cw, Np), generator=gen, device=dev,
                             dtype=torch.int8) for cw in (Cw, Cq))
+    _launch_line("bgen_i8", dev, B, Cw, Cq)
     errs.append(_check_bgen_exact(planes, wp, wq, "full width"))
     ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp, wq), reps)
     plain_ms = _time_ms(lambda: kernels.bgen_i8_products_plain(planes, wp, wq), 3)
     # where the kernel's time goes: each operand's tiles with the other
     # operand cut to one 16-column tile (not checked)
-    wp16, wq16 = wp[:, :16].contiguous(), wq[:, :16].contiguous()
+    wp16, wq16 = wp[:16].contiguous(), wq[:16].contiguous()
     wp_ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp, wq16), reps)
     wq_ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp16, wq), reps)
     print(f"  bgen_i8 full width, Wp tiles with one 16-column Wq tile: {wp_ms:.3f} ms; "
@@ -488,9 +497,10 @@ def bgen_i8_phase(dev, reps=10):
     A = [(x - 128).to(torch.int8) for x in (k0, k1, d2 & 255, (d2 >> 8) & 255,
                                              d2 >> 16)] + [miss.to(torch.int8)]
     del k0, k1, miss, d2
-    W = [wp, wp, wq, wq, wq, wp]
+    wpn, wqn = wp.T.contiguous(), wq.T.contiguous()  # the [Np, C] layout
+    W = [wpn, wpn, wqn, wqn, wqn, wpn]
     library_ms = _time_ms(lambda: [torch._int_mm(a, w) for a, w in zip(A, W)], reps)
-    del A
+    del A, W, wpn, wqn
 
     ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
     nbytes = 2 * B * Np + Np * (Cw + Cq) + 8 * B * (3 * Cw + 3 * Cq)
@@ -540,7 +550,7 @@ def _matmul_ms(mats, reps):
 
 def _launch_line(name, dev, *shape):
     """Print the launch of a kernel with an info entry point (fused_f32,
-    fused_bf16, bgen_f32, bgen_bf16) at `shape` as the CUDA runtime
+    fused_bf16, bgen_i8, bgen_f32, bgen_bf16) at `shape` as the CUDA runtime
     reports it: blocks, blocks per SM, waves on this card's SMs,
     registers a thread."""
     import torch
@@ -1164,6 +1174,7 @@ def profile_bgen_phase(dev, reps=10):
     wp, wq = (torch.randint(-128, 128, (Np, cw), generator=gen, device=dev,
                             dtype=torch.int8) for cw in (Cw, Cq))
     check(planes, wp, wq, "full width")
+    wp_k, wq_k = wp.T.contiguous(), wq.T.contiguous()  # bgen_i8's layout
     lay = layouts(planes)
     times = {}
     for v, c in cases:
@@ -1172,7 +1183,8 @@ def profile_bgen_phase(dev, reps=10):
                 lambda: K.PROFILE_BGEN[v](k0, k1, wp, wq, config=c), reps)
         print(f"  {label(v, c)} full width: {times[v, c, True]:.3f} ms on [B, 2, Np], "
               f"{times[v, c, False]:.3f} ms on two [B, Np] (median of {reps})")
-    i8_ms = _time_ms(lambda: K.bgen_i8_products(planes, wp, wq), reps)
+    i8_ms = _time_ms(lambda: K.bgen_i8_products(planes, wp_k, wq_k), reps)
+    del wp_k, wq_k
     print(f"  bgen_i8 on the same planes: {i8_ms:.3f} ms")
     del lay
 

@@ -1,136 +1,298 @@
 // BGEN 8-bit dosage products for Hopper (sm_90a): the two per-sample
 // probability byte planes of a variant block against the int8 limb
-// operands, exact integer sums.
+// operands, exact integer sums, on the int8 tensor cores by warpgroup
+// products (wgmma) with A decoded into registers and B read K-major from
+// shared memory.
 //
 // Replaces the Pallas TPU kernel regenie_tpu/ops/fused_score.py:1093
 // (_bgen_kernel_i8, launched by _bgen_products_i8 at :1171).
 //
 // What it computes, for planes [B, 2, Np] uint8 (k0 = P(hom first) * 255,
-// k1 = P(het) * 255, missing = any pair with k0 + k1 > 255), the operand
-// limbs Wp [Np, Cw] int8 and the narrow operand limbs Wq [Np, Cq] int8:
+// k1 = P(het) * 255, missing = any pair with k0 + k1 > 255) and the
+// K-major operand limbs Wp [Cw, Np] int8 and Wq [Cq, Np] int8 (samples
+// contiguous: the transposes of the sample-packed [Np, C] limbs):
 //   miss = k0 + k1 > 255;  k0, k1 = 0 where miss;  d2 = (2 k0 + k1)^2
-//   D0 = k0 @ Wp,  D1 = k1 @ Wp,  M = miss @ Wp                 [B, Cw]
-//   Q0 = (d2 & 255) @ Wq,  Q1 = (d2 >> 8 & 255) @ Wq,  Q2 = (d2 >> 16) @ Wq
-//                                                               [B, Cq]
+//   D0 = k0 @ Wp^T,  D1 = k1 @ Wp^T,  M = miss @ Wp^T            [B, Cw]
+//   Q0 = (d2 & 255) @ Wq^T,  Q1 = (d2 >> 8 & 255) @ Wq^T,
+//   Q2 = (d2 >> 16) @ Wq^T                                       [B, Cq]
 // all as exact int64. Rows past B, samples past Np and columns past
 // Cw / Cq read as zero and are not stored.
 //
 // Bound at the repository's full width (B=2048, Np=400,128, Cw=1536,
 // Cq=512): (3 x 1536 + 3 x 512) x 2 x 2048 x 400,128 = 1.007e13 int8
-// operations per block, 5.09 ms at the H100's 1,979 dense int8 TOP/s,
-// against 2.56 GB of compulsory traffic (planes 1.64 GB, 0.77 ms at
+// operations per block, 5.088 ms at the H100's 1,979 dense int8 TOP/s,
+// against 2.56 GB of compulsory traffic (planes 1.64 GB; 0.76 ms at
 // 3.35 TB/s): bound by tensor-core operations. The design:
 //
-// - Tensor cores: mma.sync.m16n8k32 u8 x s8 -> s32 takes the unsigned
-//   bytes as they are. (The TPU kernel shifts them by -128 into s8 and
-//   adds 128 x column sums back.) Each warp holds a 32 x 32 tile of the
-//   three products of its block (96 int32 accumulators per thread).
+// - Tensor cores: wgmma.mma_async m64n128k32 u8 x s8 -> s32 (SASS
+//   IGMMA.64x128x32) takes the unsigned bytes as they are (the TPU kernel
+//   shifts them by -128 into s8 and adds 128 x column sums back). A
+//   (the decoded multiplicands) comes from registers in the m64k32 8-bit
+//   fragment layout: lane (g, t) of warp w of a warpgroup holds rows
+//   16w + g and 16w + g + 8 at k positions 4t..4t+3 and 16+4t..16+4t+3.
+//   B (the operand tile) is read from shared memory by a descriptor,
+//   K-major with the 128-byte swizzle: int8 wgmma reads B only K-major
+//   (the PTX ISA allows the transpose flags only for 16-bit types), which
+//   is why the operand is stored [C, Np].
+// - Work split: a 256-thread block is two warpgroups and owns a 128-row x
+//   128-column output tile of either the three Wp products or the three
+//   Wq products (the first ceil(Cw/128) column tiles are Wp's), looping
+//   over the whole sample axis (no split-K): 256 blocks at full width,
+//   one a SM, 1.94 waves. Each warpgroup owns 64 rows; a thread decodes
+//   its A words once a k-step and issues three wgmma, one a product,
+//   which share the B tile. So each decoded (row, sample) pair feeds 128
+//   columns of each of three products.
 // - Exactness: |u8 x s8| <= 255 x 128, so an int32 sum is exact over at
-//   most 65,536 samples. The contraction runs in chunks of 65,536; after
-//   each chunk a thread adds its int32 partial sums into the int64
-//   outputs it alone owns (a store for the first chunk), so there are no
-//   atomics and the result does not depend on any order.
-// - Work split: a 256-thread block owns a 64-row x 128-column output tile
-//   of either the three Wp products or the three Wq products (the first
-//   ceil(Cw/128) column tiles are Wp's), and loops over the whole sample
-//   axis; the TPU kernel's sequential grid axis over sample tiles becomes
-//   this in-block loop.
-// - Decode in registers: each thread loads one (k0, k1) word pair per
-//   A fragment register (4 samples) and makes every A fragment from it
-//   (k0, k1 and the missing mask for Wp tiles; the three d2 bytes for Wq
-//   tiles); no indicator tile goes through memory.
-// - Contraction order: the kernel may permute samples as long as both
-//   operands agree. In each 32-sample mma step, thread-column t takes the
-//   sample words 8t + 2s and 8t + 2s + 1 of the 128-sample stage, so its
-//   A words of one row are one 8-byte shared-memory load.
-// - The operand is stored [n][j] (j contiguous), but a B fragment wants 4
-//   consecutive samples per register: each stage is loaded with 16-byte
-//   vectors of 4 rows, transposed in registers with byte permutes and
-//   stored as words [n/4][j], XOR-swizzled on j so that the fragment
-//   loads are free of bank conflicts; the plane rows are padded by 8
-//   bytes for the same reason.
-// - Two shared-memory stages with register staging: the global loads of
-//   stage k+1 are in flight while stage k is multiplied; one barrier per
-//   stage of 128 samples.
-// wgmma, TMA and warp specialisation are left for a later redesign.
+//   most 65,536 samples. Each 65,536-sample chunk starts with scale-d = 0;
+//   the 3 x 64 int32 accumulators of a thread are read only at a chunk's
+//   end, after wgmma.wait_group 0, and added into the int64 outputs that
+//   the thread alone owns (a store for the first chunk): no atomics, and
+//   the result does not depend on any order.
+// - Stages: 128 samples (four k-steps) a stage; each stage holds the B
+//   tile (128 columns x 128 bytes, each 16-byte chunk XOR-swizzled by its
+//   row as the 128-byte swizzle wants, on a 1024-byte boundary) and the
+//   planes k0, k1 of the block's 128 rows (rows padded to 144 bytes, so
+//   the fragments' 4-byte loads fall on distinct banks). Four stages in a
+//   ring (214,016 bytes with the alignment slack), filled by 16-byte
+//   cp.async copies of the tiles exactly as they are stored (zero-filled
+//   past Np, B and C); no transposes. Two stages are in flight beyond the
+//   one in use: the slot of the stage just finished may still be read by
+//   its last wgmma when the next stage's barrier passes, so the copy
+//   issued after that barrier fills the slot of the stage before it.
+// - Overlap: the wgmma are asynchronous, so a thread decodes the next
+//   k-step while the last one's products run. The A registers are
+//   double-buffered: a buffer is written again only after
+//   wgmma.wait_group 1 has retired the group that read it. The next
+//   stage's barrier falls inside the stage's last k-step, after its
+//   products are issued.
+// - Decode in registers: the missing mask of four samples at once from
+//   the per-byte carry of k0 + k1 (carry = maj(k0, k1, s) at bit 7 of each
+//   byte, s the sum of the low seven bits; prmt replicates it over the
+//   byte); Wp tiles take k0 & ~m, k1 & ~m and m & 0x01010101; Wq tiles
+//   form d = 2 k0 + k1 of two samples at a time in 16-bit lanes (byte
+//   permutes and one three-way add; d <= 765, so no carry between lanes),
+//   square each, and gather the bytes 0, 1, 2 of four squares into three
+//   A words by byte permutes.
+// ptxas: 250 registers, no spill; the SASS holds 24 IGMMA.64x128x32.U8.S8
+// and no IMMA. A middle k-step is 45 instructions a thread in Wp tiles and
+// 125 in Wq tiles, and a stage's copies about 75 more.
+//
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6):
+// 11.6 ms against the 5.09 ms bound. The tensor cores alone, with the
+// stage loop and its barrier, take 7.0 ms: 256 blocks are 2 waves of
+// 3.3 ms blocks, where back-to-back wgmma of the same shape run a block's
+// work in 2.7 ms. The A path (plane loads and decode) adds about 3.4 ms and
+// the copies' instructions about 1.2 ms: while the tensor cores run, the
+// SM's other instructions add to their time. Shared-memory A loads by
+// ldmatrix, the copies spread over the k-steps, clamped rows in place of
+// predicated copies, __vcmpgtu4 for the mask and Wq tiles scheduled first
+// were each slower. TMA, mbarrier rings, clusters, persistent blocks and
+// setmaxnreg warp specialisation are left for a later redesign.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;         // variant rows per block tile
+constexpr int BM = 128;        // variant rows per block tile (64 a warpgroup)
 constexpr int BN = 128;        // operand columns per block tile
-constexpr int KS = 128;        // samples per shared-memory stage
-constexpr int AST = KS + 8;    // padded row stride (bytes) of a plane tile
-constexpr int NTHREADS = 256;  // 8 warps: 2 (rows) x 4 (columns)
-constexpr long long CHUNK = 65536;  // samples per exact int32 partial sum
-constexpr long long STAGES_PER_CHUNK = CHUNK / KS;
+constexpr int KS = 128;        // samples per stage (four k-steps of 32)
+constexpr int AST = KS + 16;   // padded plane row stride (bytes)
+constexpr int NSTAGE = 4;      // stages in the ring
+constexpr int PREFETCH = 2;    // stages in flight beyond the one in use
+constexpr int NTHREADS = 256;  // two warpgroups
+constexpr int CHUNK_STAGES = 65536 / KS;  // stages per exact int32 sum
+constexpr int ORS = NTHREADS / (KS / 16);  // operand rows copied at once
+constexpr int PRS = NTHREADS / (KS / 16);  // plane rows copied at once
 
-struct __align__(16) Stage {
-  uint32_t w[KS / 4][BN];  // operand: sample word q, column j^swz
-  uint8_t k0[BM][AST];     // plane k0 of the block's rows
-  uint8_t k1[BM][AST];     // plane k1
+struct Stage {
+  uint8_t w[BN][KS];    // K-major operand: column n, chunk c at c ^ (n & 7)
+  uint8_t k0[BM][AST];  // plane k0 of the block's rows
+  uint8_t k1[BM][AST];  // plane k1
 };
-constexpr int SMEM_BYTES = 2 * (int)sizeof(Stage);
+static_assert(sizeof(Stage) % 1024 == 0, "stages on 1024-byte boundaries");
+// the stages, and room to align the first to 1024 bytes
+constexpr int SMEM_BYTES = NSTAGE * (int)sizeof(Stage) + 1024;
 
-__device__ __forceinline__ int swz(int col, int q) {
-  return col ^ (((q >> 3) & 3) << 3);
+__device__ __forceinline__ void cp16(const unsigned smem, const void *gmem,
+                                     const bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory writes of this thread (cp.async) visible to wgmma, which
+// reads through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Four rows of 16 operand bytes -> 16 words, word j holding column j of
-// the four rows in bytes 0..3 (o.x: columns 0-3 ... o.w: 12-15 of each
-// input word, column i of input word x in o.<i>).
-__device__ __forceinline__ void transpose4(const uint32_t a, const uint32_t b,
-                                           const uint32_t c, const uint32_t d,
-                                           uint4 &o) {
-  const uint32_t t0 = __byte_perm(a, b, 0x5140);
-  const uint32_t t1 = __byte_perm(c, d, 0x5140);
-  const uint32_t t2 = __byte_perm(a, b, 0x7362);
-  const uint32_t t3 = __byte_perm(c, d, 0x7362);
-  o.x = __byte_perm(t0, t1, 0x5410);
-  o.y = __byte_perm(t0, t1, 0x7632);
-  o.z = __byte_perm(t2, t3, 0x5410);
-  o.w = __byte_perm(t2, t3, 0x7632);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of the accumulators above the
+// wgmma.wait_group that makes them valid
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// One (k0, k1) word pair (4 samples) -> the three A fragment words of a
-// block kind: k0, k1 and missing (Wp tiles), or the bytes 0, 1, 2 of d2
-// (Wq tiles). A missing pair reads as k0 = k1 = 0.
+// Descriptor of a 128-column int8 B tile at shared address `saddr`
+// (1024-byte aligned), K-major with the 128-byte swizzle: start address
+// >> 4; the stride between 8-row groups along N (1024 bytes) as SBO; LBO
+// is not used by a swizzled K-major layout (1); layout type 1 =
+// SWIZZLE_128B. The k-step s of a stage starts 32 s bytes in (+2 s).
+__device__ __forceinline__ uint64_t b_desc(const unsigned saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D[64 x 128] (+)= A[64 x 32] B[32 x 128], u8 x s8 -> s32: A from
+// registers (this warp's 16 rows in the m16n8k32 A layout), B by
+// descriptor (K-major). scale_d: "1" adds to D, a predicate register
+// operand chooses at run time.
+#define WGMMA_D64(c)                                                         \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),    \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),    \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),  \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),  \
+      c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]),  \
+      c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]),  \
+      c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]),  \
+      c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),  \
+      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define WGMMA_M64N128K32(scale_d)                                              \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " scale_d ", 0;\n"                         \
+  "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.s8 "                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "     \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "     \
+  "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+#define WGMMA_RW(x) "+r"(x)
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 const uint64_t desc) {
+  asm volatile(WGMMA_M64N128K32("1")
+               : WGMMA_D64(WGMMA_RW)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+// the same with scale-d chosen at run time: sc = 0 starts D from A B,
+// D's old value neither read nor kept
+__device__ __forceinline__ void wgmma_m64n128k32_sc(int (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    const uint64_t desc,
+                                                    const int sc) {
+  asm volatile(WGMMA_M64N128K32("%69")
+               : WGMMA_D64(WGMMA_RW)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+                 "r"(sc));
+}
+
+// byte permute in the generic mode: a selector nibble 8 + i replicates the
+// top bit of byte i over the result byte
+__device__ __forceinline__ uint32_t prmt(const uint32_t x, const uint32_t y,
+                                         const uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(y), "r"(sel));
+  return r;
+}
+
+// One (k0, k1) pair of 32-bit words (four samples of one row) -> the three
+// A words of a block kind: k0, k1 and missing (Wp tiles), or the bytes 0,
+// 1, 2 of d2 (Wq tiles). A missing pair reads as k0 = k1 = 0.
 template <bool SQ>
 __device__ __forceinline__ void decode(const uint32_t a, const uint32_t b,
-                                       uint32_t &x0, uint32_t &x1,
-                                       uint32_t &x2) {
-  const uint32_t m = __vcmpgtu4(b, ~a);  // 0xff where k1 > 255 - k0
+                                       uint32_t (&x)[3]) {
+  // carry out of each byte of k0 + k1: bit 7 of maj(a, b, s), s the sum of
+  // the low seven bits of each byte (no carry between bytes)
+  const uint32_t s = (a & 0x7F7F7F7Fu) + (b & 0x7F7F7F7Fu);
+  const uint32_t m = prmt((a & b) | ((a | b) & s), 0, 0xBA98);  // 0xff: missing
   const uint32_t k0 = a & ~m, k1 = b & ~m;
   if (!SQ) {
-    x0 = k0;
-    x1 = k1;
-    x2 = m & 0x01010101u;
+    x[0] = k0;
+    x[1] = k1;
+    x[2] = m & 0x01010101u;
   } else {
-    uint32_t d2[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t d = 2u * ((k0 >> (8 * i)) & 255u) + ((k1 >> (8 * i)) & 255u);
-      d2[i] = d * d;
-    }
-    uint4 o;
-    transpose4(d2[0], d2[1], d2[2], d2[3], o);
-    x0 = o.x;
-    x1 = o.y;
-    x2 = o.z;
+    // d = 2 k0 + k1 of samples 0, 2 (de) and 1, 3 (dq) in 16-bit lanes
+    const uint32_t e0 = prmt(k0, 0, 0x4240), e1 = prmt(k1, 0, 0x4240);
+    const uint32_t o0 = prmt(k0, 0, 0x4341), o1 = prmt(k1, 0, 0x4341);
+    const uint32_t de = e0 + e0 + e1, dq = o0 + o0 + o1;
+    const uint32_t d0 = de & 0xFFFFu, d2 = de >> 16;
+    const uint32_t d1 = dq & 0xFFFFu, d3 = dq >> 16;
+    const uint32_t s0 = d0 * d0, s1 = d1 * d1, s2 = d2 * d2, s3 = d3 * d3;
+    // bytes 0 and 1 of (s0, s1) and of (s2, s3), then bytes 2
+    const uint32_t t0 = prmt(s0, s1, 0x5140), t1 = prmt(s2, s3, 0x5140);
+    const uint32_t t2 = prmt(s0, s1, 0x7362), t3 = prmt(s2, s3, 0x7362);
+    x[0] = prmt(t0, t1, 0x5410);
+    x[1] = prmt(t0, t1, 0x7632);
+    x[2] = prmt(t2, t3, 0x5410);
   }
 }
 
-__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t a0,
-                                         const uint32_t a1, const uint32_t a2,
-                                         const uint32_t a3, const uint32_t b0,
-                                         const uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// The A fragments of this thread for the k-step at sample kb of a stage:
+// register h + 2 kk of product ty holds the samples kb + 16 kk + 4t ..
+// + 3 of row arow + 8 h.
+template <bool SQ>
+__device__ __forceinline__ void decode_step(const Stage &s, const int arow,
+                                            const int kb, const int t,
+                                            uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int off = kb + 16 * kk + 4 * t;
+      uint32_t x[3];
+      decode<SQ>(*reinterpret_cast<const uint32_t *>(&s.k0[arow + 8 * h][off]),
+                 *reinterpret_cast<const uint32_t *>(&s.k1[arow + 8 * h][off]),
+                 x);
+#pragma unroll
+      for (int ty = 0; ty < 3; ++ty) a[ty][h + 2 * kk] = x[ty];
+    }
+}
+
+// A chunk's int32 sums into the int64 outputs O0, O1, O2 [B, C] at rows
+// row0 and row0 + 8 and columns col0 + 8 c (+ 1): element 4 c + 2 h + i
+// of acc is column col0 + 8 c + i of row row0 + 8 h. The first chunk
+// stores, later ones add; each element is this thread's alone.
+__device__ __forceinline__ void flush(int (&acc)[3][64], long long *const O0,
+                                      long long *const O1, long long *const O2,
+                                      const int row0, const int col0,
+                                      const int B, const int C,
+                                      const bool first) {
+#pragma unroll
+  for (int ty = 0; ty < 3; ++ty) {
+    long long *const o = ty == 0 ? O0 : ty == 1 ? O1 : O2;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = col0 + 8 * c, row = row0 + 8 * h;
+        if (col >= C || row >= B) continue;
+        longlong2 *const p =
+            reinterpret_cast<longlong2 *>(o + (long long)row * C + col);
+        longlong2 v = make_longlong2(acc[ty][4 * c + 2 * h], acc[ty][4 * c + 2 * h + 1]);
+        if (!first) {
+          const longlong2 old = *p;
+          v.x += old.x;
+          v.y += old.y;
+        }
+        *p = v;
+      }
+  }
 }
 
 template <bool SQ>
@@ -139,159 +301,101 @@ __device__ __forceinline__ void tile(Stage *st, const uint8_t *__restrict__ plan
                                      long long *__restrict__ O0,
                                      long long *__restrict__ O1,
                                      long long *__restrict__ O2, const int B,
-                                     const long long Np, const int Cw,
-                                     const int j0) {
+                                     const int Np, const int C, const int j0) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
   const int r0 = blockIdx.y * BM;
+  // rows of this lane: warpgroup warp >> 2 owns 64, its warp warp & 3
+  // supplies 16 of them
+  const int arow = (warp >> 2) * 64 + (warp & 3) * 16 + g;
 
-  // loader coordinates: operand sample word / 16-column vector, and plane
-  // row / 32-sample segment
-  const int lq = tid >> 3, ljv = tid & 7;
-  const int lrow = tid >> 2, lseg = tid & 3;
-  const int lj = j0 + ljv * 16;
-  const bool lj_ok = lj < Cw;
-  const bool lrow_ok = r0 + lrow < B;
-  const uint8_t *const prow = planes + (long long)(r0 + lrow) * 2 * Np;
-
-  uint4 vw[4];
-  uint4 vp[4];  // k0 samples [0, 16), [16, 32) of the segment, then k1
-
-  auto gload = [&](const long long n0) {
+  // One stage: BN operand rows and 2 x BM plane rows of KS / 16 chunks
+  // each; a thread copies chunk cv of the operand rows on + ORS i and of
+  // the plane rows on + PRS h. The addresses that do not change from stage
+  // to stage are computed once.
+  const int on = tid >> 3, cv = tid & 7;
+  const int8_t *const osrc = W + (long long)(j0 + on) * Np + 16 * cv;
+  const unsigned odst = (unsigned)(on * KS + 16 * (cv ^ (on & 7)));
+  const uint8_t *const psrc = planes + (long long)(r0 + on) * 2 * Np + 16 * cv;
+  const unsigned pdst = (unsigned)(offsetof(Stage, k0) + on * AST + 16 * cv);
+  const unsigned sbase = (unsigned)__cvta_generic_to_shared(st);
+  // a copy whose predicate is false reads no bytes (its source size is
+  // 0) and fills zeros, so its address need not be valid
+  auto load = [&](const int slot, const int n0) {
+    const unsigned sb = sbase + slot * (unsigned)sizeof(Stage);
+    const bool nok = n0 + 16 * cv < Np;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long n = n0 + 4 * lq + i;
-      if (lj_ok && n < Np) {
-        vw[i] = __ldg(reinterpret_cast<const uint4 *>(W + n * Cw + lj));
-      } else {
-        vw[i] = make_uint4(0, 0, 0, 0);
-      }
-    }
+    for (int i = 0; i < BN / ORS; ++i)
+      cp16(sb + odst + ORS * KS * i, osrc + (long long)(ORS * i) * Np + n0,
+           nok && j0 + on + ORS * i < C);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long n = n0 + 32 * lseg + 16 * (i & 1);
-      if (lrow_ok && n < Np) {
-        vp[i] = __ldg(reinterpret_cast<const uint4 *>(prow + (i >> 1) * Np + n));
-      } else {
-        vp[i] = make_uint4(0, 0, 0, 0);
-      }
-    }
+    for (int h = 0; h < BM / PRS; ++h)
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl)
+        cp16(sb + pdst + (pl * BM + h * PRS) * AST,
+             psrc + (long long)(2 * PRS * h + pl) * Np + n0,
+             nok && r0 + on + PRS * h < B);
   };
 
-  auto sstore = [&](Stage &s) {
-    uint4 o;
-    transpose4(vw[0].x, vw[1].x, vw[2].x, vw[3].x, o);
-    *reinterpret_cast<uint4 *>(&s.w[lq][swz(ljv * 16 + 0, lq)]) = o;
-    transpose4(vw[0].y, vw[1].y, vw[2].y, vw[3].y, o);
-    *reinterpret_cast<uint4 *>(&s.w[lq][swz(ljv * 16 + 4, lq)]) = o;
-    transpose4(vw[0].z, vw[1].z, vw[2].z, vw[3].z, o);
-    *reinterpret_cast<uint4 *>(&s.w[lq][swz(ljv * 16 + 8, lq)]) = o;
-    transpose4(vw[0].w, vw[1].w, vw[2].w, vw[3].w, o);
-    *reinterpret_cast<uint4 *>(&s.w[lq][swz(ljv * 16 + 12, lq)]) = o;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint8_t *dst = (i >> 1 ? s.k1[lrow] : s.k0[lrow]) + 32 * lseg + 16 * (i & 1);
-      reinterpret_cast<uint2 *>(dst)[0] = make_uint2(vp[i].x, vp[i].y);
-      reinterpret_cast<uint2 *>(dst)[1] = make_uint2(vp[i].z, vp[i].w);
-    }
-  };
+  // the int32 sums of this thread since its chunk began; element 4 c + r
+  // of a product is column 8 c + 2 t + (r & 1) of row arow + 8 (r >> 1)
+  int acc[3][64];
 
-  int acc[3][2][4][4];
-  auto zero_acc = [&]() {
+  const int nk = (Np + KS - 1) / KS;
 #pragma unroll
-    for (int ty = 0; ty < 3; ++ty)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[ty][mt][nt][r] = 0;
-  };
-
-  // add this chunk's int32 partial sums into the int64 outputs (each
-  // output element belongs to one thread of one block)
-  auto flush = [&](const bool first) {
-    long long *const outs[3] = {O0, O1, O2};
-#pragma unroll
-    for (int ty = 0; ty < 3; ++ty) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = j0 + wn * 32 + nt * 8 + 2 * t;
-          if (col >= Cw) continue;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = r0 + wm * 32 + mt * 16 + g + 8 * h;
-            if (row >= B) continue;
-            longlong2 *p = reinterpret_cast<longlong2 *>(
-                outs[ty] + (long long)row * Cw + col);
-            longlong2 v = make_longlong2(acc[ty][mt][nt][2 * h],
-                                         acc[ty][mt][nt][2 * h + 1]);
-            if (!first) {
-              const longlong2 old = *p;
-              v.x += old.x;
-              v.y += old.y;
-            }
-            *p = v;
-          }
-        }
-      }
-    }
-  };
-
-  zero_acc();
-  const long long nk = (Np + KS - 1) / KS;
-  gload(0);
-  sstore(st[0]);
+  for (int s = 0; s < PREFETCH; ++s) {
+    if (s < nk) load(s, s * KS);
+    cp_commit();
+  }
+  cp_wait<PREFETCH - 1>();
+  fence_proxy_async();
   __syncthreads();
 
-  for (long long k = 0; k < nk; ++k) {
-    Stage &s = st[k & 1];
-    if (k + 1 < nk) gload((k + 1) * KS);
-
+  // A buffers: a[0] for k-steps 0 and 2 of a stage, a[1] for 1 and 3
+  uint32_t a[2][3][4];
+  decode_step<SQ>(st[0], arow, 0, t, a[0]);
+  for (int k = 0; k < nk; ++k) {
+    const Stage &s = st[k % NSTAGE];
+    const uint64_t desc = b_desc((unsigned)__cvta_generic_to_shared(&s.w[0][0]));
+    // k-step 0 (decoded at the end of the last stage); a chunk's first
+    // starts its sums from zero
+    const int sc = k % CHUNK_STAGES != 0;
+    wgmma_fence();
 #pragma unroll
-    for (int step = 0; step < 4; ++step) {
-      // sample words q0 = 8t + 2 step (A/B registers 0, 1) and q0 + 1
-      // (registers 2, 3 of A, 1 of B)
-      const int q0 = 8 * t + 2 * step;
-      uint32_t bf[4][2];
+    for (int ty = 0; ty < 3; ++ty) wgmma_m64n128k32_sc(acc[ty], a[0][ty], desc, sc);
+    wgmma_commit();
+    // the slot of stage k - 2, whose every wgmma and decode finished
+    // before this stage's barrier
+    if (k + PREFETCH < nk) load((k + PREFETCH) % NSTAGE, (k + PREFETCH) * KS);
+    cp_commit();
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn * 32 + nt * 8 + g;
-        bf[nt][0] = s.w[q0][swz(col, q0)];
-        bf[nt][1] = s.w[q0 + 1][swz(col, q0 + 1)];
-      }
+    for (int j = 1; j < KS / 32; ++j) {
+      // the A buffer of k-step j - 2 is free once its group is done
+      wgmma_wait<1>();
+      decode_step<SQ>(s, arow, 32 * j, t, a[j & 1]);
+      wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm * 32 + mt * 16 + g;
-        const uint2 a_lo = *reinterpret_cast<const uint2 *>(&s.k0[row][4 * q0]);
-        const uint2 a_hi = *reinterpret_cast<const uint2 *>(&s.k0[row + 8][4 * q0]);
-        const uint2 b_lo = *reinterpret_cast<const uint2 *>(&s.k1[row][4 * q0]);
-        const uint2 b_hi = *reinterpret_cast<const uint2 *>(&s.k1[row + 8][4 * q0]);
-        uint32_t a[3][4];
-        decode<SQ>(a_lo.x, b_lo.x, a[0][0], a[1][0], a[2][0]);
-        decode<SQ>(a_hi.x, b_hi.x, a[0][1], a[1][1], a[2][1]);
-        decode<SQ>(a_lo.y, b_lo.y, a[0][2], a[1][2], a[2][2]);
-        decode<SQ>(a_hi.y, b_hi.y, a[0][3], a[1][3], a[2][3]);
-#pragma unroll
-        for (int ty = 0; ty < 3; ++ty)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_u8s8(acc[ty][mt][nt], a[ty][0], a[ty][1], a[ty][2], a[ty][3],
-                     bf[nt][0], bf[nt][1]);
-      }
+      for (int ty = 0; ty < 3; ++ty)
+        wgmma_m64n128k32(acc[ty], a[j & 1][ty], desc + 2 * j);
+      wgmma_commit();
     }
-
-    if ((k + 1) % STAGES_PER_CHUNK == 0 || k + 1 == nk) {
-      flush(k < STAGES_PER_CHUNK);
-      zero_acc();
+    if ((k + 1) % CHUNK_STAGES == 0 || k + 1 == nk) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int ty = 0; ty < 3; ++ty) fence_regs(acc[ty]);
+      flush(acc, O0, O1, O2, r0 + arow, j0 + 2 * t, B, C, k < CHUNK_STAGES);
     }
-    if (k + 1 < nk) sstore(st[(k + 1) & 1]);
-    __syncthreads();
+    // the next stage's data, and its first decode while k-step 3 runs
+    if (k + 1 < nk) {
+      cp_wait<PREFETCH - 1>();
+      fence_proxy_async();
+      __syncthreads();
+      wgmma_wait<1>();  // k-step 2's group is done: a[0] is free
+      decode_step<SQ>(st[(k + 1) % NSTAGE], arow, 0, t, a[0]);
+    }
   }
+  cp_wait<0>();
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -300,10 +404,12 @@ bgen_i8_kernel(const uint8_t *__restrict__ planes,
                long long *__restrict__ D0, long long *__restrict__ D1,
                long long *__restrict__ M, long long *__restrict__ Q0,
                long long *__restrict__ Q1, long long *__restrict__ Q2,
-               const int B, const long long Np, const int Cw, const int Cq,
+               const int B, const int Np, const int Cw, const int Cq,
                const int ntp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage *st = reinterpret_cast<Stage *>(smem);
+  // the swizzle reads address bits 7..9: align the ring to 1024 bytes
+  const unsigned base = (unsigned)__cvta_generic_to_shared(smem);
+  Stage *st = reinterpret_cast<Stage *>(smem + ((1024u - (base & 1023u)) & 1023u));
   if ((int)blockIdx.x < ntp) {
     tile<false>(st, planes, Wp, D0, D1, M, B, Np, Cw, blockIdx.x * BN);
   } else {
@@ -311,13 +417,19 @@ bgen_i8_kernel(const uint8_t *__restrict__ planes,
   }
 }
 
+dim3 grid_of(const long long B, const long long Cw, const long long Cq, int *ntp) {
+  *ntp = (int)((Cw + BN - 1) / BN);
+  const int ntq = (int)((Cq + BN - 1) / BN);
+  return dim3((unsigned)(*ntp + ntq), (unsigned)((B + BM - 1) / BM));
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not
 // synchronise and allocates nothing; returns cudaGetLastError() (or the
-// error of the shared-memory attribute call). Requires Np > 0 and Np, Cw,
-// Cq multiples of 16 (16-byte vector loads); the Python wrapper checks
-// shapes, types and contiguity.
+// error of the shared-memory attribute call). Requires Np > 0, Np % 16 == 0
+// (16-byte copies of the K-major operand rows) and Cw, Cq multiples of 16;
+// the Python wrapper checks shapes, types, contiguity and alignment.
 extern "C" int bgen_i8_launch(const void *planes, const void *Wp,
                               const void *Wq, void *D0, void *D1, void *M,
                               void *Q0, void *Q1, void *Q2, long long B,
@@ -326,14 +438,37 @@ extern "C" int bgen_i8_launch(const void *planes, const void *Wp,
   cudaError_t err = cudaFuncSetAttribute(
       bgen_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int ntp = (int)((Cw + BN - 1) / BN);
-  const int ntq = (int)((Cq + BN - 1) / BN);
-  const dim3 grid((unsigned)(ntp + ntq), (unsigned)((B + BM - 1) / BM));
+  int ntp;
+  const dim3 grid = grid_of(B, Cw, Cq, &ntp);
   bgen_i8_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const uint8_t *>(planes), static_cast<const int8_t *>(Wp),
       static_cast<const int8_t *>(Wq), static_cast<long long *>(D0),
       static_cast<long long *>(D1), static_cast<long long *>(M),
       static_cast<long long *>(Q0), static_cast<long long *>(Q1),
-      static_cast<long long *>(Q2), (int)B, Np, (int)Cw, (int)Cq, ntp);
+      static_cast<long long *>(Q2), (int)B, (int)Np, (int)Cw, (int)Cq, ntp);
   return (int)cudaGetLastError();
+}
+
+// The launch's shape for B rows, Cw and Cq columns, as the CUDA runtime
+// reports it: info = {blocks, blocks per SM, registers a thread,
+// threads a block, dynamic shared memory bytes}. Returns a CUDA error code.
+extern "C" int bgen_i8_info(long long B, long long Cw, long long Cq, int *info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bgen_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes at;
+  err = cudaFuncGetAttributes(&at, bgen_i8_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bgen_i8_kernel,
+                                                      NTHREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int ntp;
+  const dim3 grid = grid_of(B, Cw, Cq, &ntp);
+  info[0] = (int)(grid.x * grid.y);
+  info[1] = per_sm;
+  info[2] = at.numRegs;
+  info[3] = NTHREADS;
+  info[4] = SMEM_BYTES;
+  return 0;
 }

@@ -102,10 +102,24 @@ class I8Operand(NamedTuple):
     accumulation in the kernel (one fold at the end).
 
     Overflow bound: |dot| <= N * 127 per limb needs N < 8.4M samples for
-    int32 — asserted at build time."""
+    int32 — asserted at build time.
+
+    limbs_k: for a sample-packed operand (limbs [Np, 4*Cp]) its K-major
+    copy [4*Cp, Np] (limbs.T, contiguous), which the bgen_i8 kernel reads;
+    built once with the operand (sample_pack, consts_from_numpy,
+    patch_res_columns), never per block. None for a plane-packed operand,
+    and for an operand built by hand (bgen_fused_products then reads
+    limbs.T, which only the CPU's plain version takes)."""
 
     limbs: torch.Tensor  # int8, trailing dim 4*Cp: [l0 | l1 | l2 | l3]
     scale: torch.Tensor  # float32 [Cp] power-of-two column scales
+    limbs_k: torch.Tensor = None  # int8 [4*Cp, Np] (sample-packed only)
+
+
+def _sample_i8(limbs, scale):
+    """A sample-packed I8Operand of limbs [Np, 4*Cp] and scale [Cp]
+    tensors, with its K-major copy."""
+    return I8Operand(limbs, scale, limbs.T.contiguous())
 
 
 _I8_FOLDW = (1.0, 2.0**-7, 2.0**-14, 2.0**-21)
@@ -260,9 +274,10 @@ def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
     """[N, C] per-sample operand -> sample-ordered padded operand for the
     BGEN byte planes: the [Np, Cp] tensor (dtype), the bf16 [Np, 3*Cp]
     hi|mid|lo split (split=True), or an I8Operand with limbs [Np, 4*Cp]
-    (split="i8"), and the padded [Cp] numpy usum (for "i8" the sum of the
-    QUANTIZED values, as plane_pack). Np pads to a multiple of _TC
-    samples, Cp to 128 columns."""
+    (split="i8"; with its K-major copy limbs_k [4*Cp, Np]), and the padded
+    [Cp] numpy usum (for "i8" the sum of the QUANTIZED values, as
+    plane_pack). Np pads to a multiple of _TC samples, Cp to 128
+    columns."""
     N, C = Wext.shape
     Cp = -(-C // 128) * 128
     Np = -(-N // _TC) * _TC
@@ -272,7 +287,7 @@ def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
     if split == "i8":
         limbs, s, Wq = _i8_quantize_np(W)
         usum = Wq.sum(axis=0)
-        return I8Operand(_to_dev(limbs, device), _to_dev(s, device)), usum
+        return _sample_i8(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
         return _split_operand(W, device), usum
     return _to_dev(W, device, dtype), usum
@@ -294,10 +309,12 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
     Wp_dev: [4, nbp, Cp] or [Np, Cp] tensor, the bf16 split [4, nbp, 3*Cp]
     or [Np, 3*Cp], or I8Operand; res_planes: the matching [4, nbp, P] or
     [Np, P] tensor (float32 for the int8 operand, which is re-quantized on
-    the device with fresh column scales). A bf16 split operand gets the
-    hi, mid and lo parts of the float32 residuals in columns [K:K+P],
-    [Cp+K:Cp+K+P] and [2Cp+K:2Cp+K+P], as the JAX package's split patch
-    does (regenie_tpu/ops/fused_score.py:251-257). A float operand gets
+    the device with fresh column scales; a sample-packed one's K-major
+    limbs_k gets them in rows [k*Cp+K, k*Cp+K+P) of each limb k). A bf16
+    split operand gets the hi, mid and lo parts of the float32 residuals
+    in columns [K:K+P], [Cp+K:Cp+K+P] and [2Cp+K:2Cp+K+P], as the JAX
+    package's split patch does (regenie_tpu/ops/fused_score.py:251-257).
+    A float operand gets
     the residuals in full at its own dtype. On a TPU the JAX package does
     not: regenie_tpu/run_step2.py:1125-1128 passes split=True with its
     float32 operand, so its split patch writes only the bf16 high part of
@@ -307,11 +324,15 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
     if isinstance(Wp_dev, I8Operand):
         limbs, s = _i8_quantize_torch(res_planes)
         W = Wp_dev.limbs.clone()
+        Wk = None if Wp_dev.limbs_k is None else Wp_dev.limbs_k.clone()
         for k in range(4):
-            W[..., k * Cp + K : k * Cp + K + P] = limbs[..., k * P : (k + 1) * P]
+            part = limbs[..., k * P : (k + 1) * P]
+            W[..., k * Cp + K : k * Cp + K + P] = part
+            if Wk is not None:  # the same slice update on the K-major copy
+                Wk[k * Cp + K : k * Cp + K + P] = part.T
         scale = Wp_dev.scale.clone()
         scale[K : K + P] = s
-        return I8Operand(W, scale)
+        return I8Operand(W, scale, Wk)
     W = Wp_dev.clone()
     if W.dtype == torch.bfloat16:
         parts = bf16_split3(res_planes.to(torch.float32))
@@ -390,18 +411,20 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
     separate Wq), as the float array `wq` or as `wq_limbs` + `wq_scale`.
     The constants land in `dtype` on `device`; the float operands keep
     their dtypes (the JAX package's float32 on a TPU), the int8 limbs and
-    their float32 scales theirs. A bf16 split operand (`Wp` or `wq`)
-    comes as a 2-byte array holding the bfloat16 bits: the JAX array's
-    numpy view (ml_dtypes.bfloat16) or that viewed as uint16; its bits
-    carry across unchanged into a torch.bfloat16 tensor."""
+    their float32 scales theirs; sample-packed limbs ([Np, 4*Cp], and
+    `wq_limbs`) get their K-major copy limbs_k. A bf16 split operand
+    (`Wp` or `wq`) comes as a 2-byte array holding the bfloat16 bits: the
+    JAX array's numpy view (ml_dtypes.bfloat16) or that viewed as uint16;
+    its bits carry across unchanged into a torch.bfloat16 tensor."""
     if (Wp is None) == (limbs is None):
         raise ValueError("give exactly one of Wp or limbs/scale")
     if wq is not None and wq_limbs is not None:
         raise ValueError("give at most one of wq or wq_limbs/wq_scale")
 
     def i8(lb, sc):
-        return I8Operand(_to_dev(lb, device, torch.int8),
-                         _to_dev(sc, device, torch.float32))
+        lb, sc = _to_dev(lb, device, torch.int8), _to_dev(sc, device, torch.float32)
+        # sample-packed limbs [Np, 4*Cp] get their K-major copy
+        return _sample_i8(lb, sc) if lb.dim() == 2 else I8Operand(lb, sc)
 
     def float_op(a):
         a = np.asarray(a)
@@ -699,9 +722,9 @@ def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
     width. Returns (S1, SQ, SM, IL) each [B, Cp]; with a narrow Wq, SQ's
     columns outside [qs:C_used] are ZERO.
 
-    The int8 operand goes through kernels.bgen_i8_products, whose exact
-    int64 products fold into `dtype` (float64: exact for every limb
-    product); the float32 operand through kernels.bgen_f32_products
+    The int8 operand goes through kernels.bgen_i8_products on its K-major
+    limbs_k, whose exact int64 products fold into `dtype` (float64: exact
+    for every limb product); the float32 operand through kernels.bgen_f32_products
     (exact products, float64 sums); the bf16 split through
     kernels.bgen_bf16_products (float64 products against each third,
     folded hi + mid + lo in float64) — each the CUDA kernel for CUDA
@@ -719,8 +742,8 @@ def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
         Wq, qs = Wp, 0
     split = not isinstance(Wp, I8Operand) and Wp.dtype == torch.bfloat16
     if isinstance(Wp, I8Operand):
-        D0, D1, Q0, Q1, Q2, M = kernels.bgen_i8_products(planes, Wp.limbs,
-                                                         Wq.limbs)
+        D0, D1, Q0, Q1, Q2, M = kernels.bgen_i8_products(
+            planes, _kmajor(Wp), _kmajor(Wq))
         D0, D1, M = (i8_fold(x, Wp.scale, dtype) for x in (D0, D1, M))
         Q0, Q1, Q2 = (i8_fold(x, Wq.scale, dtype) for x in (Q0, Q1, Q2))
     elif split:
@@ -736,6 +759,14 @@ def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
     SQ = torch.zeros_like(S1)
     SQ[:, qs : qs + nq] = SQn[:, :nq]
     return S1, SQ, SM, IL
+
+
+def _kmajor(op):
+    """The K-major limbs [4*Cp, Np] of a sample-packed I8Operand: its
+    limbs_k, or for an operand built without them the transposed view
+    limbs.T, which the CPU's plain version takes and the kernel refuses
+    (not contiguous)."""
+    return op.limbs.T if op.limbs_k is None else op.limbs_k
 
 
 def bgen_fused_products_plain(planes, Wp, dtype=torch.float64):

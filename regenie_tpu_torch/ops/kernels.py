@@ -5,8 +5,10 @@ Kernels (sources under ops/csrc/, one shared library each):
 
 - fused_i8 (csrc/fused_i8.cu): the int8 fused Step-2 products, replacing
   the Pallas kernel regenie_tpu/ops/fused_score.py:403 _fused_kernel_i8.
-- bgen_i8 (csrc/bgen_i8.cu): the six BGEN 8-bit dosage products, replacing
-  the Pallas kernel regenie_tpu/ops/fused_score.py:1093 _bgen_kernel_i8.
+- bgen_i8 (csrc/bgen_i8.cu): the six BGEN 8-bit dosage products against
+  the K-major int8 limbs ([C, Np], I8Operand.limbs_k) by int8 warpgroup
+  products (wgmma, A from registers), replacing the Pallas kernel
+  regenie_tpu/ops/fused_score.py:1093 _bgen_kernel_i8.
 - fused_f32 (csrc/fused_f32.cu): the fused Step-2 products against the
   float32 operand, summed in float64, replacing the Pallas kernel
   regenie_tpu/ops/fused_score.py:331 _fused_kernel.
@@ -46,10 +48,10 @@ A wrapper launches its kernel for CUDA tensors (or raises) and uses the
 kernel's plain version only for CPU tensors. Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`; launch_info()
 reads the grid, occupancy and registers of fused_f32, fused_bf16,
-bgen_f32 and bgen_bf16 from their libraries. The plain versions of the
-float32- and bf16-operand kernels widen the operand and sum in float64;
-the float32 kernels sum in float64 too, the bf16 kernels sum BF16_FLUSH
-terms at a time in float32 and add those sums in float64.
+bgen_i8, bgen_f32 and bgen_bf16 from their libraries. The plain versions
+of the float32- and bf16-operand kernels widen the operand and sum in
+float64; the float32 kernels sum in float64 too, the bf16 kernels sum
+BF16_FLUSH terms at a time in float32 and add those sums in float64.
 """
 
 from __future__ import annotations
@@ -309,11 +311,12 @@ fused_f32_products.launches = 0
 
 def launch_info(name, *shape, device=None):
     """The launch of the kernel `name` at `shape` (fused_f32: B, Cp;
-    fused_bf16: B, Cw; bgen_f32 and bgen_bf16: B, Cw, Cq) as the CUDA
+    fused_bf16: B, Cw; bgen_i8, bgen_f32 and bgen_bf16: B, Cw, Cq) as the CUDA
     runtime reports it, from the library's `<name>_info` entry point:
     {"blocks", "blocks_per_sm", "registers", "threads", "smem_bytes"}.
     Needs the card."""
-    if name not in ("fused_f32", "fused_bf16", "bgen_f32", "bgen_bf16"):
+    if name not in ("fused_f32", "fused_bf16", "bgen_i8", "bgen_f32",
+                    "bgen_bf16"):
         raise ValueError(f"launch_info: no info entry point in {name}")
     fn = getattr(_lib(name), f"{name}_info")
     fn.restype = ctypes.c_int
@@ -423,20 +426,27 @@ def _bgen_order(planes, wp, wq, dt):
     return D0, D1, Q0, Q1, Q2, M
 
 
-def _bgen_call(name, planes, wp, wq, wdtype, odtype, col_mult):
-    """Check planes [B, 2, Np] uint8, wp [Np, Cw] and wq [Np, Cq] and
-    launch the BGEN kernel `name` into new outputs of dtype odtype,
-    returned as (D0, D1, Q0, Q1, Q2, M)."""
+def _bgen_call(name, planes, wp, wq, wdtype, odtype, col_mult, kmajor=False):
+    """Check planes [B, 2, Np] uint8 and the operands, wp [Np, Cw] and wq
+    [Np, Cq] (kmajor: wp [Cw, Np] and wq [Cq, Np]), and launch the BGEN
+    kernel `name` into new outputs of dtype odtype, returned as (D0, D1,
+    Q0, Q1, Q2, M)."""
+    if kmajor:
+        _bgen_kmajor_shapes(name, planes, wp, wq)
     _check_cuda_inputs(name, (planes, wp, wq), (torch.uint8, wdtype, wdtype),
                        col_mult)
     if planes.dim() != 3 or planes.shape[1] != 2 or wp.dim() != 2 \
             or wq.dim() != 2:
         raise ValueError(f"{name}: planes [B, 2, Np], wp [Np, Cw], wq [Np, Cq]")
     B, _, Np = planes.shape
-    Cw, Cq = wp.shape[1], wq.shape[1]
-    if wp.shape[0] != Np or wq.shape[0] != Np or Np == 0 or Np % 16:
-        raise ValueError(f"{name}: planes have {Np} samples, wp {wp.shape[0]}, "
-                         f"wq {wq.shape[0]}; all a positive multiple of 16")
+    (Cw, npw), (Cq, npq) = (w.shape[::-1] if not kmajor else w.shape
+                            for w in (wp, wq))
+    if npw != Np or npq != Np or Np == 0 or Np % 16:
+        raise ValueError(f"{name}: planes have {Np} samples, wp {npw}, "
+                         f"wq {npq}; all a positive multiple of 16")
+    if kmajor and (Cw % col_mult or Cq % col_mult):
+        raise ValueError(f"{name}: operand widths must be multiples of "
+                         f"{col_mult}")
     if 2 * Np >= 2**31:
         raise ValueError(f"{name}: 2*Np must be below 2^31")
     D0, D1, M = (torch.empty((B, Cw), dtype=odtype, device=planes.device)
@@ -450,27 +460,44 @@ def _bgen_call(name, planes, wp, wq, wdtype, odtype, col_mult):
     return D0, D1, Q0, Q1, Q2, M
 
 
-def bgen_i8_products_plain(planes, wp, wq):
-    """Plain version of the bgen_i8 kernel: for planes [B, 2, Np] uint8,
-    wp [Np, Cw] int8 and wq [Np, Cq] int8 returns (D0, D1, Q0, Q1, Q2, M)
-    int64: D0, D1 and M the products of k0, k1 and miss with wp, Q0, Q1
-    and Q2 those of h0, h1 and h2 with wq (bgen_indicators). Integer
-    (int64) matmuls on the CPU; float64 on CUDA, chunked over samples,
-    exact there because every partial sum is an integer below 2^53
-    (|sum| <= 255 * 128 * Np)."""
+def _bgen_kmajor_shapes(name, planes, wp_k, wq_k):
+    """Raise ValueError unless wp_k and wq_k are K-major operands [C, Np]
+    of the planes' Np samples (the layout bgen_i8 takes)."""
+    Np = planes.shape[-1]
+    for what, w in (("wp", wp_k), ("wq", wq_k)):
+        if w.dim() != 2 or w.shape[1] != Np:
+            raise ValueError(
+                f"{name}: {what} must be K-major [C, Np] with Np = {Np} "
+                f"samples (the transpose of the [Np, C] limbs), got "
+                f"{tuple(w.shape)}")
+
+
+def bgen_i8_products_plain(planes, wp_k, wq_k):
+    """Plain version of the bgen_i8 kernel: for planes [B, 2, Np] uint8
+    and the K-major int8 operands wp_k [Cw, Np] and wq_k [Cq, Np] returns
+    (D0, D1, Q0, Q1, Q2, M) int64: D0, D1 and M the products of k0, k1
+    and miss with wp_k.T, Q0, Q1 and Q2 those of h0, h1 and h2 with wq_k.T
+    (bgen_indicators). Integer (int64) matmuls on the CPU; float64 on
+    CUDA, chunked over samples, exact there because every partial sum is
+    an integer below 2^53 (|sum| <= 255 * 128 * Np). Raises ValueError on
+    an operand whose second axis is not the planes' Np."""
+    _bgen_kmajor_shapes("bgen_i8_products", planes, wp_k, wq_k)
     dt = torch.int64 if planes.device.type == "cpu" else torch.float64
-    return tuple(a.to(torch.int64) for a in _bgen_order(planes, wp, wq, dt))
+    return tuple(a.to(torch.int64)
+                 for a in _bgen_order(planes, wp_k.T, wq_k.T, dt))
 
 
-def bgen_i8_products(planes, wp, wq):
-    """planes [B, 2, Np] uint8, wp [Np, Cw] int8, wq [Np, Cq] int8 ->
-    (D0, D1, Q0, Q1, Q2, M), int64, [B, Cw] for D0, D1, M and [B, Cq] for
-    the Q (see bgen_i8_products_plain). CUDA tensors launch the
-    csrc/bgen_i8.cu kernel on the current stream; CPU tensors take the
-    plain version."""
-    if {t.device for t in (planes, wp, wq)} == {torch.device("cpu")}:
-        return bgen_i8_products_plain(planes, wp, wq)
-    outs = _bgen_call("bgen_i8", planes, wp, wq, torch.int8, torch.int64, 16)
+def bgen_i8_products(planes, wp_k, wq_k):
+    """planes [B, 2, Np] uint8 and the K-major int8 operands wp_k [Cw, Np],
+    wq_k [Cq, Np] (I8Operand.limbs_k) -> (D0, D1, Q0, Q1, Q2, M), int64,
+    [B, Cw] for D0, D1, M and [B, Cq] for the Q (see
+    bgen_i8_products_plain). CUDA tensors launch the csrc/bgen_i8.cu
+    kernel on the current stream; CPU tensors take the plain version. An
+    operand in the [Np, C] layout raises ValueError."""
+    if {t.device for t in (planes, wp_k, wq_k)} == {torch.device("cpu")}:
+        return bgen_i8_products_plain(planes, wp_k, wq_k)
+    outs = _bgen_call("bgen_i8", planes, wp_k, wq_k, torch.int8, torch.int64,
+                      16, kmajor=True)
     if planes.shape[0]:
         bgen_i8_products.launches += 1
     return outs

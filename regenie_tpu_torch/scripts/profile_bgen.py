@@ -21,7 +21,8 @@ the JAX script's names:
 
   (none)     2% of the samples set to the 255 sentinel, planes as one
              [B, 2, Np] buffer: prod (bgen_fused_products: the bgen_i8
-             kernel and the fold), then base-i32miss-3q in each Hopper
+             kernel on the operands' K-major limbs_k, and the fold; the
+             variants read the [Np, C] limbs), then base-i32miss-3q in each Hopper
              configuration (kernels.PROFILE_BGEN_CONFIGS), in place of the
              TPU script's (tb, tc) sweep
   variants   no missing sample, one [B, 2, Np] buffer: base(=prod),
@@ -153,6 +154,7 @@ def main(mode="default", n=None, p=None, k=None, b=None, rounds=None, blocks=Non
 
     consts, Wq = make_operands(N, P, K, dev)
     wl, ql = consts.Wp.limbs, Wq.limbs
+    wk, qk = consts.Wp.limbs_k, Wq.limbs_k  # bgen_i8's K-major copies
     Np, Cw, Cq = wl.shape[0], wl.shape[1], ql.shape[1]
     C_used = consts.layout_C()
     blks = make_blocks(B, N, Np, NBLK, mode in ("default", "variants"),
@@ -191,8 +193,8 @@ def main(mode="default", n=None, p=None, k=None, b=None, rounds=None, blocks=Non
     checks = {}
     for name, variant, config in lines_of(mode):
         if variant is None:
-            got = kernels.bgen_i8_products(x["planes"], wl, ql)
-            want = kernels.bgen_i8_products_plain(x["planes"], wl, ql)
+            got = kernels.bgen_i8_products(x["planes"], wk, qk)
+            want = kernels.bgen_i8_products_plain(x["planes"], wk, qk)
         else:
             got = kernels.PROFILE_BGEN[variant](x["k0"], x["k1"], wl, ql,
                                                 config=config)

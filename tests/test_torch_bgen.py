@@ -160,7 +160,8 @@ def _np_products(planes, wp, wq):
 def test_bgen_i8_products_plain_exact():
     """The kernel's plain version equals a numpy int64 oracle exactly, on
     extreme bytes (k0 = 255 where not missing) and limbs (-128) too; the
-    wrapper takes it for CPU tensors and counts no launch."""
+    wrapper takes it for CPU tensors (the K-major operands) and counts no
+    launch."""
     rng = np.random.default_rng(4)
     planes = _mk_case(4, B=9, N=300)["planes"]
     planes[0, 0], planes[0, 1] = 255, 0
@@ -168,11 +169,131 @@ def test_bgen_i8_products_plain_exact():
     wq = rng.integers(-128, 128, (planes.shape[2], 32), dtype=np.int8)
     wp[:, 0] = -128
     n0 = kernels.bgen_i8_products.launches
-    got = kernels.bgen_i8_products(*(torch.from_numpy(x) for x in (planes, wp, wq)))
+    got = kernels.bgen_i8_products(*(torch.from_numpy(np.ascontiguousarray(x))
+                                     for x in (planes, wp.T, wq.T)))
     assert kernels.bgen_i8_products.launches == n0
     for g, w in zip(got, _np_products(planes, wp, wq)):
         assert g.dtype == torch.int64
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("source", ["sample_pack", "consts_wp", "consts_wq"])
+def test_limbs_k_is_kmajor_copy(jfs, source):
+    """A sample-packed I8Operand carries limbs_k, the contiguous K-major
+    copy [4*Cp, Np] of its limbs [Np, 4*Cp], bit for bit: from
+    sample_pack, and for Wp and Wq carried across by consts_from_numpy
+    from the JAX package's build_consts(pack="sample") arrays."""
+    c = _mk_case(11)
+    if source == "sample_pack":
+        op, _ = tfs.sample_pack(_wext(c), "i8")
+        want = op.limbs.numpy()
+    else:
+        jc = jfs.build_consts(c["cov"], c["res"], c["maskf"], c["ind"],
+                              c["sden"], dtype=np.float64, split="i8",
+                              pack="sample")
+        tail = np.concatenate([c["maskf"], c["ind"].astype(float)[:, None]], axis=1)
+        jWq, _ = jfs.sample_pack(tail, "i8")
+        carried = tfs.consts_from_numpy(
+            limbs=np.asarray(jc.Wp.limbs), scale=np.asarray(jc.Wp.scale),
+            usum=np.asarray(jc.usum), covt_res=np.asarray(jc.covt_res),
+            Mmat=np.asarray(jc.Mmat), n_ind=jc.n_ind, K=jc.K, P=jc.P,
+            scale_denom=jc.scale_denom, split=jc.split, inc=jc.inc,
+            wq_limbs=np.asarray(jWq.limbs), wq_scale=np.asarray(jWq.scale))
+        op, want = ((carried.Wp, np.asarray(jc.Wp.limbs)) if source == "consts_wp"
+                    else (carried.Wq, np.asarray(jWq.limbs)))
+    Np, C4 = want.shape
+    assert op.limbs_k.dtype == torch.int8 and op.limbs_k.is_contiguous()
+    assert tuple(op.limbs_k.shape) == (C4, Np)
+    np.testing.assert_array_equal(op.limbs_k.numpy(), want.T)
+
+
+@pytest.mark.parametrize("pack", ["sample", "plane"])
+def test_patch_res_columns_limbs_k(jfs, pack):
+    """The residual patch updates the K-major copy with the limbs: after
+    patch_res_columns on a sample-packed operand, limbs_k equals the
+    patched limbs.T (which equal the JAX package's patched limbs), and the
+    input operand is unchanged; a plane-packed operand has no K-major
+    copy before or after."""
+    c = _mk_case(12)
+    args = (c["cov"], c["res"], c["maskf"], c["ind"], c["sden"])
+    pc = tfs.build_consts(*args, split="i8", pack=pack)
+    K, P, Cp = pc.K, pc.P, pc.Wp.scale.shape[0]
+    shape = pc.Wp.limbs.shape[:-1] + (P,)
+    res_pl = (0.3 * np.random.default_rng(12).normal(size=shape)).astype(np.float32)
+    got = tfs.patch_res_columns(pc.Wp, torch.from_numpy(res_pl), K, P, Cp)
+    if pack == "plane":
+        assert pc.Wp.limbs_k is None and got.limbs_k is None
+        return
+    jc = jfs.build_consts(*args, dtype=np.float64, split="i8", pack="sample")
+    want = jfs.patch_res_columns(jc.Wp, res_pl, K, P, Cp, "i8")
+    np.testing.assert_array_equal(got.limbs.numpy(), np.asarray(want.limbs))
+    assert got.limbs_k.is_contiguous()
+    np.testing.assert_array_equal(got.limbs_k.numpy(), got.limbs.numpy().T)
+    np.testing.assert_array_equal(pc.Wp.limbs_k.numpy(), pc.Wp.limbs.numpy().T)
+    assert not torch.equal(pc.Wp.limbs_k, got.limbs_k)
+
+
+@pytest.mark.parametrize("case", ["every_pair", "one_row", "off_tiles",
+                                  "int32_overflow"])
+def test_bgen_i8_products_plain_kmajor_exact(case):
+    """bgen_i8_products_plain on K-major operands [C, Np] equals the numpy
+    int64 oracle: on every byte pair (about half of them missing) at
+    ragged widths (one row and one 16-sample stage; rows, samples and
+    columns off the kernel's 128 x 128 tiles), and on extreme bytes (k0 =
+    255) and limbs (-128) over more than two 65,536-sample chunks, whose
+    sums overflow int32."""
+    rng = np.random.default_rng(13)
+    if case != "int32_overflow":
+        B, Np, Cw, Cq = {"every_pair": (5, 272, 400, 144), "one_row": (1, 16, 16, 16),
+                         "off_tiles": (129, 144, 144, 528)}[case]
+        planes = rng.integers(0, 256, (B, 2, Np), dtype=np.uint8)
+        wp_k = rng.integers(-128, 128, (Cw, Np), dtype=np.int8)
+        wq_k = rng.integers(-128, 128, (Cq, Np), dtype=np.int8)
+        wp_k[0] = wq_k[-1] = -128
+    else:
+        B, Np = 3, 2 * 65536 + 16
+        planes = np.zeros((B, 2, Np), np.uint8)
+        planes[:, 0] = 255
+        wp_k = wq_k = np.full((16, Np), -128, np.int8)
+    got = kernels.bgen_i8_products_plain(
+        *(torch.from_numpy(x) for x in (planes, wp_k, wq_k)))
+    want = _np_products(planes, wp_k.T, wq_k.T)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), w)
+    if case == "int32_overflow":
+        assert int(got[0][0, 0]) == -128 * 255 * Np < -(2**31)
+        assert int(got[4][0, 0]) == -128 * (510 * 510 >> 16) * Np
+
+
+def test_bgen_fused_products_reads_limbs_k():
+    """bgen_fused_products hands the kernel wrapper the operands' K-major
+    copies: an operand whose limbs_k differs from limbs.T gives the
+    products of limbs_k, and one built without limbs_k those of limbs."""
+    c = _mk_case(15, B=6, N=300)
+    op, _ = tfs.sample_pack(_wext(c), "i8")
+    planes = torch.from_numpy(c["planes"])
+    other = tfs.I8Operand(op.limbs, op.scale, op.limbs_k.flip(0).contiguous())
+    want = tfs.bgen_fused_products(
+        planes, tfs.I8Operand(other.limbs_k.T.contiguous(), op.scale))
+    got = tfs.bgen_fused_products(planes, other)
+    base = tfs.bgen_fused_products(planes, op)
+    for g, w, b in zip(got, want, base):
+        assert torch.equal(g, w) and not torch.equal(g, b)
+
+
+@pytest.mark.parametrize("which", ["wp", "wq"])
+def test_bgen_i8_rejects_np_by_c_operand(which):
+    """An operand in the [Np, C] layout (the limbs, not their K-major
+    copy) raises ValueError in the wrapper and in its plain version."""
+    rng = np.random.default_rng(14)
+    planes = torch.from_numpy(rng.integers(0, 256, (4, 2, 272), dtype=np.uint8))
+    ops = {"wp": torch.zeros((48, 272), dtype=torch.int8),
+           "wq": torch.zeros((32, 272), dtype=torch.int8)}
+    ops[which] = ops[which].T.contiguous()
+    for fn in (kernels.bgen_i8_products, kernels.bgen_i8_products_plain):
+        with pytest.raises(ValueError, match="K-major"):
+            fn(planes, ops["wp"], ops["wq"])
 
 
 @pytest.mark.parametrize("operand", ["f64", "i8"])
@@ -501,19 +622,21 @@ def test_zstd_bgen_raises(tmp_path):
 
 @pytest.mark.cuda
 def test_bgen_i8_kernel_matches_plain_on_cuda(cuda):
-    """The CUDA kernel against its plain version on the card: ragged
-    shapes (rows, samples and columns off the kernel's tiles), a sample
-    axis longer than one 65,536-sample int32 chunk, and extreme values
-    (k0 = 255, limbs -128) whose sums overflow int32. The six products
-    are equal, and each call counts one launch."""
+    """The CUDA kernel against its plain version on the card, on K-major
+    operands [C, Np]: ragged shapes (rows, samples and columns off the
+    kernel's 128 x 128 tiles and 128-sample stages, one row, one 16-sample
+    stage), a sample axis longer than one 65,536-sample int32 chunk, and
+    extreme values (k0 = 255, limbs -128) whose sums overflow int32. The
+    six products are equal, and each call counts one launch."""
     rng = np.random.default_rng(9)
-    cases = ((37, 272, 400, 144), (130, 768, 1536, 512), (70, 65808, 144, 16))
+    cases = ((37, 272, 400, 144), (130, 768, 1536, 512), (70, 65808, 144, 16),
+             (1, 16, 16, 16), (129, 144, 144, 528), (200, 65680, 1552, 16))
     for B, Np, Cw, Cq in cases:
         k0 = rng.integers(0, 256, (B, Np))
         k1 = rng.integers(0, 256, (B, Np))  # about half the pairs missing
         planes = torch.from_numpy(np.stack([k0, k1], 1).astype(np.uint8)).to(cuda)
-        wp = torch.from_numpy(rng.integers(-128, 128, (Np, Cw), dtype=np.int8)).to(cuda)
-        wq = torch.from_numpy(rng.integers(-128, 128, (Np, Cq), dtype=np.int8)).to(cuda)
+        wp = torch.from_numpy(rng.integers(-128, 128, (Cw, Np), dtype=np.int8)).to(cuda)
+        wq = torch.from_numpy(rng.integers(-128, 128, (Cq, Np), dtype=np.int8)).to(cuda)
         n0 = kernels.bgen_i8_products.launches
         got = kernels.bgen_i8_products(planes, wp, wq)
         assert kernels.bgen_i8_products.launches == n0 + 1
@@ -524,7 +647,7 @@ def test_bgen_i8_kernel_matches_plain_on_cuda(cuda):
     B, Np = 3, 2 * 65536 + 16
     planes = torch.zeros((B, 2, Np), dtype=torch.uint8, device=cuda)
     planes[:, 0] = 255
-    wp = torch.full((Np, 16), -128, dtype=torch.int8, device=cuda)
+    wp = torch.full((16, Np), -128, dtype=torch.int8, device=cuda)
     got = kernels.bgen_i8_products(planes, wp, wp)
     torch.cuda.synchronize()
     assert int(got[0][0, 0]) == -128 * 255 * Np
