@@ -11,21 +11,23 @@ Phases, each of which must pass:
    extractor) load, and with which symbols.
 2. kernel: hold each kernel against its plain PyTorch version on the card
    on ragged shapes and at the full width of the repository's UKB shape
-   (N=400,000 samples, P=50 traits of which 10 incomplete, K=20, blocks
-   of 2048 variants): the int8 kernels' integer products exactly equal,
-   the float32-operand kernels' float64 products within 1e-12 of the same
-   product against |W|, the bf16 split kernels' within 4096 x 2^-23 of
-   it (one float32 partial sum of 4096 terms), the plane decode exactly
+   (N=400,000 samples, P=50 traits of which 10 incomplete, K=20, blocks of
+   2048 variants): the int8 kernels' integer products exactly equal, the
+   float32-operand kernels' float64 products within 1e-12 of the same
+   product against |W|, the bf16 split kernels' within 4096 x 2^-23 of it
+   (one float32 partial sum of 4096 terms), the plane decode exactly
    equal; and time the kernel, its plain version, its bound and the
-   library yardstick. The five profiling configurations of the bf16
-   products (csrc/profile_fused.cu: stacked, stacked-2dots, nodecode,
-   decode-only, pipelined, and the other Hopper configurations of stacked
-   and pipelined) are held the same way, decode-only exactly. The seven
-   profiling variants of the BGEN int8 products (csrc/profile_bgen.cu,
-   and the other tile configurations of u8_unshift_q3) equal their plain
-   versions exactly, on planes with missing samples, on both plane
-   layouts (k0, k1 views of one [B, 2, Np] buffer, and two [B, Np]
-   tensors), on ragged shapes and at bgen_i8's full width.
+   library yardstick (for fused_i8 and bgen_i8, torch._int_mm with B
+   row-major and with B K-major, the faster kept). The five profiling
+   configurations of the bf16 products (csrc/profile_fused.cu: stacked,
+   stacked-2dots, nodecode, decode-only, pipelined, and the other Hopper
+   configurations of stacked and pipelined) are held the same way,
+   decode-only exactly. The seven profiling variants of the BGEN int8
+   products (csrc/profile_bgen.cu, and the other tile configurations of
+   u8_unshift_q3) equal their plain versions exactly, on planes with
+   missing samples, on both plane layouts (k0, k1 views of one [B, 2, Np]
+   buffer, and two [B, Np] tensors), on ragged shapes and at bgen_i8's
+   full width.
 2b. profile path: the port's profiling entry points in this process at
    the full width with 1 round of 2 blocks, the launch counts set to 0
    just before each run and read just after:
@@ -290,20 +292,21 @@ def _time_ms(fn, reps):
     return float(np.median(times))
 
 
-def _check_i8_exact(raw, limbs, what):
-    """Kernel against its plain version on the same card tensors: H, E, M
-    must be equal. Returns the max abs difference (0)."""
+def _check_i8_exact(raw, limbs_k, what):
+    """Kernel against its plain version on the same card tensors (the
+    K-major operand limbs_k [Cw4, 4*nbp]): H, E, M must be equal. Returns
+    the max abs difference (0)."""
     import torch
 
     from regenie_tpu_torch.ops import kernels
 
-    got = kernels.fused_i8_products(raw, limbs)
-    want = kernels.fused_i8_products_plain(raw, limbs)
+    got = kernels.fused_i8_products(raw, limbs_k)
+    want = kernels.fused_i8_products_plain(raw, limbs_k)
     torch.cuda.synchronize()
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
               for g, w in zip(got, want))
     print(f"  fused_i8 {what}: B={raw.shape[0]} nbp={raw.shape[1]} "
-          f"Cw4={limbs.shape[2]} max|kernel-plain|={err}")
+          f"Cw4={limbs_k.shape[0]} max|kernel-plain|={err}")
     if err != 0:
         raise AssertionError(f"fused_i8 kernel differs from its plain version "
                              f"({what}): max abs {err}")
@@ -336,8 +339,12 @@ def _random_consts(rng, N, P, n_inc, K, device, pack="plane", split="i8"):
 
 
 def fused_i8_phase(dev, reps=10):
-    """fused_i8: exactness on ragged and full-width shapes; times at full
-    width."""
+    """fused_i8: exactness on ragged shapes (rows, bytes and columns off the
+    128 x 128 tiles and the 32-byte stages, one stage or an odd number of
+    them, so the two halves of the contraction are uneven or one is
+    empty), on an operand built by the port at a small N (through its
+    limbs_k), and at full width; times at full width. The K-major
+    operands are built before any timing."""
     import torch
 
     from regenie_tpu_torch.ops import fused_score as fsc
@@ -345,16 +352,16 @@ def fused_i8_phase(dev, reps=10):
 
     rng = np.random.default_rng(0)
     errs = []
-    # ragged: rows not a multiple of the row tile, a byte count that ends
-    # mid-stage, a column count that is not a multiple of the column tile
-    raw = torch.from_numpy(rng.integers(0, 256, (37, 272), dtype=np.uint8)).to(dev)
-    limbs = torch.from_numpy(
-        rng.integers(-128, 128, (4, 272, 400), dtype=np.int8)).to(dev)
-    errs.append(_check_i8_exact(raw, limbs, "ragged, random limbs"))
+    for B, nbp, Cw4 in ((37, 272, 400), (1, 16, 16), (129, 48, 1552),
+                        (200, 16400, 400)):
+        raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(dev)
+        limbs_k = torch.from_numpy(
+            rng.integers(-128, 128, (Cw4, 4 * nbp), dtype=np.int8)).to(dev)
+        errs.append(_check_i8_exact(raw, limbs_k, "ragged, random limbs"))
     c = _random_consts(rng, 1025, 3, 1, 4, dev)
     raw = torch.from_numpy(fsc.pad_raw(
         rng.integers(0, 256, (37, 257), dtype=np.uint8))).to(dev)
-    errs.append(_check_i8_exact(raw, c.Wp.limbs, "ragged, N=1025 operand"))
+    errs.append(_check_i8_exact(raw, c.Wp.limbs_k, "ragged, N=1025 operand"))
 
     f = FULL
     t0 = time.time()
@@ -362,36 +369,51 @@ def fused_i8_phase(dev, reps=10):
     nb = (f["N"] + 3) // 4
     raw = torch.from_numpy(fsc.pad_raw(
         rng.integers(0, 256, (f["B"], nb), dtype=np.uint8))).to(dev)
-    limbs = c.Wp.limbs
+    limbs_k = c.Wp.limbs_k
     print(f"  full-width operand built in {time.time() - t0:.1f}s: "
-          f"limbs {tuple(limbs.shape)}, C_used={c.layout_C()}")
-    errs.append(_check_i8_exact(raw, limbs, "full width"))
-
+          f"limbs {tuple(c.Wp.limbs.shape)}, limbs_k {tuple(limbs_k.shape)}, "
+          f"C_used={c.layout_C()}")
     B, nbp = raw.shape
-    Cw4 = limbs.shape[2]
-    ms = _time_ms(lambda: kernels.fused_i8_products(raw, limbs), reps)
-    plain_ms = _time_ms(lambda: kernels.fused_i8_products_plain(raw, limbs), 3)
+    Cw4 = limbs_k.shape[0]
+    _launch_line("fused_i8", dev, B, Cw4)
+    errs.append(_check_i8_exact(raw, limbs_k, "full width"))
+    ms = _time_ms(lambda: kernels.fused_i8_products(raw, limbs_k), reps)
+    plain_ms = _time_ms(lambda: kernels.fused_i8_products_plain(raw, limbs_k), 3)
 
     # yardstick: one library int8 GEMM of the pre-decoded indicators (the
-    # decode is not timed); it must give the kernel's numbers
+    # decode is not timed), with B row-major [4*nbp, Cw4] (the limbs) and
+    # column-major (limbs_k.T, K contiguous, the layout cuBLASLt's int8
+    # kernels take); each must give the kernel's numbers, the faster is
+    # the row's library time
     r = raw.to(torch.int32)
     codes = [(r >> (2 * p)) & 3 for p in range(4)]
     ind = torch.cat([torch.cat([(cd == k).to(torch.int8) for cd in codes], 1)
                      for k in (0, 2, 1)], 0)  # [3B, 4*nbp], p-major columns
     del r, codes
-    w2 = limbs.reshape(4 * nbp, Cw4)
-    lib_out = torch._int_mm(ind, w2)
-    if not torch.equal(lib_out, torch.cat(kernels.fused_i8_products(raw, limbs), 0)):
-        raise AssertionError("library int8 GEMM disagrees with the kernel")
-    library_ms = _time_ms(lambda: torch._int_mm(ind, w2), reps)
-    del ind, lib_out
+    want = torch.cat(kernels.fused_i8_products(raw, limbs_k), 0)
+    lib = {}
+    for layout, w2 in (("row-major", c.Wp.limbs.reshape(4 * nbp, Cw4)),
+                       ("K-major", limbs_k.T)):
+        try:
+            lib_out = torch._int_mm(ind, w2)
+        except RuntimeError as e:
+            print(f"  library int8 GEMM, B {layout}: refused ({e})")
+            continue
+        if not torch.equal(lib_out, want):
+            raise AssertionError(f"library int8 GEMM (B {layout}) disagrees "
+                                 "with the kernel")
+        del lib_out
+        lib[layout] = _time_ms(lambda: torch._int_mm(ind, w2), reps)
+    del ind, want
+    library_ms = min(lib.values()) if lib else None
 
     ops = 2.0 * 3 * B * (4 * nbp) * Cw4
     nbytes = B * nbp + 4 * nbp * Cw4 + 3 * B * Cw4 * 4
     bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
     print(f"  fused_i8 full width: {ms:.3f} ms (median of {reps}), plain "
           f"{plain_ms:.3f} ms, library int8 GEMM without decode "
-          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+          + ", ".join(f"B {k} {v:.3f} ms" for k, v in lib.items())
+          + f", bound {bound_ms:.3f} ms ({bound_by}: "
           f"{ops:.3e} int8 ops, {nbytes / 1e9:.3f} GB); "
           f"{ops / ms / 1e9:.1f} TOP/s = {bound_ms / ms:.1%} of the bound")
     return dict(name="fused_i8", route="cuda",
@@ -497,17 +519,30 @@ def bgen_i8_phase(dev, reps=10):
     A = [(x - 128).to(torch.int8) for x in (k0, k1, d2 & 255, (d2 >> 8) & 255,
                                              d2 >> 16)] + [miss.to(torch.int8)]
     del k0, k1, miss, d2
-    wpn, wqn = wp.T.contiguous(), wq.T.contiguous()  # the [Np, C] layout
-    W = [wpn, wpn, wqn, wqn, wqn, wpn]
-    library_ms = _time_ms(lambda: [torch._int_mm(a, w) for a, w in zip(A, W)], reps)
-    del A, W, wpn, wqn
+    # B row-major (the [Np, C] layout) and column-major (wp.T, wq.T of the
+    # K-major operands, K contiguous); the faster is the row's library time
+    lib = {}
+    for layout, (w1, w2) in (("row-major", (wp.T.contiguous(), wq.T.contiguous())),
+                             ("K-major", (wp.T, wq.T))):
+        W = [w1, w1, w2, w2, w2, w1]
+        try:
+            torch._int_mm(A[0], W[0])
+        except RuntimeError as e:
+            print(f"  library int8 GEMMs, B {layout}: refused ({e})")
+            continue
+        lib[layout] = _time_ms(lambda: [torch._int_mm(a, w) for a, w in zip(A, W)],
+                               reps)
+        del W, w1, w2
+    del A
+    library_ms = min(lib.values()) if lib else None
 
     ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
     nbytes = 2 * B * Np + Np * (Cw + Cq) + 8 * B * (3 * Cw + 3 * Cq)
     bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
     print(f"  bgen_i8 full width: {ms:.3f} ms (median of {reps}), plain "
-          f"{plain_ms:.3f} ms, library: six int8 GEMMs of the shifted planes "
-          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+          f"{plain_ms:.3f} ms, library: six int8 GEMMs of the shifted planes, "
+          + ", ".join(f"B {k} {v:.3f} ms" for k, v in lib.items())
+          + f", bound {bound_ms:.3f} ms ({bound_by}: "
           f"{ops:.3e} int8 ops, {nbytes / 1e9:.3f} GB); "
           f"{ops / ms / 1e9:.1f} TOP/s = {bound_ms / ms:.1%} of the bound")
     return dict(name="bgen_i8", route="cuda",
@@ -549,8 +584,9 @@ def _matmul_ms(mats, reps):
 
 
 def _launch_line(name, dev, *shape):
-    """Print the launch of a kernel with an info entry point (fused_f32,
-    fused_bf16, bgen_i8, bgen_f32, bgen_bf16) at `shape` as the CUDA runtime
+    """Print the launch of a kernel with an info entry point (fused_i8,
+    fused_f32, fused_bf16, bgen_i8, bgen_f32, bgen_bf16) at `shape` as the
+    CUDA runtime
     reports it: blocks, blocks per SM, waves on this card's SMs,
     registers a thread."""
     import torch

@@ -104,22 +104,25 @@ class I8Operand(NamedTuple):
     Overflow bound: |dot| <= N * 127 per limb needs N < 8.4M samples for
     int32 — asserted at build time.
 
-    limbs_k: for a sample-packed operand (limbs [Np, 4*Cp]) its K-major
-    copy [4*Cp, Np] (limbs.T, contiguous), which the bgen_i8 kernel reads;
-    built once with the operand (sample_pack, consts_from_numpy,
-    patch_res_columns), never per block. None for a plane-packed operand,
-    and for an operand built by hand (bgen_fused_products then reads
-    limbs.T, which only the CPU's plain version takes)."""
+    limbs_k: the K-major copy of the limbs, limbs.reshape(-1, 4*Cp).T
+    made contiguous, which the kernels read: [4*Cp, Np] for a
+    sample-packed operand (limbs [Np, 4*Cp]; bgen_i8), [4*Cp, 4*nbp]
+    with column k = p*nbp + c for a plane-packed one (limbs [4, nbp,
+    4*Cp]; fused_i8). Built once with the operand, on its device
+    (plane_pack, sample_pack, consts_from_numpy, patch_res_columns), never
+    per block. None for an operand built by hand (the products then read
+    the transposed view of the limbs, which only the CPU's plain versions
+    take)."""
 
     limbs: torch.Tensor  # int8, trailing dim 4*Cp: [l0 | l1 | l2 | l3]
     scale: torch.Tensor  # float32 [Cp] power-of-two column scales
-    limbs_k: torch.Tensor = None  # int8 [4*Cp, Np] (sample-packed only)
+    limbs_k: torch.Tensor = None  # int8 [4*Cp, Np] or [4*Cp, 4*nbp]
 
 
-def _sample_i8(limbs, scale):
-    """A sample-packed I8Operand of limbs [Np, 4*Cp] and scale [Cp]
+def _i8_operand(limbs, scale):
+    """An I8Operand of limbs ([Np, 4*Cp] or [4, nbp, 4*Cp]) and scale [Cp]
     tensors, with its K-major copy."""
-    return I8Operand(limbs, scale, limbs.T.contiguous())
+    return I8Operand(limbs, scale, limbs.reshape(-1, limbs.shape[-1]).T.contiguous())
 
 
 _I8_FOLDW = (1.0, 2.0**-7, 2.0**-14, 2.0**-21)
@@ -264,7 +267,7 @@ def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
         assert N < 8_000_000, "int8 fused path: int32 accumulator bound"
         limbs, s, Wq = _i8_quantize_np(Wp)
         usum = Wq.sum(axis=(0, 1))
-        return I8Operand(_to_dev(limbs, device), _to_dev(s, device)), usum
+        return _i8_operand(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
         return _split_operand(Wp, device), usum
     return _to_dev(Wp, device, dtype), usum
@@ -287,7 +290,7 @@ def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
     if split == "i8":
         limbs, s, Wq = _i8_quantize_np(W)
         usum = Wq.sum(axis=0)
-        return _sample_i8(_to_dev(limbs, device), _to_dev(s, device)), usum
+        return _i8_operand(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
         return _split_operand(W, device), usum
     return _to_dev(W, device, dtype), usum
@@ -309,12 +312,12 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
     Wp_dev: [4, nbp, Cp] or [Np, Cp] tensor, the bf16 split [4, nbp, 3*Cp]
     or [Np, 3*Cp], or I8Operand; res_planes: the matching [4, nbp, P] or
     [Np, P] tensor (float32 for the int8 operand, which is re-quantized on
-    the device with fresh column scales; a sample-packed one's K-major
-    limbs_k gets them in rows [k*Cp+K, k*Cp+K+P) of each limb k). A bf16
-    split operand gets the hi, mid and lo parts of the float32 residuals
-    in columns [K:K+P], [Cp+K:Cp+K+P] and [2Cp+K:2Cp+K+P], as the JAX
-    package's split patch does (regenie_tpu/ops/fused_score.py:251-257).
-    A float operand gets
+    the device with fresh column scales; its K-major limbs_k gets them,
+    read as [-1, P] and transposed, in rows [k*Cp+K, k*Cp+K+P) of each
+    limb k). A bf16 split operand gets the hi, mid and lo parts of the
+    float32 residuals in columns [K:K+P], [Cp+K:Cp+K+P] and
+    [2Cp+K:2Cp+K+P], as the JAX package's split patch does
+    (regenie_tpu/ops/fused_score.py:251-257). A float operand gets
     the residuals in full at its own dtype. On a TPU the JAX package does
     not: regenie_tpu/run_step2.py:1125-1128 passes split=True with its
     float32 operand, so its split patch writes only the bf16 high part of
@@ -329,7 +332,7 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
             part = limbs[..., k * P : (k + 1) * P]
             W[..., k * Cp + K : k * Cp + K + P] = part
             if Wk is not None:  # the same slice update on the K-major copy
-                Wk[k * Cp + K : k * Cp + K + P] = part.T
+                Wk[k * Cp + K : k * Cp + K + P] = part.reshape(-1, P).T
         scale = Wp_dev.scale.clone()
         scale[K : K + P] = s
         return I8Operand(W, scale, Wk)
@@ -411,7 +414,7 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
     separate Wq), as the float array `wq` or as `wq_limbs` + `wq_scale`.
     The constants land in `dtype` on `device`; the float operands keep
     their dtypes (the JAX package's float32 on a TPU), the int8 limbs and
-    their float32 scales theirs; sample-packed limbs ([Np, 4*Cp], and
+    their float32 scales theirs; the limbs (plane- or sample-packed, and
     `wq_limbs`) get their K-major copy limbs_k. A bf16 split operand
     (`Wp` or `wq`) comes as a 2-byte array holding the bfloat16 bits: the
     JAX array's numpy view (ml_dtypes.bfloat16) or that viewed as uint16;
@@ -422,9 +425,8 @@ def consts_from_numpy(Wp=None, limbs=None, scale=None, *, usum, covt_res,
         raise ValueError("give at most one of wq or wq_limbs/wq_scale")
 
     def i8(lb, sc):
-        lb, sc = _to_dev(lb, device, torch.int8), _to_dev(sc, device, torch.float32)
-        # sample-packed limbs [Np, 4*Cp] get their K-major copy
-        return _sample_i8(lb, sc) if lb.dim() == 2 else I8Operand(lb, sc)
+        return _i8_operand(_to_dev(lb, device, torch.int8),
+                           _to_dev(sc, device, torch.float32))
 
     def float_op(a):
         a = np.asarray(a)
@@ -456,19 +458,20 @@ def fused_products(raw, Wp, dtype=torch.float32):
     from the int8 operand in `dtype`, from the float32 and the bf16
     operands in float64, else in the operand's dtype.
 
-    The int8 operand goes through kernels.fused_i8_products, the float32
-    operand through kernels.fused_f32_products (exact products, float64
-    sums), the bf16 split through kernels.fused_bf16_products (float64
-    products against each third, folded hi + mid + lo in float64) — each
-    the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor
-    — and the class products fold as the JAX package does: S1 = 2H+E,
-    SQ = 4H+E, SM = M. A float64 operand takes the plain products on the
-    CPU and raises on CUDA, where no kernel takes it.
+    The int8 operand goes through kernels.fused_i8_products on its K-major
+    copy limbs_k (_kmajor), the float32 operand through
+    kernels.fused_f32_products (exact products, float64 sums), the bf16
+    split through kernels.fused_bf16_products (float64 products against
+    each third, folded hi + mid + lo in float64) — each the CUDA kernel
+    for a CUDA tensor, its plain version for a CPU tensor — and the class
+    products fold as the JAX package does: S1 = 2H+E, SQ = 4H+E, SM = M. A
+    float64 operand takes the plain products on the CPU and raises on
+    CUDA, where no kernel takes it.
     Padding safety: pad bytes decode to code 0 (hom-alt), but the
     corresponding operand rows are zero, so padded samples contribute 0
     to every product."""
     if isinstance(Wp, I8Operand):
-        H, E, M = kernels.fused_i8_products(raw, Wp.limbs)
+        H, E, M = kernels.fused_i8_products(raw, _kmajor(Wp))
         Hf, Ef, Mf = (i8_fold(x, Wp.scale, dtype) for x in (H, E, M))
         return 2.0 * Hf + Ef, 4.0 * Hf + Ef, Mf
     if Wp.dtype == torch.float32:
@@ -762,11 +765,13 @@ def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
 
 
 def _kmajor(op):
-    """The K-major limbs [4*Cp, Np] of a sample-packed I8Operand: its
-    limbs_k, or for an operand built without them the transposed view
-    limbs.T, which the CPU's plain version takes and the kernel refuses
-    (not contiguous)."""
-    return op.limbs.T if op.limbs_k is None else op.limbs_k
+    """The K-major limbs of an I8Operand ([4*Cp, Np] sample-packed, [4*Cp,
+    4*nbp] plane-packed): its limbs_k, or for an operand built without
+    them the transposed view limbs.reshape(-1, 4*Cp).T, which the CPU's
+    plain versions take and the kernels refuse (not contiguous)."""
+    if op.limbs_k is not None:
+        return op.limbs_k
+    return op.limbs.reshape(-1, op.limbs.shape[-1]).T
 
 
 def bgen_fused_products_plain(planes, Wp, dtype=torch.float64):

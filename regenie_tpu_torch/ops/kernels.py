@@ -3,8 +3,11 @@ their plain PyTorch versions.
 
 Kernels (sources under ops/csrc/, one shared library each):
 
-- fused_i8 (csrc/fused_i8.cu): the int8 fused Step-2 products, replacing
-  the Pallas kernel regenie_tpu/ops/fused_score.py:403 _fused_kernel_i8.
+- fused_i8 (csrc/fused_i8.cu): the int8 fused Step-2 products against the
+  K-major int8 limbs of the plane-packed operand ([Cw4, 4*nbp],
+  I8Operand.limbs_k) by int8 warpgroup products (wgmma, A from
+  registers), replacing the Pallas kernel
+  regenie_tpu/ops/fused_score.py:403 _fused_kernel_i8.
 - bgen_i8 (csrc/bgen_i8.cu): the six BGEN 8-bit dosage products against
   the K-major int8 limbs ([C, Np], I8Operand.limbs_k) by int8 warpgroup
   products (wgmma, A from registers), replacing the Pallas kernel
@@ -47,11 +50,12 @@ here imports or builds anything when the module is imported.
 A wrapper launches its kernel for CUDA tensors (or raises) and uses the
 kernel's plain version only for CPU tensors. Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`; launch_info()
-reads the grid, occupancy and registers of fused_f32, fused_bf16,
-bgen_i8, bgen_f32 and bgen_bf16 from their libraries. The plain versions
-of the float32- and bf16-operand kernels widen the operand and sum in
-float64; the float32 kernels sum in float64 too, the bf16 kernels sum
-BF16_FLUSH terms at a time in float32 and add those sums in float64.
+reads the grid, occupancy and registers of fused_i8, fused_f32,
+fused_bf16, bgen_i8, bgen_f32 and bgen_bf16 from their libraries. The
+plain versions of the float32- and bf16-operand kernels widen the
+operand and sum in float64; the float32 kernels sum in float64 too, the
+bf16 kernels sum BF16_FLUSH terms at a time in float32 and add those
+sums in float64.
 """
 
 from __future__ import annotations
@@ -253,28 +257,59 @@ def _fused_call(name, raw, w, wdtype, odtype, col_mult, *extra):
     return outs
 
 
-def fused_i8_products_plain(raw, limbs):
-    """Plain version of the fused_i8 kernel: H, E, M [B, Cw4] int32 with
-    H[b, j] = sum_p sum_c [code_p(raw[b, c]) == 0] * limbs[p, c, j] (E:
-    code 2, M: code 1). Integer (int64) matmuls on the CPU; float64 on
+def _fused_i8_kmajor_shape(name, raw, limbs_k):
+    """Raise ValueError unless limbs_k is a K-major operand [Cw4, 4*nbp]
+    of raw's nbp bytes (the layout fused_i8 takes)."""
+    nbp = raw.shape[-1]
+    if limbs_k.dim() != 2 or limbs_k.shape[1] != 4 * nbp:
+        raise ValueError(
+            f"{name}: limbs_k must be K-major [Cw4, 4*nbp] with 4*nbp = "
+            f"{4 * nbp} (the [4, nbp, Cw4] limbs read as [4*nbp, Cw4] and "
+            f"transposed), got {tuple(limbs_k.shape)}")
+
+
+def fused_i8_products_plain(raw, limbs_k):
+    """Plain version of the fused_i8 kernel: for raw [B, nbp] uint8 and the
+    K-major int8 operand limbs_k [Cw4, 4*nbp] (column k = p*nbp + c), H,
+    E, M [B, Cw4] int32 with H[b, j] = sum_p sum_c [code_p(raw[b, c]) ==
+    0] * limbs_k[j, p*nbp + c] (E: code 2, M: code 1), read through the
+    view limbs_k.view(Cw4, 4, nbp).permute(1, 2, 0), the [4, nbp, Cw4]
+    limbs, with no copy. Integer (int64) matmuls on the CPU; float64 on
     CUDA, exact there because every partial sum is an integer below
-    2^53."""
+    2^53. Raises ValueError on an operand whose second axis is not
+    4*nbp."""
+    _fused_i8_kmajor_shape("fused_i8_products", raw, limbs_k)
+    w = limbs_k.view(limbs_k.shape[0], 4, raw.shape[-1]).permute(1, 2, 0)
     dt = torch.int64 if raw.device.type == "cpu" else torch.float64
-    return tuple(a.to(torch.int32) for a in _fused_plain(raw, limbs, dt))
+    return tuple(a.to(torch.int32) for a in _fused_plain(raw, w, dt))
 
 
-def fused_i8_products(raw, limbs):
-    """raw [B, nbp] uint8, limbs [4, nbp, Cw4] int8 -> (H, E, M), each
-    [B, Cw4] int32 (see fused_i8_products_plain). CUDA tensors launch
-    the csrc/fused_i8.cu kernel on the current stream; CPU tensors take
-    the plain version."""
-    if raw.device.type == "cpu" and limbs.device.type == "cpu":
-        return fused_i8_products_plain(raw, limbs)
+def fused_i8_products(raw, limbs_k):
+    """raw [B, nbp] uint8 and the K-major int8 operand limbs_k [Cw4, 4*nbp]
+    (I8Operand.limbs_k) -> (H, E, M), each [B, Cw4] int32 (see
+    fused_i8_products_plain). CUDA tensors launch the csrc/fused_i8.cu
+    kernel on the current stream into zero-filled outputs, which it adds
+    into; CPU tensors take the plain version. An operand in the [4, nbp,
+    Cw4] layout raises ValueError."""
+    _fused_i8_kmajor_shape("fused_i8_products", raw, limbs_k)
+    if raw.device.type == "cpu" and limbs_k.device.type == "cpu":
+        return fused_i8_products_plain(raw, limbs_k)
     if 4 * raw.shape[-1] >= 8_000_000:
         raise ValueError("fused_i8_products: int32 accumulator bound "
                          "(N < 8,000,000 samples)")
-    outs = _fused_call("fused_i8", raw, limbs, torch.int8, torch.int32, 16)
-    if raw.shape[0]:
+    _check_cuda_inputs("fused_i8", (raw, limbs_k), (torch.uint8, torch.int8), 16)
+    if raw.dim() != 2:
+        raise ValueError("fused_i8: raw [B, nbp]")
+    B, nbp = raw.shape
+    Cw4 = limbs_k.shape[0]
+    if nbp % 16 or Cw4 % 16:
+        raise ValueError(f"fused_i8: nbp ({nbp}) and Cw4 ({Cw4}) must be "
+                         "multiples of 16")
+    outs = tuple(torch.zeros((B, Cw4), dtype=torch.int32, device=raw.device)
+                 for _ in range(3))
+    if B and Cw4:
+        _launch("fused_i8", raw.device, raw.data_ptr(), limbs_k.data_ptr(),
+                *(o.data_ptr() for o in outs), B, nbp, Cw4)
         fused_i8_products.launches += 1
     return outs
 
@@ -310,13 +345,14 @@ fused_f32_products.launches = 0
 
 
 def launch_info(name, *shape, device=None):
-    """The launch of the kernel `name` at `shape` (fused_f32: B, Cp;
-    fused_bf16: B, Cw; bgen_i8, bgen_f32 and bgen_bf16: B, Cw, Cq) as the CUDA
-    runtime reports it, from the library's `<name>_info` entry point:
+    """The launch of the kernel `name` at `shape` (fused_i8: B, Cw4;
+    fused_f32: B, Cp; fused_bf16: B, Cw; bgen_i8, bgen_f32 and bgen_bf16:
+    B, Cw, Cq) as the CUDA runtime reports it, from the library's
+    `<name>_info` entry point:
     {"blocks", "blocks_per_sm", "registers", "threads", "smem_bytes"}.
     Needs the card."""
-    if name not in ("fused_f32", "fused_bf16", "bgen_i8", "bgen_f32",
-                    "bgen_bf16"):
+    if name not in ("fused_i8", "fused_f32", "fused_bf16", "bgen_i8",
+                    "bgen_f32", "bgen_bf16"):
         raise ValueError(f"launch_info: no info entry point in {name}")
     fn = getattr(_lib(name), f"{name}_info")
     fn.restype = ctypes.c_int

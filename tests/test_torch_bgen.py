@@ -212,8 +212,8 @@ def test_patch_res_columns_limbs_k(jfs, pack):
     """The residual patch updates the K-major copy with the limbs: after
     patch_res_columns on a sample-packed operand, limbs_k equals the
     patched limbs.T (which equal the JAX package's patched limbs), and the
-    input operand is unchanged; a plane-packed operand has no K-major
-    copy before or after."""
+    input operand is unchanged; a plane-packed operand's limbs_k is the
+    K-major copy [4*Cp, 4*nbp] of its limbs before and after."""
     c = _mk_case(12)
     args = (c["cov"], c["res"], c["maskf"], c["ind"], c["sden"])
     pc = tfs.build_consts(*args, split="i8", pack=pack)
@@ -222,7 +222,11 @@ def test_patch_res_columns_limbs_k(jfs, pack):
     res_pl = (0.3 * np.random.default_rng(12).normal(size=shape)).astype(np.float32)
     got = tfs.patch_res_columns(pc.Wp, torch.from_numpy(res_pl), K, P, Cp)
     if pack == "plane":
-        assert pc.Wp.limbs_k is None and got.limbs_k is None
+        for op in (pc.Wp, got):
+            assert op.limbs_k.is_contiguous()
+            np.testing.assert_array_equal(
+                op.limbs_k.numpy(), op.limbs.numpy().reshape(-1, op.limbs.shape[-1]).T)
+        assert not torch.equal(pc.Wp.limbs_k, got.limbs_k)
         return
     jc = jfs.build_consts(*args, dtype=np.float64, split="i8", pack="sample")
     want = jfs.patch_res_columns(jc.Wp, res_pl, K, P, Cp, "i8")

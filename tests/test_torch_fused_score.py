@@ -131,11 +131,25 @@ def test_build_consts_matches_jax(jfs, split, n_complete):
                                           np.asarray(getattr(jc, name)))
 
 
+def _kmajor_np(limbs):
+    """The K-major copy [4*Cp, 4*nbp] of plane-packed limbs [4, nbp, 4*Cp]."""
+    return np.ascontiguousarray(limbs.reshape(-1, limbs.shape[-1]).T)
+
+
+def _i8_oracle(rawp, limbs):
+    """H, E, M as int64 numpy: the code-0/2/1 indicators of rawp, p-major
+    over [B, 4*nbp], against the limbs read as [4*nbp, Cw4]."""
+    codes = np.concatenate([(rawp.astype(np.int64) >> (2 * p)) & 3
+                            for p in range(4)], axis=1)
+    w = limbs.reshape(-1, limbs.shape[-1]).astype(np.int64)
+    return [(codes == code).astype(np.int64) @ w for code in (0, 2, 1)]
+
+
 def test_fused_i8_products_plain_exact(jfs):
-    """The kernel's plain version: H/E/M equal an int64 numpy oracle of
-    indicators x limbs; folded S1/SQ/SM match the JAX kernel in interpret
-    mode (both fold int32 -> float32 once; observed max abs difference
-    0 on this case)."""
+    """The kernel's plain version on the K-major limbs: H/E/M equal an
+    int64 numpy oracle of indicators x limbs; folded S1/SQ/SM match the
+    JAX kernel in interpret mode (both fold int32 -> float32 once;
+    observed max abs difference 0 on this case)."""
     import jax.numpy as jnp
 
     c = _mk_case(4)
@@ -144,13 +158,10 @@ def test_fused_i8_products_plain_exact(jfs):
     rawp = jfs.pad_raw(c["raw"])
     limbs = np.array(jc.Wp.limbs)
     H, E, M = kernels.fused_i8_products_plain(torch.from_numpy(rawp),
-                                             torch.from_numpy(limbs))
-    codes = np.concatenate([(rawp.astype(np.int64) >> (2 * p)) & 3
-                            for p in range(4)], axis=1)  # [B, 4*nbp], p-major
-    w = limbs.reshape(-1, limbs.shape[-1]).astype(np.int64)
-    for got, code in ((H, 0), (E, 2), (M, 1)):
+                                             torch.from_numpy(_kmajor_np(limbs)))
+    for got, want in zip((H, E, M), _i8_oracle(rawp, limbs)):
         assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), (codes == code).astype(np.int64) @ w)
+        np.testing.assert_array_equal(got.numpy(), want)
     # through the wrapper on CPU tensors: the plain version, no launch
     n0 = kernels.fused_i8_products.launches
     op = tfs.I8Operand(torch.from_numpy(limbs), torch.from_numpy(np.array(jc.Wp.scale)))
@@ -160,6 +171,140 @@ def test_fused_i8_products_plain_exact(jfs):
     for g, wv in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(wv), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [5, 257, 1025, 3001])
+def test_plane_pack_i8_limbs_k(N):
+    """plane_pack(split="i8") fills limbs_k: contiguous int8 [4*Cp, 4*nbp],
+    the limbs read as [4*nbp, 4*Cp] and transposed (column k = p*nbp + c
+    is plane p of byte c), for byte counts nb off the 256-byte tile."""
+    rng = np.random.default_rng(N)
+    Wext = rng.normal(size=(N, 9))
+    nb = (N + 3) // 4
+    op, _ = tfs.plane_pack(Wext, nb, "i8")
+    nbp = op.limbs.shape[1]
+    assert nbp % 256 == 0 and nb % 256 != 0
+    assert op.limbs_k.dtype == torch.int8 and op.limbs_k.is_contiguous()
+    assert tuple(op.limbs_k.shape) == (4 * 128, 4 * nbp)
+    np.testing.assert_array_equal(op.limbs_k.numpy(), _kmajor_np(op.limbs.numpy()))
+    lk = op.limbs_k.numpy()
+    for p in range(4):  # plane p of byte c at column p*nbp + c
+        np.testing.assert_array_equal(lk[:, p * nbp : (p + 1) * nbp],
+                                      op.limbs.numpy()[p].T)
+
+
+@pytest.mark.parametrize("seed", [3, 18])
+def test_consts_from_numpy_plane_limbs_k(jfs, seed):
+    """consts_from_numpy with the JAX package's plane-packed limbs gives
+    the same K-major copy as the port's own build_consts."""
+    c = _mk_case(seed, N=777 + seed)
+    args = (c["cov"], c["res"], c["maskf"], c["ind"], c["sden"])
+    jc = jfs.build_consts(*args, nb=c["nb"], dtype=np.float64, split="i8")
+    carried = _port_consts(jc).Wp
+    own = tfs.build_consts(*args, nb=c["nb"], split="i8").Wp
+    assert carried.limbs_k.is_contiguous()
+    np.testing.assert_array_equal(carried.limbs_k.numpy(),
+                                  _kmajor_np(np.asarray(jc.Wp.limbs)))
+    assert torch.equal(carried.limbs_k, own.limbs_k)
+
+
+@pytest.mark.parametrize("pack,shift", [
+    ("plane", 0.125), ("plane", 127 * 2.0**-5), ("sample", 0.125)])
+def test_patch_res_columns_i8_limbs_k(jfs, pack, shift):
+    """patch_res_columns updates the K-major copy with the limbs: for a
+    plane-packed operand the patched limbs equal the JAX package's patch
+    and limbs_k equals their K-major copy; a sample-packed operand's
+    limbs_k equals its patched limbs.T, as before. The input operand is
+    left unchanged."""
+    c = _mk_case(8)
+    args = (c["cov"], c["res"], c["maskf"], c["ind"], c["sden"])
+    jc = jfs.build_consts(*args, nb=c["nb"], dtype=np.float64, split="i8",
+                          pack=pack)
+    K, P = jc.K, jc.P
+    res2 = np.clip(c["res"] * 0.01, -shift, shift)
+    res2[np.argmax(c["ind"]), 0] = shift
+    res2 = res2 * c["ind"][:, None]
+    if pack == "plane":
+        res_pl = jfs.plane_order_rows(res2, c["nb"])
+    else:
+        res_pl = np.zeros(np.asarray(jc.Wp.limbs).shape[:-1] + (P,))
+        res_pl[: len(res2)] = res2
+    res_pl = res_pl.astype(np.float32)
+    Cp = jc.Wp.scale.shape[0]
+    port = _port_consts(jc).Wp
+    before = port.limbs_k.clone()
+    want = jfs.patch_res_columns(jc.Wp, res_pl, K, P, Cp, "i8")
+    got = tfs.patch_res_columns(port, torch.from_numpy(res_pl), K, P, Cp)
+    np.testing.assert_array_equal(got.limbs.numpy(), np.asarray(want.limbs))
+    assert got.limbs_k.is_contiguous()
+    np.testing.assert_array_equal(got.limbs_k.numpy(), _kmajor_np(got.limbs.numpy()))
+    if pack == "sample":
+        np.testing.assert_array_equal(got.limbs_k.numpy(), got.limbs.numpy().T)
+    assert torch.equal(port.limbs_k, before)
+    assert not torch.equal(got.limbs_k, before)
+
+
+@pytest.mark.parametrize("seed,B,N", [(20, 37, 1025), (21, 1, 300), (22, 130, 2049)])
+def test_fused_i8_products_plain_kmajor(jfs, seed, B, N):
+    """fused_i8_products_plain on an operand's limbs_k equals the int64
+    oracle, and fused_products on the operand, folded, equals the JAX
+    package's fused_products in interpret mode (rtol 1e-6: both fold the
+    exact int32 sums into float32 once)."""
+    import jax.numpy as jnp
+
+    c = _mk_case(seed, B=B, N=N)
+    jc = jfs.build_consts(c["cov"], c["res"], c["maskf"], c["ind"], c["sden"],
+                          nb=c["nb"], split="i8")
+    rawp = jfs.pad_raw(c["raw"])
+    op = _port_consts(jc).Wp
+    got = kernels.fused_i8_products_plain(torch.from_numpy(rawp), op.limbs_k)
+    for g, w in zip(got, _i8_oracle(rawp, np.asarray(jc.Wp.limbs))):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    want = jfs.fused_products(jnp.asarray(rawp), jc.Wp, interpret=True)
+    for g, w in zip(tfs.fused_products(torch.from_numpy(rawp), op), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["planes", "rows", "wrong_k"])
+def test_fused_i8_rejects_non_kmajor_operand(layout):
+    """An operand in the [4, nbp, Cw4] layout, read as [4*nbp, Cw4], or
+    K-major with a second axis other than 4*nbp raises ValueError in the
+    wrapper and in its plain version, before any launch."""
+    rng = np.random.default_rng(23)
+    nbp, Cw4 = 48, 32
+    raw = torch.from_numpy(rng.integers(0, 256, (5, nbp), dtype=np.uint8))
+    w = {"planes": torch.zeros((4, nbp, Cw4), dtype=torch.int8),
+         "rows": torch.zeros((4 * nbp, Cw4), dtype=torch.int8),
+         "wrong_k": torch.zeros((Cw4, 4 * nbp + 16), dtype=torch.int8)}[layout]
+    n0 = kernels.fused_i8_products.launches
+    for fn in (kernels.fused_i8_products, kernels.fused_i8_products_plain):
+        with pytest.raises(ValueError, match="K-major"):
+            fn(raw, w)
+    assert kernels.fused_i8_products.launches == n0
+
+
+def test_fused_products_reads_limbs_k():
+    """fused_products hands the wrapper the operand's K-major copy: an
+    operand whose limbs_k differs from the copy of its limbs gives the
+    products of limbs_k; one built by hand without limbs_k takes the
+    transposed view of its limbs, which the CPU's plain version takes,
+    with no launch."""
+    c = _mk_case(24, B=6, N=301)
+    op, _ = tfs.plane_pack(np.random.default_rng(24).normal(size=(301, 7)),
+                           c["nb"], "i8")
+    raw = torch.from_numpy(tfs.pad_raw(c["raw"]))
+    other_limbs = op.limbs.flip(1).contiguous()
+    other = tfs.I8Operand(op.limbs, op.scale,
+                          torch.from_numpy(_kmajor_np(other_limbs.numpy())))
+    hand = tfs.I8Operand(op.limbs, op.scale)
+    n0 = kernels.fused_i8_products.launches
+    got = tfs.fused_products(raw, other)
+    want = tfs.fused_products(raw, tfs.I8Operand(other_limbs, op.scale))
+    base = tfs.fused_products(raw, op)
+    for g, w, b, h in zip(got, want, base, tfs.fused_products(raw, hand)):
+        assert torch.equal(g, w) and not torch.equal(g, b) and torch.equal(h, b)
+    assert kernels.fused_i8_products.launches == n0
 
 
 def test_plane_products_match_decoded_dosages(jfs):
@@ -284,21 +429,34 @@ def test_patch_res_columns_i8_matches_jax(jfs, shift):
 
 @pytest.mark.cuda
 def test_fused_i8_kernel_matches_plain_on_cuda(cuda):
-    """The CUDA kernel against its plain version on the card, on ragged
-    shapes (rows, bytes and columns off the kernel's tiles): H/E/M equal,
-    and each call counts one launch."""
+    """The CUDA kernel against its plain version on the card, on the K-major
+    operand at ragged shapes (rows off the 128-row tile, byte counts that
+    end mid-stage or give one stage or an odd number of stages, so that
+    the two halves of the contraction are uneven or one is empty, columns
+    off the 128-column tile): H/E/M equal, and each call counts one
+    launch. A [4, nbp, Cw4] operand on the card raises, with no launch."""
     rng = np.random.default_rng(9)
-    for B, nbp, Cw4 in ((37, 272, 400), (130, 512, 1536)):
+    for B, nbp, Cw4 in ((37, 272, 400), (130, 512, 1536), (1, 16, 16),
+                        (129, 48, 1552), (200, 16400, 400)):
         raw = torch.from_numpy(rng.integers(0, 256, (B, nbp), dtype=np.uint8)).to(cuda)
-        limbs = torch.from_numpy(
-            rng.integers(-128, 128, (4, nbp, Cw4), dtype=np.int8)).to(cuda)
+        limbs_k = torch.from_numpy(
+            rng.integers(-128, 128, (Cw4, 4 * nbp), dtype=np.int8)).to(cuda)
         n0 = kernels.fused_i8_products.launches
-        got = kernels.fused_i8_products(raw, limbs)
+        got = kernels.fused_i8_products(raw, limbs_k)
         assert kernels.fused_i8_products.launches == n0 + 1
-        want = kernels.fused_i8_products_plain(raw, limbs)
+        want = kernels.fused_i8_products_plain(raw, limbs_k)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+    # the [4, nbp, Cw4] limbs, and their transposed view, on the card: no
+    # kernel takes them, and no fallback to the plain version either
+    limbs = limbs_k.T.reshape(4, nbp, Cw4).contiguous()
+    n0 = kernels.fused_i8_products.launches
+    with pytest.raises(ValueError, match="K-major"):
+        kernels.fused_i8_products(raw, limbs)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfs.fused_products(raw, tfs.I8Operand(limbs, torch.ones(Cw4 // 4, device=cuda)))
+    assert kernels.fused_i8_products.launches == n0
     # a float64 operand on the card has no kernel: it raises, and does not
     # fall back to the plain version
     with pytest.raises(TypeError, match="no kernel takes a torch.float64"):
