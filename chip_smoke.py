@@ -58,10 +58,26 @@ Phases, each of which must pass:
    score_block_fused on random allele flips beside it) or
    make_qt_bgen_fn (BGEN): fused_bf16 / bgen_bf16 launch and no other
    kernel, and the block meets the same bars against the plain path.
-5. cross-check: small runs through the port on the card (by default and
+5. Step-1 slice: a synthetic PLINK BED at that width (N=400,000, P=50,
+   K=20) with a polygenic effect, 2 chromosomes x 2,000 variants, and the
+   port's Step-1 CLI on the card in this process (--bsize 1000: 4
+   level-0 blocks; 5-fold CV, J = T = 5), after checking that the
+   temporary directory has room for the ~6 GB of LOCO files: no
+   hand-written kernel may launch (Step 1 is float64 cuBLAS and
+   cuSOLVER), the log must show level 0 on cuda, and the 50 .loco files
+   and _pred.list must be well formed. The first block's level-0 parts
+   are timed with CUDA events (and eigh with MAGMA beside cuSOLVER, not
+   used), its W held against the same functions in float64 on the CPU
+   (max |dW| <= 1e-8), and level1_linear_kfold timed for one trait at a
+   real depth (F = 2,500, 8 GB of synthetic predictions).
+6. cross-check: small runs through the port on the card (by default and
    with REGENIE_TPU_I8=0) and on the CPU, a BED --htp run and a
    two-chromosome BGEN --minINFO run (N=2,000, M=600 each); every output
-   field meets the same bar.
+   field meets the same bar. Then the two-step workflow on the BED
+   dataset, K-fold and --loocv, on the card and on the CPU: Step 1, and
+   Step 2 with --pred on that run's own _pred.list; every .loco value
+   within one unit of its sixth significant digit, every Step-2 field
+   within its bar.
 
 The last lines of standard output are a JSON line with every kernel's
 numbers, the card's name and power limit (nvidia-smi), and
@@ -91,6 +107,10 @@ PEAK_BYTES = 3.35e12
 # the repository's UKB shape (bench.py, BENCH_NOTES.md)
 FULL = dict(N=400_000, P=50, n_inc=10, K=20, B=2048)
 SLICE_BLOCKS = 2  # variant blocks of each full-width slice run
+# Step 1 at full width: 4 level-0 blocks of 1000 on two chromosomes (a real
+# Step 1 has ~500); level 1 timed alone at the real depth F = 500 x J
+STEP1 = dict(chroms=((1, 2000), (2, 2000)), B=1000, effect_sd=0.1, real_F=2500)
+LOCO_BYTES_PER_VALUE = 13  # " " and a %g prediction of 6 significant digits
 LOG10P_TOL, BETA_TOL = 1e-5, 1e-6
 F64_SUM_BAR = 1e-12  # float64 kernel sums: share of the product against |W|
 
@@ -1710,10 +1730,261 @@ def _compare_files(f_gpu, f_cpu):
     return worst
 
 
+def _events_ms(fn, reps):
+    """(median ms of fn() on the card with CUDA events, after one warm-up
+    call; the last result)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times)), out
+
+
+def _sig6_excess(xa, xb):
+    """|a - b| in units of the sixth significant digit of the larger."""
+    a, b = float(xa), float(xb)
+    m = max(abs(a), abs(b))
+    return abs(a - b) / 10.0 ** (math.floor(math.log10(m)) - 5) if m else 0.0
+
+
+def _compare_loco(f_gpu, f_cpu):
+    """Two .loco files: same header, rows and NA pattern, every value
+    equal or within one unit of its sixth significant digit. Returns (the
+    values that differ, the largest gap in those units)."""
+    la = open(f_gpu).read().splitlines()
+    lb = open(f_cpu).read().splitlines()
+    if len(la) != len(lb) or la[0] != lb[0]:
+        raise AssertionError(f"{f_gpu}: header or row count differs")
+    ndiff, worst = 0, 0.0
+    for ra, rb in zip(la[1:], lb[1:]):
+        ta, tb = ra.split(), rb.split()
+        if len(ta) != len(tb) or ta[0] != tb[0]:
+            raise AssertionError(f"{f_gpu}: row {ta[0]} differs in shape")
+        for xa, xb in zip(ta[1:], tb[1:]):
+            if xa != xb:
+                ndiff += 1
+                worst = max(worst, _sig6_excess(xa, xb))  # raises on NA vs a number
+    if worst > 1 + 1e-9:
+        raise AssertionError(f"{f_gpu}: a value differs by {worst:.3f} units "
+                             "of its sixth significant digit")
+    return ndiff, worst
+
+
+def _check_loco_files(out, names, n_in, masked):
+    """The run's _pred.list names every trait's .loco file; each file has
+    the header of n_in samples and one row for chromosomes 1..23 of n_in
+    values. Rows 1 and 23 of the first and last traits are parsed:
+    finite values, NA exactly on the trait's masked samples (`masked`:
+    trait index -> their count)."""
+    rows = [ln.split() for ln in open(f"{out}_pred.list").read().splitlines()]
+    if [r[0] for r in rows] != names:
+        raise AssertionError(f"{out}_pred.list names {[r[0] for r in rows]}")
+    header = None
+    nbytes = 0
+    for ph, (name, path) in enumerate(rows):
+        with open(path, "rb") as fh:
+            data = fh.read()
+        nbytes += len(data)
+        lines = data.split(b"\n")
+        if header is None:
+            header = lines[0]
+        if lines[0] != header or len(lines) != 25 or lines[-1]:
+            raise AssertionError(f"{path}: {len(lines) - 1} lines or another header")
+        if header.count(b" ") != n_in + 1:
+            raise AssertionError(f"{path}: header of {header.count(b' ') - 1} samples")
+        for c, ln in enumerate(lines[1:24], start=1):
+            if not ln.startswith(b"%d " % c) or ln.count(b" ") != n_in + 1:
+                raise AssertionError(f"{path}: row {c} malformed")
+        if ph in masked:
+            for ln in (lines[1], lines[23]):
+                tok = ln.split()[1:]
+                na = np.array([t == b"NA" for t in tok])
+                vals = np.array([float(t) for t, m in zip(tok, na) if not m])
+                if na.sum() != masked[ph] or not np.isfinite(vals).all():
+                    raise AssertionError(f"{path}: {na.sum()} NA (want {masked[ph]}) "
+                                         "or a value not finite")
+    return nbytes
+
+
+def step1_slice_phase(tmp):
+    """The port's Step-1 QT CLI at full width on the card in this process
+    (K-fold, J = T = 5, 4 blocks of 1000 variants), then the first block's
+    level-0 parts timed with CUDA events and its W held against the CPU,
+    and level 1 at a real depth on synthetic predictions."""
+    import shutil
+
+    import torch
+
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.models import step1 as m1
+    from regenie_tpu_torch.run_step1 import Level0, open_step1
+
+    f = FULL
+    M = sum(n for _, n in STEP1["chroms"])
+    t0 = time.time()
+    prefix = write_dataset(tmp, seed=5, N=f["N"], chroms=STEP1["chroms"], P=f["P"],
+                           n_inc=f["n_inc"], n_cov=f["K"] - 1,
+                           effect_sd=STEP1["effect_sd"])
+    print(f"  BED dataset N={f['N']} M={M} ({len(STEP1['chroms'])} chromosomes) "
+          f"P={f['P']} K={f['K']} written in {time.time() - t0:.1f}s")
+    need = f["P"] * 23 * f["N"] * LOCO_BYTES_PER_VALUE
+    free = shutil.disk_usage(tmp).free
+    print(f"  free space under {tmp}: {free / 1e9:.1f} GB; the {f['P']} LOCO "
+          f"files need about {need / 1e9:.1f} GB")
+    if free < need:
+        raise AssertionError(f"{free / 1e9:.1f} GB free under {tmp}, the LOCO "
+                             f"files need about {need / 1e9:.1f} GB")
+    out = f"{tmp}/s1"
+    argv = ["--step", "1", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--bsize", str(STEP1["B"]),
+            "--verbose", "--out", out]
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"kernel launches {counts} in Step 1; expected none")
+    with open(f"{out}.log") as fh:
+        log = fh.read().splitlines()
+    if " * level 0 on cuda (float64)" not in log:
+        raise AssertionError("the Step-1 log does not show level 0 on cuda")
+    for ln in log:
+        if ln.startswith("   -level 0 block") or ln.startswith(" * level "):
+            print(f"  {ln.strip()}")
+    print(f"  CLI wall time {wall:.2f}s (run-up, level 0, level 1 and the "
+          f"LOCO files); kernel launches {counts}; on {card_line()}")
+
+    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    t0 = time.time()
+    st = open_step1(params, log=lambda *a: None, device="cuda")
+    print(f"  run-up again for the block checks: {time.time() - t0:.1f}s")
+    pd = st.pd
+    n_in = int(pd.ind_in_analysis.sum())
+    masked = {p: int((pd.ind_in_analysis & ~pd.masked_indivs[:, p]).sum())
+              for p in (0, f["P"] - 1)}
+    t0 = time.time()
+    nbytes = _check_loco_files(out, pd.pheno_names, n_in, masked)
+    print(f"  {f['P']} LOCO files of {n_in} samples x 23 rows ({nbytes / 1e9:.2f} "
+          f"GB) and _pred.list well formed ({time.time() - t0:.1f}s)")
+
+    # the first block's level-0 parts on the card, each timed alone
+    dev = st.device
+    chrom, bsnps = st.blocks[0]
+    raw = st.gd.read_block_bytes(bsnps)
+    l0 = Level0(params, st)
+    parts = {}
+    parts["upload, decode, impute, residualize"], G = _events_ms(
+        lambda: l0.residualized(st.gd.read_block_device(bsnps, dev, raw), bsnps), 3)
+    parts["fold gather"], Gf = _events_ms(lambda: l0.folds(G), 3)
+    parts["Gram and cross products"], (Gv, GGt_f, GtY_f) = _events_ms(
+        lambda: m1.kfold_grams(Gf, l0.Y_folds, l0.valid), 3)
+    eigh = "eigh ({} x {} x {})".format(*GGt_f.shape)
+    parts[eigh], (d, V) = _events_ms(lambda: m1.kfold_eigh(GGt_f), 3)
+    if torch.cuda.has_magma:
+        lib = torch.backends.cuda.preferred_linalg_library()
+        try:
+            torch.backends.cuda.preferred_linalg_library("magma")
+            parts["eigh with magma (not used)"], _ = _events_ms(
+                lambda: m1.kfold_eigh(GGt_f), 3)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(lib)
+    else:
+        print("  this PyTorch has no MAGMA; eigh runs on cuSOLVER only")
+    parts["ridge solutions"], beta = _events_ms(
+        lambda: m1.kfold_beta(d, V, GtY_f, l0.lambdas), 3)
+    parts["predictions and centring"], Wb = _events_ms(
+        lambda: m1.kfold_predict(beta, Gv, l0.mask_folds, l0.Neff), 3)
+    del Gv, GGt_f, GtY_f, Gf, G
+    W_host = np.zeros((len(st.blocks),) + tuple(Wb.shape))  # run_step1's layout
+    t0 = time.time()
+    torch.from_numpy(W_host[0]).copy_(Wb)
+    parts["W to host (host clock)"] = (time.time() - t0) * 1e3
+    for name, ms in parts.items():
+        print(f"  first block, {name}: {ms:.3f} ms")
+
+    # the same block through the same functions in float64 on the CPU
+    t0 = time.time()
+    lc = Level0(params, st._replace(device=torch.device("cpu")))
+    Wc = lc.kfold(lc.residualized(st.gd.read_block_device(bsnps, "cpu", raw), bsnps))
+    cpu_s = time.time() - t0
+    err = float((Wb.cpu() - Wc).abs().max())
+    print(f"  first block W, card against CPU (float64, {cpu_s:.1f}s on "
+          f"{torch.get_num_threads()} CPU threads): max |dW| {err:.3e} (bar 1e-08)")
+    if not err <= 1e-8:
+        raise AssertionError(f"first block W: {err:.3e} > 1e-08")
+    del Wb, Wc, lc, l0
+    st.gd.close()
+    torch.cuda.empty_cache()
+
+    # level 1 for one trait at a real depth (F = 500 blocks x J)
+    F, K = STEP1["real_F"], params.cv_folds
+    nmax = -(-f["N"] // K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    Wr = torch.randn(K, nmax, F, generator=gen, device=dev, dtype=torch.float64)
+    Yr = torch.randn(K, nmax, generator=gen, device=dev, dtype=torch.float64)
+    valid = torch.ones(K, nmax, device=dev, dtype=torch.float64)
+    valid[-1, f["N"] - (K - 1) * nmax:] = 0.0
+    taus = torch.as_tensor(st.taus / len(st.blocks) * (F // params.n_ridge_l0), device=dev)
+    ms, (beta, cs) = _events_ms(lambda: m1.level1_linear_kfold(Wr, Yr, valid, taus), 2)
+    if not torch.isfinite(cs).all():
+        raise AssertionError("level 1 at a real depth: metrics not finite")
+    print(f"  level1_linear_kfold for one trait at F={F}, {K} folds, N={f['N']} "
+          f"({Wr.numel() * 8 / 1e9:.1f} GB float64 on the card): {ms:.1f} ms")
+    del Wr, Yr, valid, beta, cs
+    torch.cuda.empty_cache()
+
+
+def two_step_cross_check(tmp, prefix, P):
+    """The two-step QT workflow at N=2,000 on the card and on the CPU,
+    K-fold and --loocv: Step 1, then Step 2 with --pred on that run's own
+    _pred.list. Every .loco value within one unit of its sixth significant
+    digit, every Step-2 field within its bar."""
+    base = ["--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt", "--covarFile",
+            f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt"]
+    for mode, extra in (("K-fold", []), ("--loocv", ["--loocv"])):
+        tag = "loocv" if extra else "kfold"
+        for dev in ("cuda", "cpu"):
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+            if dev == "cpu":
+                os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
+            try:
+                s1 = f"{tmp}/ts_{tag}_{dev}"
+                run_cli(["--step", "1", *base, *extra, "--bsize", "100", "--out", s1])
+                run_cli(["--step", "2", *base, "--bsize", "256", "--pred",
+                         f"{s1}_pred.list", "--out", f"{s1}_s2"])
+            finally:
+                os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        gpu, cpu = f"{tmp}/ts_{tag}_cuda", f"{tmp}/ts_{tag}_cpu"
+        ndiff, worst_loco = 0, 0.0
+        for p in range(P):
+            nd, w = _compare_loco(f"{gpu}_{p + 1}.loco", f"{cpu}_{p + 1}.loco")
+            ndiff, worst_loco = ndiff + nd, max(worst_loco, w)
+        worst = max(_compare_files(f"{gpu}_s2_Y{p + 1}.regenie",
+                                   f"{cpu}_s2_Y{p + 1}.regenie") for p in range(P))
+        print(f"  two-step {mode}: card vs CPU, {P} .loco files ({ndiff} values "
+              f"differ, at most {worst_loco:.3f} units of the sixth significant "
+              f"digit) and Step 2 with --pred: every field within its bar "
+              f"(largest share of the bar used {worst:.3f})")
+
+
 def cross_check_phase(tmp):
     """Small runs through the port on the card (by default and with
     REGENIE_TPU_I8=0) and on the CPU: a BED --htp run and a
-    two-chromosome BGEN --minINFO run."""
+    two-chromosome BGEN --minINFO run; then the two-step workflow on the
+    BED dataset (two_step_cross_check)."""
     P = 4
     prefix = write_dataset(tmp, seed=2, N=2000, chroms=((1, 400), (2, 200)),
                            P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
@@ -1749,6 +2020,7 @@ def cross_check_phase(tmp):
             print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: card vs CPU, "
                   f"{P} traits x {rows} variants: every field within its bar "
                   f"(largest share of the bar used {worst:.3f})")
+    two_step_cross_check(tmp, prefix, P)
 
 
 def native_report():
@@ -1815,6 +2087,10 @@ def main() -> int:
             print(f"[{src} slice]")
             launches.update(slice_phase(tmp, src))
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print("[step1 slice]")
+        step1_slice_phase(tmp)
+    torch.cuda.empty_cache()
     # decode_planes has no caller on any path of the port, as
     # _decode_kernel has none in the JAX package: 0 launches there
     launches["decode_planes"] = 0

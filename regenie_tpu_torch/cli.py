@@ -2,8 +2,8 @@
 takes the same flags as `python -m regenie_tpu` (the reference's flag
 surface, src/Regenie.cpp:146-458). build_parser and args_to_params are
 the port's copies of regenie_tpu/cli.py's; main runs the modes the port
-has (Step 2, quantitative traits, PLINK BED) and raises
-NotImplementedError for every other one.
+has (quantitative traits: Step 1 on PLINK BED, Step 2 on PLINK BED and
+BGEN) and raises NotImplementedError for every other one (unported).
 
 The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 """
@@ -11,6 +11,7 @@ The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 from __future__ import annotations
 
 import argparse
+import os
 import re
 import sys
 import time
@@ -832,11 +833,67 @@ def args_to_params(args: argparse.Namespace) -> Params:
     return params
 
 
+def unported(params: Params) -> Optional[str]:
+    """Name of the first requested mode this port cannot run yet, or
+    None. Every such mode raises NotImplementedError before any work."""
+    common = (
+        (params.trait_mode != QT,
+         "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
+        (bool(params.set_list), "gene-based tests (--set-list)"),
+        (bool(params.interaction_var), "interaction tests"),
+        (params.trait_set, "multi-trait tests (--mt)"),
+        (params.multiphen, "MultiPhen (--multiphen)"),
+        (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
+        (params.mcc_test, "the MCC test (--mcc)"),
+        (not params.split_by_pheno, "merged output (--no-split)"),
+        (params.gz_out, "gzipped output (--gz)"),
+        (params.af_cc, "--af-cc"),
+        (params.write_samples, "--write-samples"),
+        (params.print_cov_betas, "--print-cov-betas"),
+        (bool(params.condition_list or params.condition_file),
+         "conditional analysis"),
+        (params.transposed_pheno, "--tpheno-file"),
+        (params.ltco_chr > 0, "--force-ltco"),
+        (params.debug, "--debug"),
+    )
+    if params.step == 1:
+        checks = (
+            (params.file_type != "bed",
+             f"Step 1 on {params.file_type.upper()} input"),
+            *common,
+            (params.test_l0, "--test-l0"),
+            (params.select_l0, "--select-l0"),
+            (params.print_block_betas, "--print"),
+            (params.alpha_prior != -1, "--prior-alpha"),
+            # the JAX package's sample-sharded level 0 (parallel/mesh.py)
+            (bool(os.environ.get("REGENIE_TPU_MESH")
+                  or os.environ.get("REGENIE_TPU_MESH_2D")),
+             "multi-device level 0 (REGENIE_TPU_MESH)"),
+        )
+    else:
+        checks = (
+            *common[:1],
+            (params.file_type not in ("bed", "bgen"),
+             f"{params.file_type.upper()} input"),
+            # the JAX package sends these BGEN runs to its dense dosage
+            # path (fused_ok, run_step2.py:793-806), which is not ported
+            (params.file_type == "bgen" and params.htp_out,
+             "BGEN input with --htp"),
+            (params.file_type == "bgen" and not params.split_by_pheno,
+             "BGEN input with merged output (--no-split)"),
+            (params.file_type == "bgen" and params.test_type != 0,
+             "BGEN input with --test dominant/recessive"),
+            *common[1:],
+        )
+    for hit, name in checks:
+        if hit:
+            return name
+    return None
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     params = args_to_params(args)
-    from .run_step2 import run_step2, unported
-
     why = unported(params)
     if why is not None:
         raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
@@ -853,7 +910,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         log("Options in effect: " + " ".join(sys.argv[1:] if argv is None else argv))
         t0 = time.time()
         try:
-            run_step2(params, log=log)
+            if params.step == 1:
+                from .run_step1 import run_step1
+
+                run_step1(params, log=log)
+            else:
+                from .run_step2 import run_step2
+
+                run_step2(params, log=log)
         except Exception as e:
             log(f"ERROR: {e}")
             raise

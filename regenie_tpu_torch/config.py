@@ -4,8 +4,8 @@ regenie_tpu/config.py).
 Mirrors the reference's `struct param` (src/Regenie.hpp:181-437) — one flat
 config object bound from CLI flags, validated once, then passed read-only
 through the pipeline. The CLI takes every flag of regenie_tpu, so the
-whole field set is kept; run_step2.unported() names the ones this port cannot
-run yet.
+whole field set is kept; cli.unported() names the ones this port cannot run
+yet.
 """
 
 from __future__ import annotations
@@ -330,3 +330,18 @@ class Params:
         if self.file_type == "pgen":
             return self.pgen_dosage_present
         return False
+
+
+def ridge_h2_grid(n: int) -> np.ndarray:
+    """Heritability grid for ridge params.
+
+    Reference `set_ridge_params` (src/Regenie.cpp:1497-1508): n evenly
+    spaced points in [0,1] with endpoints replaced by 0.01 and 0.99.
+    """
+    if n < 2:
+        raise ValueError("number of ridge parameters must be at least 2")
+    step = 1.0 / (n - 1)
+    vec = np.arange(n, dtype=np.float64) * step
+    vec[0] = 0.01
+    vec[-1] = 0.99
+    return vec

@@ -3,8 +3,9 @@ branches of regenie_tpu/io/geno.py).
 
 File metadata, sample/variant filters and the chromosome map. The fused
 Step-2 path reads packed bytes straight from the BedFile, or probability
-planes from the BgenFile (io/bgen.py), so there is no decoding block
-reader here.
+planes from the BgenFile (io/bgen.py). Step 1 reads BED blocks through
+read_block_bytes (host) and read_block_device (decode on the card, or on
+the host for the CPU).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import Params
-from .bed import BedFile, SampleInfo, SnpInfo, chr_to_int, open_bed
+from .bed import (BedFile, SampleInfo, SnpInfo, chr_to_int, decode_bed_bytes,
+                  open_bed)
 from .files import iter_lines
 
 
@@ -45,6 +47,54 @@ class GenoData:
     def sample_index(self) -> Dict[str, int]:
         """Map "FID_IID" -> row index (reference FID_IID_to_ind)."""
         return {s.key: i for i, s in enumerate(self.samples)}
+
+    def read_block_bytes(self, block_snps: List[SnpInfo]) -> np.ndarray:
+        """Packed 2-bit bytes of a block of kept BED variants: [B,
+        ceil(N_file/4)] uint8, a copy of the rows of `block_snps` (which
+        may skip variants of the file span, offsets - start), so the
+        pages are read where this runs."""
+        offsets = np.array([s.offset for s in block_snps])
+        start, stop = int(offsets[0]), int(offsets[-1]) + 1
+        raw = self._bed.read_block_bytes(start, stop - start)
+        return np.ascontiguousarray(raw[offsets - start])
+
+    def read_block(self, block_snps: List[SnpInfo],
+                   raw: Optional[np.ndarray] = None) -> np.ndarray:
+        """Host decode of a BED block: [B, N] int8 hardcalls {0, 1, 2,
+        -3} on the kept samples. `raw` is the block's read_block_bytes,
+        read here when not given."""
+        if raw is None:
+            raw = self.read_block_bytes(block_snps)
+        G = decode_bed_bytes(raw, self._bed.n_samples)
+        if not self._keep_all_samples:
+            G = G[:, self.sample_keep_idx]
+        if getattr(self.params, "ref_first", False):
+            # parseSnpfromBed (Geno.cpp:2440): hc = 2 - hc with --ref-first
+            G = np.where(G == -3, G, 2 - G).astype(np.int8)
+        return G
+
+    def read_block_device(self, block_snps: List[SnpInfo], device,
+                          raw: Optional[np.ndarray] = None):
+        """A BED block as a [B, N] int8 tensor on `device`. On CUDA the
+        packed bytes (`raw`, or read here) are uploaded and decoded on
+        the card (4x less host->device traffic than int8, no host
+        decode); on the CPU the host decode runs."""
+        import torch
+
+        device = torch.device(device)
+        if device.type != "cuda":
+            return torch.from_numpy(self.read_block(block_snps, raw))
+        from ..ops.geno_ops import decode_bed_packed
+
+        if raw is None:
+            raw = self.read_block_bytes(block_snps)
+        G = decode_bed_packed(torch.from_numpy(raw).to(device), self._bed.n_samples)
+        if not self._keep_all_samples:
+            keep = torch.from_numpy(self.sample_keep_idx).to(device)
+            G = G.index_select(1, keep)
+        if getattr(self.params, "ref_first", False):
+            G = torch.where(G == -3, G, 2 - G)
+        return G
 
     def close(self):
         for f in (self._bed, self._bgen):

@@ -1,5 +1,5 @@
 """ctypes bindings of native code (the port's copy of
-regenie_tpu/io/native.py, trimmed to what the Step-2 paths call).
+regenie_tpu/io/native.py, trimmed to what the ported paths call).
 
 - The root native library (native/decoder.cpp): the BED decoder and the
   .regenie / HTP row formatters. libregenie_native.so is built with
@@ -11,6 +11,10 @@ regenie_tpu/io/native.py, trimmed to what the Step-2 paths call).
   regenie_tpu_torch/_build/ (git-ignored) at first use. The BGEN path has
   no other reader, so a failed build, a missing symbol or a rejected
   block raises.
+- The LOCO/PRS row renderer, the port's own copy of format_loco_rows in
+  io/csrc/loco_rows.cpp (single-threaded; callers split the rows over
+  threads), built the same way. Step 1 has no other renderer at biobank
+  scale, so a failed build or load raises.
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
-_PLANES_SRC = os.path.join(_PKG_DIR, "io", "csrc", "bgen_planes.cpp")
+_CSRC = os.path.join(_PKG_DIR, "io", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 PLANES_SYMBOL = "bgen12_extract_planes"
-_state = {"lib": None, "tried": False, "planes": None}
+LOCO_SYMBOL = "format_loco_rows"
+_state = {"lib": None, "tried": False, "planes": None, "loco": None}
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -93,6 +98,36 @@ def bed_decode_native(raw: np.ndarray, n_samples: int) -> Optional[np.ndarray]:
     return out
 
 
+def _build_lib(name: str, what: str, symbol: str, libs=()) -> ctypes.CDLL:
+    """io/csrc/<name>.cpp built with g++ into BUILD_DIR at first use,
+    cached by the source's hash, and loaded. Raises RuntimeError when it
+    cannot be built or loaded, or lacks `symbol`."""
+    src = os.path.join(_CSRC, f"{name}.cpp")
+    with open(src, "rb") as fh:
+        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
+    so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    if not os.path.isfile(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-shared",
+               "-o", tmp, src, *libs]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        except OSError as e:
+            raise RuntimeError(f"cannot build the {what}: {e}") from e
+        if r.returncode != 0:
+            raise RuntimeError(f"building the {what} failed "
+                               f"({' '.join(cmd)}):\n{r.stderr}")
+        os.replace(tmp, so)
+    try:
+        lib = ctypes.CDLL(so)
+    except OSError as e:
+        raise RuntimeError(f"cannot load the {what} ({so}): {e}") from e
+    if not hasattr(lib, symbol):
+        raise RuntimeError(f"{so} has no symbol {symbol}")
+    return lib
+
+
 def planes_lib() -> ctypes.CDLL:
     """The BGEN plane extractor library (io/csrc/bgen_planes.cpp), built
     with g++ at first use and cached by the source's hash. Raises
@@ -100,25 +135,7 @@ def planes_lib() -> ctypes.CDLL:
     lib = _state["planes"]
     if lib is not None:
         return lib
-    with open(_PLANES_SRC, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, f"libbgen_planes_{tag}.so")
-    if not os.path.isfile(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-shared",
-               "-o", tmp, _PLANES_SRC, "-lz"]
-        try:
-            r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        except OSError as e:
-            raise RuntimeError(f"cannot build the BGEN plane extractor: {e}") from e
-        if r.returncode != 0:
-            raise RuntimeError("building the BGEN plane extractor failed "
-                               f"({' '.join(cmd)}):\n{r.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    if not hasattr(lib, PLANES_SYMBOL):
-        raise RuntimeError(f"{so} has no symbol {PLANES_SYMBOL}")
+    lib = _build_lib("bgen_planes", "BGEN plane extractor", PLANES_SYMBOL, ["-lz"])
     fn = getattr(lib, PLANES_SYMBOL)
     fn.restype = ctypes.c_int64
     fn.argtypes = [
@@ -158,3 +175,23 @@ def bgen12_extract_planes_native(comp: bytes, offsets, csizes, usizes,
             "biallelic 8-bit layout-2 blocks with probabilities summing "
             "to at most 1)")
     return planes
+
+
+def loco_lib() -> ctypes.CDLL:
+    """The LOCO row renderer (io/csrc/loco_rows.cpp), built with g++ at
+    first use and cached by the source's hash. Raises RuntimeError when
+    it cannot be built or loaded, or lacks LOCO_SYMBOL."""
+    lib = _state["loco"]
+    if lib is not None:
+        return lib
+    lib = _build_lib("loco_rows", "LOCO row renderer", LOCO_SYMBOL)
+    fn = getattr(lib, LOCO_SYMBOL)
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    lib.loco_rows_budget.restype = ctypes.c_int64
+    lib.loco_rows_budget.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    _state["loco"] = lib
+    return lib
+

@@ -1,16 +1,21 @@
-"""Step-2 summary-statistic writers (the port's copy of
-regenie_tpu/io/output.py, trimmed to quantitative traits in the split
-single-trait and HTPv4 formats).
+"""Output writers (the port's copy of regenie_tpu/io/output.py, trimmed
+to quantitative traits): Step-2 summary statistics in the split
+single-trait and HTPv4 formats, and Step 1's LOCO/PRS prediction rows.
 
 Mirrors Step2_Models.cpp print_header_output* (:2306) and
 print_sum_stats* (:2410-2646) with C++ default 6-significant-digit
 formatting. Whole blocks render through the native formatter
 (native/decoder.cpp); the per-row functions are the fallback when the
-library is unavailable and render byte-identical rows.
+library is unavailable and render byte-identical rows. Prediction rows
+render through the port's own io/csrc/loco_rows.cpp, with no fallback
+(format_value_rows); format_value_rows_plain is its plain twin for the
+tests.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -19,7 +24,7 @@ from ..config import Params
 from ..prep import fmt
 from ..utils.stats import convert_logp_raw
 from .bed import SnpInfo
-from .native import get_lib
+from .native import LOCO_SYMBOL, get_lib, loco_lib
 
 
 def header_single(params: Params) -> str:
@@ -172,6 +177,49 @@ def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
         test_fail.ctypes.data, out.ctypes.data, row_len.ctypes.data,
     )
     return out[:total].tobytes().decode("utf-8")
+
+
+def format_value_rows(vals, mask, labels) -> bytes:
+    """Labeled %g value rows with per-sample NA masking ("label v_1 ..
+    v_N \\n": the .loco/.prs prediction format, write_predictions
+    Data.cpp:1795) through io/csrc/loco_rows.cpp, the rows split over one
+    thread per CPU (ctypes releases the GIL during each call). vals:
+    [R, N] float64; mask: [N] bool; labels: [R] ints. Raises RuntimeError
+    when the renderer cannot be built or loaded: at biobank scale a run
+    renders 460M values (50 traits x 23 rows x 400,000 samples), too many
+    for Python."""
+    lib = loco_lib()
+    fn = getattr(lib, LOCO_SYMBOL)
+    vals = np.ascontiguousarray(vals, np.float64)
+    R, N = vals.shape
+    mask = np.ascontiguousarray(mask, np.uint8)
+    labels = np.ascontiguousarray(labels, np.int32)
+    if mask.shape != (N,) or labels.shape != (R,):
+        raise ValueError(f"mask {mask.shape} / labels {labels.shape} do not "
+                         f"fit values {vals.shape}")
+    budget = int(lib.loco_rows_budget(1, N))
+    out = np.empty(R * budget, np.uint8)
+    row_len = np.empty(R, np.int64)
+
+    def run(lo, hi):
+        n = fn(vals[lo:].ctypes.data, hi - lo, N, mask.ctypes.data,
+               labels[lo:].ctypes.data, out[lo * budget:].ctypes.data,
+               row_len[lo:].ctypes.data)
+        return out[lo * budget : lo * budget + n].tobytes()
+
+    bounds = np.linspace(0, R, min(os.cpu_count() or 1, R) + 1).astype(int)
+    with ThreadPoolExecutor(max(len(bounds) - 1, 1)) as pool:
+        return b"".join(pool.map(run, bounds[:-1], bounds[1:]))
+
+
+def format_value_rows_plain(vals, mask, labels) -> bytes:
+    """format_value_rows rendered in Python, byte for byte (the oracle of
+    the native renderer in the tests)."""
+    rows = []
+    for label, v in zip(labels, np.asarray(vals, np.float64)):
+        row = [str(int(label))] + [fmt(x) if m else "NA" for x, m in zip(v, mask)]
+        rows.append(" ".join(row) + " \n")
+    return "".join(rows).encode("ascii")
 
 
 def header_htp() -> str:

@@ -1,0 +1,542 @@
+"""Step 1 on quantitative traits from PLINK BED hardcalls: whole-genome
+block ridge -> LOCO predictions (the port of the QT, single-device parts
+of regenie_tpu/run_step1.py).
+
+Replaces the reference's Data::run_step1 (Data.cpp:95-133),
+level_0_calculations (:594), ridge_level_1* (Step1_Models.cpp:772+),
+output/make_predictions/write_predictions (Data.cpp:956-1930) and the
+split-L0 multi-job protocol (write_l0_master Data.cpp:244,
+prep_parallel_l0 :818, write_l0_file/read_l0 Step1_Models.cpp:728/1921)
+with file-compatible master/snplist/binary prediction formats.
+
+Level 0 and level 1 run in float64 on the device (models/step1.py: DGEMM
+on the FP64 tensor cores and cuSOLVER eigh on the card); each BED block
+ships as packed bytes and is decoded there (ops/geno_ops.py). The LOCO
+rows render through io/csrc/loco_rows.cpp.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import Params, ridge_h2_grid
+from .io.files import open_write, string_split
+from .io.geno import make_blocks
+from .io.output import format_value_rows
+from .models import step1 as m1
+from .ops.geno_ops import prepare_block_step1
+from .prep import fmt, prepare
+from .utils.device import resolve_device
+from .utils.stats import usage_info_line
+
+
+def _parse_master(path: str):
+    """Read a split-L0 .master file -> (n_geno, block_size, jobs) where
+    jobs = [(prefix, n_blocks, n_snps)] (prep_parallel_l0, Data.cpp:818)."""
+    with open(path) as fh:
+        header = string_split(fh.readline())
+        n_geno, bsize = int(header[0]), int(header[1])
+        jobs = []
+        for line in fh:
+            toks = string_split(line)
+            if toks:
+                jobs.append((toks[0], int(toks[1]), int(toks[2])))
+    return n_geno, bsize, jobs
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class Step1Setup(NamedTuple):
+    """The run-up of a Step-1 run (open_step1)."""
+
+    gd: object  # io.geno.GenoData
+    pd: object  # io.pheno.PhenoData
+    blocks: list  # [(chrom, [SnpInfo])]
+    h_l0: np.ndarray  # [J] level-0 heritability grid
+    lambdas: np.ndarray  # [J] level-0 penalties
+    taus: np.ndarray  # [T] level-1 penalties
+    h_l1: np.ndarray  # [T] level-1 heritability grid
+    fold_sizes: Optional[np.ndarray]  # [K] (K-fold) or None (LOOCV)
+    master: Optional[Tuple]  # the split-L0 master file, parsed
+    run_l0_job: Optional[int]
+    device: torch.device
+
+
+def open_step1(params: Params, log=print, device=None) -> Step1Setup:
+    """The run-up of run_step1 before level 0: the mode check, the device,
+    the split-L0 role, data preparation, the blocks and the ridge grids.
+    `device` as in utils.device.resolve_device."""
+    from .cli import unported
+
+    why = unported(params)
+    if why is not None:
+        raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
+    dev = resolve_device(device)
+    params.test_mode = False
+
+    # ---- split-L0 job roles ----
+    run_l0_job: Optional[int] = None
+    master: Optional[Tuple] = None
+    if params.run_l0:
+        mfile, jobstr = params.run_l0.rsplit(",", 1)
+        run_l0_job = int(jobstr)
+        master = _parse_master(mfile)
+        if master[1] != params.block_size:
+            raise ValueError("invalid header line in master file (block size mismatch)")
+        # restrict to this job's variants (prep_parallel_l0)
+        job_prefix = master[2][run_l0_job - 1][0]
+        params.extract_files = list(params.extract_files) + [job_prefix + ".snplist"]
+    elif params.run_l1:
+        master = _parse_master(params.run_l1)
+
+    rd = prepare(params, log=log)
+    gd, pd = rd.geno, rd.pheno
+
+    # --l1-phenoList: run level 1 only for selected traits
+    # (select_phenos_l1, Pheno.cpp:1948)
+    if params.select_pheno_l1:
+        sel = set(params.select_pheno_l1)
+        for ph, name in enumerate(pd.pheno_names):
+            if name not in sel:
+                pd.pheno_pass[ph] = False
+
+    if params.n_variants > 1_000_000 and not params.force_step1:
+        raise ValueError(
+            "too many variants for step 1 (> 1M); use --force-step1 to override"
+        )
+
+    blocks = make_blocks(gd, params.block_size)
+    params.total_n_block = len(blocks)
+
+    # ridge penalty grids (Regenie.cpp:1497, Data.cpp:607, Step1_Models.cpp:2099)
+    n_geno_all = master[0] if run_l0_job is not None else params.n_variants
+    total_blocks_all = (
+        sum(j[1] for j in master[2]) if master is not None else params.total_n_block
+    )
+    h_l0 = params.user_lambda if params.user_lambda is not None else ridge_h2_grid(params.n_ridge_l0)
+    lambdas = n_geno_all * (1.0 - h_l0) / h_l0
+    h_l1 = params.user_tau if params.user_tau is not None else ridge_h2_grid(params.n_ridge_l1)
+    taus = total_blocks_all * params.n_ridge_l0 * (1.0 - h_l1) / h_l1
+    fold_sizes = None
+    if not params.use_loocv:
+        fold_sizes = m1.compute_fold_sizes(pd.ind_in_analysis, params.cv_folds)
+    return Step1Setup(gd, pd, blocks, h_l0, lambdas, taus, h_l1, fold_sizes,
+                      master, run_l0_job, dev)
+
+
+def run_step1(params: Params, log=print, device=None) -> None:
+    """Step 1 QT on a BED file: <out>_<i>.loco per trait and
+    <out>_pred.list, or a split-L0 role (--split-l0 / --run-l0 /
+    --run-l1). `device` as in utils.device.resolve_device (CUDA unless
+    the CPU is asked for)."""
+    st = open_step1(params, log, device)
+    gd, pd, blocks, master = st.gd, st.pd, st.blocks, st.master
+
+    # ---- split-L0 master writer ----
+    if params.split_l0:
+        prefix, njobs = params.split_l0.rsplit(",", 1)
+        _write_l0_master(params, blocks, prefix, int(njobs), log)
+        return
+
+    log(f" * block size: [{params.block_size}]")
+    log(usage_info_line(params))
+    log(f" * # blocks: [{params.total_n_block}] for {params.n_variants} variants")
+    log(f" * # CV folds: [{params.n_analyzed if params.use_loocv else params.cv_folds}]")
+    log(f" * ridge data_l0: [ {params.n_ridge_l0} : " + " ".join(fmt(x) for x in st.h_l0) + " ]")
+    log(f" * ridge data_l1: [ {params.n_ridge_l1} : " + " ".join(fmt(x) for x in st.h_l1) + " ]")
+
+    J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
+
+    # ---- level 0 (or read it from job files) ----
+    if params.run_l1:
+        W_all = _read_l0_jobs(master[2], N, J, P, st.fold_sizes)
+        chr_nblocks: Dict[int, int] = {}
+        for chrom, _ in blocks:
+            chr_nblocks[chrom] = chr_nblocks.get(chrom, 0) + 1
+        log(" (skipping to level 1 models)")
+    else:
+        W_all, chr_nblocks = _level0(params, st, log)
+
+    if params.early_exit and st.run_l0_job is None:
+        log("--early-exit: stopping after level 0 models")
+        return
+
+    # ---- run-l0 job: write binary predictions and exit ----
+    if st.run_l0_job is not None:
+        job_prefix = master[2][st.run_l0_job - 1][0]
+        Wn = _as_sample_major(params, W_all, st.fold_sizes)
+        for ph in range(P):
+            # col-major doubles (write_l0_file, Step1_Models.cpp:728)
+            Wn[:, :, ph].T.astype(np.float64).tofile(job_prefix + f"_l0_Y{ph+1}")
+        log("Done writing level 0 predictions to file.")
+        return
+
+    _level1_and_output(params, gd, pd, W_all, st.taus, st.h_l1, chr_nblocks,
+                       st.fold_sizes, st.device, log)
+
+
+def _read_l0_jobs(jobs, N, J, P, fold_sizes) -> np.ndarray:
+    """--run-l1: the level-0 predictions of every --run-l0 job (read_l0,
+    Step1_Models.cpp:1921), in the block-major layout of _level0 (K-fold
+    pad rows 0)."""
+    nb = sum(j[1] for j in jobs)
+    if fold_sizes is None:
+        W_all = np.zeros((nb, N, J, P))
+    else:
+        W_all = np.zeros((nb, len(fold_sizes), int(fold_sizes.max()), J, P))
+        bounds = np.concatenate([[0], np.cumsum(fold_sizes)])
+    b0 = 0
+    for prefix, nb_job, _ns_job in jobs:
+        for ph in range(P):
+            fname = prefix + f"_l0_Y{ph+1}"
+            dat = np.fromfile(fname, dtype=np.float64)
+            if dat.size != N * nb_job * J:
+                raise ValueError(f"{fname}: unexpected size")
+            # col-major [N, F] doubles: [block, j, sample]
+            dat = dat.reshape(nb_job, J, N).transpose(0, 2, 1)
+            if fold_sizes is None:
+                W_all[b0 : b0 + nb_job, :, :, ph] = dat
+            else:
+                for k in range(len(fold_sizes)):
+                    W_all[b0 : b0 + nb_job, k, : fold_sizes[k], :, ph] = \
+                        dat[:, bounds[k] : bounds[k + 1]]
+        b0 += nb_job
+    return W_all
+
+
+def _as_sample_major(params, W_all, fold_sizes):
+    """Block-major W_all ([nb, K, nmax, J, P] K-fold, [nb, N, J, P]
+    LOOCV) -> [N, F, P] sample-major, F = nb * J."""
+    if not params.use_loocv:
+        W_all = np.concatenate(
+            [W_all[:, k, : int(fold_sizes[k])] for k in range(params.cv_folds)], axis=1)
+    nb, N, J, P = W_all.shape
+    return W_all.transpose(1, 0, 2, 3).reshape(N, nb * J, P)
+
+
+def _alloc_W(params, shape):
+    """Host array of the level-0 predictions; --lowmem spills it to a
+    memory-mapped scratch file instead of RAM (write_l0_file / read_l0
+    mmap, Step1_Models.cpp:728/1921), removed at exit unless --keep-l0."""
+    if not params.write_l0_pred:
+        return np.zeros(shape, dtype=np.float64)
+    import atexit
+
+    prefix = params.loco_tmp_prefix or params.out_prefix
+    path = prefix + "_l0_preds.bin"
+    W = np.memmap(path, dtype=np.float64, mode="w+", shape=shape)
+    if not params.keep_l0:
+        atexit.register(lambda: os.path.exists(path) and os.remove(path))
+    return W
+
+
+class Level0:
+    """The device operands of level 0 for one run, and its per-block
+    steps (level_0_calculations, Data.cpp:594)."""
+
+    def __init__(self, params: Params, st: Step1Setup):
+        pd, dev = st.pd, st.device
+        self.params, self.device = params, dev
+        self.lambdas, self.Neff = self._put(st.lambdas), self._put(pd.Neff)
+        self.ind = torch.as_tensor(pd.ind_in_analysis, device=dev)
+        self.cov, self.Y = self._put(pd.new_cov), self._put(pd.phenotypes)
+        self.scale_denom = float(params.n_analyzed - params.ncov)
+        maskf = pd.masked_indivs.astype(np.float64)
+        if params.use_loocv:
+            self.mask = self._put(maskf)
+        else:
+            Y_folds, valid = m1.pad_folds(pd.phenotypes, st.fold_sizes)
+            mask_folds, _ = m1.pad_folds(maskf, st.fold_sizes)
+            self.Y_folds, self.mask_folds = self._put(Y_folds), self._put(mask_folds)
+            self.valid = self._put(valid)
+            # device-side fold gather: folds are contiguous sample ranges,
+            # so [K, nmax] indices replace a host restack; pad slots
+            # gather sample 0 and are zeroed by the kernel's valid mask
+            self.fold_idx = torch.as_tensor(
+                m1.fold_index(st.fold_sizes).reshape(-1), device=dev)
+
+    def _put(self, a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+
+    def residualized(self, G8: torch.Tensor, bsnps) -> torch.Tensor:
+        """A block's int8 hardcalls -> masked, imputed, covariate-
+        residualized genotypes of unit variance [B, N] (float64). Raises
+        on a SNP of (near) zero variance."""
+        G = prepare_block_step1(G8, self.ind)
+        G, scale_G = m1.residualize_geno_block(G, self.cov, self.scale_denom)
+        sg = scale_G.cpu().numpy()
+        if not np.all(sg > self.params.numtol):
+            bad = bsnps[int(np.argmin(sg))].ID
+            raise ValueError(f"SNP {bad} has low variance in step 1 block")
+        return G
+
+    def folds(self, G: torch.Tensor) -> torch.Tensor:
+        """[B, N] -> [K, B, nmax] by fold (pad slots from sample 0)."""
+        return G.index_select(1, self.fold_idx).view(
+            G.shape[0], self.params.cv_folds, -1).transpose(0, 1)
+
+    def kfold(self, G: torch.Tensor) -> torch.Tensor:
+        """K-fold W of a residualized block: [K, nmax, J, P]."""
+        return m1.level0_kfold_block(self.folds(G), self.Y_folds, self.mask_folds,
+                                     self.valid, self.lambdas, self.Neff)
+
+    def loocv(self, G3: torch.Tensor) -> torch.Tensor:
+        """LOOCV W of a group of residualized blocks: [n, N, J, P]."""
+        return m1.level0_loocv_blocks(G3, self.Y, self.mask, self.lambdas, self.Neff)
+
+
+def _level0(params, st: Step1Setup, log):
+    """Stream genotype blocks -> level-0 CV predictions W on the host
+    (level_0_calculations, Data.cpp:594). Returns (W_all, blocks per
+    chromosome). W_all is block-major, [nb, K, nmax, J, P] for K-fold or
+    [nb, N, J, P] for LOOCV, so that each block's W lands in one
+    contiguous host range (a strided write of [K, nmax, F, P] cost more
+    than the block's device work)."""
+    J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
+    gd, blocks, dev = st.gd, st.blocks, st.device
+    l0 = Level0(params, st)
+    chr_nblocks: Dict[int, int] = {}
+    if params.use_loocv:
+        W_all = _alloc_W(params, (len(blocks), N, J, P))
+    else:
+        W_all = _alloc_W(params, (len(blocks), params.cv_folds,
+                                  int(st.fold_sizes.max()), J, P))
+    log(f" * level 0 on {dev} (float64)")
+
+    # one-block read lookahead: the reader thread reads the next block's
+    # packed bytes while this block solves; the upload and the decode
+    # stay on this thread's stream
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(gd.read_block_bytes, blocks[0][1]) if blocks else None
+
+    # LOOCV: consecutive same-shape blocks solve in ONE batched dispatch
+    # (batched [n, B, B] eigh; Step1_Models.cpp:494). No block's W depends
+    # on another's, so the grouping changes no result.
+    stack1 = max(1, int(os.environ.get("REGENIE_TPU_STEP1_STACK", "4")))
+    grp: list = []
+
+    def flush():
+        if not grp:
+            return
+        try:
+            Wg = l0.loocv(torch.stack([g for _, g in grp]))
+            for i, (bi, _g) in enumerate(grp):
+                torch.from_numpy(W_all[bi]).copy_(Wg[i])
+        except torch.cuda.OutOfMemoryError:
+            # the group holds its blocks, their stack and an [n, B, B]
+            # eigh workspace at once; one block at a time may still fit
+            log(f"   -batched level-0 group of {len(grp)} blocks ran out of "
+                "device memory; solving its blocks one at a time "
+                "(REGENIE_TPU_STEP1_STACK=1 to silence)")
+            torch.cuda.empty_cache()
+            for bi, g in grp:
+                torch.from_numpy(W_all[bi]).copy_(l0.loocv(g[None])[0])
+        grp.clear()
+
+    t0 = time.time()
+    copy_s = 0.0
+    try:
+        for bidx, (chrom, bsnps) in enumerate(blocks):
+            chr_nblocks[chrom] = chr_nblocks.get(chrom, 0) + 1
+            raw = fut.result()
+            if bidx + 1 < len(blocks):
+                fut = pool.submit(gd.read_block_bytes, blocks[bidx + 1][1])
+            tb = time.time()
+            G = l0.residualized(gd.read_block_device(bsnps, dev, raw), bsnps)
+            if params.use_loocv:
+                if grp and grp[-1][1].shape != G.shape:
+                    flush()
+                grp.append((bidx, G))
+                if len(grp) >= stack1 or bidx == len(blocks) - 1:
+                    flush()
+                what = ""
+            else:
+                Wb = l0.kfold(G)
+                del G
+                _sync(dev)
+                tc = time.time()
+                torch.from_numpy(W_all[bidx]).copy_(Wb)
+                del Wb
+                dt = time.time() - tc
+                copy_s += dt
+                what = f", W to host {dt:.3f}s"
+            if params.verbose:
+                log(f"   -level 0 block {bidx + 1}/{len(blocks)} chr {chrom} "
+                    f"[{len(bsnps)} snps]: {time.time() - tb:.3f}s{what}")
+        flush()  # safety net; the loop flushes on its last block
+    finally:
+        pool.shutdown(wait=True)
+    secs = time.time() - t0
+    log(f" * level 0 done ({secs:.3f}s, {len(blocks)} blocks: "
+        f"{secs / max(len(blocks), 1):.3f}s a block, "
+        f"{params.n_variants / max(secs, 1e-9):.1f} variants/s"
+        + ("" if params.use_loocv else f"; W to host {copy_s:.3f}s") + ")")
+    return W_all, chr_nblocks
+
+
+def _trait_W(W_all, ph, dev) -> torch.Tensor:
+    """One trait's level-0 predictions on the device, columns F = nb * J
+    in block order: [K, nmax, F] (K-fold) or [N, F] (LOOCV)."""
+    w = torch.as_tensor(np.ascontiguousarray(W_all[..., ph]), device=dev)
+    w = w.movedim(0, -2)  # [(K,) n, nb, J]
+    return w.reshape(*w.shape[:-2], -1)
+
+
+def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
+                       fold_sizes, dev, log):
+    """Level-1 ridge per trait on the device, then its LOCO file
+    (ridge_level_1*, make_predictions*, write_predictions)."""
+    J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
+    ind = pd.ind_in_analysis
+    pred_list_path = params.out_prefix + "_pred.list"
+
+    chr_order = [c for c in gd.chr_read if chr_nblocks.get(c, 0) > 0]
+    spans = {}
+    ctr = 0
+    for c in chr_order:
+        spans[c] = (ctr, chr_nblocks[c] * J)
+        ctr += chr_nblocks[c] * J
+
+    sample_ids = [s.key for s in gd.samples]
+    order = sorted(range(N), key=lambda i: sample_ids[i])
+    id_order = np.array([i for i in order if ind[i]], dtype=np.int64)
+    header = "FID_IID " + " ".join(sample_ids[i] for i in id_order) + " \n"
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)
+
+    taus_t = put(taus)
+    if params.use_loocv:
+        Y_t = put(pd.phenotypes)
+    else:
+        Y_folds, valid = m1.pad_folds(pd.phenotypes, fold_sizes)
+        Yf_t, valid_t = put(Y_folds), put(valid)
+        bounds = np.concatenate([[0], np.cumsum(fold_sizes)])
+
+    t0 = time.time()
+    write_s = 0.0
+    prs_list = open_write(params.out_prefix + "_prs.list") if params.print_prs else None
+    with open_write(pred_list_path) as plist:
+        for ph in range(P):
+            if not pd.pheno_pass[ph]:
+                continue
+            name = pd.pheno_names[ph]
+            loco_path = params.out_prefix + f"_{ph+1}.loco"
+            log(f"phenotype {ph+1} ({name}):")
+            predictions = np.zeros((N, len(chr_order)))
+            Wph = _trait_W(W_all, ph, dev)
+            if params.use_loocv:
+                cumsum = m1.level1_linear_loocv(
+                    Wph, Y_t[:, ph], taus_t, float(pd.Neff[ph] - params.ncov)
+                ).cpu().numpy()
+                best = m1.select_best_tau_qt(cumsum, pd.Neff[ph])
+                _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph])
+                b0, _ = m1.level1_linear_full_fit_loocv(Wph, Y_t[:, ph], float(taus[best]))
+                for ci, c in enumerate(chr_order):
+                    st, nn = spans[c]
+                    predictions[:, ci] = (Wph[:, st : st + nn]
+                                          * b0[st : st + nn].T).sum(dim=1).cpu().numpy()
+            else:
+                beta, cumsum = m1.level1_linear_kfold(Wph, Yf_t[:, :, ph], valid_t, taus_t)
+                cumsum = cumsum.cpu().numpy()
+                best = m1.select_best_tau_qt(cumsum, pd.Neff[ph])
+                _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph])
+                for ci, c in enumerate(chr_order):
+                    st, nn = spans[c]
+                    pc = (Wph[:, :, st : st + nn]
+                          @ beta[:, best, st : st + nn, None])[..., 0].cpu().numpy()
+                    for k in range(params.cv_folds):
+                        predictions[bounds[k] : bounds[k + 1], ci] = pc[k, : int(fold_sizes[k])]
+            del Wph
+
+            tw = time.time()
+            total = predictions.sum(axis=1)
+            _write_loco(loco_path, header, params, pd, ph, predictions, total,
+                        chr_order, id_order)
+            plist.write(f"{name} {loco_path if params.use_rel_path else os.path.abspath(loco_path)}\n")
+            log(f"  wrote {loco_path}")
+            if prs_list is not None:
+                # whole-genome PRS: single chr-0 row (write_predictions,
+                # Data.cpp:1905-1925)
+                prs_path = params.out_prefix + f"_{ph+1}.prs"
+                with open(prs_path, "wb") as fh:
+                    fh.write(header.encode())
+                    fh.write(format_value_rows(total[id_order][None, :],
+                                               pd.masked_indivs[id_order, ph], [0]))
+                prs_list.write(f"{name} {prs_path if params.use_rel_path else os.path.abspath(prs_path)}\n")
+            write_s += time.time() - tw
+    if prs_list is not None:
+        prs_list.close()
+        log(f"List of files with whole genome PRS written to: [{params.out_prefix}_prs.list]")
+    secs = time.time() - t0
+    log(f" * level 1 + predictions done ({secs:.3f}s: level 1 {secs - write_s:.3f}s, "
+        f"LOCO files {write_s:.3f}s)")
+    log(f"List of blup files written to: [{pred_list_path}]")
+
+
+def _write_l0_master(params, blocks, prefix, njobs, log):
+    """write_l0_master (Data.cpp:244-309): master + per-job snplists."""
+    total = len(blocks)
+    if njobs <= 1:
+        raise ValueError("number of jobs must be >1")
+    if njobs > total:
+        log("   -WARNING: Number of jobs cannot be greater than number of blocks.")
+        njobs = total
+    log(f" * running level 0 in parallel across {total} genotype blocks")
+    log(f"   -using {njobs} jobs")
+    mpath = prefix + ".master"
+    nall = total // njobs
+    remainder = total - nall * njobs
+    with open_write(mpath) as mf:
+        mf.write(f"{params.n_variants} {params.block_size}\n")
+        jcount = 0
+        bidx = 0
+        while bidx < total:
+            btarget = nall + (1 if jcount < remainder else 0)
+            job_blocks = blocks[bidx : bidx + btarget]
+            ns = sum(len(b[1]) for b in job_blocks)
+            fname = f"{prefix}_job{jcount+1}"
+            mf.write(f"{fname} {btarget} {ns}\n")
+            with open_write(fname + ".snplist") as sf:
+                for _, bsnps in job_blocks:
+                    for s in bsnps:
+                        sf.write(s.ID + "\n")
+            bidx += btarget
+            jcount += 1
+    log(f"   -master file written to [{mpath}]")
+
+
+def _log_tau_table(log, h_l1, cumsum, best, neff):
+    rsq = m1.cv_rsq(cumsum, neff)
+    sse = (cumsum[2] + cumsum[3] - 2 * cumsum[4]) / neff
+    for j in range(len(h_l1)):
+        line = f"  {fmt(h_l1[j]):>5} : Rsq = {fmt(rsq[j])}, MSE = {fmt(sse[j])}"
+        if j == best:
+            line += "<- min value"
+        log(line)
+
+
+def _write_loco(path, header, params: Params, pd, ph, predictions, total,
+                chr_order, id_order):
+    """Per-chromosome LOCO predictions (write_predictions, Data.cpp:1795):
+    the header, then one row for every chromosome 1..n_chrom, present or
+    not, each the whole-genome prediction less that chromosome's."""
+    chr_idx = {c: i for i, c in enumerate(chr_order)}
+    chroms = list(range(1, params.n_chrom + 1))
+    V = np.tile(total[id_order], (len(chroms), 1))
+    for r, chrom in enumerate(chroms):
+        if chrom in chr_idx:
+            V[r] -= predictions[id_order, chr_idx[chrom]]
+    payload = format_value_rows(V, pd.masked_indivs[id_order, ph], chroms)
+    with open(path, "wb") as fh:
+        fh.write(header.encode())
+        fh.write(payload)

@@ -35,48 +35,9 @@ from .io.output import (block_prefixes, format_block_htp,
 from .models import step2 as m2
 from .ops import fused_score as fsc
 from .prep import prepare
+from .cli import unported
 from .utils.device import resolve_device
 from .utils.stats import chisq_neglog10, ttest_neglog10, usage_info_line
-
-
-def unported(params: Params) -> Optional[str]:
-    """Name of the first requested mode this port cannot run yet, or
-    None. Every such mode raises NotImplementedError before any work."""
-    checks = (
-        (params.step != 2, "Step 1"),
-        (params.trait_mode != QT,
-         "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
-        (params.file_type not in ("bed", "bgen"),
-         f"{params.file_type.upper()} input"),
-        # the JAX package sends these BGEN runs to its dense dosage path
-        # (fused_ok, run_step2.py:793-806), which is not ported
-        (params.file_type == "bgen" and params.htp_out,
-         "BGEN input with --htp"),
-        (params.file_type == "bgen" and not params.split_by_pheno,
-         "BGEN input with merged output (--no-split)"),
-        (params.file_type == "bgen" and params.test_type != 0,
-         "BGEN input with --test dominant/recessive"),
-        (bool(params.set_list), "gene-based tests (--set-list)"),
-        (bool(params.interaction_var), "interaction tests"),
-        (params.trait_set, "multi-trait tests (--mt)"),
-        (params.multiphen, "MultiPhen (--multiphen)"),
-        (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
-        (params.mcc_test, "the MCC test (--mcc)"),
-        (not params.split_by_pheno, "merged output (--no-split)"),
-        (params.gz_out, "gzipped output (--gz)"),
-        (params.af_cc, "--af-cc"),
-        (params.write_samples, "--write-samples"),
-        (params.print_cov_betas, "--print-cov-betas"),
-        (bool(params.condition_list or params.condition_file),
-         "conditional analysis"),
-        (params.transposed_pheno, "--tpheno-file"),
-        (params.ltco_chr > 0, "--force-ltco"),
-        (params.debug, "--debug"),
-    )
-    for hit, name in checks:
-        if hit:
-            return name
-    return None
 
 
 def read_pred_list(path: str) -> Dict[str, str]:

@@ -1,5 +1,5 @@
 """Host-side scalar statistics: p-value transforms (the port's copy of
-regenie_tpu/utils/stats.py, trimmed to what Step 2 QT calls).
+regenie_tpu/utils/stats.py, trimmed to what the QT steps call).
 
 Mirrors the reference's Regenie.cpp helpers (get_logp :1843, with the
 asymptotic tail expansion for chisq p-values that underflow f64).
@@ -65,9 +65,17 @@ def convert_logp_raw(logp) -> str:
 def usage_info_line(params) -> str:
     """Approximate host-memory estimate (print_usage_info,
     Regenie.cpp:1510-1552): per-sample double vectors held in RAM
-    (Step 2, quantitative traits)."""
+    (quantitative traits)."""
     P, B = params.n_pheno, params.block_size
-    total = 3 * P + B + 2 * params.ncov + B
+    if not params.test_mode:
+        t_eff = 1 if params.write_l0_pred else max(params.total_n_block, 1)
+        p_eff = 1 if params.write_l0_pred else P
+        b_eff = max(params.total_n_block, 1)
+        total = 4 * P + params.n_chrom + params.ncov
+        total += max(B + P * params.n_ridge_l0 * t_eff,
+                     p_eff * params.n_ridge_l0 * b_eff)
+    else:
+        total = 3 * P + B + 2 * params.ncov + B
     ram = total * params.n_samples * 8.0
     unit = "GB" if ram > 1e9 else "MB"
     val = ram / (1e9 if unit == "GB" else 1e6)

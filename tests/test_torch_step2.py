@@ -101,11 +101,13 @@ def test_cli_matches_jax_fused(dataset, scenario):
 
 
 def test_port_imports_no_jax():
-    """The port and its run_step2 / ops modules import with jax made
-    unimportable, and pull in no regenie_tpu module."""
+    """The port and its run_step1 / run_step2 / models / ops modules import
+    with jax made unimportable, and pull in no regenie_tpu module."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import regenie_tpu_torch, regenie_tpu_torch.run_step2, "
+        "regenie_tpu_torch.run_step1, regenie_tpu_torch.models.step1, "
+        "regenie_tpu_torch.ops.geno_ops, "
         "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
         "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.ops.pallas_ops, "
         "regenie_tpu_torch.io.bgen, "
@@ -114,6 +116,7 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
         "native.planes_lib()\n"
+        "native.loco_lib()\n"
         "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
         "or m.startswith('regenie_tpu.'))\n"
         "assert not bad, bad\n"
@@ -172,10 +175,16 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
         cli.main(["--step", "2", "--bed", prefix, "--phenoFile",
                   f"{tmp_path}/pheno.txt", "--ignore-pred",
                   "--out", f"{tmp_path}/o"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--step", "1", "--bed", prefix, "--phenoFile",
+                  f"{tmp_path}/pheno.txt", "--bsize", "4",
+                  "--out", f"{tmp_path}/s1"])
+    assert not os.path.exists(f"{tmp_path}/s1_pred.list")
 
 
 @pytest.mark.parametrize("flags", [
-    ["--step", "1"], ["--bt"], ["--t2e", "--phenoColList", "Y1",
+    # Step 1 runs on BED QT since its slice; these Step-1 modes still raise
+    ["--step", "1", "--bt"], ["--bt"], ["--t2e", "--phenoColList", "Y1",
                                 "--eventColList", "Y2"],
     ["--no-split"], ["--interaction", "C1"], ["--mcc"],
     ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
@@ -186,11 +195,14 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     # BGEN runs the JAX package keeps on its dense dosage path
     ["bgen", "--htp", "X"], ["bgen", "--no-split"],
     ["bgen", "--test", "dominant"],
+    ["bgen", "--step", "1"], ["--step", "1", "--test-l0"],
+    ["--step", "1", "--select-l0", "f"], ["--step", "1", "--print"],
+    ["--step", "1", "--prior-alpha", "0.5"],
 ])
 def test_unported_mode_raises(tmp_path, monkeypatch, flags):
     """Every mode the port does not have raises NotImplementedError, on
     the CPU too; none silently runs something else. Flags after "bgen"
-    run on a BGEN input."""
+    run on a BGEN input; flags without --step run Step 2."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
