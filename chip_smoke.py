@@ -8,7 +8,8 @@ Phases, each of which must pass:
 1. build: compile every CUDA kernel of the port from ops/csrc/ with nvcc
    (one process per source, started together), and report whether the
    native libraries (the root native/ library, the port's BGEN plane
-   extractor) load, and with which symbols.
+   extractor with zstd, its PGEN block decoder) load, and with which
+   symbols.
 2. kernel: hold each kernel against its plain PyTorch version on the card
    on ragged shapes and at the full width of the repository's UKB shape
    (N=400,000 samples, P=50 traits of which 10 incomplete, K=20, blocks of
@@ -70,14 +71,28 @@ Phases, each of which must pass:
    used), its W held against the same functions in float64 on the CPU
    (max |dW| <= 1e-8), and level1_linear_kfold timed for one trait at a
    real depth (F = 2,500, 8 GB of synthetic predictions).
-6. cross-check: small runs through the port on the card (by default and
-   with REGENIE_TPU_I8=0) and on the CPU, a BED --htp run and a
-   two-chromosome BGEN --minINFO run (N=2,000, M=600 each); every output
-   field meets the same bar. Then the two-step workflow on the BED
-   dataset, K-fold and --loocv, on the card and on the CPU: Step 1, and
-   Step 2 with --pred on that run's own _pred.list; every .loco value
-   within one unit of its sixth significant digit, every Step-2 field
-   within its bar.
+5b. PGEN chrX slice: a synthetic PLINK2 PGEN at that width (storage
+   mode 0x10; a quarter of the records LD-compressed difflists, half of
+   them inverted; half the samples male in the .psam) of 2 blocks, one on
+   chromosome 1 and one on chrX (1/8 of its variants in PAR1, the rest
+   non-PAR), and the port's Step-2 CLI on the card with --gz: fused_i8
+   launches once per block and no other kernel, the 50 .regenie.gz files
+   decompress and are well formed; both blocks agree with the plain path
+   on the card (the slice bars; on chrX A1FREQ, N and the hemizygous MAC
+   within rel 1e-9). Printed: the PGEN host read (the native decoder) and
+   fused_i8's time per block, block 1's operand build with the male tail,
+   the split / merged / gzipped writes of the two blocks' rows, the CLI
+   wall and variants/s.
+6. cross-check: small runs (N=2,000) through the port on the card (by
+   default and with REGENIE_TPU_I8=0) and on the CPU, each with
+   --remove: a BED --htp run, a two-chromosome BGEN --minINFO run, a
+   chrX BED --htp run and a chrX BGEN run (PAR1, non-PAR and PAR2
+   positions), a zstd BGEN run and a chrX PGEN run with --no-split --gz;
+   every output field meets the same bar. Then the two-step workflow on
+   the BED dataset (K-fold and --loocv) and on the PGEN (K-fold), on the
+   card and on the CPU: Step 1, and Step 2 with --pred on that run's own
+   _pred.list; every .loco value within one unit of its sixth
+   significant digit, every Step-2 field within its bar.
 
 The last lines of standard output are a JSON line with every kernel's
 numbers, the card's name and power limit (nvidia-smi), and
@@ -133,8 +148,66 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# chrX pseudo-autosomal bounds of build 37 (the CLI's default --par-region)
+PAR1_MAX, PAR2_MIN = 2_781_479, 155_701_383
+
+
+def chrx_positions(n, n_par1, n_par2=0):
+    """Positions of n chrX variants: the first n_par1 in PAR1, the last
+    n_par2 in PAR2, the rest spread over the non-PAR region."""
+    k = n - n_par1 - n_par2
+    return np.concatenate([
+        60_001 + 1000 * np.arange(n_par1),
+        PAR1_MAX + 1 + (np.arange(k) * ((PAR2_MIN - PAR1_MAX - 2) // max(k, 1))),
+        PAR2_MIN + 1000 * np.arange(n_par2)]).astype(np.int64)
+
+
+def _hardcall_blocks(rng, N, chroms, P, n_cov, miss, effect_sd, chunk):
+    """The hardcall generator of write_dataset and write_pgen_dataset:
+    (beta, X, Y, chunks), where chunks yields (first variant index, [c,
+    N] BED 2-bit codes) `chunk` variants at a time; the caller adds each
+    chunk's causal effects to Y (_add_effects)."""
+    M = sum(n for _, n in chroms)
+    af = rng.uniform(0.01, 0.5, size=M)
+    af[::17] = max(0.004, 5.0 / N)
+    beta = rng.normal(size=(M, P)) * effect_sd * (rng.random((M, P)) < 0.02)
+    X = rng.normal(size=(N, n_cov))
+    Y = X @ rng.normal(size=(n_cov, P)) + rng.normal(size=(N, P))
+    lut = np.array([1, 0, 2, 3], np.uint8)  # missing, hom-alt, het, hom-ref
+
+    def chunks():
+        for s in range(0, M, chunk):
+            a = af[s : s + chunk, None]
+            t1 = miss
+            t2 = t1 + (1 - miss) * a * a
+            t3 = t2 + (1 - miss) * 2 * a * (1 - a)
+            u = rng.random((len(a), N), dtype=np.float32)
+            k = ((u >= t1).astype(np.uint8) + (u >= t2.astype(np.float32))
+                 + (u >= t3.astype(np.float32)))
+            yield s, lut[k]
+
+    return beta, X, Y, chunks()
+
+
+def _add_effects(Y, beta, s, codes):
+    """Y += the per-allele effects of the causal variants among the BED
+    codes of variants s, s + 1, ..."""
+    causal = np.nonzero(beta[s : s + len(codes)].any(axis=1))[0]
+    if len(causal):
+        g = (2.0 * (codes[causal] == 0) + (codes[causal] == 2))
+        Y += g.T @ beta[s + causal]
+
+
+def _positions(chroms, positions, default):
+    """[(chrom, positions)] of each chromosome: positions[chrom] where
+    given, else default(chrom index, n)."""
+    return [(c, np.asarray(positions[c]) if positions and c in positions
+             else default(i, n)) for i, (c, n) in enumerate(chroms)]
+
+
 def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
-                  na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128):
+                  na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128,
+                  positions=None):
     """Synthetic PLINK BED/bim/fam (prefix d/geno), phenotypes
     (d/pheno.txt: Y1..YP, the first n_inc with na_rate NA), covariates
     (d/covar.txt: n_cov columns) and d/remove.txt (n_remove samples).
@@ -145,43 +218,159 @@ def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     missing codes at rate `miss`; they are drawn `chunk` variants at a
     time, so memory stays small at biobank N. Phenotypes are covariate
     effects plus noise and, when effect_sd > 0, per-allele effects of sd
-    effect_sd on 2% of the variants. Returns the BED prefix."""
+    effect_sd on 2% of the variants. Samples of even index are male in
+    the .fam. Variants sit at 1000 + 10 j on each chromosome, or at
+    positions[chrom] where given (a chromosome named "X" is chrX; see
+    chrx_positions). Returns the BED prefix."""
     rng = np.random.default_rng(seed)
-    M = sum(n for _, n in chroms)
-    af = rng.uniform(0.01, 0.5, size=M)
-    af[::17] = max(0.004, 5.0 / N)
-    beta = rng.normal(size=(M, P)) * effect_sd * (rng.random((M, P)) < 0.02)
-    X = rng.normal(size=(N, n_cov))
-    Y = X @ rng.normal(size=(n_cov, P)) + rng.normal(size=(N, P))
+    beta, X, Y, chunks = _hardcall_blocks(rng, N, chroms, P, n_cov, miss,
+                                          effect_sd, chunk)
     nb = (N + 3) // 4
-    lut = np.array([1, 0, 2, 3], np.uint8)  # missing, hom-alt, het, hom-ref
     prefix = os.path.join(d, "geno")
     with open(prefix + ".bed", "wb") as fh:
         fh.write(b"\x6c\x1b\x01")
-        for s in range(0, M, chunk):
-            a = af[s : s + chunk, None]
-            t1 = miss
-            t2 = t1 + (1 - miss) * a * a
-            t3 = t2 + (1 - miss) * 2 * a * (1 - a)
-            u = rng.random((len(a), N), dtype=np.float32)
-            k = ((u >= t1).astype(np.uint8) + (u >= t2.astype(np.float32))
-                 + (u >= t3.astype(np.float32)))
-            codes = lut[k]
-            causal = np.nonzero(beta[s : s + len(a)].any(axis=1))[0]
-            if len(causal):
-                g = (2.0 * (codes[causal] == 0) + (codes[causal] == 2))
-                Y += g.T @ beta[s + causal]
+        for s, codes in chunks:
+            _add_effects(Y, beta, s, codes)
             codes = np.pad(codes, ((0, 0), (0, 4 * nb - N))).reshape(-1, nb, 4)
             fh.write((codes[..., 0] | (codes[..., 1] << 2) | (codes[..., 2] << 4)
                       | (codes[..., 3] << 6)).astype(np.uint8).tobytes())
     with open(prefix + ".bim", "w") as fh:
         v = 0
-        for chrom, n in chroms:
-            fh.write("".join(f"{chrom} v{v + j} 0 {1000 + 10 * j} A C\n"
-                             for j in range(n)))
-            v += n
+        for chrom, pos in _positions(chroms, positions,
+                                     lambda i, n: 1000 + 10 * np.arange(n)):
+            fh.write("".join(f"{chrom} v{v + j} 0 {p} A C\n"
+                             for j, p in enumerate(pos)))
+            v += len(pos)
     with open(prefix + ".fam", "w") as fh:
         fh.write("".join(f"F{i} I{i} 0 0 {1 + i % 2} -9\n" for i in range(N)))
+    _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove)
+    return prefix
+
+
+def _vints(v):
+    """LEB128 bytes (the PGEN format's vint) of each non-negative value of
+    v, concatenated, and the byte count of each."""
+    v = np.asarray(v, np.uint64)
+    nby = np.ones(len(v), np.int64)
+    for k in range(1, 5):
+        nby += v >= np.uint64(1 << (7 * k))
+    out = np.zeros(int(nby.sum()), np.uint8)
+    start = np.concatenate([[0], np.cumsum(nby)[:-1]])
+    for k in range(5):
+        m = nby > k
+        byte = (v[m] >> np.uint64(7 * k)) & np.uint64(0x7F)
+        out[start[m] + k] = byte.astype(np.uint8) | np.where(nby[m] > k + 1, 0x80, 0)
+    return out, nby
+
+
+def _pack2(codes):
+    """2-bit codes, 4 to a byte, low bits first."""
+    n = len(codes)
+    c = np.zeros(4 * ((n + 3) // 4), np.uint8)
+    c[:n] = codes
+    c = c.reshape(-1, 4)
+    return (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)).astype(np.uint8)
+
+
+def _difflist(ids, codes, N):
+    """A PGEN difflist of sorted sample ids with their new 2-bit codes:
+    [vint L][first id of each group of 64][each group's delta bytes - 63,
+    but the last's][raregeno][vint deltas]."""
+    L = len(ids)
+    head, _ = _vints([L])
+    if L == 0:
+        return head.tobytes()
+    sid_bytes = (int(N).bit_length() + 7) // 8
+    first = ids[::64].astype(np.int64)
+    fb = ((first[:, None] >> (8 * np.arange(sid_bytes))) & 0xFF).astype(np.uint8)
+    d = np.diff(ids)
+    keep = np.ones(len(d), bool)
+    keep[63::64] = False  # a group's first id is not a delta
+    deltas, nby = _vints(d[keep])
+    group_ct = len(first)
+    sizes = np.bincount(np.arange(len(nby)) // 63, weights=nby,
+                        minlength=group_ct).astype(np.int64)[: group_ct - 1] - 63
+    return b"".join([head.tobytes(), fb.tobytes(), sizes.astype(np.uint8).tobytes(),
+                     _pack2(codes).tobytes(), deltas.tobytes()])
+
+
+def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
+                       na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128,
+                       positions=None, ld_every=4, ld_diff=0.005):
+    """Synthetic PLINK2 .pgen/.pvar/.psam (prefix d/geno; storage mode
+    0x10, 4-bit vrtypes, 3-byte record lengths) with the genotypes of
+    write_dataset's generator, and its phenotype, covariate and remove
+    files. Every ld_every-th variant (from the second) is an
+    LD-compressed record: the last non-LD variant's genotypes with a
+    share ld_diff of samples redrawn, stored as a difflist against it
+    (vrtype 2; every other one inverted, hom-ref and hom-alt swapped:
+    vrtype 3); the others are 2-bit direct records (vrtype 0). The .psam
+    has a SEX column (samples of even index male), the .pvar REF A and
+    ALT C. Returns the prefix."""
+    rng = np.random.default_rng(seed)
+    M = sum(n for _, n in chroms)
+    beta, X, Y, chunks = _hardcall_blocks(rng, N, chroms, P, n_cov, miss,
+                                          effect_sd, chunk)
+    to_pgen = np.array([2, 3, 1, 0], np.uint8)  # BED code -> ALT count code
+    to_bed = np.array([3, 2, 0, 1], np.uint8)
+    swap = np.array([2, 1, 0, 3], np.uint8)
+    vblocks = (M + 65535) // 65536
+    index = 8 * vblocks + sum((min(65536, M - 65536 * b) + 1) // 2
+                              for b in range(vblocks)) + 3 * M
+    vrtypes = np.zeros(M, np.uint8)
+    lens = np.zeros(M, np.int64)
+    prefix = os.path.join(d, "geno")
+    with open(prefix + ".pgen", "wb") as fh:
+        fh.write(b"\x6c\x1b\x10" + np.array([M, N], "<u4").tobytes() + b"\x02")
+        fh.write(bytes(index))
+        base = None
+        nb = (N + 3) // 4
+        for s, codes in chunks:
+            pg = to_pgen[codes]
+            ld = {}  # row of the chunk -> its difflist record
+            for j in range(len(pg)):
+                v = s + j
+                if base is not None and v % ld_every == 1:
+                    inv = (v // ld_every) % 2 == 1
+                    ids = np.sort(rng.choice(N, size=max(1, int(ld_diff * N)),
+                                             replace=False))
+                    new = rng.integers(0, 4, len(ids)).astype(np.uint8)
+                    pg[j] = swap[base] if inv else base
+                    pg[j, ids] = new
+                    ld[j] = _difflist(ids, new, N)
+                    vrtypes[v] = 3 if inv else 2
+                else:
+                    base = pg[j].copy()
+            c = np.pad(pg, ((0, 0), (0, 4 * nb - N))).reshape(-1, nb, 4)
+            packed = (c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4)
+                      | (c[..., 3] << 6)).astype(np.uint8)
+            for j in range(len(pg)):
+                rec = ld[j] if j in ld else packed[j].tobytes()
+                lens[s + j] = len(rec)
+                fh.write(rec)
+            _add_effects(Y, beta, s, to_bed[pg])
+        fh.seek(12)
+        start = 12 + index
+        for b in range(vblocks):
+            fh.write(np.array([start + lens[: 65536 * b].sum()], "<u8").tobytes())
+        for b in range(vblocks):
+            lo, hi = 65536 * b, min(M, 65536 * (b + 1))
+            vt = np.zeros(2 * ((hi - lo + 1) // 2), np.uint8)
+            vt[: hi - lo] = vrtypes[lo:hi]
+            fh.write((vt[0::2] | (vt[1::2] << 4)).tobytes())
+            fh.write(((lens[lo:hi, None] >> (8 * np.arange(3))) & 0xFF)
+                     .astype(np.uint8).tobytes())
+    with open(prefix + ".pvar", "w") as fh:
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\n")
+        v = 0
+        for chrom, pos in _positions(chroms, positions,
+                                     lambda i, n: 1000 + 10 * np.arange(n)):
+            fh.write("".join(f"{chrom}\t{p}\tv{v + j}\tA\tC\n"
+                             for j, p in enumerate(pos)))
+            v += len(pos)
+    with open(prefix + ".psam", "w") as fh:
+        fh.write("#FID\tIID\tSEX\n")
+        fh.write("".join(f"F{i}\tI{i}\t{1 + i % 2}\n" for i in range(N)))
     _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove)
     return prefix
 
@@ -209,7 +398,8 @@ def _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove):
 
 def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
                        uncertain=0.1, na_rate=0.05, n_remove=0, effect_sd=0.0,
-                       chunk=32, workers=8):
+                       chunk=32, workers=8, positions=None, compress=None,
+                       compression=1):
     """Synthetic BGEN v1.2 (layout 2, zlib, 8-bit, unphased diploid, with
     sample IDs) at d/geno.bgen, its Oxford sample file d/geno.sample (with
     a sex column), and the phenotype, covariate and remove files of
@@ -222,7 +412,10 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     others carry a hard call; a share `miss` is missing (ploidy byte
     0x82). k0 + k1 <= 255 always. Variants are drawn `chunk` at a time and
     compressed in a pool of `workers` threads, so memory stays small at
-    biobank N. Returns the .bgen path."""
+    biobank N. Variant v sits at 1000 + 10 v, or on a chromosome named
+    in `positions` at positions[chrom]. `compress` (bytes -> bytes, zlib
+    level 1 by default) with its header flag `compression` (2 for zstd)
+    writes another compression. Returns the .bgen path."""
     import struct
     import zlib
     from concurrent.futures import ThreadPoolExecutor
@@ -230,6 +423,11 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     rng = np.random.default_rng(seed)
     M = sum(n for _, n in chroms)
     chrom_of = np.concatenate([np.full(n, c) for c, n in chroms])
+    start = np.cumsum([0] + [n for _, n in chroms])
+    pos_of = np.concatenate([p for _, p in _positions(
+        chroms, positions, lambda i, n: 1000 + 10 * (start[i] + np.arange(n)))])
+    if compress is None:
+        compress = lambda b: zlib.compress(b, 1)  # noqa: E731
     af = rng.uniform(0.01, 0.5, size=M)
     af[::17] = max(0.004, 5.0 / N)
     beta = rng.normal(size=(M, P)) * effect_sd * (rng.random((M, P)) < 0.02)
@@ -241,7 +439,7 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     head = np.frombuffer(struct.pack("<IHBB", N, 2, 2, 2), np.uint8)
     with open(path, "wb") as fh, ThreadPoolExecutor(workers) as pool:
         fh.write(struct.pack("<IIII", 20 + lsi, 20, M, N) + b"bgen")
-        fh.write(struct.pack("<I", 1 | (2 << 2) | (1 << 31)))
+        fh.write(struct.pack("<I", compression | (2 << 2) | (1 << 31)))
         fh.write(struct.pack("<II", lsi, N) + b"".join(
             struct.pack("<H", len(s)) + s.encode() for s in ids))
         for s in range(0, M, chunk):
@@ -268,7 +466,7 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
             if len(causal):
                 dose = (2.0 * k[causal, :, 0] + k[causal, :, 1]) / 255.0
                 Y += np.where(gmiss[causal], 0.0, dose).T @ beta[s + causal]
-            comp = pool.map(lambda row: zlib.compress(row.tobytes(), 1), body)
+            comp = pool.map(lambda row: compress(row.tobytes()), body)
             for j, z in enumerate(comp):
                 v = s + j
                 rsid = f"v{v}".encode()
@@ -276,7 +474,7 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
                 fh.write(struct.pack("<H", len(rsid)) + rsid
                          + struct.pack("<H", len(rsid)) + rsid
                          + struct.pack("<H", len(ch)) + ch
-                         + struct.pack("<IH", 1000 + 10 * v, 2)
+                         + struct.pack("<IH", int(pos_of[v]), 2)
                          + struct.pack("<I", 1) + b"A" + struct.pack("<I", 1) + b"C"
                          + struct.pack("<II", len(z) + 4, body.shape[1]) + z)
     with open(os.path.join(d, "geno.sample"), "w") as fh:
@@ -1428,10 +1626,44 @@ def _i8_env(off):
         os.environ.pop("REGENIE_TPU_I8", None)
 
 
-def _slice_cli(argv, kernel, what):
+def _read_text(path):
+    """A text file's contents, decompressed when it ends in .gz."""
+    import gzip
+
+    with (gzip.open(path, "rt") if path.endswith(".gz") else open(path)) as fh:
+        return fh.read()
+
+
+def _check_rows(path, M):
+    """A split .regenie file (gzipped or not) is well formed: the header
+    of the QT format, M rows of as many fields, CHROM, GENPOS and N
+    integers, A1FREQ in [0, 1], every other number a float or NA."""
+    rows = _read_text(path).splitlines()
+    head = rows[0].split()
+    if head[:6] != ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ"] \
+            or head[-2:] != ["LOG10P", "EXTRA"]:
+        raise AssertionError(f"{path}: header {rows[0]!r}")
+    if len(rows) - 1 != M:
+        raise AssertionError(f"{path} has {len(rows) - 1} rows, not {M}")
+    iN, iT = head.index("N"), head.index("TEST")
+    for r in rows[1:]:
+        t = r.split()
+        if len(t) != len(head):
+            raise AssertionError(f"{path}: row {r!r}")
+        int(t[0]), int(t[1]), int(t[iN])
+        if not 0.0 <= float(t[5]) <= 1.0:
+            raise AssertionError(f"{path}: A1FREQ of {r!r}")
+        for x in t[6:iN] + t[iT + 1 : -1]:
+            if x != "NA":
+                float(x)
+
+
+def _slice_cli(argv, kernel, what, suffix=".regenie"):
     """One CLI run of a slice with the launch counts set to 0 just before
     it and read just after: `kernel` must launch once per block and no
-    other kernel. Prints the per-block lines and the run's times."""
+    other kernel, and the P output files <out>_Y<p><suffix> (gzipped
+    when the suffix ends in .gz) must be well formed. Prints the
+    per-block lines and the run's times."""
     import torch
 
     f = FULL
@@ -1446,12 +1678,9 @@ def _slice_cli(argv, kernel, what):
 
     n_blocks = math.ceil(M / f["B"])
     for p in range(f["P"]):
-        with open(f"{out}_Y{p + 1}.regenie") as fh:
-            n = sum(1 for _ in fh) - 1
-        if n != M:
-            raise AssertionError(f"{out}_Y{p + 1}.regenie has {n} rows, not {M}")
-    print(f"  {what}: {f['P']} output files of {M} rows; launches {counts} "
-          f"for {n_blocks} blocks")
+        _check_rows(f"{out}_Y{p + 1}{suffix}", M)
+    print(f"  {what}: {f['P']} well-formed {suffix} files of {M} rows; "
+          f"launches {counts} for {n_blocks} blocks")
     want = {name: n_blocks if name == kernel else 0 for name in counts}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
@@ -1691,12 +1920,13 @@ def split_path(eng, plain, chrom, raw, bsnps, ref):
 
 
 def _compare_files(f_gpu, f_cpu):
-    """Field-by-field comparison of two output files (HTP or split
-    .regenie): text fields equal, LOG10P within 1e-5, every other number
-    within 1e-6, each beyond the half-unit of the 6 significant digits the
-    files print. Returns the largest excess ratio (<= 1 passes)."""
-    la = open(f_gpu).read().splitlines()
-    lb = open(f_cpu).read().splitlines()
+    """Field-by-field comparison of two output files (HTP, split or
+    merged .regenie, gzipped or not): text fields equal, LOG10P within
+    1e-5, every other number within 1e-6, each beyond the half-unit of
+    the 6 significant digits the files print. Returns the largest excess
+    ratio (<= 1 passes)."""
+    la = _read_text(f_gpu).splitlines()
+    lb = _read_text(f_cpu).splitlines()
     if len(la) != len(lb) or la[0] != lb[0]:
         raise AssertionError(f"{f_gpu}: header or row count differs")
     htp = "\t" in la[0]
@@ -1717,7 +1947,7 @@ def _compare_files(f_gpu, f_cpu):
                 fx, fy = float(x), float(y)
             except ValueError:
                 raise AssertionError(f"field differs:\n{ra}\n{rb}") from None
-            if (ta[i - 1] if htp else names[i]) == "LOG10P":
+            if (ta[i - 1] if htp else names[i]).startswith("LOG10P"):
                 tol = LOG10P_TOL
             elif htp and i == 11:  # Pval: compare as -log10
                 fx, fy, tol = -math.log10(fx), -math.log10(fy), LOG10P_TOL
@@ -1947,14 +2177,120 @@ def step1_slice_phase(tmp):
     torch.cuda.empty_cache()
 
 
-def two_step_cross_check(tmp, prefix, P):
-    """The two-step QT workflow at N=2,000 on the card and on the CPU,
-    K-fold and --loocv: Step 1, then Step 2 with --pred on that run's own
-    _pred.list. Every .loco value within one unit of its sixth significant
-    digit, every Step-2 field within its bar."""
-    base = ["--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt", "--covarFile",
+def pgen_chrx_slice_phase(tmp):
+    """The port's Step-2 QT CLI at full width on the card on a PGEN of two
+    blocks, one on chromosome 1 and one on chrX (1/8 of its variants in
+    PAR1, the rest non-PAR; half the samples male), with --gz: fused_i8
+    launches once per block and no other kernel, and the 50 .regenie.gz
+    files are well formed. Then both blocks through the kernel path
+    against the plain path on the card (the bars, and on chrX A1FREQ, N
+    and the hemizygous MAC within rel 1e-9), with the host read and the
+    kernel timed per block, block 1's operand build, and the split, merged
+    and gzipped writes of the two blocks' rows. Returns fused_i8's
+    launches in the CLI run."""
+    import torch
+
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.ops import kernels
+    from regenie_tpu_torch.run_step2 import (Step2Engine, open_engine,
+                                             setup_writers, write_block_rows)
+
+    f = FULL
+    B = f["B"]
+    t0 = time.time()
+    prefix = write_pgen_dataset(
+        tmp, seed=6, N=f["N"], chroms=((1, B), ("X", B)), P=f["P"],
+        n_inc=f["n_inc"], n_cov=f["K"] - 1,
+        positions={"X": chrx_positions(B, B // 8)})
+    print(f"  PGEN dataset N={f['N']} M={2 * B} (chromosome 1, chrX) P={f['P']} "
+          f"K={f['K']} written in {time.time() - t0:.1f}s "
+          f"({os.path.getsize(prefix + '.pgen') / 1e6:.1f} MB)")
+    argv = ["--step", "2", "--pgen", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--ignore-pred", "--bsize", str(B),
+            "--gz", "--verbose", "--out"]
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    launches = _slice_cli(argv + [f"{tmp}/pgen"], "fused_i8",
+                          "fused_i8 run (PGEN, chrX, --gz)", suffix=".regenie.gz")
+
+    params = cli.args_to_params(cli.build_parser().parse_args(argv + [f"{tmp}/x"]))
+    eng, blocks = open_engine(params, log=lambda *a: None)
+    plain = Step2Engine(params, eng.gd, eng.pd, eng.blup_files, eng.log,
+                        eng.device, kernel=False)
+    vrt = eng.gd._pgen.pf.vrtypes
+    print(f"  records: {int((vrt == 0).sum())} 2-bit, {int((vrt == 2).sum())} "
+          f"LD-compressed, {int((vrt == 3).sum())} LD-compressed inverted; "
+          f"{int(eng.gd.sex.sum())} of {eng.gd.n_samples} samples male")
+    if [c for c, _ in blocks] != [1, 23]:
+        raise AssertionError(f"blocks on chromosomes {[c for c, _ in blocks]}")
+    t0 = time.time()
+    eng.prep_chrom(1)
+    eng._ensure_fused_consts()
+    torch.cuda.synchronize()
+    c = eng._fused_consts
+    print(f"  block 1's operand build (int8 limbs and limbs_k, male tail): "
+          f"{time.time() - t0:.2f}s; C_used={c.layout_C()}, "
+          f"Cp={c.Wp.scale.shape[0]}, has_male={c.has_male}")
+    results = []
+    for chrom, bsnps in blocks:
+        t0 = time.time()
+        raw = eng.read_block_raw(bsnps)
+        read_s = time.time() - t0
+        out = {}
+        for name, e in (("int8", eng), ("plain", plain)):
+            e.prep_chrom(chrom)
+            out[name] = e.test_raw_block_fused(raw, bsnps)[0]
+        x = eng._fused_upload(raw)
+        limbs_k = eng._fused_consts.Wp.limbs_k
+        ms = _time_ms(lambda: kernels.fused_i8_products(x, limbs_k), 10)
+        npb = eng.non_par_flags(bsnps)
+        print(f"  chr{chrom} block: PGEN host read {read_s:.3f}s ({raw.nbytes / 1e6:.1f} MB "
+              f"of BED-coded bytes); fused_i8 {ms:.3f} ms (median of 10); "
+              f"{int(npb.sum())} of {len(bsnps)} variants non-PAR")
+        ref = out["plain"]
+        _assert_close(f"chr{chrom} LOG10P, int8 operand", out["int8"].logp,
+                      ref.logp, LOG10P_TOL)
+        _assert_close(f"chr{chrom} BETA, int8 operand", out["int8"].bhat,
+                      ref.bhat, BETA_TOL)
+        if chrom == 23:
+            for name in ("af_t", "ns_t", "mac_t"):
+                _assert_rel(f"chrX {name}, int8 operand", getattr(out["int8"], name),
+                            getattr(ref, name), 1e-9)
+            dip = np.minimum(ref.af_t * 2 * ref.ns_t, 2 * ref.ns_t * (1 - ref.af_t))
+            if not (np.abs(ref.mac_t - dip)[npb] > 0.5).all():
+                raise AssertionError("chrX non-PAR MAC is not the hemizygous MAC")
+        results.append((bsnps, out["int8"]))
+
+    pd = eng.pd
+    for what, split, gz in (("split .regenie.gz (the CLI's)", True, True),
+                            ("split .regenie", True, False),
+                            ("merged .regenie (--no-split)", False, False),
+                            ("merged .regenie.gz", False, True)):
+        params.split_by_pheno, params.gz_out = split, gz
+        params.out_prefix = f"{tmp}/w_{int(split)}{int(gz)}"
+        t0 = time.time()
+        writers, paths = setup_writers(params, pd.pheno_names, pd.pheno_pass)
+        for bsnps, r in results:
+            write_block_rows(params, pd, writers, bsnps, r, "ADD", eng.model_type())
+        for fh in {id(w): w for w in writers}.values():
+            fh.close()
+        dt = time.time() - t0
+        size = sum(os.path.getsize(p_) for p_ in paths)
+        print(f"  write of {2 * B} variants x {f['P']} traits, {what}: {dt:.2f}s, "
+              f"{len(paths)} file(s), {size / 1e6:.1f} MB")
+    eng.gd.close()
+    return launches
+
+
+def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--loocv"])),
+                         what=""):
+    """The two-step QT workflow at N=2,000 on the card and on the CPU, in
+    each of `modes` (K-fold and --loocv by default) on the genotype
+    arguments `geno` (a BED or a PGEN): Step 1, then Step 2 with --pred
+    on that run's own _pred.list. Every .loco value within one unit of
+    its sixth significant digit, every Step-2 field within its bar."""
+    base = [*geno, "--phenoFile", f"{tmp}/pheno.txt", "--covarFile",
             f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt"]
-    for mode, extra in (("K-fold", []), ("--loocv", ["--loocv"])):
+    for mode, extra in modes:
         tag = "loocv" if extra else "kfold"
         for dev in ("cuda", "cpu"):
             os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
@@ -1974,32 +2310,82 @@ def two_step_cross_check(tmp, prefix, P):
             ndiff, worst_loco = ndiff + nd, max(worst_loco, w)
         worst = max(_compare_files(f"{gpu}_s2_Y{p + 1}.regenie",
                                    f"{cpu}_s2_Y{p + 1}.regenie") for p in range(P))
-        print(f"  two-step {mode}: card vs CPU, {P} .loco files ({ndiff} values "
+        print(f"  two-step{what} {mode}: card vs CPU, {P} .loco files ({ndiff} values "
               f"differ, at most {worst_loco:.3f} units of the sixth significant "
               f"digit) and Step 2 with --pred: every field within its bar "
               f"(largest share of the bar used {worst:.3f})")
 
 
+def zstd_compressor():
+    """ZSTD_compress of libzstd.so.1 through ctypes, as bytes -> bytes
+    (level 3). Raises OSError where the library is absent."""
+    import ctypes
+
+    z = ctypes.CDLL("libzstd.so.1")
+    z.ZSTD_compressBound.restype = ctypes.c_size_t
+    z.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    z.ZSTD_compress.restype = ctypes.c_size_t
+    z.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int]
+    z.ZSTD_isError.restype = ctypes.c_uint
+    z.ZSTD_isError.argtypes = [ctypes.c_size_t]
+
+    def compress(b):
+        cap = z.ZSTD_compressBound(len(b))
+        out = ctypes.create_string_buffer(cap)
+        n = z.ZSTD_compress(out, cap, b, len(b), 3)
+        if z.ZSTD_isError(n):
+            raise RuntimeError("ZSTD_compress failed")
+        return out.raw[:n]
+
+    return compress
+
+
 def cross_check_phase(tmp):
-    """Small runs through the port on the card (by default and with
-    REGENIE_TPU_I8=0) and on the CPU: a BED --htp run and a
-    two-chromosome BGEN --minINFO run; then the two-step workflow on the
-    BED dataset (two_step_cross_check)."""
+    """Small runs (N=2,000) through the port on the card (by default and
+    with REGENIE_TPU_I8=0) and on the CPU, every output field within its
+    bar: a BED --htp run, a two-chromosome BGEN --minINFO run, a chrX BED
+    --htp run and a chrX BGEN run (positions in PAR1, non-PAR and PAR2;
+    fused_i8 / bgen_i8 with the male tail), a zstd BGEN run, and a chrX
+    PGEN run with --no-split --gz; each with --remove. Then the two-step
+    workflow on the BED dataset (K-fold and --loocv) and on the PGEN
+    (K-fold)."""
     P = 4
-    prefix = write_dataset(tmp, seed=2, N=2000, chroms=((1, 400), (2, 200)),
-                           P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
-    bgen_dir = os.path.join(tmp, "bgen")
-    os.makedirs(bgen_dir)
-    bgen = write_bgen_dataset(bgen_dir, seed=4, N=2000,
-                              chroms=((1, 400), (2, 200)), P=P, n_inc=2,
-                              n_cov=3, n_remove=10, effect_sd=0.1)
-    runs = {
-        "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"]),
-        "BGEN --minINFO": (bgen_dir, ["--bgen", bgen, "--sample",
-                                      f"{bgen_dir}/geno.sample",
-                                      "--minINFO", "0.8"]),
+    kw = dict(seed=2, N=2000, P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
+    chrx = dict(chroms=((1, 300), ("X", 300)),
+                positions={"X": chrx_positions(300, 40, 40)})
+    sub = {}
+    for name in ("bgen", "chrx_bed", "chrx_bgen", "zstd", "pgen"):
+        sub[name] = os.path.join(tmp, name)
+        os.makedirs(sub[name])
+    prefix = write_dataset(tmp, chroms=((1, 400), (2, 200)), **kw)
+    geno = {
+        "bgen": write_bgen_dataset(sub["bgen"], **{**kw, "seed": 4},
+                                   chroms=((1, 400), (2, 200))),
+        "chrx_bed": write_dataset(sub["chrx_bed"], **{**kw, "seed": 5}, **chrx),
+        "chrx_bgen": write_bgen_dataset(sub["chrx_bgen"], **{**kw, "seed": 6}, **chrx),
+        "zstd": write_bgen_dataset(sub["zstd"], **{**kw, "seed": 7},
+                                   chroms=((1, 400), (2, 200)),
+                                   compress=zstd_compressor(), compression=2),
+        "pgen": write_pgen_dataset(sub["pgen"], **{**kw, "seed": 8}, **chrx),
     }
-    for what, (d, args) in runs.items():
+    split = [f"_Y{p + 1}.regenie" for p in range(P)]
+    runs = {
+        "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"], split),
+        "BGEN --minINFO": (sub["bgen"], ["--bgen", geno["bgen"], "--sample",
+                                         f"{sub['bgen']}/geno.sample",
+                                         "--minINFO", "0.8"], split),
+        "chrX BED --htp": (sub["chrx_bed"], ["--bed", geno["chrx_bed"],
+                                             "--htp", "SMOKE"], split),
+        "chrX BGEN": (sub["chrx_bgen"], ["--bgen", geno["chrx_bgen"], "--sample",
+                                         f"{sub['chrx_bgen']}/geno.sample"], split),
+        "zstd BGEN": (sub["zstd"], ["--bgen", geno["zstd"], "--sample",
+                                    f"{sub['zstd']}/geno.sample"], split),
+        "chrX PGEN --no-split --gz": (sub["pgen"], ["--pgen", geno["pgen"],
+                                                    "--no-split", "--gz"],
+                                      [".regenie.gz"]),
+    }
+    for what, (d, args, outs) in runs.items():
         common = ["--step", "2", *args, "--phenoFile", f"{d}/pheno.txt",
                   "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
                   "--ignore-pred", "--bsize", "256"]
@@ -2012,15 +2398,16 @@ def cross_check_phase(tmp):
             run_cli(common + ["--out", f"{d}/cpu"])
         finally:
             os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
+        rows = len(_read_text(f"{d}/cpu{outs[0]}").splitlines()) - 1
         for off in (False, True):
-            worst = max(_compare_files(f"{d}/gpu{int(off)}_Y{p + 1}.regenie",
-                                       f"{d}/cpu_Y{p + 1}.regenie")
-                        for p in range(P))
-            rows = len(open(f"{d}/cpu_Y1.regenie").read().splitlines()) - 1
+            worst = max(_compare_files(f"{d}/gpu{int(off)}{o}", f"{d}/cpu{o}")
+                        for o in outs)
             print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: card vs CPU, "
                   f"{P} traits x {rows} variants: every field within its bar "
                   f"(largest share of the bar used {worst:.3f})")
-    two_step_cross_check(tmp, prefix, P)
+    two_step_cross_check(tmp, ["--bed", prefix], P)
+    two_step_cross_check(sub["pgen"], ["--pgen", geno["pgen"]], P,
+                         modes=(("K-fold", []),), what=" on PGEN")
 
 
 def native_report():
@@ -2038,6 +2425,12 @@ def native_report():
     native.planes_lib()
     print(f"  BGEN plane extractor (regenie_tpu_torch/io/csrc/bgen_planes.cpp, "
           f"g++): loaded, symbol {native.PLANES_SYMBOL} ({time.time() - t0:.1f}s)")
+    native.require_zstd()
+    print(f"  its zstd records: ZSTD_decompress loaded from {native.ZSTD_SONAME}")
+    t0 = time.time()
+    native.pgen_lib()
+    print(f"  PGEN block decoder (regenie_tpu_torch/io/csrc/pgen_bytes.cpp, g++): "
+          f"loaded, symbol {native.PGEN_SYMBOL} ({time.time() - t0:.1f}s)")
 
 
 def main() -> int:
@@ -2090,6 +2483,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[step1 slice]")
         step1_slice_phase(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print("[pgen chrX slice]")
+        pgen_launches = pgen_chrx_slice_phase(tmp)
+    print(f"  fused_i8 launches on the PGEN chrX path: {pgen_launches}")
     torch.cuda.empty_cache()
     # decode_planes has no caller on any path of the port, as
     # _decode_kernel has none in the JAX package: 0 launches there

@@ -835,7 +835,10 @@ def args_to_params(args: argparse.Namespace) -> Params:
 
 def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
-    None. Every such mode raises NotImplementedError before any work."""
+    None. Every such mode raises NotImplementedError before any work; so
+    do, from open_engine, chrX non-PAR variants the fused path cannot
+    score (--skip-dosage-comp, a dominant/recessive test) and, from
+    io/geno.py, PGEN files with dosage tracks."""
     common = (
         (params.trait_mode != QT,
          "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
@@ -845,22 +848,22 @@ def unported(params: Params) -> Optional[str]:
         (params.multiphen, "MultiPhen (--multiphen)"),
         (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
         (params.mcc_test, "the MCC test (--mcc)"),
-        (not params.split_by_pheno, "merged output (--no-split)"),
-        (params.gz_out, "gzipped output (--gz)"),
         (params.af_cc, "--af-cc"),
-        (params.write_samples, "--write-samples"),
-        (params.print_cov_betas, "--print-cov-betas"),
         (bool(params.condition_list or params.condition_file),
          "conditional analysis"),
         (params.transposed_pheno, "--tpheno-file"),
         (params.ltco_chr > 0, "--force-ltco"),
-        (params.debug, "--debug"),
     )
     if params.step == 1:
         checks = (
-            (params.file_type != "bed",
+            (params.file_type not in ("bed", "pgen"),
              f"Step 1 on {params.file_type.upper()} input"),
             *common,
+            (not params.split_by_pheno, "merged output (--no-split)"),
+            (params.gz_out, "Step 1 with gzipped output (--gz)"),
+            (params.write_samples, "--write-samples"),
+            (params.print_cov_betas, "--print-cov-betas"),
+            (params.debug, "Step 1 with --debug"),
             (params.test_l0, "--test-l0"),
             (params.select_l0, "--select-l0"),
             (params.print_block_betas, "--print"),
@@ -873,7 +876,7 @@ def unported(params: Params) -> Optional[str]:
     else:
         checks = (
             *common[:1],
-            (params.file_type not in ("bed", "bgen"),
+            (params.file_type not in ("bed", "bgen", "pgen"),
              f"{params.file_type.upper()} input"),
             # the JAX package sends these BGEN runs to its dense dosage
             # path (fused_ok, run_step2.py:793-806), which is not ported

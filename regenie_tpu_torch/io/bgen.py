@@ -3,8 +3,8 @@ regenie_tpu/io/bgen.py, trimmed to what the plane path reads).
 
 The variant index is scanned once up front (or read from the .bgi sqlite
 index); each block's genotype records are then read as compressed bytes
-and inflated by the native plane extractor into [B, 2, N_file] uint8
-probability planes (io/native.py). The parsing decoders of the dense
+(zlib or zstd) and inflated by the native plane extractor into [B, 2,
+N_file] uint8 probability planes (io/native.py). The parsing decoders of the dense
 dosage path (decode_variant, _decode_layout1/2, decode_block_native) are
 not ported.
 
@@ -24,7 +24,7 @@ import numpy as np
 
 from ..config import Params
 from .bed import SampleInfo, SnpInfo, chr_to_int
-from .native import bgen12_extract_planes_native
+from .native import bgen12_extract_planes_native, require_zstd
 
 
 @dataclass
@@ -166,13 +166,17 @@ def open_bgen(path: str, n_chrom: int = 23, ref_first: bool = False,
 
 def require_planes(bf: BgenFile) -> None:
     """Raise NotImplementedError unless the plane extractor reads this
-    file's records at all: layout 2 (v1.2) with zlib compression. Whether
-    each record is 8-bit unphased diploid is known only when its block
-    is inflated."""
-    if bf.layout != 2 or bf.compression != 1:
+    file's records at all: layout 2 (v1.2) with zlib or zstd compression;
+    a zstd file also needs libzstd (io/native.py require_zstd, which
+    raises RuntimeError without it). Whether each record is 8-bit
+    unphased diploid is known only when its block is inflated."""
+    if bf.layout != 2 or bf.compression not in (1, 2):
         raise NotImplementedError(
             f"BGEN layout {bf.layout} with compression {bf.compression}: only "
-            "zlib-compressed layout-2 files are ported to regenie_tpu_torch")
+            "zlib- or zstd-compressed layout-2 files are ported to "
+            "regenie_tpu_torch")
+    if bf.compression == 2:
+        require_zstd()
 
 
 def extract_planes_block(bf: BgenFile, indices) -> np.ndarray:

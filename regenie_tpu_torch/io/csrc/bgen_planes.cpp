@@ -1,7 +1,10 @@
 // BGEN v1.2 8-bit probability-plane extraction for the fused Step-2
 // scorer: inflate only, no parse. The port's own copy of
-// bgen12_extract_planes in native/decoder.cpp, restricted to zlib
-// compression so that it builds against zlib alone.
+// bgen12_extract_planes in native/decoder.cpp, for zlib (compression 1)
+// and zstd (compression 2) records. It builds against zlib alone: zstd's
+// two entry points are declared here and taken from the shared library
+// at run time (bgen_zstd_open, dlopen), since a machine may have
+// libzstd.so.1 without its headers; a zlib file never loads it.
 //
 // For each variant it emits the two per-sample probability bytes
 // de-interleaved (k0 = P(hom first allele), k1 = P(het)), with missing
@@ -10,7 +13,8 @@
 // (ref-last coding) and its square from the byte planes.
 //
 // Returns the number of variants it could not extract (> 0 fails the
-// whole block): a zlib error or size mismatch, a variant that is not
+// whole block): an inflate error or size mismatch (zstd records too when
+// bgen_zstd_open has not loaded the library), a variant that is not
 // unphased diploid biallelic 8-bit, or a non-missing sample with
 // k0 + k1 > 255 (p2 would clip, and the linear ref-first identity
 // 2 - dosage would break).
@@ -19,11 +23,47 @@
 // variant ranges in parallel threads (io/native.py), so the build needs
 // no OpenMP runtime.
 //
-// Build: g++ -O3 -fPIC -shared -o libbgen_planes.so bgen_planes.cpp -lz
+// Build: g++ -O3 -fPIC -shared -o libbgen_planes.so bgen_planes.cpp -lz -ldl
 
+#include <dlfcn.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 #include <zlib.h>
+
+#include <atomic>
+
+namespace {
+// zstd.h's ZSTD_decompress and ZSTD_isError
+typedef size_t (*zstd_decompress_fn)(void*, size_t, const void*, size_t);
+typedef unsigned (*zstd_iserror_fn)(size_t);
+struct Zstd {
+  zstd_decompress_fn decompress;
+  zstd_iserror_fn is_error;
+};
+std::atomic<const Zstd*> g_zstd{nullptr};
+Zstd g_zstd_fns;
+}  // namespace
+
+// Load ZSTD_decompress and ZSTD_isError from the shared library `soname`
+// (libzstd.so.1). Returns 1 when both resolve, else 0 (the extractor
+// keeps what an earlier call loaded, if anything). Call it before
+// extracting a zstd file, not while an extraction runs.
+extern "C" int bgen_zstd_open(const char* soname) {
+  void* h = dlopen(soname, RTLD_NOW | RTLD_LOCAL);
+  if (!h) return 0;
+  const auto dec = (zstd_decompress_fn)dlsym(h, "ZSTD_decompress");
+  const auto err = (zstd_iserror_fn)dlsym(h, "ZSTD_isError");
+  if (!dec || !err) {
+    dlclose(h);
+    return 0;
+  }
+  if (g_zstd.load() == nullptr) {
+    g_zstd_fns = Zstd{dec, err};
+    g_zstd.store(&g_zstd_fns);
+  }
+  return 1;
+}
 
 extern "C" int64_t bgen12_extract_planes(const uint8_t* comp,
                                          const int64_t* offsets,
@@ -41,6 +81,12 @@ extern "C" int64_t bgen12_extract_planes(const uint8_t* comp,
       uLongf dlen = (uLongf)usize;
       ok = (uncompress(buf, &dlen, src, (uLong)csizes[v]) == Z_OK) &&
            ((int64_t)dlen == usize);
+    } else if (compression == 2) {
+      const Zstd* z = g_zstd.load();
+      if (z) {
+        const size_t n = z->decompress(buf, (size_t)usize, src, (size_t)csizes[v]);
+        ok = !z->is_error(n) && (int64_t)n == usize;
+      }
     }
     uint8_t* k0 = planes_out + v * 2 * n_samples;
     uint8_t* k1 = k0 + n_samples;

@@ -1,9 +1,11 @@
-"""Genotype data model + block lists (the port's copy of the BED and BGEN
-branches of regenie_tpu/io/geno.py).
+"""Genotype data model + block lists (the port's copy of the BED, PGEN
+and BGEN branches of regenie_tpu/io/geno.py).
 
 File metadata, sample/variant filters and the chromosome map. The fused
-Step-2 path reads packed bytes straight from the BedFile, or probability
-planes from the BgenFile (io/bgen.py). Step 1 reads BED blocks through
+Step-2 path reads packed bytes straight from the BedFile, BED-coded
+packed bytes decoded from PGEN records on the kept-sample axis
+(io/native.py, io/csrc/pgen_bytes.cpp), or probability planes from the
+BgenFile (io/bgen.py). Step 1 reads BED and PGEN blocks through
 read_block_bytes (host) and read_block_device (decode on the card, or on
 the host for the CPU).
 """
@@ -19,6 +21,7 @@ from ..config import Params
 from .bed import (BedFile, SampleInfo, SnpInfo, chr_to_int, decode_bed_bytes,
                   open_bed)
 from .files import iter_lines
+from .native import pgen_bed_bytes_native
 
 
 @dataclass
@@ -34,6 +37,7 @@ class GenoData:
     sex: np.ndarray = None  # [N] 1=male 0=other
     _bed: Optional[BedFile] = None
     _bgen: Optional[object] = None  # io.bgen.BgenFile
+    _pgen: Optional[object] = None  # io.pgen.PgenDecoder
     _keep_all_samples: bool = True
 
     @property
@@ -49,22 +53,36 @@ class GenoData:
         return {s.key: i for i, s in enumerate(self.samples)}
 
     def read_block_bytes(self, block_snps: List[SnpInfo]) -> np.ndarray:
-        """Packed 2-bit bytes of a block of kept BED variants: [B,
-        ceil(N_file/4)] uint8, a copy of the rows of `block_snps` (which
-        may skip variants of the file span, offsets - start), so the
-        pages are read where this runs."""
+        """Packed 2-bit BED-coded bytes of a block of kept variants. BED:
+        [B, ceil(N_file/4)] uint8, a copy of the rows of `block_snps`
+        (which may skip variants of the file span, offsets - start), so
+        the pages are read where this runs. PGEN: [B, ceil(N/4)] on the
+        kept-sample axis, from the native block decoder."""
+        if self._pgen is not None:
+            return pgen_bed_bytes_native(
+                self._pgen.pf, [s.offset for s in block_snps],
+                None if self._keep_all_samples else self.sample_keep_idx)
         offsets = np.array([s.offset for s in block_snps])
         start, stop = int(offsets[0]), int(offsets[-1]) + 1
         raw = self._bed.read_block_bytes(start, stop - start)
         return np.ascontiguousarray(raw[offsets - start])
 
+    def _on_file_axis(self) -> bool:
+        """Whether read_block_bytes' rows lie on the file's sample axis
+        (BED), which the decode then maps onto the kept samples, with
+        --ref-first swapping alleles; PGEN bytes are on the kept axis
+        already, and PGEN names REF and ALT itself."""
+        return self._pgen is None
+
     def read_block(self, block_snps: List[SnpInfo],
                    raw: Optional[np.ndarray] = None) -> np.ndarray:
-        """Host decode of a BED block: [B, N] int8 hardcalls {0, 1, 2,
-        -3} on the kept samples. `raw` is the block's read_block_bytes,
-        read here when not given."""
+        """Host decode of a BED or PGEN block: [B, N] int8 hardcalls {0,
+        1, 2, -3} on the kept samples. `raw` is the block's
+        read_block_bytes, read here when not given."""
         if raw is None:
             raw = self.read_block_bytes(block_snps)
+        if not self._on_file_axis():
+            return decode_bed_bytes(raw, self.n_samples)
         G = decode_bed_bytes(raw, self._bed.n_samples)
         if not self._keep_all_samples:
             G = G[:, self.sample_keep_idx]
@@ -75,10 +93,10 @@ class GenoData:
 
     def read_block_device(self, block_snps: List[SnpInfo], device,
                           raw: Optional[np.ndarray] = None):
-        """A BED block as a [B, N] int8 tensor on `device`. On CUDA the
-        packed bytes (`raw`, or read here) are uploaded and decoded on
-        the card (4x less host->device traffic than int8, no host
-        decode); on the CPU the host decode runs."""
+        """A BED or PGEN block as a [B, N] int8 tensor on `device`. On
+        CUDA the packed bytes (`raw`, or read here) are uploaded and
+        decoded on the card (4x less host->device traffic than int8, no
+        host decode); on the CPU the host decode runs."""
         import torch
 
         device = torch.device(device)
@@ -88,6 +106,9 @@ class GenoData:
 
         if raw is None:
             raw = self.read_block_bytes(block_snps)
+        if not self._on_file_axis():
+            return decode_bed_packed(torch.from_numpy(raw).to(device),
+                                     self.n_samples)
         G = decode_bed_packed(torch.from_numpy(raw).to(device), self._bed.n_samples)
         if not self._keep_all_samples:
             keep = torch.from_numpy(self.sample_keep_idx).to(device)
@@ -97,7 +118,8 @@ class GenoData:
         return G
 
     def close(self):
-        for f in (self._bed, self._bgen):
+        for f in (self._bed, self._bgen,
+                  None if self._pgen is None else self._pgen.pf):
             if f is not None:
                 f.close()
 
@@ -117,7 +139,7 @@ def _read_snp_file(path: str) -> set:
 
 
 def open_geno(params: Params) -> GenoData:
-    """Open PLINK BED files (or a BGEN file), apply sample/variant
+    """Open PLINK BED or PGEN files (or a BGEN file), apply sample/variant
     filters, build chr map.
 
     Reference: file_read_initialization (Data.cpp:155) +
@@ -128,6 +150,8 @@ def open_geno(params: Params) -> GenoData:
         from .bgen import open_bgen_geno
 
         return open_bgen_geno(params)
+    if params.file_type == "pgen":
+        return _open_pgen_geno(params)
     if params.file_type != "bed":
         raise NotImplementedError(
             f"{params.file_type.upper()} input is not yet ported to "
@@ -136,6 +160,29 @@ def open_geno(params: Params) -> GenoData:
     gd = GenoData(params=params)
     gd._bed = bed
     _apply_filters(params, gd, bed.snps, bed.samples)
+    return gd
+
+
+def _open_pgen_geno(params: Params) -> GenoData:
+    """GenoData for PLINK2 .pgen/.pvar/.psam input (sexes from the .psam
+    SEX column). Hardcalls only: a file with dosage tracks, which the
+    JAX package scores on its dense path, raises NotImplementedError."""
+    from .pgen import PgenDecoder, open_pgen, read_psam, read_pvar
+
+    pf = open_pgen(params.pgen_prefix + ".pgen")
+    raw_snps = read_pvar(params.pgen_prefix + ".pvar", params.n_chrom)
+    raw_samples = read_psam(params.pgen_prefix + ".psam")
+    if len(raw_snps) != pf.n_variants or len(raw_samples) != pf.n_samples_file:
+        pf.close()
+        raise ValueError("pvar/psam do not match pgen dimensions")
+    params.pgen_dosage_present = bool((pf.vrtypes & 0x60).any())
+    if params.pgen_dosage_present:
+        pf.close()
+        raise NotImplementedError(
+            "PGEN input with dosage tracks: not yet ported to regenie_tpu_torch")
+    gd = GenoData(params=params)
+    gd._pgen = PgenDecoder(pf)
+    _apply_filters(params, gd, raw_snps, raw_samples)
     return gd
 
 

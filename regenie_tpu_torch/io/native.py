@@ -7,14 +7,19 @@ regenie_tpu/io/native.py, trimmed to what the ported paths call).
   headers) is there; every caller falls back to its numpy or per-row
   Python path when the library is missing.
 - The BGEN plane extractor, the port's own copy in io/csrc/bgen_planes.cpp
-  (zlib only, so it needs no zstd): built with g++ into
+  (built against zlib alone; zstd records take ZSTD_decompress from
+  libzstd.so.1 at run time, require_zstd): built with g++ into
   regenie_tpu_torch/_build/ (git-ignored) at first use. The BGEN path has
-  no other reader, so a failed build, a missing symbol or a rejected
-  block raises.
+  no other reader, so a failed build, a missing symbol, a zstd file
+  without the library or a rejected block raises.
 - The LOCO/PRS row renderer, the port's own copy of format_loco_rows in
   io/csrc/loco_rows.cpp (single-threaded; callers split the rows over
   threads), built the same way. Step 1 has no other renderer at biobank
   scale, so a failed build or load raises.
+- The PGEN block decoder, io/csrc/pgen_bytes.cpp (std::thread over
+  variants), built the same way: PGEN hardcalls to BED-coded packed
+  bytes on the kept-sample axis. Both steps read PGEN only through it,
+  so a failed build, load or record raises.
 """
 
 from __future__ import annotations
@@ -34,7 +39,10 @@ _CSRC = os.path.join(_PKG_DIR, "io", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 PLANES_SYMBOL = "bgen12_extract_planes"
 LOCO_SYMBOL = "format_loco_rows"
-_state = {"lib": None, "tried": False, "planes": None, "loco": None}
+ZSTD_SONAME = "libzstd.so.1"
+PGEN_SYMBOL = "pgen_bed_bytes"
+_state = {"lib": None, "tried": False, "planes": None, "loco": None,
+          "pgen": None, "zstd": None}
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -135,15 +143,31 @@ def planes_lib() -> ctypes.CDLL:
     lib = _state["planes"]
     if lib is not None:
         return lib
-    lib = _build_lib("bgen_planes", "BGEN plane extractor", PLANES_SYMBOL, ["-lz"])
+    lib = _build_lib("bgen_planes", "BGEN plane extractor", PLANES_SYMBOL,
+                     ["-lz", "-ldl"])
     fn = getattr(lib, PLANES_SYMBOL)
     fn.restype = ctypes.c_int64
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.bgen_zstd_open.restype = ctypes.c_int
+    lib.bgen_zstd_open.argtypes = [ctypes.c_char_p]
     _state["planes"] = lib
     return lib
+
+
+def require_zstd() -> None:
+    """Make the plane extractor read zstd records: load ZSTD_SONAME's
+    ZSTD_decompress into it, once. Raises RuntimeError when the library
+    cannot be loaded (zlib files never need it)."""
+    if _state["zstd"] == ZSTD_SONAME:
+        return
+    if not planes_lib().bgen_zstd_open(ZSTD_SONAME.encode()):
+        raise RuntimeError(
+            f"zstd-compressed BGEN needs {ZSTD_SONAME} (ZSTD_decompress), "
+            "which cannot be loaded on this machine")
+    _state["zstd"] = ZSTD_SONAME
 
 
 def bgen12_extract_planes_native(comp: bytes, offsets, csizes, usizes,
@@ -151,9 +175,12 @@ def bgen12_extract_planes_native(comp: bytes, offsets, csizes, usizes,
     """Inflate-only BGEN v1.2 8-bit plane extraction: [B, 2, N] uint8 (k0
     plane, k1 plane; missing samples = 255/255), the variants split over
     one thread per CPU (ctypes releases the GIL during each call). Raises
-    RuntimeError when any variant of the block is rejected (not zlib, not
-    unphased diploid biallelic 8-bit, or a clipped probability pair)."""
+    RuntimeError when any variant of the block is rejected (not zlib or
+    zstd, not unphased diploid biallelic 8-bit, or a clipped probability
+    pair), or for zstd (compression 2) when libzstd cannot be loaded."""
     fn = getattr(planes_lib(), PLANES_SYMBOL)
+    if compression == 2:
+        require_zstd()
     n_var = len(offsets)
     planes = np.empty((n_var, 2, n_samples), dtype=np.uint8)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
@@ -171,9 +198,9 @@ def bgen12_extract_planes_native(comp: bytes, offsets, csizes, usizes,
     if nfail > 0:
         raise RuntimeError(
             f"BGEN plane extraction rejected {nfail} of {n_var} variants "
-            "(the port reads only zlib-compressed, unphased diploid, "
-            "biallelic 8-bit layout-2 blocks with probabilities summing "
-            "to at most 1)")
+            "(the port reads only zlib- or zstd-compressed, unphased "
+            "diploid, biallelic 8-bit layout-2 blocks with probabilities "
+            "summing to at most 1)")
     return planes
 
 
@@ -195,3 +222,54 @@ def loco_lib() -> ctypes.CDLL:
     _state["loco"] = lib
     return lib
 
+
+def pgen_lib() -> ctypes.CDLL:
+    """The PGEN block decoder (io/csrc/pgen_bytes.cpp), built with g++ at
+    first use and cached by the source's hash. Raises RuntimeError when
+    it cannot be built or loaded, or lacks PGEN_SYMBOL."""
+    lib = _state["pgen"]
+    if lib is not None:
+        return lib
+    lib = _build_lib("pgen_bytes", "PGEN block decoder", PGEN_SYMBOL, ["-pthread"])
+    fn = getattr(lib, PGEN_SYMBOL)
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ]
+    _state["pgen"] = lib
+    return lib
+
+
+def pgen_bed_bytes_native(pf, vidx, keep=None) -> np.ndarray:
+    """A block of PGEN hardcalls as BED-coded packed bytes: [B, ceil(n /
+    4)] uint8 on the kept-sample axis (n = len(keep), or every sample of
+    the file when keep is None). `pf` is an io.pgen.PgenFile, `vidx` the
+    variants' indices in the file. Raises RuntimeError when any variant of
+    the block cannot be decoded (multiallelic, or a record out of the
+    file's bounds)."""
+    fn = getattr(pgen_lib(), PGEN_SYMBOL)
+    data = np.frombuffer(pf._data, np.uint8)
+    fpos = np.ascontiguousarray(pf.fpos, np.int64)
+    vrtypes = np.ascontiguousarray(pf.vrtypes, np.uint8)
+    if fpos.shape != vrtypes.shape:
+        raise ValueError(f"{pf.path}: {len(fpos)} record offsets for "
+                         f"{len(vrtypes)} record types")
+    vidx = np.ascontiguousarray(vidx, np.int64)
+    if keep is not None:
+        keep = np.ascontiguousarray(keep, np.int64)
+    n_out = pf.n_samples_file if keep is None else len(keep)
+    out = np.empty((len(vidx), (n_out + 3) // 4), np.uint8)
+    nfail = fn(data.ctypes.data, len(data), fpos.ctypes.data,
+               vrtypes.ctypes.data, len(vrtypes), vidx.ctypes.data, len(vidx),
+               pf.n_samples_file,
+               None if keep is None else keep.ctypes.data,
+               0 if keep is None else len(keep), os.cpu_count() or 1,
+               out.ctypes.data)
+    if nfail > 0:
+        raise RuntimeError(
+            f"PGEN block decoding rejected {nfail} of {len(vidx)} variants "
+            f"of {pf.path} (multiallelic, or a record out of the file's "
+            "bounds)")
+    return out

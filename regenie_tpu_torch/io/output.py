@@ -1,6 +1,7 @@
 """Output writers (the port's copy of regenie_tpu/io/output.py, trimmed
 to quantitative traits): Step-2 summary statistics in the split
-single-trait and HTPv4 formats, and Step 1's LOCO/PRS prediction rows.
+single-trait, merged (--no-split) and HTPv4 formats, and Step 1's
+LOCO/PRS prediction rows.
 
 Mirrors Step2_Models.cpp print_header_output* (:2306) and
 print_sum_stats* (:2410-2646) with C++ default 6-significant-digit
@@ -33,6 +34,41 @@ def header_single(params: Params) -> str:
         cols += ["INFO"]
     cols += ["N", "TEST", "BETA", "SE", "CHISQ", "LOG10P", "EXTRA"]
     return " ".join(cols) + "\n"
+
+
+def header_all(params: Params) -> str:
+    """Header of the merged --no-split file (print_header_output_all,
+    Step2_Models.cpp:2306), trimmed to hardcall QT runs: the port writes
+    merged output only from BED and PGEN hardcalls, so no INFO and no
+    --af-cc columns."""
+    cols = ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ", "N",
+            "N_RR", "N_RA", "N_AA", "TEST"]
+    for i in range(params.n_pheno):
+        cols += [f"BETA.Y{i+1}", f"SE.Y{i+1}", f"CHISQ.Y{i+1}", f"LOG10P.Y{i+1}"]
+    cols += ["EXTRA"]
+    return " ".join(cols) + "\n"
+
+
+def sumstat_line_all(params: Params, snp: SnpInfo, test: str, af1: float,
+                     ns1: int, n_rr: int, n_aa: int, per_pheno: list) -> str:
+    """One merged-format row, all traits (print_sum_stats_all,
+    Step2_Models.cpp:2457-2500); per_pheno: [(beta, se, chisq, logp,
+    test_pass)] per trait."""
+    parts = [str(snp.chrom), str(snp.physpos), snp.ID, snp.allele1, snp.allele2]
+    parts.append(fmt(af1) if af1 >= 0 else "NA")
+    parts.append(str(ns1))
+    if n_rr >= 0:
+        parts += [str(n_rr), str(ns1 - n_rr - n_aa), str(n_aa)]
+    else:
+        parts += ["NA", "NA", "NA"]
+    parts.append(test)
+    for beta, se, chisq, logp, test_pass in per_pheno:
+        print_se = (se >= 0) and not np.isnan(se)
+        print_pv = (chisq >= 0) and test_pass and not np.isnan(logp)
+        parts += ([fmt(beta), fmt(se)] if print_se else ["NA", "NA"])
+        parts += ([fmt(chisq), fmt(logp)] if print_pv else ["NA", "NA"])
+    parts.append("NA")
+    return " ".join(parts) + "\n"
 
 
 def sumstat_line_single(

@@ -151,11 +151,12 @@ def read_covariates(
     Reference covariate_read (Pheno.cpp:573): categorical covariates are
     dummy-coded with first-seen level as baseline; individuals with any
     missing covariate are dropped from the analysis.
-    Returns (new_cov, ind_in_cov).
+    Returns (new_cov, ind_in_cov, the design's column names).
     """
     n = params.n_samples
     if not params.cov_file:
-        return np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool)
+        return (np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool),
+                ["Intercept"])
 
     with open_read(params.cov_file) as fh:
         header = string_split(fh.readline())
@@ -181,7 +182,8 @@ def read_covariates(
         names = [nm for nm, k in zip(all_names, keep_cols) if k]
         n_cov = len(names)
         if n_cov == 0:
-            return np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool)
+            return (np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool),
+                    ["Intercept"])
 
         X = np.zeros((n, n_cov), dtype=np.float64)
         ind_in_cov = np.zeros(n, dtype=bool)
@@ -232,17 +234,21 @@ def read_covariates(
     # build design: intercept + quantitative cols + dummies for categorical
     # (covariate_read, Pheno.cpp:673-700)
     cols = [np.ones(n, dtype=np.float64)]
+    col_names = ["Intercept"]
     for ic, nm in enumerate(names):
         if not is_cat[nm]:
             cols.append(X[:, ic])
+            col_names.append(nm)
         else:
             nlev = len(cat_maps[nm])
             if nlev > params.max_cat_levels:
                 raise ValueError(f"too many categories for covariate: {nm} (={nlev})")
             nd = int(X[:, ic].max())
+            lv = sorted(cat_maps[nm], key=cat_maps[nm].get)
             for lev in range(1, nd + 1):
                 cols.append((X[:, ic] == lev).astype(np.float64))
-    return np.column_stack(cols), ind_in_cov
+                col_names.append(f"{nm}={lv[lev]}" if lev < len(lv) else f"{nm}={lev}")
+    return np.column_stack(cols), ind_in_cov, col_names
 
 
 def set_masks(params: Params, pd: PhenoData, ind_in_analysis: np.ndarray) -> None:

@@ -75,7 +75,7 @@ class FusedConsts(NamedTuple):
     scale_denom: float  # n_analyzed - ncov
     split: bool = False  # True for the int8 limb or the bf16 split operand
     inc: tuple = None  # incomplete-trait indices (None = all P traits)
-    has_male: bool = False  # chrX male tail columns (not built by the port)
+    has_male: bool = False  # chrX male tail columns [male | maskf*male]
     # BGEN: the narrow operand of [maskf | ind], an [Np, 4*Cqp] I8Operand,
     # a float32 [Np, Cqp] tensor or a bf16 split [Np, 3*Cqp] tensor
     Wq: object = None
@@ -348,7 +348,7 @@ def patch_res_columns(Wp_dev, res_planes, K, P, Cp):
 
 def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
                  dtype=torch.float64, split=False, nbp_tile=None,
-                 pack="plane", op_dtype=None):
+                 pack="plane", op_dtype=None, male=None):
     """Build FusedConsts from per-sample arrays (numpy, float64 in).
     The constants (usum, covt_res, Mmat) land in `dtype`, a float operand
     in `op_dtype` (default `dtype`); usum always sums the float64 Wext,
@@ -358,7 +358,11 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
     arbitrary — zeroed here); res: [N, P] phenotype residuals;
     maskf: [N, P] per-trait inclusion; ind: [N] bool sample inclusion;
     nb: number of packed bytes per SNP (defaults to ceil(N/4));
-    pack: "plane" (PLINK bytes) or "sample" (BGEN byte planes).
+    pack: "plane" (PLINK bytes) or "sample" (BGEN byte planes);
+    male: [N] 0/1 male indicator, or None. Given, the chrX male tail
+    [male*ind | maskf*male] follows the ind column: its S1/SQ/SM product
+    columns give the male-resolved sums the hemizygous stats need (MAC
+    with 0.5*g for males, compute_mac Geno.cpp:3077).
     """
     cov = np.asarray(cov, np.float64)
     res = np.asarray(res, np.float64)
@@ -382,7 +386,11 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
     CM = (
         covz[:, :, None] * maskz[:, None, list(inc)]
     ).reshape(N, K * len(inc))
-    Wext = np.concatenate([covz, resz, CM, maskz, indf[:, None]], axis=1)
+    cols = [covz, resz, CM, maskz, indf[:, None]]
+    if male is not None:
+        malez = np.asarray(male, np.float64) * indf
+        cols += [malez[:, None], maskz * malez[:, None]]
+    Wext = np.concatenate(cols, axis=1)
     if pack == "plane":
         Wp_out, usum = plane_pack(Wext, nb, split, device, op_dtype or dtype,
                                   nbp_tile)
@@ -401,6 +409,7 @@ def build_consts(cov, res, maskf, ind, scale_denom, nb=None, device="cpu",
         scale_denom=float(scale_denom),
         split=bool(split),
         inc=inc,
+        has_male=male is not None,
     )
 
 
@@ -757,8 +766,8 @@ def bgen_fused_products(planes, Wp, Wq=None, qs=0, C_used=None,
     if not qs:
         return S1, SQn, SM, IL
     # scatter the narrow SQ back onto the full column frame (the other
-    # columns are never read downstream)
-    nq = C_used - qs
+    # columns, the chrX male tail's included, are never read downstream)
+    nq = min(C_used - qs, SQn.shape[1])
     SQ = torch.zeros_like(S1)
     SQ[:, qs : qs + nq] = SQn[:, :nq]
     return S1, SQ, SM, IL
@@ -815,11 +824,14 @@ def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
     (for the INFO column). With the kernel, the squared-dosage products
     of an int8, float32 or bf16 split operand run against consts.Wq, the
     narrow
-    [maskf | ind] operand, whose columns start at qs = C_used - (P + 1).
-    use_kernel=False takes the plain products on any device."""
+    [maskf | ind] operand, whose columns start at qs = C_used - (P + 1),
+    or with the chrX male tail P + 1 columns earlier (the tail follows
+    ind; Wq carries no male column, which only hardcall class counts
+    would read). use_kernel=False takes the plain products on any device."""
     C_used = consts.layout_C()
     Wq = consts.Wq if use_kernel else None
-    qs = C_used - (consts.P + 1) if Wq is not None else 0
+    male_off = consts.P + 1 if consts.has_male else 0
+    qs = C_used - male_off - (consts.P + 1) if Wq is not None else 0
 
     def run(planes):
         dt = consts.usum.dtype

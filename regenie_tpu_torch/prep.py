@@ -1,5 +1,6 @@
 """Data preparation for Step 2 QT (the port's copy of regenie_tpu/prep.py,
-trimmed to the quantitative-trait run-up).
+trimmed to the quantitative-trait run-up), with --print-cov-betas and
+the --debug dump of the model inputs.
 
 Mirrors the reference's run-up sequence (Data::run_step2 ->
 file_read_initialization, read_pheno_and_cov, prep_run; Data.cpp:95-180,
@@ -25,6 +26,7 @@ from .io.pheno import (
     rint_values,
     set_masks,
 )
+from .utils.stats import chisq_neglog10, convert_logp_raw
 
 
 @dataclass
@@ -42,7 +44,8 @@ def prepare(
     sample_index = gd.sample_index()
 
     pd = read_pheno(params, sample_index, blup_pheno_names)
-    new_cov, ind_in_cov = read_covariates(params, sample_index, pd.pheno_names)
+    new_cov, ind_in_cov, cov_names = read_covariates(params, sample_index,
+                                                     pd.pheno_names)
     # covariate-count log line greppable as in the reference (Pheno.cpp:642)
     log(f"n_cov = {new_cov.shape[1] - 1}")
     pd.new_cov = new_cov
@@ -57,6 +60,12 @@ def prepare(
             pd.phenotypes[:, j] = rint_values(pd.phenotypes[:, j], m)
 
     pheno_impute_miss(params, pd)
+
+    # --print-cov-betas: OLS of phenotypes on centered+scaled covariates
+    # BEFORE orthonormalization (residualize_phenotypes, Pheno.cpp:1806)
+    cov_betas = None
+    if params.print_cov_betas and params.test_mode:
+        cov_betas = _cov_betas(params, pd, cov_names)
 
     # orthonormal covariate basis (prep_run, Pheno.cpp:1060-1117)
     basis, ncov = get_basis(pd.new_cov, params)
@@ -76,7 +85,64 @@ def prepare(
               "phenotype; ignoring it.")
 
     residualize_phenotypes(params, pd)
+
+    # --print-cov-betas: raw-scale covariate OLS effects per trait
+    # (residualize_phenotypes + print_cov_betas, Pheno.cpp:1799/1613)
+    if cov_betas is not None:
+        _write_cov_betas(params, pd, *cov_betas)
     return RunData(geno=gd, pheno=pd)
+
+
+def _cov_betas(params, pd, cov_names):
+    """(betas, unit SEs, covariate sds, names) of the phenotypes' OLS on
+    the centered and scaled covariates, or None when X'X is singular."""
+    ind_b = pd.ind_in_analysis
+    Xc = pd.new_cov[ind_b].copy()
+    mu = Xc.mean(axis=0)
+    Xc -= mu[None, :]
+    Xc[:, 0] = 1.0  # keep the intercept column
+    sds = np.linalg.norm(Xc, axis=0) / np.sqrt(ind_b.sum())
+    ok_c = sds > params.numtol
+    Xs = np.where(ok_c[None, :], Xc / np.where(ok_c, sds, 1.0)[None, :], 0.0)
+    try:
+        XtX_inv = np.linalg.inv(Xs.T @ Xs)
+    except np.linalg.LinAlgError:
+        return None
+    betas = XtX_inv @ (Xs.T @ pd.phenotypes[ind_b])
+    se_unit = np.sqrt(np.abs(np.diag(XtX_inv)))
+    return betas, se_unit, np.where(ok_c, sds, 0.0), cov_names
+
+
+def _write_cov_betas(params, pd, betas, se_unit, cov_sds, cov_names):
+    """{out}_cov_betas.txt: COVAR PHENO BETA SE PVALUE rows."""
+    path = params.out_prefix + "_cov_betas.txt"
+    with open(path, "w") as fh:
+        fh.write("COVAR\tPHENO\tBETA\tSE\tPVALUE\n")
+        for ic, cname in enumerate(cov_names):
+            for ph, pname in enumerate(pd.pheno_names):
+                if not pd.pheno_pass[ph] or cov_sds[ic] <= 0:
+                    fh.write(f"{cname}\t{pname}\tNA\tNA\tNA\n")
+                    continue
+                b = betas[ic, ph] / cov_sds[ic]
+                se = se_unit[ic] * pd.scale_Y[ph] / cov_sds[ic]
+                if se <= 0:
+                    fh.write(f"{cname}\t{pname}\tNA\tNA\tNA\n")
+                    continue
+                stat = (betas[ic, ph] / (se_unit[ic] * pd.scale_Y[ph])) ** 2
+                logp = float(chisq_neglog10(np.array([stat]))[0])
+                fh.write(f"{cname}\t{pname}\t{fmt(b)}\t{fmt(se)}\t"
+                         f"{convert_logp_raw(logp)}\n")
+
+
+def write_debug_inputs(params: Params, pd) -> None:
+    """--debug analog of write_inputs (Data.cpp:911): the model inputs
+    after prep, the residualized and scaled Y ({out}_y.txt) and the
+    orthonormal covariate basis ({out}_x.txt), at full precision and
+    space-separated (the reference's Eigen FullPrecision format)."""
+    np.savetxt(params.out_prefix + "_y.txt", np.asarray(pd.phenotypes),
+               fmt="%.17g")
+    np.savetxt(params.out_prefix + "_x.txt", np.asarray(pd.new_cov),
+               fmt="%.17g")
 
 
 def fmt(x: float) -> str:

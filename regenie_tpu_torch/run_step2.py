@@ -1,13 +1,16 @@
-"""Step 2 on quantitative traits from PLINK BED hardcalls or BGEN v1.2
-8-bit dosages, through the fused scorer (the port of the QT/BED and
-QT/BGEN slices of regenie_tpu/run_step2.py).
+"""Step 2 on quantitative traits from PLINK BED or PGEN hardcalls or BGEN
+v1.2 8-bit dosages, through the fused scorer (the port of the QT/BED,
+QT/PGEN and QT/BGEN slices of regenie_tpu/run_step2.py).
 
 Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
 compute_res (:2386) and the .regenie writers: per chromosome the LOCO
 residuals enter the fused operand, and each block of packed genotype
 bytes (three products) or of BGEN probability byte planes (six products)
 is scored with a small epilogue on the device (ops/fused_score.py), with
-AF/MAC/INFO/genotype counts read from the same product columns.
+AF/MAC/INFO/genotype counts read from the same product columns. On
+chrX outside the PARs, the male tail of the operand gives the hemizygous
+MAC and class counts (default dosage compensation: males stay diploid-
+coded, so the scores do not change).
 """
 
 from __future__ import annotations
@@ -27,14 +30,15 @@ from .config import QT, Params
 from .io.bgen import extract_planes_block, require_planes
 from .io.files import iter_lines, open_read, open_write, string_split
 from .io.geno import make_blocks
-from .io.native import planes_lib
+from .io.native import pgen_lib, planes_lib
 from .io.output import (block_prefixes, format_block_htp,
-                        format_block_single, header_htp, header_single,
-                        htp_prefixes, native_formatter, sumstat_line_htp,
+                        format_block_single, header_all, header_htp,
+                        header_single, htp_prefixes, native_formatter,
+                        sumstat_line_all, sumstat_line_htp,
                         sumstat_line_single)
 from .models import step2 as m2
 from .ops import fused_score as fsc
-from .prep import prepare
+from .prep import prepare, write_debug_inputs
 from .cli import unported
 from .utils.device import resolve_device
 from .utils.stats import chisq_neglog10, ttest_neglog10, usage_info_line
@@ -136,6 +140,8 @@ class BlockResult:
     ns1: np.ndarray
     info_t: Optional[np.ndarray] = None  # [B, P] INFO (BGEN)
     genocounts: Optional[np.ndarray] = None  # [B, 6, P] (htp mode)
+    n_rr: Optional[np.ndarray] = None  # [B] hardcall class counts (merged
+    n_aa: Optional[np.ndarray] = None  # output's N_RR / N_AA; not BGEN)
 
 
 def _fetch_packed(vals: dict) -> dict:
@@ -157,8 +163,8 @@ def _fetch_packed(vals: dict) -> dict:
 
 
 class Step2Engine:
-    """Association-test state and per-block fused scoring (QT; BED or
-    BGEN).
+    """Association-test state and per-block fused scoring (QT; BED, PGEN
+    or BGEN).
 
     device: where the operand lives and the products run (resolved by
     utils.device.resolve_device). On CUDA the operand is the int8 limbs,
@@ -280,25 +286,72 @@ class Step2Engine:
         return bhat, se, chisq, logp
 
     def fused_ok(self) -> bool:
-        """Whether the fused scorer can run this QT analysis on BED bytes
-        or BGEN planes: it is the port's only Step-2 path, so everything
-        the reference keeps on its dense path (--nocov-approx, --mcc) is
-        not yet ported."""
-        params = self.params
-        src = self.gd._bed is not None or self.gd._bgen is not None
+        """Whether the fused scorer can run this QT analysis on BED or
+        PGEN bytes or BGEN planes: it is the port's only Step-2 path, so
+        everything the reference keeps on its dense path (--nocov-approx,
+        --mcc) is not yet ported."""
+        params, gd = self.params, self.gd
+        src = (gd._bed is not None or gd._bgen is not None
+               or gd._pgen is not None)
         return (params.trait_mode == QT and src
                 and not params.skip_cov_res and not params.mcc_test)
 
+    def _fused_chrx_ok(self) -> bool:
+        """Whether chrX non-PAR blocks ride the fused path, with the male
+        tail columns in the operand (the QT branch of the JAX package's
+        _fused_chrx_ok, regenie_tpu/run_step2.py:859-885): default dosage
+        compensation (males diploid-coded, scoring unchanged) and the
+        ADD test. The JAX package also needs no --af-cc and, on BGEN, no
+        --htp; the port rejects both before this point."""
+        p = self.params
+        return (self.gd.sex is not None and bool(p.test_mode)
+                and not p.skip_dosage_comp and not p.af_cc
+                and p.test_type == 0
+                and (self.gd._bgen is None or not p.htp_out))
+
+    @staticmethod
+    def _hemizygous_adjust(npb, S1h, SQh, SMh, usum_h, mcol, mm_sl,
+                          total1, ns1, mac1, total_t, ns_t, mac_t,
+                          with_classes):
+        """chrX male-tail stat algebra on the raw product columns (the
+        JAX package's _hemizygous_adjust): MAC with 0.5*g for males and
+        min(mac, 2*ns - nmales - mac) (compute_mac non-auto branch,
+        Geno.cpp:3095) on the non-PAR rows `npb`; with_classes adds the
+        hemizygous class counts n1m = 2*S1m - SQm (males with g=1 move
+        het -> hom-alt; g=0 males stay hom-ref). Returns (mac1, mac_t,
+        n1m or None, n1m_t or None)."""
+        male_tot1 = S1h[:, mcol]
+        nmales1 = usum_h[mcol] - SMh[:, mcol]
+        macx = total1 - 0.5 * male_tot1
+        mac1 = np.where(
+            npb, np.minimum(macx, 2.0 * ns1 - nmales1 - macx), mac1)
+        male_tot_t = S1h[:, mm_sl]
+        nmales_t = usum_h[None, mm_sl] - SMh[:, mm_sl]
+        macx_t = total_t - 0.5 * male_tot_t
+        mac_t = np.where(
+            npb[:, None],
+            np.minimum(macx_t, 2.0 * ns_t - nmales_t - macx_t), mac_t)
+        n1m = n1m_t = None
+        if with_classes:
+            n1m = np.where(npb, 2.0 * male_tot1 - SQh[:, mcol], 0.0)
+            n1m_t = np.where(
+                npb[:, None], 2.0 * male_tot_t - SQh[:, mm_sl], 0.0)
+        return mac1, mac_t, n1m, n1m_t
+
     def read_block_raw(self, bsnps) -> np.ndarray:
-        """A block's genotype source on the FILE sample axis, unpadded
-        (sample-tile padding happens on the device in _fused_upload).
-        BED: [B, nb] packed 2-bit bytes, the mmap view itself when the
-        variants are consecutive in the file (no host copy). BGEN:
-        [B, 2, N_file] probability byte planes from the native extractor,
-        which raises on a record it cannot read."""
+        """A block's genotype source, unpadded (sample-tile padding
+        happens on the device in _fused_upload). BED: [B, nb] packed
+        2-bit bytes on the FILE sample axis, the mmap view itself when
+        the variants are consecutive in the file (no host copy). PGEN:
+        [B, nb] BED-coded packed bytes on the KEPT sample axis, from the
+        port's native block decoder. BGEN: [B, 2, N_file] probability
+        byte planes from the native extractor. Each native reader raises
+        on a record it cannot read."""
         if self.gd._bgen is not None:
             return extract_planes_block(self.gd._bgen,
                                         [s.offset for s in bsnps])
+        if self.gd._pgen is not None:
+            return self.gd.read_block_bytes(bsnps)
         offsets = np.array([s.offset for s in bsnps])
         start, stop = int(offsets[0]), int(offsets[-1]) + 1
         raw = self.gd._bed.read_block_bytes(start, stop - start)
@@ -307,16 +360,20 @@ class Step2Engine:
         return np.ascontiguousarray(raw)
 
     def _fused_nfile(self) -> int:
-        """Sample count on the genotype file's sample axis."""
+        """Sample count on the byte source's axis: the FILE axis for BED
+        bytes and BGEN planes, the kept axis for PGEN bytes."""
         if self.gd._bgen is not None:
             return self.gd._bgen.n_samples_file
-        return self.gd._bed.n_samples
+        if self.gd._bed is not None:
+            return self.gd._bed.n_samples
+        return self.params.n_samples
 
     def _scatter_file(self, x):
-        """Map a kept-sample-axis array onto the genotype file's sample
-        axis (zeros at dropped samples)."""
+        """Map a kept-sample-axis array onto the byte source's sample
+        axis (zeros at dropped samples); PGEN bytes are already on the
+        kept axis (identity)."""
         gd = self.gd
-        if gd._keep_all_samples:
+        if gd._pgen is not None or gd._keep_all_samples:
             return x
         idx = np.asarray(gd.sample_keep_idx)
         out = np.zeros((self._fused_nfile(),) + x.shape[1:], dtype=np.float64)
@@ -326,10 +383,11 @@ class Step2Engine:
     def _ensure_fused_consts(self):
         """(Re)build the fused-scorer constants; the residual columns
         change per chromosome, so keyed on cur_chrom. The chromosome-
-        independent columns (cov/CM/mask/ind, and for BGEN with a kernel,
-        on the int8 or the float32 operand, the narrow [maskf | ind] SQ
-        operand Wq) are packed once; residual columns start at zero and
-        are patched on the device."""
+        independent columns (cov/CM/mask/ind, the chrX male tail whenever
+        _fused_chrx_ok holds, as in the JAX package, and for BGEN with a
+        kernel, on the int8 or the float32 operand, the narrow [maskf |
+        ind] SQ operand Wq) are packed once; residual columns start at
+        zero and are patched on the device."""
         if self._fused_chrom == self.cur_chrom:
             return
         pd, params = self.pd, self.params
@@ -341,10 +399,15 @@ class Step2Engine:
             mask_f = self._scatter_file(self.maskf)
             ind_f = self._scatter_file(
                 pd.ind_in_analysis.astype(np.float64)).astype(bool)
+            male_f = None
+            if self._fused_chrx_ok():
+                male_f = self._scatter_file(
+                    (self.gd.sex == 1).astype(np.float64))
             base = fsc.build_consts(
                 cov_f, np.zeros_like(res_f), mask_f, ind_f, self.scale_denom,
                 nb=nb, device=self.device, split=self.split,
                 pack="sample" if is_bgen else "plane", op_dtype=self.op_dtype,
+                male=male_f,
             )
             covz_f = cov_f * ind_f.astype(np.float64)[:, None]
             Cp = -(-base.layout_C() // 128) * 128
@@ -373,14 +436,16 @@ class Step2Engine:
         Wp = fsc.patch_res_columns(base.Wp, res_pl, K, P, Cp)
         u = usum_static.copy()
         u[K : K + P] = res_f.sum(axis=0)
+        self._usum_h = u
         self._fused_consts = fsc.FusedConsts(
             Wp=Wp, usum=torch.from_numpy(u).to(self.device),
             covt_res=torch.from_numpy(covz_f.T @ res_f).to(self.device),
             Mmat=base.Mmat, n_ind=base.n_ind, K=K, P=P,
             scale_denom=base.scale_denom, split=base.split, inc=base.inc,
-            Wq=Wq,
+            has_male=base.has_male, Wq=Wq,
         )
-        # --ref-first swaps alleles of the raw bytes in product space
+        # --ref-first swaps alleles of the raw BED bytes and BGEN planes
+        # in product space; PGEN names REF and ALT itself (no swap)
         if is_bgen:
             self._fused_fn = fsc.make_qt_bgen_fn(
                 self._fused_consts, self.kernel, bool(params.ref_first),
@@ -388,7 +453,8 @@ class Step2Engine:
         else:
             self._fused_fn = fsc.make_qt_block_fn(
                 self._fused_consts, self.kernel, params.test_type,
-                bool(params.ref_first), strict=self.strict,
+                bool(params.ref_first) and self.gd._bed is not None,
+                strict=self.strict,
             )
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
@@ -446,10 +512,12 @@ class Step2Engine:
         return np.where((af_t == 0) | (af_t == 1), 1.0, info_t)
 
     def test_raw_block_fused(self, raw, bsnps) -> Tuple[BlockResult, np.ndarray]:
-        """Fused pipeline for a block of packed BED bytes (three products)
-        or BGEN planes (six products): the products replace decode/
-        impute/residualize/score AND the per-variant stat pass — AF/MAC/
-        INFO/genotype counts all come from the same product columns."""
+        """Fused pipeline for a block of packed BED or PGEN bytes (three
+        products) or BGEN planes (six products): the products replace
+        decode/impute/residualize/score AND the per-variant stat pass —
+        AF/MAC/INFO/genotype counts all come from the same product
+        columns, the male tail's for the hemizygous MAC and class counts
+        of chrX non-PAR rows."""
         params, pd = self.params, self.pd
         self._ensure_fused_consts()
         consts = self._fused_consts
@@ -467,7 +535,9 @@ class Step2Engine:
         flipped = np.zeros(B, dtype=bool)  # QT never flips (with_flip=False)
 
         # per-variant stats from the raw (pre-imputation) products
-        icol = consts.layout_C() - 1
+        C_used = consts.layout_C()
+        male_off = (P + 1) if consts.has_male else 0
+        icol = C_used - 1 - male_off
         msl = slice(icol - P, icol)
         total1 = S1h[:, icol]
         ns1 = consts.n_ind - SMh[:, icol]
@@ -479,6 +549,22 @@ class Step2Engine:
         with np.errstate(divide="ignore", invalid="ignore"):
             af_t = total_t / (2.0 * ns_t)
         mac_t = np.minimum(total_t, 2.0 * ns_t - total_t)
+        n_aa1 = (SQh[:, icol] - total1) / 2.0
+        n_rr1 = ns1 - total1 + n_aa1
+        n1m_t = None
+        if consts.has_male:
+            non_par = self.non_par_flags(bsnps)
+            if non_par.any():
+                # hemizygous MAC (+ class counts for hardcalls; BGEN's
+                # narrow Wq carries no male SQ and emits no class rows)
+                mac1, mac_t, n1m, n1m_t = self._hemizygous_adjust(
+                    non_par, S1h, SQh, SMh,
+                    self._usum_h,
+                    C_used - 1 - P, slice(C_used - P, C_used),
+                    total1, ns1, mac1, total_t, ns_t, mac_t,
+                    with_classes=not is_bgen)
+                if n1m is not None:
+                    n_aa1 = n_aa1 + n1m
 
         mac_ignored, ignored_trait = self._mac_filters(params, bsnps, mac1, mac_t, B)
         if params.test_type == 2 and params.min_homs > 0:
@@ -502,9 +588,16 @@ class Step2Engine:
             af_t=af_t, ns_t=ns_t, scale_fac=scale_fac, mac_t=mac_t,
             af1=af1, ns1=np.round(ns1).astype(np.int64), info_t=info_t,
         )
+        if not is_bgen:
+            # hardcall class counts (nonlinear for dosages)
+            result.n_rr = np.round(n_rr1).astype(np.int64)
+            result.n_aa = np.round(n_aa1).astype(np.int64)
         if params.htp_out:
             a_t = (SQh[:, msl] - total_t) / 2.0
             het_t = total_t - 2.0 * a_t
+            if n1m_t is not None:
+                a_t = a_t + n1m_t
+                het_t = het_t - n1m_t
             rr_t = ns_t - het_t - a_t
             gc = np.zeros((B, 6, P))
             gc[:, 0, :] = rr_t
@@ -515,15 +608,29 @@ class Step2Engine:
 
 
 def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None):
-    """One output file per trait: split .regenie (default) or HTPv4."""
+    """The output files, gzipped with --gz: one per trait (split .regenie
+    by default, or HTPv4), or with --no-split one merged <out>.regenie,
+    shared by every trait, and its <out>.regenie.Ydict of trait names.
+    Returns (writers per trait, paths)."""
+    gz = ".gz" if params.gz_out else ""
+    if not params.split_by_pheno and not params.htp_out:
+        path = f"{params.out_prefix}.regenie{gz}"
+        fh = open_write(path, gz=params.gz_out)
+        fh.write(header_all(params))
+        # Ydict maps trait numbers to names (print_summary,
+        # Step2_Models.cpp:2655)
+        with open_write(params.out_prefix + ".regenie.Ydict") as yd:
+            for ip, name in enumerate(pheno_names):
+                yd.write(f"Y{ip+1} {name}\n")
+        return [fh] * len(pheno_names), [path]
     writers, out_paths = [], []
     hdr = header_htp() if params.htp_out else header_single(params)
     for ip, name in enumerate(pheno_names):
         if pheno_pass is not None and not pheno_pass[ip]:
             writers.append(None)
             continue
-        path = f"{params.out_prefix}_{name}.regenie"
-        fh = open_write(path)
+        path = f"{params.out_prefix}_{name}.regenie{gz}"
+        fh = open_write(path, gz=params.gz_out)
         fh.write(hdr)
         writers.append(fh)
         out_paths.append(path)
@@ -564,6 +671,9 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                     test_pass=not r.test_fail[b, ph], neff=pd.Neff[ph],
                 ))
         return
+    if not params.split_by_pheno:
+        _write_block_all(params, pd, writers[0], bsnps, r, test_name)
+        return
     # hot path: whole-column native rendering (OpenMP snprintf), one call
     # per trait; byte-identical to the per-row loop below
     if (native_formatter("format_sumstat_single") is not None
@@ -595,6 +705,43 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                 r.chisq[b, ph], r.logp[b, ph],
                 test_pass=not r.test_fail[b, ph],
             ))
+
+
+def _write_block_all(params, pd, fh, bsnps, r: BlockResult, test_name):
+    """A block's rows of the merged --no-split file, rendered in Python:
+    one row a variant with every trait's four fields; a trait that fails
+    its filters or its pass prints NA there (print_sum_stats_all,
+    Step2_Models.cpp:2457)."""
+    B, P = len(bsnps), params.n_pheno
+    bad = r.ignored_trait[:, :P].astype(bool) | ~np.asarray(
+        pd.pheno_pass, bool)[None, :]
+    for b in range(B):
+        if r.ignored[b]:
+            continue
+        per_pheno = [
+            (-1.0, -1.0, -1.0, -1.0, False) if bad[b, ph] else (
+                r.bhat[b, ph], r.se[b, ph], r.chisq[b, ph], r.logp[b, ph],
+                not r.test_fail[b, ph])
+            for ph in range(P)]
+        fh.write(sumstat_line_all(
+            params, bsnps[b], test_name, r.af1[b], int(r.ns1[b]),
+            int(r.n_rr[b]), int(r.n_aa[b]), per_pheno))
+
+
+def write_sample_ids(params, gd, pd, log=print):
+    """--write-samples: each analyzed trait's sample list,
+    <out>_<trait>.regenie.ids (write_ids, Pheno.cpp:1539)."""
+    log(" * user specified to write sample IDs for each trait")
+    for ph, name in enumerate(pd.pheno_names):
+        if not pd.pheno_pass[ph]:
+            continue
+        with open_write(f"{params.out_prefix}_{name}.regenie.ids") as fh:
+            if params.print_pheno_name:
+                # 1st line = pheno name (write_ids, Pheno.cpp:1557)
+                fh.write(f"{name}\tNA\n")
+            fh.write("\n".join(f"{s.FID}\t{s.IID}"
+                               for i, s in enumerate(gd.samples)
+                               if pd.masked_indivs[i, ph]))
 
 
 def open_engine(params: Params, log=print, device=None):
@@ -631,27 +778,37 @@ def open_engine(params: Params, log=print, device=None):
         # work when it cannot run this file
         require_planes(gd._bgen)
         planes_lib()
+    if gd._pgen is not None:
+        pgen_lib()  # likewise the PGEN block decoder
 
     blocks = make_blocks(gd, params.block_size)
-    if any(eng.non_par_flags(bsnps).any() for _, bsnps in blocks):
+    if not eng._fused_chrx_ok() and any(
+            eng.non_par_flags(bsnps).any() for _, bsnps in blocks):
+        # the JAX package scores these on its dense path
         raise NotImplementedError(
-            "chrX non-PAR variants (hemizygous male stats): not yet ported "
-            "to regenie_tpu_torch")
+            "chrX non-PAR variants with --skip-dosage-comp or a dominant/"
+            "recessive test: not yet ported to regenie_tpu_torch")
     return eng, blocks
 
 
 def run_step2(params: Params, log=print, device=None) -> None:
-    """Step 2 QT on a BED or BGEN file: one output file per trait. `device`
-    as in utils.device.resolve_device (CUDA unless the CPU is asked
-    for)."""
+    """Step 2 QT on a BED, PGEN or BGEN file: one output file per trait,
+    or one merged file (--no-split). `device` as in
+    utils.device.resolve_device (CUDA unless the CPU is asked for)."""
     eng, blocks = open_engine(params, log, device)
     device, pd = eng.device, eng.pd
+    if params.debug:
+        # dump the model inputs (write_inputs, Data.cpp:2294/911)
+        write_debug_inputs(params, pd)
+    if params.write_samples:
+        write_sample_ids(params, eng.gd, pd, log)
     params.total_n_block = len(blocks)
     log(f" * block size: [{params.block_size}]")
     log(usage_info_line(params))
     log(f" * # blocks: [{params.total_n_block}]")
     log(f" * # tested variants: [{params.n_variants}]")
-    src = "BGEN" if eng.gd._bgen is not None else "BED"
+    src = ("BGEN" if eng.gd._bgen is not None else
+           "PGEN" if eng.gd._pgen is not None else "BED")
     how = ("int8 kernel" if eng.split == "i8" else
            "float32 operand kernel" if eng.op_dtype == torch.float32 else
            "float64 plain products")
@@ -699,7 +856,7 @@ def run_step2(params: Params, log=print, device=None) -> None:
             upload_ready.set()
             if i + 1 < len(todo):
                 fut = pool.submit(_fetch, todo[i + 1][1])
-            if params.verbose:
+            if params.verbose or params.debug:
                 now = time.time()
                 log(f"   -block {i + 1}/{len(todo)} chr{chrom} "
                     f"[{len(bsnps)} snps, {now - tblk:.2f}s]")
@@ -726,9 +883,8 @@ def run_step2(params: Params, log=print, device=None) -> None:
             except Exception as e:  # noqa: BLE001 — re-raised below
                 werr = werr or e
         wpool.shutdown(wait=True)
-        for fh in writers:
-            if fh is not None:
-                fh.close()
+        for fh in {id(w): w for w in writers if w is not None}.values():
+            fh.close()
         if werr is not None and sys.exc_info()[0] is None:
             raise werr
     dt = time.time() - t0

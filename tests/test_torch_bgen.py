@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_bgen_dataset
+from chip_smoke import write_bgen_dataset, zstd_compressor
 from regenie_tpu_torch.ops import fused_score as tfs
 from regenie_tpu_torch.ops import kernels
 
@@ -603,20 +603,81 @@ def test_bgi_index_matches_scan(tmp_path):
         idx.close()
 
 
-def test_zstd_bgen_raises(tmp_path):
-    """zstd-compressed BGEN (compression flag 2) is outside the port's
-    zlib extractor: NotImplementedError before any block is read."""
+def test_zstd_bgen_is_read(tmp_path, monkeypatch):
+    """A zstd-compressed BGEN (compression flag 2; ZSTD_decompress taken
+    from libzstd.so.1 at run time) gives the zlib file's planes, and the
+    port's CLI writes byte for byte the output it writes on the same data
+    in zlib."""
+    from regenie_tpu_torch import cli
     from regenie_tpu_torch.io.bgen import extract_planes_block, open_bgen
+    from regenie_tpu_torch.utils.device import DEVICE_ENV
 
-    path, _ = _tiny_bgen(str(tmp_path))
+    try:
+        compress = zstd_compressor()
+    except OSError:
+        pytest.skip("libzstd.so.1 is not installed")
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    paths = {}
+    for name, kw in (("zlib", {}), ("zstd", dict(compress=compress, compression=2))):
+        d = tmp_path / name
+        d.mkdir()
+        paths[name] = write_bgen_dataset(str(d), seed=13, N=300,
+                                         chroms=((1, 70), (2, 30)), P=2,
+                                         n_inc=1, n_cov=2, n_remove=4, **kw)
+        cli.main(["--step", "2", "--bgen", paths[name], "--sample",
+                  f"{d}/geno.sample", "--phenoFile", f"{d}/pheno.txt",
+                  "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
+                  "--ignore-pred", "--bsize", "32", "--out", f"{d}/o"])
+    bz, bs = open_bgen(paths["zlib"]), open_bgen(paths["zstd"])
+    assert (bz.compression, bs.compression) == (1, 2)
+    np.testing.assert_array_equal(extract_planes_block(bz, range(100)),
+                                  extract_planes_block(bs, range(100)))
+    bz.close()
+    bs.close()
+    for ph in ("Y1", "Y2"):
+        got = open(tmp_path / "zstd" / f"o_{ph}.regenie", "rb").read()
+        assert got == open(tmp_path / "zlib" / f"o_{ph}.regenie", "rb").read()
+        assert len(got.splitlines()) == 101
+
+
+def test_zstd_bgen_raises(tmp_path, monkeypatch):
+    """A zstd-compressed BGEN on a machine where libzstd cannot be loaded
+    raises RuntimeError naming the library, at the run's start and at the
+    first block read; a zlib file never needs the library."""
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.io import native
+    from regenie_tpu_torch.io.bgen import extract_planes_block, open_bgen
+    from regenie_tpu_torch.utils.device import DEVICE_ENV
+
+    path, sample = _tiny_bgen(str(tmp_path))
+    monkeypatch.setattr(native, "ZSTD_SONAME", "libzstd_absent.so.1")
+    monkeypatch.setitem(native._state, "zstd", None)
+    bf = open_bgen(path)
+    assert extract_planes_block(bf, [0]).shape == (1, 2, 10)  # zlib: no zstd
+    bf.close()
     with open(path, "r+b") as fh:
         fh.seek(20)
         fh.write(struct.pack("<I", 2 | (2 << 2) | (1 << 31)))
     bf = open_bgen(path)
     assert bf.compression == 2
-    with pytest.raises(NotImplementedError, match="zlib-compressed layout-2"):
+    with pytest.raises(RuntimeError, match="libzstd_absent.so.1"):
         extract_planes_block(bf, [0])
     bf.close()
+    with open(tmp_path / "ph.txt", "w") as fh:
+        fh.write("FID IID Y1\n" + "".join(f"F{i} I{i} {0.1 * i:.2f}\n"
+                                          for i in range(10)))
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    with pytest.raises(RuntimeError, match="cannot be loaded"):
+        cli.main(["--step", "2", "--bgen", path, "--sample", sample,
+                  "--phenoFile", str(tmp_path / "ph.txt"), "--ignore-pred",
+                  "--out", str(tmp_path / "o")])
+    assert not os.path.exists(tmp_path / "o_Y1.regenie")
+    # the library loads again under its own name
+    monkeypatch.setattr(native, "ZSTD_SONAME", "libzstd.so.1")
+    try:
+        native.require_zstd()
+    except RuntimeError:
+        pytest.skip("libzstd.so.1 is not installed")
 
 
 # ---------------------------------------------------------------------------

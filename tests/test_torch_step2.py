@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from chip_smoke import write_bgen_dataset, write_dataset
+from chip_smoke import chrx_positions, write_bgen_dataset, write_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -110,13 +110,14 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.ops.geno_ops, "
         "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
         "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.ops.pallas_ops, "
-        "regenie_tpu_torch.io.bgen, "
+        "regenie_tpu_torch.io.bgen, regenie_tpu_torch.io.pgen, "
         "regenie_tpu_torch.io.native, "
         "regenie_tpu_torch.scripts.profile_fused, "
         "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
         "native.planes_lib()\n"
         "native.loco_lib()\n"
+        "native.pgen_lib()\n"
         "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
         "or m.startswith('regenie_tpu.'))\n"
         "assert not bad, bad\n"
@@ -186,10 +187,12 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     # Step 1 runs on BED QT since its slice; these Step-1 modes still raise
     ["--step", "1", "--bt"], ["--bt"], ["--t2e", "--phenoColList", "Y1",
                                 "--eventColList", "Y2"],
-    ["--no-split"], ["--interaction", "C1"], ["--mcc"],
+    ["--tpheno-file", "t.txt"], ["--interaction", "C1"], ["--mcc"],
     ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
-    ["--ct"], ["--compute-corr"], ["--gz"],
+    ["--ct"], ["--compute-corr"], ["--force-ltco", "1"],
     ["--condition-list", "c.txt"],
+    # chrX non-PAR variants the JAX package scores on its dense path
+    ["chrx", "--skip-dosage-comp"], ["chrx", "--test", "dominant"],
     # a single trait keeps --nocov-approx, which the fused scorer rejects
     ["--nocov-approx", "--phenoColList", "Y2"],
     # BGEN runs the JAX package keeps on its dense dosage path
@@ -202,7 +205,8 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 def test_unported_mode_raises(tmp_path, monkeypatch, flags):
     """Every mode the port does not have raises NotImplementedError, on
     the CPU too; none silently runs something else. Flags after "bgen"
-    run on a BGEN input; flags without --step run Step 2."""
+    run on a BGEN input, after "chrx" on a BED with chrX non-PAR
+    variants; flags without --step run Step 2."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
@@ -213,6 +217,11 @@ def test_unported_mode_raises(tmp_path, monkeypatch, flags):
         bgen = write_bgen_dataset(str(tmp_path), seed=0, N=40,
                                   chroms=((1, 8),), P=3, n_inc=1, n_cov=3)
         src = ["--bgen", bgen, "--sample", f"{tmp_path}/geno.sample"]
+    elif flags[0] == "chrx":
+        flags = flags[1:]
+        src = ["--bed", write_dataset(
+            str(tmp_path), seed=0, N=40, chroms=(("X", 8),), P=3, n_inc=1,
+            n_cov=3, positions={"X": chrx_positions(8, 2)})]
     else:
         src = ["--bed", _tiny_dataset(tmp_path)]
     argv = src + ["--phenoFile", f"{tmp_path}/pheno.txt",
@@ -221,3 +230,4 @@ def test_unported_mode_raises(tmp_path, monkeypatch, flags):
         argv = ["--step", "2"] + argv
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(argv + flags)
+    assert not [f for f in os.listdir(tmp_path) if f.startswith("o_")]
