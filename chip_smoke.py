@@ -59,6 +59,20 @@ Phases, each of which must pass:
    score_block_fused on random allele flips beside it) or
    make_qt_bgen_fn (BGEN): fused_bf16 / bgen_bf16 launch and no other
    kernel, and the block meets the same bars against the plain path.
+4b. dense slice: the dense Step-2 route (the JAX package's dense path,
+   plain float64 torch ops) at the same width, on the BGEN slice's own
+   dataset: its first block read through the port's dosage decoder
+   (io/csrc/bgen_dosages.cpp), uploaded and scored by the BGEN slice's
+   engine (host read, the records' Python read alone, upload, and the
+   card's stats / finalize / one-pass parts with CUDA events), its INFO
+   and A1FREQ within rel 1e-9 of the fused route's, N equal, LOG10P and
+   BETA at the slice bars; then one CLI run with REGENIE_TPU_FUSED=0 and
+   the slice's flags: no hand-written kernel may launch, the log must
+   show the dense route on cuda, and the 50 files (both blocks) must
+   meet the slice bars against the bgen_i8 run's (A1FREQ, INFO and N
+   printing equal, or one unit of the sixth digit apart across a
+   rounding boundary). Printed: each block's host read and upload (the
+   CLI's block lines), the CLI wall and variants/s.
 5. Step-1 slice: a synthetic PLINK BED at that width (N=400,000, P=50,
    K=20) with a polygenic effect, 2 chromosomes x 2,000 variants, and the
    port's Step-1 CLI on the card in this process (--bsize 1000: 4
@@ -88,10 +102,17 @@ Phases, each of which must pass:
    --remove: a BED --htp run, a two-chromosome BGEN --minINFO run, a
    chrX BED --htp run and a chrX BGEN run (PAR1, non-PAR and PAR2
    positions), a zstd BGEN run and a chrX PGEN run with --no-split --gz;
-   every output field meets the same bar. Then the two-step workflow on
-   the BED dataset (K-fold and --loocv) and on the PGEN (K-fold), on the
-   card and on the CPU: Step 1, and Step 2 with --pred on that run's own
-   _pred.list; every .loco value within one unit of its sixth
+   and on the dense route, once on the card and once on the CPU: a
+   16-bit phased uncompressed BGEN with --htp and --condition-file bgen,
+   a layout-1 BGEN with --no-split --test dominant, a PGEN with dosage
+   tracks with --nocov-approx on one trait (these three launch no
+   kernel), and the chrX BED with --skip-dosage-comp, and with --test
+   recessive --minHOMs 1, --condition-list and --tpheno-file (the
+   non-PAR blocks dense); every output field meets the same bar. Then
+   the two-step workflow on the BED dataset (K-fold and --loocv), on the
+   PGEN (K-fold) and on the BGEN (K-fold, Step 2 with --force-ltco 2),
+   on the card and on the CPU: Step 1, and Step 2 with --pred on that
+   run's own _pred.list; every .loco value within one unit of its sixth
    significant digit, every Step-2 field within its bar.
 
 The last lines of standard output are a JSON line with every kernel's
@@ -296,7 +317,7 @@ def _difflist(ids, codes, N):
 
 def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                        na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128,
-                       positions=None, ld_every=4, ld_diff=0.005):
+                       positions=None, ld_every=4, ld_diff=0.005, dosage=0.0):
     """Synthetic PLINK2 .pgen/.pvar/.psam (prefix d/geno; storage mode
     0x10, 4-bit vrtypes, 3-byte record lengths) with the genotypes of
     write_dataset's generator, and its phenotype, covariate and remove
@@ -304,24 +325,30 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     LD-compressed record: the last non-LD variant's genotypes with a
     share ld_diff of samples redrawn, stored as a difflist against it
     (vrtype 2; every other one inverted, hom-ref and hom-alt swapped:
-    vrtype 3); the others are 2-bit direct records (vrtype 0). The .psam
-    has a SEX column (samples of even index male), the .pvar REF A and
-    ALT C. Returns the prefix."""
+    vrtype 3); the others are 2-bit direct records (vrtype 0). With
+    dosage > 0, that share of the variants also carries a dense 16-bit
+    dosage track (vrtype bit 0x40; 8-bit vrtypes): the hardcall x 16384,
+    moved by up to 4095 toward 1 on a tenth of the samples, 65535 where
+    missing. The .psam has a SEX column (samples of even index male), the
+    .pvar REF A and ALT C. Returns the prefix."""
     rng = np.random.default_rng(seed)
     M = sum(n for _, n in chroms)
     beta, X, Y, chunks = _hardcall_blocks(rng, N, chroms, P, n_cov, miss,
                                           effect_sd, chunk)
+    has_dos = rng.random(M) < dosage if dosage > 0 else np.zeros(M, bool)
     to_pgen = np.array([2, 3, 1, 0], np.uint8)  # BED code -> ALT count code
     to_bed = np.array([3, 2, 0, 1], np.uint8)
     swap = np.array([2, 1, 0, 3], np.uint8)
     vblocks = (M + 65535) // 65536
-    index = 8 * vblocks + sum((min(65536, M - 65536 * b) + 1) // 2
-                              for b in range(vblocks)) + 3 * M
+    wide = bool(has_dos.any())  # 8-bit vrtypes, to hold bit 0x40
+    index = 8 * vblocks + sum((min(65536, M - 65536 * b) + (0 if wide else 1))
+                              // (1 if wide else 2) for b in range(vblocks)) + 3 * M
     vrtypes = np.zeros(M, np.uint8)
     lens = np.zeros(M, np.int64)
     prefix = os.path.join(d, "geno")
     with open(prefix + ".pgen", "wb") as fh:
-        fh.write(b"\x6c\x1b\x10" + np.array([M, N], "<u4").tobytes() + b"\x02")
+        fh.write(b"\x6c\x1b\x10" + np.array([M, N], "<u4").tobytes()
+                 + (b"\x06" if wide else b"\x02"))
         fh.write(bytes(index))
         base = None
         nb = (N + 3) // 4
@@ -346,6 +373,15 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                       | (c[..., 3] << 6)).astype(np.uint8)
             for j in range(len(pg)):
                 rec = ld[j] if j in ld else packed[j].tobytes()
+                if has_dos[s + j]:
+                    vrtypes[s + j] |= 0x40
+                    dv = pg[j].astype(np.int64) * 16384
+                    moved = rng.random(N) < 0.1
+                    step = rng.integers(0, 4096, N)
+                    dv = np.where(moved, dv + np.where(pg[j] == 0, step,
+                                                       np.where(pg[j] == 2, -step, 0)), dv)
+                    dv[pg[j] == 3] = 65535
+                    rec += dv.astype("<u2").tobytes()
                 lens[s + j] = len(rec)
                 fh.write(rec)
             _add_effects(Y, beta, s, to_bed[pg])
@@ -357,7 +393,8 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
             lo, hi = 65536 * b, min(M, 65536 * (b + 1))
             vt = np.zeros(2 * ((hi - lo + 1) // 2), np.uint8)
             vt[: hi - lo] = vrtypes[lo:hi]
-            fh.write((vt[0::2] | (vt[1::2] << 4)).tobytes())
+            fh.write(vt[: hi - lo].tobytes() if wide
+                     else (vt[0::2] | (vt[1::2] << 4)).tobytes())
             fh.write(((lens[lo:hi, None] >> (8 * np.arange(3))) & 0xFF)
                      .astype(np.uint8).tobytes())
     with open(prefix + ".pvar", "w") as fh:
@@ -375,31 +412,91 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     return prefix
 
 
+def _table_rows(first, V):
+    """The rows "F{i} I{i} v ..." of samples first, first + 1, ... with
+    values V [n, k] printed %.6f (nan as NA)."""
+    row = " ".join(["%.6f"] * V.shape[1])
+    return "".join(f"F{first + i} I{first + i} " + (row % tuple(v)).replace("nan", "NA")
+                   + "\n" for i, v in enumerate(V))
+
+
+# from this many samples on, the tables are printed by a pool of processes
+TABLE_POOL_N = 50_000
+
+
 def _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove):
     """d/pheno.txt (the first n_inc traits with na_rate NA), d/covar.txt
-    and d/remove.txt (n_remove samples) for samples F{i} I{i}."""
+    and d/remove.txt (n_remove samples) for samples F{i} I{i}. At
+    biobank N the rows are printed in slices by one process per CPU (the
+    same bytes: the slices are joined in order)."""
     N, P = Y.shape
     for p in range(n_inc):
         Y[rng.random(N) < na_rate, p] = np.nan
+    tables = ((os.path.join(d, "pheno.txt"), [f"Y{p + 1}" for p in range(P)], Y),
+              (os.path.join(d, "covar.txt"), [f"C{k + 1}" for k in range(X.shape[1])], X))
+    if N < TABLE_POOL_N:
+        texts = [_table_rows(0, V) for _, _, V in tables]
+    else:
+        import multiprocessing
 
-    def table(path, names, V):
-        row = " ".join(["%.6f"] * V.shape[1])
+        cuts = np.linspace(0, N, 8 * (os.cpu_count() or 1) + 1).astype(int)
+        with multiprocessing.get_context("spawn").Pool(os.cpu_count()) as pool:
+            texts = ["".join(pool.starmap_async(_table_rows, [
+                (int(a), V[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]).get(600))
+                for _, _, V in tables]
+    for (path, names, _), text in zip(tables, texts):
         with open(path, "w") as fh:
             fh.write("FID IID " + " ".join(names) + "\n")
-            fh.write("".join(f"F{i} I{i} " + (row % tuple(v)).replace("nan", "NA")
-                             + "\n" for i, v in enumerate(V)))
-
-    table(os.path.join(d, "pheno.txt"), [f"Y{p + 1}" for p in range(P)], Y)
-    table(os.path.join(d, "covar.txt"), [f"C{k + 1}" for k in range(X.shape[1])], X)
+            fh.write(text)
     with open(os.path.join(d, "remove.txt"), "w") as fh:
         for i in rng.choice(N, size=n_remove, replace=False):
             fh.write(f"F{i} I{i}\n")
 
 
+def _bgen_probs(k, g, j, gmiss, N, bits, layout, phased):
+    """The genotype block bodies [c, ...] uint8 of write_bgen_dataset's
+    other encodings, from its 8-bit pairs k [c, N, 2] (first-allele
+    counts g, uncertainty j): layout 2 at `bits` bits (each 8-bit value
+    v stored as floor(v (2^bits - 1) / 255), so pairs never exceed the
+    maximum), phased as one probability a haplotype (that it carries the
+    first allele: 255 - j on the haplotypes that carry it, else j), or
+    layout 1 (three uint16 probabilities / 32768, all zero at missing
+    samples). Returns (bodies, first-allele dosages [c, N])."""
+    c = len(k)
+    if layout == 1:
+        p = np.zeros((c, N, 3), "<u2")
+        p[..., 0] = k[..., 0].astype(np.uint16) * 128
+        p[..., 1] = k[..., 1].astype(np.uint16) * 128
+        p[..., 2] = 32768 - p[..., 0] - p[..., 1]
+        p[gmiss] = 0
+        dose = (2.0 * p[..., 0] + p[..., 1]) / 32768.0
+        return p.reshape(c, 3 * N).view(np.uint8), dose
+    top = (1 << bits) - 1
+    if phased:
+        pair = np.stack([np.where(g >= 1, 255 - j, j),
+                         np.where(g == 2, 255 - j, j)], axis=-1)
+    else:
+        pair = k
+    vals = pair.astype(np.int64) * top // 255
+    dose = ((vals[..., 0] + vals[..., 1]) if phased
+            else (2 * vals[..., 0] + vals[..., 1])) / top
+    bitv = (vals.reshape(c, 2 * N)[..., None] >> np.arange(bits)) & 1
+    packed = np.packbits(bitv.reshape(c, -1).astype(np.uint8), axis=1,
+                         bitorder="little")
+    head = np.empty((c, 10 + N), np.uint8)
+    head[:, :8] = np.frombuffer(np.array([N], "<u4").tobytes()
+                                + np.array([2], "<u2").tobytes() + b"\x02\x02",
+                                np.uint8)
+    head[:, 8 : 8 + N] = np.where(gmiss, np.uint8(0x82), np.uint8(2))
+    head[:, 8 + N] = int(phased)
+    head[:, 9 + N] = bits
+    return np.concatenate([head, packed], axis=1), dose
+
+
 def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
                        uncertain=0.1, na_rate=0.05, n_remove=0, effect_sd=0.0,
                        chunk=32, workers=8, positions=None, compress=None,
-                       compression=1):
+                       compression=1, bits=8, layout=2, phased=False):
     """Synthetic BGEN v1.2 (layout 2, zlib, 8-bit, unphased diploid, with
     sample IDs) at d/geno.bgen, its Oxford sample file d/geno.sample (with
     a sex column), and the phenotype, covariate and remove files of
@@ -415,7 +512,9 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     biobank N. Variant v sits at 1000 + 10 v, or on a chromosome named
     in `positions` at positions[chrom]. `compress` (bytes -> bytes, zlib
     level 1 by default) with its header flag `compression` (2 for zstd)
-    writes another compression. Returns the .bgen path."""
+    writes another compression; compression=0 stores the records
+    uncompressed. bits, phased and layout=1 write the same draws in those
+    encodings (_bgen_probs). Returns the .bgen path."""
     import struct
     import zlib
     from concurrent.futures import ThreadPoolExecutor
@@ -439,7 +538,7 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     head = np.frombuffer(struct.pack("<IHBB", N, 2, 2, 2), np.uint8)
     with open(path, "wb") as fh, ThreadPoolExecutor(workers) as pool:
         fh.write(struct.pack("<IIII", 20 + lsi, 20, M, N) + b"bgen")
-        fh.write(struct.pack("<I", compression | (2 << 2) | (1 << 31)))
+        fh.write(struct.pack("<I", compression | (layout << 2) | (1 << 31)))
         fh.write(struct.pack("<II", lsi, N) + b"".join(
             struct.pack("<H", len(s)) + s.encode() for s in ids))
         for s in range(0, M, chunk):
@@ -462,21 +561,40 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
             k = body[:, 10 + N :].reshape(c, N, 2)  # k0, k1
             k[..., 0] = np.where(g == 2, 255 - j, np.where(g == 1, j >> 1, 0))
             k[..., 1] = np.where(g == 2, j, np.where(g == 1, 255 - j, j))
+            dose = None
+            if bits != 8 or layout != 2 or phased:
+                body, dose = _bgen_probs(k, g, j, gmiss, N, bits, layout, phased)
             causal = np.nonzero(beta[s : s + c].any(axis=1))[0]
             if len(causal):
-                dose = (2.0 * k[causal, :, 0] + k[causal, :, 1]) / 255.0
-                Y += np.where(gmiss[causal], 0.0, dose).T @ beta[s + causal]
-            comp = pool.map(lambda row: compress(row.tobytes()), body)
+                dc = (dose[causal] if dose is not None else
+                      (2.0 * k[causal, :, 0] + k[causal, :, 1]) / 255.0)
+                Y += np.where(gmiss[causal], 0.0, dc).T @ beta[s + causal]
+            if compression == 0:
+                comp = (row.tobytes() for row in body)
+            else:
+                comp = pool.map(lambda row: compress(row.tobytes()), body)
             for j, z in enumerate(comp):
                 v = s + j
                 rsid = f"v{v}".encode()
                 ch = str(chrom_of[v]).encode()
-                fh.write(struct.pack("<H", len(rsid)) + rsid
-                         + struct.pack("<H", len(rsid)) + rsid
-                         + struct.pack("<H", len(ch)) + ch
-                         + struct.pack("<IH", int(pos_of[v]), 2)
-                         + struct.pack("<I", 1) + b"A" + struct.pack("<I", 1) + b"C"
-                         + struct.pack("<II", len(z) + 4, body.shape[1]) + z)
+                if layout == 1:
+                    rec = struct.pack("<I", N) + struct.pack("<H", len(rsid)) + rsid
+                else:
+                    rec = struct.pack("<H", len(rsid)) + rsid
+                rec += (struct.pack("<H", len(rsid)) + rsid
+                        + struct.pack("<H", len(ch)) + ch
+                        + struct.pack("<I", int(pos_of[v]))
+                        + (b"" if layout == 1 else struct.pack("<H", 2))
+                        + struct.pack("<I", 1) + b"A" + struct.pack("<I", 1) + b"C")
+                if compression == 0 and layout == 1:
+                    rec += z  # 6N bytes, no size field
+                elif compression == 0:
+                    rec += struct.pack("<I", len(z)) + z
+                elif layout == 1:
+                    rec += struct.pack("<I", len(z)) + z
+                else:
+                    rec += struct.pack("<II", len(z) + 4, body.shape[1]) + z
+                fh.write(rec)
     with open(os.path.join(d, "geno.sample"), "w") as fh:
         fh.write("ID_1 ID_2 missing sex\n0 0 0 D\n")
         fh.write("".join(f"F{i} I{i} 0 {1 + i % 2}\n" for i in range(N)))
@@ -1575,20 +1693,20 @@ def profile_bgen_path_phase():
     return launches
 
 
-def _assert_close(name, a, b, tol):
+def _assert_close(name, a, b, tol, what="kernel path - plain path"):
     """Same NaN pattern, max |a - b| over the finite entries <= tol."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     if not np.array_equal(np.isnan(a), np.isnan(b)):
         raise AssertionError(f"{name}: NaN patterns differ")
     ok = ~np.isnan(a)
     err = float(np.max(np.abs(a[ok] - b[ok]), initial=0.0))
-    print(f"  {name}: max |kernel path - plain path| = {err:.3e} (bar {tol:g})")
+    print(f"  {name}: max |{what}| = {err:.3e} (bar {tol:g})")
     if err > tol:
         raise AssertionError(f"{name}: {err:.3e} > {tol:g}")
     return err
 
 
-def _assert_rel(name, a, b, rtol):
+def _assert_rel(name, a, b, rtol, what="kernel path - plain path"):
     """Same NaN pattern, max |a - b| / |b| over the finite entries <= rtol."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     if not np.array_equal(np.isnan(a), np.isnan(b)):
@@ -1596,7 +1714,7 @@ def _assert_rel(name, a, b, rtol):
     ok = ~np.isnan(a)
     err = float(np.max(np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-300),
                        initial=0.0))
-    print(f"  {name}: max rel |kernel path - plain path| = {err:.3e} (bar {rtol:g})")
+    print(f"  {name}: max rel |{what}| = {err:.3e} (bar {rtol:g})")
     if err > rtol:
         raise AssertionError(f"{name}: {err:.3e} > {rtol:g}")
 
@@ -1733,11 +1851,13 @@ def _f32_sums_block(eng, raw, is_bgen):
     return bhat, logp
 
 
-def slice_phase(tmp, src):
+def slice_phase(tmp, src, keep=False):
     """The port's Step-2 QT CLI at full width on the card, on a BED
     (src="bed") or a BGEN (src="bgen") file, by default (int8 kernel) and
     with REGENIE_TPU_I8=0 (float32 kernel) on the same dataset. Returns
-    the launches of each slice kernel in its CLI run."""
+    the launches of each slice kernel in its CLI run; with keep=True also
+    the open int8 engine, its blocks and its first block's result (the
+    caller closes the engine)."""
     import torch
 
     from regenie_tpu_torch import cli
@@ -1814,8 +1934,142 @@ def slice_phase(tmp, src):
             _assert_rel(f"first block A1FREQ, {name} operand", out[name].af_t,
                         ref.af_t, 1e-9)
     launches.update(split_path(eng, plain, chrom, raw, bsnps, ref))
+    if keep:
+        return launches, eng, blocks, out["int8"]
     eng.gd.close()
     return launches
+
+
+def _dense_block_parts(eng, blk, bsnps, reps=3):
+    """Card milliseconds (CUDA events, median of `reps` after a warm-up)
+    of the dense route's parts on an uploaded block: the stats (the
+    per-variant stats with their fetch, and BGEN's INFO product), the
+    finalize (imputation) and the one-pass scorer."""
+    import torch
+
+    from regenie_tpu_torch.models import step2 as m2
+    from regenie_tpu_torch.ops.geno_ops import finalize_block_step2
+
+    G, info = blk
+    d = eng._ensure_dense_consts()
+    flip = torch.zeros(G.shape[0], dtype=torch.bool, device=G.device)
+    parts = {
+        "stats": lambda: (eng.block_stats(G, bsnps),
+                          ((info * d.indf[None, :]) @ d.maskf).cpu()),
+        "finalize": lambda: finalize_block_step2(G, d.ind, flip),
+    }
+    out = {name: _events_ms(fn, reps)[0] for name, fn in parts.items()}
+    Gf = finalize_block_step2(G, d.ind, flip)
+    out["onepass"] = _events_ms(lambda: m2.score_qt_block_onepass(
+        Gf, d.cov, d.res, d.maskf, None, d.Mmat, d.covt_res, eng.scale_denom,
+        W=d.W, maskf1=d.maskf1), reps)[0]
+    return out
+
+
+def _printed_equal_or_adjacent(path_a, path_b, cols):
+    """Columns `cols` of two .regenie files print equal, or one unit of
+    their sixth significant digit apart (two values on either side of a
+    rounding boundary). Returns the count of adjacent prints."""
+    la = _read_text(path_a).splitlines()
+    lb = _read_text(path_b).splitlines()
+    names = la[0].split()
+    idx = [names.index(c) for c in cols]
+    n_adj = 0
+    for ra, rb in zip(la[1:], lb[1:]):
+        ta, tb = ra.split(), rb.split()
+        for i in idx:
+            if ta[i] != tb[i]:
+                if _sig6_excess(ta[i], tb[i]) > 1 + 1e-9:
+                    raise AssertionError(f"{path_a}: {names[i]} {ta[i]} vs {tb[i]}")
+                n_adj += 1
+    return n_adj
+
+
+def dense_slice_phase(tmp, eng, blocks, fused1):
+    """The dense Step-2 route at full width on the card, on the BGEN
+    slice's dataset in `tmp`: the first block through the open engine
+    `eng` (read, upload and the card's parts timed; INFO and A1FREQ
+    within rel 1e-9 of the fused route's first block `fused1`, N equal,
+    LOG10P and BETA at the slice bars), then one CLI run with
+    REGENIE_TPU_FUSED=0 and the slice's flags, where no hand-written
+    kernel may launch, the log must show the dense route on cuda (each
+    block's host read and upload), and both blocks' files must meet the
+    slice bars against the default (bgen_i8) run's files."""
+    import torch
+
+    from regenie_tpu_torch.io.bgen import _read_records
+
+    f = FULL
+    M = SLICE_BLOCKS * f["B"]
+    chrom, bsnps = blocks[0]
+    eng.prep_chrom(chrom)
+    t0 = time.time()
+    _read_records(eng.gd._bgen, [s.offset for s in bsnps])
+    t1 = time.time()
+    host = eng.read_block_dense(bsnps)
+    t2 = time.time()
+    blk = eng.upload_dense(host, bsnps)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    del host
+    parts = _dense_block_parts(eng, blk, bsnps)
+    dense = eng.test_raw_block(blk, bsnps)[0]
+    del blk
+    print(f"  block 1: host read {t2 - t1:.3f}s (of which the records' read "
+          f"in Python {t1 - t0:.3f}s, measured alone), upload {t3 - t2:.3f}s "
+          f"(2 x {f['B']} x {f['N']} float64), card "
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in parts.items())
+          + f" (CUDA events, median of 3); on {card_line()}")
+    what = "dense - fused"
+    if not np.array_equal(dense.ignored, fused1.ignored):
+        raise AssertionError("block 1: the routes filter other variants")
+    keep = ~dense.ignored
+    if not np.array_equal(dense.ns_t[keep], fused1.ns_t[keep]):
+        raise AssertionError("block 1: N differs between the routes")
+    _assert_rel("block 1 INFO", dense.info_t[keep], fused1.info_t[keep], 1e-9, what)
+    _assert_rel("block 1 A1FREQ", dense.af_t[keep], fused1.af_t[keep], 1e-9, what)
+    _assert_close("block 1 LOG10P", dense.logp[keep], fused1.logp[keep],
+                  LOG10P_TOL, what)
+    _assert_close("block 1 BETA", dense.bhat[keep], fused1.bhat[keep], BETA_TOL, what)
+    eng.gd.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    argv = ["--step", "2", "--bgen", f"{tmp}/geno.bgen", "--sample",
+            f"{tmp}/geno.sample", "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--ignore-pred", "--bsize",
+            str(f["B"]), "--verbose", "--out", f"{tmp}/dense"]
+    os.environ["REGENIE_TPU_FUSED"] = "0"
+    try:
+        _reset_counts()
+        t0 = time.time()
+        run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _read_counts()
+    finally:
+        os.environ.pop("REGENIE_TPU_FUSED")
+    if any(counts.values()):
+        raise AssertionError(f"kernel launches on the dense route: {counts}")
+    log = open(f"{tmp}/dense.log").read().splitlines()
+    if not any("dense scorer on cuda" in ln for ln in log):
+        raise AssertionError("the log shows no dense route on cuda")
+    for ln in log:
+        if ln.startswith("   -block") or any(
+                k in ln for k in ("block loop:", "dense route:")):
+            print(f"  {ln.strip(' *')}")
+    worst, n_adj = 0.0, 0
+    for p in range(f["P"]):
+        a, b = f"{tmp}/dense_Y{p + 1}.regenie", f"{tmp}/slice_bgen_i8_Y{p + 1}.regenie"
+        _check_rows(a, M)
+        worst = max(worst, _compare_files(a, b))
+        n_adj += _printed_equal_or_adjacent(a, b, ["A1FREQ", "INFO", "N"])
+    print(f"  dense CLI run (REGENIE_TPU_FUSED=0): launches {counts}; {f['P']} "
+          f"files against the bgen_i8 run's: every field within its bar "
+          f"(largest share {worst:.3f}); A1FREQ, INFO and N print equal "
+          f"({n_adj} prints one unit of the sixth digit apart)")
+    print(f"  CLI wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up and "
+          f"output included); on {card_line()}")
 
 
 def _split_engine(eng, chrom):
@@ -2282,12 +2536,13 @@ def pgen_chrx_slice_phase(tmp):
 
 
 def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--loocv"])),
-                         what=""):
+                         what="", step2=()):
     """The two-step QT workflow at N=2,000 on the card and on the CPU, in
     each of `modes` (K-fold and --loocv by default) on the genotype
-    arguments `geno` (a BED or a PGEN): Step 1, then Step 2 with --pred
-    on that run's own _pred.list. Every .loco value within one unit of
-    its sixth significant digit, every Step-2 field within its bar."""
+    arguments `geno` (a BED, a PGEN or a BGEN): Step 1, then Step 2 with
+    --pred on that run's own _pred.list and the flags `step2`. Every
+    .loco value within one unit of its sixth significant digit, every
+    Step-2 field within its bar."""
     base = [*geno, "--phenoFile", f"{tmp}/pheno.txt", "--covarFile",
             f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt"]
     for mode, extra in modes:
@@ -2300,7 +2555,7 @@ def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--lo
                 s1 = f"{tmp}/ts_{tag}_{dev}"
                 run_cli(["--step", "1", *base, *extra, "--bsize", "100", "--out", s1])
                 run_cli(["--step", "2", *base, "--bsize", "256", "--pred",
-                         f"{s1}_pred.list", "--out", f"{s1}_s2"])
+                         f"{s1}_pred.list", *step2, "--out", f"{s1}_s2"])
             finally:
                 os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
         gpu, cpu = f"{tmp}/ts_{tag}_cuda", f"{tmp}/ts_{tag}_cpu"
@@ -2355,7 +2610,8 @@ def cross_check_phase(tmp):
     chrx = dict(chroms=((1, 300), ("X", 300)),
                 positions={"X": chrx_positions(300, 40, 40)})
     sub = {}
-    for name in ("bgen", "chrx_bed", "chrx_bgen", "zstd", "pgen"):
+    for name in ("bgen", "chrx_bed", "chrx_bgen", "zstd", "pgen", "bgen16",
+                 "layout1", "pgen_dosage"):
         sub[name] = os.path.join(tmp, name)
         os.makedirs(sub[name])
     prefix = write_dataset(tmp, chroms=((1, 400), (2, 200)), **kw)
@@ -2368,7 +2624,22 @@ def cross_check_phase(tmp):
                                    chroms=((1, 400), (2, 200)),
                                    compress=zstd_compressor(), compression=2),
         "pgen": write_pgen_dataset(sub["pgen"], **{**kw, "seed": 8}, **chrx),
+        "bgen16": write_bgen_dataset(sub["bgen16"], **{**kw, "seed": 9},
+                                     chroms=((1, 400), (2, 200)), bits=16,
+                                     phased=True, compression=0),
+        "layout1": write_bgen_dataset(sub["layout1"], **{**kw, "seed": 10},
+                                      chroms=((1, 400), (2, 200)), layout=1),
+        "pgen_dosage": write_pgen_dataset(sub["pgen_dosage"], **{**kw, "seed": 11},
+                                          chroms=((1, 400), (2, 200)), dosage=0.5),
     }
+    with open(f"{tmp}/cond.txt", "w") as fh:
+        fh.write("v3\nv77\nv450\n")
+    # the chrX BED's phenotypes transposed: a row per trait
+    rows = [ln.split() for ln in open(f"{sub['chrx_bed']}/pheno.txt").read().splitlines()]
+    with open(f"{sub['chrx_bed']}/tpheno.txt", "w") as fh:
+        fh.write("ID " + " ".join(f"{r[0]}_{r[1]}" for r in rows[1:]) + "\n")
+        fh.write("".join(name + " " + " ".join(r[2 + j] for r in rows[1:]) + "\n"
+                         for j, name in enumerate(rows[0][2:])))
     split = [f"_Y{p + 1}.regenie" for p in range(P)]
     runs = {
         "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"], split),
@@ -2385,29 +2656,68 @@ def cross_check_phase(tmp):
                                                     "--no-split", "--gz"],
                                       [".regenie.gz"]),
     }
-    for what, (d, args, outs) in runs.items():
-        common = ["--step", "2", *args, "--phenoFile", f"{d}/pheno.txt",
-                  "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
-                  "--ignore-pred", "--bsize", "256"]
+    # the dense route (no int8 / float32 switch: each runs once on the card)
+    dense = {
+        "16-bit phased uncompressed BGEN --htp --condition-file bgen": (
+            sub["bgen16"], ["--bgen", geno["bgen16"], "--sample",
+                            f"{sub['bgen16']}/geno.sample", "--htp", "SMOKE",
+                            "--condition-file", f"bgen,{geno['bgen']}",
+                            "--condition-file-sample", f"{sub['bgen']}/geno.sample",
+                            "--condition-list", f"{tmp}/cond.txt"], split, True),
+        "layout-1 BGEN --no-split --test dominant": (
+            sub["layout1"], ["--bgen", geno["layout1"], "--sample",
+                             f"{sub['layout1']}/geno.sample", "--no-split",
+                             "--test", "dominant"], [".regenie"], True),
+        "PGEN dosages --nocov-approx --phenoColList Y2": (
+            sub["pgen_dosage"], ["--pgen", geno["pgen_dosage"], "--nocov-approx",
+                                 "--phenoColList", "Y2"], ["_Y2.regenie"], True),
+        "chrX BED --skip-dosage-comp": (
+            sub["chrx_bed"], ["--bed", geno["chrx_bed"], "--skip-dosage-comp"],
+            split, False),
+        "chrX BED --test recessive --minHOMs 1 --condition-list --tpheno-file": (
+            sub["chrx_bed"], ["--bed", geno["chrx_bed"], "--test", "recessive",
+                              "--minHOMs", "1", "--condition-list",
+                              f"{tmp}/cond.txt", "--tpheno-file",
+                              f"{sub['chrx_bed']}/tpheno.txt"], split, False),
+    }
+    for i, (what, (d, args, outs, *_)) in enumerate({**runs, **dense}.items()):
+        is_dense = what in dense
+        pheno = [] if "--tpheno-file" in args else ["--phenoFile", f"{d}/pheno.txt"]
+        common = ["--step", "2", *args, *pheno, "--covarFile", f"{d}/covar.txt",
+                  "--remove", f"{d}/remove.txt", "--ignore-pred", "--bsize", "256"]
+        tag = f"r{i}_"
         os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
-        for off in (False, True):
+        switches = (False,) if is_dense else (False, True)
+        for off in switches:
             with _i8_env(off):
-                run_cli(common + ["--out", f"{d}/gpu{int(off)}"])
+                _reset_counts()
+                run_cli(common + ["--out", f"{d}/{tag}gpu{int(off)}"])
+        if is_dense:
+            log = open(f"{d}/{tag}gpu0.log").read()
+            if "dense scorer on cuda" not in log:
+                raise AssertionError(f"{what}: the log shows no dense route on cuda")
+            if dense[what][3] and any(_read_counts().values()):
+                raise AssertionError(f"{what}: kernels launched on the dense route")
         os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
         try:
-            run_cli(common + ["--out", f"{d}/cpu"])
+            run_cli(common + ["--out", f"{d}/{tag}cpu"])
         finally:
             os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
-        rows = len(_read_text(f"{d}/cpu{outs[0]}").splitlines()) - 1
-        for off in (False, True):
-            worst = max(_compare_files(f"{d}/gpu{int(off)}{o}", f"{d}/cpu{o}")
+        rows = len(_read_text(f"{d}/{tag}cpu{outs[0]}").splitlines()) - 1
+        for off in switches:
+            worst = max(_compare_files(f"{d}/{tag}gpu{int(off)}{o}", f"{d}/{tag}cpu{o}")
                         for o in outs)
             print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: card vs CPU, "
-                  f"{P} traits x {rows} variants: every field within its bar "
-                  f"(largest share of the bar used {worst:.3f})")
+                  f"{1 if '--phenoColList' in args else P} traits x {rows} "
+                  f"variants: every field within its bar (largest share of the "
+                  f"bar used {worst:.3f})")
     two_step_cross_check(tmp, ["--bed", prefix], P)
     two_step_cross_check(sub["pgen"], ["--pgen", geno["pgen"]], P,
                          modes=(("K-fold", []),), what=" on PGEN")
+    two_step_cross_check(sub["bgen"], ["--bgen", geno["bgen"], "--sample",
+                                       f"{sub['bgen']}/geno.sample"], P,
+                         modes=(("K-fold", []),), what=" on BGEN, --force-ltco 2",
+                         step2=["--force-ltco", "2"])
 
 
 def native_report():
@@ -2475,11 +2785,19 @@ def main() -> int:
     print("[profile path, BGEN]")
     launches.update(profile_bgen_path_phase())
     torch.cuda.empty_cache()
-    for src in ("bed", "bgen"):
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            print(f"[{src} slice]")
-            launches.update(slice_phase(tmp, src))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print("[bed slice]")
+        launches.update(slice_phase(tmp, "bed"))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print("[bgen slice]")
+        got, *kept = slice_phase(tmp, "bgen", keep=True)
+        launches.update(got)
         torch.cuda.empty_cache()
+        print("[dense slice]")
+        dense_slice_phase(tmp, *kept)
+        del kept
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[step1 slice]")
         step1_slice_phase(tmp)

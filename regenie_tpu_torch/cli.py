@@ -835,10 +835,7 @@ def args_to_params(args: argparse.Namespace) -> Params:
 
 def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
-    None. Every such mode raises NotImplementedError before any work; so
-    do, from open_engine, chrX non-PAR variants the fused path cannot
-    score (--skip-dosage-comp, a dominant/recessive test) and, from
-    io/geno.py, PGEN files with dosage tracks."""
+    None. Every such mode raises NotImplementedError before any work."""
     common = (
         (params.trait_mode != QT,
          "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
@@ -849,15 +846,9 @@ def unported(params: Params) -> Optional[str]:
         (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
         (params.mcc_test, "the MCC test (--mcc)"),
         (params.af_cc, "--af-cc"),
-        (bool(params.condition_list or params.condition_file),
-         "conditional analysis"),
-        (params.transposed_pheno, "--tpheno-file"),
-        (params.ltco_chr > 0, "--force-ltco"),
     )
     if params.step == 1:
         checks = (
-            (params.file_type not in ("bed", "pgen"),
-             f"Step 1 on {params.file_type.upper()} input"),
             *common,
             (not params.split_by_pheno, "merged output (--no-split)"),
             (params.gz_out, "Step 1 with gzipped output (--gz)"),
@@ -878,14 +869,6 @@ def unported(params: Params) -> Optional[str]:
             *common[:1],
             (params.file_type not in ("bed", "bgen", "pgen"),
              f"{params.file_type.upper()} input"),
-            # the JAX package sends these BGEN runs to its dense dosage
-            # path (fused_ok, run_step2.py:793-806), which is not ported
-            (params.file_type == "bgen" and params.htp_out,
-             "BGEN input with --htp"),
-            (params.file_type == "bgen" and not params.split_by_pheno,
-             "BGEN input with merged output (--no-split)"),
-            (params.file_type == "bgen" and params.test_type != 0,
-             "BGEN input with --test dominant/recessive"),
             *common[1:],
         )
     for hit, name in checks:

@@ -1,12 +1,15 @@
-"""BGEN v1.2 reader for the fused Step-2 scorer (the port's copy of
-regenie_tpu/io/bgen.py, trimmed to what the plane path reads).
+"""BGEN v1.1/v1.2 reader (the port's copy of regenie_tpu/io/bgen.py).
 
 The variant index is scanned once up front (or read from the .bgi sqlite
-index); each block's genotype records are then read as compressed bytes
-(zlib or zstd) and inflated by the native plane extractor into [B, 2,
-N_file] uint8 probability planes (io/native.py). The parsing decoders of the dense
-dosage path (decode_variant, _decode_layout1/2, decode_block_native) are
-not ported.
+index); each block's genotype records are then read as bytes, in one
+read of the block's span of the file, and handed to native code
+(io/native.py): the plane extractor inflates 8-bit layout-2 records into
+[B, 2, N_file] uint8 probability planes for the fused scorer, and the
+dosage decoder (io/csrc/bgen_dosages.cpp) turns records of any layout,
+bit depth and compression into [B, N] float64 dosages and INFO
+numerators for the dense route and Step 1. The parsing decoders
+(decode_variant, _decode_layout2, _decode_layout1, _unpack_bits) are
+the dosage decoder's plain versions, for the tests.
 
 Allele convention (ref-last default, Geno.cpp:44-49): allele0 in the
 file is treated as ALT; dosage = p1 + 2*p0. With --ref-first the dosage
@@ -15,8 +18,10 @@ counts the last allele: p1 + 2*p2.
 
 from __future__ import annotations
 
+import ctypes
 import sqlite3
 import struct
+import zlib
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -24,7 +29,8 @@ import numpy as np
 
 from ..config import Params
 from .bed import SampleInfo, SnpInfo, chr_to_int
-from .native import bgen12_extract_planes_native, require_zstd
+from .native import (BGEN_REJECT, PlanesRejected, ZSTD_SONAME,
+                     bgen12_extract_planes_native, bgen_decode_dosages_native)
 
 
 @dataclass
@@ -164,46 +170,217 @@ def open_bgen(path: str, n_chrom: int = 23, ref_first: bool = False,
     return bf
 
 
-def require_planes(bf: BgenFile) -> None:
-    """Raise NotImplementedError unless the plane extractor reads this
-    file's records at all: layout 2 (v1.2) with zlib or zstd compression;
-    a zstd file also needs libzstd (io/native.py require_zstd, which
-    raises RuntimeError without it). Whether each record is 8-bit
-    unphased diploid is known only when its block is inflated."""
-    if bf.layout != 2 or bf.compression not in (1, 2):
-        raise NotImplementedError(
-            f"BGEN layout {bf.layout} with compression {bf.compression}: only "
-            "zlib- or zstd-compressed layout-2 files are ported to "
-            "regenie_tpu_torch")
-    if bf.compression == 2:
-        require_zstd()
+def planes_readable(bf: BgenFile) -> bool:
+    """Whether the fused route can read this file's records at all: the
+    plane extractor takes layout 2 (v1.2) with zlib or zstd compression.
+    Whether each record is 8-bit unphased diploid is known only when its
+    block is inflated (extract_planes_block raises PlanesRejected)."""
+    return bf.layout == 2 and bf.compression in (1, 2)
+
+
+def _read_records(bf: BgenFile, indices):
+    """The genotype records of variants `indices`: (buffer, offsets,
+    compressed sizes, inflated sizes) of their payloads, the 4-byte size
+    field of a compressed layout-2 record skipped. The block's span of
+    the file is read in one call when the records lie close together,
+    else each record on its own."""
+    vs = [bf.variants[i] for i in indices]
+    starts = np.array([v.geno_offset for v in vs], np.int64)
+    sizes = np.array([v.geno_size for v in vs], np.int64)
+    if not vs:
+        return b"", starts, sizes, sizes.copy()
+    lo, hi = int(starts.min()), int((starts + sizes).max())
+    if hi - lo <= 2 * int(sizes.sum()) + (1 << 20):
+        bf._fh.seek(lo)
+        buf = bf._fh.read(hi - lo)
+        offs = starts - lo
+    else:
+        parts = []
+        for v in vs:
+            bf._fh.seek(v.geno_offset)
+            parts.append(bf._fh.read(v.geno_size))
+        buf = b"".join(parts)
+        offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    if len(buf) < int((offs + sizes).max()):
+        raise ValueError(f"{bf.path}: genotype records reach past the file")
+    if bf.layout == 1:
+        return buf, offs, sizes, np.full(len(vs), 6 * bf.n_samples_file, np.int64)
+    if bf.compression == 0:
+        return buf, offs, sizes, sizes.copy()
+    usizes = np.array([struct.unpack_from("<I", buf, int(o))[0] for o in offs],
+                      np.int64)
+    return buf, offs + 4, sizes - 4, usizes
 
 
 def extract_planes_block(bf: BgenFile, indices) -> np.ndarray:
     """Inflate-only plane extraction for the fused scorer: [B, 2, N_file]
     uint8 probability planes (k0, k1; missing = 255/255). Keeps the FILE
     sample axis; sample subsetting happens through zeroed operand rows on
-    the device. Raises when the file or any record of the block is
-    outside what the extractor reads (there is no other reader)."""
-    require_planes(bf)
-    chunks, offs, cs, us = [], [], [], []
-    pos = 0
-    for idx in indices:
-        v = bf.variants[idx]
-        bf._fh.seek(v.geno_offset)
+    the device. Raises PlanesRejected when the file or any record of the
+    block is outside what the extractor reads (the dense route reads
+    it), RuntimeError for a zstd file without libzstd."""
+    if not planes_readable(bf):
+        raise PlanesRejected(
+            f"BGEN layout {bf.layout} with compression {bf.compression}: the "
+            "plane extractor reads zlib- or zstd-compressed layout-2 files")
+    buf, offs, cs, us = _read_records(bf, indices)
+    return bgen12_extract_planes_native(buf, offs, cs, us, bf.n_samples_file,
+                                        bf.compression)
+
+
+def decode_block(bf: BgenFile, indices, keep_idx: Optional[np.ndarray],
+                 ref_first: bool):
+    """Dosages of a block of variants through the native dosage decoder
+    (the JAX package's decode_block_native, widened to every layout, bit
+    depth and compression): (dosage [B, N_kept] float64 with missing =
+    -3, info_num [B, N_kept], the per-sample INFO numerator). Raises
+    RuntimeError naming the first variant whose record it cannot decode:
+    there is no other reader."""
+    indices = list(indices)
+    buf, offs, cs, us = _read_records(bf, indices)
+    ds, iv, status = bgen_decode_dosages_native(
+        buf, offs, cs, us, bf.n_samples_file, bf.layout, bf.compression,
+        ref_first, keep_idx)
+    bad = np.flatnonzero(status)
+    if len(bad):
+        k = int(bad[0])
+        raise RuntimeError(
+            f"{bf.path}: the BGEN record of variant {bf.snps[indices[k]].ID} "
+            f"cannot be decoded ({BGEN_REJECT.get(int(status[k]), 'rejected')});"
+            f" {len(bad)} of {len(indices)} variants of the block rejected")
+    return ds, iv
+
+
+# ---- the dosage decoder's plain versions (tests only) ----
+_zstd = None
+
+
+def _get_zstd():
+    global _zstd
+    if _zstd is None:
+        lib = ctypes.CDLL(ZSTD_SONAME)
+        lib.ZSTD_decompress.restype = ctypes.c_size_t
+        lib.ZSTD_decompress.argtypes = [
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
+        ]
+        lib.ZSTD_isError.restype = ctypes.c_uint
+        _zstd = lib
+    return _zstd
+
+
+def zstd_decompress(data: bytes, outsize: int) -> bytes:
+    lib = _get_zstd()
+    out = ctypes.create_string_buffer(outsize)
+    n = lib.ZSTD_decompress(out, outsize, data, len(data))
+    if lib.ZSTD_isError(ctypes.c_size_t(n)) or n != outsize:
+        raise ValueError("zstd decompression failed")
+    return out.raw
+
+
+def _decompress(bf: BgenFile, raw: bytes, outsize: int) -> bytes:
+    if bf.compression == 0:
+        return raw
+    if bf.compression == 1:
+        out = zlib.decompress(raw)
+        if len(out) != outsize:
+            raise ValueError("zlib decompression size mismatch")
+        return out
+    return zstd_decompress(raw, outsize)
+
+
+def decode_variant(bf: BgenFile, idx: int, keep_idx: Optional[np.ndarray], ref_first: bool):
+    """Decode one variant -> (dosage [N_kept], info_num [N_kept]).
+
+    Missing dosage = -3 (parseSnpfromBGEN, Geno.cpp:2263)."""
+    v = bf.variants[idx]
+    bf._fh.seek(v.geno_offset)
+    Nf = bf.n_samples_file
+    if bf.layout == 2:
         raw = bf._fh.read(v.geno_size)
-        (D,) = struct.unpack("<I", raw[:4])
-        payload = raw[4:]
-        chunks.append(payload)
-        offs.append(pos)
-        cs.append(len(payload))
-        us.append(D)
-        pos += len(payload)
-    return bgen12_extract_planes_native(
-        b"".join(chunks), np.array(offs, dtype=np.int64),
-        np.array(cs, dtype=np.int64), np.array(us, dtype=np.int64),
-        bf.n_samples_file, bf.compression,
+        if bf.compression:
+            (outsize,) = struct.unpack("<I", raw[:4])
+            data = _decompress(bf, raw[4:], outsize)
+        else:
+            data = raw
+        return _decode_layout2(data, Nf, keep_idx, ref_first)
+    raw = bf._fh.read(v.geno_size)
+    data = zlib.decompress(raw) if bf.compression == 1 else raw
+    return _decode_layout1(data, Nf, keep_idx, ref_first)
+
+
+def _decode_layout2(data: bytes, Nf: int, keep_idx, ref_first: bool):
+    nindivs, n_alleles = struct.unpack("<IH", data[:6])
+    if nindivs != Nf or n_alleles != 2:
+        raise ValueError("unexpected genotype block contents")
+    minp, maxp = data[6], data[7]
+    if minp != 2 or maxp != 2:
+        raise ValueError("only diploid unphased BGEN supported")
+    ploidy = np.frombuffer(data, dtype=np.uint8, count=Nf, offset=8)
+    phased = data[8 + Nf]
+    bits = data[9 + Nf]
+    body = np.frombuffer(data, dtype=np.uint8, offset=10 + Nf)
+    missing = (ploidy & 0x80) != 0
+    if bits == 8:
+        probs = body[: 2 * Nf].reshape(Nf, 2).astype(np.float64) / 255.0
+    elif bits == 16:
+        probs = (
+            np.frombuffer(body.tobytes(), dtype="<u2", count=2 * Nf)
+            .reshape(Nf, 2).astype(np.float64) / 65535.0
+        )
+    else:
+        probs = _unpack_bits(body, Nf * 2, bits).reshape(Nf, 2) / (2.0**bits - 1)
+    if phased != 0:
+        # phased diploid biallelic: one stored probability per haplotype
+        # = P(hap carries allele1), collapsed to genotype probabilities by
+        # the haplotype product
+        h1, h2 = probs[:, 0], probs[:, 1]
+        p0 = h1 * h2
+        p2 = (1.0 - h1) * (1.0 - h2)
+        p1 = np.maximum(1.0 - p0 - p2, 0.0)
+    else:
+        p0, p1 = probs[:, 0], probs[:, 1]
+        p2 = np.maximum(1.0 - p0 - p1, 0.0)
+    if ref_first:
+        ds = p1 + 2 * p2
+        ival = 4 * p2 + p1 - ds * ds
+    else:
+        ds = p1 + 2 * p0
+        ival = 4 * p0 + p1 - ds * ds
+    ds = np.where(missing, -3.0, ds)
+    ival = np.where(missing, 0.0, ival)
+    if keep_idx is not None:
+        ds, ival = ds[keep_idx], ival[keep_idx]
+    return ds, ival
+
+
+def _decode_layout1(data: bytes, Nf: int, keep_idx, ref_first: bool):
+    """v1.1: 3 x uint16 probabilities / 32768 (BgenParser path,
+    bgen_to_vcf.hpp)."""
+    probs = (
+        np.frombuffer(data, dtype="<u2", count=3 * Nf).reshape(Nf, 3).astype(np.float64)
+        / 32768.0
     )
+    pAA, pAB, pBB = probs[:, 0], probs[:, 1], probs[:, 2]
+    missing = (pAA + pAB + pBB) == 0
+    if ref_first:
+        ds = pAB + 2 * pBB
+        ival = 4 * pBB + pAB - ds * ds
+    else:
+        ds = pAB + 2 * pAA
+        ival = 4 * pAA + pAB - ds * ds
+    ds = np.where(missing, -3.0, ds)
+    ival = np.where(missing, 0.0, ival)
+    if keep_idx is not None:
+        ds, ival = ds[keep_idx], ival[keep_idx]
+    return ds, ival
+
+
+def _unpack_bits(body: np.ndarray, n_values: int, bits: int) -> np.ndarray:
+    """General B-bit unpacking (rare path)."""
+    bitarr = np.unpackbits(body[: (n_values * bits + 7) // 8], bitorder="little")
+    bitarr = bitarr[: n_values * bits].reshape(n_values, bits)
+    weights = (1 << np.arange(bits)).astype(np.float64)
+    return bitarr @ weights
 
 
 def read_sample_file(path: str):

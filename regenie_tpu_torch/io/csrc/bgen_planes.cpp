@@ -21,9 +21,12 @@
 //
 // Single-threaded and reentrant: the caller runs calls on disjoint
 // variant ranges in parallel threads (io/native.py), so the build needs
-// no OpenMP runtime.
+// no OpenMP runtime. bgen_inflate is shared with the dosage decoder
+// (bgen_dosages.cpp), which builds into the same library.
 //
-// Build: g++ -O3 -fPIC -shared -o libbgen_planes.so bgen_planes.cpp -lz -ldl
+// Build (one library with the dosage decoder):
+//   g++ -O3 -ffp-contract=off -fPIC -shared -o libbgen_planes.so
+//       bgen_planes.cpp bgen_dosages.cpp -lz -ldl
 
 #include <dlfcn.h>
 #include <stddef.h>
@@ -65,6 +68,31 @@ extern "C" int bgen_zstd_open(const char* soname) {
   return 1;
 }
 
+// Inflate a record payload of csize bytes into buf, which holds usize
+// bytes: compression 0 copies (csize must equal usize), 1 zlib, 2 zstd
+// (once bgen_zstd_open has loaded the library). Returns whether the
+// payload filled buf exactly.
+bool bgen_inflate(const uint8_t* src, int64_t csize, uint8_t* buf,
+                  int64_t usize, int compression) {
+  if (compression == 0) {
+    if (csize != usize) return false;
+    memcpy(buf, src, usize);
+    return true;
+  }
+  if (compression == 1) {
+    uLongf dlen = (uLongf)usize;
+    return (uncompress(buf, &dlen, src, (uLong)csize) == Z_OK) &&
+           ((int64_t)dlen == usize);
+  }
+  if (compression == 2) {
+    const Zstd* z = g_zstd.load();
+    if (!z) return false;
+    const size_t n = z->decompress(buf, (size_t)usize, src, (size_t)csize);
+    return !z->is_error(n) && (int64_t)n == usize;
+  }
+  return false;
+}
+
 extern "C" int64_t bgen12_extract_planes(const uint8_t* comp,
                                          const int64_t* offsets,
                                          const int64_t* csizes,
@@ -76,18 +104,9 @@ extern "C" int64_t bgen12_extract_planes(const uint8_t* comp,
     const uint8_t* src = comp + offsets[v];
     const int64_t usize = usizes[v];
     uint8_t* buf = new uint8_t[usize > 0 ? usize : 1];
-    bool ok = false;
-    if (compression == 1) {
-      uLongf dlen = (uLongf)usize;
-      ok = (uncompress(buf, &dlen, src, (uLong)csizes[v]) == Z_OK) &&
-           ((int64_t)dlen == usize);
-    } else if (compression == 2) {
-      const Zstd* z = g_zstd.load();
-      if (z) {
-        const size_t n = z->decompress(buf, (size_t)usize, src, (size_t)csizes[v]);
-        ok = !z->is_error(n) && (int64_t)n == usize;
-      }
-    }
+    // records without compression carry no size field: not for this path
+    bool ok = (compression == 1 || compression == 2) &&
+              bgen_inflate(src, csizes[v], buf, usize, compression);
     uint8_t* k0 = planes_out + v * 2 * n_samples;
     uint8_t* k1 = k0 + n_samples;
     if (ok && usize >= 10) {

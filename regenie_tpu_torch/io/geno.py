@@ -5,9 +5,12 @@ File metadata, sample/variant filters and the chromosome map. The fused
 Step-2 path reads packed bytes straight from the BedFile, BED-coded
 packed bytes decoded from PGEN records on the kept-sample axis
 (io/native.py, io/csrc/pgen_bytes.cpp), or probability planes from the
-BgenFile (io/bgen.py). Step 1 reads BED and PGEN blocks through
-read_block_bytes (host) and read_block_device (decode on the card, or on
-the host for the CPU).
+BgenFile (io/bgen.py). Dosage sources (BGEN, and PGEN files with dosage
+tracks) give float64 dosages through read_dosages, BGEN's with the INFO
+numerators of the same block. Step 1 and the dense Step-2 route read
+blocks through read_block_host (host: packed bytes, or dosages) and
+read_block_device (the block on the device: hardcalls decoded on the
+card, or on the host for the CPU; dosages uploaded).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from ..config import Params
 from .bed import (BedFile, SampleInfo, SnpInfo, chr_to_int, decode_bed_bytes,
                   open_bed)
 from .files import iter_lines
-from .native import pgen_bed_bytes_native
+from .native import pgen_bed_bytes_native, pgen_dosages_native
 
 
 @dataclass
@@ -52,6 +55,36 @@ class GenoData:
         """Map "FID_IID" -> row index (reference FID_IID_to_ind)."""
         return {s.key: i for i, s in enumerate(self.samples)}
 
+    @property
+    def dosage_source(self) -> bool:
+        """Whether blocks are dosages (BGEN, or a PGEN with dosage tracks)
+        rather than hardcalls."""
+        return self._bgen is not None or (
+            self._pgen is not None and self.params.pgen_dosage_present)
+
+    def _keep(self) -> Optional[np.ndarray]:
+        return None if self._keep_all_samples else self.sample_keep_idx
+
+    def read_dosages(self, block_snps: List[SnpInfo]):
+        """(G, info_num) of a block of a dosage source, on the kept
+        samples: G [B, N] float64 dosages (missing = -3); info_num [B, N]
+        the per-sample INFO numerators of a BGEN block, None for PGEN.
+        Each native decoder raises on a record it cannot read."""
+        offsets = [s.offset for s in block_snps]
+        if self._bgen is not None:
+            from .bgen import decode_block
+
+            return decode_block(self._bgen, offsets, self._keep(),
+                                self.params.ref_first)
+        return pgen_dosages_native(self._pgen.pf, offsets, self._keep()), None
+
+    def read_block_host(self, block_snps: List[SnpInfo]) -> np.ndarray:
+        """What a reader thread reads of a block for read_block_device:
+        float64 dosages of a dosage source, else read_block_bytes."""
+        if self.dosage_source:
+            return self.read_dosages(block_snps)[0]
+        return self.read_block_bytes(block_snps)
+
     def read_block_bytes(self, block_snps: List[SnpInfo]) -> np.ndarray:
         """Packed 2-bit BED-coded bytes of a block of kept variants. BED:
         [B, ceil(N_file/4)] uint8, a copy of the rows of `block_snps`
@@ -60,8 +93,7 @@ class GenoData:
         kept-sample axis, from the native block decoder."""
         if self._pgen is not None:
             return pgen_bed_bytes_native(
-                self._pgen.pf, [s.offset for s in block_snps],
-                None if self._keep_all_samples else self.sample_keep_idx)
+                self._pgen.pf, [s.offset for s in block_snps], self._keep())
         offsets = np.array([s.offset for s in block_snps])
         start, stop = int(offsets[0]), int(offsets[-1]) + 1
         raw = self._bed.read_block_bytes(start, stop - start)
@@ -76,11 +108,14 @@ class GenoData:
 
     def read_block(self, block_snps: List[SnpInfo],
                    raw: Optional[np.ndarray] = None) -> np.ndarray:
-        """Host decode of a BED or PGEN block: [B, N] int8 hardcalls {0,
-        1, 2, -3} on the kept samples. `raw` is the block's
-        read_block_bytes, read here when not given."""
+        """A block on the host, on the kept samples: [B, N] float64
+        dosages of a dosage source (missing = -3), else the host decode
+        of the BED or PGEN hardcalls, [B, N] int8 {0, 1, 2, -3}. `raw` is
+        the block's read_block_host, read here when not given."""
         if raw is None:
-            raw = self.read_block_bytes(block_snps)
+            raw = self.read_block_host(block_snps)
+        if self.dosage_source:
+            return raw
         if not self._on_file_axis():
             return decode_bed_bytes(raw, self.n_samples)
         G = decode_bed_bytes(raw, self._bed.n_samples)
@@ -93,19 +128,21 @@ class GenoData:
 
     def read_block_device(self, block_snps: List[SnpInfo], device,
                           raw: Optional[np.ndarray] = None):
-        """A BED or PGEN block as a [B, N] int8 tensor on `device`. On
-        CUDA the packed bytes (`raw`, or read here) are uploaded and
-        decoded on the card (4x less host->device traffic than int8, no
-        host decode); on the CPU the host decode runs."""
+        """A block as a tensor on `device`, on the kept samples: [B, N]
+        float64 dosages of a dosage source, uploaded; else int8
+        hardcalls: on CUDA the packed bytes are uploaded and decoded on
+        the card (4x less host->device traffic than int8, no host
+        decode), on the CPU the host decode runs. `raw` is the block's
+        read_block_host, read here when not given."""
         import torch
 
         device = torch.device(device)
-        if device.type != "cuda":
-            return torch.from_numpy(self.read_block(block_snps, raw))
+        if raw is None:
+            raw = self.read_block_host(block_snps)
+        if self.dosage_source or device.type != "cuda":
+            return torch.from_numpy(self.read_block(block_snps, raw)).to(device)
         from ..ops.geno_ops import decode_bed_packed
 
-        if raw is None:
-            raw = self.read_block_bytes(block_snps)
         if not self._on_file_axis():
             return decode_bed_packed(torch.from_numpy(raw).to(device),
                                      self.n_samples)
@@ -116,6 +153,15 @@ class GenoData:
         if getattr(self.params, "ref_first", False):
             G = torch.where(G == -3, G, 2 - G)
         return G
+
+    def read_block_scattered(self, block_snps: List[SnpInfo]) -> np.ndarray:
+        """read_block of an arbitrary (possibly non-contiguous) variant
+        list (conditioning variants, extract_condition_snps)."""
+        if self._bed is None:
+            return self.read_block(block_snps)
+        raw = np.stack([self._bed.read_block_bytes(s.offset, 1)[0]
+                        for s in block_snps])
+        return self.read_block(block_snps, raw)
 
     def close(self):
         for f in (self._bed, self._bgen,
@@ -165,8 +211,9 @@ def open_geno(params: Params) -> GenoData:
 
 def _open_pgen_geno(params: Params) -> GenoData:
     """GenoData for PLINK2 .pgen/.pvar/.psam input (sexes from the .psam
-    SEX column). Hardcalls only: a file with dosage tracks, which the
-    JAX package scores on its dense path, raises NotImplementedError."""
+    SEX column). A file with dosage tracks sets params.pgen_dosage_present
+    (its blocks are dosages: the dense Step-2 route with an INFO column,
+    and dosages in Step 1)."""
     from .pgen import PgenDecoder, open_pgen, read_psam, read_pvar
 
     pf = open_pgen(params.pgen_prefix + ".pgen")
@@ -176,10 +223,6 @@ def _open_pgen_geno(params: Params) -> GenoData:
         pf.close()
         raise ValueError("pvar/psam do not match pgen dimensions")
     params.pgen_dosage_present = bool((pf.vrtypes & 0x60).any())
-    if params.pgen_dosage_present:
-        pf.close()
-        raise NotImplementedError(
-            "PGEN input with dosage tracks: not yet ported to regenie_tpu_torch")
     gd = GenoData(params=params)
     gd._pgen = PgenDecoder(pf)
     _apply_filters(params, gd, raw_snps, raw_samples)

@@ -8,18 +8,24 @@ regenie_tpu/io/native.py, trimmed to what the ported paths call).
   Python path when the library is missing.
 - The BGEN plane extractor, the port's own copy in io/csrc/bgen_planes.cpp
   (built against zlib alone; zstd records take ZSTD_decompress from
-  libzstd.so.1 at run time, require_zstd): built with g++ into
-  regenie_tpu_torch/_build/ (git-ignored) at first use. The BGEN path has
-  no other reader, so a failed build, a missing symbol, a zstd file
-  without the library or a rejected block raises.
+  libzstd.so.1 at run time, require_zstd), and in the same library the
+  BGEN dosage decoder io/csrc/bgen_dosages.cpp (every layout, bit depth
+  and compression; -ffp-contract=off, so its values equal numpy's
+  expression order): built with g++ into regenie_tpu_torch/_build/
+  (git-ignored) at first use. BGEN has no other reader, so a failed
+  build, a missing symbol or a zstd file without the library raises. A
+  block the extractor rejects raises PlanesRejected, on which a Step-2
+  run moves to the dense route; a record the dosage decoder rejects
+  raises RuntimeError.
 - The LOCO/PRS row renderer, the port's own copy of format_loco_rows in
   io/csrc/loco_rows.cpp (single-threaded; callers split the rows over
   threads), built the same way. Step 1 has no other renderer at biobank
   scale, so a failed build or load raises.
 - The PGEN block decoder, io/csrc/pgen_bytes.cpp (std::thread over
   variants), built the same way: PGEN hardcalls to BED-coded packed
-  bytes on the kept-sample axis. Both steps read PGEN only through it,
-  so a failed build, load or record raises.
+  bytes on the kept-sample axis, or float64 ALT dosages from the 16-bit
+  dosage tracks. Both steps read PGEN only through it, so a failed
+  build, load or record raises.
 """
 
 from __future__ import annotations
@@ -38,9 +44,17 @@ _NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
 _CSRC = os.path.join(_PKG_DIR, "io", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 PLANES_SYMBOL = "bgen12_extract_planes"
+DOSAGES_SYMBOL = "bgen_decode_dosages"
 LOCO_SYMBOL = "format_loco_rows"
 ZSTD_SONAME = "libzstd.so.1"
 PGEN_SYMBOL = "pgen_bed_bytes"
+PGEN_DOSAGES_SYMBOL = "pgen_dosages"
+# the dosage decoder's status codes (bgen_dosages.cpp)
+BGEN_REJECT = {1: "inflate failed or its size does not match",
+               2: "sample count, allele count or ploidy range unexpected",
+               3: "bit depth outside 1..32",
+               4: "probabilities reach past the record",
+               5: "unsupported layout"}
 _state = {"lib": None, "tried": False, "planes": None, "loco": None,
           "pgen": None, "zstd": None}
 
@@ -106,19 +120,26 @@ def bed_decode_native(raw: np.ndarray, n_samples: int) -> Optional[np.ndarray]:
     return out
 
 
-def _build_lib(name: str, what: str, symbol: str, libs=()) -> ctypes.CDLL:
-    """io/csrc/<name>.cpp built with g++ into BUILD_DIR at first use,
-    cached by the source's hash, and loaded. Raises RuntimeError when it
-    cannot be built or loaded, or lacks `symbol`."""
-    src = os.path.join(_CSRC, f"{name}.cpp")
-    with open(src, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
+def _build_lib(name: str, what: str, symbol: str, libs=(),
+               extra=()) -> ctypes.CDLL:
+    """io/csrc/<name>.cpp (with io/csrc/<e>.cpp for each name in `extra`,
+    into one library) built with g++ into BUILD_DIR at first use, cached
+    by the sources' hash, and loaded. Raises RuntimeError when it cannot
+    be built or loaded, or lacks `symbol`."""
+    srcs = [os.path.join(_CSRC, f"{n}.cpp") for n in (name, *extra)]
+    h = hashlib.sha256()
+    for src in srcs:
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    tag = h.hexdigest()[:12]
     so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
     if not os.path.isfile(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-shared",
-               "-o", tmp, src, *libs]
+        # no -ffast-math, and no fused multiply-adds: the BGEN dosages
+        # must round as numpy's expressions do
+        cmd = [os.environ.get("CXX", "g++"), "-O3", "-ffp-contract=off",
+               "-fPIC", "-shared", "-o", tmp, *srcs, *libs]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except OSError as e:
@@ -137,19 +158,30 @@ def _build_lib(name: str, what: str, symbol: str, libs=()) -> ctypes.CDLL:
 
 
 def planes_lib() -> ctypes.CDLL:
-    """The BGEN plane extractor library (io/csrc/bgen_planes.cpp), built
-    with g++ at first use and cached by the source's hash. Raises
-    RuntimeError when it cannot be built or lacks PLANES_SYMBOL."""
+    """The BGEN library: the plane extractor (io/csrc/bgen_planes.cpp)
+    and the dosage decoder (io/csrc/bgen_dosages.cpp), built with g++ at
+    first use and cached by the sources' hash. Raises RuntimeError when
+    it cannot be built or lacks PLANES_SYMBOL or DOSAGES_SYMBOL."""
     lib = _state["planes"]
     if lib is not None:
         return lib
     lib = _build_lib("bgen_planes", "BGEN plane extractor", PLANES_SYMBOL,
-                     ["-lz", "-ldl"])
+                     ["-lz", "-ldl"], extra=["bgen_dosages"])
+    if not hasattr(lib, DOSAGES_SYMBOL):
+        raise RuntimeError(f"the BGEN library has no symbol {DOSAGES_SYMBOL}")
     fn = getattr(lib, PLANES_SYMBOL)
     fn.restype = ctypes.c_int64
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn = getattr(lib, DOSAGES_SYMBOL)
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.bgen_zstd_open.restype = ctypes.c_int
     lib.bgen_zstd_open.argtypes = [ctypes.c_char_p]
@@ -168,6 +200,18 @@ def require_zstd() -> None:
             f"zstd-compressed BGEN needs {ZSTD_SONAME} (ZSTD_decompress), "
             "which cannot be loaded on this machine")
     _state["zstd"] = ZSTD_SONAME
+
+
+class PlanesRejected(RuntimeError):
+    """The plane extractor rejected records of a block (not 8-bit
+    unphased layout 2, or a clipped probability pair): a Step-2 run
+    scores that block and the rest of the file on the dense route."""
+
+
+def _ranges(n: int):
+    """(lo, hi) bounds splitting n items over one thread per CPU."""
+    b = np.linspace(0, n, min(os.cpu_count() or 1, max(n, 1)) + 1).astype(int)
+    return b[:-1], b[1:]
 
 
 def bgen12_extract_planes_native(comp: bytes, offsets, csizes, usizes,
@@ -192,16 +236,62 @@ def bgen12_extract_planes_native(comp: bytes, offsets, csizes, usizes,
                   usizes[lo:].ctypes.data, hi - lo, n_samples, compression,
                   planes[lo:].ctypes.data)
 
-    bounds = np.linspace(0, n_var, min(os.cpu_count() or 1, n_var) + 1).astype(int)
-    with ThreadPoolExecutor(len(bounds) - 1 or 1) as pool:
-        nfail = sum(pool.map(run, bounds[:-1], bounds[1:]))
+    lo, hi = _ranges(n_var)
+    with ThreadPoolExecutor(len(lo)) as pool:
+        nfail = sum(pool.map(run, lo, hi))
     if nfail > 0:
-        raise RuntimeError(
+        raise PlanesRejected(
             f"BGEN plane extraction rejected {nfail} of {n_var} variants "
             "(the port reads only zlib- or zstd-compressed, unphased "
             "diploid, biallelic 8-bit layout-2 blocks with probabilities "
             "summing to at most 1)")
     return planes
+
+
+def bgen_decode_dosages_native(comp, offsets, csizes, usizes, n_samples: int,
+                               layout: int, compression: int, ref_first: bool,
+                               keep=None):
+    """BGEN dosages of a block of records through io/csrc/bgen_dosages.cpp:
+    (dosage [B, n] float64 with missing = -3, INFO numerator [B, n],
+    status [B] uint8: 0, or a BGEN_REJECT code) on the kept samples (n =
+    len(keep), or every sample of the file when keep is None). `comp`
+    holds the records' payloads (for compressed layout-2 records, after
+    their 4-byte size), at `offsets`, of `csizes` bytes, inflating to
+    `usizes`. The variants run over one thread per CPU (ctypes releases
+    the GIL during each call); a rejected variant's rows are left
+    unwritten, and the caller raises for it."""
+    fn = getattr(planes_lib(), DOSAGES_SYMBOL)
+    if compression == 2:
+        require_zstd()
+    n_var = len(offsets)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    csizes = np.ascontiguousarray(csizes, dtype=np.int64)
+    usizes = np.ascontiguousarray(usizes, dtype=np.int64)
+    if keep is not None:
+        keep = np.ascontiguousarray(keep, dtype=np.int64)
+        if len(keep) and (keep.min() < 0 or keep.max() >= n_samples):
+            raise ValueError("sample index out of the file's range")
+    n_out = n_samples if keep is None else len(keep)
+    dosage = np.empty((n_var, n_out))
+    info = np.empty((n_var, n_out))
+    status = np.zeros(n_var, dtype=np.uint8)
+    comp_buf = np.frombuffer(comp, dtype=np.uint8)
+    if len(offsets) and (offsets.min() < 0
+                         or (offsets + csizes).max() > len(comp_buf)):
+        raise ValueError("record extent out of the buffer")
+
+    def run(lo, hi):
+        return fn(comp_buf.ctypes.data, offsets[lo:].ctypes.data,
+                  csizes[lo:].ctypes.data, usizes[lo:].ctypes.data, hi - lo,
+                  n_samples, layout, compression, int(bool(ref_first)),
+                  None if keep is None else keep.ctypes.data, n_out,
+                  dosage[lo:].ctypes.data, info[lo:].ctypes.data,
+                  status[lo:].ctypes.data)
+
+    lo, hi = _ranges(n_var)
+    with ThreadPoolExecutor(len(lo)) as pool:
+        list(pool.map(run, lo, hi))
+    return dosage, info, status
 
 
 def loco_lib() -> ctypes.CDLL:
@@ -231,13 +321,16 @@ def pgen_lib() -> ctypes.CDLL:
     if lib is not None:
         return lib
     lib = _build_lib("pgen_bytes", "PGEN block decoder", PGEN_SYMBOL, ["-pthread"])
-    fn = getattr(lib, PGEN_SYMBOL)
-    fn.restype = ctypes.c_int64
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ]
+    if not hasattr(lib, PGEN_DOSAGES_SYMBOL):
+        raise RuntimeError(f"the PGEN decoder has no symbol {PGEN_DOSAGES_SYMBOL}")
+    for name in (PGEN_SYMBOL, PGEN_DOSAGES_SYMBOL):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ]
     _state["pgen"] = lib
     return lib
 
@@ -249,7 +342,20 @@ def pgen_bed_bytes_native(pf, vidx, keep=None) -> np.ndarray:
     variants' indices in the file. Raises RuntimeError when any variant of
     the block cannot be decoded (multiallelic, or a record out of the
     file's bounds)."""
-    fn = getattr(pgen_lib(), PGEN_SYMBOL)
+    return _pgen_block(pf, vidx, keep, PGEN_SYMBOL, "block decoding")
+
+
+def pgen_dosages_native(pf, vidx, keep=None) -> np.ndarray:
+    """A block of PGEN ALT dosages: [B, n] float64, missing = -3, on the
+    kept-sample axis as in pgen_bed_bytes_native; the 16-bit dosage
+    tracks (vrtype 0x20, 0x40, 0x60) override the hardcalls. Raises
+    RuntimeError when any variant cannot be decoded (multiallelic, or a
+    record or dosage track out of the file's bounds)."""
+    return _pgen_block(pf, vidx, keep, PGEN_DOSAGES_SYMBOL, "dosage decoding")
+
+
+def _pgen_block(pf, vidx, keep, symbol, what) -> np.ndarray:
+    fn = getattr(pgen_lib(), symbol)
     data = np.frombuffer(pf._data, np.uint8)
     fpos = np.ascontiguousarray(pf.fpos, np.int64)
     vrtypes = np.ascontiguousarray(pf.vrtypes, np.uint8)
@@ -260,7 +366,8 @@ def pgen_bed_bytes_native(pf, vidx, keep=None) -> np.ndarray:
     if keep is not None:
         keep = np.ascontiguousarray(keep, np.int64)
     n_out = pf.n_samples_file if keep is None else len(keep)
-    out = np.empty((len(vidx), (n_out + 3) // 4), np.uint8)
+    out = (np.empty((len(vidx), (n_out + 3) // 4), np.uint8)
+           if symbol == PGEN_SYMBOL else np.empty((len(vidx), n_out)))
     nfail = fn(data.ctypes.data, len(data), fpos.ctypes.data,
                vrtypes.ctypes.data, len(vrtypes), vidx.ctypes.data, len(vidx),
                pf.n_samples_file,
@@ -269,7 +376,7 @@ def pgen_bed_bytes_native(pf, vidx, keep=None) -> np.ndarray:
                out.ctypes.data)
     if nfail > 0:
         raise RuntimeError(
-            f"PGEN block decoding rejected {nfail} of {len(vidx)} variants "
+            f"PGEN {what} rejected {nfail} of {len(vidx)} variants "
             f"of {pf.path} (multiallelic, or a record out of the file's "
             "bounds)")
     return out

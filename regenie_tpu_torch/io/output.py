@@ -38,11 +38,11 @@ def header_single(params: Params) -> str:
 
 def header_all(params: Params) -> str:
     """Header of the merged --no-split file (print_header_output_all,
-    Step2_Models.cpp:2306), trimmed to hardcall QT runs: the port writes
-    merged output only from BED and PGEN hardcalls, so no INFO and no
-    --af-cc columns."""
-    cols = ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ", "N",
-            "N_RR", "N_RA", "N_AA", "TEST"]
+    Step2_Models.cpp:2306), trimmed to QT runs (no --af-cc columns)."""
+    cols = ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ"]
+    if params.dosage_mode:
+        cols += ["INFO"]
+    cols += ["N", "N_RR", "N_RA", "N_AA", "TEST"]
     for i in range(params.n_pheno):
         cols += [f"BETA.Y{i+1}", f"SE.Y{i+1}", f"CHISQ.Y{i+1}", f"LOG10P.Y{i+1}"]
     cols += ["EXTRA"]
@@ -50,12 +50,15 @@ def header_all(params: Params) -> str:
 
 
 def sumstat_line_all(params: Params, snp: SnpInfo, test: str, af1: float,
-                     ns1: int, n_rr: int, n_aa: int, per_pheno: list) -> str:
+                     info1: Optional[float], ns1: int, n_rr: int, n_aa: int,
+                     per_pheno: list) -> str:
     """One merged-format row, all traits (print_sum_stats_all,
     Step2_Models.cpp:2457-2500); per_pheno: [(beta, se, chisq, logp,
     test_pass)] per trait."""
     parts = [str(snp.chrom), str(snp.physpos), snp.ID, snp.allele1, snp.allele2]
     parts.append(fmt(af1) if af1 >= 0 else "NA")
+    if params.dosage_mode:
+        parts.append(fmt(info1) if info1 is not None and info1 >= 0 else "NA")
     parts.append(str(ns1))
     if n_rr >= 0:
         parts += [str(n_rr), str(ns1 - n_rr - n_aa), str(n_aa)]
@@ -180,7 +183,7 @@ def htp_prefixes(bsnps) -> tuple:
 
 
 def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
-                     beta, se, chisq, logp, af, mac, genocounts, neff,
+                     beta, se, chisq, logp, af, info, mac, genocounts, neff,
                      test_fail) -> Optional[str]:
     """Native batch renderer for the HTPv4 format (format_sumstat_htp in
     native/decoder.cpp), byte-identical to sumstat_line_htp. Returns
@@ -197,6 +200,8 @@ def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
     test_fail = np.ascontiguousarray(test_fail, np.uint8)
     gc = (np.ascontiguousarray(genocounts, np.int64)
           if genocounts is not None else None)
+    has_info = bool(params.dosage_mode) and info is not None
+    info = _f64(info) if has_info else None
     budget = int(lib.htp_field_budget()) + len(mid.encode())
     out = np.empty(int(prefix_off[-1]) + B * budget, np.uint8)
     row_len = np.empty(B, np.int64)
@@ -205,9 +210,9 @@ def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
     total = lib.format_sumstat_htp(
         pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, mid.encode(),
         0, int(bool(params.firth)), int(bool(params.uncapped_pvals)),
-        0, float(params.zcrit),
+        int(has_info), float(params.zcrit),
         beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
-        af.ctypes.data, None, mac.ctypes.data,
+        af.ctypes.data, info.ctypes.data if has_info else None, mac.ctypes.data,
         gc.ctypes.data if gc is not None else None,
         int(neff) if neff is not None else -1,
         test_fail.ctypes.data, out.ctypes.data, row_len.ctypes.data,
@@ -279,6 +284,7 @@ def sumstat_line_htp(
     chisq: float,
     logp: float,
     af: float,
+    info: Optional[float],
     mac: float,
     genocounts,  # [6] ints (all-sample RR/RA/AA first) or None
     test_pass: bool = True,
@@ -322,6 +328,8 @@ def sumstat_line_htp(
     infoCol = []
     if print_beta:
         infoCol.append(f"REGENIE_SE={fmt(se)}")
+    if params.dosage_mode and info is not None and info >= 0:
+        infoCol.append(f"INFO={fmt(info)}")
     if mac >= 0:
         infoCol.append(f"MAC={fmt(mac)}")
     infoCol.append(f"LOG10P={fmt(logp)}" if print_pv else "LOG10P=NA")

@@ -48,6 +48,39 @@ class PhenoData:
     pheno_pass: np.ndarray = None  # [P] bool
 
 
+def convert_tpheno(params: Params) -> None:
+    """Convert a transposed phenotype file (--tpheno-file: header =
+    sample IDs, one row per trait; tpheno_read Pheno.cpp:366) into the
+    standard FID IID Y... format in a temporary file (the caller removes
+    it once read) and repoint params.pheno_file at it."""
+    import tempfile
+
+    with open_read(params.pheno_file) as fh:
+        header = string_split(fh.readline())
+        rows = [string_split(l) for l in fh if l.strip()]
+    idx_col = params.tpheno_index_col - 1
+    rm = set(params.tpheno_ignore_cols) | {params.tpheno_index_col}
+    keep = [i for i in range(len(header)) if (i + 1) not in rm]
+    names = [r[idx_col] for r in rows]
+    for r in rows:
+        if len(r) != len(header):
+            raise ValueError("incorrectly formatted phenotype file.")
+    with tempfile.NamedTemporaryFile(
+            "w", suffix=".pheno.txt", delete=False,
+            prefix="regenie_tpheno_") as tmp:
+        tmp.write("FID IID " + " ".join(names) + "\n")
+        for i in keep:
+            sid = header[i]
+            if params.tpheno_iid_only:
+                fid = iid = sid
+            else:
+                fid, _, iid = sid.partition("_")
+                if not iid:
+                    fid = iid = sid
+            tmp.write(f"{fid} {iid} " + " ".join(r[i] for r in rows) + "\n")
+    params.pheno_file = tmp.name
+
+
 def read_pheno(
     params: Params,
     sample_index: Dict[str, int],

@@ -1,6 +1,8 @@
-"""Data preparation for Step 2 QT (the port's copy of regenie_tpu/prep.py,
-trimmed to the quantitative-trait run-up), with --print-cov-betas and
-the --debug dump of the model inputs.
+"""Data preparation for both steps on quantitative traits (the port's copy
+of regenie_tpu/prep.py, trimmed to the quantitative-trait run-up): the
+transposed phenotype file (--tpheno-file), conditioning variants joined
+to the covariates (--condition-list, --condition-file),
+--print-cov-betas and the --debug dump of the model inputs.
 
 Mirrors the reference's run-up sequence (Data::run_step2 ->
 file_read_initialization, read_pheno_and_cov, prep_run; Data.cpp:95-180,
@@ -9,15 +11,18 @@ Pheno.cpp:50-146, :1060).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 
 from .config import Params
+from .io.files import iter_lines
 from .io.geno import GenoData, open_geno
 from .io.pheno import (
     PhenoData,
+    convert_tpheno,
     get_basis,
     pheno_impute_miss,
     read_covariates,
@@ -43,12 +48,30 @@ def prepare(
     gd = open_geno(params)
     sample_index = gd.sample_index()
 
-    pd = read_pheno(params, sample_index, blup_pheno_names)
+    if params.transposed_pheno:
+        convert_tpheno(params)
+        params.transposed_pheno = False  # converted in place
+        try:
+            pd = read_pheno(params, sample_index, blup_pheno_names)
+        finally:
+            os.unlink(params.pheno_file)
+    else:
+        pd = read_pheno(params, sample_index, blup_pheno_names)
     new_cov, ind_in_cov, cov_names = read_covariates(params, sample_index,
                                                      pd.pheno_names)
     # covariate-count log line greppable as in the reference (Pheno.cpp:642)
     log(f"n_cov = {new_cov.shape[1] - 1}")
     pd.new_cov = new_cov
+
+    # conditional analysis: add conditioning variants as covariates
+    # (extract_condition_snps, Pheno.cpp:940-987), mean-imputed
+    if params.condition_list or params.condition_file:
+        cond = _extract_condition_genotypes(params, gd)
+        pd.new_cov = np.concatenate([pd.new_cov, cond], axis=1)
+        log(
+            f"   +conditioning on variants in [{params.condition_list}]"
+            f" n_used = {cond.shape[1]}"
+        )
 
     ind = pd.ind_in_analysis & ind_in_cov
     pd.masked_indivs &= ind[:, None]
@@ -91,6 +114,54 @@ def prepare(
     if cov_betas is not None:
         _write_cov_betas(params, pd, *cov_betas)
     return RunData(geno=gd, pheno=pd)
+
+
+def _extract_condition_genotypes(params: Params, gd) -> np.ndarray:
+    """Read conditioning variants (from the main file via --condition-list,
+    or an external file via --condition-file FORMAT,FILE), mean-imputed:
+    [N, n_cond] on the main file's kept samples (-3 where an external
+    file lacks the sample, then imputed)."""
+    if params.condition_file:
+        fmt_name, path = params.condition_file.split(",", 1)
+        sub = Params(
+            step=params.step, pheno_file=params.pheno_file,
+            bed_prefix=path if fmt_name == "bed" else None,
+            bgen_file=path if fmt_name == "bgen" else None,
+            pgen_prefix=path if fmt_name == "pgen" else None,
+            n_chrom=params.n_chrom,
+            sample_file=params.condition_file_sample,
+        )
+        if params.condition_list:
+            want = {t[0] for t in iter_lines(params.condition_list)}
+        else:
+            want = None
+        gd2 = open_geno(sub)
+        try:
+            snps = [s for s in gd2.snps if want is None or s.ID in want]
+            # map external samples onto main sample order by FID_IID key
+            G_ext = gd2.read_block_scattered(snps).astype(np.float64)
+            idx_ext = gd2.sample_index()
+        finally:
+            gd2.close()
+        G = np.full((len(snps), gd.n_samples), -3.0)
+        for j, smp in enumerate(gd.samples):
+            k = idx_ext.get(smp.key)
+            if k is not None:
+                G[:, j] = G_ext[:, k]
+    else:
+        want = {t[0] for t in iter_lines(params.condition_list)}
+        snps = [s for s in gd.snps if s.ID in want]
+        if not snps:
+            raise ValueError("no conditioning variants found in genotype file")
+        G = gd.read_block_scattered(snps).astype(np.float64)
+    if len(snps) > params.max_condition_vars:
+        raise ValueError("too many conditioning variants")
+    # mean-impute missing
+    for k in range(G.shape[0]):
+        m = G[k] != -3
+        mu = G[k][m].mean() if m.any() else 0.0
+        G[k] = np.where(m, G[k], mu)
+    return G.T
 
 
 def _cov_betas(params, pd, cov_names):

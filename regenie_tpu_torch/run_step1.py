@@ -1,6 +1,6 @@
-"""Step 1 on quantitative traits from PLINK BED hardcalls: whole-genome
-block ridge -> LOCO predictions (the port of the QT, single-device parts
-of regenie_tpu/run_step1.py).
+"""Step 1 on quantitative traits from PLINK BED or PGEN hardcalls or
+BGEN (and PGEN) dosages: whole-genome block ridge -> LOCO predictions
+(the port of the QT, single-device parts of regenie_tpu/run_step1.py).
 
 Replaces the reference's Data::run_step1 (Data.cpp:95-133),
 level_0_calculations (:594), ridge_level_1* (Step1_Models.cpp:772+),
@@ -10,9 +10,11 @@ prep_parallel_l0 :818, write_l0_file/read_l0 Step1_Models.cpp:728/1921)
 with file-compatible master/snplist/binary prediction formats.
 
 Level 0 and level 1 run in float64 on the device (models/step1.py: DGEMM
-on the FP64 tensor cores and cuSOLVER eigh on the card); each BED block
-ships as packed bytes and is decoded there (ops/geno_ops.py). The LOCO
-rows render through io/csrc/loco_rows.cpp.
+on the FP64 tensor cores and cuSOLVER eigh on the card); each hardcall
+block ships as packed bytes and is decoded there (ops/geno_ops.py), each
+dosage block (io/csrc/bgen_dosages.cpp, io/csrc/pgen_bytes.cpp on the
+reader thread) as float64. The LOCO rows render through
+io/csrc/loco_rows.cpp.
 """
 
 from __future__ import annotations
@@ -268,9 +270,9 @@ class Level0:
         return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
 
     def residualized(self, G8: torch.Tensor, bsnps) -> torch.Tensor:
-        """A block's int8 hardcalls -> masked, imputed, covariate-
-        residualized genotypes of unit variance [B, N] (float64). Raises
-        on a SNP of (near) zero variance."""
+        """A block's int8 hardcalls or float64 dosages -> masked, imputed,
+        covariate-residualized genotypes of unit variance [B, N]
+        (float64). Raises on a SNP of (near) zero variance."""
         G = prepare_block_step1(G8, self.ind)
         G, scale_G = m1.residualize_geno_block(G, self.cov, self.scale_denom)
         sg = scale_G.cpu().numpy()
@@ -313,10 +315,10 @@ def _level0(params, st: Step1Setup, log):
     log(f" * level 0 on {dev} (float64)")
 
     # one-block read lookahead: the reader thread reads the next block's
-    # packed bytes while this block solves; the upload and the decode
-    # stay on this thread's stream
+    # packed bytes (or decodes its dosages) while this block solves; the
+    # upload and the device decode stay on this thread's stream
     pool = ThreadPoolExecutor(max_workers=1)
-    fut = pool.submit(gd.read_block_bytes, blocks[0][1]) if blocks else None
+    fut = pool.submit(gd.read_block_host, blocks[0][1]) if blocks else None
 
     # LOOCV: consecutive same-shape blocks solve in ONE batched dispatch
     # (batched [n, B, B] eigh; Step1_Models.cpp:494). No block's W depends
@@ -349,7 +351,7 @@ def _level0(params, st: Step1Setup, log):
             chr_nblocks[chrom] = chr_nblocks.get(chrom, 0) + 1
             raw = fut.result()
             if bidx + 1 < len(blocks):
-                fut = pool.submit(gd.read_block_bytes, blocks[bidx + 1][1])
+                fut = pool.submit(gd.read_block_host, blocks[bidx + 1][1])
             tb = time.time()
             G = l0.residualized(gd.read_block_device(bsnps, dev, raw), bsnps)
             if params.use_loocv:

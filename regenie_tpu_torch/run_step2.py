@@ -1,36 +1,43 @@
-"""Step 2 on quantitative traits from PLINK BED or PGEN hardcalls or BGEN
-v1.2 8-bit dosages, through the fused scorer (the port of the QT/BED,
-QT/PGEN and QT/BGEN slices of regenie_tpu/run_step2.py).
+"""Step 2 on quantitative traits from PLINK BED, PGEN or BGEN files (the
+port of the QT slices of regenie_tpu/run_step2.py), on two routes.
 
 Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
-compute_res (:2386) and the .regenie writers: per chromosome the LOCO
-residuals enter the fused operand, and each block of packed genotype
-bytes (three products) or of BGEN probability byte planes (six products)
-is scored with a small epilogue on the device (ops/fused_score.py), with
-AF/MAC/INFO/genotype counts read from the same product columns. On
-chrX outside the PARs, the male tail of the operand gives the hemizygous
-MAC and class counts (default dosage compensation: males stay diploid-
-coded, so the scores do not change).
+compute_res (:2386) and the .regenie writers. Per chromosome the LOCO
+residuals (with --force-ltco, less the extra chromosome's share) enter
+the scorer. The fused route (the default) scores each block of packed
+genotype bytes (three products) or of BGEN probability byte planes (six
+products) with a small epilogue on the device (ops/fused_score.py), with
+AF/MAC/INFO/genotype counts read from the same product columns; on chrX
+outside the PARs the male tail of the operand gives the hemizygous MAC
+and class counts. The dense route takes what the fused one cannot, as
+the JAX package's dense path does (--nocov-approx, BGEN with --htp,
+--no-split or DOM/REC, PGEN dosage tracks, chrX non-PAR blocks with
+--skip-dosage-comp or DOM/REC, BGEN records the plane extractor rejects,
+or every block with REGENIE_TPU_FUSED=0): the block's hardcalls or
+float64 dosages on the device, their statistics (ops/geno_ops.py) and
+float64 products (models/step2.py), all plain torch ops.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import QT, Params
-from .io.bgen import extract_planes_block, require_planes
+from .io.bgen import extract_planes_block, planes_readable
 from .io.files import iter_lines, open_read, open_write, string_split
 from .io.geno import make_blocks
-from .io.native import pgen_lib, planes_lib
+from .io.native import PlanesRejected, pgen_lib, planes_lib, require_zstd
 from .io.output import (block_prefixes, format_block_htp,
                         format_block_single, header_all, header_htp,
                         header_single, htp_prefixes, native_formatter,
@@ -38,10 +45,14 @@ from .io.output import (block_prefixes, format_block_htp,
                         sumstat_line_single)
 from .models import step2 as m2
 from .ops import fused_score as fsc
+from .ops.geno_ops import (MISSING, finalize_block_step2, pack_hardcalls,
+                           snp_stats_block, snp_stats_block_packed)
 from .prep import prepare, write_debug_inputs
 from .cli import unported
 from .utils.device import resolve_device
 from .utils.stats import chisq_neglog10, ttest_neglog10, usage_info_line
+
+FUSED_ENV = "REGENIE_TPU_FUSED"  # "0" sends every block down the dense route
 
 
 def read_pred_list(path: str) -> Dict[str, str]:
@@ -97,6 +108,37 @@ def read_loco_chr(
     return blup
 
 
+def read_ltco_prs(path, ltco_chr, id_to_ind, n_samples, mask, n_chrom):
+    """Per-chromosome contribution of ltco_chr recovered from a .loco
+    file (blup_read w_ltco branch, Pheno.cpp:1341-1381):
+    sum_c loco_c / (nchr-1) - loco_ltco = perchr_ltco."""
+    full = np.zeros(n_samples)
+    ltco = np.zeros(n_samples)
+    nchr = 0
+    with open_read(path) as fh:
+        header = string_split(fh.readline())
+        for line in fh:
+            toks = string_split(line)
+            if not toks:
+                continue
+            is_ltco = int(toks[0]) == ltco_chr
+            for col in range(1, len(header)):
+                key = header[col]
+                if key not in id_to_ind:
+                    continue
+                idx = id_to_ind[key]
+                if not mask[idx] or toks[col] == "NA":
+                    continue
+                ds = float(toks[col])
+                full[idx] += ds
+                if is_ltco:
+                    ltco[idx] = -ds
+            nchr += 1
+    if nchr != n_chrom:
+        raise ValueError("incorrectly formatted LOCO file for LTCO")
+    return ltco + full / (nchr - 1)
+
+
 def mask_samples_missing_loco(params, pd, blup_files, id_to_ind):
     """Mask samples absent (or NA) in each trait's .loco file
     (blup_read, Pheno.cpp:1241-1330)."""
@@ -144,13 +186,14 @@ class BlockResult:
     n_aa: Optional[np.ndarray] = None  # output's N_RR / N_AA; not BGEN)
 
 
-def _fetch_packed(vals: dict) -> dict:
+def _fetch_packed(vals: dict, fdt=None) -> dict:
     """Fetch a dict of [B]/[B, X] device tensors in ONE device->host copy:
-    concatenate on the device in the products' float dtype, copy, split
-    and cast back (exact: every value is in that dtype already or an
-    integer count far below its mantissa limit)."""
+    concatenate on the device in `fdt` (by default the products' float
+    dtype, that of vals["s1"]), copy, split and cast back (exact: every
+    value is in that dtype already or an integer count far below its
+    mantissa limit)."""
     names = list(vals)
-    fdt = vals["s1"].dtype
+    fdt = fdt or vals["s1"].dtype
     parts = [(v[:, None] if v.dim() == 1 else v).to(fdt) for v in vals.values()]
     packed = torch.cat(parts, dim=1).cpu().numpy()
     out, o = {}, 0
@@ -163,8 +206,9 @@ def _fetch_packed(vals: dict) -> dict:
 
 
 class Step2Engine:
-    """Association-test state and per-block fused scoring (QT; BED, PGEN
-    or BGEN).
+    """Association-test state and per-block scoring (QT; BED, PGEN or
+    BGEN), on the fused route (test_raw_block_fused) or the dense one
+    (test_raw_block), chosen per block by fused_block.
 
     device: where the operand lives and the products run (resolved by
     utils.device.resolve_device). On CUDA the operand is the int8 limbs,
@@ -195,6 +239,10 @@ class Step2Engine:
         self.n_ignored = 0
         self._fused_chrom = None
         self._fused_static = None
+        self._ltco_prs = {}
+        self._dense = None
+        self.fused = self.fused_ok()
+        self.planes_rejected = False  # latched by the first rejected block
 
     def refresh_masks(self):
         """Re-derive cached per-trait mask arrays after pd.masked_indivs
@@ -202,6 +250,7 @@ class Step2Engine:
         self.maskf = self.pd.masked_indivs.astype(np.float64)
         self._fused_chrom = None
         self._fused_static = None
+        self._dense = None
 
     def prep_chrom(self, chrom: int):
         """LOCO residuals of every trait for `chrom` (compute_res,
@@ -219,6 +268,16 @@ class Step2Engine:
                     self.blup_files[name], chrom, self.id_to_ind, N,
                     pd.masked_indivs[:, ph], use_prs=params.use_prs,
                 )
+                # LTCO: also remove the extra chromosome's contribution
+                # (blup_read_chr, Step2_Models.cpp:121)
+                if params.ltco_chr > 0 and chrom != params.ltco_chr:
+                    if ph not in self._ltco_prs:
+                        self._ltco_prs[ph] = read_ltco_prs(
+                            self.blup_files[name], params.ltco_chr,
+                            self.id_to_ind, N, pd.masked_indivs[:, ph],
+                            params.n_chrom,
+                        )
+                    blups[:, ph] -= self._ltco_prs[ph]
         if params.blup_cov:
             # --prs-cov: project the PRS out by a per-trait LM fit instead
             # of the unit-slope offset (get_lm_resid, Pheno.cpp:1854)
@@ -286,15 +345,33 @@ class Step2Engine:
         return bhat, se, chisq, logp
 
     def fused_ok(self) -> bool:
-        """Whether the fused scorer can run this QT analysis on BED or
-        PGEN bytes or BGEN planes: it is the port's only Step-2 path, so
-        everything the reference keeps on its dense path (--nocov-approx,
-        --mcc) is not yet ported."""
+        """Whether the fused scorer can run this QT analysis (the QT
+        conditions of the JAX package's fused_ok, regenie_tpu/run_step2.py
+        :777-827, without its backend test, so the default is the fused
+        route on either device): BED or PGEN hardcalls, or BGEN planes
+        (the ADD test, split output, no --htp: HTP and merged output want
+        hardcall-threshold counts, nonlinear in dosages; and a file the
+        plane extractor reads), no --nocov-approx and no --mcc.
+        REGENIE_TPU_FUSED=0 sends every block down the dense route."""
+        if os.environ.get(FUSED_ENV) == "0":
+            return False
         params, gd = self.params, self.gd
-        src = (gd._bed is not None or gd._bgen is not None
-               or gd._pgen is not None)
-        return (params.trait_mode == QT and src
+        hardcall_src = gd._bed is not None or (
+            gd._pgen is not None and not params.dosage_mode)
+        bgen_src = (gd._bgen is not None and params.test_type == 0
+                    and not params.htp_out and params.split_by_pheno
+                    and planes_readable(gd._bgen))
+        return (params.trait_mode == QT and (hardcall_src or bgen_src)
                 and not params.skip_cov_res and not params.mcc_test)
+
+    def fused_block(self, bsnps) -> bool:
+        """Whether a block goes down the fused route (the JAX package's
+        per-block routing, run_step2.py:2300-2372): a fused run, no block
+        of the file rejected by the plane extractor so far, and not a chrX
+        non-PAR block outside _fused_chrx_ok."""
+        return (self.fused and not self.planes_rejected
+                and not (self.gd.sex is not None and not self._fused_chrx_ok()
+                         and self.non_par_flags(bsnps).any()))
 
     def _fused_chrx_ok(self) -> bool:
         """Whether chrX non-PAR blocks ride the fused path, with the male
@@ -339,14 +416,15 @@ class Step2Engine:
         return mac1, mac_t, n1m, n1m_t
 
     def read_block_raw(self, bsnps) -> np.ndarray:
-        """A block's genotype source, unpadded (sample-tile padding
-        happens on the device in _fused_upload). BED: [B, nb] packed
-        2-bit bytes on the FILE sample axis, the mmap view itself when
-        the variants are consecutive in the file (no host copy). PGEN:
-        [B, nb] BED-coded packed bytes on the KEPT sample axis, from the
-        port's native block decoder. BGEN: [B, 2, N_file] probability
-        byte planes from the native extractor. Each native reader raises
-        on a record it cannot read."""
+        """A block's genotype source for the fused route, unpadded
+        (sample-tile padding happens on the device in _fused_upload).
+        BED: [B, nb] packed 2-bit bytes on the FILE sample axis, the mmap
+        view itself when the variants are consecutive in the file (no
+        host copy). PGEN: [B, nb] BED-coded packed bytes on the KEPT
+        sample axis, from the port's native block decoder. BGEN: [B, 2,
+        N_file] probability byte planes from the native extractor, which
+        raises PlanesRejected for records it cannot read. Each native
+        reader raises on a record it cannot read."""
         if self.gd._bgen is not None:
             return extract_planes_block(self.gd._bgen,
                                         [s.offset for s in bsnps])
@@ -607,6 +685,211 @@ class Step2Engine:
         return result, flipped
 
 
+    # ---- the dense route (the JAX package's test_raw_block pipeline) ----
+
+    def _ensure_dense_consts(self):
+        """The dense route's device operands: per run the analysis and
+        trait masks, the covariate basis and the sexes, and for the
+        one-pass scorer Mmat and W = [cov | res | CM]; per chromosome the
+        residuals (patched into W's res columns) and cov' res."""
+        pd, params = self.pd, self.params
+        dev = self.device
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+        d = self._dense
+        if d is None:
+            d = self._dense = SimpleNamespace(
+                ind=torch.as_tensor(pd.ind_in_analysis, device=dev),
+                mask=torch.as_tensor(pd.masked_indivs, device=dev),
+                maskf=put(self.maskf), cov=put(pd.new_cov),
+                sex=(None if self.gd.sex is None
+                     else torch.as_tensor(self.gd.sex, device=dev)),
+                W=None, Mmat=None, chrom=None)
+            d.indf = d.ind.to(torch.float64)
+            d.maskf1 = torch.cat([d.maskf, torch.ones_like(d.maskf[:, :1])], 1)
+        if d.chrom != self.cur_chrom:
+            d.res = put(self.res)
+            d.covt_res = put(pd.new_cov.T @ self.res)
+            if not (params.skip_cov_res or self.strict):
+                K, P = d.cov.shape[1], d.res.shape[1]
+                if d.W is None:
+                    CM, d.Mmat, _ = m2.onepass_constants(d.cov, d.maskf, d.res)
+                    d.W = m2.onepass_weights(d.cov, d.res, CM)
+                    del CM
+                else:
+                    d.W[:, K : K + P] = d.res
+            d.chrom = self.cur_chrom
+        return d
+
+    def read_block_dense(self, bsnps):
+        """A block's host read for the dense route: (G, info_num), G the
+        kept samples' [B, N] float64 dosages of a dosage source (BGEN, or
+        a PGEN with dosage tracks) or else the block's packed hardcall
+        bytes; info_num BGEN's per-sample INFO numerators, or None."""
+        if self.gd.dosage_source:
+            return self.gd.read_dosages(bsnps)
+        return self.gd.read_block_bytes(bsnps), None
+
+    def upload_dense(self, host, bsnps):
+        """read_block_dense's result on the device: (G, info_num), G the
+        [B, N] float64 dosages or int8 hardcalls (decoded on the card)."""
+        G, info = host
+        G = self.gd.read_block_device(bsnps, self.device, G)
+        if info is not None:
+            info = torch.from_numpy(info).to(self.device)
+        return G, info
+
+    def block_stats(self, G_raw, bsnps=None) -> dict:
+        """Per-variant stats of a raw block (hardcalls or dosages; the
+        JAX package's block_stats) as host arrays. G_raw: a [B, N] tensor
+        on the engine's device, or a host numpy block, which ships as
+        packed 2-bit bytes when it holds only hardcalls {0, 1, 2, -3}
+        (4x less host->device traffic than int8)."""
+        d = self._ensure_dense_consts()
+        kw = {}
+        if bsnps is not None and self.gd.sex is not None and self.params.test_mode:
+            non_par = self.non_par_flags(bsnps)
+            if non_par.any():
+                kw = dict(non_par=torch.as_tensor(non_par, device=self.device),
+                          sex=d.sex, skip_comp=bool(self.params.skip_dosage_comp))
+        if isinstance(G_raw, np.ndarray):
+            with np.errstate(invalid="ignore"):
+                hardcalls = bool(np.isin(G_raw, (0, 1, 2, MISSING)).all())
+            if hardcalls and G_raw.size:
+                raw = torch.from_numpy(pack_hardcalls(G_raw)).to(self.device)
+                return _fetch_packed(snp_stats_block_packed(
+                    raw, G_raw.shape[1], d.ind, d.mask, **kw), torch.float64)
+            G_raw = torch.from_numpy(np.asarray(G_raw, np.float64)).to(self.device)
+        return _fetch_packed(snp_stats_block(G_raw, d.ind, d.mask, **kw),
+                             torch.float64)
+
+    def compute_genocounts(self, G_raw, bsnps=None) -> np.ndarray:
+        """[B, 6, P] genotype counts of a raw block on the device
+        (compute_genocounts, Geno.cpp:2898): rows 0-2 all samples' RR/RA/
+        AA per trait (QT), rows 3-5 zero. Non-PAR chrX males are
+        hemizygous: g >= 1 counts as hom (update_genocounts,
+        Geno.cpp:2922), unless --skip-dosage-comp halved them."""
+        params, d = self.params, self._ensure_dense_consts()
+        G = G_raw.to(torch.float64)
+        valid = (G != MISSING) & d.ind[None, :]
+        lo, hi = 0.5, 1.5
+        if bsnps is not None and self.gd.sex is not None and not params.skip_dosage_comp:
+            non_par = torch.as_tensor(self.non_par_flags(bsnps), device=self.device)
+            hemi = non_par[:, None] & (d.sex == 1)[None, :]
+            lo = torch.where(hemi, 1.0, 0.5)
+            hi = torch.where(hemi, 1.0, 1.5)
+        hc = ((G < lo) & valid, (G >= lo) & (G < hi) & valid, (G >= hi) & valid)
+        out = np.zeros((G.shape[0], 6, params.n_pheno))
+        for k, h in enumerate(hc):
+            out[:, k, :] = (h.to(torch.float64) @ d.maskf).cpu().numpy()
+        return out.astype(np.int64)
+
+    def test_prepared_block(self, G, af_t, ns_t, mac_t, ignored, ignored_trait,
+                            flipped, info_t=None) -> BlockResult:
+        """Score a finalized [B, N] float64 block on the device (the QT
+        branch of the JAX package's test_prepared_block, without the mesh,
+        MCC and interaction): --nocov-approx scores G unadjusted with
+        scale 1; otherwise the one-pass scorer, or in strict mode the
+        residualize-then-score pair."""
+        params, d = self.params, self._ensure_dense_consts()
+        B = G.shape[0]
+        self.n_ignored += int(ignored.sum())
+        if params.skip_cov_res:
+            # --nocov-approx: G unadjusted, scale_fac = 1 (residualize_geno
+            # skipped, Data.cpp:2513)
+            stats, denum = m2.score_qt_block(G, d.res, d.maskf, self.scale_denom,
+                                             self.strict)
+            f = _fetch_packed(dict(s=stats, d=denum), torch.float64)
+            scale_fac, low_var = np.ones(B), np.zeros(B, dtype=bool)
+        else:
+            if not self.strict:
+                stats, denum, scale_fac, low_var = m2.score_qt_block_onepass(
+                    G, d.cov, d.res, d.maskf, None, d.Mmat, d.covt_res,
+                    self.scale_denom, W=d.W, maskf1=d.maskf1)
+            else:
+                G_res, scale_fac, low_var = m2.residualize_scale_block(
+                    G, d.cov, self.scale_denom)
+                stats, denum = m2.score_qt_block(G_res, d.res, d.maskf,
+                                                 self.scale_denom, self.strict)
+            f = _fetch_packed(dict(s=stats, d=denum, g=scale_fac, l=low_var),
+                              torch.float64)
+            scale_fac, low_var = f["g"], f["l"]
+        bhat, se, chisq, logp = self._qt_post(f["s"], f["d"], scale_fac, flipped)
+        return BlockResult(
+            bhat=bhat, se=se, chisq=chisq, logp=logp,
+            test_fail=np.zeros((B, params.n_pheno), dtype=bool),
+            ignored=ignored | low_var, ignored_trait=ignored_trait,
+            af_t=af_t, ns_t=ns_t, scale_fac=scale_fac, mac_t=mac_t,
+            af1=None, ns1=None, info_t=info_t,
+        )
+
+    def test_raw_block(self, blk, bsnps) -> Tuple[BlockResult, np.ndarray]:
+        """The dense route for a block (the JAX package's test_raw_block):
+        blk = (G_raw, info_num) from upload_dense. --skip-dosage-comp
+        halving, stats, the MAC filters, BGEN INFO or PGEN-dosage MACH r2,
+        imputation, DOM/REC coding with --minHOMs, scoring, class counts
+        and HTP genotype counts. Returns (result, flipped)."""
+        params, pd = self.params, self.pd
+        d = self._ensure_dense_consts()
+        G_raw, info_num = blk
+        B = len(bsnps)
+        # --skip-dosage-comp: non-PAR chrX males (diploid-coded) become
+        # 0/1 before any statistics (parseSnpfromBed, Geno.cpp:2459)
+        if params.skip_dosage_comp and self.gd.sex is not None:
+            non_par = self.non_par_flags(bsnps)
+            if non_par.any():
+                Gf = G_raw.to(torch.float64)
+                hemi = (torch.as_tensor(non_par, device=self.device)[:, None]
+                        & (d.sex == 1)[None, :] & (Gf != MISSING))
+                G_raw = torch.where(hemi, Gf / 2.0, Gf)
+        sb = self.block_stats(G_raw, bsnps)
+        ignored, ignored_trait = self._mac_filters(
+            params, bsnps, sb["mac1"], sb["mac"], B)
+
+        info_t = None
+        af = sb["af"]
+        if info_num is not None:
+            info_num_t = ((info_num * d.indf[None, :]) @ d.maskf).cpu().numpy()
+            with np.errstate(divide="ignore", invalid="ignore"):
+                info_t = 1.0 - info_num_t / (2 * sb["ns_t"] * af * (1 - af))
+            info_t = np.where((af == 0) | (af == 1), 1.0, info_t)
+        elif params.dosage_mode and params.file_type == "pgen":
+            # PGEN dosages: MACH r2 info = (E[g^2]-E[g]^2)/(2p(1-p))
+            # (compute_aaf_info, Geno.cpp:3137-3142)
+            Gd = G_raw.to(torch.float64)
+            g2 = torch.where(Gd == MISSING, 0.0, Gd**2) * d.indf[None, :]
+            info_num_t = (g2 @ d.maskf).cpu().numpy()
+            with np.errstate(divide="ignore", invalid="ignore"):
+                info_t = (info_num_t / sb["ns_t"] - 4 * af**2) / (2 * af * (1 - af))
+            info_t = np.where((af == 0) | (af == 1), 1.0, info_t)
+        if info_t is not None and params.set_min_info:
+            ignored_trait = ignored_trait | (info_t < params.min_info)
+
+        flipped = np.zeros(B, dtype=bool)  # QT never flips
+        G = finalize_block_step2(
+            G_raw, d.ind, torch.zeros(B, dtype=torch.bool, device=self.device))
+        if params.test_type == 1:
+            G = torch.where(G == 2.0, 1.0, G)
+        elif params.test_type == 2:
+            G = torch.where(G >= 1.0, G - 1.0, G)
+            if params.min_homs > 0:
+                # --minHOMs: recessive filter on the hom-ALT carrier count
+                # (parseSnpfromBed, Geno.cpp:2518)
+                sum_pos = torch.where(G > 0, G, 0.0).sum(dim=1).cpu().numpy()
+                ignored = ignored | (sum_pos < params.min_homs)
+        result = self.test_prepared_block(
+            G, af, sb["ns_t"], sb["mac"], ignored, ignored_trait, flipped, info_t)
+        result.af1 = sb["af1"]
+        result.ns1 = sb["ns"].astype(np.int64)
+        result.n_rr = sb["n_rr"].astype(np.int64)
+        result.n_aa = sb["n_aa"].astype(np.int64)
+        if params.htp_out:
+            result.genocounts = self.compute_genocounts(G_raw, bsnps)
+        return result, flipped
+
+
 def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None):
     """The output files, gzipped with --gz: one per trait (split .regenie
     by default, or HTPv4), or with --no-split one merged <out>.regenie,
@@ -652,8 +935,10 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                     model_type or test_name,
                     skip=r.ignored | r.ignored_trait[:, ph],
                     beta=r.bhat[:, ph], se=r.se[:, ph], chisq=r.chisq[:, ph],
-                    logp=r.logp[:, ph], af=r.af_t[:, ph], mac=r.mac_t[:, ph],
-                    genocounts=r.genocounts[:, :, ph],
+                    logp=r.logp[:, ph], af=r.af_t[:, ph],
+                    info=(r.info_t[:, ph] if r.info_t is not None
+                          else np.ones(B)) if params.dosage_mode else None,
+                    mac=r.mac_t[:, ph], genocounts=r.genocounts[:, :, ph],
                     neff=pd.Neff[ph], test_fail=r.test_fail[:, ph],
                 ))
             return
@@ -667,7 +952,10 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                     params, bsnps[b], pd.pheno_names[ph],
                     model_type or test_name,
                     r.bhat[b, ph], r.se[b, ph], r.chisq[b, ph], r.logp[b, ph],
-                    r.af_t[b, ph], r.mac_t[b, ph], r.genocounts[b, :, ph],
+                    r.af_t[b, ph],
+                    (r.info_t[b, ph] if r.info_t is not None else 1.0)
+                    if params.dosage_mode else None,
+                    r.mac_t[b, ph], r.genocounts[b, :, ph],
                     test_pass=not r.test_fail[b, ph], neff=pd.Neff[ph],
                 ))
         return
@@ -723,8 +1011,11 @@ def _write_block_all(params, pd, fh, bsnps, r: BlockResult, test_name):
                 r.bhat[b, ph], r.se[b, ph], r.chisq[b, ph], r.logp[b, ph],
                 not r.test_fail[b, ph])
             for ph in range(P)]
+        # INFO prints 1 on dosage sources, as in the JAX package (whose
+        # merged rows carry no per-variant INFO)
         fh.write(sumstat_line_all(
-            params, bsnps[b], test_name, r.af1[b], int(r.ns1[b]),
+            params, bsnps[b], test_name, r.af1[b],
+            1.0 if params.dosage_mode else None, int(r.ns1[b]),
             int(r.n_rr[b]), int(r.n_aa[b]), per_pheno))
 
 
@@ -764,31 +1055,19 @@ def open_engine(params: Params, log=print, device=None):
     gd, pd = rd.geno, rd.pheno
 
     eng = Step2Engine(params, gd, pd, blup_files, log, device)
-    if not eng.fused_ok():
-        raise NotImplementedError(
-            "--nocov-approx with a single trait: not yet ported to "
-            "regenie_tpu_torch (the fused scorer is its only Step-2 path)")
     if blup_files is not None:
         mask_samples_missing_loco(params, pd, blup_files, eng.id_to_ind)
         pd.Neff = pd.masked_indivs.sum(axis=0).astype(np.float64)
         eng.refresh_masks()
 
+    # the native readers: fail before any work when one cannot run
     if gd._bgen is not None:
-        # the plane extractor is the only BGEN reader: fail before any
-        # work when it cannot run this file
-        require_planes(gd._bgen)
-        planes_lib()
+        planes_lib()  # the plane extractor and the dosage decoder
+        if gd._bgen.compression == 2:
+            require_zstd()
     if gd._pgen is not None:
-        pgen_lib()  # likewise the PGEN block decoder
-
-    blocks = make_blocks(gd, params.block_size)
-    if not eng._fused_chrx_ok() and any(
-            eng.non_par_flags(bsnps).any() for _, bsnps in blocks):
-        # the JAX package scores these on its dense path
-        raise NotImplementedError(
-            "chrX non-PAR variants with --skip-dosage-comp or a dominant/"
-            "recessive test: not yet ported to regenie_tpu_torch")
-    return eng, blocks
+        pgen_lib()
+    return eng, make_blocks(gd, params.block_size)
 
 
 def run_step2(params: Params, log=print, device=None) -> None:
@@ -812,7 +1091,13 @@ def run_step2(params: Params, log=print, device=None) -> None:
     how = ("int8 kernel" if eng.split == "i8" else
            "float32 operand kernel" if eng.op_dtype == torch.float32 else
            "float64 plain products")
-    log(f" * fused packed-bytes scorer on {device} ({src}, {how})")
+    dense_line = (f" * dense scorer on {device} ({src} "
+                  f"{'dosages' if eng.gd.dosage_source else 'hardcalls'}, "
+                  "float64 products)")
+    if eng.fused:
+        log(f" * fused packed-bytes scorer on {device} ({src}, {how})")
+    else:
+        log(dense_line)
 
     test_name = {0: "ADD", 1: "DOM", 2: "REC"}[params.test_type]
     writers, out_paths = setup_writers(params, pd.pheno_names, pd.pheno_pass)
@@ -828,19 +1113,38 @@ def run_step2(params: Params, log=print, device=None) -> None:
 
     # one-block lookahead: the read (and, once the operand exists, the
     # device upload) of block k+1 overlaps the scoring and output of
-    # block k (the reference's multithreaded readChunk, Data.cpp:2944)
+    # block k (the reference's multithreaded readChunk, Data.cpp:2944).
+    # Each block goes down the fused route or the dense one
+    # (Step2Engine.fused_block); the first block the plane extractor
+    # rejects latches the dense route for the rest of the file, as the
+    # JAX package does (run_step2.py:977-984).
     upload_ready = threading.Event()
-    read_s = []  # host seconds of each block's read (BGEN: inflate)
+    read_s, up_s = [], []  # host seconds of each block's read and upload
+    notes = []  # route changes seen by the reader thread, logged in order
 
     def _fetch(bsnps):
+        """(route, block on the way to the device, host read seconds,
+        dense upload seconds or None)."""
         t = time.time()
-        raw = eng.read_block_raw(bsnps)
-        read_s.append(time.time() - t)
-        if upload_ready.is_set():
-            raw = eng._fused_upload(raw)
-        return raw
+        if eng.fused_block(bsnps):
+            try:
+                raw = eng.read_block_raw(bsnps)
+            except PlanesRejected as e:
+                eng.planes_rejected = True
+                notes.append(f" * {e}; this block and the rest of the file "
+                             "go down the dense route")
+            else:
+                t_read = time.time() - t
+                if upload_ready.is_set():
+                    raw = eng._fused_upload(raw)
+                return "fused", raw, t_read, None
+        host = eng.read_block_dense(bsnps)
+        t1 = time.time()
+        blk = eng.upload_dense(host, bsnps)
+        return "dense", blk, t1 - t, time.time() - t1
 
     t0 = time.time()
+    n_dense = 0
     pool = ThreadPoolExecutor(max_workers=1)
     # ordered async output: a single writer thread renders + writes block
     # k's rows while the device scores block k+1; bounded queue
@@ -850,18 +1154,33 @@ def run_step2(params: Params, log=print, device=None) -> None:
         fut = pool.submit(_fetch, todo[0][1]) if todo else None
         tblk = time.time()
         for i, (chrom, bsnps) in enumerate(todo):
-            raw = fut.result()
+            kind, data, t_read, t_up = fut.result()
+            read_s.append(t_read)
+            if t_up is not None:
+                up_s.append(t_up)
             eng.prep_chrom(chrom)
-            eng._ensure_fused_consts()
-            upload_ready.set()
+            if kind == "fused":
+                eng._ensure_fused_consts()
+                upload_ready.set()
+            elif n_dense == 0 and eng.fused:
+                log(dense_line + " for the blocks the fused scorer cannot take")
+            while notes:
+                log(notes.pop(0))
             if i + 1 < len(todo):
                 fut = pool.submit(_fetch, todo[i + 1][1])
             if params.verbose or params.debug:
                 now = time.time()
                 log(f"   -block {i + 1}/{len(todo)} chr{chrom} "
-                    f"[{len(bsnps)} snps, {now - tblk:.2f}s]")
+                    f"[{len(bsnps)} snps, {now - tblk:.2f}s, {kind}; host read "
+                    f"{t_read:.3f}s"
+                    + ("" if t_up is None else f", upload {t_up:.3f}s") + "]")
                 tblk = now
-            result, _ = eng.test_raw_block_fused(raw, bsnps)
+            if kind == "fused":
+                result, _ = eng.test_raw_block_fused(data, bsnps)
+            else:
+                n_dense += 1
+                result, _ = eng.test_raw_block(data, bsnps)
+                del data
             while len(wpending) > 4:
                 wpending.pop(0).result()
             wpending.append(wpool.submit(
@@ -894,7 +1213,9 @@ def run_step2(params: Params, log=print, device=None) -> None:
     log(f"Number of ignored tests due to low MAC : {eng.n_ignored * params.n_pheno}")
     log(f" * block loop: {len(todo)} blocks, "
         f"{sum(len(b) for _, b in todo)} variants in {dt:.3f}s")
-    if read_s:
-        log(f" * host block reads: {len(read_s)} in {sum(read_s):.3f}s "
-            f"(mean {sum(read_s) / len(read_s):.3f}s, max {max(read_s):.3f}s)")
+    log(f" * dense route: {n_dense} of {len(todo)} blocks")
+    for what, secs in (("host block reads", read_s), ("dense block uploads", up_s)):
+        if secs:
+            log(f" * {what}: {len(secs)} in {sum(secs):.3f}s (mean "
+                f"{sum(secs) / len(secs):.3f}s, max {max(secs):.3f}s)")
     log(f" * done ({dt:.1f}s)")

@@ -490,10 +490,12 @@ def test_cli_bgen_matches_jax_fused(dataset, scenario, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _tiny_bgen(d, bits=8, clip=False):
+def _tiny_bgen(d, bits=8, clip=False, corrupt=False, vary=False):
     """A 3-variant, 10-sample BGEN (zlib) with one missing sample; bits=16
     or clip=True (k0 + k1 > 255 on a present sample) make the second
-    variant one the extractor rejects. Returns (path, sample path)."""
+    variant one the extractor rejects, corrupt=True one no reader can
+    inflate. Every sample has the probabilities (200, 40), or with
+    vary=True seeded ones of their own. Returns (path, sample path)."""
     N, ids = 10, [f"I{i}" for i in range(10)]
     lsi = 8 + sum(2 + len(s) for s in ids)
     path = os.path.join(d, "tiny.bgen")
@@ -505,6 +507,11 @@ def _tiny_bgen(d, bits=8, clip=False):
         for v in range(3):
             nbits = bits if v == 1 else 8
             probs = np.tile(np.array([200, 40], np.uint8), N)
+            if vary:
+                rng = np.random.default_rng(v)
+                k0 = rng.integers(0, 200, N)
+                probs = np.stack([k0, rng.integers(0, 256 - k0)], 1).ravel()
+                probs = probs.astype(np.uint8)
             if clip and v == 1:
                 probs[0:2] = (200, 100)
             if nbits == 16:
@@ -513,6 +520,8 @@ def _tiny_bgen(d, bits=8, clip=False):
             g = (struct.pack("<IHBB", N, 2, 2, 2) + ploidy + bytes([0, nbits])
                  + probs.tobytes())
             z = zlib.compress(g)
+            if corrupt and v == 1:
+                z = bytes(len(z))
             rs = f"v{v}".encode()
             fh.write(struct.pack("<H", 2) + rs + struct.pack("<H", 2) + rs
                      + struct.pack("<H", 1) + b"1"
@@ -545,21 +554,52 @@ def test_extractor_rejected_block_raises(tmp_path, fault):
     bf.close()
 
 
+def _tiny_pheno(d):
+    with open(os.path.join(d, "ph.txt"), "w") as fh:
+        fh.write("FID IID Y1 Y2\n" + "".join(
+            f"F{i} I{i} {0.1 * i:.2f} {0.3 * (i % 4):.2f}\n" for i in range(10)))
+    return os.path.join(d, "ph.txt")
+
+
 def test_cli_rejected_block_raises(tmp_path, monkeypatch):
-    """Through the CLI, a rejected block stops the run with RuntimeError
-    (the JAX package would switch to its dense decoder)."""
+    """Through the CLI, a record that no reader can inflate stops the run
+    with RuntimeError naming the variant: the plane extractor rejects its
+    block, and the dense route's decoder cannot read it either."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
     monkeypatch.setenv(DEVICE_ENV, "cpu")
-    path, sample = _tiny_bgen(str(tmp_path), bits=16)
-    with open(tmp_path / "ph.txt", "w") as fh:
-        fh.write("FID IID Y1 Y2\n" + "".join(
-            f"F{i} I{i} {0.1 * i:.2f} {0.3 * (i % 4):.2f}\n" for i in range(10)))
-    with pytest.raises(RuntimeError, match="BGEN plane extraction rejected"):
+    path, sample = _tiny_bgen(str(tmp_path), corrupt=True)
+    with pytest.raises(RuntimeError, match="record of variant v1 cannot be decoded"):
         cli.main(["--step", "2", "--bgen", path, "--sample", sample,
-                  "--phenoFile", str(tmp_path / "ph.txt"), "--ignore-pred",
+                  "--phenoFile", _tiny_pheno(str(tmp_path)), "--ignore-pred",
                   "--bsize", "2", "--out", str(tmp_path / "o")])
+
+
+def test_cli_rejected_block_goes_dense(tmp_path, monkeypatch):
+    """A block the plane extractor rejects (a 16-bit record) and the rest
+    of the file go down the dense route, as the JAX package latches its
+    dense path (run_step2.py:977-984), with a log line; the block before
+    stays fused. The rows equal the JAX package's within rel 1e-9."""
+    from regenie_tpu import cli as jcli
+    from test_torch_step2 import _assert_rows_equiv
+
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.utils.device import DEVICE_ENV
+
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    path, sample = _tiny_bgen(str(tmp_path), bits=16, vary=True)
+    argv = ["--step", "2", "--bgen", path, "--sample", sample, "--phenoFile",
+            _tiny_pheno(str(tmp_path)), "--ignore-pred", "--bsize", "1"]
+    cli.main(argv + ["--out", str(tmp_path / "pt")])
+    log = open(tmp_path / "pt.log").read()
+    assert "BGEN plane extraction rejected 1 of 1 variants" in log
+    assert " * dense route: 2 of 3 blocks" in log
+    monkeypatch.setenv("REGENIE_TPU_FUSED", "1")
+    jcli.main(argv + ["--out", str(tmp_path / "jax")])
+    for ph in ("Y1", "Y2"):
+        _assert_rows_equiv(tmp_path / f"jax_{ph}.regenie", tmp_path / f"pt_{ph}.regenie")
+        assert len(open(tmp_path / f"pt_{ph}.regenie").read().splitlines()) == 4
 
 
 def test_missing_extractor_symbol_raises(monkeypatch):

@@ -200,9 +200,10 @@ def test_decoder_rejects_bad_records(tmp_path):
 
 @pytest.mark.parametrize("step", ["1", "2"])
 def test_pgen_with_dosages_raises(tmp_path, monkeypatch, step):
-    """A PGEN with dosage tracks (which the JAX package scores on its
-    dense path, and reads as dosages in Step 1) raises
-    NotImplementedError in both steps before any work."""
+    """A PGEN with dosage tracks is read as dosages in both steps (the
+    JAX package's dense path); one whose dosage track runs past the end
+    of the file raises RuntimeError in both steps, and Step 1 writes no
+    prediction list."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
@@ -218,9 +219,22 @@ def test_pgen_with_dosages_raises(tmp_path, monkeypatch, step):
         fh.write("FID IID Y1\n" + "".join(f"I{i} I{i} {i % 7}\n" for i in range(200)))
     monkeypatch.setenv(DEVICE_ENV, "cpu")
     argv = ["--step", step, "--pgen", pre, "--phenoFile", str(tmp_path / "ph.txt"),
-            "--bsize", "5", "--out", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="dosage tracks"):
-        cli.main(argv + (["--ignore-pred"] if step == "2" else []))
+            "--bsize", "5"] + (["--ignore-pred"] if step == "2" else [])
+    if step == "1":
+        # v0's dosage track is all 0 over random hardcalls: read as
+        # dosages, it has no variance
+        with pytest.raises(ValueError, match="SNP v0 has low variance"):
+            cli.main(argv + ["--out", str(tmp_path / "ok")])
+    else:
+        cli.main(argv + ["--out", str(tmp_path / "ok")])
+        rows = open(tmp_path / "ok_Y1.regenie").read().splitlines()
+        assert "INFO" in rows[0].split()  # dosage mode
+        assert len(rows) > 1 and not rows[1].startswith("1 100 ")
+    # cut the file inside the first record's dosage track
+    with open(pre + ".pgen", "r+b") as fh:
+        fh.truncate(open_pgen(pre + ".pgen").fpos[0] + (200 + 3) // 4 + 10)
+    with pytest.raises(RuntimeError, match="PGEN dosage decoding rejected"):
+        cli.main(argv + ["--out", str(tmp_path / "o")])
     assert not os.path.exists(str(tmp_path / "o_pred.list"))
 
 

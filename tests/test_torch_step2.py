@@ -111,13 +111,16 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.cli, regenie_tpu_torch.ops.fused_score, "
         "regenie_tpu_torch.ops.kernels, regenie_tpu_torch.ops.pallas_ops, "
         "regenie_tpu_torch.io.bgen, regenie_tpu_torch.io.pgen, "
-        "regenie_tpu_torch.io.native, "
+        "regenie_tpu_torch.io.native, regenie_tpu_torch.io.geno, "
+        "regenie_tpu_torch.models.step2, regenie_tpu_torch.prep, "
         "regenie_tpu_torch.scripts.profile_fused, "
         "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
-        "native.planes_lib()\n"
+        "lib = native.planes_lib()\n"
+        "assert hasattr(lib, native.DOSAGES_SYMBOL)\n"
         "native.loco_lib()\n"
-        "native.pgen_lib()\n"
+        "lib = native.pgen_lib()\n"
+        "assert hasattr(lib, native.PGEN_DOSAGES_SYMBOL)\n"
         "bad = sorted(m for m in sys.modules if m == 'regenie_tpu' "
         "or m.startswith('regenie_tpu.'))\n"
         "assert not bad, bad\n"
@@ -184,21 +187,20 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # Step 1 runs on BED QT since its slice; these Step-1 modes still raise
+    # Step 1 runs on BED, PGEN and BGEN QT since their slices; these
+    # Step-1 modes still raise
     ["--step", "1", "--bt"], ["--bt"], ["--t2e", "--phenoColList", "Y1",
                                 "--eventColList", "Y2"],
-    ["--tpheno-file", "t.txt"], ["--interaction", "C1"], ["--mcc"],
+    ["--step", "1", "--gz"], ["--interaction", "C1"], ["--mcc"],
     ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
-    ["--ct"], ["--compute-corr"], ["--force-ltco", "1"],
-    ["--condition-list", "c.txt"],
-    # chrX non-PAR variants the JAX package scores on its dense path
-    ["chrx", "--skip-dosage-comp"], ["chrx", "--test", "dominant"],
-    # a single trait keeps --nocov-approx, which the fused scorer rejects
-    ["--nocov-approx", "--phenoColList", "Y2"],
-    # BGEN runs the JAX package keeps on its dense dosage path
-    ["bgen", "--htp", "X"], ["bgen", "--no-split"],
-    ["bgen", "--test", "dominant"],
-    ["bgen", "--step", "1"], ["--step", "1", "--test-l0"],
+    ["--ct"], ["--compute-corr"], ["--step", "1", "--debug"],
+    ["--step", "1", "--no-split"],
+    # BED and BGEN runs of modes no slice has ported yet
+    ["chrx", "--multiphen", "--strict"], ["chrx", "--step", "1", "--write-samples"],
+    ["bgen", "--step", "1", "--debug"],
+    ["bgen", "--mcc"], ["bgen", "--step", "1", "--gz"],
+    ["bgen", "--multiphen", "--strict"],
+    ["bgen", "--step", "1", "--test-l0"], ["--step", "1", "--test-l0"],
     ["--step", "1", "--select-l0", "f"], ["--step", "1", "--print"],
     ["--step", "1", "--prior-alpha", "0.5"],
 ])
