@@ -28,7 +28,14 @@ Phases, each of which must pass:
    u8_unshift_q3) equal their plain versions exactly, on planes with
    missing samples, on both plane layouts (k0, k1 views of one [B, 2, Np]
    buffer, and two [B, Np] tensors), on ragged shapes and at bgen_i8's
-   full width.
+   full width. fused_i8 and bgen_i8 are also held at the binary-trait
+   operand's widths (fused_i8 Cw4 = 4 x 1,280; bgen_i8 Cw = 4 x 1,280,
+   Cq = 4 x 256) against their plain versions and timed beside
+   torch._int_mm (printed; the kernels line keeps the QT width), and the
+   int8 operand's quantization on the card (fused_score.i8_quantize)
+   against the host's numpy quantization on a full-height operand with a
+   zero column, half-way ties and maxima at and around 127 x 2^k: limbs
+   and scales bit for bit, column sums exact.
 2b. profile path: the port's profiling entry points in this process at
    the full width with 1 round of 2 blocks, the launch counts set to 0
    just before each run and read just after:
@@ -47,6 +54,20 @@ Phases, each of which must pass:
    each agrees with the port's plain path (float64 operand, plain
    products) on the card: max |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6,
    the repository's cross-backend bar.
+3b. BT slice: on the BED slice's own BED, a binary-trait table (its
+   traits thresholded at 5-30% prevalence) and one run of run_step2 (the
+   CLI's entry point) with --bt --firth --approx --af-cc: fused_i8
+   launches once per block and no other kernel, the 50 files are well
+   formed; printed: the null fits' and the corrections' seconds, the
+   corrected and failed counts, the wall and variants/s. Then block 1 in
+   memory through the same engine: the operand rebuilt (int8, quantized
+   on the card) and a float64 plain engine on the same null fits; flips
+   equal, the int8 products' num, denum and statistics against the
+   plain ones, the threshold rows (a statistic on the two sides of the
+   correction threshold on the two routes) counted and printed, every
+   other LOG10P within 1e-5, both routes correcting with SPA; and the
+   card's Firth and SPA against the host twins on one trait's corrected
+   rows (flags equal, rtol 1e-6 and 1e-5).
 4. BGEN slice: the same on a synthetic 8-bit zlib BGEN at that shape
    (imputed-like probabilities, 1% missing; M = 2 blocks), through
    --bgen/--sample: bgen_i8 (and with REGENIE_TPU_I8=0 bgen_f32)
@@ -108,15 +129,21 @@ Phases, each of which must pass:
    tracks with --nocov-approx on one trait (these three launch no
    kernel), and the chrX BED with --skip-dosage-comp, and with --test
    recessive --minHOMs 1, --condition-list and --tpheno-file (the
-   non-PAR blocks dense); every output field meets the same bar. Then
+   non-PAR blocks dense); binary traits: a BGEN --firth --approx --af-cc
+   run and a chrX PGEN --spa --htp run (fused, by default and with
+   REGENIE_TPU_I8=0), a PGEN-dosages --firth --approx run (dense, no
+   kernel) and a chrX BED --firth --approx --af-cc run (non-PAR blocks
+   dense); every output field meets the same bar (a binary trait's HTP
+   odds ratios on the log scale). Then
    the two-step workflow on the BED dataset (K-fold and --loocv), on the
    PGEN (K-fold) and on the BGEN (K-fold, Step 2 with --force-ltco 2),
    on the card and on the CPU: Step 1, and Step 2 with --pred on that
    run's own _pred.list; every .loco value within one unit of its sixth
    significant digit, every Step-2 field within its bar.
 
-The last lines of standard output are a JSON line with every kernel's
-numbers, the card's name and power limit (nvidia-smi), and
+After each phase a line gives the seconds since the start. The last
+lines of standard output are a JSON line with every kernel's numbers,
+the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 before any phase.
 """
@@ -143,6 +170,10 @@ PEAK_BYTES = 3.35e12
 # the repository's UKB shape (bench.py, BENCH_NOTES.md)
 FULL = dict(N=400_000, P=50, n_inc=10, K=20, B=2048)
 SLICE_BLOCKS = 2  # variant blocks of each full-width slice run
+# the binary-trait operand at that shape: [cat P*(K+1) | gsm^2 P | maskf P |
+# case P | ind] = 1,201 columns -> Cp = 1,280; BGEN's narrow Wq from gsm^2
+# on, 151 columns -> 256
+BT_CP, BT_CQP = 1280, 256
 # Step 1 at full width: 4 level-0 blocks of 1000 on two chromosomes (a real
 # Step 1 has ~500); level 1 timed alone at the real depth F = 500 x J
 STEP1 = dict(chroms=((1, 2000), (2, 2000)), B=1000, effect_sd=0.1, real_F=2500)
@@ -424,16 +455,11 @@ def _table_rows(first, V):
 TABLE_POOL_N = 50_000
 
 
-def _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove):
-    """d/pheno.txt (the first n_inc traits with na_rate NA), d/covar.txt
-    and d/remove.txt (n_remove samples) for samples F{i} I{i}. At
-    biobank N the rows are printed in slices by one process per CPU (the
-    same bytes: the slices are joined in order)."""
-    N, P = Y.shape
-    for p in range(n_inc):
-        Y[rng.random(N) < na_rate, p] = np.nan
-    tables = ((os.path.join(d, "pheno.txt"), [f"Y{p + 1}" for p in range(P)], Y),
-              (os.path.join(d, "covar.txt"), [f"C{k + 1}" for k in range(X.shape[1])], X))
+def _print_tables(tables):
+    """Write each (path, column names, values [N, k]) table for samples
+    F{i} I{i}. At biobank N the rows are printed in slices by one process
+    per CPU (the same bytes: the slices are joined in order)."""
+    N = tables[0][2].shape[0]
     if N < TABLE_POOL_N:
         texts = [_table_rows(0, V) for _, _, V in tables]
     else:
@@ -448,9 +474,61 @@ def _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove):
         with open(path, "w") as fh:
             fh.write("FID IID " + " ".join(names) + "\n")
             fh.write(text)
+
+
+def _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove):
+    """d/pheno.txt (the first n_inc traits with na_rate NA), d/covar.txt
+    and d/remove.txt (n_remove samples) for samples F{i} I{i}."""
+    N, P = Y.shape
+    for p in range(n_inc):
+        Y[rng.random(N) < na_rate, p] = np.nan
+    _print_tables(((os.path.join(d, "pheno.txt"), [f"Y{p + 1}" for p in range(P)], Y),
+                   (os.path.join(d, "covar.txt"),
+                    [f"C{k + 1}" for k in range(X.shape[1])], X)))
     with open(os.path.join(d, "remove.txt"), "w") as fh:
         for i in rng.choice(N, size=n_remove, replace=False):
             fh.write(f"F{i} I{i}\n")
+
+
+def dataset_traits(seed, N, chroms, P, n_cov):
+    """The quantitative traits Y [N, P] and covariates X [N, n_cov] that
+    write_dataset(seed=seed, N=N, chroms=chroms, P=P, n_cov=n_cov) writes
+    with effect_sd=0, before its NA: the same generator draws, without
+    the genotypes."""
+    rng = np.random.default_rng(seed)
+    _, X, Y, _ = _hardcall_blocks(rng, N, chroms, P, n_cov, 0.02, 0.0, 128)
+    return Y, X
+
+
+def write_bt_table(path, Y, seed, prev=(0.05, 0.3), n_inc=0, na_rate=0.05,
+                   cases=None, X=None, cov_share=0.1):
+    """A binary-trait table at `path` (Y1..YP for samples F{i} I{i}):
+    each trait of the quantitative traits Y [N, P] thresholded at its
+    upper quantile, the prevalences evenly spaced over `prev`; then the
+    samples marked in `cases` ([N, P] bool, e.g. carriers of a rare
+    variant) made cases, and the first n_inc traits given na_rate NA.
+    Given the covariates X [N, k], each trait's covariate fit is first
+    rescaled to explain `cov_share` of its variance (the writers'
+    covariates explain most of Y, which would nearly separate cases from
+    controls). Returns the [N, P] 0/1/NaN values written."""
+    rng = np.random.default_rng(seed)
+    N, P = Y.shape
+    if X is not None:
+        X1 = np.column_stack([np.ones(N), X])
+        fit = X1 @ np.linalg.lstsq(X1, Y, rcond=None)[0]
+        res = Y - fit
+        fit -= fit.mean(axis=0)
+        a = np.sqrt(cov_share / (1 - cov_share) * res.var(axis=0) / fit.var(axis=0))
+        Y = res + a[None, :] * fit
+    q = 1.0 - np.linspace(prev[0], prev[1], P)
+    thr = np.array([np.quantile(Y[:, p], q[p]) for p in range(P)])
+    Yb = (Y > thr[None, :]).astype(np.float64)
+    if cases is not None:
+        Yb[cases] = 1.0
+    for p in range(n_inc):
+        Yb[rng.random(N) < na_rate, p] = np.nan
+    _print_tables(((path, [f"Y{p + 1}" for p in range(P)], Yb),))
+    return Yb
 
 
 def _bgen_probs(k, g, j, gmiss, N, bits, layout, phased):
@@ -752,11 +830,120 @@ def fused_i8_phase(dev, reps=10):
           + f", bound {bound_ms:.3f} ms ({bound_by}: "
           f"{ops:.3e} int8 ops, {nbytes / 1e9:.3f} GB); "
           f"{ops / ms / 1e9:.1f} TOP/s = {bound_ms / ms:.1%} of the bound")
+    bt_width_fused_i8(dev, raw, reps)
     return dict(name="fused_i8", route="cuda",
                 source="regenie_tpu_torch/ops/csrc/fused_i8.cu",
                 replaces="regenie_tpu/ops/fused_score.py:403",
                 launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def bt_width_fused_i8(dev, raw, reps):
+    """fused_i8 at the binary-trait operand's width (Cw4 = 4 x 1,280) on
+    the full-width block: exact against its plain version, timed beside
+    torch._int_mm on the pre-decoded indicators (B K-major) and its bound.
+    Printed, not a row of the kernels line (whose row is the QT width)."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    B, nbp = raw.shape
+    Cw4 = 4 * BT_CP
+    limbs_k = torch.randint(-128, 128, (Cw4, 4 * nbp), generator=gen, device=dev,
+                            dtype=torch.int8)
+    _launch_line("fused_i8", dev, B, Cw4)
+    _check_i8_exact(raw, limbs_k, "BT width")
+    ms = _time_ms(lambda: kernels.fused_i8_products(raw, limbs_k), reps)
+    r = raw.to(torch.int32)
+    codes = [(r >> (2 * p)) & 3 for p in range(4)]
+    ind = torch.cat([torch.cat([(cd == k).to(torch.int8) for cd in codes], 1)
+                     for k in (0, 2, 1)], 0)
+    del r, codes
+    lib_ms = _time_ms(lambda: torch._int_mm(ind, limbs_k.T), reps)
+    del ind
+    ops = 2.0 * 3 * B * (4 * nbp) * Cw4
+    nbytes = B * nbp + 4 * nbp * Cw4 + 3 * B * Cw4 * 4
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
+    print(f"  fused_i8 BT width (Cw4={Cw4}): {ms:.3f} ms (median of {reps}), "
+          f"torch._int_mm B K-major {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}: {ops:.3e} int8 ops); {bound_ms / ms:.1%} of the bound")
+
+
+def bt_width_bgen_i8(dev, planes, gen, reps):
+    """bgen_i8 at the binary-trait widths (Cw = 4 x 1,280, Cq = 4 x 256) on
+    the full-width planes: exact against its plain version, timed beside
+    six torch._int_mm of the shifted planes (B K-major) and its bound.
+    Printed, not a row of the kernels line."""
+    import torch
+
+    from regenie_tpu_torch.ops import kernels
+
+    B, _, Np = planes.shape
+    Cw, Cq = 4 * BT_CP, 4 * BT_CQP
+    wp, wq = (torch.randint(-128, 128, (cw, Np), generator=gen, device=dev,
+                            dtype=torch.int8) for cw in (Cw, Cq))
+    _launch_line("bgen_i8", dev, B, Cw, Cq)
+    _check_bgen_exact(planes, wp, wq, "BT width")
+    ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp, wq), reps)
+    k0 = planes[:, 0].to(torch.int32)
+    k1 = planes[:, 1].to(torch.int32)
+    miss = (k0 + k1) > 255
+    k0, k1 = torch.where(miss, 0, k0), torch.where(miss, 0, k1)
+    d2 = (2 * k0 + k1) ** 2
+    A = [(x - 128).to(torch.int8) for x in (k0, k1, d2 & 255, (d2 >> 8) & 255,
+                                             d2 >> 16)] + [miss.to(torch.int8)]
+    del k0, k1, miss, d2
+    W = [wp.T, wp.T, wq.T, wq.T, wq.T, wp.T]
+    lib_ms = _time_ms(lambda: [torch._int_mm(a, w) for a, w in zip(A, W)], reps)
+    del A, W
+    ops = 2.0 * B * Np * (3 * Cw + 3 * Cq)
+    nbytes = 2 * B * Np + Np * (Cw + Cq) + 8 * B * (3 * Cw + 3 * Cq)
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
+    print(f"  bgen_i8 BT width (Cw={Cw}, Cq={Cq}): {ms:.3f} ms (median of "
+          f"{reps}), six torch._int_mm B K-major {lib_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}: {ops:.3e} int8 ops); "
+          f"{bound_ms / ms:.1%} of the bound")
+
+
+def quantize_check(dev):
+    """The int8 operand's quantization on the card (fused_score.i8_quantize,
+    which plane_pack and sample_pack run) against the host's
+    _i8_quantize_np on a full-height operand: random columns over many
+    octaves, an all-zero column, half-way ties and column maxima at and
+    one ulp around 127 x 2^k; limbs and scales bit for bit, column sums
+    exact. Prints the card's time."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+
+    rng = np.random.default_rng(12)
+    R = 4 * 100_096
+    W = rng.normal(size=(R, 128)) * np.exp2(rng.integers(-40, 40, 128))[None, :]
+    W[:, 0] = 0.0
+    W[:, 1] = (rng.integers(-126, 126, R) + 0.5) * 2.0**-3
+    W[0, 1] = 127 * 2.0**-3
+    for c, e in ((2, 5), (3, -7), (4, 0)):
+        W[:, c] = rng.uniform(-1, 1, R) * 127 * 2.0**e
+        W[1, c] = 127 * 2.0**e
+    W[1, 3] = np.nextafter(127 * 2.0**-7, np.inf)
+    W[1, 4] = np.nextafter(127.0, 0.0)
+    Wd = torch.from_numpy(W).to(dev)
+    limbs, scale, usum = fsc.i8_quantize(Wd)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fsc.i8_quantize(Wd)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    l_np, s_np, q_np = fsc._i8_quantize_np(W)
+    ok = (np.array_equal(limbs.cpu().numpy(), l_np)
+          and np.array_equal(scale.cpu().numpy(), s_np)
+          and np.array_equal(usum, q_np.sum(axis=0)))
+    print(f"  int8 operand quantized on the card [{R}, 128]: {ms:.1f} ms; limbs, "
+          f"scales and column sums equal to the host's: {ok}")
+    if not ok:
+        raise AssertionError("the card's int8 quantization differs from the host's")
 
 
 def _check_bgen_exact(planes, wp_k, wq_k, what):
@@ -881,6 +1068,8 @@ def bgen_i8_phase(dev, reps=10):
           + f", bound {bound_ms:.3f} ms ({bound_by}: "
           f"{ops:.3e} int8 ops, {nbytes / 1e9:.3f} GB); "
           f"{ops / ms / 1e9:.1f} TOP/s = {bound_ms / ms:.1%} of the bound")
+    del wp, wq, wp16, wq16
+    bt_width_bgen_i8(dev, planes, gen, reps)
     return dict(name="bgen_i8", route="cuda",
                 source="regenie_tpu_torch/ops/csrc/bgen_i8.cu",
                 replaces="regenie_tpu/ops/fused_score.py:1093",
@@ -1940,6 +2129,213 @@ def slice_phase(tmp, src, keep=False):
     return launches
 
 
+BT_FLAGS = ["--bt", "--firth", "--approx", "--af-cc"]
+
+
+def _bt_twins(eng, x, outs, rows_cap=4, traits=1):
+    """The card's corrections (models/corrections_device.py) against the
+    host twins (models/firth.py, models/spa.py) on block 1's rows past the
+    threshold, for the first `traits` traits with such rows (at most
+    `rows_cap` rows each): the same converged / failed flags, Firth
+    within rtol 1e-6 and SPA within rtol 1e-5 (the JAX package's own bars
+    for its device twins). Prints the card's and the host's times."""
+    import torch
+
+    from regenie_tpu_torch.models import corrections_device as cdev
+    from regenie_tpu_torch.models import firth as firth_mod
+    from regenie_tpu_torch.models import spa as spa_mod
+    from regenie_tpu_torch.models import step2_bt
+    from regenie_tpu_torch.run_step2 import FusedBTSource
+
+    _, _, _, flip, num, den, S1cat = outs
+    st, pd, params = eng.bt_state, eng.pd, eng.params
+    fc = step2_bt.fused_consts(pd, st)
+    z = math.sqrt(step2_bt.chisq_thr(params.alpha_pvalue))
+    src = FusedBTSource(eng, x, flip, num, den, S1cat)
+    stats = (num / torch.sqrt(torch.clamp(den, min=0))).cpu().numpy()
+    done = 0
+    for ph in fc.cols:
+        j = fc.j_of[ph]
+        idx = np.flatnonzero(np.abs(stats[:, j]) > z)[:rows_cap]
+        if not len(idx):
+            continue
+        dc = step2_bt.dev_consts(st, pd, ph, x.device)
+        it = torch.as_tensor(idx, device=x.device)
+        K = st.X_gamma[ph].shape[1]
+        G = step2_bt._gres_rows(src.rows_device(it), dc["gsm"], dc["XW"],
+                                S1cat[it, j, :K])
+        Gh = G.cpu().numpy()
+        mask, gs = pd.masked_indivs[:, ph], st.gamma_sqrt[:, ph]
+        t0 = time.time()
+        fd = cdev.firth_snp_batch_dev(dc["y"], G / dc["gamma_sqrt"][None, :],
+                                      dc["firth_offset"], dc["mask"],
+                                      maxstep=params.maxstep,
+                                      niter=params.niter_max_firth, tol=2.5e-4)
+        sd = cdev.spa_batch_dev(stats[idx, j], den[it, j].cpu().numpy(), G,
+                                dc["Y_hat"], dc["gamma_sqrt"], dc["mask"],
+                                tol=params.tol_spa, niter_max=params.niter_max_spa)
+        t_card = time.time() - t0
+        t0 = time.time()
+        fh = firth_mod.firth_snp_batch(pd.phenotypes_raw[:, ph], Gh / gs[None, :],
+                                       st.firth_offset[:, ph], mask,
+                                       maxstep=params.maxstep,
+                                       niter=params.niter_max_firth, tol=2.5e-4)
+        sh = spa_mod.spa_batch(stats[idx, j], den[it, j].cpu().numpy(), Gh,
+                               st.Y_hat[:, ph], gs, mask, tol=params.tol_spa,
+                               niter_max=params.niter_max_spa)
+        t_host = time.time() - t0
+        if not (np.array_equal(fd[3], fh[3]) and np.array_equal(sd[2], sh[2])):
+            raise AssertionError(f"trait {ph + 1}: the card's correction flags "
+                                 "differ from the host twins'")
+        ok, oks = fd[3], ~sd[2]
+        ferr = max(float(np.max(np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-12),
+                                initial=0.0)) for a, b in zip(fd[:3], fh[:3]))
+        serr = float(np.max(np.abs(sd[1][oks] - sh[1][oks])
+                            / np.maximum(np.abs(sh[1][oks]), 1e-12), initial=0.0))
+        print(f"  corrections, trait Y{ph + 1}, {len(idx)} rows: card against host "
+              f"twins, Firth flags equal ({int(ok.sum())} converged), max rel "
+              f"{ferr:.3e} (bar 1e-6); SPA flags equal ({int(oks.sum())} passed), "
+              f"LOG10P max rel {serr:.3e} (bar 1e-5); card {t_card:.2f}s, host "
+              f"{t_host:.2f}s")
+        if ferr > 1e-6 or serr > 1e-5:
+            raise AssertionError("the card's corrections miss the host twins' bars")
+        done += 1
+        if done == traits:
+            break
+    if not done:
+        raise AssertionError("block 1 has no row past the correction threshold")
+
+
+def bt_slice_phase(tmp):
+    """The port's Step-2 BT run at full width on the card, on the [bed
+    slice]'s BED (same directory): a binary-trait table (the BED writer's
+    traits thresholded), one run of run_step2 (the CLI's entry point) with
+    --bt --firth --approx --af-cc, where fused_i8 must launch once per
+    block and no other kernel, its 50 files well formed; then on block 1,
+    through the same engine: the int8 products against the float64 plain
+    products, the LOG10P of every trait against the plain route within
+    1e-5 outside the threshold rows (a statistic on the other side of the
+    correction threshold on the two routes; counted and printed), the
+    card's corrections against the host twins, and SPA. Returns the
+    launches of fused_i8 in the run."""
+    import torch
+
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.io.geno import make_blocks
+    from regenie_tpu_torch.models import step2_bt
+    from regenie_tpu_torch.run_step2 import Step2Engine, run_step2
+
+    f = FULL
+    M = SLICE_BLOCKS * f["B"]
+    t0 = time.time()
+    Y, X = dataset_traits(1, f["N"], ((1, M),), f["P"], f["K"] - 1)
+    Yb = write_bt_table(f"{tmp}/pheno_bt.txt", Y, seed=5, n_inc=f["n_inc"], X=X)
+    print(f"  BT table N={f['N']} P={f['P']} (prevalence 5-30%, covariates "
+          f"10% of the liability, {int(np.nansum(Yb))} cases) written in "
+          f"{time.time() - t0:.1f}s")
+    del Y, X, Yb
+    out = f"{tmp}/bt"
+    argv = ["--step", "2", "--bed", f"{tmp}/geno", "--phenoFile",
+            f"{tmp}/pheno_bt.txt", "--covarFile", f"{tmp}/covar.txt",
+            "--ignore-pred", "--bsize", str(f["B"]), *BT_FLAGS, "--verbose",
+            "--out", out]
+    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    lines = []
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    eng = run_step2(params, log=lambda msg="": lines.append(str(msg)))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    for p in range(f["P"]):
+        _check_rows(f"{out}_Y{p + 1}.regenie", M)
+    want = {name: SLICE_BLOCKS if name == "fused_i8" else 0 for name in counts}
+    print(f"  BT run: {f['P']} well-formed .regenie files of {M} rows; launches "
+          f"{counts}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    for ln in lines:
+        if (ln.startswith("   -block") or "correction :" in ln or "failed tests" in ln
+                or "null model fits" in ln or "block loop" in ln):
+            print(f"  {ln.strip()}")
+    loop = [ln.strip(" *") for ln in lines if "block loop:" in ln][0]
+    loop_s = float(loop.rsplit(" in ", 1)[1].rstrip("s"))
+    print(f"  BT wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up, null "
+          f"fits and output included); block loop {M / loop_s:.1f} variants/s; "
+          f"on {card_line()}")
+
+    # block 1 again, in memory, through the run's engine (its null fits and
+    # its int8 operand) and a plain engine on the same null fits
+    chrom, bsnps = make_blocks(eng.gd, params.block_size)[0]
+    raw = eng.read_block_raw(bsnps)
+    eng._fused_chrom = None
+    t0 = time.time()
+    eng._ensure_fused_consts()
+    torch.cuda.synchronize()
+    t_op = time.time() - t0
+    fb = eng._fused_bt
+    plain = Step2Engine(params, eng.gd, eng.pd, None, eng.log, eng.device,
+                        kernel=False)
+    plain.cur_chrom, plain.bt_state, plain.res = chrom, eng.bt_state, eng.res
+    t0 = time.time()
+    plain._ensure_fused_consts()
+    torch.cuda.synchronize()
+    print(f"  BT operand at block 1 (Wext {fb.C_used} columns, Cp "
+          f"{-(-fb.C_used // 128) * 128}): int8, quantized on the card, "
+          f"{t_op:.2f}s; float64 plain operand {time.time() - t0:.2f}s")
+    x = eng._fused_upload(raw)
+    o8 = eng._fused_fn(x)
+    op = plain._fused_fn(plain._fused_upload(raw))
+    if not torch.equal(o8[3], op[3]):
+        raise AssertionError("int8 and plain routes flip different variants")
+    # the int8 products against the float64 plain ones, through num and
+    # denum (the score's cancelling difference num = q - A xwt)
+    for name, a, b in (("S1", o8[0], op[0]), ("num", o8[4], op[4]),
+                       ("denum", o8[5], op[5])):
+        d = float((a - b).abs().max())
+        print(f"  block 1 {name}: max |int8 - plain| {d:.3e} "
+              f"(max |plain| {float(b.abs().max()):.3e})")
+    z = math.sqrt(step2_bt.chisq_thr(params.alpha_pvalue))
+    s8 = (o8[4] / torch.sqrt(torch.clamp(o8[5], min=0))).cpu().numpy()
+    sp = (op[4] / torch.sqrt(torch.clamp(op[5], min=0))).cpu().numpy()
+    print(f"  block 1 score statistics: max |int8 - plain| "
+          f"{np.nanmax(np.abs(s8 - sp)):.3e}")
+    # the block scored on both routes with SPA (the run's own Firth rows
+    # cost ~10x more on the card; both routes correct the same rows either
+    # way)
+    params.firth, params.use_spa = False, True
+    n0, f0, c0 = eng.n_corrected, eng.n_failed, eng.bt_times["corr_s"]
+    r8 = eng.test_raw_block_fused(raw, bsnps)[0]
+    print(f"  block 1 with SPA: {eng.n_corrected - n0} corrected, "
+          f"{eng.n_failed - f0} failed, {eng.bt_times['corr_s'] - c0:.2f}s")
+    rp = plain.test_raw_block_fused(raw, bsnps)[0]
+    params.firth, params.use_spa = True, False
+    cols = step2_bt.fused_consts(eng.pd, eng.bt_state).cols
+    valid = ~(r8.ignored[:, None] | r8.ignored_trait)
+    cross = np.zeros_like(valid)
+    cross[:, cols] = (np.abs(s8) > z) != (np.abs(sp) > z)
+    cross &= valid
+    print(f"  block 1 threshold rows (|stat| on the two sides of {z:.4f} on the "
+          f"int8 and plain routes): {int(cross.sum())}")
+    for b, ph in zip(*np.nonzero(cross)):
+        j = cols.index(ph)
+        print(f"    variant {bsnps[b].ID} trait Y{ph + 1}: stat int8 "
+              f"{s8[b, j]:.9f}, plain {sp[b, j]:.9f}; LOG10P {r8.logp[b, ph]:.6g} "
+              f"and {rp.logp[b, ph]:.6g}")
+    keep = valid & ~cross
+    _assert_close("block 1 BT LOG10P outside the threshold rows, int8 operand",
+                  np.where(keep, r8.logp, np.nan), np.where(keep, rp.logp, np.nan),
+                  LOG10P_TOL)
+    d = np.abs(r8.bhat - rp.bhat)[keep]
+    print(f"  block 1 BT BETA: max |int8 - plain| {np.nanmax(d):.3e} (not checked); "
+          f"TEST_FAIL rows {int((r8.test_fail & keep).sum())} and "
+          f"{int((rp.test_fail & keep).sum())}")
+    _bt_twins(eng, x, o8)
+    eng.gd.close()
+    return counts["fused_i8"]
+
+
 def _dense_block_parts(eng, blk, bsnps, reps=3):
     """Card milliseconds (CUDA events, median of `reps` after a warm-up)
     of the dense route's parts on an uploaded block: the stats (the
@@ -2173,11 +2569,34 @@ def split_path(eng, plain, chrom, raw, bsnps, ref):
     return {kernel: counts[kernel]}
 
 
+def _or_scale(ta, tb, i, tol):
+    """(a, b, bar) for field i (8: Effect, 9, 10: its CI) of a binary
+    trait's HTP rows ta, tb (split at tabs, ';' and '='): odds ratios
+    compared on the log scale, where 6 printed digits are 1e-5. The CI's
+    half-width x = z |log OR| / sqrt(chisq) (Firth: z |beta| / sqrt(LRT))
+    magnifies a small statistic's digits, so its bar adds x times the
+    relative change of |log OR| / sqrt(chisq) between the rows, each part
+    held at its own bar (Effect here, LOG10P in its field)."""
+    from scipy.stats import chi2
+
+    la, lb = math.log(float(ta[i])), math.log(float(tb[i]))
+    if i == 8:
+        return la, lb, tol + 1e-5
+    ea, eb = math.log(float(ta[8])), math.log(float(tb[8]))
+    xa, xb = la - ea, lb - eb
+    lp = [float(t[t.index("LOG10P") + 1]) for t in (ta, tb)]
+    ca, cb = (chi2.isf(10.0 ** -v, 1) for v in lp)
+    rel = (abs(abs(ea) - abs(eb)) / max(abs(ea), abs(eb), 1e-300)
+           + abs(ca - cb) / (2.0 * max(min(ca, cb), 1e-300)))
+    return xa, xb, tol + 1e-5 * (1.0 + abs(xa)) + abs(xa) * rel
+
+
 def _compare_files(f_gpu, f_cpu):
     """Field-by-field comparison of two output files (HTP, split or
     merged .regenie, gzipped or not): text fields equal, LOG10P within
-    1e-5, every other number within 1e-6, each beyond the half-unit of
-    the 6 significant digits the files print. Returns the largest excess
+    1e-5, every other number within 1e-6 (a binary trait's HTP odds
+    ratios on the log scale, _or_scale), each beyond the half-unit of the
+    6 significant digits the files print. Returns the largest excess
     ratio (<= 1 passes)."""
     la = _read_text(f_gpu).splitlines()
     lb = _read_text(f_cpu).splitlines()
@@ -2208,6 +2627,8 @@ def _compare_files(f_gpu, f_cpu):
             else:
                 tol = BETA_TOL
             lim = tol + 1e-5 * max(abs(fx), abs(fy))
+            if htp and 8 <= i <= 10 and ta[7].endswith(("-LOG", "-SPA", "-FIRTH")):
+                fx, fy, lim = _or_scale(ta, tb, i, tol)
             worst = max(worst, abs(fx - fy) / lim)
             if abs(fx - fy) > lim:
                 raise AssertionError(f"field {i} differs beyond {tol:g}:\n{ra}\n{rb}")
@@ -2640,6 +3061,14 @@ def cross_check_phase(tmp):
         fh.write("ID " + " ".join(f"{r[0]}_{r[1]}" for r in rows[1:]) + "\n")
         fh.write("".join(name + " " + " ".join(r[2 + j] for r in rows[1:]) + "\n"
                          for j, name in enumerate(rows[0][2:])))
+    # binary traits: each dataset's traits thresholded (cross-check runs
+    # with --bt read pheno_bt.txt)
+    for name in ("bgen", "pgen", "chrx_bed", "pgen_dosage"):
+        Y, X = (np.genfromtxt(f"{sub[name]}/{t}.txt", skip_header=1,
+                              usecols=range(2, 2 + k), missing_values="NA")
+                for t, k in (("pheno", P), ("covar", 3)))
+        write_bt_table(f"{sub[name]}/pheno_bt.txt", np.nan_to_num(Y), seed=3,
+                       n_inc=2, X=X)
     split = [f"_Y{p + 1}.regenie" for p in range(P)]
     runs = {
         "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"], split),
@@ -2655,6 +3084,11 @@ def cross_check_phase(tmp):
         "chrX PGEN --no-split --gz": (sub["pgen"], ["--pgen", geno["pgen"],
                                                     "--no-split", "--gz"],
                                       [".regenie.gz"]),
+        "BT BGEN --firth --approx --af-cc": (
+            sub["bgen"], ["--bgen", geno["bgen"], "--sample",
+                          f"{sub['bgen']}/geno.sample", *BT_FLAGS], split),
+        "BT chrX PGEN --spa --htp": (sub["pgen"], ["--pgen", geno["pgen"], "--bt",
+                                                   "--spa", "--htp", "SMOKE"], split),
     }
     # the dense route (no int8 / float32 switch: each runs once on the card)
     dense = {
@@ -2674,6 +3108,11 @@ def cross_check_phase(tmp):
         "chrX BED --skip-dosage-comp": (
             sub["chrx_bed"], ["--bed", geno["chrx_bed"], "--skip-dosage-comp"],
             split, False),
+        "BT PGEN dosages --firth --approx": (
+            sub["pgen_dosage"], ["--pgen", geno["pgen_dosage"], "--bt", "--firth",
+                                 "--approx"], split, True),
+        "BT chrX BED --firth --approx --af-cc": (
+            sub["chrx_bed"], ["--bed", geno["chrx_bed"], *BT_FLAGS], split, False),
         "chrX BED --test recessive --minHOMs 1 --condition-list --tpheno-file": (
             sub["chrx_bed"], ["--bed", geno["chrx_bed"], "--test", "recessive",
                               "--minHOMs", "1", "--condition-list",
@@ -2682,7 +3121,8 @@ def cross_check_phase(tmp):
     }
     for i, (what, (d, args, outs, *_)) in enumerate({**runs, **dense}.items()):
         is_dense = what in dense
-        pheno = [] if "--tpheno-file" in args else ["--phenoFile", f"{d}/pheno.txt"]
+        table = "pheno_bt.txt" if "--bt" in args else "pheno.txt"
+        pheno = [] if "--tpheno-file" in args else ["--phenoFile", f"{d}/{table}"]
         common = ["--step", "2", *args, *pheno, "--covarFile", f"{d}/covar.txt",
                   "--remove", f"{d}/remove.txt", "--ignore-pred", "--bsize", "256"]
         tag = f"r{i}_"
@@ -2743,6 +3183,22 @@ def native_report():
           f"loaded, symbol {native.PGEN_SYMBOL} ({time.time() - t0:.1f}s)")
 
 
+def _free():
+    """Collect the engines of a finished phase (their operands sit in
+    reference cycles) and return the card's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phase_time(name, t_all):
+    """Print the seconds since the smoke started, after a phase."""
+    print(f"  ({name} done at {time.time() - t_all:.1f}s)")
+
+
 def main() -> int:
     import torch
 
@@ -2770,43 +3226,54 @@ def main() -> int:
     print(f"  build phase {time.time() - t0:.1f}s")
 
     print("[kernel]")
+    quantize_check(dev)
     rows = []
     for phase in (fused_i8_phase, bgen_i8_phase, fused_f32_phase, bgen_f32_phase,
                   fused_bf16_phase, bgen_bf16_phase, decode_planes_phase):
         rows.append(phase(dev))
-        torch.cuda.empty_cache()
+        _free()
     rows += profile_fused_phase(dev)
-    torch.cuda.empty_cache()
+    _free()
     rows += profile_bgen_phase(dev)
-    torch.cuda.empty_cache()
+    _free()
+    _phase_time("kernel", t_all)
     print("[profile path]")
     launches = profile_path_phase()
-    torch.cuda.empty_cache()
+    _free()
     print("[profile path, BGEN]")
     launches.update(profile_bgen_path_phase())
-    torch.cuda.empty_cache()
+    _free()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[bed slice]")
         launches.update(slice_phase(tmp, "bed"))
-    torch.cuda.empty_cache()
+        _free()
+        _phase_time("bed slice", t_all)
+        print("[bt slice]")
+        bt_launches = bt_slice_phase(tmp)
+    print(f"  fused_i8 launches on the BT path: {bt_launches}")
+    _free()
+    _phase_time("bt slice", t_all)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[bgen slice]")
         got, *kept = slice_phase(tmp, "bgen", keep=True)
         launches.update(got)
-        torch.cuda.empty_cache()
+        _free()
         print("[dense slice]")
         dense_slice_phase(tmp, *kept)
         del kept
-    torch.cuda.empty_cache()
+    _free()
+    _phase_time("bgen and dense slices", t_all)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[step1 slice]")
         step1_slice_phase(tmp)
-    torch.cuda.empty_cache()
+    _free()
+    _phase_time("step1 slice", t_all)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[pgen chrX slice]")
         pgen_launches = pgen_chrx_slice_phase(tmp)
     print(f"  fused_i8 launches on the PGEN chrX path: {pgen_launches}")
-    torch.cuda.empty_cache()
+    _free()
+    _phase_time("pgen chrX slice", t_all)
     # decode_planes has no caller on any path of the port, as
     # _decode_kernel has none in the JAX package: 0 launches there
     launches["decode_planes"] = 0
@@ -2815,6 +3282,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[cross-check]")
         cross_check_phase(tmp)
+    _phase_time("cross-check", t_all)
     print(f"all phases passed in {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

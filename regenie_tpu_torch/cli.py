@@ -2,8 +2,9 @@
 takes the same flags as `python -m regenie_tpu` (the reference's flag
 surface, src/Regenie.cpp:146-458). build_parser and args_to_params are
 the port's copies of regenie_tpu/cli.py's; main runs the modes the port
-has (quantitative traits: Step 1 on PLINK BED, Step 2 on PLINK BED and
-BGEN) and raises NotImplementedError for every other one (unported).
+has (Step 1 on quantitative traits, Step 2 on quantitative and binary
+traits, on PLINK BED, PGEN and BGEN) and raises NotImplementedError for
+every other one (unported).
 
 The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 """
@@ -836,24 +837,27 @@ def args_to_params(args: argparse.Namespace) -> Params:
 def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
     None. Every such mode raises NotImplementedError before any work."""
+    bt = params.trait_mode == BT
     common = (
-        (params.trait_mode != QT,
-         "binary, count and time-to-event traits (--bt/--ct/--t2e)"),
+        (params.trait_mode not in (QT, BT),
+         "count and time-to-event traits (--ct/--t2e)"),
         (bool(params.set_list), "gene-based tests (--set-list)"),
         (bool(params.interaction_var), "interaction tests"),
         (params.trait_set, "multi-trait tests (--mt)"),
         (params.multiphen, "MultiPhen (--multiphen)"),
         (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
         (params.mcc_test, "the MCC test (--mcc)"),
-        (params.af_cc, "--af-cc"),
+        (params.af_cc and not bt, "--af-cc on quantitative traits"),
+        (bt and params.firth and not params.firth_approx,
+         "exact Firth (--firth without --approx)"),
+        (bool(params.write_null_firth or params.use_null_firth),
+         "null Firth checkpoints (--write-null-firth/--use-null-firth)"),
     )
     if params.step == 1:
         checks = (
             *common,
-            (not params.split_by_pheno, "merged output (--no-split)"),
+            (bt, "Step 1 on binary traits (--bt)"),
             (params.gz_out, "Step 1 with gzipped output (--gz)"),
-            (params.write_samples, "--write-samples"),
-            (params.print_cov_betas, "--print-cov-betas"),
             (params.debug, "Step 1 with --debug"),
             (params.test_l0, "--test-l0"),
             (params.select_l0, "--select-l0"),

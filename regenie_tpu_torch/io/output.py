@@ -1,7 +1,7 @@
 """Output writers (the port's copy of regenie_tpu/io/output.py, trimmed
-to quantitative traits): Step-2 summary statistics in the split
-single-trait, merged (--no-split) and HTPv4 formats, and Step 1's
-LOCO/PRS prediction rows.
+to quantitative and binary traits): Step-2 summary statistics in the
+split single-trait (with --af-cc's case/control columns), merged
+(--no-split) and HTPv4 formats, and Step 1's LOCO/PRS prediction rows.
 
 Mirrors Step2_Models.cpp print_header_output* (:2306) and
 print_sum_stats* (:2410-2646) with C++ default 6-significant-digit
@@ -21,7 +21,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..config import Params
+from ..config import BT, Params
 from ..prep import fmt
 from ..utils.stats import convert_logp_raw
 from .bed import SnpInfo
@@ -30,19 +30,29 @@ from .native import LOCO_SYMBOL, get_lib, loco_lib
 
 def header_single(params: Params) -> str:
     cols = ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ"]
+    if params.af_cc:
+        cols += ["A1FREQ_CASES", "A1FREQ_CONTROLS"]
     if params.dosage_mode:
         cols += ["INFO"]
-    cols += ["N", "TEST", "BETA", "SE", "CHISQ", "LOG10P", "EXTRA"]
+    cols += ["N"]
+    if params.af_cc:
+        cols += ["N_CASES", "N_CONTROLS"]
+    cols += ["TEST", "BETA", "SE", "CHISQ", "LOG10P", "EXTRA"]
     return " ".join(cols) + "\n"
 
 
 def header_all(params: Params) -> str:
     """Header of the merged --no-split file (print_header_output_all,
-    Step2_Models.cpp:2306), trimmed to QT runs (no --af-cc columns)."""
+    Step2_Models.cpp:2306)."""
     cols = ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ"]
+    if params.af_cc:
+        cols += ["A1FREQ_CASES", "A1FREQ_CONTROLS"]
     if params.dosage_mode:
         cols += ["INFO"]
-    cols += ["N", "N_RR", "N_RA", "N_AA", "TEST"]
+    cols += ["N"]
+    if params.af_cc:
+        cols += ["N_CASES", "N_CONTROLS"]
+    cols += ["N_RR", "N_RA", "N_AA", "TEST"]
     for i in range(params.n_pheno):
         cols += [f"BETA.Y{i+1}", f"SE.Y{i+1}", f"CHISQ.Y{i+1}", f"LOG10P.Y{i+1}"]
     cols += ["EXTRA"]
@@ -86,14 +96,25 @@ def sumstat_line_single(
     chisq: float,
     logp: float,
     test_pass: bool = True,
+    af_case: float = -1,
+    af_control: float = -1,
+    ns_case: int = -1,
+    ns_control: int = -1,
 ) -> str:
     """One association row, single-pheno format (print_sum_stats_single,
     Step2_Models.cpp:2505-2544)."""
     parts = [str(snp.chrom), str(snp.physpos), snp.ID, snp.allele1, snp.allele2]
     parts.append(fmt(af) if af >= 0 else "NA")
+    if params.af_cc:
+        if af >= 0:
+            parts += [fmt(af_case), fmt(af_control)]
+        else:
+            parts += ["NA", "NA"]
     if params.dosage_mode:
         parts.append(fmt(info) if info is not None and info >= 0 else "NA")
     parts.append(str(n))
+    if params.af_cc:
+        parts += [str(ns_case), str(ns_control)]
     parts.append(test)
     print_se = (se >= 0) and not np.isnan(se)
     print_pv = (chisq >= 0) and test_pass and not np.isnan(logp)
@@ -136,8 +157,9 @@ def native_formatter(name: str):
 
 
 def format_block_single(params, prefix_buf, prefix_off, test, skip, af,
-                        info, n, beta, se, chisq, logp,
-                        test_fail) -> Optional[str]:
+                        info, n, beta, se, chisq, logp, test_fail,
+                        af_case=None, af_control=None, ns_case=None,
+                        ns_control=None) -> Optional[str]:
     """Native batch renderer for the split single-pheno format: one call
     formats a whole [B] block x trait column (format_sumstat_single in
     native/decoder.cpp), byte-identical to sumstat_line_single. Returns
@@ -156,6 +178,18 @@ def format_block_single(params, prefix_buf, prefix_off, test, skip, af,
     if has_info:
         # reference prints INFO=1 when the format carries no INFO
         info = _f64(info if info is not None else np.ones(B))
+    af_cc = bool(params.af_cc)
+    if af_cc:
+        neg1 = np.full(B, -1.0)
+        af_case = _f64(af_case if af_case is not None else neg1)
+        af_control = _f64(af_control if af_control is not None else neg1)
+        ns_case = np.ascontiguousarray(
+            ns_case if ns_case is not None else neg1, np.int32)
+        ns_control = np.ascontiguousarray(
+            ns_control if ns_control is not None else neg1, np.int32)
+
+    def ptr(a):
+        return a.ctypes.data if af_cc else None
     budget = int(lib.sumstat_field_budget())
     out = np.empty(int(prefix_off[-1]) + B * budget, np.uint8)
     row_len = np.empty(B, np.int64)
@@ -163,8 +197,9 @@ def format_block_single(params, prefix_buf, prefix_off, test, skip, af,
     po = np.ascontiguousarray(prefix_off, np.int64)
     total = lib.format_sumstat_single(
         pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, test.encode(),
-        None, None, 0, int(has_info), af.ctypes.data, None, None,
-        info.ctypes.data if has_info else None, n.ctypes.data, None, None,
+        None, None, int(af_cc), int(has_info), af.ctypes.data, ptr(af_case),
+        ptr(af_control), info.ctypes.data if has_info else None,
+        n.ctypes.data, ptr(ns_case), ptr(ns_control),
         beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
         test_fail.ctypes.data, out.ctypes.data, row_len.ctypes.data,
     )
@@ -209,7 +244,8 @@ def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
     po = np.ascontiguousarray(prefix_off, np.int64)
     total = lib.format_sumstat_htp(
         pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, mid.encode(),
-        0, int(bool(params.firth)), int(bool(params.uncapped_pvals)),
+        int(params.trait_mode == BT), int(bool(params.firth)),
+        int(bool(params.uncapped_pvals)),
         int(has_info), float(params.zcrit),
         beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
         af.ctypes.data, info.ctypes.data if has_info else None, mac.ctypes.data,
@@ -286,12 +322,13 @@ def sumstat_line_htp(
     af: float,
     info: Optional[float],
     mac: float,
-    genocounts,  # [6] ints (all-sample RR/RA/AA first) or None
+    genocounts,  # [6] ints (cases RR/RA/AA, controls RR/RA/AA) or None
     test_pass: bool = True,
     neff=None,
 ) -> str:
-    """One HTPv4 row for a quantitative trait (print_sum_stats_htp,
-    Step2_Models.cpp:2548-2646)."""
+    """One HTPv4 row (print_sum_stats_htp, Step2_Models.cpp:2548-2646).
+    A binary trait's Effect is an odds ratio: exp(beta) with Firth, else
+    the allelic OR of the genotype counts."""
     zcrit = params.zcrit
     print_beta = test_pass and se >= 0 and not np.isnan(se)
     print_pv = test_pass and chisq >= 0 and not np.isnan(logp)
@@ -307,27 +344,53 @@ def sumstat_line_htp(
 
     parts = [snp.ID, str(snp.chrom), str(snp.physpos), snp.allele1, snp.allele2,
              pheno_name, params.cohort_name, model]
+    is_bt = params.trait_mode == BT
     if print_pv and not print_beta:
         parts += ["NA", "NA", "NA", outp]
     elif not print_pv and not print_beta:
         parts += ["NA", "NA", "NA", "NA"]
-    else:
-        parts += [fmt(beta), fmt(beta - zcrit * se), fmt(beta + zcrit * se)]
+    elif not is_bt or (params.firth and test_pass):
+        if not is_bt:
+            parts += [fmt(beta), fmt(beta - zcrit * se), fmt(beta + zcrit * se)]
+        else:
+            parts += [fmt(np.exp(beta)), fmt(np.exp(beta - zcrit * se)),
+                      fmt(np.exp(beta + zcrit * se))]
         parts.append(outp if print_pv else "NA")
+    else:  # BT SPA/logistic: the allelic OR of the genotype counts
+        if print_pv and genocounts is not None:
+            g = genocounts
+            eff = (2 * g[3] + g[4] + 0.5) * (2 * g[2] + g[1] + 0.5) / (
+                (2 * g[5] + g[4] + 0.5) * (2 * g[0] + g[1] + 0.5)
+            )
+            outse = abs(np.log(eff)) / np.sqrt(max(chisq, 1e-300))
+            parts += [fmt(eff), fmt(eff * np.exp(-zcrit * outse)),
+                      fmt(eff * np.exp(zcrit * outse)), outp]
+        else:
+            parts += ["NA", "NA", "NA", "NA"]
 
     parts.append(fmt(af) if af >= 0 else "NA")
 
     if mac > 0 and genocounts is not None:
         g = genocounts
         parts += [str(g[0] + g[1] + g[2]), str(g[0]), str(g[1]), str(g[2])]
-        parts += ["NA", "NA", "NA", "NA"]
+        if is_bt:
+            parts += [str(g[3] + g[4] + g[5]), str(g[3]), str(g[4]), str(g[5])]
+        else:
+            parts += ["NA", "NA", "NA", "NA"]
     else:
         parts += [str(int(neff)) if neff is not None else "NA", "NA", "NA", "NA",
                   "NA", "NA", "NA", "NA"]
 
     infoCol = []
     if print_beta:
-        infoCol.append(f"REGENIE_SE={fmt(se)}")
+        if is_bt and test_pass:
+            infoCol.append(f"REGENIE_BETA={fmt(beta)}")
+            infoCol.append(f"REGENIE_SE={fmt(se)}")
+        elif is_bt:
+            infoCol.append("REGENIE_BETA=NA")
+            infoCol.append("REGENIE_SE=NA")
+        else:
+            infoCol.append(f"REGENIE_SE={fmt(se)}")
     if params.dosage_mode and info is not None and info >= 0:
         infoCol.append(f"INFO={fmt(info)}")
     if mac >= 0:

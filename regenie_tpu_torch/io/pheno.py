@@ -1,6 +1,6 @@
 """Phenotype & covariate tables, missingness masks, covariate basis —
 the port's copy of regenie_tpu/io/pheno.py, trimmed to quantitative
-traits.
+and binary traits.
 
 Equivalent of the reference's `src/Pheno.{hpp,cpp}`: pheno_read
 (Pheno.cpp:148), covariate_read (:573), setMasks (:810), getBasis
@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from scipy.stats import norm as _norm
 
-from ..config import MISSING, Params
+from ..config import BT, MISSING, QT, Params
 from .files import open_read, string_split
 
 _MISS_STRINGS = ("NA", "nan", "inf", "-nan", "-inf")
@@ -34,11 +34,87 @@ def _to_double(tok: str) -> float:
         raise ValueError(f"could not convert value to numeric: '{tok}'") from e
 
 
+# whitespace that str.split() splits on and string_split does not
+_ODD_SPACE = "\v\f\x1c\x1d\x1e\x1f"
+
+
+def _table_tokens(fh, ncol: int, what: str) -> np.ndarray:
+    """The rest of a whitespace-separated table after its header: an
+    object array [rows, ncol] of its tokens, blank lines skipped; a line
+    with another number of fields raises ValueError. When the text is
+    ASCII with no whitespace but spaces, tabs and newlines, the tokens come
+    from one split of the whole text and each line's field count from
+    numpy over its bytes (a biobank table of 400,000 x 52 fields in a few
+    seconds); otherwise line by line through string_split."""
+    text = fh.read()
+    if text.isascii() and not any(c in text for c in _ODD_SPACE):
+        toks = text.split()
+        b = np.frombuffer(text.encode("ascii"), np.uint8)
+        sep = (b == 32) | (b == 9) | (b == 10)
+        starts = np.flatnonzero(~sep & np.concatenate(([True], sep[:-1])))
+        counts = np.bincount(np.searchsorted(np.flatnonzero(b == 10), starts))
+        counts = counts[counts > 0]
+    else:
+        lines = [t for t in map(string_split, text.split("\n")) if t]
+        counts = np.array([len(t) for t in lines])
+        toks = [x for t in lines for x in t]
+    if (counts != ncol).any():
+        raise ValueError(f"incorrectly formatted {what} file")
+    return np.array(toks, dtype=object).reshape(-1, ncol)
+
+
+def _row_index(tok, sample_index: Dict[str, int], what: str):
+    """(table rows of the samples in sample_index, in file order; their
+    sample indices). A sample on two rows raises ValueError."""
+    keys = [f"{a}_{b}" for a, b in zip(tok[:, 0], tok[:, 1])]
+    idx = np.fromiter((sample_index.get(k, -1) for k in keys), np.int64,
+                      len(keys))
+    rows = np.flatnonzero(idx >= 0)
+    idx = idx[rows]
+    _, first = np.unique(idx, return_index=True)
+    if len(first) != len(idx):
+        dup = np.ones(len(idx), dtype=bool)
+        dup[first] = False
+        key = keys[rows[np.flatnonzero(dup)[0]]]
+        raise ValueError(f"individual appears more than once in {what} file: {key}")
+    return rows, idx
+
+
+def _block(tok: np.ndarray, rows: np.ndarray, cols) -> np.ndarray:
+    """tok[rows][:, cols], by slicing where rows or cols are all of a
+    run (a view: float() runs about twice as fast over it as over a
+    fancy-indexed copy)."""
+    cols = np.asarray(cols)
+    if len(cols) and (np.diff(cols) == 1).all():
+        out = tok[:, cols[0] : cols[-1] + 1]
+    else:
+        out = tok[:, cols]
+    return out if len(rows) == len(tok) else out[rows]
+
+
+def _to_doubles(tok: np.ndarray) -> np.ndarray:
+    """_to_double over an object array of tokens: float() on each, and
+    MISSING for the missing-value strings ("NA" fails float(); the others
+    parse to a non-finite value, so only those tokens are looked at)."""
+    miss = tok == "NA"
+    try:
+        v = np.where(miss, "0", tok).astype(np.float64)
+    except (ValueError, TypeError):
+        for x in tok[~miss].ravel():  # the first token float() rejects
+            _to_double(x)
+        raise
+    odd = np.flatnonzero(~np.isfinite(v.ravel()))
+    miss.ravel()[odd] = [x in _MISS_STRINGS for x in tok.ravel()[odd]]
+    v[miss] = MISSING
+    return v
+
+
 @dataclass
 class PhenoData:
     """Mirror of the reference `struct phenodt` (src/Pheno.hpp:35-51)."""
 
-    phenotypes: np.ndarray = None  # [N, P] residualized+scaled
+    phenotypes: np.ndarray = None  # [N, P] residualized+scaled for QT
+    phenotypes_raw: np.ndarray = None  # [N, P] raw 0/1 (binary traits)
     masked_indivs: np.ndarray = None  # [N, P] bool
     new_cov: np.ndarray = None  # [N, K] covariates (orthonormal basis after prep)
     Neff: np.ndarray = None  # [P] per-trait non-masked count
@@ -114,47 +190,51 @@ def read_pheno(
         # single-pheno runs force strict mode (Pheno.cpp:201)
         strict = params.strict_mode or (n_pheno == 1)
 
-        Y = np.zeros((n, n_pheno), dtype=np.float64)
-        mask = np.ones((n, n_pheno), dtype=bool)
-        ind_in_pheno = np.zeros(n, dtype=bool)
-        seen = np.zeros(n, dtype=bool)
+        tok = _table_tokens(fh, 2 + len(all_names), "phenotype")
 
-        for line in fh:
-            toks = string_split(line)
-            if not toks:
-                continue
-            if len(toks) != 2 + len(all_names):
-                raise ValueError("incorrectly formatted phenotype file")
-            key = f"{toks[0]}_{toks[1]}"
-            if key not in sample_index:
-                continue
-            idx = sample_index[key]
-            if seen[idx]:
-                raise ValueError(f"individual appears more than once in phenotype file: {key}")
-            seen[idx] = True
-            ind_in_pheno[idx] = True
-
-            all_miss = True
-            ip = 0
-            for j, kc in enumerate(keep_cols):
-                if not kc:
-                    continue
-                v = _to_double(toks[2 + j])
-                Y[idx, ip] = v
-                if v != MISSING:
-                    all_miss = False
-                else:
-                    if params.test_mode and params.rm_missing_qt:
-                        mask[idx, ip] = False
-                    if strict:
-                        mask[idx, :] = False
-                        all_miss = True
-                        break
-                ip += 1
-            if all_miss:
-                ind_in_pheno[idx] = False
+    rows, idx = _row_index(tok, sample_index, "phenotype")
+    vals = _to_doubles(_block(tok, rows, 2 + np.flatnonzero(keep_cols)))
+    bt = params.trait_mode == BT
+    if bt and params.cc12:
+        vals = np.where(vals == MISSING, vals, vals - 1.0)  # 1/2/NA coding
+    miss = vals == MISSING
+    # strict: a sample's first missing value ends its row (every trait
+    # masked); the traits after it are neither stored nor checked
+    lost = miss.any(axis=1) if strict else np.zeros(len(rows), dtype=bool)
+    seen = np.arange(n_pheno)[None, :] <= np.where(
+        lost, miss.argmax(axis=1), n_pheno)[:, None]
+    if bt:
+        bad = seen & ~miss & (vals != 0.0) & (vals != 1.0)
+        if bad.any():
+            r = rows[np.flatnonzero(bad.any(axis=1))[0]]
+            raise ValueError(
+                f"phenotype value not 0/1/NA for FID={tok[r, 0]} IID={tok[r, 1]}")
+    m = ~(miss & (bt or (params.test_mode and params.rm_missing_qt
+                          and params.trait_mode == QT)))
+    m[lost] = False
+    Y = np.zeros((n, n_pheno), dtype=np.float64)
+    Y[idx] = np.where(seen, vals, 0.0)
+    mask = np.ones((n, n_pheno), dtype=bool)
+    mask[idx] = m
+    ind_in_pheno = np.zeros(n, dtype=bool)
+    ind_in_pheno[idx] = ~(miss.all(axis=1) | lost)
 
     mask &= ind_in_pheno[:, None]
+
+    # drop BTs with too few cases (rm_phenoCols, Pheno.cpp:528-543)
+    if params.trait_mode == BT and params.min_case_count > 0:
+        ncases = ((Y == 1.0) & mask).sum(axis=0)
+        colrm = ncases < params.min_case_count
+        if colrm.all():
+            raise ValueError(
+                f"all phenotypes have less than {params.min_case_count} cases."
+            )
+        if colrm.any():
+            keep = ~colrm
+            Y = Y[:, keep]
+            mask = mask[:, keep]
+            names = [nm for nm, k in zip(names, keep) if k]
+            n_pheno = len(names)
 
     nobs = mask.sum(axis=0)
     if (nobs == 0).all():
@@ -165,6 +245,7 @@ def read_pheno(
 
     pd = PhenoData()
     pd.phenotypes = Y
+    pd.phenotypes_raw = Y.copy() if params.trait_mode != QT else None
     pd.masked_indivs = mask
     pd.pheno_names = names
     pd.ind_in_analysis = ind_in_pheno
@@ -218,46 +299,36 @@ def read_covariates(
             return (np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool),
                     ["Intercept"])
 
-        X = np.zeros((n, n_cov), dtype=np.float64)
-        ind_in_cov = np.zeros(n, dtype=bool)
-        seen = np.zeros(n, dtype=bool)
-        cat_maps: Dict[str, Dict[str, int]] = {nm: {} for nm in names if is_cat[nm]}
+        tok = _table_tokens(fh, 2 + len(all_names), "covariate")
 
-        for line in fh:
-            toks = string_split(line)
-            if not toks:
-                continue
-            if len(toks) != 2 + len(all_names):
-                raise ValueError("incorrectly formatted covariate file")
-            key = f"{toks[0]}_{toks[1]}"
-            if key not in sample_index:
-                continue
-            idx = sample_index[key]
-            if seen[idx]:
-                raise ValueError(f"individual appears more than once in covariate file: {key}")
-            seen[idx] = True
-            ind_in_cov[idx] = True
-            ic = 0
-            for j, kc in enumerate(keep_cols):
-                if not kc:
-                    continue
-                nm = names[ic]
-                tok = toks[2 + j]
-                if is_cat[nm]:
-                    if tok in _MISS_STRINGS:
-                        v = MISSING
-                    else:
-                        cmap = cat_maps[nm]
-                        if tok not in cmap:
-                            cmap[tok] = len(cmap)
-                        v = float(cmap[tok])
-                else:
-                    v = _to_double(tok)
-                X[idx, ic] = v
-                if v == MISSING:
-                    ind_in_cov[idx] = False
-                    break
-                ic += 1
+    rows, idx = _row_index(tok, sample_index, "covariate")
+    R = len(rows)
+    Xr = np.zeros((R, n_cov), dtype=np.float64)
+    # a sample's first missing covariate ends its row: it leaves the
+    # analysis, and its later covariates are neither read nor counted as
+    # categories
+    alive = np.ones(R, dtype=bool)
+    cat_maps: Dict[str, Dict[str, int]] = {}
+    for ic, j in enumerate(np.flatnonzero(keep_cols)):
+        nm = names[ic]
+        t = _block(tok, rows, [2 + j])[:, 0]
+        v = np.zeros(R)
+        if is_cat[nm]:
+            # levels coded in the order they first appear in the file
+            v[:] = MISSING
+            reg = alive & ~np.isin(t, _MISS_STRINGS)
+            levels, first = np.unique(t[reg].astype(str), return_index=True)
+            cmap = cat_maps[nm] = {
+                str(lv): i for i, lv in enumerate(levels[np.argsort(first)])}
+            v[reg] = [cmap[x] for x in t[reg]]
+        else:
+            v[alive] = _to_doubles(t[alive])
+        Xr[alive, ic] = v[alive]
+        alive &= v != MISSING
+    X = np.zeros((n, n_cov), dtype=np.float64)
+    X[idx] = Xr
+    ind_in_cov = np.zeros(n, dtype=bool)
+    ind_in_cov[idx] = alive
 
     if ind_in_cov.sum() == 0:
         raise ValueError("none of the individuals have covariate data")
@@ -292,6 +363,8 @@ def set_masks(params: Params, pd: PhenoData, ind_in_analysis: np.ndarray) -> Non
         ind_in_analysis = ind_in_analysis & pd.masked_indivs.any(axis=1)
     pd.masked_indivs = pd.masked_indivs & ind_in_analysis[:, None]
     pd.phenotypes = pd.phenotypes * ind_in_analysis[:, None]
+    if pd.phenotypes_raw is not None:
+        pd.phenotypes_raw = pd.phenotypes_raw * ind_in_analysis[:, None]
     pd.new_cov = pd.new_cov * ind_in_analysis[:, None].astype(np.float64)
     pd.ind_in_analysis = ind_in_analysis
     params.n_analyzed = int(ind_in_analysis.sum())
@@ -302,7 +375,10 @@ def set_masks(params: Params, pd: PhenoData, ind_in_analysis: np.ndarray) -> Non
 
 def pheno_impute_miss(params: Params, pd: PhenoData) -> None:
     """Mean-impute missing QT values (reference Pheno.cpp:1903): missing
-    -> mean over in-analysis non-missing, then zero masked."""
+    -> mean over in-analysis non-missing, then zero masked. Binary traits
+    are left as read in Step 2 (their null fits mask the missing)."""
+    if params.trait_mode != QT:
+        return
     for j in range(params.n_pheno):
         if not pd.pheno_pass[j]:
             continue

@@ -1,0 +1,105 @@
+"""Null logistic fits of Step 2 on binary traits (the port's copy of
+regenie_tpu/models/glm.py, trimmed to what the binary-trait path calls),
+on the host in numpy float64, as in the JAX package.
+
+Re-implements the reference's fit_null_logistic (Step1_Models.cpp:54) and
+fit_logistic (:156).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+ETA_MIN, ETA_MAX = -30.0, 30.0
+_EPS10 = 10 * np.finfo(np.float64).eps
+
+
+def get_pvec(eta: np.ndarray, eps: float = _EPS10) -> np.ndarray:
+    """eta -> pi with glm-style clamping (Step1_Models.cpp:1799-1806)."""
+    pi = 1.0 - 1.0 / (np.exp(np.clip(eta, ETA_MIN, ETA_MAX)) + 1.0)
+    pi = np.where(eta > ETA_MAX, 1.0 / (1.0 + eps), pi)
+    pi = np.where(eta < ETA_MIN, eps / (1.0 + eps), pi)
+    return pi
+
+
+def get_logist_dev(y: np.ndarray, pi: np.ndarray, mask: np.ndarray) -> float:
+    """-2 log-lik over masked samples (get_logist_dev, Step1_Models.cpp:1820)."""
+    with np.errstate(divide="ignore"):
+        nll = np.where(y == 0, -np.log(1.0 - pi), -np.log(pi))
+    return 2.0 * nll[mask].sum()
+
+
+def fit_logistic_irls(
+    y: np.ndarray,
+    X: np.ndarray,
+    offset: np.ndarray,
+    mask: np.ndarray,
+    niter_max: int = 30,
+    tol: float = 1e-6,
+    check_hs_dev: bool = True,
+    beta0: Optional[np.ndarray] = None,
+    niter_max_line_search: int = 5,
+) -> Tuple[np.ndarray, bool]:
+    """Null logistic IRLS, faithful to the reference fit_logistic
+    (Step1_Models.cpp:156-224): Newton step from the working response,
+    step-halving on deviance increase / invalid pi, score-based stopping
+    with deviance fallback. Returns (beta, converged).
+
+    Like the reference caller (fit_null_logistic, :88), callers should
+    retry with check_hs_dev=False if the first attempt fails.
+    """
+    maskf = mask.astype(np.float64)
+    beta = np.zeros(X.shape[1]) if beta0 is None else beta0.copy()
+    eta = offset + X @ beta
+    pi = get_pvec(eta)
+    dev_old = get_logist_dev(y, pi, mask)
+    dev_new = dev_old
+    diff_dev = np.inf
+    small_score_reached = False
+    betanew = beta
+
+    niter_cur = 0
+    while niter_cur < niter_max:
+        niter_cur += 1
+        w = np.where(mask, pi * (1.0 - pi), 1.0)
+        if (w == 0).any():
+            return beta, False
+        XtW = X.T * (maskf * w)
+        z = np.where(mask, eta - offset + (y - pi) / w, 0.0)
+        try:
+            betanew = np.linalg.lstsq(XtW @ X, XtW @ z, rcond=None)[0]
+        except np.linalg.LinAlgError:
+            return beta, False
+
+        ok = False
+        for _ in range(niter_max_line_search):
+            eta = offset + X @ betanew
+            pi = get_pvec(eta)
+            dev_new = get_logist_dev(y, pi, mask)
+            valid = np.all((pi[mask] > 0) & (pi[mask] < 1))
+            if valid and (not check_hs_dev or dev_new < dev_old):
+                ok = True
+                break
+            betanew = (beta + betanew) / 2.0
+        if not ok:
+            return beta, False
+
+        score = X.T @ np.where(mask, y - pi, 0.0)
+        smax = np.abs(score).max()
+        if smax < tol:
+            return betanew, True
+        if not small_score_reached and niter_cur < 20 and smax < 1:
+            small_score_reached = True
+        if small_score_reached and niter_cur > 20 and smax > 5:
+            return beta, False
+
+        diff_dev = abs(dev_new - dev_old) / (0.1 + abs(dev_new))
+        beta = betanew
+        dev_old = dev_new
+
+    if diff_dev == 0 or diff_dev >= tol:
+        return betanew, False
+    return betanew, True

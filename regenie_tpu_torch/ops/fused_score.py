@@ -128,13 +128,22 @@ def _i8_operand(limbs, scale):
 _I8_FOLDW = (1.0, 2.0**-7, 2.0**-14, 2.0**-21)
 
 
-def _i8_quantize_np(W):
-    """Host quantization: f64 [..., Cp] -> (limbs int8 [..., 4*Cp],
-    scale f32 [Cp], Wq f64 exact quantized values)."""
-    absmax = np.abs(W).reshape(-1, W.shape[-1]).max(axis=0)
+def _i8_scales(absmax):
+    """The power-of-two column scales [Cp] (numpy float64) of the int8
+    limbs for the column maxima `absmax`: 2^ceil(log2(absmax / 127)), 1
+    for an all-zero column. numpy's log2, ceil and exp2 on the host, so
+    the card's quantization picks the scales _i8_quantize_np picks."""
     e = np.ceil(np.log2(np.maximum(absmax, 1e-300) / 127.0))
     s = np.exp2(e)
     s[absmax == 0] = 1.0
+    return s
+
+
+def _i8_quantize_np(W):
+    """Host quantization: f64 [..., Cp] -> (limbs int8 [..., 4*Cp],
+    scale f32 [Cp], Wq f64 exact quantized values). The plain twin of
+    i8_quantize, which builds the operands."""
+    s = _i8_scales(np.abs(W).reshape(-1, W.shape[-1]).max(axis=0))
     q = W / s
     limbs = []
     for _ in range(4):
@@ -143,6 +152,42 @@ def _i8_quantize_np(W):
         q = (q - l) * 128.0
     Wq = s * sum(l.astype(np.float64) * w for l, w in zip(limbs, _I8_FOLDW))
     return np.concatenate(limbs, axis=-1), s.astype(np.float32), Wq
+
+
+# rows of W quantized at a time (bounds the float64 temporaries on the card)
+_I8_CHUNK = 1 << 16
+
+
+def i8_quantize(W):
+    """Quantization of a float64 operand tensor W [R, Cp] on its own
+    device: (limbs int8 [R, 4*Cp], scale float32 [Cp] tensor, usum numpy
+    float64 [Cp], the column sums of the quantized values). Bit for bit
+    _i8_quantize_np's limbs and scales: the column maxima are reduced on
+    the device and their scales taken on the host (_i8_scales); then the
+    division by a power of two, round half to even (torch.round, as
+    np.rint), the subtraction and x128 are exact in float64 on either
+    device. usum is exact too: each quantized value is scale x an integer
+    / 2^21 of at most 28 bits, so the integer sums (int64) are exact and
+    so is every partial sum of the host's float64 sum it replaces (below
+    2^53 for R < 8.4M)."""
+    R, Cp = W.shape
+    absmax = W.abs().amax(dim=0) if R else torch.zeros(Cp, dtype=W.dtype)
+    s = _i8_scales(absmax.cpu().numpy().astype(np.float64))
+    s_t = torch.from_numpy(s).to(W.device)
+    limbs = torch.empty((R, 4 * Cp), dtype=torch.int8, device=W.device)
+    isum = torch.zeros(Cp, dtype=torch.int64, device=W.device)
+    for r0 in range(0, R, _I8_CHUNK):
+        q = W[r0 : r0 + _I8_CHUNK] / s_t
+        acc = torch.zeros(q.shape, dtype=torch.int64, device=W.device)
+        for k in range(4):
+            l = torch.round(q)
+            limbs[r0 : r0 + _I8_CHUNK, k * Cp : (k + 1) * Cp] = l.to(torch.int8)
+            acc = acc * 128 + l.to(torch.int64)
+            q = (q - l) * 128.0
+        isum += acc.sum(dim=0)
+        del q, acc
+    usum = isum.cpu().numpy().astype(np.float64) * (s * 2.0**-21)
+    return limbs, torch.from_numpy(s.astype(np.float32)).to(W.device), usum
 
 
 def _i8_quantize_torch(W, s=None):
@@ -245,6 +290,14 @@ def _to_dev(a, device, dtype=None):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _padded_dev(Wext, R, Cp, device):
+    """[N, C] numpy -> float64 [R, Cp] tensor on `device`, zero-padded."""
+    N, C = Wext.shape
+    W = torch.zeros((R, Cp), dtype=torch.float64, device=device)
+    W[:N, :C] = _to_dev(np.asarray(Wext, np.float64), device)
+    return W
+
+
 def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
                nbp_tile=None):
     """[N, C] per-sample operand -> plane-ordered kernel operand.
@@ -255,19 +308,23 @@ def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
     the flip algebra (for "i8" it sums the QUANTIZED values so the flip
     transform stays exact in the quantized system; otherwise the float64
     Wext). Rows must already be zeroed for excluded samples. nbp_tile:
-    byte padding multiple (default _TC)."""
+    byte padding multiple (default _TC). The int8 operand is ordered and
+    quantized on `device` (i8_quantize): Wext goes up as float64 once."""
     N, C = Wext.shape
     Cp = -(-C // 128) * 128
     tile = nbp_tile or _TC
     nbp = -(-nb // tile) * tile
+    if split == "i8":
+        assert N < 8_000_000, "int8 fused path: int32 accumulator bound"
+        # sample order is [nbp, 4] (sample 4c + p); limbs of the padded
+        # rows are zero, and the max, the scales and the sums do not
+        # depend on the row order, so quantize first and reorder the limbs
+        limbs, s, usum = i8_quantize(_padded_dev(Wext, 4 * nbp, Cp, device))
+        limbs = limbs.view(nbp, 4, 4 * Cp).transpose(0, 1).contiguous()
+        return _i8_operand(limbs, s), usum
     Wp = np.zeros((4, nbp, Cp), dtype=np.float64)
     Wp[..., :C] = _plane_order(Wext, nb, nbp)
     usum = np.pad(Wext.sum(axis=0), (0, Cp - C))
-    if split == "i8":
-        assert N < 8_000_000, "int8 fused path: int32 accumulator bound"
-        limbs, s, Wq = _i8_quantize_np(Wp)
-        usum = Wq.sum(axis=(0, 1))
-        return _i8_operand(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
         return _split_operand(Wp, device), usum
     return _to_dev(Wp, device, dtype), usum
@@ -277,20 +334,19 @@ def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
     """[N, C] per-sample operand -> sample-ordered padded operand for the
     BGEN byte planes: the [Np, Cp] tensor (dtype), the bf16 [Np, 3*Cp]
     hi|mid|lo split (split=True), or an I8Operand with limbs [Np, 4*Cp]
-    (split="i8"; with its K-major copy limbs_k [4*Cp, Np]), and the padded
-    [Cp] numpy usum (for "i8" the sum of the QUANTIZED values, as
-    plane_pack). Np pads to a multiple of _TC samples, Cp to 128
-    columns."""
+    (split="i8"; with its K-major copy limbs_k [4*Cp, Np]; quantized on
+    `device`), and the padded [Cp] numpy usum (for "i8" the sum of the
+    QUANTIZED values, as plane_pack). Np pads to a multiple of _TC
+    samples, Cp to 128 columns."""
     N, C = Wext.shape
     Cp = -(-C // 128) * 128
     Np = -(-N // _TC) * _TC
+    if split == "i8":
+        limbs, s, usum = i8_quantize(_padded_dev(Wext, Np, Cp, device))
+        return _i8_operand(limbs, s), usum
     W = np.zeros((Np, Cp), dtype=np.float64)
     W[:N, :C] = Wext
     usum = np.pad(Wext.sum(axis=0), (0, Cp - C))
-    if split == "i8":
-        limbs, s, Wq = _i8_quantize_np(W)
-        usum = Wq.sum(axis=0)
-        return _i8_operand(_to_dev(limbs, device), _to_dev(s, device)), usum
     if split:
         return _split_operand(W, device), usum
     return _to_dev(W, device, dtype), usum
@@ -674,6 +730,59 @@ def make_qt_block_fn(consts: FusedConsts, use_kernel: bool = True,
     return run
 
 
+def _bt_scores(S1c, SQc, SMc, flip, usum, xwt, icol, n_ind, ncat, Pn, Kp1,
+               test_type=0):
+    """The all-trait BT score pieces from a block's raw products (the
+    product-space twin of models/step2_bt._allpass): imputation and the
+    flip (or DOM/REC recoding), then with A_p = G W_p and q_p = G (gsm_p
+    res_p) per trait p
+        num_p = q_p - A_p xwt_p,  denum_p = G^2 gsm_p^2 - ||A_p||^2.
+    Returns (num [B, Pn], denum [B, Pn], S1cat [B, Pn, Kp1])."""
+    S1f, SQf = finalized_products(S1c, SQc, SMc, flip, usum, icol, n_ind,
+                                  test_type)
+    S1cat = S1f[:, :ncat].reshape(S1f.shape[0], Pn, Kp1)
+    A = S1cat[..., :-1]
+    num = S1cat[..., -1] - torch.einsum("bpk,pk->bp", A, xwt)
+    denum = SQf[:, ncat : ncat + Pn] - (A**2).sum(-1)
+    return num, denum, S1cat
+
+
+def _bt_flip(S1c, SMc, icol, n_ind):
+    """The minor-allele flip of BT additive tests (with_flip,
+    set_blocks_for_testing Data.cpp:2108): mean dosage above 1."""
+    ns1 = n_ind - SMc[:, icol]
+    return S1c[:, icol] / torch.clamp(ns1, min=1.0) > 1.0
+
+
+def make_bt_block_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
+                     use_kernel=True, test_type=0, ref_first=False):
+    """BT block function over packed PLINK bytes (the JAX package's
+    make_bt_block_fn): products -> the minor-allele flip on the device
+    (ADD only) -> imputation and flip or DOM/REC recoding in product
+    space -> the all-trait score num/denum, in float64. Wp: the [cat
+    | gsm^2 | maskf | case | ind (| chrX male tail)] operand (plane_pack);
+    usum its [Cp] numpy column sums; xwt [Pn, Kmax] numpy. Returns the raw
+    product slices for the host stats and (flip, num, denum, S1cat).
+    use_kernel=False takes the plain products on any device."""
+    prod = fused_products if use_kernel else fused_products_plain
+    dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
+    usum_t = torch.as_tensor(np.asarray(usum[:C_used], np.float64), device=dev)
+    xwt_t = torch.as_tensor(np.asarray(xwt, np.float64), device=dev)
+
+    def run(raw):
+        S1, SQ, SM = prod(raw, Wp, torch.float64)
+        S1c, SQc, SMc = (x[:, :C_used].to(torch.float64) for x in (S1, SQ, SM))
+        if ref_first:
+            S1c, SQc = ref_first_products(S1c, SQc, SMc, usum_t)
+        flip = (_bt_flip(S1c, SMc, icol, n_ind) if test_type == 0 else
+                torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device))
+        num, denum, S1cat = _bt_scores(S1c, SQc, SMc, flip, usum_t, xwt_t,
+                                       icol, n_ind, ncat, Pn, Kp1, test_type)
+        return S1c, SQc, SMc, flip, num, denum, S1cat
+
+    return run
+
+
 def score_block_fused(raw, flip, consts: FusedConsts, use_kernel=True):
     """End-to-end fused scorer for one packed block (the JAX package's
     score_block_fused, with use_kernel in place of use_pallas): products
@@ -851,5 +960,39 @@ def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
             consts.scale_denom, consts.n_ind, 0, consts.inc, strict,
         )
         return stats, denum, scale_fac, low, S1c, SQc, SMc, ILc
+
+    return run
+
+
+def make_bt_bgen_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
+                    use_kernel=True, ref_first=False, Wq=None):
+    """BT block function over BGEN probability byte planes (the JAX
+    package's make_bt_bgen_fn, ADD coding only): products -> the flip on
+    the device -> product-space imputation and flip -> all-trait
+    num/denum, plus the info-linear products, in float64. With the
+    kernel, the squared-dosage products run against Wq, the narrow
+    sample_pack of the operand's columns from ncat on ([gsm^2 | maskf |
+    case | ind (| male tail)]), the only ones SQ feeds. use_kernel=False
+    takes the plain products on any device. Returns (S1c, SQc, SMc, ILc,
+    flip, num, denum, S1cat)."""
+    dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
+    usum_t = torch.as_tensor(np.asarray(usum[:C_used], np.float64), device=dev)
+    xwt_t = torch.as_tensor(np.asarray(xwt, np.float64), device=dev)
+    Wq = Wq if use_kernel else None
+
+    def run(planes):
+        if use_kernel:
+            S1, SQ, SM, IL = bgen_fused_products(
+                planes, Wp, Wq, ncat if Wq is not None else 0, C_used,
+                torch.float64)
+        else:
+            S1, SQ, SM, IL = bgen_fused_products_plain(planes, Wp, torch.float64)
+        S1, SQ, SM, IL = (x.to(torch.float64) for x in (S1, SQ, SM, IL))
+        S1c, SQc, SMc, ILc = _bgen_prepare(S1, SQ, SM, IL, usum_t, C_used,
+                                           ref_first)
+        flip = _bt_flip(S1c, SMc, icol, n_ind)
+        num, denum, S1cat = _bt_scores(S1c, SQc, SMc, flip, usum_t, xwt_t,
+                                       icol, n_ind, ncat, Pn, Kp1)
+        return S1c, SQc, SMc, ILc, flip, num, denum, S1cat
 
     return run

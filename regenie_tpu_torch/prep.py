@@ -1,6 +1,7 @@
-"""Data preparation for both steps on quantitative traits (the port's copy
-of regenie_tpu/prep.py, trimmed to the quantitative-trait run-up): the
-transposed phenotype file (--tpheno-file), conditioning variants joined
+"""Data preparation for both steps (the port's copy of regenie_tpu/prep.py,
+trimmed to the quantitative-trait run-up and Step 2 on binary traits,
+whose phenotypes stay raw for the null fits): the transposed phenotype
+file (--tpheno-file), conditioning variants joined
 to the covariates (--condition-list, --condition-file),
 --print-cov-betas and the --debug dump of the model inputs.
 
@@ -17,7 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .config import Params
+from .config import BT, QT, Params
 from .io.files import iter_lines
 from .io.geno import GenoData, open_geno
 from .io.pheno import (
@@ -77,7 +78,7 @@ def prepare(
     pd.masked_indivs &= ind[:, None]
     set_masks(params, pd, ind)
 
-    if params.apply_rint:
+    if params.apply_rint and params.trait_mode == QT:
         for j in range(params.n_pheno):
             m = (pd.phenotypes[:, j] != -999.0) & pd.masked_indivs[:, j]
             pd.phenotypes[:, j] = rint_values(pd.phenotypes[:, j], m)
@@ -87,7 +88,7 @@ def prepare(
     # --print-cov-betas: OLS of phenotypes on centered+scaled covariates
     # BEFORE orthonormalization (residualize_phenotypes, Pheno.cpp:1806)
     cov_betas = None
-    if params.print_cov_betas and params.test_mode:
+    if params.print_cov_betas and params.test_mode and params.trait_mode == QT:
         cov_betas = _cov_betas(params, pd, cov_names)
 
     # orthonormal covariate basis (prep_run, Pheno.cpp:1060-1117)
@@ -97,9 +98,15 @@ def prepare(
     params.ncov_analyzed = ncov
 
     # --prs-cov: step-1 predictions enter as a covariate (check_cov_blup,
-    # Pheno.cpp:1786-1797)
+    # Pheno.cpp:1786-1797). For BTs an extra column is reserved and filled
+    # per trait with the LOCO PRS during the null refits.
     if params.blup_cov and params.test_mode:
-        params.ncov_analyzed = params.ncov + 1
+        if params.trait_mode == BT:
+            pd.new_cov = np.hstack([pd.new_cov, np.zeros((pd.new_cov.shape[0], 1))])
+            params.ncov = pd.new_cov.shape[1]
+            params.ncov_analyzed = params.ncov
+        else:
+            params.ncov_analyzed = params.ncov + 1
 
     # --nocov-approx: only valid for a single phenotype (Pheno.cpp:1119)
     if params.skip_cov_res and params.n_pheno != 1:
@@ -107,7 +114,9 @@ def prepare(
         print(" WARNING: --nocov-approx is only available with a single "
               "phenotype; ignoring it.")
 
-    residualize_phenotypes(params, pd)
+    # residualize and scale QT phenotypes (binary traits are fitted raw)
+    if params.trait_mode == QT:
+        residualize_phenotypes(params, pd)
 
     # --print-cov-betas: raw-scale covariate OLS effects per trait
     # (residualize_phenotypes + print_cov_betas, Pheno.cpp:1799/1613)
@@ -207,11 +216,12 @@ def _write_cov_betas(params, pd, betas, se_unit, cov_sds, cov_names):
 
 def write_debug_inputs(params: Params, pd) -> None:
     """--debug analog of write_inputs (Data.cpp:911): the model inputs
-    after prep, the residualized and scaled Y ({out}_y.txt) and the
-    orthonormal covariate basis ({out}_x.txt), at full precision and
-    space-separated (the reference's Eigen FullPrecision format)."""
-    np.savetxt(params.out_prefix + "_y.txt", np.asarray(pd.phenotypes),
-               fmt="%.17g")
+    after prep, Y ({out}_y.txt: residualized and scaled for QT, raw for
+    binary traits) and the orthonormal covariate basis ({out}_x.txt), at
+    full precision and space-separated (the reference's Eigen
+    FullPrecision format)."""
+    y = pd.phenotypes if params.trait_mode == QT else pd.phenotypes_raw
+    np.savetxt(params.out_prefix + "_y.txt", np.asarray(y), fmt="%.17g")
     np.savetxt(params.out_prefix + "_x.txt", np.asarray(pd.new_cov),
                fmt="%.17g")
 

@@ -1,5 +1,6 @@
-"""Step 2 on quantitative traits from PLINK BED, PGEN or BGEN files (the
-port of the QT slices of regenie_tpu/run_step2.py), on two routes.
+"""Step 2 on quantitative and binary traits from PLINK BED, PGEN or BGEN
+files (the port of the QT and BT paths of regenie_tpu/run_step2.py), on
+two routes.
 
 Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
 compute_res (:2386) and the .regenie writers. Per chromosome the LOCO
@@ -16,6 +17,17 @@ the JAX package's dense path does (--nocov-approx, BGEN with --htp,
 or every block with REGENIE_TPU_FUSED=0): the block's hardcalls or
 float64 dosages on the device, their statistics (ops/geno_ops.py) and
 float64 products (models/step2.py), all plain torch ops.
+
+Binary traits (--bt) refit the null logistic model (and with --firth
+--approx the null Firth model) per chromosome on the host
+(models/step2_bt.py). The fused route's operand is [cat | gsm^2 | maskf |
+case | ind] (the per-trait weighted covariate basis and residual, the
+weights squared, the masks, the case indicators), so the same products
+give every trait's score num/denum, the per-variant statistics, the
+--af-cc case/control counts and HTP's case/control genotype counts; the
+rows past the correction threshold are decoded again on the card from
+the block's resident bytes and corrected by SPA or approximate Firth
+(models/corrections_device.py on the card, the host twins on the CPU).
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import QT, Params
+from .config import BT, QT, Params
 from .io.bgen import extract_planes_block, planes_readable
 from .io.files import iter_lines, open_read, open_write, string_split
 from .io.geno import make_blocks
@@ -44,9 +56,11 @@ from .io.output import (block_prefixes, format_block_htp,
                         sumstat_line_all, sumstat_line_htp,
                         sumstat_line_single)
 from .models import step2 as m2
+from .models import step2_bt
 from .ops import fused_score as fsc
-from .ops.geno_ops import (MISSING, finalize_block_step2, pack_hardcalls,
-                           snp_stats_block, snp_stats_block_packed)
+from .ops.geno_ops import (MISSING, decode_bed_packed, finalize_block_step2,
+                           pack_hardcalls, snp_stats_block,
+                           snp_stats_block_packed)
 from .prep import prepare, write_debug_inputs
 from .cli import unported
 from .utils.device import resolve_device
@@ -184,6 +198,10 @@ class BlockResult:
     genocounts: Optional[np.ndarray] = None  # [B, 6, P] (htp mode)
     n_rr: Optional[np.ndarray] = None  # [B] hardcall class counts (merged
     n_aa: Optional[np.ndarray] = None  # output's N_RR / N_AA; not BGEN)
+    af_case: Optional[np.ndarray] = None  # [B, P] (--af-cc)
+    af_control: Optional[np.ndarray] = None
+    ns_case: Optional[np.ndarray] = None
+    ns_control: Optional[np.ndarray] = None
 
 
 def _fetch_packed(vals: dict, fdt=None) -> dict:
@@ -205,9 +223,68 @@ def _fetch_packed(vals: dict, fdt=None) -> dict:
     return out
 
 
+class FusedBTSource:
+    """step2_bt.score_block's genotype source on the fused route: the
+    block's num/denum (host) and S1 products (device) from the fused
+    products, and the correction rows decoded again on the card from the
+    block's resident bytes or BGEN planes (the analog of the reference's
+    per-SNP G_res rebuild, Step2_Models.cpp:520-540)."""
+
+    def __init__(self, eng, raw, flip, num, denum, S1_all):
+        self.eng = eng
+        self.raw = raw  # the uploaded block: [B, nbp] bytes or [B, 2, Np] planes
+        self.flip = flip  # [B] bool tensor on the device
+        self._num, self._denum, self._S1 = num, denum, S1_all
+        self.n_snps = int(num.shape[0])
+
+    def allpass(self, fc):
+        return self._num, self._denum, self._S1
+
+    def rows_device(self, idx):
+        """[S, N] float64 finalized genotypes of rows idx (a device index
+        tensor): flipped, mean-imputed, zero outside the analysis, and
+        DOM/REC-coded for hardcalls."""
+        eng = self.eng
+        gd, params = eng.gd, eng.params
+        ind = torch.as_tensor(eng.pd.ind_in_analysis, device=self.raw.device)
+        keep = (None if gd._pgen is not None or gd._keep_all_samples
+                else torch.as_tensor(np.asarray(gd.sample_keep_idx),
+                                     device=self.raw.device))
+        if gd._bgen is not None:
+            # dosages from the probability byte planes, in float32 as the
+            # JAX package's fused BGEN source takes them
+            # (regenie_tpu/run_step2.py:189-196), then finalized in float64
+            Nf = gd._bgen.n_samples_file
+            pl = self.raw[idx]
+            k0 = pl[:, 0, :Nf].to(torch.float32)
+            k1 = pl[:, 1, :Nf].to(torch.float32)
+            miss = (k0 + k1) > 255.0
+            ds = (2.0 * torch.where(miss, 0.0, k0)
+                  + torch.where(miss, 0.0, k1)) / 255.0
+            if params.ref_first:
+                ds = 2.0 - ds
+            ds = torch.where(miss, float(MISSING), ds)
+            if keep is not None:
+                ds = ds[:, keep]
+            return finalize_block_step2(ds, ind, self.flip[idx])
+        is_bed = gd._bed is not None
+        nsrc = gd._bed.n_samples if is_bed else params.n_samples
+        Graw = decode_bed_packed(self.raw[idx][:, : eng._fused_nb], nsrc)
+        if is_bed and params.ref_first:
+            Graw = torch.where(Graw == MISSING, Graw, 2 - Graw).to(torch.int8)
+        if is_bed and keep is not None:
+            Graw = Graw[:, keep]
+        G = finalize_block_step2(Graw, ind, self.flip[idx])
+        if params.test_type == 1:
+            G = torch.where(G == 2.0, 1.0, G)
+        elif params.test_type == 2:
+            G = torch.where(G >= 1.0, G - 1.0, G)
+        return G
+
+
 class Step2Engine:
-    """Association-test state and per-block scoring (QT; BED, PGEN or
-    BGEN), on the fused route (test_raw_block_fused) or the dense one
+    """Association-test state and per-block scoring (QT or BT; BED, PGEN
+    or BGEN), on the fused route (test_raw_block_fused) or the dense one
     (test_raw_block), chosen per block by fused_block.
 
     device: where the operand lives and the products run (resolved by
@@ -237,6 +314,12 @@ class Step2Engine:
         self.p_sd_yres = None
         self.scf_sv = None
         self.n_ignored = 0
+        self.is_bt = params.trait_mode == BT
+        self.bt_state = None
+        self.n_corrected = 0
+        self.n_failed = 0
+        # seconds of the BT null fits and of the corrections
+        self.bt_times = {"null_s": 0.0, "corr_s": 0.0}
         self._fused_chrom = None
         self._fused_static = None
         self._ltco_prs = {}
@@ -278,6 +361,12 @@ class Step2Engine:
                             params.n_chrom,
                         )
                     blups[:, ph] -= self._ltco_prs[ph]
+        if self.is_bt:
+            t0 = time.time()
+            self.bt_state = step2_bt.prep_chromosome(params, pd, blups, self.log)
+            self.bt_times["null_s"] += time.time() - t0
+            self.res = self.bt_state.res
+            return
         if params.blup_cov:
             # --prs-cov: project the PRS out by a per-trait LM fit instead
             # of the unit-slope offset (get_lm_resid, Pheno.cpp:1854)
@@ -318,9 +407,13 @@ class Step2Engine:
 
     def model_type(self) -> str:
         """HTP Model string (Data.cpp:2093-2102)."""
-        test = {0: "ADD", 1: "DOM", 2: "REC"}[self.params.test_type]
-        wgr = "" if self.params.skip_blups else "-WGR"
-        return test + wgr + "-LR"
+        p = self.params
+        test = {0: "ADD", 1: "DOM", 2: "REC"}[p.test_type]
+        wgr = "" if p.skip_blups else "-WGR"
+        if not self.is_bt:
+            return test + wgr + "-LR"
+        return test + wgr + ("-FIRTH" if p.firth else "-SPA" if p.use_spa
+                             else "-LOG")
 
     def _qt_post(self, stats, denum, scale_fac, flipped):
         """Shared QT tail: effect sizes + --mse-full + --t-test + logp
@@ -345,13 +438,13 @@ class Step2Engine:
         return bhat, se, chisq, logp
 
     def fused_ok(self) -> bool:
-        """Whether the fused scorer can run this QT analysis (the QT
+        """Whether the fused scorer can run this analysis (the QT and BT
         conditions of the JAX package's fused_ok, regenie_tpu/run_step2.py
         :777-827, without its backend test, so the default is the fused
         route on either device): BED or PGEN hardcalls, or BGEN planes
         (the ADD test, split output, no --htp: HTP and merged output want
         hardcall-threshold counts, nonlinear in dosages; and a file the
-        plane extractor reads), no --nocov-approx and no --mcc.
+        plane extractor reads); for QT no --nocov-approx and no --mcc.
         REGENIE_TPU_FUSED=0 sends every block down the dense route."""
         if os.environ.get(FUSED_ENV) == "0":
             return False
@@ -361,8 +454,10 @@ class Step2Engine:
         bgen_src = (gd._bgen is not None and params.test_type == 0
                     and not params.htp_out and params.split_by_pheno
                     and planes_readable(gd._bgen))
-        return (params.trait_mode == QT and (hardcall_src or bgen_src)
-                and not params.skip_cov_res and not params.mcc_test)
+        if not (hardcall_src or bgen_src):
+            return False
+        return self.is_bt or (params.trait_mode == QT and not params.skip_cov_res
+                              and not params.mcc_test)
 
     def fused_block(self, bsnps) -> bool:
         """Whether a block goes down the fused route (the JAX package's
@@ -375,16 +470,17 @@ class Step2Engine:
 
     def _fused_chrx_ok(self) -> bool:
         """Whether chrX non-PAR blocks ride the fused path, with the male
-        tail columns in the operand (the QT branch of the JAX package's
-        _fused_chrx_ok, regenie_tpu/run_step2.py:859-885): default dosage
-        compensation (males diploid-coded, scoring unchanged) and the
-        ADD test. The JAX package also needs no --af-cc and, on BGEN, no
-        --htp; the port rejects both before this point."""
+        tail columns in the operand (the QT and BT branches of the JAX
+        package's _fused_chrx_ok, regenie_tpu/run_step2.py:859-885):
+        default dosage compensation (males diploid-coded, scoring
+        unchanged), the ADD test and no --af-cc (case/control counts of
+        chrX stay on the dense route); for QT on BGEN no --htp (BT BGEN
+        HTP never takes the fused route)."""
         p = self.params
-        return (self.gd.sex is not None and bool(p.test_mode)
-                and not p.skip_dosage_comp and not p.af_cc
-                and p.test_type == 0
-                and (self.gd._bgen is None or not p.htp_out))
+        common = (self.gd.sex is not None and bool(p.test_mode)
+                  and not p.skip_dosage_comp and not p.af_cc
+                  and p.test_type == 0)
+        return common and (self.is_bt or self.gd._bgen is None or not p.htp_out)
 
     @staticmethod
     def _hemizygous_adjust(npb, S1h, SQh, SMh, usum_h, mcol, mm_sl,
@@ -468,6 +564,9 @@ class Step2Engine:
         zero and are patched on the device."""
         if self._fused_chrom == self.cur_chrom:
             return
+        if self.is_bt:
+            self._ensure_fused_bt()
+            return
         pd, params = self.pd, self.params
         is_bgen = self.gd._bgen is not None
         nb = (self._fused_nfile() + 3) // 4
@@ -537,6 +636,189 @@ class Step2Engine:
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
 
+    def _ensure_fused_bt(self):
+        """The BT fused operand of the chromosome (the BT branch of the JAX
+        package's _ensure_fused_consts, regenie_tpu/run_step2.py:1232-1305):
+        Wext = [Wcat (Pn*(Kmax+1)) | gsm^2 (Pn) | maskf (P) | case (P) |
+        ind (1)], with the chrX male tail [male | maskf*male (P) |
+        case*male (P)] whenever _fused_chrx_ok holds; the null refit
+        changes every column, so the whole operand is packed again a
+        chromosome. On BGEN with a kernel the squared-dosage products run
+        against Wq, the narrow operand of the columns from gsm^2 on."""
+        pd, params, gd = self.pd, self.params, self.gd
+        is_bgen = gd._bgen is not None
+        st = self.bt_state
+        P = params.n_pheno
+        fc = step2_bt.fused_consts(pd, st)
+        Pn = len(fc.cols)
+        Kp1 = fc.Kmax + 1 if Pn else 1
+        ncat = Pn * Kp1
+        ind = pd.ind_in_analysis
+        indf = ind.astype(np.float64)
+        case = ((pd.phenotypes_raw == 1) & pd.masked_indivs).astype(np.float64)
+        cols = ([fc.Wcat, fc.gsm2] if Pn else []) + [self.maskf, case,
+                                                    indf[:, None]]
+        Wext_f = self._scatter_file(np.concatenate(cols, axis=1))
+        has_male = self._fused_chrx_ok()
+        if has_male:
+            # hemizygous MAC / class counts from the male product columns,
+            # and the hemizygous HTP case counts from case*male
+            malez = self._scatter_file((gd.sex == 1).astype(np.float64) * indf)
+            maskf_f = Wext_f[:, ncat + Pn : ncat + Pn + P]
+            case_f = Wext_f[:, ncat + Pn + P : ncat + Pn + 2 * P]
+            Wext_f = np.concatenate(
+                [Wext_f, malez[:, None], maskf_f * malez[:, None],
+                 case_f * malez[:, None]], axis=1)
+        nb = (self._fused_nfile() + 3) // 4
+        if is_bgen:
+            Wp, usum = fsc.sample_pack(Wext_f, self.split, self.device,
+                                       self.op_dtype)
+        else:
+            Wp, usum = fsc.plane_pack(Wext_f, nb, self.split, self.device,
+                                      self.op_dtype)
+        icol = ncat + Pn + 2 * P
+        C_used = icol + 1 + ((2 * P + 1) if has_male else 0)
+        self._fused_bt = SimpleNamespace(
+            fc=fc, Wp=Wp, usum=usum, ncat=ncat, Pn=Pn, Kp1=Kp1, icol=icol,
+            sl_mask=slice(ncat + Pn, ncat + Pn + P),
+            sl_case=slice(ncat + Pn + P, ncat + Pn + 2 * P),
+            C_used=C_used, n_ind=float(indf.sum()), has_male=has_male,
+            case_n=case.sum(axis=0))
+        # --ref-first swaps the raw BED bytes' and BGEN planes' alleles in
+        # product space; PGEN names REF and ALT itself
+        if is_bgen:
+            Wq = None
+            if self.kernel and (self.split == "i8"
+                                or self.op_dtype == torch.float32):
+                Wq, _ = fsc.sample_pack(Wext_f[:, ncat:], self.split,
+                                        self.device, self.op_dtype)
+            self._fused_fn = fsc.make_bt_bgen_fn(
+                Wp, usum, fc.xwt if Pn else np.zeros((0, 0)), C_used, icol,
+                float(indf.sum()), ncat, Pn, Kp1, self.kernel,
+                bool(params.ref_first), Wq=Wq)
+        else:
+            self._fused_fn = fsc.make_bt_block_fn(
+                Wp, usum, fc.xwt if Pn else np.zeros((0, 0)), C_used, icol,
+                float(indf.sum()), ncat, Pn, Kp1, self.kernel,
+                params.test_type, bool(params.ref_first) and gd._bed is not None)
+        self._fused_nb = nb
+        self._fused_op_nbp = fsc.op_nbp(Wp)
+        self._fused_chrom = self.cur_chrom
+
+    def _fused_block_bt(self, raw, bsnps) -> Tuple[BlockResult, np.ndarray]:
+        """Fused BT pipeline (the JAX package's _fused_block_bt,
+        regenie_tpu/run_step2.py:1579-1752): the products against the BT
+        operand give the all-trait score num/denum, every per-variant
+        statistic (--af-cc and the HTP case/control genotype counts
+        included) and the flips, decided on the device; the rows past the
+        correction threshold are decoded again from the resident block
+        (FusedBTSource)."""
+        params, pd = self.params, self.pd
+        fb = self._fused_bt
+        B, P = len(bsnps), params.n_pheno
+        is_bgen = self.gd._bgen is not None
+        raw_t = self._fused_upload(raw)
+        outs = self._fused_fn(raw_t)
+        if is_bgen:
+            S1, SQ, SM, IL, flip_t, num, denum, S1_all = outs
+        else:
+            S1, SQ, SM, flip_t, num, denum, S1_all = outs
+            IL = None
+        # one device -> host copy of every host-side output (S1_all stays
+        # on the card for the correction rows)
+        fd = dict(s1=S1, sq=SQ, sm=SM, fl=flip_t, num=num, den=denum)
+        if IL is not None:
+            fd["il"] = IL
+        f = _fetch_packed(fd)
+        S1h, SQh, SMh = f["s1"], f["sq"], f["sm"]
+        flipped = f["fl"]
+
+        icol, msl, csl = fb.icol, fb.sl_mask, fb.sl_case
+        total1 = S1h[:, icol]
+        ns1 = fb.n_ind - SMh[:, icol]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            af1 = total1 / (2.0 * ns1)
+        mac1 = np.minimum(total1, 2.0 * ns1 - total1)
+        total_t = S1h[:, msl]
+        ns_t = pd.Neff[None, :] - SMh[:, msl]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            af_t = total_t / (2.0 * ns_t)
+        mac_t = np.minimum(total_t, 2.0 * ns_t - total_t)
+        n_aa1 = (SQh[:, icol] - total1) / 2.0
+        n_rr1 = ns1 - total1 + n_aa1
+        n1m_t = n1m_case = None
+        if fb.has_male:
+            non_par = self.non_par_flags(bsnps)
+            if non_par.any():
+                mac1, mac_t, n1m, n1m_t = self._hemizygous_adjust(
+                    non_par, S1h, SQh, SMh, fb.usum, icol + 1,
+                    slice(icol + 2, icol + 2 + P), total1, ns1, mac1,
+                    total_t, ns_t, mac_t,
+                    # hardcall class counts are nonlinear in dosages
+                    with_classes=not is_bgen)
+                if n1m is not None:
+                    n_aa1 = n_aa1 + n1m
+                    # case-side hemizygous class moves (case*male columns)
+                    cm_sl = slice(icol + 2 + P, icol + 2 + 2 * P)
+                    n1m_case = np.where(non_par[:, None],
+                                        2.0 * S1h[:, cm_sl] - SQh[:, cm_sl], 0.0)
+
+        source = FusedBTSource(self, raw_t, flip_t, f["num"], f["den"], S1_all)
+        mac_ignored, ignored_trait = self._mac_filters(params, bsnps, mac1, mac_t, B)
+        if params.test_type == 2 and params.min_homs > 0:
+            mac_ignored = mac_ignored | self._rec_min_homs(
+                S1h, SQh, SMh, icol, total1, ns1)
+        self.n_ignored += int(mac_ignored.sum())
+        ignored = mac_ignored
+        info_t = None
+        if is_bgen:
+            info_t = self._fused_info_t(f["il"], SQh, msl, ns_t, af_t)
+            if params.set_min_info:
+                ignored_trait = ignored_trait | (info_t < params.min_info)
+
+        bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_bt.score_block(
+            params, pd, self.bt_state, source, flipped, ignored, ignored_trait,
+            self.bt_times)
+        self.n_corrected += ncorr
+        self.n_failed += nfail
+        result = BlockResult(
+            bhat=bhat, se=se, chisq=chisq, logp=logp, test_fail=test_fail,
+            ignored=ignored, ignored_trait=ignored_trait, af_t=af_t, ns_t=ns_t,
+            scale_fac=None, mac_t=mac_t, af1=af1,
+            ns1=np.round(ns1).astype(np.int64), info_t=info_t)
+        if not is_bgen:
+            result.n_rr = np.round(n_rr1).astype(np.int64)
+            result.n_aa = np.round(n_aa1).astype(np.int64)
+
+        # case-side raw products (before the flip, as update_af_cc and
+        # compute_genocounts read G_raw)
+        tot_case = S1h[:, csl]
+        ns_case = fb.case_n[None, :] - SMh[:, csl]
+        if params.af_cc:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                result.af_case = tot_case / (2.0 * ns_case)
+                result.af_control = (total_t - tot_case) / (2.0 * (ns_t - ns_case))
+            result.ns_case = np.round(ns_case).astype(np.int64)
+            result.ns_control = np.round(ns_t - ns_case).astype(np.int64)
+        if params.htp_out:
+            # class counts: H = (SQ - S1)/2, E = 2*S1 - SQ per column set
+            a_t = (SQh[:, msl] - total_t) / 2.0
+            het_t = total_t - 2.0 * a_t
+            a_case = (SQh[:, csl] - tot_case) / 2.0
+            het_case = tot_case - 2.0 * a_case
+            if n1m_t is not None:
+                # chrX non-PAR males with g >= 1 count as hom
+                # (update_genocounts hemizygous branch, Geno.cpp:2922)
+                a_t, het_t = a_t + n1m_t, het_t - n1m_t
+            if n1m_case is not None:
+                a_case, het_case = a_case + n1m_case, het_case - n1m_case
+            rr_t = ns_t - het_t - a_t
+            rr_case = ns_case - het_case - a_case
+            gc = np.stack([rr_case, het_case, a_case, rr_t - rr_case,
+                           het_t - het_case, a_t - a_case], axis=1)
+            result.genocounts = np.round(gc).astype(np.int64)
+        return result, flipped
+
     @staticmethod
     def _mac_filters(params, bsnps, mac1, mac_t, B):
         """Shared MAC gating (compute_mac, Geno.cpp:3100-3107)."""
@@ -598,6 +880,8 @@ class Step2Engine:
         of chrX non-PAR rows."""
         params, pd = self.params, self.pd
         self._ensure_fused_consts()
+        if self.is_bt:
+            return self._fused_block_bt(raw, bsnps)
         consts = self._fused_consts
         B, P = len(bsnps), consts.P
         is_bgen = self.gd._bgen is not None
@@ -712,7 +996,7 @@ class Step2Engine:
         if d.chrom != self.cur_chrom:
             d.res = put(self.res)
             d.covt_res = put(pd.new_cov.T @ self.res)
-            if not (params.skip_cov_res or self.strict):
+            if not (params.skip_cov_res or self.strict or self.is_bt):
                 K, P = d.cov.shape[1], d.res.shape[1]
                 if d.W is None:
                     CM, d.Mmat, _ = m2.onepass_constants(d.cov, d.maskf, d.res)
@@ -767,10 +1051,11 @@ class Step2Engine:
 
     def compute_genocounts(self, G_raw, bsnps=None) -> np.ndarray:
         """[B, 6, P] genotype counts of a raw block on the device
-        (compute_genocounts, Geno.cpp:2898): rows 0-2 all samples' RR/RA/
-        AA per trait (QT), rows 3-5 zero. Non-PAR chrX males are
-        hemizygous: g >= 1 counts as hom (update_genocounts,
-        Geno.cpp:2922), unless --skip-dosage-comp halved them."""
+        (compute_genocounts, Geno.cpp:2898): rows 0-2 the RR/RA/AA counts
+        per trait of all samples (QT) or of the cases (BT), rows 3-5 zero
+        (QT) or the controls' (BT). Non-PAR chrX males are hemizygous:
+        g >= 1 counts as hom (update_genocounts, Geno.cpp:2922), unless
+        --skip-dosage-comp halved them."""
         params, d = self.params, self._ensure_dense_consts()
         G = G_raw.to(torch.float64)
         valid = (G != MISSING) & d.ind[None, :]
@@ -782,20 +1067,41 @@ class Step2Engine:
             hi = torch.where(hemi, 1.0, 1.5)
         hc = ((G < lo) & valid, (G >= lo) & (G < hi) & valid, (G >= hi) & valid)
         out = np.zeros((G.shape[0], 6, params.n_pheno))
-        for k, h in enumerate(hc):
-            out[:, k, :] = (h.to(torch.float64) @ d.maskf).cpu().numpy()
+        if self.is_bt:
+            pd = self.pd
+            case = (pd.phenotypes_raw == 1) & pd.masked_indivs
+            ctrl = (pd.phenotypes_raw == 0) & pd.masked_indivs
+            sides = [torch.as_tensor(c.astype(np.float64), device=self.device)
+                     for c in (case, ctrl)]
+        else:
+            sides = [d.maskf]
+        for side, m in enumerate(sides):
+            for k, h in enumerate(hc):
+                out[:, 3 * side + k, :] = (h.to(torch.float64) @ m).cpu().numpy()
         return out.astype(np.int64)
 
     def test_prepared_block(self, G, af_t, ns_t, mac_t, ignored, ignored_trait,
                             flipped, info_t=None) -> BlockResult:
         """Score a finalized [B, N] float64 block on the device (the QT
-        branch of the JAX package's test_prepared_block, without the mesh,
-        MCC and interaction): --nocov-approx scores G unadjusted with
-        scale 1; otherwise the one-pass scorer, or in strict mode the
-        residualize-then-score pair."""
+        and BT branches of the JAX package's test_prepared_block, without
+        the mesh, MCC and interaction): for QT, --nocov-approx scores G
+        unadjusted with scale 1; otherwise the one-pass scorer, or in
+        strict mode the residualize-then-score pair. BT: the all-trait
+        score test with its corrections (step2_bt.score_block)."""
         params, d = self.params, self._ensure_dense_consts()
         B = G.shape[0]
         self.n_ignored += int(ignored.sum())
+        if self.is_bt:
+            bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_bt.score_block(
+                params, self.pd, self.bt_state, step2_bt.DenseGSource(G),
+                flipped, ignored, ignored_trait, self.bt_times)
+            self.n_corrected += ncorr
+            self.n_failed += nfail
+            return BlockResult(
+                bhat=bhat, se=se, chisq=chisq, logp=logp, test_fail=test_fail,
+                ignored=ignored, ignored_trait=ignored_trait, af_t=af_t,
+                ns_t=ns_t, scale_fac=None, mac_t=mac_t, af1=None, ns1=None,
+                info_t=info_t)
         if params.skip_cov_res:
             # --nocov-approx: G unadjusted, scale_fac = 1 (residualize_geno
             # skipped, Data.cpp:2513)
@@ -867,9 +1173,14 @@ class Step2Engine:
         if info_t is not None and params.set_min_info:
             ignored_trait = ignored_trait | (info_t < params.min_info)
 
-        flipped = np.zeros(B, dtype=bool)  # QT never flips
+        # BT additive tests flip to the minor allele (with_flip,
+        # Data.cpp:2108); QT never flips
+        if self.is_bt and params.test_type == 0:
+            flipped = sb["total"] / sb["ns"] > 1.0
+        else:
+            flipped = np.zeros(B, dtype=bool)
         G = finalize_block_step2(
-            G_raw, d.ind, torch.zeros(B, dtype=torch.bool, device=self.device))
+            G_raw, d.ind, torch.as_tensor(flipped, device=self.device))
         if params.test_type == 1:
             G = torch.where(G == 2.0, 1.0, G)
         elif params.test_type == 2:
@@ -883,6 +1194,24 @@ class Step2Engine:
             G, af, sb["ns_t"], sb["mac"], ignored, ignored_trait, flipped, info_t)
         result.af1 = sb["af1"]
         result.ns1 = sb["ns"].astype(np.int64)
+        if params.af_cc:
+            # case/control AF and counts (update_af_cc Geno.cpp:3069,
+            # compute_aaf_info :3119-3126), on G_raw before the flip
+            Gf = G_raw.to(torch.float64)
+            valid = ((Gf != MISSING) & d.ind[None, :]).to(torch.float64)
+            Gv = torch.where(Gf == MISSING, 0.0, Gf) * d.indf[None, :]
+            casef = torch.as_tensor(
+                ((pd.phenotypes_raw == 1) & pd.masked_indivs).astype(np.float64),
+                device=self.device)
+            tot_case = (Gv @ casef).cpu().numpy()
+            ns_case = (valid @ casef).cpu().numpy()
+            tot_t = (Gv @ d.maskf).cpu().numpy()
+            ns_t = sb["ns_t"]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                result.af_case = tot_case / (2 * ns_case)
+                result.af_control = (tot_t - tot_case) / (2 * (ns_t - ns_case))
+            result.ns_case = ns_case.astype(np.int64)
+            result.ns_control = (ns_t - ns_case).astype(np.int64)
         result.n_rr = sb["n_rr"].astype(np.int64)
         result.n_aa = sb["n_aa"].astype(np.int64)
         if params.htp_out:
@@ -978,6 +1307,8 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                 n=r.ns_t[:, ph],
                 beta=r.bhat[:, ph], se=r.se[:, ph], chisq=r.chisq[:, ph],
                 logp=r.logp[:, ph], test_fail=r.test_fail[:, ph],
+                af_case=_col(r.af_case, ph), af_control=_col(r.af_control, ph),
+                ns_case=_col(r.ns_case, ph), ns_control=_col(r.ns_control, ph),
             ))
         return
     for b in range(B):
@@ -986,13 +1317,21 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
         for ph in range(params.n_pheno):
             if not pd.pheno_pass[ph] or r.ignored_trait[b, ph] or writers[ph] is None:
                 continue
+            cc = {} if r.af_case is None else dict(
+                af_case=r.af_case[b, ph], af_control=r.af_control[b, ph],
+                ns_case=int(r.ns_case[b, ph]), ns_control=int(r.ns_control[b, ph]))
             writers[ph].write(sumstat_line_single(
                 params, bsnps[b], test_name, r.af_t[b, ph],
                 r.info_t[b, ph] if r.info_t is not None else 1.0,
                 int(r.ns_t[b, ph]), r.bhat[b, ph], r.se[b, ph],
                 r.chisq[b, ph], r.logp[b, ph],
-                test_pass=not r.test_fail[b, ph],
+                test_pass=not r.test_fail[b, ph], **cc,
             ))
+
+
+def _col(x, ph):
+    """Column ph of an optional [B, P] array."""
+    return None if x is None else x[:, ph]
 
 
 def _write_block_all(params, pd, fh, bsnps, r: BlockResult, test_name):
@@ -1070,10 +1409,12 @@ def open_engine(params: Params, log=print, device=None):
     return eng, make_blocks(gd, params.block_size)
 
 
-def run_step2(params: Params, log=print, device=None) -> None:
-    """Step 2 QT on a BED, PGEN or BGEN file: one output file per trait,
-    or one merged file (--no-split). `device` as in
-    utils.device.resolve_device (CUDA unless the CPU is asked for)."""
+def run_step2(params: Params, log=print, device=None) -> Step2Engine:
+    """Step 2 (QT or BT) on a BED, PGEN or BGEN file: one output file per
+    trait, or one merged file (--no-split). `device` as in
+    utils.device.resolve_device (CUDA unless the CPU is asked for).
+    Returns the engine, its output files closed and its genotype source
+    open (the caller may score blocks again and closes it)."""
     eng, blocks = open_engine(params, log, device)
     device, pd = eng.device, eng.pd
     if params.debug:
@@ -1210,7 +1551,15 @@ def run_step2(params: Params, log=print, device=None) -> None:
     log("\nAssociation results stored separately for each trait in files:")
     for p_ in out_paths:
         log(f"* [{p_}]")
+    if eng.is_bt and (params.firth or params.use_spa):
+        log(f"Number of tests with {'Firth' if params.firth else 'SPA'} "
+            f"correction : {eng.n_corrected}")
+        log(f"Number of failed tests : ({eng.n_failed}/{eng.n_corrected})")
     log(f"Number of ignored tests due to low MAC : {eng.n_ignored * params.n_pheno}")
+    if eng.is_bt:
+        log(f" * null model fits: {eng.bt_times['null_s']:.3f}s; corrections: "
+            f"{eng.bt_times['corr_s']:.3f}s "
+            + ("on the device" if step2_bt.cdev.enabled(device) else "on the host"))
     log(f" * block loop: {len(todo)} blocks, "
         f"{sum(len(b) for _, b in todo)} variants in {dt:.3f}s")
     log(f" * dense route: {n_dense} of {len(todo)} blocks")
@@ -1219,3 +1568,4 @@ def run_step2(params: Params, log=print, device=None) -> None:
             log(f" * {what}: {len(secs)} in {sum(secs):.3f}s (mean "
                 f"{sum(secs) / len(secs):.3f}s, max {max(secs):.3f}s)")
     log(f" * done ({dt:.1f}s)")
+    return eng

@@ -1,5 +1,5 @@
 """Host-side scalar statistics: p-value transforms (the port's copy of
-regenie_tpu/utils/stats.py, trimmed to what the QT steps call).
+regenie_tpu/utils/stats.py, trimmed to what the port calls).
 
 Mirrors the reference's Regenie.cpp helpers (get_logp :1843, with the
 asymptotic tail expansion for chisq p-values that underflow f64).
@@ -34,6 +34,22 @@ def chisq_neglog10(tstat):
             np.log10(np.maximum(pv, 5e-324)),
         )
     out[ok] = -logp
+    return out
+
+
+def neglog10_to_chisq(logp):
+    """-log10 p -> 1-df chisq stat (get_chisq_stat_pv, Regenie.cpp:1892)."""
+    logp = np.asarray(logp, dtype=np.float64)
+    pv = np.power(10.0, -logp)
+    small = pv < 5e-324 * 1e10
+    out = np.empty_like(logp)
+    out[~small] = chi2.isf(np.maximum(pv[~small], 5e-324), df=1)
+    # asymptotic inversion for extreme logp: T ~ 2 ln10 * logp - ln(2 pi T) ...
+    if np.any(small):
+        T = 2 * np.log(10.0) * logp[small]
+        for _ in range(10):
+            T = 2 * np.log(10.0) * logp[small] + 2 * np.log(2.0) - np.log(2 * np.pi * T)
+        out[small] = T
     return out
 
 

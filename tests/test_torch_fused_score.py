@@ -462,3 +462,68 @@ def test_fused_i8_kernel_matches_plain_on_cuda(cuda):
     with pytest.raises(TypeError, match="no kernel takes a torch.float64"):
         tfs.fused_products(raw, torch.zeros((4, nbp, 128), dtype=torch.float64,
                                             device=cuda))
+
+
+def _quantize_columns(rng):
+    """Columns that probe the int8 quantizer: random spans over many
+    octaves, an all-zero column, half-way ties at every limb (k + 0.5
+    steps of the scale), and column maxima at 127 * 2^k and one ulp
+    either side of it."""
+    R = 700
+    W = rng.normal(size=(R, 64)) * np.exp2(rng.integers(-40, 40, 64))[None, :]
+    W[:, 0] = 0.0
+    k = np.arange(R) % 8
+    W[:, 1] = (rng.integers(-126, 126, R) + 0.5) * 2.0**-3  # ties at limb 0
+    W[0, 1] = 127 * 2.0**-3
+    W[:, 2] = (rng.integers(-60, 60, R) + 0.5 / 128) * 2.0 ** (k - 4)  # limb 1
+    W[0, 2] = 127 * 2.0**3
+    for c, e in ((3, 5), (4, -7), (5, 0)):
+        W[:, c] = rng.uniform(-1, 1, R) * 127 * 2.0**e
+        W[1, c] = 127 * 2.0**e
+    W[1, 4] = np.nextafter(127 * 2.0**-7, np.inf)
+    W[1, 5] = np.nextafter(127.0, 0.0)
+    W[:, 6] = -W[:, 3]
+    return W
+
+
+def test_i8_quantize_bit_for_bit():
+    """i8_quantize (the operand builds' quantizer, which runs on the
+    card) gives _i8_quantize_np's limbs and scales bit for bit and the
+    exact column sums of the quantized values, on random columns, zero
+    columns, half-way ties and maxima at and around 127 * 2^k; and
+    plane_pack / sample_pack build the same operand either way."""
+    rng = np.random.default_rng(30)
+    W = _quantize_columns(rng)
+    limbs, scale, usum = tfs.i8_quantize(torch.from_numpy(W))
+    l_np, s_np, q_np = tfs._i8_quantize_np(W)
+    np.testing.assert_array_equal(limbs.numpy(), l_np)
+    np.testing.assert_array_equal(scale.numpy(), s_np)
+    np.testing.assert_array_equal(usum, q_np.sum(axis=0))
+    Wext = W[:, :50]
+    op, us = tfs.plane_pack(Wext, 175, "i8")
+    Wp = np.zeros((4, 256, 128))
+    Wp[..., :50] = tfs._plane_order(Wext, 175, 256)
+    l_np, s_np, q_np = tfs._i8_quantize_np(Wp)
+    np.testing.assert_array_equal(op.limbs.numpy(), l_np)
+    np.testing.assert_array_equal(op.scale.numpy(), s_np)
+    np.testing.assert_array_equal(us, q_np.sum(axis=(0, 1)))
+    op, us = tfs.sample_pack(Wext, "i8")
+    Ws = np.zeros((768, 128))
+    Ws[:700, :50] = Wext
+    l_np, s_np, q_np = tfs._i8_quantize_np(Ws)
+    np.testing.assert_array_equal(op.limbs.numpy(), l_np)
+    np.testing.assert_array_equal(op.scale.numpy(), s_np)
+    np.testing.assert_array_equal(us, q_np.sum(axis=0))
+
+
+@pytest.mark.cuda
+def test_i8_quantize_on_cuda(cuda):
+    """The same quantization on the card: limbs and scales bit for bit
+    the host's, the column sums exact."""
+    rng = np.random.default_rng(31)
+    W = _quantize_columns(rng)
+    limbs, scale, usum = tfs.i8_quantize(torch.from_numpy(W).to(cuda))
+    l_np, s_np, q_np = tfs._i8_quantize_np(W)
+    np.testing.assert_array_equal(limbs.cpu().numpy(), l_np)
+    np.testing.assert_array_equal(scale.cpu().numpy(), s_np)
+    np.testing.assert_array_equal(usum, q_np.sum(axis=0))

@@ -142,6 +142,19 @@ def test_cli_matches_jax(dataset, scenario, monkeypatch):
     print(f"{scenario}: byte-identical files = {sum(identical)} of {len(identical)}")
 
 
+@pytest.mark.parametrize("flag", ["--no-split", "--write-samples"])
+def test_step2_only_flags_run(dataset, flag, monkeypatch):
+    """--no-split and --write-samples concern Step 2 only: Step 1 runs
+    with either and writes the JAX package's .loco files byte for byte."""
+    d, prefix = dataset
+    jx, pt = f"{d}/jax_flag{flag}", f"{d}/pt_flag{flag}"
+    _jax(_common(d, prefix) + [flag, "--out", jx], monkeypatch)
+    _port(_common(d, prefix) + [flag, "--out", pt], monkeypatch)
+    for f in _loco_files(pt):
+        assert open(f, "rb").read() == open(f.replace(pt, jx), "rb").read(), f
+    _check_pred_list(pt, ["Y1", "Y2", "Y3"])
+
+
 @pytest.mark.parametrize("mode", ["kfold", "loocv"])
 def test_split_l0_protocol(dataset, mode, monkeypatch, tmp_path):
     """--split-l0 / --run-l0 / --run-l1: the master file and .snplist files

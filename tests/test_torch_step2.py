@@ -113,6 +113,9 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.io.bgen, regenie_tpu_torch.io.pgen, "
         "regenie_tpu_torch.io.native, regenie_tpu_torch.io.geno, "
         "regenie_tpu_torch.models.step2, regenie_tpu_torch.prep, "
+        "regenie_tpu_torch.models.step2_bt, regenie_tpu_torch.models.glm, "
+        "regenie_tpu_torch.models.firth, regenie_tpu_torch.models.spa, "
+        "regenie_tpu_torch.models.corrections_device, "
         "regenie_tpu_torch.scripts.profile_fused, "
         "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
@@ -187,16 +190,17 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # Step 1 runs on BED, PGEN and BGEN QT since their slices; these
-    # Step-1 modes still raise
-    ["--step", "1", "--bt"], ["--bt"], ["--t2e", "--phenoColList", "Y1",
-                                "--eventColList", "Y2"],
+    # Step 1 runs on BED, PGEN and BGEN QT since their slices, and Step 2
+    # on binary traits with SPA or approximate Firth; these modes still
+    # raise
+    ["--step", "1", "--bt"], ["--bt", "--firth"], ["--t2e", "--phenoColList", "Y1",
+                                                   "--eventColList", "Y2"],
     ["--step", "1", "--gz"], ["--interaction", "C1"], ["--mcc"],
     ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
     ["--ct"], ["--compute-corr"], ["--step", "1", "--debug"],
-    ["--step", "1", "--no-split"],
+    ["--bt", "--write-null-firth", "--firth", "--approx"],
     # BED and BGEN runs of modes no slice has ported yet
-    ["chrx", "--multiphen", "--strict"], ["chrx", "--step", "1", "--write-samples"],
+    ["chrx", "--multiphen", "--strict"], ["bgen", "--ct"],
     ["bgen", "--step", "1", "--debug"],
     ["bgen", "--mcc"], ["bgen", "--step", "1", "--gz"],
     ["bgen", "--multiphen", "--strict"],
