@@ -65,9 +65,12 @@ Phases, each of which must pass:
    equal, the int8 products' num, denum and statistics against the
    plain ones, the threshold rows (a statistic on the two sides of the
    correction threshold on the two routes) counted and printed, every
-   other LOG10P within 1e-5, both routes correcting with SPA; and the
+   other LOG10P within 1e-5, both routes correcting with SPA; the
    card's Firth and SPA against the host twins on one trait's corrected
-   rows (flags equal, rtol 1e-6 and 1e-5).
+   rows (flags equal, rtol 1e-6 and 1e-5); and exact Firth on the card
+   (the batched float64 solver) for the rows past the threshold of two
+   traits (at least 64), timed per row, 2 rows of each against the host
+   twin: flags equal, LRT within rel 1e-8, |dLOG10P| within 1e-5.
 4. BGEN slice: the same on a synthetic 8-bit zlib BGEN at that shape
    (imputed-like probabilities, 1% missing; M = 2 blocks), through
    --bgen/--sample: bgen_i8 (and with REGENIE_TPU_I8=0 bgen_f32)
@@ -106,6 +109,17 @@ Phases, each of which must pass:
    used), its W held against the same functions in float64 on the CPU
    (max |dW| <= 1e-8), and level1_linear_kfold timed for one trait at a
    real depth (F = 2,500, 8 GB of synthetic predictions).
+5a. Step-1 BT slice: on the Step-1 slice's own BED (its QT LOCO files
+   removed), a binary-trait table of the writer's traits (5-30%
+   prevalence) and the port's Step-1 CLI with --bt at the same width
+   (K-fold, J = T = 5): no hand-written kernel may launch, level 0 on
+   cuda, the 50 .loco files well formed; printed: the null fits', level
+   0's, level 1's and the LOCO files' times. Then the penalized logistic
+   level 1 of one trait at a real depth (F = 2,500, K-fold, N = 400,000,
+   8 GB of predictions drawn on the card) timed per ridge parameter and
+   per Newton iteration, and the same function at N = 20,000, F = 250 on
+   the card against the CPU in float64 (the same ridge parameter,
+   predictions within 1e-9 of their largest magnitude).
 5b. PGEN chrX slice: a synthetic PLINK2 PGEN at that width (storage
    mode 0x10; a quarter of the records LD-compressed difflists, half of
    them inverted; half the samples male in the .psam) of 2 blocks, one on
@@ -134,12 +148,19 @@ Phases, each of which must pass:
    REGENIE_TPU_I8=0), a PGEN-dosages --firth --approx run (dense, no
    kernel) and a chrX BED --firth --approx --af-cc run (non-PAR blocks
    dense); every output field meets the same bar (a binary trait's HTP
-   odds ratios on the log scale). Then
+   odds ratios on the log scale), and a BED --bt --firth --approx
+   --write-null-firth run (its .firth files within one unit of the sixth
+   significant digit). Then
    the two-step workflow on the BED dataset (K-fold and --loocv), on the
    PGEN (K-fold) and on the BGEN (K-fold, Step 2 with --force-ltco 2),
    on the card and on the CPU: Step 1, and Step 2 with --pred on that
    run's own _pred.list; every .loco value within one unit of its sixth
-   significant digit, every Step-2 field within its bar.
+   significant digit, every Step-2 field within its bar. Binary and count
+   traits the same way: Step 1 --bt --write-null-firth (LOOCV, forced
+   below 5,000 samples) then exact Firth with --use-null-firth on the
+   BED; Step 1 --bt K-fold at N = 6,000 on a BED of its own; --ct on the
+   BED and on the BGEN, whose Step 2 on the card must launch fused_i8 /
+   bgen_i8 once per block and no other kernel.
 
 After each phase a line gives the seconds since the start. The last
 lines of standard output are a JSON line with every kernel's numbers,
@@ -348,7 +369,8 @@ def _difflist(ids, codes, N):
 
 def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                        na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128,
-                       positions=None, ld_every=4, ld_diff=0.005, dosage=0.0):
+                       positions=None, ld_every=4, ld_diff=0.005, dosage=0.0,
+                       bed_prefix=None):
     """Synthetic PLINK2 .pgen/.pvar/.psam (prefix d/geno; storage mode
     0x10, 4-bit vrtypes, 3-byte record lengths) with the genotypes of
     write_dataset's generator, and its phenotype, covariate and remove
@@ -361,7 +383,9 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     dosage track (vrtype bit 0x40; 8-bit vrtypes): the hardcall x 16384,
     moved by up to 4095 toward 1 on a tenth of the samples, 65535 where
     missing. The .psam has a SEX column (samples of even index male), the
-    .pvar REF A and ALT C. Returns the prefix."""
+    .pvar REF A and ALT C. With bed_prefix, the same hardcalls are also
+    written as a PLINK BED there (.bed/.bim/.fam, write_dataset's allele
+    coding; the dosage tracks left out). Returns the prefix."""
     rng = np.random.default_rng(seed)
     M = sum(n for _, n in chroms)
     beta, X, Y, chunks = _hardcall_blocks(rng, N, chroms, P, n_cov, miss,
@@ -377,7 +401,11 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     vrtypes = np.zeros(M, np.uint8)
     lens = np.zeros(M, np.int64)
     prefix = os.path.join(d, "geno")
-    with open(prefix + ".pgen", "wb") as fh:
+    bed = contextlib.nullcontext(None) if bed_prefix is None else open(
+        bed_prefix + ".bed", "wb")
+    with open(prefix + ".pgen", "wb") as fh, bed as bfh:
+        if bfh is not None:
+            bfh.write(b"\x6c\x1b\x01")
         fh.write(b"\x6c\x1b\x10" + np.array([M, N], "<u4").tobytes()
                  + (b"\x06" if wide else b"\x02"))
         fh.write(bytes(index))
@@ -416,6 +444,10 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                 lens[s + j] = len(rec)
                 fh.write(rec)
             _add_effects(Y, beta, s, to_bed[pg])
+            if bfh is not None:
+                b = np.pad(to_bed[pg], ((0, 0), (0, 4 * nb - N))).reshape(-1, nb, 4)
+                bfh.write((b[..., 0] | (b[..., 1] << 2) | (b[..., 2] << 4)
+                           | (b[..., 3] << 6)).astype(np.uint8).tobytes())
         fh.seek(12)
         start = 12 + index
         for b in range(vblocks):
@@ -439,6 +471,16 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     with open(prefix + ".psam", "w") as fh:
         fh.write("#FID\tIID\tSEX\n")
         fh.write("".join(f"F{i}\tI{i}\t{1 + i % 2}\n" for i in range(N)))
+    if bed_prefix is not None:
+        with open(bed_prefix + ".bim", "w") as fh:
+            v = 0
+            for chrom, pos in _positions(chroms, positions,
+                                         lambda i, n: 1000 + 10 * np.arange(n)):
+                fh.write("".join(f"{chrom} v{v + j} 0 {p} A C\n"
+                                 for j, p in enumerate(pos)))
+                v += len(pos)
+        with open(bed_prefix + ".fam", "w") as fh:
+            fh.write("".join(f"F{i} I{i} 0 0 {1 + i % 2} -9\n" for i in range(N)))
     _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove)
     return prefix
 
@@ -531,6 +573,17 @@ def write_bt_table(path, Y, seed, prev=(0.05, 0.3), n_inc=0, na_rate=0.05,
     return Yb
 
 
+def write_ct_table(path, Y, seed):
+    """A count-trait table at `path` (Y1..YP for samples F{i} I{i}):
+    Poisson counts whose log-rate is 0.3 x each trait of the quantitative
+    traits Y [N, P] standardized; a NaN of Y stays NA."""
+    rng = np.random.default_rng(seed)
+    Z = np.nan_to_num((Y - np.nanmean(Y, 0)) / np.nanstd(Y, 0))
+    C = rng.poisson(np.exp(0.3 * Z)).astype(np.float64)
+    _print_tables(((path, [f"Y{p + 1}" for p in range(Y.shape[1])],
+                    np.where(np.isnan(Y), np.nan, C)),))
+
+
 def _bgen_probs(k, g, j, gmiss, N, bits, layout, phased):
     """The genotype block bodies [c, ...] uint8 of write_bgen_dataset's
     other encodings, from its 8-bit pairs k [c, N, 2] (first-allele
@@ -619,6 +672,36 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
         fh.write(struct.pack("<I", compression | (layout << 2) | (1 << 31)))
         fh.write(struct.pack("<II", lsi, N) + b"".join(
             struct.pack("<H", len(s)) + s.encode() for s in ids))
+
+        def emit(s, width, comp):
+            """Write the records of the chunk from variant s (bodies of
+            `width` bytes; comp: each body, or the future of its
+            compression)."""
+            for i, z in enumerate(comp):
+                z = z if isinstance(z, bytes) else z.result()
+                v = s + i
+                rsid = f"v{v}".encode()
+                ch = str(chrom_of[v]).encode()
+                if layout == 1:
+                    rec = struct.pack("<I", N) + struct.pack("<H", len(rsid)) + rsid
+                else:
+                    rec = struct.pack("<H", len(rsid)) + rsid
+                rec += (struct.pack("<H", len(rsid)) + rsid
+                        + struct.pack("<H", len(ch)) + ch
+                        + struct.pack("<I", int(pos_of[v]))
+                        + (b"" if layout == 1 else struct.pack("<H", 2))
+                        + struct.pack("<I", 1) + b"A" + struct.pack("<I", 1) + b"C")
+                if compression == 0 and layout == 1:
+                    rec += z  # 6N bytes, no size field
+                elif compression == 0:
+                    rec += struct.pack("<I", len(z)) + z
+                elif layout == 1:
+                    rec += struct.pack("<I", len(z)) + z
+                else:
+                    rec += struct.pack("<II", len(z) + 4, width) + z
+                fh.write(rec)
+
+        pending = None
         for s in range(0, M, chunk):
             a = af[s : s + chunk, None]
             c = len(a)
@@ -647,32 +730,18 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
                 dc = (dose[causal] if dose is not None else
                       (2.0 * k[causal, :, 0] + k[causal, :, 1]) / 255.0)
                 Y += np.where(gmiss[causal], 0.0, dc).T @ beta[s + causal]
+            # the chunk's records compress in the pool while the next chunk
+            # is drawn; the previous chunk's are written meanwhile
             if compression == 0:
-                comp = (row.tobytes() for row in body)
+                comp = [row.tobytes() for row in body]
             else:
-                comp = pool.map(lambda row: compress(row.tobytes()), body)
-            for j, z in enumerate(comp):
-                v = s + j
-                rsid = f"v{v}".encode()
-                ch = str(chrom_of[v]).encode()
-                if layout == 1:
-                    rec = struct.pack("<I", N) + struct.pack("<H", len(rsid)) + rsid
-                else:
-                    rec = struct.pack("<H", len(rsid)) + rsid
-                rec += (struct.pack("<H", len(rsid)) + rsid
-                        + struct.pack("<H", len(ch)) + ch
-                        + struct.pack("<I", int(pos_of[v]))
-                        + (b"" if layout == 1 else struct.pack("<H", 2))
-                        + struct.pack("<I", 1) + b"A" + struct.pack("<I", 1) + b"C")
-                if compression == 0 and layout == 1:
-                    rec += z  # 6N bytes, no size field
-                elif compression == 0:
-                    rec += struct.pack("<I", len(z)) + z
-                elif layout == 1:
-                    rec += struct.pack("<I", len(z)) + z
-                else:
-                    rec += struct.pack("<II", len(z) + 4, body.shape[1]) + z
-                fh.write(rec)
+                comp = [pool.submit(lambda row: compress(row.tobytes()), row)
+                        for row in body]
+            if pending is not None:
+                emit(*pending)
+            pending = (s, body.shape[1], comp)
+        if pending is not None:
+            emit(*pending)
     with open(os.path.join(d, "geno.sample"), "w") as fh:
         fh.write("ID_1 ID_2 missing sex\n0 0 0 D\n")
         fh.write("".join(f"F{i} I{i} 0 {1 + i % 2}\n" for i in range(N)))
@@ -2206,6 +2275,65 @@ def _bt_twins(eng, x, outs, rows_cap=4, traits=1):
         raise AssertionError("block 1 has no row past the correction threshold")
 
 
+def _exact_firth_check(eng, x, outs, traits=2, rows_min=64, host_rows=2):
+    """Exact Firth on the card (step2_bt.exact_firth_dev: the batched
+    float64 solver of corrections_device, in groups sized to the free
+    memory) on block 1's rows past the threshold of the first `traits`
+    traits with such rows (at least `rows_min` rows together), timed per
+    row; then `host_rows` rows of each trait through the host twin
+    (step2_bt._exact_firth_snp, numpy float64): the same convergence
+    flags, LRT within rel 1e-8 and |dLOG10P| within 1e-5."""
+    import torch
+
+    from regenie_tpu_torch.models import step2_bt
+    from regenie_tpu_torch.run_step2 import FusedBTSource
+    from regenie_tpu_torch.utils.stats import chisq_neglog10
+
+    _, _, _, flip, num, den, S1cat = outs
+    st, pd, params = eng.bt_state, eng.pd, eng.params
+    fc = step2_bt.fused_consts(pd, st)
+    z = math.sqrt(step2_bt.chisq_thr(params.alpha_pvalue))
+    src = FusedBTSource(eng, x, flip, num, den, S1cat)
+    stats = (num / torch.sqrt(torch.clamp(den, min=0))).cpu().numpy()
+    picked = [(ph, np.flatnonzero(np.abs(stats[:, fc.j_of[ph]]) > z)) for ph in fc.cols]
+    picked = [(ph, idx) for ph, idx in picked if len(idx)][:traits]
+    n_rows = sum(len(idx) for _, idx in picked)
+    if len(picked) < traits or n_rows < rows_min:
+        raise AssertionError(f"block 1 has {n_rows} rows past the threshold in "
+                             f"{len(picked)} traits; the exact-Firth check needs "
+                             f"{rows_min} in {traits}")
+    for ph, idx in picked:
+        G = src.rows_device(torch.as_tensor(idx, device=x.device))
+        _sync(x.device)
+        t0 = time.time()
+        ok, beta, se, lrt = step2_bt.exact_firth_dev(params, pd, st, ph, G)
+        t_card = time.time() - t0
+        y = pd.phenotypes_raw[:, ph]
+        mask = pd.masked_indivs[:, ph]
+        offset = st.blups[:, ph] * mask
+        Gh = G[:host_rows].cpu().numpy()
+        t0 = time.time()
+        host = [step2_bt._exact_firth_snp(params, pd, y, Gh[i], offset, mask, st, ph)
+                for i in range(host_rows)]
+        t_host = time.time() - t0
+        hok = np.array([h[0] for h in host])
+        if not np.array_equal(hok, ok[:host_rows]):
+            raise AssertionError(f"trait Y{ph + 1}: exact Firth flags differ between "
+                                 "the card and the host twin")
+        hl = np.array([h[3] for h in host])[hok]
+        cl = lrt[:host_rows][hok]
+        rel = float(np.max(np.abs(cl - hl) / np.maximum(np.abs(hl), 1e-300),
+                           initial=0.0))
+        dlp = float(np.max(np.abs(chisq_neglog10(cl) - chisq_neglog10(hl)), initial=0.0))
+        print(f"  exact Firth, trait Y{ph + 1}: {len(idx)} rows on the card in "
+              f"{t_card:.2f}s ({1e3 * t_card / len(idx):.1f} ms a row; "
+              f"{int(ok.sum())} converged); host twin {host_rows} rows in "
+              f"{t_host:.2f}s ({t_host / host_rows:.2f}s a row): flags equal, LRT "
+              f"max rel {rel:.3e} (bar 1e-8), |dLOG10P| {dlp:.3e} (bar 1e-5)")
+        if rel > 1e-8 or dlp > LOG10P_TOL:
+            raise AssertionError("the card's exact Firth misses the host twin's bars")
+
+
 def bt_slice_phase(tmp):
     """The port's Step-2 BT run at full width on the card, on the [bed
     slice]'s BED (same directory): a binary-trait table (the BED writer's
@@ -2332,6 +2460,7 @@ def bt_slice_phase(tmp):
           f"TEST_FAIL rows {int((r8.test_fail & keep).sum())} and "
           f"{int((rp.test_fail & keep).sum())}")
     _bt_twins(eng, x, o8)
+    _exact_firth_check(eng, x, o8)
     eng.gd.close()
     return counts["fused_i8"]
 
@@ -2661,16 +2790,17 @@ def _sig6_excess(xa, xb):
     return abs(a - b) / 10.0 ** (math.floor(math.log10(m)) - 5) if m else 0.0
 
 
-def _compare_loco(f_gpu, f_cpu):
-    """Two .loco files: same header, rows and NA pattern, every value
-    equal or within one unit of its sixth significant digit. Returns (the
-    values that differ, the largest gap in those units)."""
+def _compare_loco(f_gpu, f_cpu, header=True):
+    """Two .loco files (header=False: two .firth files, no header line):
+    same header, rows and NA pattern, every value equal or within one unit
+    of its sixth significant digit. Returns (the values that differ, the
+    largest gap in those units)."""
     la = open(f_gpu).read().splitlines()
     lb = open(f_cpu).read().splitlines()
-    if len(la) != len(lb) or la[0] != lb[0]:
+    if len(la) != len(lb) or (header and la[0] != lb[0]):
         raise AssertionError(f"{f_gpu}: header or row count differs")
     ndiff, worst = 0, 0.0
-    for ra, rb in zip(la[1:], lb[1:]):
+    for ra, rb in zip(la[int(header):], lb[int(header):]):
         ta, tb = ra.split(), rb.split()
         if len(ta) != len(tb) or ta[0] != tb[0]:
             raise AssertionError(f"{f_gpu}: row {ta[0]} differs in shape")
@@ -2684,40 +2814,59 @@ def _compare_loco(f_gpu, f_cpu):
     return ndiff, worst
 
 
+def _check_loco_file(path, n_in, masked_n):
+    """One .loco file: 25 lines (the header, chromosomes 1..23, nothing
+    after the last newline), each of n_in + 2 fields (the label or
+    "FID_IID", n_in values, a trailing space), row c starting "c ";
+    with masked_n (not None) rows 1 and 23 parsed: finite values, NA
+    exactly masked_n times. Returns (the header, the file's bytes)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    buf = np.frombuffer(data, np.uint8)
+    ends = np.flatnonzero(buf == 10)  # memchr-speed passes, the GIL released
+    if len(ends) != 24 or ends[-1] != len(data) - 1:
+        raise AssertionError(f"{path}: {len(ends)} lines or text after the last")
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    spaces = np.diff(np.searchsorted(np.flatnonzero(buf == 32),
+                                     np.concatenate([[0], ends])))
+    if not (spaces == n_in + 1).all():
+        raise AssertionError(f"{path}: a line without {n_in + 1} spaces "
+                             f"({spaces.min()}..{spaces.max()})")
+    for c in range(1, 24):
+        if not data.startswith(b"%d " % c, starts[c]):
+            raise AssertionError(f"{path}: row {c} malformed")
+    if masked_n is not None:
+        for c in (1, 23):
+            tok = data[starts[c] : ends[c]].split()[1:]
+            na = np.array([t == b"NA" for t in tok])
+            vals = np.array([float(t) for t, m in zip(tok, na) if not m])
+            if na.sum() != masked_n or not np.isfinite(vals).all():
+                raise AssertionError(f"{path}: {na.sum()} NA (want {masked_n}) "
+                                     "or a value not finite")
+    return data[: ends[0]], len(data)
+
+
 def _check_loco_files(out, names, n_in, masked):
     """The run's _pred.list names every trait's .loco file; each file has
     the header of n_in samples and one row for chromosomes 1..23 of n_in
     values. Rows 1 and 23 of the first and last traits are parsed:
     finite values, NA exactly on the trait's masked samples (`masked`:
-    trait index -> their count)."""
+    trait index -> their count). The files are checked in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
     rows = [ln.split() for ln in open(f"{out}_pred.list").read().splitlines()]
     if [r[0] for r in rows] != names:
         raise AssertionError(f"{out}_pred.list names {[r[0] for r in rows]}")
-    header = None
-    nbytes = 0
-    for ph, (name, path) in enumerate(rows):
-        with open(path, "rb") as fh:
-            data = fh.read()
-        nbytes += len(data)
-        lines = data.split(b"\n")
-        if header is None:
-            header = lines[0]
-        if lines[0] != header or len(lines) != 25 or lines[-1]:
-            raise AssertionError(f"{path}: {len(lines) - 1} lines or another header")
-        if header.count(b" ") != n_in + 1:
-            raise AssertionError(f"{path}: header of {header.count(b' ') - 1} samples")
-        for c, ln in enumerate(lines[1:24], start=1):
-            if not ln.startswith(b"%d " % c) or ln.count(b" ") != n_in + 1:
-                raise AssertionError(f"{path}: row {c} malformed")
-        if ph in masked:
-            for ln in (lines[1], lines[23]):
-                tok = ln.split()[1:]
-                na = np.array([t == b"NA" for t in tok])
-                vals = np.array([float(t) for t, m in zip(tok, na) if not m])
-                if na.sum() != masked[ph] or not np.isfinite(vals).all():
-                    raise AssertionError(f"{path}: {na.sum()} NA (want {masked[ph]}) "
-                                         "or a value not finite")
-    return nbytes
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        got = list(pool.map(lambda ph: _check_loco_file(rows[ph][1], n_in,
+                                                         masked.get(ph)),
+                            range(len(rows))))
+    header = got[0][0]
+    if any(h != header for h, _ in got):
+        raise AssertionError(f"{out}: the .loco files' headers differ")
+    if not header.startswith(b"FID_IID "):
+        raise AssertionError(f"{out}: header {header[:40]!r}")
+    return sum(n for _, n in got)
 
 
 def step1_slice_phase(tmp):
@@ -2852,6 +3001,171 @@ def step1_slice_phase(tmp):
     torch.cuda.empty_cache()
 
 
+def step1_bt_slice_phase(tmp):
+    """The port's Step-1 CLI on binary traits at full width on the card,
+    on the [step1 slice]'s BED (same directory, its QT LOCO files removed
+    first): a binary-trait table from the BED writer's traits (5-30%
+    prevalence, the first n_inc traits with 5% NA), one run with --bt
+    (K-fold, J = T = 5): no hand-written kernel may launch, level 0 on
+    cuda, the 50 .loco files and _pred.list well formed, the null fits',
+    level 0's, level 1's and the LOCO files' times printed. Then level 1
+    of one binary trait at a real depth (level1_bt_real_depth)."""
+    import glob
+
+    import torch
+
+    f = FULL
+    for path in glob.glob(f"{tmp}/s1_*.loco"):
+        os.remove(path)
+    t0 = time.time()
+    Y, X = dataset_traits(5, f["N"], STEP1["chroms"], f["P"], f["K"] - 1)
+    Yb = write_bt_table(f"{tmp}/pheno_bt.txt", Y, seed=6, n_inc=f["n_inc"], X=X)
+    print(f"  BT table N={f['N']} P={f['P']} (prevalence 5-30%, {int(np.nansum(Yb))} "
+          f"cases) written in {time.time() - t0:.1f}s")
+    del Y, X
+    out = f"{tmp}/s1bt"
+    argv = ["--step", "1", "--bed", f"{tmp}/geno", "--phenoFile",
+            f"{tmp}/pheno_bt.txt", "--covarFile", f"{tmp}/covar.txt", "--bt",
+            "--bsize", str(STEP1["B"]), "--verbose", "--out", out]
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"kernel launches {counts} in Step 1; expected none")
+    with open(f"{out}.log") as fh:
+        log = fh.read().splitlines()
+    if " * level 0 on cuda (float64)" not in log or " * # CV folds: [5]" not in log:
+        raise AssertionError("the Step-1 BT log shows no 5-fold level 0 on cuda")
+    for ln in log:
+        if (ln.startswith("   -level 0 block") or ln.startswith(" * level ")
+                or ln.startswith(" * null model fits")):
+            print(f"  {ln.strip()}")
+    print(f"  BT Step-1 CLI wall time {wall:.2f}s (run-up, null fits, level 0, "
+          f"level 1 and the LOCO files); no kernel launched; on {card_line()}")
+    t0 = time.time()
+    miss = np.isnan(Yb)
+    n_in = int((~miss).any(axis=1).sum())
+    masked = {p: int(miss[:, p].sum()) for p in (0, f["P"] - 1)}
+    names = [f"Y{p + 1}" for p in range(f["P"])]
+    nbytes = _check_loco_files(out, names, n_in, masked)
+    print(f"  {f['P']} LOCO files of {n_in} samples x 23 rows ({nbytes / 1e9:.2f} "
+          f"GB) and _pred.list well formed ({time.time() - t0:.1f}s)")
+    del Yb, miss
+    level1_bt_real_depth(torch.device("cuda"))
+
+
+def _level1_bt_inputs(N, F, K, seed, dev):
+    """Synthetic level-0 predictions of one binary trait at N samples and
+    F columns, by fold ([K, nmax, F] on `dev`, pad rows 0; drawn there
+    from a seeded generator), its outcomes (a logistic model of 200 of the
+    columns, ~15% cases), 2% masked samples, the null offsets (the model's
+    intercept, 0 on the masked samples), and the pd namespace
+    level1_nonqt reads (host numpy)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from regenie_tpu_torch.models import step1 as m1
+
+    fold_sizes = m1.compute_fold_sizes(np.ones(N, bool), K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    Wf = torch.randn(K, int(fold_sizes.max()), F, generator=gen, device=dev,
+                     dtype=torch.float64) * 0.5
+    valid = torch.as_tensor(m1.pad_folds(np.ones(N), fold_sizes)[1], device=dev)
+    Wf *= valid[..., None]
+    b = torch.randn(200, generator=gen, device=dev, dtype=torch.float64) * 0.02
+    eta = (-1.9 + Wf[..., :200] @ b)[valid].cpu().numpy()
+    u = torch.rand(N, 2, generator=gen, device=dev, dtype=torch.float64).cpu().numpy()
+    y = (u[:, 0] < 1 / (1 + np.exp(-eta))).astype(np.float64)
+    mask = u[:, 1] > 0.02
+    pd = SimpleNamespace(phenotypes_raw=np.where(mask, y, -999.0)[:, None],
+                         masked_indivs=mask[:, None],
+                         Neff=np.array([float(mask.sum())]))
+    return Wf, fold_sizes, np.where(mask, -1.9, 0.0)[:, None], pd
+
+
+def level1_bt_real_depth(dev):
+    """Level 1 of one binary trait at a real depth (F = 2,500 columns:
+    500 blocks x J), K-fold at N = 400,000 on the card (8 GB of float64
+    predictions), timed per ridge parameter and per Newton iteration;
+    then the same function at N = 20,000, F = 250 on the card and on the
+    CPU in float64: the same ridge parameter, the predictions' largest
+    gap within 1e-9 of their largest magnitude."""
+    import torch
+
+    from regenie_tpu_torch.config import BT, Params, ridge_h2_grid
+    from regenie_tpu_torch.models import step1_bt
+
+    f = FULL
+    params = Params(trait_mode=BT)
+    chr_order = list(range(1, 23))
+
+    def spans(F):
+        per = F // len(chr_order)
+        return {c: (i * per, per if c < 22 else F - 21 * per)
+                for i, c in enumerate(chr_order)}
+
+    def taus(F):
+        h = ridge_h2_grid(params.n_ridge_l1)
+        return F * (1 - h) / h * 3 / np.pi**2
+
+    F = STEP1["real_F"]
+    t0 = time.time()
+    Wt, fold_sizes, off, pd = _level1_bt_inputs(f["N"], F, params.cv_folds, 21, dev)
+    _sync(dev)
+    print(f"  level 1 BT at F={F}, N={f['N']}: {Wt.numel() * 8 / 1e9:.1f} GB of "
+          f"predictions drawn on the card in {time.time() - t0:.1f}s")
+    trace, logs = [], []
+    t0 = time.time()
+    pred, ok = step1_bt.level1_nonqt(params, pd, Wt, off, taus(F), 0, chr_order,
+                                     spans(F), fold_sizes, logs.append, trace=trace)
+    _sync(dev)
+    secs = time.time() - t0
+    if not ok or not np.isfinite(pred).all():
+        raise AssertionError("level 1 BT at a real depth did not converge")
+    its = sum(t["iterations"] for t in trace)
+    fit_s = sum(t["seconds"] for t in trace)
+    per_tau = [sum(t["seconds"] for t in trace if t["tau"] == j)
+               for j in range(params.n_ridge_l1)]
+    best = [ln.strip() for ln in logs if "min value" in ln]
+    print(f"  level1_nonqt (BT, K-fold) for one trait at F={F}, {params.cv_folds} "
+          f"folds: {secs:.2f}s; {its} Newton iterations in {fit_s:.2f}s = "
+          f"{1e3 * fit_s / its:.1f} ms an iteration; per ridge parameter (its "
+          f"{params.cv_folds} folds) " + ", ".join(f"{x:.2f}s" for x in per_tau)
+          + f"; chosen: {best}")
+    del Wt
+    _free()
+
+    n, F = 20_000, 250
+    Wc, fold_sizes, off, pd = _level1_bt_inputs(n, F, params.cv_folds, 22, "cpu")
+    out = []
+    for where in (dev, "cpu"):
+        logs = []
+        t0 = time.time()
+        pred, ok = step1_bt.level1_nonqt(params, pd, Wc.to(where), off, taus(F), 0,
+                                         chr_order, spans(F), fold_sizes, logs.append)
+        out.append((pred, [ln for ln in logs if "min value" in ln], time.time() - t0))
+        if not ok:
+            raise AssertionError(f"level 1 BT at N={n} did not converge on {where}")
+    if out[0][1] != out[1][1]:
+        raise AssertionError(f"level 1 BT: the card chose {out[0][1]}, the CPU "
+                             f"{out[1][1]}")
+    a, b = out[0][0], out[1][0]
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"  level 1 BT at N={n}, F={F}, card against CPU float64 (card "
+          f"{out[0][2]:.1f}s, CPU {out[1][2]:.1f}s on "
+          f"{torch.get_num_threads()} threads): the same ridge parameter "
+          f"({out[1][1][0].strip()}); predictions max |d| / max |CPU| "
+          f"{err:.3e} (bar 1e-09)")
+    if not err <= 1e-9:
+        raise AssertionError(f"level 1 BT predictions: {err:.3e} > 1e-09")
+
+
 def pgen_chrx_slice_phase(tmp):
     """The port's Step-2 QT CLI at full width on the card on a PGEN of two
     blocks, one on chromosome 1 and one on chrX (1/8 of its variants in
@@ -2957,39 +3271,60 @@ def pgen_chrx_slice_phase(tmp):
 
 
 def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--loocv"])),
-                         what="", step2=()):
-    """The two-step QT workflow at N=2,000 on the card and on the CPU, in
+                         what="", step2=(), trait=(), table="pheno.txt", step1=(),
+                         kernel=None):
+    """The two-step workflow at N=2,000 on the card and on the CPU, in
     each of `modes` (K-fold and --loocv by default) on the genotype
-    arguments `geno` (a BED, a PGEN or a BGEN): Step 1, then Step 2 with
-    --pred on that run's own _pred.list and the flags `step2`. Every
-    .loco value within one unit of its sixth significant digit, every
-    Step-2 field within its bar."""
-    base = [*geno, "--phenoFile", f"{tmp}/pheno.txt", "--covarFile",
-            f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt"]
+    arguments `geno` (a BED, a PGEN or a BGEN) and the phenotypes of
+    `table`: Step 1 with the flags `trait` and `step1`, then Step 2 with
+    `trait`, --pred on that run's own _pred.list and the flags `step2`
+    ("S1FIRTH" names Step 1's _firth.list). Every .loco value (and with
+    Step 1 --write-null-firth every .firth value) within one unit of its
+    sixth significant digit, every Step-2 field within its bar. kernel:
+    (name, blocks) when the card's Step 2 must launch that kernel once per
+    block and no other."""
+    base = [*geno, "--phenoFile", f"{tmp}/{table}", "--covarFile",
+            f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt", *trait]
     for mode, extra in modes:
-        tag = "loocv" if extra else "kfold"
+        tag = ("loocv" if extra else "kfold") + "".join(a.strip("-")[:2] for a in trait)
         for dev in ("cuda", "cpu"):
             os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
             if dev == "cpu":
                 os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
             try:
                 s1 = f"{tmp}/ts_{tag}_{dev}"
-                run_cli(["--step", "1", *base, *extra, "--bsize", "100", "--out", s1])
+                run_cli(["--step", "1", *base, *extra, *step1, "--bsize", "100",
+                         "--out", s1])
+                _reset_counts()
                 run_cli(["--step", "2", *base, "--bsize", "256", "--pred",
-                         f"{s1}_pred.list", *step2, "--out", f"{s1}_s2"])
+                         f"{s1}_pred.list",
+                         *[f"{s1}_firth.list" if a == "S1FIRTH" else a for a in step2],
+                         "--out", f"{s1}_s2"])
+                counts = _read_counts()
             finally:
                 os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+            if dev == "cuda" and kernel is not None:
+                want = {k: kernel[1] if k == kernel[0] else 0 for k in counts}
+                if counts != want:
+                    raise AssertionError(f"two-step{what}: launches {counts}, "
+                                         f"expected {want}")
         gpu, cpu = f"{tmp}/ts_{tag}_cuda", f"{tmp}/ts_{tag}_cpu"
         ndiff, worst_loco = 0, 0.0
-        for p in range(P):
-            nd, w = _compare_loco(f"{gpu}_{p + 1}.loco", f"{cpu}_{p + 1}.loco")
+        files = [(f"_{p + 1}.loco", True) for p in range(P)]
+        if "--write-null-firth" in step1:
+            files += [(f"_{p + 1}.firth", False) for p in range(P)]
+        for suffix, header in files:
+            nd, w = _compare_loco(gpu + suffix, cpu + suffix, header)
             ndiff, worst_loco = ndiff + nd, max(worst_loco, w)
         worst = max(_compare_files(f"{gpu}_s2_Y{p + 1}.regenie",
                                    f"{cpu}_s2_Y{p + 1}.regenie") for p in range(P))
-        print(f"  two-step{what} {mode}: card vs CPU, {P} .loco files ({ndiff} values "
-              f"differ, at most {worst_loco:.3f} units of the sixth significant "
-              f"digit) and Step 2 with --pred: every field within its bar "
-              f"(largest share of the bar used {worst:.3f})")
+        kinds = ".loco" + (" and .firth" if "--write-null-firth" in step1 else "")
+        print(f"  two-step{what} {mode}: card vs CPU, {len(files)} {kinds} files "
+              f"({ndiff} values differ, at most {worst_loco:.3f} units of the "
+              f"sixth significant digit) and Step 2 with --pred: every field "
+              f"within its bar (largest share of the bar used {worst:.3f})"
+              + ("" if kernel is None else f"; the card's Step 2 launched "
+                 f"{kernel[0]} {kernel[1]} times, no other kernel"))
 
 
 def zstd_compressor():
@@ -3032,7 +3367,7 @@ def cross_check_phase(tmp):
                 positions={"X": chrx_positions(300, 40, 40)})
     sub = {}
     for name in ("bgen", "chrx_bed", "chrx_bgen", "zstd", "pgen", "bgen16",
-                 "layout1", "pgen_dosage"):
+                 "layout1", "pgen_dosage", "bt6k"):
         sub[name] = os.path.join(tmp, name)
         os.makedirs(sub[name])
     prefix = write_dataset(tmp, chroms=((1, 400), (2, 200)), **kw)
@@ -3052,6 +3387,9 @@ def cross_check_phase(tmp):
                                       chroms=((1, 400), (2, 200)), layout=1),
         "pgen_dosage": write_pgen_dataset(sub["pgen_dosage"], **{**kw, "seed": 11},
                                           chroms=((1, 400), (2, 200)), dosage=0.5),
+        # K-fold on binary traits needs 5,000 analysed samples
+        "bt6k": write_dataset(sub["bt6k"], **{**kw, "seed": 12, "N": 6000},
+                              chroms=((1, 200), (2, 100))),
     }
     with open(f"{tmp}/cond.txt", "w") as fh:
         fh.write("v3\nv77\nv450\n")
@@ -3062,13 +3400,15 @@ def cross_check_phase(tmp):
         fh.write("".join(name + " " + " ".join(r[2 + j] for r in rows[1:]) + "\n"
                          for j, name in enumerate(rows[0][2:])))
     # binary traits: each dataset's traits thresholded (cross-check runs
-    # with --bt read pheno_bt.txt)
-    for name in ("bgen", "pgen", "chrx_bed", "pgen_dosage"):
-        Y, X = (np.genfromtxt(f"{sub[name]}/{t}.txt", skip_header=1,
+    # with --bt read pheno_bt.txt); count traits: Poisson counts of them
+    # (pheno_ct.txt)
+    for d in [tmp] + [sub[n] for n in ("bgen", "pgen", "chrx_bed", "pgen_dosage",
+                                       "bt6k")]:
+        Y, X = (np.genfromtxt(f"{d}/{t}.txt", skip_header=1,
                               usecols=range(2, 2 + k), missing_values="NA")
                 for t, k in (("pheno", P), ("covar", 3)))
-        write_bt_table(f"{sub[name]}/pheno_bt.txt", np.nan_to_num(Y), seed=3,
-                       n_inc=2, X=X)
+        write_bt_table(f"{d}/pheno_bt.txt", np.nan_to_num(Y), seed=3, n_inc=2, X=X)
+        write_ct_table(f"{d}/pheno_ct.txt", Y, seed=4)
     split = [f"_Y{p + 1}.regenie" for p in range(P)]
     runs = {
         "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"], split),
@@ -3089,6 +3429,9 @@ def cross_check_phase(tmp):
                           f"{sub['bgen']}/geno.sample", *BT_FLAGS], split),
         "BT chrX PGEN --spa --htp": (sub["pgen"], ["--pgen", geno["pgen"], "--bt",
                                                    "--spa", "--htp", "SMOKE"], split),
+        "BT BED --firth --approx --write-null-firth": (
+            tmp, ["--bed", prefix, "--bt", "--firth", "--approx",
+                  "--write-null-firth"], split),
     }
     # the dense route (no int8 / float32 switch: each runs once on the card)
     dense = {
@@ -3147,10 +3490,18 @@ def cross_check_phase(tmp):
         for off in switches:
             worst = max(_compare_files(f"{d}/{tag}gpu{int(off)}{o}", f"{d}/{tag}cpu{o}")
                         for o in outs)
+            firth = ""
+            if "--write-null-firth" in args:
+                nd = [_compare_loco(f"{d}/{tag}gpu{int(off)}_{p + 1}.firth",
+                                    f"{d}/{tag}cpu_{p + 1}.firth", header=False)
+                      for p in range(P)]
+                firth = (f"; {P} .firth files, {sum(n for n, _ in nd)} values differ "
+                         f"(at most {max(w for _, w in nd):.3f} units of the sixth "
+                         "significant digit)")
             print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: card vs CPU, "
                   f"{1 if '--phenoColList' in args else P} traits x {rows} "
                   f"variants: every field within its bar (largest share of the "
-                  f"bar used {worst:.3f})")
+                  f"bar used {worst:.3f}){firth}")
     two_step_cross_check(tmp, ["--bed", prefix], P)
     two_step_cross_check(sub["pgen"], ["--pgen", geno["pgen"]], P,
                          modes=(("K-fold", []),), what=" on PGEN")
@@ -3158,6 +3509,26 @@ def cross_check_phase(tmp):
                                        f"{sub['bgen']}/geno.sample"], P,
                          modes=(("K-fold", []),), what=" on BGEN, --force-ltco 2",
                          step2=["--force-ltco", "2"])
+    # binary traits: Step 1 --bt (LOOCV, forced below 5,000 samples) with
+    # its null Firth files, then exact Firth with --use-null-firth; K-fold
+    # at N = 6,000; count traits on BED and BGEN (3 blocks of 256), whose
+    # Step 2 runs fused_i8 / bgen_i8 once per block
+    two_step_cross_check(tmp, ["--bed", prefix], P,
+                         modes=(("LOOCV (forced below 5,000 samples)", []),),
+                         what=" BT, --write-null-firth, exact Firth --use-null-firth",
+                         trait=["--bt"], table="pheno_bt.txt",
+                         step1=["--write-null-firth"],
+                         step2=["--firth", "--use-null-firth", "S1FIRTH"])
+    two_step_cross_check(sub["bt6k"], ["--bed", geno["bt6k"]], P,
+                         modes=(("K-fold", []),), what=" BT at N=6,000",
+                         trait=["--bt"], table="pheno_bt.txt")
+    two_step_cross_check(tmp, ["--bed", prefix], P, modes=(("K-fold", []),),
+                         what=" CT on BED", trait=["--ct"], table="pheno_ct.txt",
+                         kernel=("fused_i8", 3))
+    two_step_cross_check(sub["bgen"], ["--bgen", geno["bgen"], "--sample",
+                                       f"{sub['bgen']}/geno.sample"], P,
+                         modes=(("K-fold", []),), what=" CT on BGEN", trait=["--ct"],
+                         table="pheno_ct.txt", kernel=("bgen_i8", 3))
 
 
 def native_report():
@@ -3191,7 +3562,16 @@ def _free():
     import torch
 
     gc.collect()
-    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _sync(dev):
+    """Wait for the card's queued work when `dev` is a CUDA device."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _phase_time(name, t_all):
@@ -3266,8 +3646,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[step1 slice]")
         step1_slice_phase(tmp)
+        _free()
+        _phase_time("step1 slice", t_all)
+        print("[step1 bt slice]")
+        step1_bt_slice_phase(tmp)
     _free()
-    _phase_time("step1 slice", t_all)
+    _phase_time("step1 bt slice", t_all)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[pgen chrX slice]")
         pgen_launches = pgen_chrx_slice_phase(tmp)

@@ -837,27 +837,21 @@ def args_to_params(args: argparse.Namespace) -> Params:
 def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
     None. Every such mode raises NotImplementedError before any work."""
-    bt = params.trait_mode == BT
     common = (
-        (params.trait_mode not in (QT, BT),
-         "count and time-to-event traits (--ct/--t2e)"),
+        (params.trait_mode == T2E, "time-to-event traits (--t2e)"),
         (bool(params.set_list), "gene-based tests (--set-list)"),
         (bool(params.interaction_var), "interaction tests"),
         (params.trait_set, "multi-trait tests (--mt)"),
         (params.multiphen, "MultiPhen (--multiphen)"),
         (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
         (params.mcc_test, "the MCC test (--mcc)"),
-        (params.af_cc and not bt, "--af-cc on quantitative traits"),
-        (bt and params.firth and not params.firth_approx,
-         "exact Firth (--firth without --approx)"),
-        (bool(params.write_null_firth or params.use_null_firth),
-         "null Firth checkpoints (--write-null-firth/--use-null-firth)"),
+        # case/control frequencies exist for binary traits only
+        (params.af_cc and params.trait_mode != BT,
+         "--af-cc on quantitative or count traits"),
     )
     if params.step == 1:
         checks = (
             *common,
-            (bt, "Step 1 on binary traits (--bt)"),
-            (params.gz_out, "Step 1 with gzipped output (--gz)"),
             (params.debug, "Step 1 with --debug"),
             (params.test_l0, "--test-l0"),
             (params.select_l0, "--select-l0"),

@@ -48,8 +48,9 @@ class GzipWriter:
         self._fh = open(path, "wb")
         self._buf = bytearray()
 
-    def write(self, s: str) -> int:
-        self._buf += s.encode("utf-8")
+    def write(self, s) -> int:
+        """Buffer text (str) or bytes already encoded."""
+        self._buf += s if isinstance(s, (bytes, bytearray)) else s.encode("utf-8")
         if len(self._buf) >= self.FLUSH_AT:
             self._flush_members()
         return len(s)

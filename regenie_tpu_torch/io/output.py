@@ -21,7 +21,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..config import BT, Params
+from ..config import BT, CT, QT, Params
 from ..prep import fmt
 from ..utils.stats import convert_logp_raw
 from .bed import SnpInfo
@@ -244,7 +244,7 @@ def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
     po = np.ascontiguousarray(prefix_off, np.int64)
     total = lib.format_sumstat_htp(
         pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, mid.encode(),
-        int(params.trait_mode == BT), int(bool(params.firth)),
+        {BT: 1, CT: 2}.get(params.trait_mode, 0), int(bool(params.firth)),
         int(bool(params.uncapped_pvals)),
         int(has_info), float(params.zcrit),
         beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
@@ -328,7 +328,9 @@ def sumstat_line_htp(
 ) -> str:
     """One HTPv4 row (print_sum_stats_htp, Step2_Models.cpp:2548-2646).
     A binary trait's Effect is an odds ratio: exp(beta) with Firth, else
-    the allelic OR of the genotype counts."""
+    the allelic OR of the genotype counts; a count trait's is exp(beta),
+    its counts those of all samples (no controls), and like a binary
+    trait it prints REGENIE_BETA and REGENIE_SE."""
     zcrit = params.zcrit
     print_beta = test_pass and se >= 0 and not np.isnan(se)
     print_pv = test_pass and chisq >= 0 and not np.isnan(logp)
@@ -345,12 +347,13 @@ def sumstat_line_htp(
     parts = [snp.ID, str(snp.chrom), str(snp.physpos), snp.allele1, snp.allele2,
              pheno_name, params.cohort_name, model]
     is_bt = params.trait_mode == BT
+    is_qt = params.trait_mode == QT
     if print_pv and not print_beta:
         parts += ["NA", "NA", "NA", outp]
     elif not print_pv and not print_beta:
         parts += ["NA", "NA", "NA", "NA"]
     elif not is_bt or (params.firth and test_pass):
-        if not is_bt:
+        if is_qt:
             parts += [fmt(beta), fmt(beta - zcrit * se), fmt(beta + zcrit * se)]
         else:
             parts += [fmt(np.exp(beta)), fmt(np.exp(beta - zcrit * se)),
@@ -383,10 +386,10 @@ def sumstat_line_htp(
 
     infoCol = []
     if print_beta:
-        if is_bt and test_pass:
+        if not is_qt and test_pass:
             infoCol.append(f"REGENIE_BETA={fmt(beta)}")
             infoCol.append(f"REGENIE_SE={fmt(se)}")
-        elif is_bt:
+        elif not is_qt:
             infoCol.append("REGENIE_BETA=NA")
             infoCol.append("REGENIE_SE=NA")
         else:

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from scipy.stats import norm as _norm
 
-from ..config import BT, MISSING, QT, Params
+from ..config import BT, CT, MISSING, QT, Params
 from .files import open_read, string_split
 
 _MISS_STRINGS = ("NA", "nan", "inf", "-nan", "-inf")
@@ -209,8 +209,12 @@ def read_pheno(
             r = rows[np.flatnonzero(bad.any(axis=1))[0]]
             raise ValueError(
                 f"phenotype value not 0/1/NA for FID={tok[r, 0]} IID={tok[r, 1]}")
-    m = ~(miss & (bt or (params.test_mode and params.rm_missing_qt
-                          and params.trait_mode == QT)))
+    ct = params.trait_mode == CT
+    if ct and (seen & ~miss & (vals < 0)).any():
+        raise ValueError("count phenotype value < 0")
+    # a missing binary or count value masks the sample for that trait
+    m = ~(miss & (bt or ct or (params.test_mode and params.rm_missing_qt
+                                and params.trait_mode == QT)))
     m[lost] = False
     Y = np.zeros((n, n_pheno), dtype=np.float64)
     Y[idx] = np.where(seen, vals, 0.0)
@@ -374,19 +378,24 @@ def set_masks(params: Params, pd: PhenoData, ind_in_analysis: np.ndarray) -> Non
 
 
 def pheno_impute_miss(params: Params, pd: PhenoData) -> None:
-    """Mean-impute missing QT values (reference Pheno.cpp:1903): missing
-    -> mean over in-analysis non-missing, then zero masked. Binary traits
-    are left as read in Step 2 (their null fits mask the missing)."""
-    if params.trait_mode != QT:
+    """Mean-impute missing phenotype values (reference Pheno.cpp:1903):
+    QT: missing -> mean over in-analysis non-missing, then zero masked;
+    binary and count traits in Step 1: missing -> masked mean (then
+    zeroed with the mask). Step 2 leaves binary and count traits as read
+    (their null fits mask the missing)."""
+    if params.trait_mode != QT and params.test_mode:
         return
     for j in range(params.n_pheno):
         if not pd.pheno_pass[j]:
             continue
         y = pd.phenotypes[:, j]
-        nonmiss = y != MISSING
-        ok = pd.ind_in_analysis & nonmiss
-        mu = y[ok].sum() / ok.sum()
-        y[~nonmiss] = mu
+        if params.trait_mode == QT:
+            nonmiss = y != MISSING
+            ok = pd.ind_in_analysis & nonmiss
+            y[~nonmiss] = y[ok].sum() / ok.sum()
+        else:
+            m = pd.masked_indivs[:, j]
+            y[~m] = y[m].sum() / m.sum()
     pd.phenotypes *= pd.masked_indivs.astype(np.float64)
 
 

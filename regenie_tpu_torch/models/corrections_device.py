@@ -309,3 +309,148 @@ def spa_batch_dev(stats, denum, Gres, phat, gamma_sqrt, mask, tol=5e-5,
     packed = torch.stack([logp, fail.to(dtype)]).cpu().numpy().astype(np.float64)
     logp = packed[0]
     return neglog10_to_chisq(logp), logp, packed[1] != 0.0
+
+
+# ---------------------------------------------------------------------
+# exact Firth (device twin of step2_bt._exact_firth_snp)
+# ---------------------------------------------------------------------
+
+
+def _firth_multi_batch(y, X, XX, G, offset, mask, beta0, ci, maxstep, niter,
+                       tol, nls, comp_lrt):
+    """firth.fit_firth_multi on S rows at once, each with the design
+    [X | g_s] (the K covariate columns shared, only the SNP column its
+    own): Newton on the modified score of the first `ci` coefficients
+    with step halving on the penalized deviance; the penalty's
+    determinant over all K + 1 columns. Every row stops on its own
+    iteration (an active mask), as the host fit would stop on it.
+    X [N, K]; XX [N, K*K] the products x_n x_n' flattened; G [S, N];
+    beta0 [S, K+1]. Returns (beta, se, dev, dev0, converged) [S]-first;
+    dev0 is the penalized deviance at the start (the null deviance of
+    the LRT when comp_lrt)."""
+    from .glm import get_logist_dev_t, get_pvec_t
+
+    S, N = G.shape
+    K = X.shape[1]
+    dt, dev = G.dtype, G.device
+    maskf = mask.to(dt)
+
+    def system(beta):
+        """pi, w and X~'WX~ [S, K+1, K+1] at beta, and the penalized deviance."""
+        eta = offset[None, :] + beta[:, :K] @ X.T + G * beta[:, K:]
+        pi = get_pvec_t(eta)
+        w = torch.where(mask[None, :], pi * (1 - pi), 1.0)
+        wm = w * maskf[None, :]
+        M = torch.empty(S, K + 1, K + 1, dtype=dt, device=dev)
+        M[:, :K, :K] = (wm @ XX).view(S, K, K)
+        xg = (wm * G) @ X
+        M[:, :K, K] = xg
+        M[:, K, :K] = xg
+        M[:, K, K] = (wm * G * G).sum(dim=1)
+        _, logdet = torch.linalg.slogdet(M)
+        return pi, w, M, get_logist_dev_t(y, pi, mask) - logdet
+
+    beta = beta0.clone()
+    se = torch.zeros(S, K + 1, dtype=dt, device=dev)
+    dev_cur = torch.zeros(S, dtype=dt, device=dev)
+    dev0 = None
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    conv = torch.zeros(S, dtype=torch.bool, device=dev)
+    it = 0
+    while it < niter and bool(active.any()):
+        it += 1
+        pi, w, M, dev_old = system(beta)
+        dev_cur = torch.where(active, dev_old, dev_cur)
+        if comp_lrt and dev0 is None:
+            dev0 = dev_old
+        Minv, info = torch.linalg.inv_ex(M)
+        # the hat diagonal h_n = w_n m_n x~_n' M^-1 x~_n, the covariate
+        # block through the flattened products
+        q = (Minv[:, :K, :K].reshape(S, K * K) @ XX.T
+             + 2.0 * G * (Minv[:, :K, K] @ X.T) + G * G * Minv[:, K, K][:, None])
+        h = w * maskf[None, :] * q
+        resid = torch.where(mask[None, :], y[None, :] - pi + h * (0.5 - pi), 0.0)
+        score = torch.cat([resid @ X, (G * resid).sum(dim=1, keepdim=True)], dim=1)[:, :ci]
+        step, info2 = torch.linalg.solve_ex(M[:, :ci, :ci], score)
+        bad = active & ((info != 0) | (info2 != 0))
+        active = active & ~bad
+        done = active & (score.abs().amax(dim=1) < tol) & (it >= 2)
+        if bool(done.any()):
+            se_d = torch.sqrt(torch.diagonal(torch.linalg.pinv(M, rtol=1e-15),
+                                             dim1=1, dim2=2).abs())
+            se = torch.where(done[:, None], se_d, se)
+        conv = conv | done
+        active = active & ~done
+        if not bool(active.any()):
+            break
+
+        mx = step.abs().amax(dim=1) / maxstep
+        step = torch.where((mx > 1)[:, None], step / torch.where(mx > 1, mx, 1.0)[:, None],
+                           step)
+        pending = active.clone()
+        beta_new = beta.clone()
+        for ls in range(nls):
+            if ls > 0:
+                step = torch.where(pending[:, None], step / 2, step)
+            cand = beta.clone()
+            cand[:, :ci] = beta[:, :ci] + step
+            dev_new = system(cand)[3]
+            better = pending & (dev_new < dev_old)
+            beta_new = torch.where(better[:, None], cand, beta_new)
+            pending = pending & ~better
+            if not bool(pending.any()):
+                break
+        if bool(pending.any()):
+            if comp_lrt:
+                # the reference nudges the step by 1e-6 when halving fails
+                nudged = beta.clone()
+                nudged[:, :ci] = beta[:, :ci] + step + 1e-6
+                beta_new = torch.where(pending[:, None], nudged, beta_new)
+            else:
+                active = active & ~pending
+        beta = torch.where(active[:, None], beta_new, beta)
+    if dev0 is None:
+        dev0 = dev_cur
+    return beta, se, dev_cur, dev0, conv
+
+
+def exact_firth_batch_dev(y, X, G, offset, mask, bhat_start, maxstep_null=25,
+                          niter_null=1000, tol_null=1e-5, maxstep=5, niter=250,
+                          tol=2.5e-4, niter_line_search=5):
+    """Exact Firth LRTs of S rows at once (the device twin of
+    step2_bt._exact_firth_snp): the penalized null with the SNP's
+    coefficient held at 0 from the null logistic fit bhat_start, then the
+    full fit from it with the LRT against the null deviance. y, offset,
+    mask [N]; X [N, K] the covariates; G [S, N] the rows' genotypes,
+    all float64 tensors on one device (mask bool). Returns (converged,
+    beta, se, lrt) as numpy [S], the SNP's coefficient and its SE."""
+    S = G.shape[0]
+    K = X.shape[1]
+    maskb = mask.to(torch.bool)
+    XX = (X[:, :, None] * X[:, None, :]).reshape(X.shape[0], K * K)
+    b0 = torch.zeros(S, K + 1, dtype=G.dtype, device=G.device)
+    b0[:, :K] = bhat_start[None, :]
+    bn, _, _, _, ok1 = _firth_multi_batch(y, X, XX, G, offset, maskb, b0, K,
+                                          float(maxstep_null), int(niter_null),
+                                          tol_null, niter_line_search, False)
+    bf, se, dev_full, dev0, ok2 = _firth_multi_batch(
+        y, X, XX, G, offset, maskb, bn, K + 1, float(maxstep), int(niter), tol,
+        niter_line_search, True)
+    lrt = dev0 - dev_full
+    ok = ok1 & ok2 & (lrt >= 0)
+    packed = torch.stack([ok.to(G.dtype), bf[:, K], se[:, K], lrt]).cpu().numpy()
+    ok = packed[0] != 0.0
+    return (ok, np.where(ok, packed[1], 0.0), np.where(ok, packed[2], 0.0),
+            np.where(ok, packed[3], 0.0))
+
+
+def exact_firth_rows(total_rows: int, N: int, K: int, device) -> int:
+    """Rows of one exact-Firth group: as many as a quarter of the card's
+    free memory holds at ~24 [N] float64 temporaries a row (the fits'
+    [S, N] tensors and the [N, S] hat products), at least 1; 64 on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        return min(total_rows, 64)
+    free, _ = torch.cuda.mem_get_info(torch.device(device))
+    per_row = (24 + K) * N * 8
+    return max(1, min(total_rows, int(free // 4 // per_row)))

@@ -1,9 +1,10 @@
-"""Null logistic fits of Step 2 on binary traits (the port's copy of
-regenie_tpu/models/glm.py, trimmed to what the binary-trait path calls),
-on the host in numpy float64, as in the JAX package.
+"""Null GLM fits of binary and count traits (the port's copy of
+regenie_tpu/models/glm.py, without the Cox null), on the host in numpy
+float64, a trait at a time, as in the JAX package.
 
-Re-implements the reference's fit_null_logistic (Step1_Models.cpp:54) and
-fit_logistic (:156).
+Re-implements the reference's fit_null_logistic (Step1_Models.cpp:54),
+fit_logistic (:156) and fit_null_poisson (:225). The level-1 ridge of
+these traits is models/step1_bt.py.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..config import BT, CT, Params
 
 
 ETA_MIN, ETA_MAX = -30.0, 30.0
@@ -30,6 +34,20 @@ def get_logist_dev(y: np.ndarray, pi: np.ndarray, mask: np.ndarray) -> float:
     with np.errstate(divide="ignore"):
         nll = np.where(y == 0, -np.log(1.0 - pi), -np.log(pi))
     return 2.0 * nll[mask].sum()
+
+
+def get_pvec_t(eta: torch.Tensor) -> torch.Tensor:
+    """get_pvec on a tensor (the device solvers' twin)."""
+    pi = 1.0 - 1.0 / (torch.exp(torch.clamp(eta, ETA_MIN, ETA_MAX)) + 1.0)
+    pi = torch.where(eta > ETA_MAX, 1.0 / (1.0 + _EPS10), pi)
+    return torch.where(eta < ETA_MIN, _EPS10 / (1.0 + _EPS10), pi)
+
+
+def get_logist_dev_t(y: torch.Tensor, pi: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """get_logist_dev on tensors, over the last axis (one deviance a row of
+    a [..., N] pi; mask [N] bool)."""
+    nll = torch.where(y == 0, -torch.log(1.0 - pi), -torch.log(pi))
+    return 2.0 * torch.where(mask, nll, 0.0).sum(dim=-1)
 
 
 def fit_logistic_irls(
@@ -103,3 +121,62 @@ def fit_logistic_irls(
     if diff_dev == 0 or diff_dev >= tol:
         return betanew, False
     return betanew, True
+
+
+def fit_poisson_irls(
+    y: np.ndarray,
+    X: np.ndarray,
+    offset: np.ndarray,
+    mask: np.ndarray,
+    niter_max: int = 30,
+    tol: float = 1e-6,
+) -> Tuple[np.ndarray, bool]:
+    """Null Poisson IRLS (fit_null_poisson, Step1_Models.cpp:225)."""
+    maskf = mask.astype(np.float64)
+    ymean = y[mask].mean()
+    beta = np.zeros(X.shape[1])
+    beta[0] = np.log(ymean) * np.sqrt(mask.sum())  # X col0 is normalized intercept
+    for _ in range(niter_max):
+        eta = np.where(mask, X @ beta + offset, 0.0)
+        mu = np.where(mask, np.exp(eta), 0.0)
+        score = X.T @ (maskf * (y - mu))
+        if np.abs(score).max() < tol:
+            return beta, True
+        XtW = X.T * (maskf * mu)
+        try:
+            beta = beta + np.linalg.solve(XtW @ X, score)
+        except np.linalg.LinAlgError:
+            return beta, False
+    return beta, False
+
+
+def fit_null_offsets(params: Params, pd) -> np.ndarray:
+    """Step 1's null model of every passing trait against the covariates
+    (fit_null_models, Step1_Models.cpp:54+): the offset matrix [N, P]
+    (offset_nullreg in the reference's ests struct), zero outside each
+    trait's mask. A trait whose fit fails stops passing."""
+    if params.trait_mode not in (BT, CT):
+        raise NotImplementedError("null offsets of binary and count traits only")
+    N, P = pd.phenotypes_raw.shape
+    offsets = np.zeros((N, P))
+    zero_off = np.zeros(N)
+    for ph in range(P):
+        if not pd.pheno_pass[ph]:
+            continue
+        y = pd.phenotypes_raw[:, ph]
+        mask = pd.masked_indivs[:, ph]
+        if params.trait_mode == BT:
+            beta, ok = fit_logistic_irls(
+                y, pd.new_cov, zero_off, mask, params.niter_max, params.numtol, True)
+            if not ok:
+                beta, ok = fit_logistic_irls(
+                    y, pd.new_cov, zero_off, mask, params.niter_max, params.numtol,
+                    False)
+        else:
+            beta, ok = fit_poisson_irls(y, pd.new_cov, zero_off, mask,
+                                        params.niter_max, params.numtol)
+        if not ok:
+            pd.pheno_pass[ph] = False
+            continue
+        offsets[:, ph] = np.where(mask, pd.new_cov @ beta, 0.0)
+    return offsets

@@ -1,0 +1,464 @@
+"""Step 1 level-1 ridge of binary and count traits (the port's copy of
+regenie_tpu/models/step1_bt.py, without the Cox level 1): penalized
+logistic and Poisson fits of the level-0 predictions, K-fold or LOOCV.
+
+Re-implements ridge_logistic_level_1 (Step1_Models.cpp:966),
+ridge_logistic_level_1_loocv with run_log_ridge_loocv (:1159-1377),
+ridge_poisson_level_1 (:1429), ridge_poisson_level_1_loocv with
+run_ct_ridge_loocv (:1585, :1680), the ADAM pass of
+run_log_ridge_loocv_adam (:1377) and make_predictions_binary_loocv
+(Data.cpp:1484; --l1-full: make_predictions_binary_loocv_full, :1429).
+
+Everything stays on the level-0 predictions' device in float64: the
+trait's design ([K, nmax, F] by fold, or [N, F]), the coefficients, the
+weights and the F x F systems (cuBLAS products, cuSOLVER solves and
+inverses on the card). The host sees only the scalars that decide a
+branch (a deviance, a max |score|) and the CV sums. Each branch is taken
+in the JAX package's order (the penalized deviance with step halving,
+L1_RIDGE_TOL on max |score|, the ADAM retry after a failed Newton fit,
+the argmin of -logLik/N), so the same ridge parameter is chosen on
+either device. K-fold trains on the fold tensor itself, the held-out
+fold weighted out, instead of a stacked copy of the training folds.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import BT, CT, Params, ridge_h2_grid
+from ..prep import fmt
+from .glm import get_logist_dev_t as logist_dev
+from .glm import get_pvec_t as get_pvec
+from .step1 import pad_folds
+
+L1_RIDGE_EPS = 1e-5
+L1_RIDGE_TOL = 1e-4  # l1_ridge_tol (Regenie.hpp:289)
+
+
+def _wgram(X, w):
+    """X' diag(w) X of an [N, F] design."""
+    return X.T @ (X * w[:, None])
+
+
+def _ridge(tau, F, X):
+    return torch.diag(torch.full((F,), float(tau), dtype=X.dtype, device=X.device))
+
+
+def run_log_ridge(y, X, offset, mask, tau: float, beta0, niter_max: int = 100,
+                  niter_line_search: int = 5, numtol: float = 1e-6):
+    """Penalized logistic Newton fit with step halving on the penalized
+    deviance (run_log_ridge_loocv, Step1_Models.cpp:1288-1377). y, offset
+    [N], mask [N] bool, X [N, F], beta0 [F], all on one device. Returns
+    (beta, pi, w, converged)."""
+    maskf = mask.to(X.dtype)
+    F = X.shape[1]
+    beta = beta0.clone()
+    pi = get_pvec(offset + X @ beta)
+    fn_start = float(logist_dev(y, pi, mask) + (tau * beta**2).sum())
+    w = torch.where(mask, pi * (1 - pi), 1.0)
+    score = X.T @ torch.where(mask, y - pi, 0.0) - tau * beta
+    dev_conv = False
+    fn_end = fn_start
+    for _ in range(niter_max):
+        A = _ridge(tau, F, X) + _wgram(X, maskf * w)
+        try:
+            step = torch.linalg.solve(A, score)
+        except RuntimeError:  # a singular system (torch.linalg.LinAlgError)
+            return beta, pi, w, False
+        for _ls in range(niter_line_search):
+            betanew = beta + step
+            pi = get_pvec(offset + X @ betanew)
+            fn_end = float(logist_dev(y, pi, mask) + (tau * betanew**2).sum())
+            w = torch.where(mask, pi * (1 - pi), 1.0)
+            if fn_end < fn_start + numtol:
+                break
+            step = step / 2
+        score = X.T @ torch.where(mask, y - pi, 0.0) - tau * betanew
+        dev_conv = abs(fn_end - fn_start) / (0.01 + abs(fn_end)) < numtol
+        if float(score.abs().max()) < L1_RIDGE_TOL:
+            return betanew, pi, w, True
+        beta = betanew
+        fn_start = fn_end
+    return beta, pi, w, dev_conv
+
+
+def run_ct_ridge(y, X, offset, mask, tau: float, beta0, niter_max: int = 100):
+    """Penalized Poisson IRLS (run_ct_ridge_loocv, Step1_Models.cpp:1680).
+    Returns (beta, mu, w, converged) with w = mu."""
+    maskf = mask.to(X.dtype)
+    F = X.shape[1]
+    beta = beta0.clone()
+    mu = None
+    for _ in range(niter_max):
+        eta = offset + X @ beta
+        mu = torch.where(mask, torch.exp(torch.clamp(eta, -30.0, 30.0)), 0.0)
+        if bool((mu[mask] == 0).any()):
+            return beta, mu, mu, False
+        z = torch.where(mask, (eta - offset) + (y - mu) / mu, 0.0)
+        A = _ridge(tau, F, X) + _wgram(X, maskf * mu)
+        try:
+            betanew = torch.linalg.solve(A, X.T @ (maskf * mu * z))
+        except RuntimeError:
+            return beta, mu, mu, False
+        eta = offset + X @ betanew
+        mu = torch.where(mask, torch.exp(torch.clamp(eta, -30.0, 30.0)), 0.0)
+        score = X.T @ torch.where(mask, y - mu, 0.0) - tau * betanew
+        beta = betanew
+        if float(score.abs().max()) < L1_RIDGE_TOL:
+            return beta, mu, mu, True
+    return beta, mu, mu, False
+
+
+def adam_log_ridge(y, X, offset, mask, tau: float, beta0, niter: int = 500,
+                   alpha: float = 0.01, b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-7, tol: float = 1e-4, mini: bool = False,
+                   batch_size: int = 128, seed: int = 0):
+    """ADAM on the penalized logistic score, the pre-pass and fallback of
+    the level-1 ridge (run_log_ridge_loocv_adam, Step1_Models.cpp:1377).
+    Full batch by default; `mini` draws `batch_size` analysed rows a step
+    from numpy's default_rng(seed) (the JAX package's stream, so both
+    packages take the same rows; the reference's --adam-mini,
+    adam_batch_size = 128, Regenie.hpp:243), the gradient scaled by the
+    batch size and a step-size stopping rule."""
+    beta = beta0.clone()
+    mt = torch.zeros_like(beta)
+    vt = torch.zeros_like(beta)
+    if mini:
+        rng = np.random.default_rng(seed)
+        rows = np.flatnonzero(mask.cpu().numpy())
+        for it in range(1, niter + 1):
+            bidx = torch.as_tensor(rows[rng.integers(0, len(rows), size=batch_size)],
+                                   device=X.device)
+            Xb = X[bidx]
+            eta = torch.clamp(offset[bidx] + Xb @ beta, -30.0, 30.0)
+            pi = 1.0 / (1.0 + torch.exp(-eta))
+            grad = (tau * beta - Xb.T @ (y[bidx] - pi)) / batch_size
+            mt = b1 * mt + (1 - b1) * grad
+            vt = b2 * vt + (1 - b2) * grad**2
+            a_t = alpha * math.sqrt(1 - b2**it) / (1 - b1**it)
+            step = a_t * mt / (torch.sqrt(vt) + eps)
+            if float(step.abs().max()) < tol:
+                break
+            beta = beta - step
+        return beta
+    maskf = mask.to(X.dtype)
+    for it in range(1, niter + 1):
+        eta = torch.clamp(offset + X @ beta, -30.0, 30.0)
+        pi = 1.0 / (1.0 + torch.exp(-eta))
+        grad = -(X.T @ (maskf * (y - pi)) - tau * beta)
+        if float(grad.abs().max()) < tol:
+            break
+        mt = b1 * mt + (1 - b1) * grad
+        vt = b2 * vt + (1 - b2) * grad**2
+        a_t = alpha * math.sqrt(1 - b2**it) / (1 - b1**it)
+        beta = beta - a_t * mt / (torch.sqrt(vt) + eps)
+    return beta
+
+
+def ct_taus(F: int, rate: float, n_ridge_l1: int) -> np.ndarray:
+    """Count traits' level-1 penalties K / log(1 + h / (rate (1 - h)))
+    (Step1_Models.cpp:2103)."""
+    h = ridge_h2_grid(n_ridge_l1)
+    return F / np.log1p(h / (rate * (1 - h)))
+
+
+def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
+                 taus, ph: int, chr_order, spans, fold_sizes, log,
+                 trace: Optional[List] = None):
+    """Level-1 ridge of one binary or count trait on the device of its
+    level-0 predictions Wph ([K, nmax, F] by fold with fold_sizes, else
+    [N, F] for LOOCV). taus: the level-1 penalties (binary traits;
+    count traits derive theirs from the trait's rate). Returns
+    (predictions [N, n_chr] numpy float64, converged). trace, if given,
+    gains a dict per fitted ridge parameter (fold, tau index,
+    iterations, seconds)."""
+    if params.trait_mode == CT:
+        return _level1_ct(params, pd, Wph, offsets, ph, chr_order, spans,
+                          fold_sizes, log, trace)
+    if params.trait_mode != BT:
+        raise NotImplementedError("level 1 of binary and count traits only")
+    if fold_sizes is not None:
+        return _level1_glm_kfold(params, pd, Wph, offsets,
+                                 np.asarray(taus, dtype=np.float64), ph, chr_order,
+                                 spans, fold_sizes, log, poisson=False, trace=trace)
+    return _level1_bt_loocv(params, pd, Wph, offsets, np.asarray(taus, np.float64),
+                            ph, chr_order, spans, log, trace)
+
+
+def _trait_vectors(pd, offsets, ph, dev):
+    """(y, mask, offset) of a trait as device tensors."""
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)
+
+    return (put(pd.phenotypes_raw[:, ph]),
+            torch.as_tensor(pd.masked_indivs[:, ph], device=dev),
+            put(offsets[:, ph]))
+
+
+def _loo_quants(X, y, mask, beta, pi, w, tau):
+    """The leverage identity's pieces at a fit (ridge_logistic_level_1_loocv,
+    Step1_Models.cpp:1238-1262): A^-1 = (X'WX + tau I)^-1, h = diag(X A^-1
+    X'), s = (y - pi) / (1 - h w) and X beta."""
+    A = _ridge(tau, X.shape[1], X) + _wgram(X, mask.to(X.dtype) * w)
+    Ainv = torch.linalg.inv(A)
+    h = ((X @ Ainv) * X).sum(dim=1)
+    s = (y - pi) / (1.0 - h * w)
+    return Ainv, h, s, X @ beta
+
+
+def _loo_predictions(X, beta, Ainv, s, chr_order, spans):
+    """LOCO-ready predictions [N, n_chr] from the LOO pieces
+    (make_predictions_binary_loocv, Data.cpp:1484)."""
+    out = torch.zeros(X.shape[0], len(chr_order), dtype=X.dtype, device=X.device)
+    for ci, c in enumerate(chr_order):
+        st, nn = spans[c]
+        sl = slice(st, st + nn)
+        q = ((X[:, sl] @ Ainv[sl, :]) * X).sum(dim=1)
+        out[:, ci] = X[:, sl] @ beta[sl] - q * s
+    return out
+
+
+def _masked_sums(p1, y, mask, nll):
+    """The six CV sums of one ridge parameter over the masked samples, as
+    host floats."""
+    m = mask
+    parts = torch.stack([
+        torch.where(m, p1, 0.0).sum(), torch.where(m, y, 0.0).sum(),
+        torch.where(m, p1**2, 0.0).sum(), torch.where(m, y**2, 0.0).sum(),
+        torch.where(m, p1 * y, 0.0).sum(), torch.where(m, nll, 0.0).sum()])
+    return parts.cpu().numpy()
+
+
+def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
+                     trace):
+    """Binary trait, LOOCV (ridge_logistic_level_1_loocv): warm-started
+    penalized fits over the tau grid, each scored by its closed-form
+    leave-one-out predictions eta_loo = eta - h (y - pi) / (1 - h w)."""
+    y, mask, offset = _trait_vectors(pd, offsets, ph, X.device)
+    F = X.shape[1]
+    neff = pd.Neff[ph]
+    cumsum = np.zeros((6, len(taus)))
+    beta = torch.zeros(F, dtype=X.dtype, device=X.device)
+    fit = dict(niter_max=params.niter_max_ridge,
+               niter_line_search=params.niter_max_line_search, numtol=params.numtol)
+    for j, tau in enumerate(taus):
+        t0 = time.time()
+        tau = float(tau)
+        b_start = beta
+        if params.use_adam:
+            # --use-adam: an ADAM pass before every Newton solve
+            # (use_adam, Step1_Models.cpp:1304-1310)
+            b_start = adam_log_ridge(y, X, offset, mask, tau, beta,
+                                     mini=params.adam_mini, seed=params.seed)
+        beta, pi, w, ok = run_log_ridge(y, X, offset, mask, tau, b_start, **fit)
+        if not ok:
+            # the ADAM fallback, then Newton again
+            b_adam = adam_log_ridge(y, X, offset, mask, tau, beta)
+            beta, pi, w, ok = run_log_ridge(y, X, offset, mask, tau, b_adam, **fit)
+        if not ok:
+            log("WARNING: ridge logistic regression did not converge! (Increase --niter)")
+            return None, False
+        _, h, s, eta_lin = _loo_quants(X, y, mask, beta, pi, w, tau)
+        eta_loo = eta_lin - h * s + offset
+        p1 = 1.0 - 1.0 / (torch.exp(torch.clamp(eta_loo, -30.0, 30.0)) + 1.0)
+        p1 = torch.clamp(p1, L1_RIDGE_EPS, 1 - L1_RIDGE_EPS)
+        nll = torch.where(y == 0, -torch.log(1 - p1), -torch.log(p1))
+        cumsum[:, j] = _masked_sums(p1, y, mask, nll)
+        if trace is not None:
+            trace.append(dict(fold=None, tau=j, seconds=time.time() - t0))
+
+    best = int(np.argmin(cumsum[5] / neff))
+    _log_bt_tau_table(log, taus, cumsum, best, neff, F)
+
+    # the final fit at the best tau, then the predictions per chromosome
+    tau = float(taus[best])
+    beta, pi, w, ok = run_log_ridge(y, X, offset, mask, tau,
+                                    torch.zeros_like(beta), **fit)
+    if not ok:
+        return None, False
+    if params.l1_full_samples:
+        # --l1-full: the full-sample fit itself, no LOO correction
+        log("  * making predictions (using all samples)...")
+        pred = torch.stack([X[:, st : st + nn] @ beta[st : st + nn]
+                            for st, nn in (spans[c] for c in chr_order)], dim=1)
+        return pred.cpu().numpy(), True
+    Ainv, _, s, _ = _loo_quants(X, y, mask, beta, pi, w, tau)
+    return _loo_predictions(X, beta, Ainv, s, chr_order, spans).cpu().numpy(), True
+
+
+def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
+                      fold_sizes, log, poisson=False, trace=None):
+    """K-fold level-1 penalized GLM ridge (ridge_logistic_level_1,
+    Step1_Models.cpp:966; ridge_poisson_level_1 :1429): for each
+    held-out fold, warm-started IRLS over the tau grid on the other folds,
+    the held-out predictions summed into the CV metrics; the folds' betas
+    at the best tau make the LOCO predictions. Wf: [K, nmax, F] (pad rows
+    zero)."""
+    K = params.cv_folds
+    dev, dt = Wf.device, Wf.dtype
+    F = Wf.shape[2]
+    N = pd.phenotypes_raw.shape[0]
+    bounds = np.concatenate([[0], np.cumsum(fold_sizes)]).astype(int)
+
+    def folds(a):
+        return torch.as_tensor(pad_folds(np.asarray(a, np.float64), fold_sizes)[0],
+                               device=dev)
+
+    yf = folds(pd.phenotypes_raw[:, ph])
+    mf = folds(pd.masked_indivs[:, ph])  # 0 on pad rows
+    of = folds(offsets[:, ph])
+    neff = pd.Neff[ph]
+    n_tau = len(taus_vec)
+
+    def link(eta):
+        eta = torch.clamp(eta, -30.0, 30.0)
+        if poisson:
+            mu = torch.exp(eta)
+            return mu, mu
+        pi = 1.0 / (1.0 + torch.exp(-eta))
+        return pi, pi * (1.0 - pi)
+
+    cumsum = np.zeros((6, n_tau))
+    beta_hat = torch.zeros(K, F, n_tau, dtype=dt, device=dev)
+    Wflat = Wf.reshape(-1, F)
+    for i in range(K):
+        # the training weights: every fold but i (and no pad row)
+        mt = mf.clone()
+        mt[i] = 0.0
+        others = [k for k in range(K) if k != i]
+
+        def xtv(v):
+            return Wflat.T @ v.reshape(-1)
+
+        def wgram(wm):
+            A = torch.zeros(F, F, dtype=dt, device=dev)
+            for k in others:
+                A += _wgram(Wf[k], wm[k])
+            return A
+
+        beta = torch.zeros(F, dtype=dt, device=dev)
+        eta = of + Wf @ beta
+        for j, tau in enumerate(taus_vec):
+            t0 = time.time()
+            tau = float(tau)
+            for it in range(1, params.niter_max_ridge + 1):
+                mu, w = link(eta)
+                z = torch.where(mt > 0, (eta - of) + (yf - mu) / torch.clamp(w, min=1e-12),
+                                0.0)
+                A = wgram(w * mt) + _ridge(tau, F, Wf)
+                try:
+                    beta_new = torch.linalg.solve(A, xtv((w * mt) * z))
+                except RuntimeError:
+                    log("WARNING: singular system in level-1 K-fold ridge")
+                    return None, False
+                eta = of + Wf @ beta_new
+                mu2, _ = link(eta)
+                score = xtv(mt * (yf - mu2)) - tau * beta_new
+                beta = beta_new
+                if float(score.abs().max()) < L1_RIDGE_TOL:
+                    break
+            else:
+                log("WARNING: penalized regression did not converge! (Increase --niter)")
+                return None, False
+            beta_hat[i, :, j] = beta
+            if trace is not None:
+                trace.append(dict(fold=i, tau=j, iterations=it,
+                                  seconds=time.time() - t0))
+
+            # the held-out fold's metrics
+            p1, _ = link(eta[i])
+            m = mf[i] > 0
+            yi = yf[i]
+            if poisson:
+                nll = -(yi * torch.log(torch.clamp(p1, min=1e-300)) - p1)
+            else:
+                p1 = torch.clamp(p1, L1_RIDGE_EPS, 1 - L1_RIDGE_EPS)
+                nll = torch.where(yi == 0, -torch.log(1 - p1), -torch.log(p1))
+            cumsum[:, j] += _masked_sums(p1, yi, m, nll)
+
+    best = int(np.argmin(cumsum[5] / neff))
+    if poisson:
+        for j in range(n_tau):
+            line = f"  tau[{j}] : -logLik/N = {fmt(cumsum[5, j] / neff)}"
+            if j == best:
+                line += "<- min value"
+            log(line)
+    else:
+        _log_bt_tau_table(log, taus_vec, cumsum, best, neff, F)
+
+    predictions = np.zeros((N, len(chr_order)))
+    for ci, c in enumerate(chr_order):
+        st, nn = spans[c]
+        pc = (Wf[:, :, st : st + nn] @ beta_hat[:, st : st + nn, best, None])[..., 0]
+        pc = pc.cpu().numpy()
+        for k in range(K):
+            predictions[bounds[k] : bounds[k + 1], ci] = pc[k, : int(fold_sizes[k])]
+    return predictions, True
+
+
+def _log_bt_tau_table(log, taus, cumsum, best, neff, n_feats):
+    """CV metric table per ridge parameter (Data::output, Data.cpp:1043-1077)."""
+    Sx, Sy, Sx2, Sy2, Sxy, nLL = cumsum
+    for j in range(len(taus)):
+        h_eff = n_feats / (n_feats + (np.pi**2 / 3) * taus[j])
+        rsq_num = Sxy[j] - Sx[j] * Sy[j] / neff
+        rsq = rsq_num**2 / ((Sx2[j] - Sx[j] ** 2 / neff) * (Sy2[j] - Sy[j] ** 2 / neff))
+        line = (
+            f"  {fmt(h_eff):>5} : Rsq = {fmt(rsq)}, MSE = "
+            f"{fmt((Sx2[j] + Sy2[j] - 2 * Sxy[j]) / neff)}, -logLik/N = {fmt(nLL[j] / neff)}"
+        )
+        if j == best:
+            line += "<- min value"
+        log(line)
+
+
+def _level1_ct(params, pd, X, offsets, ph, chr_order, spans, fold_sizes, log,
+               trace):
+    """Count trait: the Poisson ridge, K-fold (ridge_poisson_level_1) or
+    LOOCV (ridge_poisson_level_1_loocv, Step1_Models.cpp:1585)."""
+    F = X.shape[-1]
+    mask_h = pd.masked_indivs[:, ph]
+    rate = pd.phenotypes_raw[mask_h, ph].sum() / pd.Neff[ph]
+    taus_ct = ct_taus(F, rate, params.n_ridge_l1)
+    if fold_sizes is not None:
+        return _level1_glm_kfold(params, pd, X, offsets, taus_ct, ph, chr_order,
+                                 spans, fold_sizes, log, poisson=True, trace=trace)
+    y, mask, offset = _trait_vectors(pd, offsets, ph, X.device)
+    neff = pd.Neff[ph]
+    cumsum = np.zeros((6, len(taus_ct)))
+    beta = torch.zeros(F, dtype=X.dtype, device=X.device)
+    for j, tau in enumerate(taus_ct):
+        t0 = time.time()
+        beta, mu, w, ok = run_ct_ridge(y, X, offset, mask, float(tau), beta,
+                                       params.niter_max_ridge)
+        if not ok:
+            log("WARNING: ridge poisson regression did not converge! (Increase --niter)")
+            return None, False
+        _, h, s, eta_lin = _loo_quants(X, y, mask, beta, mu, w, float(tau))
+        p1 = torch.exp(torch.clamp(eta_lin - h * s + offset, -30.0, 30.0))
+        nll = -(y * torch.log(torch.clamp(p1, min=1e-300)) - p1)
+        cumsum[:, j] = _masked_sums(p1, y, mask, nll)
+        if trace is not None:
+            trace.append(dict(fold=None, tau=j, seconds=time.time() - t0))
+
+    best = int(np.argmin(cumsum[5] / neff))
+    for j in range(len(taus_ct)):
+        zv = np.exp(F / taus_ct[j]) - 1
+        h_eff = rate * zv / (1 + rate * zv)
+        line = f"  {fmt(h_eff):>5} : -logLik/N = {fmt(cumsum[5, j] / neff)}"
+        if j == best:
+            line += "<- min value"
+        log(line)
+
+    tau = float(taus_ct[best])
+    beta, mu, w, ok = run_ct_ridge(y, X, offset, mask, tau, torch.zeros_like(beta),
+                                   params.niter_max_ridge)
+    if not ok:
+        return None, False
+    Ainv, _, s, _ = _loo_quants(X, y, mask, beta, mu, w, tau)
+    return _loo_predictions(X, beta, Ainv, s, chr_order, spans).cpu().numpy(), True

@@ -1,7 +1,10 @@
-"""Step 2 on binary traits (the port's copy of regenie_tpu/models/step2_bt.py,
-trimmed to the logistic score test with SPA or approximate Firth): null
-refits per chromosome on the host, batched score tests and the
-corrections of the rows past the threshold.
+"""Step 2 on binary traits (the port's copy of regenie_tpu/models/step2_bt.py):
+null refits per chromosome on the host, batched score tests and the
+corrections of the rows past the threshold: SPA, approximate Firth or
+exact Firth (two penalized fits a row with the covariates free), and the
+null Firth checkpoints (--use-null-firth starts, the Step-2
+--write-null-firth stream). Count traits share the score test
+(models/step2_ct.py builds their null state, with no correction).
 
 Reference: compute_res_bin (Data.cpp:2440), fit_null_logistic
 (Step1_Models.cpp:54), fit_null_firth (Step2_Models.cpp:985),
@@ -31,7 +34,9 @@ import numpy as np
 import torch
 
 from ..config import Params
+from ..io.files import iter_lines
 from ..io.pheno import PhenoData, get_basis
+from ..prep import fmt
 from ..utils.stats import chisq_neglog10
 from . import corrections_device as cdev
 from . import firth as firth_mod
@@ -119,15 +124,33 @@ class BTChromState:
     blups: np.ndarray = None  # [N, P]
     bhat_start: np.ndarray = None  # [K, P] null logistic betas
     eta_null: np.ndarray = None  # [N, P] null eta (offset_nullreg)
+    allow_correction: bool = True  # Firth/SPA for binary traits only
     fused: FusedConsts = None
     dev_cache: dict = field(default_factory=dict)  # (trait, device) -> tensors
 
 
-def _null_fit(params: Params, pd: PhenoData, blups: np.ndarray, ph: int):
+def _load_null_firth_start(files_map, pheno_name, chrom, K):
+    """A trait's starting values for chromosome `chrom` from a
+    _firth.list checkpoint (get_beta_start_firth, Step2_Models.cpp:1893),
+    or None."""
+    path = files_map.get(pheno_name)
+    if path is None:
+        return None
+    for toks in iter_lines(path):
+        if int(toks[0]) == chrom:
+            vals = np.array([float(x) for x in toks[1:]])
+            if len(vals) >= K:
+                return vals[:K]
+    return None
+
+
+def _null_fit(params: Params, pd: PhenoData, blups: np.ndarray, ph: int,
+              firth_start=None):
     """One trait's null fits against the covariates: the logistic model
     with the LOCO offset (and its two retries), and with --firth --approx
-    the null Firth model. Returns a dict of the trait's null state, or
-    the warning when a fit fails."""
+    the null Firth model, started from `firth_start` (a --use-null-firth
+    checkpoint) when given, else from the logistic fit. Returns a dict of
+    the trait's null state, or the warning when a fit fails."""
     X = pd.new_cov
     N, K = X.shape
     y = pd.phenotypes_raw[:, ph]
@@ -168,7 +191,7 @@ def _null_fit(params: Params, pd: PhenoData, blups: np.ndarray, ph: int):
 
     if params.firth_approx:
         bnull, okf = firth_mod.fit_firth_null(
-            y, X, offset, mask, beta.copy(),
+            y, X, offset, mask, beta.copy() if firth_start is None else firth_start,
             maxstep=params.maxstep_null, niter=params.niter_max_firth_null,
             tol=50 * params.numtol,
         )
@@ -185,6 +208,7 @@ def _null_fit(params: Params, pd: PhenoData, blups: np.ndarray, ph: int):
             )
         if not okf:
             return f"WARNING: null Firth failed for '{pd.pheno_names[ph]}'"
+        fit["bnull"] = bnull
         fit["firth_offset"] = X @ bnull
         if not params.blup_cov:  # the PRS is inside X otherwise
             fit["firth_offset"] += blups[:, ph]
@@ -192,12 +216,17 @@ def _null_fit(params: Params, pd: PhenoData, blups: np.ndarray, ph: int):
 
 
 def prep_chromosome(params: Params, pd: PhenoData, blups: np.ndarray,
-                    log) -> BTChromState:
+                    log, null_firth_files=None, chrom=None) -> BTChromState:
     """Refit the null logistic model with the LOCO offset per trait, and
     with --firth --approx the null Firth model (compute_res_bin,
     Data.cpp:2440-2460), on the host in numpy float64, a trait at a time
     (fits run in concurrent threads were not reproducible on the card's
-    host: its BLAS gave other bits from run to run)."""
+    host: its BLAS gave other bits from run to run). null_firth_files
+    (--use-null-firth: trait name -> .firth file) gives the null Firth
+    fits of chromosome `chrom` their starting values; with Step 2's
+    --write-null-firth (params._null_firth_out: trait -> open file) each
+    trait's null Firth coefficients of `chrom` are written once
+    (Data.cpp:2200-2215)."""
     N, P = pd.phenotypes_raw.shape
     st = BTChromState()
     st.blups = blups
@@ -217,11 +246,23 @@ def prep_chromosome(params: Params, pd: PhenoData, blups: np.ndarray,
         if params.blup_cov:
             # --prs-cov: the LOCO PRS fills the reserved covariate column
             pd.new_cov[:, -1] = blups[:, ph] * pd.masked_indivs[:, ph]
-        fit = _null_fit(params, pd, blups, ph)
+        start = None
+        if params.firth_approx and null_firth_files is not None and chrom is not None:
+            start = _load_null_firth_start(null_firth_files, pd.pheno_names[ph],
+                                           chrom, K)
+        fit = _null_fit(params, pd, blups, ph, start)
         if isinstance(fit, str):
             log(fit)
             pd.pheno_pass[ph] = False
             continue
+        out = getattr(params, "_null_firth_out", None)
+        if "bnull" in fit and out is not None and chrom is not None and ph in out:
+            seen = params.__dict__.setdefault("_null_firth_written", set())
+            if (ph, chrom) not in seen:
+                seen.add((ph, chrom))
+                out[ph].write(f"{chrom} " + " ".join(fmt(b) for b in fit["bnull"])
+                              + "\n")
+                out[ph].flush()
         st.bhat_start[:, ph] = fit["beta"]
         st.eta_null[:, ph] = fit["eta"]
         st.Y_hat[:, ph] = fit["pi"]
@@ -305,7 +346,7 @@ def score_block(params: Params, pd: PhenoData, st: BTChromState, src,
     if isinstance(num_all, torch.Tensor):
         num_all = num_all.cpu().numpy()
         denum_all = denum_all.cpu().numpy()
-    correct = params.firth or params.use_spa
+    correct = (params.firth or params.use_spa) and st.allow_correction
 
     for ph in fc.cols:
         j = fc.j_of[ph]
@@ -330,13 +371,17 @@ def score_block(params: Params, pd: PhenoData, st: BTChromState, src,
             t0 = time.time()
             idx = np.flatnonzero(corr)
             n_corrected += len(idx)
-            # the rows in groups of CORR_ROWS: each row's solve is its own,
-            # so the groups only bound the [rows, N] float64 temporaries
-            for lo in range(0, len(idx), CORR_ROWS):
-                n_failed += _correct_rows(
-                    params, pd, st, ph, j, idx[lo : lo + CORR_ROWS], src,
-                    S1_all, stats, denum, sqrt_denum,
-                    (bhat_ph, se_ph, chisq_ph, logp_ph, fail_ph))
+            out = (bhat_ph, se_ph, chisq_ph, logp_ph, fail_ph)
+            if params.firth and not params.firth_approx:
+                n_failed += _exact_firth_rows(params, pd, st, ph, idx, src, out,
+                                              S1_all.device)
+            else:
+                # the rows in groups of CORR_ROWS: each row's solve is its
+                # own, so the groups only bound the [rows, N] temporaries
+                for lo in range(0, len(idx), CORR_ROWS):
+                    n_failed += _correct_rows(
+                        params, pd, st, ph, j, idx[lo : lo + CORR_ROWS], src,
+                        S1_all, stats, denum, sqrt_denum, out)
             if times is not None:
                 times["corr_s"] = times.get("corr_s", 0.0) + time.time() - t0
 
@@ -419,6 +464,91 @@ def _correct_rows(params, pd, st, ph, j, idx, src, S1_all, stats, denum,
         bhat_ph[idx],
     )
     return int(fail_s.sum())
+
+
+def _exact_firth_snp(params, pd, y, g, offset, mask, st, ph):
+    """Exact Firth LRT of one SNP (fit_firth_logistic_snp,
+    Step2_Models.cpp:1062), on the host: the penalized null with the
+    SNP's coefficient held at 0, started from the null logistic fit, then
+    the full fit started from the null's estimates. Returns (ok, beta,
+    se, lrt) of the SNP's coefficient."""
+    X1 = np.column_stack([pd.new_cov, g])
+    K = pd.new_cov.shape[1]
+    b0 = np.zeros(K + 1)
+    b0[:K] = st.bhat_start[:, ph]
+    bn, _se, _dev_null, _d0, ok = firth_mod.fit_firth_multi(
+        y, X1, offset, mask, b0, K, params.maxstep_null,
+        params.niter_max_firth_null, 10 * params.numtol,
+    )
+    if not ok:
+        return False, 0.0, 0.0, 0.0
+    bf, se, dev_full, dev0, ok = firth_mod.fit_firth_multi(
+        y, X1, offset, mask, bn, None, params.maxstep,
+        params.niter_max_firth, 2.5e-4, comp_lrt=True,
+    )
+    if not ok:
+        return False, 0.0, 0.0, 0.0
+    lrt = dev0 - dev_full
+    if lrt < 0:
+        return False, 0.0, 0.0, 0.0
+    return True, bf[-1], se[-1], lrt
+
+
+def exact_firth_dev(params, pd, st, ph, G_rows):
+    """Exact Firth of trait ph on the rows G_rows [S, N] (finalized
+    genotypes, a float64 tensor) on their device, in groups sized to the
+    free memory (corrections_device.exact_firth_batch_dev). Returns
+    (ok, beta, se, lrt), numpy [S]."""
+    dev = G_rows.device
+    dc = dev_consts(st, pd, ph, dev)
+    X = dc.get("X")
+    if X is None:
+        X = dc["X"] = torch.as_tensor(pd.new_cov, dtype=torch.float64, device=dev)
+        dc["offset"] = dc["mask"] * torch.as_tensor(st.blups[:, ph], device=dev)
+        dc["bhat_start"] = torch.as_tensor(st.bhat_start[:, ph], device=dev)
+    S, N = G_rows.shape
+    rows = cdev.exact_firth_rows(S, N, X.shape[1], dev)
+    parts = [cdev.exact_firth_batch_dev(
+        dc["y"], X, G_rows[lo : lo + rows], dc["offset"], dc["mask"],
+        dc["bhat_start"], maxstep_null=params.maxstep_null,
+        niter_null=params.niter_max_firth_null, tol_null=10 * params.numtol,
+        maxstep=params.maxstep, niter=params.niter_max_firth, tol=2.5e-4,
+        niter_line_search=params.niter_max_line_search)
+        for lo in range(0, S, rows)]
+    return tuple(np.concatenate(x) for x in zip(*parts))
+
+
+def _exact_firth_rows(params, pd, st, ph, idx, src, out, dev):
+    """Exact Firth on trait ph's rows idx (the exact branch of the JAX
+    package's score_block, regenie_tpu/models/step2_bt.py:424-445),
+    written into out = (bhat, se, chisq, logp, fail) [B] of the trait: on
+    the block's device `dev` (exact_firth_dev) when
+    corrections_device.enabled, else row by row on the host
+    (_exact_firth_snp). A row that fails keeps its score-test values.
+    Returns the number that failed."""
+    bhat_ph, se_ph, chisq_ph, logp_ph, fail_ph = out
+    G = src.rows_device(torch.as_tensor(idx, device=dev))
+    if cdev.enabled(dev):
+        ok, beta, se, lrt = exact_firth_dev(params, pd, st, ph, G)
+    else:
+        Gh = G.cpu().numpy()
+        y = pd.phenotypes_raw[:, ph]
+        mask = pd.masked_indivs[:, ph]
+        offset = st.blups[:, ph] * mask
+        res = [_exact_firth_snp(params, pd, y, Gh[i], offset, mask, st, ph)
+               for i in range(len(idx))]
+        ok, beta, se, lrt = (np.array(x) for x in zip(*res))
+        ok = ok.astype(bool)
+    fail_ph[idx] = ~ok
+    bhat_ph[idx] = np.where(ok, beta, bhat_ph[idx])
+    chisq_ph[idx] = np.where(ok, lrt, chisq_ph[idx])
+    logp_ph[idx] = np.where(ok, chisq_neglog10(np.where(ok, lrt, 0.0)), logp_ph[idx])
+    if params.firth_se:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            se = np.where(ok & (lrt > 0), np.abs(beta) / np.sqrt(np.where(lrt > 0, lrt, 1.0)),
+                          se)
+    se_ph[idx] = np.where(ok, se, se_ph[idx])
+    return int((~ok).sum())
 
 
 def chisq_thr(alpha: float) -> float:

@@ -1,6 +1,6 @@
 """Data preparation for both steps (the port's copy of regenie_tpu/prep.py,
-trimmed to the quantitative-trait run-up and Step 2 on binary traits,
-whose phenotypes stay raw for the null fits): the transposed phenotype
+trimmed to quantitative, binary and count traits; Step 2 keeps the
+binary and count phenotypes raw for its null fits): the transposed phenotype
 file (--tpheno-file), conditioning variants joined
 to the covariates (--condition-list, --condition-file),
 --print-cov-betas and the --debug dump of the model inputs.
@@ -114,8 +114,9 @@ def prepare(
         print(" WARNING: --nocov-approx is only available with a single "
               "phenotype; ignoring it.")
 
-    # residualize and scale QT phenotypes (binary traits are fitted raw)
-    if params.trait_mode == QT:
+    # residualize and scale the phenotypes: always for QT; binary and
+    # count traits only for Step 1's level 0 (Step 2 fits them raw)
+    if params.trait_mode == QT or not params.test_mode:
         residualize_phenotypes(params, pd)
 
     # --print-cov-betas: raw-scale covariate OLS effects per trait

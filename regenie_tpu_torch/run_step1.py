@@ -1,6 +1,7 @@
-"""Step 1 on quantitative traits from PLINK BED or PGEN hardcalls or
-BGEN (and PGEN) dosages: whole-genome block ridge -> LOCO predictions
-(the port of the QT, single-device parts of regenie_tpu/run_step1.py).
+"""Step 1 on quantitative, binary and count traits from PLINK BED or
+PGEN hardcalls or BGEN (and PGEN) dosages: whole-genome block ridge ->
+LOCO predictions (the port of the single-device parts of
+regenie_tpu/run_step1.py without the Cox level 1).
 
 Replaces the reference's Data::run_step1 (Data.cpp:95-133),
 level_0_calculations (:594), ridge_level_1* (Step1_Models.cpp:772+),
@@ -13,8 +14,10 @@ Level 0 and level 1 run in float64 on the device (models/step1.py: DGEMM
 on the FP64 tensor cores and cuSOLVER eigh on the card); each hardcall
 block ships as packed bytes and is decoded there (ops/geno_ops.py), each
 dosage block (io/csrc/bgen_dosages.cpp, io/csrc/pgen_bytes.cpp on the
-reader thread) as float64. The LOCO rows render through
-io/csrc/loco_rows.cpp.
+reader thread) as float64. Binary and count traits first fit their null
+models on the host (models/glm.py), then take the penalized logistic or
+Poisson level 1 on the device (models/step1_bt.py). The LOCO rows render
+through io/csrc/loco_rows.cpp.
 """
 
 from __future__ import annotations
@@ -27,11 +30,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import Params, ridge_h2_grid
-from .io.files import open_write, string_split
+from .config import BT, QT, Params, ridge_h2_grid
+from .io.files import GzipWriter, open_write, string_split
 from .io.geno import make_blocks
 from .io.output import format_value_rows
+from .models import glm
 from .models import step1 as m1
+from .models import step1_bt
 from .ops.geno_ops import prepare_block_step1
 from .prep import fmt, prepare
 from .utils.device import resolve_device
@@ -119,6 +124,11 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
     blocks = make_blocks(gd, params.block_size)
     params.total_n_block = len(blocks)
 
+    # binary traits: LOOCV below 5,000 analysed samples (Data.cpp:353)
+    if params.trait_mode == BT and not params.use_loocv and params.n_analyzed < 5000:
+        log("   -WARNING: sample size below 5,000: using LOOCV instead of K-fold CV.")
+        params.use_loocv = True
+
     # ridge penalty grids (Regenie.cpp:1497, Data.cpp:607, Step1_Models.cpp:2099)
     n_geno_all = master[0] if run_l0_job is not None else params.n_variants
     total_blocks_all = (
@@ -128,6 +138,8 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
     lambdas = n_geno_all * (1.0 - h_l0) / h_l0
     h_l1 = params.user_tau if params.user_tau is not None else ridge_h2_grid(params.n_ridge_l1)
     taus = total_blocks_all * params.n_ridge_l0 * (1.0 - h_l1) / h_l1
+    if params.trait_mode == BT:
+        taus = taus * 3.0 / (np.pi**2)  # count traits: per trait in level 1
     fold_sizes = None
     if not params.use_loocv:
         fold_sizes = m1.compute_fold_sizes(pd.ind_in_analysis, params.cv_folds)
@@ -136,8 +148,9 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
 
 
 def run_step1(params: Params, log=print, device=None) -> None:
-    """Step 1 QT on a BED file: <out>_<i>.loco per trait and
-    <out>_pred.list, or a split-L0 role (--split-l0 / --run-l0 /
+    """Step 1: <out>_<i>.loco per trait and <out>_pred.list (with
+    --write-null-firth on binary traits <out>_<i>.firth and
+    <out>_firth.list), or a split-L0 role (--split-l0 / --run-l0 /
     --run-l1). `device` as in utils.device.resolve_device (CUDA unless
     the CPU is asked for)."""
     st = open_step1(params, log, device)
@@ -157,6 +170,16 @@ def run_step1(params: Params, log=print, device=None) -> None:
     log(f" * ridge data_l1: [ {params.n_ridge_l1} : " + " ".join(fmt(x) for x in st.h_l1) + " ]")
 
     J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
+
+    # null models of binary and count traits against the covariates, on the
+    # host in numpy float64, a trait at a time (fit_null_models,
+    # Step1_Models.cpp:54+)
+    offsets = None
+    if params.trait_mode != QT:
+        t0 = time.time()
+        offsets = glm.fit_null_offsets(params, pd)
+        log(f" * null model fits: {time.time() - t0:.3f}s "
+            f"({int(pd.pheno_pass.sum())} of {P} traits, on the host)")
 
     # ---- level 0 (or read it from job files) ----
     if params.run_l1:
@@ -183,7 +206,7 @@ def run_step1(params: Params, log=print, device=None) -> None:
         return
 
     _level1_and_output(params, gd, pd, W_all, st.taus, st.h_l1, chr_nblocks,
-                       st.fold_sizes, st.device, log)
+                       st.fold_sizes, st.device, log, offsets)
 
 
 def _read_l0_jobs(jobs, N, J, P, fold_sizes) -> np.ndarray:
@@ -394,9 +417,13 @@ def _trait_W(W_all, ph, dev) -> torch.Tensor:
 
 
 def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
-                       fold_sizes, dev, log):
+                       fold_sizes, dev, log, offsets=None):
     """Level-1 ridge per trait on the device, then its LOCO file
-    (ridge_level_1*, make_predictions*, write_predictions)."""
+    (ridge_level_1*, make_predictions*, write_predictions): the linear
+    ridge of quantitative traits, the penalized logistic or Poisson ridge
+    of binary and count traits (models/step1_bt.py, on the null
+    `offsets`), and with --write-null-firth a binary trait's .firth file
+    of null Firth fits a chromosome."""
     J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
     ind = pd.ind_in_analysis
     pred_list_path = params.out_prefix + "_pred.list"
@@ -425,18 +452,28 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
         bounds = np.concatenate([[0], np.cumsum(fold_sizes)])
 
     t0 = time.time()
-    write_s = 0.0
+    write_s = firth_s = 0.0
+    gz = ".gz" if params.gz_out else ""
     prs_list = open_write(params.out_prefix + "_prs.list") if params.print_prs else None
+    firth_list = (open_write(params.out_prefix + "_firth.list")
+                  if params.write_null_firth else None)
     with open_write(pred_list_path) as plist:
         for ph in range(P):
             if not pd.pheno_pass[ph]:
                 continue
             name = pd.pheno_names[ph]
-            loco_path = params.out_prefix + f"_{ph+1}.loco"
+            loco_path = params.out_prefix + f"_{ph+1}.loco" + gz
             log(f"phenotype {ph+1} ({name}):")
             predictions = np.zeros((N, len(chr_order)))
             Wph = _trait_W(W_all, ph, dev)
-            if params.use_loocv:
+            if params.trait_mode != QT:
+                predictions, converged = step1_bt.level1_nonqt(
+                    params, pd, Wph, offsets, taus, ph, chr_order, spans,
+                    fold_sizes, log)
+                if not converged:
+                    log("Level 1 model did not converge. LOCO predictions skipped.")
+                    continue
+            elif params.use_loocv:
                 cumsum = m1.level1_linear_loocv(
                     Wph, Y_t[:, ph], taus_t, float(pd.Neff[ph] - params.ncov)
                 ).cpu().numpy()
@@ -469,19 +506,32 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
             if prs_list is not None:
                 # whole-genome PRS: single chr-0 row (write_predictions,
                 # Data.cpp:1905-1925)
-                prs_path = params.out_prefix + f"_{ph+1}.prs"
-                with open(prs_path, "wb") as fh:
+                prs_path = params.out_prefix + f"_{ph+1}.prs" + gz
+                with _open_bytes(prs_path) as fh:
                     fh.write(header.encode())
                     fh.write(format_value_rows(total[id_order][None, :],
                                                pd.masked_indivs[id_order, ph], [0]))
                 prs_list.write(f"{name} {prs_path if params.use_rel_path else os.path.abspath(prs_path)}\n")
             write_s += time.time() - tw
+            if firth_list is not None and params.trait_mode == BT:
+                tf = time.time()
+                fpath = _write_null_firth_step1(params, pd, ph, predictions, total,
+                                                chr_order, log)
+                if fpath:
+                    firth_list.write(f"{name} {os.path.abspath(fpath)}\n")
+                firth_s += time.time() - tf
     if prs_list is not None:
         prs_list.close()
         log(f"List of files with whole genome PRS written to: [{params.out_prefix}_prs.list]")
+    if firth_list is not None:
+        firth_list.close()
+        log("List of files with null Firth estimates written to: "
+            f"[{params.out_prefix}_firth.list]")
     secs = time.time() - t0
-    log(f" * level 1 + predictions done ({secs:.3f}s: level 1 {secs - write_s:.3f}s, "
-        f"LOCO files {write_s:.3f}s)")
+    log(f" * level 1 + predictions done ({secs:.3f}s: level 1 "
+        f"{secs - write_s - firth_s:.3f}s, LOCO files {write_s:.3f}s"
+        + (f", null Firth files {firth_s:.3f}s" if firth_list is not None else "")
+        + ")")
     log(f"List of blup files written to: [{pred_list_path}]")
 
 
@@ -539,6 +589,54 @@ def _write_loco(path, header, params: Params, pd, ph, predictions, total,
         if chrom in chr_idx:
             V[r] -= predictions[id_order, chr_idx[chrom]]
     payload = format_value_rows(V, pd.masked_indivs[id_order, ph], chroms)
-    with open(path, "wb") as fh:
+    with _open_bytes(path) as fh:
         fh.write(header.encode())
         fh.write(payload)
+
+
+def _open_bytes(path):
+    """A file for bytes: a GzipWriter for a .gz path (--gz)."""
+    return GzipWriter(path) if path.endswith(".gz") else open(path, "wb")
+
+
+def _write_null_firth_step1(params, pd, ph, predictions, total, chr_order, log):
+    """A binary trait's <out>_<i>.firth: the approximate-Firth null
+    coefficients of each chromosome 1..n_chrom with that chromosome's
+    LOCO offset (write_predictions firth branch, Data.cpp:1875-1902), on
+    the host in numpy float64, each fit started from the previous one.
+    Returns the path, or None when a fit fails."""
+    from .models import firth as firth_mod
+
+    fpath = params.out_prefix + f"_{ph+1}.firth" + (".gz" if params.gz_out else "")
+    y = pd.phenotypes_raw[:, ph]
+    mask = pd.masked_indivs[:, ph]
+    chr_idx = {c: i for i, c in enumerate(chr_order)}
+    bstart, _ = glm.fit_logistic_irls(y, pd.new_cov, np.zeros(len(y)), mask,
+                                      params.niter_max, params.numtol)
+    lines = []
+    for chrom in range(1, params.n_chrom + 1):
+        loco = total.copy()
+        if chrom in chr_idx:
+            loco -= predictions[:, chr_idx[chrom]]
+        bnull, ok = firth_mod.fit_firth_null(
+            y, pd.new_cov, loco * mask, mask, bstart.copy(),
+            maxstep=params.maxstep_null, niter=params.niter_max_firth_null,
+            tol=50 * params.numtol,
+        )
+        if not ok:  # retry from 0 with smaller steps (fit_approx_firth_null)
+            b2 = np.zeros(pd.new_cov.shape[1])
+            b2[0] = -(loco * mask)[mask].mean()
+            bnull, ok = firth_mod.fit_firth_null(
+                y, pd.new_cov, loco * mask, mask, b2,
+                maxstep=params.maxstep_null // 5,
+                niter=params.niter_max_firth_null * 5,
+                tol=50 * params.numtol,
+            )
+        if not ok:
+            log("WARNING: Firth failed to converge; skipping null-firth file")
+            return None
+        bstart = bnull  # the next chromosome starts here
+        lines.append(f"{chrom} " + " ".join(fmt(b) for b in bnull))
+    with open_write(fpath, gz=params.gz_out) as fh:
+        fh.write("\n".join(lines) + "\n")
+    return fpath

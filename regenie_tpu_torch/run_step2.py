@@ -1,6 +1,6 @@
-"""Step 2 on quantitative and binary traits from PLINK BED, PGEN or BGEN
-files (the port of the QT and BT paths of regenie_tpu/run_step2.py), on
-two routes.
+"""Step 2 on quantitative, binary and count traits from PLINK BED, PGEN
+or BGEN files (the port of the QT, BT and CT paths of
+regenie_tpu/run_step2.py), on two routes.
 
 Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
 compute_res (:2386) and the .regenie writers. Per chromosome the LOCO
@@ -26,8 +26,12 @@ weights squared, the masks, the case indicators), so the same products
 give every trait's score num/denum, the per-variant statistics, the
 --af-cc case/control counts and HTP's case/control genotype counts; the
 rows past the correction threshold are decoded again on the card from
-the block's resident bytes and corrected by SPA or approximate Firth
-(models/corrections_device.py on the card, the host twins on the CPU).
+the block's resident bytes and corrected by SPA, approximate Firth or
+exact Firth (models/corrections_device.py on the card, the host twins on
+the CPU). Count traits (--ct) refit the null Poisson model per chromosome
+(models/step2_ct.py) and take the same operand and score test with the
+weights W = mu and no correction; their HTP genotype counts are of all
+samples.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import BT, QT, Params
+from .config import BT, CT, QT, Params
 from .io.bgen import extract_planes_block, planes_readable
 from .io.files import iter_lines, open_read, open_write, string_split
 from .io.geno import make_blocks
@@ -56,7 +60,7 @@ from .io.output import (block_prefixes, format_block_htp,
                         sumstat_line_all, sumstat_line_htp,
                         sumstat_line_single)
 from .models import step2 as m2
-from .models import step2_bt
+from .models import step2_bt, step2_ct
 from .ops import fused_score as fsc
 from .ops.geno_ops import (MISSING, decode_bed_packed, finalize_block_step2,
                            pack_hardcalls, snp_stats_block,
@@ -283,7 +287,7 @@ class FusedBTSource:
 
 
 class Step2Engine:
-    """Association-test state and per-block scoring (QT or BT; BED, PGEN
+    """Association-test state and per-block scoring (QT, BT or CT; BED, PGEN
     or BGEN), on the fused route (test_raw_block_fused) or the dense one
     (test_raw_block), chosen per block by fused_block.
 
@@ -315,7 +319,11 @@ class Step2Engine:
         self.scf_sv = None
         self.n_ignored = 0
         self.is_bt = params.trait_mode == BT
+        # binary and count traits: the GLM score test on the null state
+        self.is_glm = params.trait_mode in (BT, CT)
         self.bt_state = None
+        # --use-null-firth: trait name -> .firth file (read_pred_list)
+        self.null_firth_files = None
         self.n_corrected = 0
         self.n_failed = 0
         # seconds of the BT null fits and of the corrections
@@ -361,9 +369,13 @@ class Step2Engine:
                             params.n_chrom,
                         )
                     blups[:, ph] -= self._ltco_prs[ph]
-        if self.is_bt:
+        if self.is_glm:
             t0 = time.time()
-            self.bt_state = step2_bt.prep_chromosome(params, pd, blups, self.log)
+            if self.is_bt:
+                self.bt_state = step2_bt.prep_chromosome(
+                    params, pd, blups, self.log, self.null_firth_files, chrom)
+            else:
+                self.bt_state = step2_ct.prep_chromosome(params, pd, blups, self.log)
             self.bt_times["null_s"] += time.time() - t0
             self.res = self.bt_state.res
             return
@@ -410,6 +422,8 @@ class Step2Engine:
         p = self.params
         test = {0: "ADD", 1: "DOM", 2: "REC"}[p.test_type]
         wgr = "" if p.skip_blups else "-WGR"
+        if p.trait_mode == CT:
+            return test + wgr + "-POISSON"
         if not self.is_bt:
             return test + wgr + "-LR"
         return test + wgr + ("-FIRTH" if p.firth else "-SPA" if p.use_spa
@@ -456,7 +470,7 @@ class Step2Engine:
                     and planes_readable(gd._bgen))
         if not (hardcall_src or bgen_src):
             return False
-        return self.is_bt or (params.trait_mode == QT and not params.skip_cov_res
+        return self.is_glm or (params.trait_mode == QT and not params.skip_cov_res
                               and not params.mcc_test)
 
     def fused_block(self, bsnps) -> bool:
@@ -480,7 +494,7 @@ class Step2Engine:
         common = (self.gd.sex is not None and bool(p.test_mode)
                   and not p.skip_dosage_comp and not p.af_cc
                   and p.test_type == 0)
-        return common and (self.is_bt or self.gd._bgen is None or not p.htp_out)
+        return common and (self.is_glm or self.gd._bgen is None or not p.htp_out)
 
     @staticmethod
     def _hemizygous_adjust(npb, S1h, SQh, SMh, usum_h, mcol, mm_sl,
@@ -564,7 +578,7 @@ class Step2Engine:
         zero and are patched on the device."""
         if self._fused_chrom == self.cur_chrom:
             return
-        if self.is_bt:
+        if self.is_glm:
             self._ensure_fused_bt()
             return
         pd, params = self.pd, self.params
@@ -794,7 +808,7 @@ class Step2Engine:
         # compute_genocounts read G_raw)
         tot_case = S1h[:, csl]
         ns_case = fb.case_n[None, :] - SMh[:, csl]
-        if params.af_cc:
+        if params.af_cc and self.is_bt:
             with np.errstate(divide="ignore", invalid="ignore"):
                 result.af_case = tot_case / (2.0 * ns_case)
                 result.af_control = (total_t - tot_case) / (2.0 * (ns_t - ns_case))
@@ -813,9 +827,13 @@ class Step2Engine:
             if n1m_case is not None:
                 a_case, het_case = a_case + n1m_case, het_case - n1m_case
             rr_t = ns_t - het_t - a_t
-            rr_case = ns_case - het_case - a_case
-            gc = np.stack([rr_case, het_case, a_case, rr_t - rr_case,
-                           het_t - het_case, a_t - a_case], axis=1)
+            if self.is_bt:
+                rr_case = ns_case - het_case - a_case
+                gc = np.stack([rr_case, het_case, a_case, rr_t - rr_case,
+                               het_t - het_case, a_t - a_case], axis=1)
+            else:  # CT: all-sample counts (compute_genocounts else-branch)
+                zero = np.zeros_like(rr_t)
+                gc = np.stack([rr_t, het_t, a_t, zero, zero, zero], axis=1)
             result.genocounts = np.round(gc).astype(np.int64)
         return result, flipped
 
@@ -880,7 +898,7 @@ class Step2Engine:
         of chrX non-PAR rows."""
         params, pd = self.params, self.pd
         self._ensure_fused_consts()
-        if self.is_bt:
+        if self.is_glm:
             return self._fused_block_bt(raw, bsnps)
         consts = self._fused_consts
         B, P = len(bsnps), consts.P
@@ -996,7 +1014,7 @@ class Step2Engine:
         if d.chrom != self.cur_chrom:
             d.res = put(self.res)
             d.covt_res = put(pd.new_cov.T @ self.res)
-            if not (params.skip_cov_res or self.strict or self.is_bt):
+            if not (params.skip_cov_res or self.strict or self.is_glm):
                 K, P = d.cov.shape[1], d.res.shape[1]
                 if d.W is None:
                     CM, d.Mmat, _ = m2.onepass_constants(d.cov, d.maskf, d.res)
@@ -1091,7 +1109,7 @@ class Step2Engine:
         params, d = self.params, self._ensure_dense_consts()
         B = G.shape[0]
         self.n_ignored += int(ignored.sum())
-        if self.is_bt:
+        if self.is_glm:
             bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_bt.score_block(
                 params, self.pd, self.bt_state, step2_bt.DenseGSource(G),
                 flipped, ignored, ignored_trait, self.bt_times)
@@ -1173,9 +1191,9 @@ class Step2Engine:
         if info_t is not None and params.set_min_info:
             ignored_trait = ignored_trait | (info_t < params.min_info)
 
-        # BT additive tests flip to the minor allele (with_flip,
+        # BT and CT additive tests flip to the minor allele (with_flip,
         # Data.cpp:2108); QT never flips
-        if self.is_bt and params.test_type == 0:
+        if self.is_glm and params.test_type == 0:
             flipped = sb["total"] / sb["ns"] > 1.0
         else:
             flipped = np.zeros(B, dtype=bool)
@@ -1194,7 +1212,7 @@ class Step2Engine:
             G, af, sb["ns_t"], sb["mac"], ignored, ignored_trait, flipped, info_t)
         result.af1 = sb["af1"]
         result.ns1 = sb["ns"].astype(np.int64)
-        if params.af_cc:
+        if params.af_cc and self.is_bt:
             # case/control AF and counts (update_af_cc Geno.cpp:3069,
             # compute_aaf_info :3119-3126), on G_raw before the flip
             Gf = G_raw.to(torch.float64)
@@ -1409,8 +1427,33 @@ def open_engine(params: Params, log=print, device=None):
     return eng, make_blocks(gd, params.block_size)
 
 
+def _open_null_firth_out(params, eng, pd, log):
+    """Step 2's --write-null-firth (Data.cpp:2200-2215): <out>_<i>.firth
+    per passing trait and <out>_firth.list, the files open in
+    params._null_firth_out for the null fits to stream each chromosome's
+    coefficients into (step2_bt.prep_chromosome); with --compute-all
+    every chromosome 1..n_chrom is fitted now (get_firth_est_allChr,
+    Data.cpp:2209)."""
+    fh_map = {}
+    with open_write(params.out_prefix + "_firth.list") as fl:
+        for ph, name in enumerate(pd.pheno_names):
+            if not pd.pheno_pass[ph]:
+                continue
+            fpath = params.out_prefix + f"_{ph+1}.firth"
+            fh_map[ph] = open_write(fpath)
+            fl.write(f"{name} {fpath if params.use_rel_path else os.path.abspath(fpath)}\n")
+    params._null_firth_out = fh_map
+    if params.compute_all_chr:
+        for c in range(1, params.n_chrom + 1):
+            try:
+                eng.prep_chrom(c)
+            except Exception as e:  # noqa: BLE001 — the JAX package logs and goes on
+                log(f"WARNING: null fit failed for chr {c}: {e}")
+        eng.cur_chrom = None  # the block loop fits its chromosomes again
+
+
 def run_step2(params: Params, log=print, device=None) -> Step2Engine:
-    """Step 2 (QT or BT) on a BED, PGEN or BGEN file: one output file per
+    """Step 2 (QT, BT or CT) on a BED, PGEN or BGEN file: one output file per
     trait, or one merged file (--no-split). `device` as in
     utils.device.resolve_device (CUDA unless the CPU is asked for).
     Returns the engine, its output files closed and its genotype source
@@ -1422,6 +1465,10 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
         write_debug_inputs(params, pd)
     if params.write_samples:
         write_sample_ids(params, eng.gd, pd, log)
+    if params.use_null_firth:
+        eng.null_firth_files = read_pred_list(params.use_null_firth)
+    if params.write_null_firth and eng.is_bt and params.firth_approx:
+        _open_null_firth_out(params, eng, pd, log)
     params.total_n_block = len(blocks)
     log(f" * block size: [{params.block_size}]")
     log(usage_info_line(params))
@@ -1556,7 +1603,9 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
             f"correction : {eng.n_corrected}")
         log(f"Number of failed tests : ({eng.n_failed}/{eng.n_corrected})")
     log(f"Number of ignored tests due to low MAC : {eng.n_ignored * params.n_pheno}")
-    if eng.is_bt:
+    for fh in getattr(params, "_null_firth_out", {}).values():
+        fh.close()
+    if eng.is_glm:
         log(f" * null model fits: {eng.bt_times['null_s']:.3f}s; corrections: "
             f"{eng.bt_times['corr_s']:.3f}s "
             + ("on the device" if step2_bt.cdev.enabled(device) else "on the host"))

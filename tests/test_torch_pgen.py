@@ -308,3 +308,73 @@ def test_step1_matches_jax(fitted, monkeypatch):
         assert_loco_equiv(f"{d}/jfit_{p}.loco", f"{d}/pfit_{p}.loco")
     rows = open(f"{d}/pfit_1.loco").read().splitlines()
     assert [r.split()[0] for r in rows[1:]] == [str(c) for c in range(1, 24)]
+
+
+def test_int8_gap_is_the_data_not_the_decoder(tmp_path, monkeypatch):
+    """Why the PGEN chrX slice's blocks sit ~9x further from the float64
+    plain path than the BED slice's (|dLOG10P| 1.47e-06 against 1.70e-07
+    at N = 400,000 on an NVIDIA H100): its PGEN (seed 6, chromosome 1 and chrX,
+    a quarter of the records LD-compressed, every other one inverted) at
+    N = 2,000 with a BED of the same hardcalls beside it
+    (write_pgen_dataset's bed_prefix). The decoder's BED-coded bytes equal
+    the BED's block for block, so both files give the same LOG10P on the
+    float64 route and the same int8-operand gaps (the int8 limbs selected
+    on the CPU, plain integer products): the decoder is exact. The gap
+    sits on the variants whose ALT frequency exceeds 0.5 (the inverted
+    records; a quantitative trait's test never flips to the minor allele,
+    and the int8 fold's centring cancels most for them): at least 4x the
+    rest of the block, which stays at the BED slice's level."""
+    from chip_smoke import write_dataset
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.ops import fused_score as fsc
+    from regenie_tpu_torch.run_step2 import Step2Engine, open_engine
+
+    d, B = str(tmp_path), 256
+    write_pgen_dataset(d, seed=6, N=2000, chroms=((1, B), ("X", B)), P=50,
+                       n_inc=10, n_cov=19, positions={"X": chrx_positions(B, B // 8)},
+                       bed_prefix=f"{d}/same")
+    os.makedirs(f"{d}/slice")
+    write_dataset(f"{d}/slice", seed=1, N=2000, chroms=((1, 2 * B),), P=50,
+                  n_inc=10, n_cov=19)
+
+    def run(src, dd, i8):
+        argv = ["--step", "2", *src, "--phenoFile", f"{dd}/pheno.txt",
+                "--covarFile", f"{dd}/covar.txt", "--ignore-pred", "--bsize",
+                str(B), "--out", f"{dd}/x"]
+        params = cli.args_to_params(cli.build_parser().parse_args(argv))
+        with monkeypatch.context() as m:
+            if i8:
+                m.setattr(fsc, "split_mode", lambda on_gpu: "i8")
+            eng, blocks = open_engine(params, log=lambda *a: None, device="cpu")
+            eng = Step2Engine(params, eng.gd, eng.pd, None, eng.log, "cpu")
+        assert eng.split == ("i8" if i8 else False)
+        out = []
+        for chrom, bsnps in blocks:
+            eng.prep_chrom(chrom)
+            raw = eng.read_block_raw(bsnps)
+            out.append((np.asarray(raw), eng.test_raw_block_fused(raw, bsnps)[0]))
+        eng.gd.close()
+        return out
+
+    runs = {(name, i8): run(src, dd, i8)
+            for name, src, dd in (("pgen", ["--pgen", f"{d}/geno"], d),
+                                  ("bed", ["--bed", f"{d}/same"], d),
+                                  ("slice", ["--bed", f"{d}/slice/geno"], f"{d}/slice"))
+            for i8 in (False, True)}
+    for b in range(2):
+        (rp, p64), (rb, b64) = runs["pgen", False][b], runs["bed", False][b]
+        assert np.array_equal(rp[:, : rb.shape[1]], rb)
+        assert np.array_equal(p64.logp, b64.logp, equal_nan=True)
+        gaps = {}
+        for name in ("pgen", "bed", "slice"):
+            g = np.abs(runs[name, True][b][1].logp - runs[name, False][b][1].logp)
+            gaps[name] = (g, runs[name, False][b][1].af1 > 0.5)
+        assert np.array_equal(gaps["pgen"][0], gaps["bed"][0], equal_nan=True)
+        g, hi = gaps["bed"]
+        g_slice = np.nanmax(gaps["slice"][0])
+        print(f"block {b}: {int(hi.sum())} of {len(hi)} variants with ALT frequency "
+              f"> 0.5: int8 |dLOG10P| {np.nanmax(g[hi]):.3e} there, "
+              f"{np.nanmax(g[~hi]):.3e} elsewhere; BED slice data {g_slice:.3e}")
+        assert hi.sum() == B // 8
+        assert np.nanmax(g[hi]) > 4 * np.nanmax(g[~hi])
+        assert np.nanmax(g[~hi]) < 2 * g_slice

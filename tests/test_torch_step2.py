@@ -116,6 +116,7 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.models.step2_bt, regenie_tpu_torch.models.glm, "
         "regenie_tpu_torch.models.firth, regenie_tpu_torch.models.spa, "
         "regenie_tpu_torch.models.corrections_device, "
+        "regenie_tpu_torch.models.step1_bt, regenie_tpu_torch.models.step2_ct, "
         "regenie_tpu_torch.scripts.profile_fused, "
         "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
@@ -190,19 +191,21 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # Step 1 runs on BED, PGEN and BGEN QT since their slices, and Step 2
-    # on binary traits with SPA or approximate Firth; these modes still
-    # raise
-    ["--step", "1", "--bt"], ["--bt", "--firth"], ["--t2e", "--phenoColList", "Y1",
-                                                   "--eventColList", "Y2"],
-    ["--step", "1", "--gz"], ["--interaction", "C1"], ["--mcc"],
+    # Step 1 runs on BED, PGEN and BGEN on quantitative, binary and count
+    # traits (with --gz) since their slices, and Step 2 on binary traits
+    # with SPA and approximate or exact Firth, on count traits and with the
+    # null Firth checkpoints; these modes still raise
+    ["--step", "1", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2"],
+    ["bgen", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2"],
+    ["--t2e", "--phenoColList", "Y1", "--eventColList", "Y2"],
+    ["bgen", "--step", "1", "--print"], ["--interaction", "C1"], ["--mcc"],
     ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
-    ["--ct"], ["--compute-corr"], ["--step", "1", "--debug"],
-    ["--bt", "--write-null-firth", "--firth", "--approx"],
+    ["bgen", "--step", "1", "--select-l0", "f"], ["--compute-corr"],
+    ["--step", "1", "--debug"], ["bgen", "--step", "1", "--prior-alpha", "0.5"],
     # BED and BGEN runs of modes no slice has ported yet
-    ["chrx", "--multiphen", "--strict"], ["bgen", "--ct"],
+    ["chrx", "--multiphen", "--strict"], ["bgen", "--interaction", "C1"],
     ["bgen", "--step", "1", "--debug"],
-    ["bgen", "--mcc"], ["bgen", "--step", "1", "--gz"],
+    ["bgen", "--mcc"], ["bgen", "--compute-corr"], ["--ct", "--af-cc"],
     ["bgen", "--multiphen", "--strict"],
     ["bgen", "--step", "1", "--test-l0"], ["--step", "1", "--test-l0"],
     ["--step", "1", "--select-l0", "f"], ["--step", "1", "--print"],
