@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, each of which must pass:
+Phases, each of which must pass. The four full-width datasets (the BED
+of phases 3 and 3b, the BGEN of 4 and 4b, the Step-1 BED of 5 to 5b, the
+PGEN of 5c) are written by one background process from the end of the
+build on, while the card runs phases 2 and 2b, and each slice waits for
+its own; a slice's Step-2 or Step-1 run goes through the port's CLI
+(cli.main, its gate of unported modes and its <out>.log included) in
+this process, and its block checks reuse the engine or setup that the
+CLI's entry point returned (run_cli_kept).
 
 1. build: compile every CUDA kernel of the port from ops/csrc/ with nvcc
    (one process per source, started together), and report whether the
@@ -46,17 +53,18 @@ Phases, each of which must pass:
    regenie_tpu_torch.scripts.profile_bgen.main in each of its four modes,
    where each line's kernel launches 4 times (a warm-up, a call a block,
    its check) and no other kernel, and every check line is 0.
-3. BED slice: write a synthetic PLINK BED at that shape (M = 2 blocks of
-   2048 variants, null phenotypes) and run the port's Step-2 CLI on the
-   card in this process, twice: by default, where fused_i8 must launch
-   once per block and no other kernel, and with REGENIE_TPU_I8=0, where
-   fused_f32 must; check the output files, and that the first block of
-   each agrees with the port's plain path (float64 operand, plain
+3. BED slice: a synthetic PLINK BED at that shape (M = 2 blocks of
+   2048 variants, null phenotypes) and the port's Step 2 on the card by
+   default, where fused_i8 must launch once per
+   block and no other kernel (the REGENIE_TPU_I8=0 CLI run, fused_f32,
+   is the cross-check's BED --htp run); check the output files, and that
+   the first block on the int8 and on the float32 operand (fused_f32, in
+   memory) agrees with the port's plain path (float64 operand, plain
    products) on the card: max |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6,
    the repository's cross-backend bar.
 3b. BT slice: on the BED slice's own BED, a binary-trait table (its
-   traits thresholded at 5-30% prevalence) and one run of run_step2 (the
-   CLI's entry point) with --bt --firth --approx --af-cc: fused_i8
+   traits thresholded at 5-30% prevalence) and one run of the CLI with
+   --bt --firth --approx --af-cc: fused_i8
    launches once per block and no other kernel, the 50 files are well
    formed; printed: the null fits' and the corrections' seconds, the
    corrected and failed counts, the wall and variants/s. Then block 1 in
@@ -73,10 +81,10 @@ Phases, each of which must pass:
    twin: flags equal, LRT within rel 1e-8, |dLOG10P| within 1e-5.
 4. BGEN slice: the same on a synthetic 8-bit zlib BGEN at that shape
    (imputed-like probabilities, 1% missing; M = 2 blocks), through
-   --bgen/--sample: bgen_i8 (and with REGENIE_TPU_I8=0 bgen_f32)
-   launches once per block and no other kernel; the first block meets
-   the same bar, and its INFO and A1FREQ agree with the plain path
-   within rel 1e-9.
+   --bgen/--sample: bgen_i8 launches once per block and no other kernel
+   (the REGENIE_TPU_I8=0 CLI run, bgen_f32, is the cross-check's BGEN
+   --minINFO run); the first block on both operands meets the same bar,
+   and its INFO and A1FREQ agree with the plain path within rel 1e-9.
    Split path (in each slice phase): the bf16 hi|mid|lo split consts,
    built by build_consts(split=True) from the engine's per-sample arrays,
    score the first block through make_qt_block_fn (BED, with
@@ -120,7 +128,31 @@ Phases, each of which must pass:
    per Newton iteration, and the same function at N = 20,000, F = 250 on
    the card against the CPU in float64 (the same ridge parameter,
    predictions within 1e-9 of their largest magnitude).
-5b. PGEN chrX slice: a synthetic PLINK2 PGEN at that width (storage
+5b. T2E slice: on the Step-1 slice's own BED (its QT and BT LOCO files
+   removed), 10 time-to-event endpoints (write_t2e_table: T1..T10 and
+   E1..E10, log-hazards from the writer's traits with their covariate
+   share rescaled, exponential times rounded to 0.01 so that event times
+   tie, censoring spread for event rates of 5-30%, T1 and T2 with 5% NA
+   times) and the port's Step-1 CLI with --t2e at the same width
+   (K-fold, J = T = 5): no hand-written kernel may launch, level 0 on
+   cuda, the 10 .loco files and _pred.list well formed; printed: the
+   null fits', level 0's, each endpoint's level 1 and the LOCO files'
+   times. The Cox level 1 alone at F = 2,500 (N = 400,000, 8 GB of
+   predictions drawn on the card): 3 coordinate sweeps of one (fold,
+   penalty) timed, the Gram of a sweep beside its FP64 bound; the same
+   function at N = 20,000, F = 250 on the card against the CPU (the same
+   penalty, predictions within 1e-9 of their largest magnitude). Then
+   the Step-2 CLI with --t2e --pred on that _pred.list (no --firth: the host's
+   null Cox Firth costs minutes an endpoint at this N): fused_i8 launches
+   once per block and no other kernel, the 10 files well formed; printed:
+   the null fits' seconds per chromosome, the wall and variants/s. The
+   last chromosome's block in memory through the run's engine against a
+   float64 plain engine on the same null fits: flips equal, max
+   |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6; fused_i8 at the Cox operand's
+   width (Cw4 = 4 x 512) exactly equal to its plain version, timed beside
+   torch._int_mm (B K-major; printed, the kernels line keeps the QT
+   width).
+5c. PGEN chrX slice: a synthetic PLINK2 PGEN at that width (storage
    mode 0x10; a quarter of the records LD-compressed difflists, half of
    them inverted; half the samples male in the .psam) of 2 blocks, one on
    chromosome 1 and one on chrX (1/8 of its variants in PAR1, the rest
@@ -134,7 +166,9 @@ Phases, each of which must pass:
    wall and variants/s.
 6. cross-check: small runs (N=2,000) through the port on the card (by
    default and with REGENIE_TPU_I8=0) and on the CPU, each with
-   --remove: a BED --htp run, a two-chromosome BGEN --minINFO run, a
+   --remove: a BED --htp run, a two-chromosome BGEN --minINFO run (their
+   REGENIE_TPU_I8=0 runs launch fused_f32 / bgen_f32 once per block and
+   no other kernel: the float32 kernels' counts in the kernels line), a
    chrX BED --htp run and a chrX BGEN run (PAR1, non-PAR and PAR2
    positions), a zstd BGEN run and a chrX PGEN run with --no-split --gz;
    and on the dense route, once on the card and once on the CPU: a
@@ -147,8 +181,16 @@ Phases, each of which must pass:
    run and a chrX PGEN --spa --htp run (fused, by default and with
    REGENIE_TPU_I8=0), a PGEN-dosages --firth --approx run (dense, no
    kernel) and a chrX BED --firth --approx --af-cc run (non-PAR blocks
-   dense); every output field meets the same bar (a binary trait's HTP
-   odds ratios on the log scale), and a BED --bt --firth --approx
+   dense); time-to-event traits (2 endpoints): BED --t2e --firth --approx
+   --htp --htp-with-event, chrX BED --firth --approx (PAR1, non-PAR and
+   PAR2 on the fused route with the male tail) and PGEN --firth --approx
+   --coxnofirth (fused, by default and with REGENIE_TPU_I8=0: each run
+   launches fused_i8, or fused_f32, once per block and no other kernel,
+   routes no block dense, and on chrX the log counts every non-PAR block
+   fused with the male tail), BGEN --firth --approx and BED
+   --coxscore-exact (dense, no kernel); every
+   output field meets the same bar (a binary trait's and a Cox Firth
+   run's HTP ratios on the log scale), and a BED --bt --firth --approx
    --write-null-firth run (its .firth files within one unit of the sixth
    significant digit). Then
    the two-step workflow on the BED dataset (K-fold and --loocv), on the
@@ -160,7 +202,9 @@ Phases, each of which must pass:
    below 5,000 samples) then exact Firth with --use-null-firth on the
    BED; Step 1 --bt K-fold at N = 6,000 on a BED of its own; --ct on the
    BED and on the BGEN, whose Step 2 on the card must launch fused_i8 /
-   bgen_i8 once per block and no other kernel.
+   bgen_i8 once per block and no other kernel; and Step 1 --t2e on the
+   BED (K-fold, with --t2e-l1-pi6 and with --t2e-event-l0), each then
+   Step 2 --t2e with its predictions (fused_i8 once per block).
 
 After each phase a line gives the seconds since the start. The last
 lines of standard output are a JSON line with every kernel's numbers,
@@ -175,6 +219,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -214,6 +259,38 @@ def run_cli(argv):
         cli.main(argv)
 
 
+def run_cli_kept(argv):
+    """run_cli, keeping what the step's entry point (run_step1 or
+    run_step2) was given and returned, so that a slice's checks reuse the
+    run's setup or engine (its genotype source open) without a second
+    run-up. Returns (its params, its return value, the lines of
+    <out>.log)."""
+    from regenie_tpu_torch import run_step1 as rs1
+    from regenie_tpu_torch import run_step2 as rs2
+
+    kept = []
+    fns = [(m, m.__dict__[n]) for m, n in ((rs1, "run_step1"), (rs2, "run_step2"))]
+
+    def keeping(fn):
+        def run(params, *a, **kw):
+            kept.append((params, fn(params, *a, **kw)))
+            return kept[-1][1]
+        return run
+
+    for m, fn in fns:
+        setattr(m, fn.__name__, keeping(fn))
+    try:
+        run_cli(argv)
+    finally:
+        for m, fn in fns:
+            setattr(m, fn.__name__, fn)
+    params, ret = kept[0]
+    if hasattr(ret, "log"):
+        ret.log = print  # the CLI's log file is closed now
+    with open(argv[argv.index("--out") + 1] + ".log") as fh:
+        return params, ret, fh.read().splitlines()
+
+
 def card_line() -> str:
     r = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -235,11 +312,54 @@ def chrx_positions(n, n_par1, n_par2=0):
         PAR2_MIN + 1000 * np.arange(n_par2)]).astype(np.int64)
 
 
+def _in_row_slices(fn, n):
+    """fn(lo, hi) for row slices [lo, hi) covering n rows, one per CPU, in
+    threads (numpy releases the interpreter lock in the writers'
+    elementwise passes; each slice writes its own rows, so the values do
+    not depend on the threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    k = min(os.cpu_count() or 1, n)
+    if k <= 1:
+        fn(0, n)
+        return
+    bounds = np.linspace(0, n, k + 1).astype(int)
+    with ThreadPoolExecutor(k) as pool:
+        list(pool.map(fn, bounds[:-1], bounds[1:]))
+
+
+def _by_rows(fn, x):
+    """fn(x) with fn taking and giving arrays row for row, computed in row
+    slices (_in_row_slices)."""
+    first = fn(x[:1])
+    out = np.empty((len(x),) + first.shape[1:], first.dtype)
+
+    def part(lo, hi):
+        out[lo:hi] = fn(x[lo:hi])
+
+    _in_row_slices(part, len(x))
+    return out
+
+
+def _pack2_rows(codes, nb):
+    """[c, N] 2-bit codes -> [c, nb] bytes, 4 samples a byte, low bits
+    first (the BED layout)."""
+    c = np.pad(codes, ((0, 0), (0, 4 * nb - codes.shape[1]))).reshape(-1, nb, 4)
+    return (c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4)
+            | (c[..., 3] << 6)).astype(np.uint8)
+
+
+def _pack2(codes):
+    """1-D 2-bit codes, 4 to a byte, low bits first."""
+    return _pack2_rows(codes[None, :], -(-len(codes) // 4))[0]
+
+
 def _hardcall_blocks(rng, N, chroms, P, n_cov, miss, effect_sd, chunk):
     """The hardcall generator of write_dataset and write_pgen_dataset:
     (beta, X, Y, chunks), where chunks yields (first variant index, [c,
     N] BED 2-bit codes) `chunk` variants at a time; the caller adds each
-    chunk's causal effects to Y (_add_effects)."""
+    chunk's causal effects to Y (_add_effects). The draws are sequential;
+    the codes are made from them in row slices (_in_row_slices)."""
     M = sum(n for _, n in chroms)
     af = rng.uniform(0.01, 0.5, size=M)
     af[::17] = max(0.004, 5.0 / N)
@@ -252,12 +372,18 @@ def _hardcall_blocks(rng, N, chroms, P, n_cov, miss, effect_sd, chunk):
         for s in range(0, M, chunk):
             a = af[s : s + chunk, None]
             t1 = miss
-            t2 = t1 + (1 - miss) * a * a
-            t3 = t2 + (1 - miss) * 2 * a * (1 - a)
+            t2 = (t1 + (1 - miss) * a * a).astype(np.float32)
+            t3 = (t1 + (1 - miss) * a * a + (1 - miss) * 2 * a * (1 - a)).astype(np.float32)
             u = rng.random((len(a), N), dtype=np.float32)
-            k = ((u >= t1).astype(np.uint8) + (u >= t2.astype(np.float32))
-                 + (u >= t3.astype(np.float32)))
-            yield s, lut[k]
+            codes = np.empty(u.shape, np.uint8)
+
+            def part(lo, hi):
+                v = u[lo:hi]
+                codes[lo:hi] = lut[(v >= t1).astype(np.uint8) + (v >= t2[lo:hi])
+                                   + (v >= t3[lo:hi])]
+
+            _in_row_slices(part, len(a))
+            yield s, codes
 
     return beta, X, Y, chunks()
 
@@ -304,9 +430,7 @@ def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
         fh.write(b"\x6c\x1b\x01")
         for s, codes in chunks:
             _add_effects(Y, beta, s, codes)
-            codes = np.pad(codes, ((0, 0), (0, 4 * nb - N))).reshape(-1, nb, 4)
-            fh.write((codes[..., 0] | (codes[..., 1] << 2) | (codes[..., 2] << 4)
-                      | (codes[..., 3] << 6)).astype(np.uint8).tobytes())
+            fh.write(_by_rows(lambda c: _pack2_rows(c, nb), codes).tobytes())
     with open(prefix + ".bim", "w") as fh:
         v = 0
         for chrom, pos in _positions(chroms, positions,
@@ -334,15 +458,6 @@ def _vints(v):
         byte = (v[m] >> np.uint64(7 * k)) & np.uint64(0x7F)
         out[start[m] + k] = byte.astype(np.uint8) | np.where(nby[m] > k + 1, 0x80, 0)
     return out, nby
-
-
-def _pack2(codes):
-    """2-bit codes, 4 to a byte, low bits first."""
-    n = len(codes)
-    c = np.zeros(4 * ((n + 3) // 4), np.uint8)
-    c[:n] = codes
-    c = c.reshape(-1, 4)
-    return (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)).astype(np.uint8)
 
 
 def _difflist(ids, codes, N):
@@ -427,9 +542,7 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                     vrtypes[v] = 3 if inv else 2
                 else:
                     base = pg[j].copy()
-            c = np.pad(pg, ((0, 0), (0, 4 * nb - N))).reshape(-1, nb, 4)
-            packed = (c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4)
-                      | (c[..., 3] << 6)).astype(np.uint8)
+            packed = _by_rows(lambda c: _pack2_rows(c, nb), pg)
             for j in range(len(pg)):
                 rec = ld[j] if j in ld else packed[j].tobytes()
                 if has_dos[s + j]:
@@ -445,9 +558,7 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                 fh.write(rec)
             _add_effects(Y, beta, s, to_bed[pg])
             if bfh is not None:
-                b = np.pad(to_bed[pg], ((0, 0), (0, 4 * nb - N))).reshape(-1, nb, 4)
-                bfh.write((b[..., 0] | (b[..., 1] << 2) | (b[..., 2] << 4)
-                           | (b[..., 3] << 6)).astype(np.uint8).tobytes())
+                bfh.write(_by_rows(lambda c: _pack2_rows(to_bed[c], nb), pg).tobytes())
         fh.seek(12)
         start = 12 + index
         for b in range(vblocks):
@@ -571,6 +682,53 @@ def write_bt_table(path, Y, seed, prev=(0.05, 0.3), n_inc=0, na_rate=0.05,
         Yb[rng.random(N) < na_rate, p] = np.nan
     _print_tables(((path, [f"Y{p + 1}" for p in range(P)], Yb),))
     return Yb
+
+
+def write_t2e_table(path, Y, seed, n_na=0, na_rate=0.05, rates=(0.05, 0.3),
+                    X=None, cov_share=0.1):
+    """A time-to-event table at `path` (T1..TP, then E1..EP, for samples
+    F{i} I{i}) from the quantitative traits Y [N, P]: each trait, its
+    covariate fit rescaled to `cov_share` of its variance as in
+    write_bt_table (given X), standardized and halved, is the log-hazard
+    of an exponential event time; a uniform censoring time, its scale
+    solved per trait so that the event rates run evenly over `rates`,
+    cuts it; times are rounded to 0.01, so event times tie. The first
+    n_na endpoints get na_rate NA times. Returns (times, events), each
+    [N, P] (NaN where NA)."""
+    rng = np.random.default_rng(seed)
+    N, P = Y.shape
+    if X is not None:
+        X1 = np.column_stack([np.ones(N), X])
+        fit = X1 @ np.linalg.lstsq(X1, Y, rcond=None)[0]
+        res = Y - fit
+        fit -= fit.mean(axis=0)
+        a = np.sqrt(cov_share / (1 - cov_share) * res.var(axis=0) / fit.var(axis=0))
+        Y = res + a[None, :] * fit
+    hazard = 0.1 * np.exp(0.5 * (Y - Y.mean(axis=0)) / Y.std(axis=0))
+    T = rng.exponential(1.0, size=(N, P)) / hazard
+    U = rng.random((N, P))
+    times = np.empty((N, P))
+    events = np.empty((N, P))
+    for p, target in enumerate(np.linspace(rates[0], rates[1], P)):
+        lo, hi = 1e-3, 1e6  # the censoring scale: event rate rises with it
+        for _ in range(100):
+            mid = np.sqrt(lo * hi)
+            lo, hi = (mid, hi) if (T[:, p] <= mid * U[:, p]).mean() < target else (lo, mid)
+        C = hi * U[:, p]
+        events[:, p] = T[:, p] <= C
+        times[:, p] = np.round(np.minimum(T[:, p], C), 2)
+    for p in range(n_na):
+        times[rng.random(N) < na_rate, p] = np.nan
+    _print_tables(((path, [f"T{p + 1}" for p in range(P)]
+                    + [f"E{p + 1}" for p in range(P)],
+                    np.concatenate([times, events], axis=1)),))
+    return times, events
+
+
+def t2e_flags(P):
+    """--t2e with the column lists of write_t2e_table's P endpoints."""
+    return ["--t2e", "--phenoColList", ",".join(f"T{p + 1}" for p in range(P)),
+            "--eventColList", ",".join(f"E{p + 1}" for p in range(P))]
 
 
 def write_ct_table(path, Y, seed):
@@ -705,23 +863,35 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
         for s in range(0, M, chunk):
             a = af[s : s + chunk, None]
             c = len(a)
-            u = rng.random((c, N), dtype=np.float32)
-            g = ((u < (a * a).astype(np.float32)).astype(np.uint8)
-                 + (u < (1 - (1 - a) ** 2).astype(np.float32)))  # first-allele count
+            u1 = rng.random((c, N), dtype=np.float32)
             # j/255 of the called genotype's probability moves to its
             # neighbour on uncertain samples
             u = rng.random((c, N), dtype=np.float32)
-            j = np.where(u < uncertain, rng.integers(0, 128, (c, N), dtype=np.uint8),
-                         np.uint8(0))
-            gmiss = u > 1 - miss
+            ju = rng.integers(0, 128, (c, N), dtype=np.uint8)
+            g = np.empty((c, N), np.uint8)  # first-allele count
+            j = np.empty((c, N), np.uint8)
+            gmiss = np.empty((c, N), bool)
             body = np.empty((c, 10 + 3 * N), np.uint8)
-            body[:, :8] = head
-            body[:, 8 : 8 + N] = np.where(gmiss, np.uint8(0x82), np.uint8(2))
-            body[:, 8 + N] = 0
-            body[:, 9 + N] = 8
             k = body[:, 10 + N :].reshape(c, N, 2)  # k0, k1
-            k[..., 0] = np.where(g == 2, 255 - j, np.where(g == 1, j >> 1, 0))
-            k[..., 1] = np.where(g == 2, j, np.where(g == 1, 255 - j, j))
+
+            def part(lo, hi):
+                v, aa = u1[lo:hi], a[lo:hi]
+                g[lo:hi] = ((v < (aa * aa).astype(np.float32)).astype(np.uint8)
+                            + (v < (1 - (1 - aa) ** 2).astype(np.float32)))
+                gg, jj = g[lo:hi], np.where(u[lo:hi] < uncertain, ju[lo:hi],
+                                            np.uint8(0))
+                j[lo:hi] = jj
+                gmiss[lo:hi] = u[lo:hi] > 1 - miss
+                body[lo:hi, :8] = head
+                body[lo:hi, 8 : 8 + N] = np.where(gmiss[lo:hi], np.uint8(0x82),
+                                                  np.uint8(2))
+                body[lo:hi, 8 + N] = 0
+                body[lo:hi, 9 + N] = 8
+                k[lo:hi, :, 0] = np.where(gg == 2, 255 - jj,
+                                          np.where(gg == 1, jj >> 1, 0))
+                k[lo:hi, :, 1] = np.where(gg == 2, jj, np.where(gg == 1, 255 - jj, jj))
+
+            _in_row_slices(part, c)
             dose = None
             if bits != 8 or layout != 2 or phased:
                 body, dose = _bgen_probs(k, g, j, gmiss, N, bits, layout, phased)
@@ -747,6 +917,107 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
         fh.write("".join(f"F{i} I{i} 0 {1 + i % 2}\n" for i in range(N)))
     _write_tables(d, rng, Y, X, n_inc, na_rate, n_remove)
     return path
+
+
+def _bed_slice_data(d):
+    f = FULL
+    write_dataset(d, seed=1, N=f["N"], chroms=((1, SLICE_BLOCKS * f["B"]),),
+                  P=f["P"], n_inc=f["n_inc"], n_cov=f["K"] - 1)
+
+
+def _bgen_slice_data(d):
+    f = FULL
+    write_bgen_dataset(d, seed=3, N=f["N"], chroms=((1, SLICE_BLOCKS * f["B"]),),
+                       P=f["P"], n_inc=f["n_inc"], n_cov=f["K"] - 1)
+
+
+def _step1_slice_data(d):
+    f = FULL
+    write_dataset(d, seed=5, N=f["N"], chroms=STEP1["chroms"], P=f["P"],
+                  n_inc=f["n_inc"], n_cov=f["K"] - 1, effect_sd=STEP1["effect_sd"])
+
+
+def _pgen_slice_data(d):
+    f = FULL
+    B = f["B"]
+    write_pgen_dataset(d, seed=6, N=f["N"], chroms=((1, B), ("X", B)), P=f["P"],
+                       n_inc=f["n_inc"], n_cov=f["K"] - 1,
+                       positions={"X": chrx_positions(B, B // 8)})
+
+
+# the full-width datasets in the order the phases read them: the BED of
+# [bed slice] and [bt slice], the BGEN of [bgen slice] and [dense slice],
+# the two-chromosome BED of the Step-1, Step-1 BT and T2E slices, the PGEN
+# of [pgen chrX slice]
+_SHAPE = (f"N={FULL['N']} P={FULL['P']} K={FULL['K']}, "
+          f"M={SLICE_BLOCKS} x {FULL['B']}")
+FULL_DATASETS = {
+    "bed": (_bed_slice_data, f"BED {_SHAPE}"),
+    "bgen": (_bgen_slice_data, f"BGEN (8-bit, zlib) {_SHAPE}"),
+    "step1": (_step1_slice_data, f"Step-1 BED N={FULL['N']}, "
+              + " + ".join(str(n) for _, n in STEP1["chroms"]) + " variants"),
+    "pgen": (_pgen_slice_data, f"PGEN {_SHAPE} (chromosome 1, chrX)")}
+
+
+def _write_datasets(dirs, q):
+    """Write FULL_DATASETS into dirs (name -> directory), in order; put
+    (name, seconds) on the queue q as each is complete, or ("error",
+    traceback) when one fails."""
+    import traceback
+
+    try:
+        for name, d in dirs.items():
+            t0 = time.time()
+            FULL_DATASETS[name][0](d)
+            q.put((name, time.time() - t0))
+    except BaseException:
+        q.put(("error", traceback.format_exc()))
+        raise
+
+
+class Datasets:
+    """The full-width datasets, written by one background process (spawn)
+    from the start of the smoke: the host idles while the card runs the
+    kernel and profile phases, and writing a dataset costs ~30-90 s of
+    host time. get(name) waits for one and returns its directory;
+    close() stops the process."""
+
+    def __init__(self, root):
+        import multiprocessing
+
+        self.dirs = {name: os.path.join(root, name) for name in FULL_DATASETS}
+        for d in self.dirs.values():
+            os.makedirs(d)
+        ctx = multiprocessing.get_context("spawn")
+        self.q = ctx.Queue()
+        self.done = {}
+        self.proc = ctx.Process(target=_write_datasets, args=(self.dirs, self.q))
+        self.proc.start()
+
+    def get(self, name):
+        import queue
+
+        t0 = time.time()
+        while name not in self.done:
+            try:
+                got, secs = self.q.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError("the dataset writer ended without "
+                                       f"writing {name}") from None
+                continue
+            if got == "error":
+                raise RuntimeError(f"the dataset writer failed:\n{secs}")
+            self.done[got] = secs
+        print(f"  dataset {FULL_DATASETS[name][1]}: written in the background in "
+              f"{self.done[name]:.1f}s; waited {time.time() - t0:.1f}s for it")
+        return self.dirs[name]
+
+    def close(self):
+        self.proc.join(10 if len(self.done) == len(self.dirs) else 0)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(30)
 
 
 def _bound(ops, nbytes, peak_ops):
@@ -907,23 +1178,25 @@ def fused_i8_phase(dev, reps=10):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def bt_width_fused_i8(dev, raw, reps):
-    """fused_i8 at the binary-trait operand's width (Cw4 = 4 x 1,280) on
-    the full-width block: exact against its plain version, timed beside
-    torch._int_mm on the pre-decoded indicators (B K-major) and its bound.
-    Printed, not a row of the kernels line (whose row is the QT width)."""
+def bt_width_fused_i8(dev, raw, reps, limbs_k=None, what="BT width"):
+    """fused_i8 at the binary-trait operand's width (Cw4 = 4 x 1,280; or
+    on a given operand's K-major limbs_k) on the full-width block: exact
+    against its plain version, timed beside torch._int_mm on the
+    pre-decoded indicators (B K-major) and its bound. Printed, not a row
+    of the kernels line (whose row is the QT width)."""
     import torch
 
     from regenie_tpu_torch.ops import kernels
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
     B, nbp = raw.shape
-    Cw4 = 4 * BT_CP
-    limbs_k = torch.randint(-128, 128, (Cw4, 4 * nbp), generator=gen, device=dev,
-                            dtype=torch.int8)
+    if limbs_k is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        limbs_k = torch.randint(-128, 128, (4 * BT_CP, 4 * nbp), generator=gen,
+                                device=dev, dtype=torch.int8)
+    Cw4 = limbs_k.shape[0]
     _launch_line("fused_i8", dev, B, Cw4)
-    _check_i8_exact(raw, limbs_k, "BT width")
+    _check_i8_exact(raw, limbs_k, what)
     ms = _time_ms(lambda: kernels.fused_i8_products(raw, limbs_k), reps)
     r = raw.to(torch.int32)
     codes = [(r >> (2 * p)) & 3 for p in range(4)]
@@ -935,7 +1208,7 @@ def bt_width_fused_i8(dev, raw, reps):
     ops = 2.0 * 3 * B * (4 * nbp) * Cw4
     nbytes = B * nbp + 4 * nbp * Cw4 + 3 * B * Cw4 * 4
     bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
-    print(f"  fused_i8 BT width (Cw4={Cw4}): {ms:.3f} ms (median of {reps}), "
+    print(f"  fused_i8 {what} (Cw4={Cw4}): {ms:.3f} ms (median of {reps}), "
           f"torch._int_mm B K-major {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}: {ops:.3e} int8 ops); {bound_ms / ms:.1%} of the bound")
 
@@ -2034,20 +2307,23 @@ def _check_rows(path, M):
                 float(x)
 
 
-def _slice_cli(argv, kernel, what, suffix=".regenie"):
-    """One CLI run of a slice with the launch counts set to 0 just before
-    it and read just after: `kernel` must launch once per block and no
-    other kernel, and the P output files <out>_Y<p><suffix> (gzipped
-    when the suffix ends in .gz) must be well formed. Prints the
-    per-block lines and the run's times."""
+def _slice_run(argv, kernel, what, suffix=".regenie"):
+    """One Step-2 run of a slice through the port's CLI (run_cli_kept) in
+    this process, with the launch counts set to 0 just before it and
+    read just after: `kernel` must launch once per block and no other
+    kernel, and the P output files <out>_Y<p><suffix> (gzipped when the
+    suffix ends in .gz) must be well formed. Prints the per-block lines
+    and the run's times. Returns (the kernel's launches, the run's engine
+    with its genotype source open, its params), so that the slice's block
+    checks need no second run-up."""
     import torch
 
     f = FULL
     M = SLICE_BLOCKS * f["B"]
-    out = argv[-1]
+    out = argv[argv.index("--out") + 1]
     _reset_counts()
     t0 = time.time()
-    run_cli(argv)
+    params, eng, log = run_cli_kept(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = _read_counts()
@@ -2060,18 +2336,16 @@ def _slice_cli(argv, kernel, what, suffix=".regenie"):
     want = {name: n_blocks if name == kernel else 0 for name in counts}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
-    with open(f"{out}.log") as fh:
-        log = fh.read().splitlines()
     for ln in log:
         if ln.startswith("   -block"):
             print(f"  {ln.strip()}")
     loop = [ln.strip(" *") for ln in log if "block loop:" in ln][0]
     reads = [ln.strip(" *") for ln in log if "host block reads:" in ln][0]
     loop_s = float(loop.rsplit(" in ", 1)[1].rstrip("s"))
-    print(f"  CLI wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up "
+    print(f"  run wall time {wall:.2f}s = {M / wall:.1f} variants/s (run-up "
           f"and output included); {loop} = {M / loop_s:.1f} variants/s; "
           f"{reads}; on {card_line()}")
-    return counts[kernel]
+    return counts[kernel], eng, params
 
 
 def _diff_record(what, logp, bhat, ref, inc):
@@ -2111,45 +2385,36 @@ def _f32_sums_block(eng, raw, is_bgen):
 
 def slice_phase(tmp, src, keep=False):
     """The port's Step-2 QT CLI at full width on the card, on a BED
-    (src="bed") or a BGEN (src="bgen") file, by default (int8 kernel) and
-    with REGENIE_TPU_I8=0 (float32 kernel) on the same dataset. Returns
-    the launches of each slice kernel in its CLI run; with keep=True also
-    the open int8 engine, its blocks and its first block's result (the
-    caller closes the engine)."""
+    (src="bed") or a BGEN (src="bgen") file, by default (int8 kernel; the
+    REGENIE_TPU_I8=0 CLI runs are in the cross-check), then the first
+    block in memory on the int8, the float32 and the plain float64
+    operands. Returns the launches of the int8 kernel in its CLI run; with
+    keep=True also the open int8 engine, its blocks and its first block's
+    result (the caller closes the engine)."""
     import torch
 
-    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.io.geno import make_blocks
     from regenie_tpu_torch.ops import fused_score as fsc
-    from regenie_tpu_torch.run_step2 import Step2Engine, open_engine
+    from regenie_tpu_torch.run_step2 import Step2Engine
 
     f = FULL
     M = SLICE_BLOCKS * f["B"]
     kernels = {"bed": ("fused_i8", "fused_f32"), "bgen": ("bgen_i8", "bgen_f32")}[src]
-    t0 = time.time()
     if src == "bed":
-        geno = ["--bed", write_dataset(tmp, seed=1, N=f["N"], chroms=((1, M),),
-                                       P=f["P"], n_inc=f["n_inc"], n_cov=f["K"] - 1)]
+        geno = ["--bed", f"{tmp}/geno"]
     else:
-        geno = ["--bgen", write_bgen_dataset(
-            tmp, seed=3, N=f["N"], chroms=((1, M),), P=f["P"],
-            n_inc=f["n_inc"], n_cov=f["K"] - 1),
-            "--sample", f"{tmp}/geno.sample"]
-    print(f"  {src.upper()} dataset N={f['N']} M={M} P={f['P']} K={f['K']} "
-          f"written in {time.time() - t0:.1f}s")
+        geno = ["--bgen", f"{tmp}/geno.bgen", "--sample", f"{tmp}/geno.sample"]
     argv = ["--step", "2", *geno, "--phenoFile", f"{tmp}/pheno.txt",
             "--covarFile", f"{tmp}/covar.txt", "--ignore-pred",
             "--bsize", str(f["B"]), "--verbose", "--out"]
     os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
-    launches = {}
-    for kernel, off in zip(kernels, (False, True)):
-        with _i8_env(off):
-            launches[kernel] = _slice_cli(
-                argv + [f"{tmp}/slice_{kernel}"], kernel,
-                f"{kernel} run" + (" (REGENIE_TPU_I8=0)" if off else ""))
+    count, eng, params = _slice_run(argv + [f"{tmp}/slice_{kernels[0]}"],
+                                    kernels[0], f"{kernels[0]} run")
+    launches = {kernels[0]: count}
 
-    # first block: each kernel path against the plain path, all on the card
-    params = cli.args_to_params(cli.build_parser().parse_args(argv + [f"{tmp}/x"]))
-    eng, blocks = open_engine(params, log=lambda *a: None)
+    # first block: each kernel path against the plain path, all on the card,
+    # through the run's engine
+    blocks = make_blocks(eng.gd, params.block_size)
     with _i8_env(True):
         eng32 = Step2Engine(params, eng.gd, eng.pd, eng.blup_files, eng.log,
                             eng.device)
@@ -2214,13 +2479,13 @@ def _bt_twins(eng, x, outs, rows_cap=4, traits=1):
     from regenie_tpu_torch.models import firth as firth_mod
     from regenie_tpu_torch.models import spa as spa_mod
     from regenie_tpu_torch.models import step2_bt
-    from regenie_tpu_torch.run_step2 import FusedBTSource
+    from regenie_tpu_torch.run_step2 import FusedRowSource
 
     _, _, _, flip, num, den, S1cat = outs
-    st, pd, params = eng.bt_state, eng.pd, eng.params
+    st, pd, params = eng.null_state, eng.pd, eng.params
     fc = step2_bt.fused_consts(pd, st)
     z = math.sqrt(step2_bt.chisq_thr(params.alpha_pvalue))
-    src = FusedBTSource(eng, x, flip, num, den, S1cat)
+    src = FusedRowSource(eng, x, flip, num, den, S1cat)
     stats = (num / torch.sqrt(torch.clamp(den, min=0))).cpu().numpy()
     done = 0
     for ph in fc.cols:
@@ -2286,14 +2551,14 @@ def _exact_firth_check(eng, x, outs, traits=2, rows_min=64, host_rows=2):
     import torch
 
     from regenie_tpu_torch.models import step2_bt
-    from regenie_tpu_torch.run_step2 import FusedBTSource
+    from regenie_tpu_torch.run_step2 import FusedRowSource
     from regenie_tpu_torch.utils.stats import chisq_neglog10
 
     _, _, _, flip, num, den, S1cat = outs
-    st, pd, params = eng.bt_state, eng.pd, eng.params
+    st, pd, params = eng.null_state, eng.pd, eng.params
     fc = step2_bt.fused_consts(pd, st)
     z = math.sqrt(step2_bt.chisq_thr(params.alpha_pvalue))
-    src = FusedBTSource(eng, x, flip, num, den, S1cat)
+    src = FusedRowSource(eng, x, flip, num, den, S1cat)
     stats = (num / torch.sqrt(torch.clamp(den, min=0))).cpu().numpy()
     picked = [(ph, np.flatnonzero(np.abs(stats[:, fc.j_of[ph]]) > z)) for ph in fc.cols]
     picked = [(ph, idx) for ph, idx in picked if len(idx)][:traits]
@@ -2337,7 +2602,7 @@ def _exact_firth_check(eng, x, outs, traits=2, rows_min=64, host_rows=2):
 def bt_slice_phase(tmp):
     """The port's Step-2 BT run at full width on the card, on the [bed
     slice]'s BED (same directory): a binary-trait table (the BED writer's
-    traits thresholded), one run of run_step2 (the CLI's entry point) with
+    traits thresholded), one run of the CLI with
     --bt --firth --approx --af-cc, where fused_i8 must launch once per
     block and no other kernel, its 50 files well formed; then on block 1,
     through the same engine: the int8 products against the float64 plain
@@ -2348,10 +2613,9 @@ def bt_slice_phase(tmp):
     launches of fused_i8 in the run."""
     import torch
 
-    from regenie_tpu_torch import cli
     from regenie_tpu_torch.io.geno import make_blocks
     from regenie_tpu_torch.models import step2_bt
-    from regenie_tpu_torch.run_step2 import Step2Engine, run_step2
+    from regenie_tpu_torch.run_step2 import Step2Engine
 
     f = FULL
     M = SLICE_BLOCKS * f["B"]
@@ -2367,12 +2631,10 @@ def bt_slice_phase(tmp):
             f"{tmp}/pheno_bt.txt", "--covarFile", f"{tmp}/covar.txt",
             "--ignore-pred", "--bsize", str(f["B"]), *BT_FLAGS, "--verbose",
             "--out", out]
-    params = cli.args_to_params(cli.build_parser().parse_args(argv))
-    lines = []
     os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
     _reset_counts()
     t0 = time.time()
-    eng = run_step2(params, log=lambda msg="": lines.append(str(msg)))
+    params, eng, lines = run_cli_kept(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = _read_counts()
@@ -2405,7 +2667,7 @@ def bt_slice_phase(tmp):
     fb = eng._fused_bt
     plain = Step2Engine(params, eng.gd, eng.pd, None, eng.log, eng.device,
                         kernel=False)
-    plain.cur_chrom, plain.bt_state, plain.res = chrom, eng.bt_state, eng.res
+    plain.cur_chrom, plain.null_state, plain.res = chrom, eng.null_state, eng.res
     t0 = time.time()
     plain._ensure_fused_consts()
     torch.cuda.synchronize()
@@ -2439,7 +2701,7 @@ def bt_slice_phase(tmp):
           f"{eng.n_failed - f0} failed, {eng.bt_times['corr_s'] - c0:.2f}s")
     rp = plain.test_raw_block_fused(raw, bsnps)[0]
     params.firth, params.use_spa = True, False
-    cols = step2_bt.fused_consts(eng.pd, eng.bt_state).cols
+    cols = step2_bt.fused_consts(eng.pd, eng.null_state).cols
     valid = ~(r8.ignored[:, None] | r8.ignored_trait)
     cross = np.zeros_like(valid)
     cross[:, cols] = (np.abs(s8) > z) != (np.abs(sp) > z)
@@ -2878,18 +3140,11 @@ def step1_slice_phase(tmp):
 
     import torch
 
-    from regenie_tpu_torch import cli
     from regenie_tpu_torch.models import step1 as m1
-    from regenie_tpu_torch.run_step1 import Level0, open_step1
+    from regenie_tpu_torch.run_step1 import Level0
 
     f = FULL
-    M = sum(n for _, n in STEP1["chroms"])
-    t0 = time.time()
-    prefix = write_dataset(tmp, seed=5, N=f["N"], chroms=STEP1["chroms"], P=f["P"],
-                           n_inc=f["n_inc"], n_cov=f["K"] - 1,
-                           effect_sd=STEP1["effect_sd"])
-    print(f"  BED dataset N={f['N']} M={M} ({len(STEP1['chroms'])} chromosomes) "
-          f"P={f['P']} K={f['K']} written in {time.time() - t0:.1f}s")
+    prefix = f"{tmp}/geno"
     need = f["P"] * 23 * f["N"] * LOCO_BYTES_PER_VALUE
     free = shutil.disk_usage(tmp).free
     print(f"  free space under {tmp}: {free / 1e9:.1f} GB; the {f['P']} LOCO "
@@ -2904,26 +3159,20 @@ def step1_slice_phase(tmp):
     os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
     _reset_counts()
     t0 = time.time()
-    run_cli(argv)
+    # the CLI; run_step1's setup serves the block checks
+    params, st, log = run_cli_kept(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = _read_counts()
     if any(counts.values()):
         raise AssertionError(f"kernel launches {counts} in Step 1; expected none")
-    with open(f"{out}.log") as fh:
-        log = fh.read().splitlines()
     if " * level 0 on cuda (float64)" not in log:
         raise AssertionError("the Step-1 log does not show level 0 on cuda")
     for ln in log:
         if ln.startswith("   -level 0 block") or ln.startswith(" * level "):
             print(f"  {ln.strip()}")
-    print(f"  CLI wall time {wall:.2f}s (run-up, level 0, level 1 and the "
+    print(f"  run wall time {wall:.2f}s (run-up, level 0, level 1 and the "
           f"LOCO files); kernel launches {counts}; on {card_line()}")
-
-    params = cli.args_to_params(cli.build_parser().parse_args(argv))
-    t0 = time.time()
-    st = open_step1(params, log=lambda *a: None, device="cuda")
-    print(f"  run-up again for the block checks: {time.time() - t0:.1f}s")
     pd = st.pd
     n_in = int(pd.ind_in_analysis.sum())
     masked = {p: int((pd.ind_in_analysis & ~pd.masked_indivs[:, p]).sum())
@@ -3166,6 +3415,255 @@ def level1_bt_real_depth(dev):
         raise AssertionError(f"level 1 BT predictions: {err:.3e} > 1e-09")
 
 
+T2E = dict(endpoints=10, n_na=2)  # the [t2e slice]'s Cox endpoints
+
+
+def t2e_slice_phase(tmp):
+    """Time-to-event traits at full width on the card, on the [step1
+    slice]'s BED (same directory, its QT and BT LOCO files removed
+    first): a table of 10 endpoints (write_t2e_table from the writer's
+    traits: tied times, event rates 5-30%, the first 2 with 5% NA times),
+    the Step-1 CLI with --t2e (K-fold, J = T = 5): no hand-written kernel
+    may launch, level 0 on cuda, the 10 .loco files and _pred.list well
+    formed; the Cox level 1 alone at the real depth and card against CPU
+    (level1_t2e_real_depth); then the Step-2 CLI with --t2e --pred on that
+    _pred.list (no --firth: the host's null Cox Firth costs minutes a
+    trait at this N), where fused_i8 launches once per block and no other
+    kernel, its 10 files well formed; and the last chromosome's block in
+    memory through the run's engine against a float64 plain engine on the
+    same null fits (flips equal, the slice bars), with fused_i8 at the Cox
+    operand's width against its plain version and torch._int_mm. Returns
+    the launches of fused_i8 in the Step-2 run."""
+    import glob
+
+    import torch
+
+    from regenie_tpu_torch.io.geno import make_blocks
+    from regenie_tpu_torch.run_step2 import Step2Engine
+
+    f = FULL
+    nt = T2E["endpoints"]
+    for path in glob.glob(f"{tmp}/s1_*.loco") + glob.glob(f"{tmp}/s1bt_*.loco"):
+        os.remove(path)
+    t0 = time.time()
+    Y, X = dataset_traits(5, f["N"], STEP1["chroms"], f["P"], f["K"] - 1)
+    times, events = write_t2e_table(f"{tmp}/pheno_t2e.txt", Y[:, :nt], seed=7,
+                                    n_na=T2E["n_na"], X=X)
+    rates = np.nanmean(events, axis=0)
+    print(f"  T2E table N={f['N']}: {nt} endpoints, event rates "
+          f"{rates.min():.3f}-{rates.max():.3f}, {len(np.unique(times[:, 0]))} "
+          f"distinct times of T1, written in {time.time() - t0:.1f}s")
+    del Y, X
+    flags = t2e_flags(nt)
+    base = ["--bed", f"{tmp}/geno", "--phenoFile", f"{tmp}/pheno_t2e.txt",
+            "--covarFile", f"{tmp}/covar.txt", *flags, "--verbose"]
+    out = f"{tmp}/s1t2e"
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    run_cli(["--step", "1", *base, "--bsize", str(STEP1["B"]), "--out", out])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"kernel launches {counts} in Step 1; expected none")
+    with open(f"{out}.log") as fh:
+        log = fh.read().splitlines()
+    if " * level 0 on cuda (float64)" not in log or " * # CV folds: [5]" not in log:
+        raise AssertionError("the Step-1 T2E log shows no 5-fold level 0 on cuda")
+    for ln in log:
+        if (ln.startswith(" * level ") or ln.startswith(" * null model fits")
+                or ln.startswith("  level 1 of")):
+            print(f"  {ln.strip()}")
+    print(f"  T2E Step-1 CLI wall time {wall:.2f}s (run-up, null fits, level 0, "
+          f"level 1 and the LOCO files); no kernel launched; on {card_line()}")
+    t0 = time.time()
+    masked = {0: int(np.isnan(times[:, 0]).sum()), nt - 1: 0}
+    nbytes = _check_loco_files(out, [f"T{p + 1}" for p in range(nt)], f["N"], masked)
+    print(f"  {nt} LOCO files of {f['N']} samples x 23 rows ({nbytes / 1e9:.2f} GB) "
+          f"and _pred.list well formed ({time.time() - t0:.1f}s)")
+    del times, events
+    level1_t2e_real_depth(torch.device("cuda"))
+    _free()
+
+    # Step 2 on the Step-1 predictions
+    M = sum(n for _, n in STEP1["chroms"])
+    s2 = f"{tmp}/t2e"
+    argv = ["--step", "2", *base, "--pred", f"{out}_pred.list", "--bsize",
+            str(f["B"]), "--out", s2]
+    _reset_counts()
+    t0 = time.time()
+    params, eng, lines = run_cli_kept(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    n_blocks = len(make_blocks(eng.gd, params.block_size))
+    for p in range(nt):
+        _check_rows(f"{s2}_T{p + 1}.regenie", M)
+    want = {name: n_blocks if name == "fused_i8" else 0 for name in counts}
+    print(f"  T2E Step-2 run: {nt} well-formed .regenie files of {M} rows; "
+          f"launches {counts} for {n_blocks} blocks")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    for ln in lines:
+        if (ln.startswith("   -block") or "null fits chr" in ln
+                or "null model fits" in ln or "block loop" in ln):
+            print(f"  {ln.strip()}")
+    loop = [ln.strip(" *") for ln in lines if "block loop:" in ln][0]
+    loop_s = float(loop.rsplit(" in ", 1)[1].rstrip("s"))
+    print(f"  T2E Step-2 wall time {wall:.2f}s = {M / wall:.1f} variants/s "
+          f"(run-up, null fits and output included); block loop "
+          f"{M / loop_s:.1f} variants/s; on {card_line()}")
+
+    # the last chromosome's block again, in memory, through the run's
+    # engine (its null fits, its int8 operand) and a float64 plain engine
+    # on the same null fits
+    chrom, bsnps = [b for b in make_blocks(eng.gd, params.block_size)
+                    if b[0] == eng.cur_chrom][0]
+    raw = eng.read_block_raw(bsnps)
+    plain = Step2Engine(params, eng.gd, eng.pd, eng.blup_files, eng.log,
+                        eng.device, kernel=False)
+    plain.cur_chrom, plain.null_state, plain.res = chrom, eng.null_state, eng.res
+    t0 = time.time()
+    plain._ensure_fused_consts()
+    torch.cuda.synchronize()
+    ft = eng._fused_t2e
+    print(f"  Cox operand (Wext {ft.C_used} columns, Cp "
+          f"{-(-ft.C_used // 128) * 128}); float64 plain operand built in "
+          f"{time.time() - t0:.2f}s")
+    r8, fl8 = eng.test_raw_block_fused(raw, bsnps)
+    rp, flp = plain.test_raw_block_fused(raw, bsnps)
+    if not np.array_equal(fl8, flp):
+        raise AssertionError("int8 and plain routes flip different variants")
+    _assert_close(f"chr{chrom} block T2E LOG10P, int8 operand", r8.logp, rp.logp,
+                  LOG10P_TOL)
+    _assert_close(f"chr{chrom} block T2E BETA, int8 operand", r8.bhat, rp.bhat,
+                  BETA_TOL)
+    x = eng._fused_upload(raw)
+    bt_width_fused_i8(eng.device, x, 10, limbs_k=ft.Wp.limbs_k, what="Cox width")
+    eng.gd.close()
+    return counts["fused_i8"]
+
+
+def _cox_level1_inputs(N, F, K, seed, dev, folds=True):
+    """Synthetic level-0 predictions of one endpoint at N samples and F
+    columns on `dev` (drawn there from a seeded generator): by fold [K,
+    nmax, F] (pad rows 0) or sample-major [N, F]; the endpoint's tied
+    times and events (a Cox model of 200 of the columns, ~25% events), 2%
+    masked samples; the fold sizes, the null offsets (zero) and the pd
+    namespace the level 1 reads (host numpy)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from regenie_tpu_torch.models import step1 as m1
+
+    fold_sizes = m1.compute_fold_sizes(np.ones(N, bool), K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    W = torch.randn(N, F, generator=gen, device=dev, dtype=torch.float64) * 0.5
+    b = torch.randn(200, generator=gen, device=dev, dtype=torch.float64) * 0.02
+    eta = (W[:, :200] @ b).cpu().numpy()
+    u = torch.rand(N, 3, generator=gen, device=dev, dtype=torch.float64).cpu().numpy()
+    t = -np.log(u[:, 0]) / (0.1 * np.exp(eta))
+    c = 4.0 * u[:, 1]
+    times, events = np.round(np.minimum(t, c), 2), (t <= c).astype(np.float64)
+    mask = u[:, 2] > 0.02
+    if folds:
+        idx = torch.as_tensor(m1.fold_index(fold_sizes).reshape(K, -1), device=dev)
+        valid = torch.as_tensor(m1.pad_folds(np.ones(N), fold_sizes)[1], device=dev)
+        W = W[idx] * valid[..., None]
+    pd = SimpleNamespace(pheno_names=["T1", "E1"],
+                         phenotypes_raw=np.column_stack([times, events]),
+                         masked_indivs=np.column_stack([mask, mask]))
+    return W, fold_sizes, np.zeros((N, 2)), pd
+
+
+def level1_t2e_real_depth(dev):
+    """The Cox level 1 of one endpoint at a real depth (F = 2,500
+    columns, N = 400,000, 8 GB of float64 predictions drawn on the card):
+    3 coordinate sweeps of one (fold, penalty), each the Gram X' diag(h)
+    X, one triangular solve and the deviance, timed with CUDA events;
+    then level1_nonqt at N = 20,000, F = 250 on the card and on the CPU in
+    float64: the same penalty chosen, the predictions' largest gap within
+    1e-9 of their largest magnitude."""
+    import torch
+
+    from regenie_tpu_torch.config import T2E as T2E_MODE
+    from regenie_tpu_torch.config import Params
+    from regenie_tpu_torch.models import step1_bt
+
+    f = FULL
+    params = Params(trait_mode=T2E_MODE, t2e_map={"T1": "E1"})
+    F, K = STEP1["real_F"], params.cv_folds
+    t0 = time.time()
+    X, fold_sizes, _, pd = _cox_level1_inputs(f["N"], F, K, 31, dev, folds=False)
+    _sync(dev)
+    print(f"  Cox level 1 at F={F}, N={f['N']}: {X.numel() * 8 / 1e9:.1f} GB of "
+          f"predictions drawn on the card in {time.time() - t0:.1f}s; "
+          f"{int(pd.phenotypes_raw[:, 1].sum())} events")
+    train = pd.masked_indivs[:, 0].copy()
+    train[: int(fold_sizes[0])] = False  # fold 0 held out
+    t0 = time.time()
+    rk = step1_bt._CoxRisk(pd.phenotypes_raw[:, 0], pd.phenotypes_raw[:, 1],
+                           train, dev)
+    print(f"  risk sets of the training folds (host order, uploaded): "
+          f"{time.time() - t0:.2f}s")
+    m = torch.as_tensor(train.astype(np.float64), device=dev)
+    beta = torch.zeros(F, dtype=torch.float64, device=dev)
+    eta = torch.zeros(f["N"], dtype=torch.float64, device=dev)
+    grad, _ = step1_bt._cox_grad(rk, eta)
+    lam = float((X.T @ grad).abs().max()) / 1e-3 * 1e-3  # mid-path
+    sweeps = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        grad, hess = step1_bt._cox_grad(rk, eta)
+        beta = step1_bt.cox_sweep(X, grad, hess, beta, lam)
+        eta = m * (X @ beta)
+        d = float(step1_bt._cox_deviance(rk, eta))
+        b.record()
+        b.synchronize()
+        sweeps.append(a.elapsed_time(b))
+    gram_ms, _ = _events_ms(lambda: step1_bt._weighted_gram(X, hess), 2)
+    gram_flop = 2.0 * f["N"] * F * F
+    print(f"  Cox level 1 at F={F}: a coordinate sweep {np.mean(sweeps):.1f} ms "
+          f"(3 sweeps of fold 0 at lambda {lam:.4g}: "
+          + ", ".join(f"{x:.1f}" for x in sweeps) + " ms; in each the Gram "
+          f"X' diag(h) X, {gram_flop:.3e} FLOP: {gram_ms:.1f} ms alone, bound "
+          f"{gram_flop / PEAK_FP64_TC_OPS * 1e3:.1f} ms); deviance {d:.6g}; "
+          f"on {card_line()}")
+    del X, rk, m, grad, hess
+    _free()
+
+    n, F = 20_000, 250
+    chr_order = list(range(1, 23))
+    per = F // len(chr_order)
+    spans = {c: (i * per, per if c < 22 else F - 21 * per)
+             for i, c in enumerate(chr_order)}
+    Wc, fold_sizes, off, pd = _cox_level1_inputs(n, F, K, 32, "cpu")
+    res = []
+    for where in (dev, "cpu"):
+        logs = []
+        t0 = time.time()
+        pred, ok = step1_bt.level1_nonqt(params, pd, Wc.to(where), off, None, 0,
+                                         chr_order, spans, fold_sizes, logs.append)
+        res.append((pred, [ln for ln in logs if "min value" in ln], time.time() - t0))
+        if not ok:
+            raise AssertionError(f"Cox level 1 at N={n} failed on {where}")
+    if res[0][1] != res[1][1]:
+        raise AssertionError(f"Cox level 1: the card chose {res[0][1]}, the CPU "
+                             f"{res[1][1]}")
+    a, b = res[0][0], res[1][0]
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"  Cox level 1 at N={n}, F={F}, card against CPU float64 (card "
+          f"{res[0][2]:.1f}s, CPU {res[1][2]:.1f}s on {torch.get_num_threads()} "
+          f"threads): the same penalty ({res[1][1][0].strip()}); predictions "
+          f"max |d| / max |CPU| {err:.3e} (bar 1e-09)")
+    if not err <= 1e-9:
+        raise AssertionError(f"Cox level 1 predictions: {err:.3e} > 1e-09")
+
+
 def pgen_chrx_slice_phase(tmp):
     """The port's Step-2 QT CLI at full width on the card on a PGEN of two
     blocks, one on chromosome 1 and one on chrX (1/8 of its variants in
@@ -3179,30 +3677,24 @@ def pgen_chrx_slice_phase(tmp):
     launches in the CLI run."""
     import torch
 
-    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.io.geno import make_blocks
     from regenie_tpu_torch.ops import kernels
-    from regenie_tpu_torch.run_step2 import (Step2Engine, open_engine,
-                                             setup_writers, write_block_rows)
+    from regenie_tpu_torch.run_step2 import (Step2Engine, setup_writers,
+                                             write_block_rows)
 
     f = FULL
     B = f["B"]
-    t0 = time.time()
-    prefix = write_pgen_dataset(
-        tmp, seed=6, N=f["N"], chroms=((1, B), ("X", B)), P=f["P"],
-        n_inc=f["n_inc"], n_cov=f["K"] - 1,
-        positions={"X": chrx_positions(B, B // 8)})
-    print(f"  PGEN dataset N={f['N']} M={2 * B} (chromosome 1, chrX) P={f['P']} "
-          f"K={f['K']} written in {time.time() - t0:.1f}s "
-          f"({os.path.getsize(prefix + '.pgen') / 1e6:.1f} MB)")
+    prefix = f"{tmp}/geno"
+    print(f"  PGEN file {os.path.getsize(prefix + '.pgen') / 1e6:.1f} MB")
     argv = ["--step", "2", "--pgen", prefix, "--phenoFile", f"{tmp}/pheno.txt",
             "--covarFile", f"{tmp}/covar.txt", "--ignore-pred", "--bsize", str(B),
             "--gz", "--verbose", "--out"]
     os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
-    launches = _slice_cli(argv + [f"{tmp}/pgen"], "fused_i8",
-                          "fused_i8 run (PGEN, chrX, --gz)", suffix=".regenie.gz")
-
-    params = cli.args_to_params(cli.build_parser().parse_args(argv + [f"{tmp}/x"]))
-    eng, blocks = open_engine(params, log=lambda *a: None)
+    launches, eng, params = _slice_run(argv + [f"{tmp}/pgen"], "fused_i8",
+                                       "fused_i8 run (PGEN, chrX, --gz)",
+                                       suffix=".regenie.gz")
+    blocks = make_blocks(eng.gd, params.block_size)
+    eng.refresh_masks()  # block 1's operand is built again below, and timed
     plain = Step2Engine(params, eng.gd, eng.pd, eng.blup_files, eng.log,
                         eng.device, kernel=False)
     vrt = eng.gd._pgen.pf.vrtypes
@@ -3272,7 +3764,7 @@ def pgen_chrx_slice_phase(tmp):
 
 def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--loocv"])),
                          what="", step2=(), trait=(), table="pheno.txt", step1=(),
-                         kernel=None):
+                         kernel=None, names=None):
     """The two-step workflow at N=2,000 on the card and on the CPU, in
     each of `modes` (K-fold and --loocv by default) on the genotype
     arguments `geno` (a BED, a PGEN or a BGEN) and the phenotypes of
@@ -3282,11 +3774,15 @@ def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--lo
     Step 1 --write-null-firth every .firth value) within one unit of its
     sixth significant digit, every Step-2 field within its bar. kernel:
     (name, blocks) when the card's Step 2 must launch that kernel once per
-    block and no other."""
+    block and no other. names: the tested traits (Step 2's output names;
+    their .loco files are the table's first len(names) columns), by
+    default Y1..YP."""
+    names = names or [f"Y{p + 1}" for p in range(P)]
     base = [*geno, "--phenoFile", f"{tmp}/{table}", "--covarFile",
             f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt", *trait]
     for mode, extra in modes:
-        tag = ("loocv" if extra else "kfold") + "".join(a.strip("-")[:2] for a in trait)
+        tag = ((extra[0].strip("-").replace("-", "") if extra else "kfold")
+               + "".join(a.strip("-")[:2] for a in trait))
         for dev in ("cuda", "cpu"):
             os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
             if dev == "cpu":
@@ -3310,14 +3806,14 @@ def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--lo
                                          f"expected {want}")
         gpu, cpu = f"{tmp}/ts_{tag}_cuda", f"{tmp}/ts_{tag}_cpu"
         ndiff, worst_loco = 0, 0.0
-        files = [(f"_{p + 1}.loco", True) for p in range(P)]
+        files = [(f"_{p + 1}.loco", True) for p in range(len(names))]
         if "--write-null-firth" in step1:
-            files += [(f"_{p + 1}.firth", False) for p in range(P)]
+            files += [(f"_{p + 1}.firth", False) for p in range(len(names))]
         for suffix, header in files:
             nd, w = _compare_loco(gpu + suffix, cpu + suffix, header)
             ndiff, worst_loco = ndiff + nd, max(worst_loco, w)
-        worst = max(_compare_files(f"{gpu}_s2_Y{p + 1}.regenie",
-                                   f"{cpu}_s2_Y{p + 1}.regenie") for p in range(P))
+        worst = max(_compare_files(f"{gpu}_s2_{n}.regenie", f"{cpu}_s2_{n}.regenie")
+                    for n in names)
         kinds = ".loco" + (" and .firth" if "--write-null-firth" in step1 else "")
         print(f"  two-step{what} {mode}: card vs CPU, {len(files)} {kinds} files "
               f"({ndiff} values differ, at most {worst_loco:.3f} units of the "
@@ -3352,16 +3848,40 @@ def zstd_compressor():
     return compress
 
 
+def _variant_blocks(args, bsize=256):
+    """(blocks, chrX blocks holding a non-PAR variant) of a BED or PGEN
+    run's variant file at bsize: a block per bsize variants of a
+    chromosome, in file order."""
+    i = args.index("--bed") if "--bed" in args else args.index("--pgen")
+    bed = args[i] == "--bed"
+    by_chr = {}
+    with open(args[i + 1] + (".bim" if bed else ".pvar")) as fh:
+        for ln in fh:
+            if not ln.startswith("#"):
+                t = ln.split()
+                by_chr.setdefault(t[0], []).append(int(t[3 if bed else 1]))
+    n = nx = 0
+    for chrom, pos in by_chr.items():
+        for lo in range(0, len(pos), bsize):
+            n += 1
+            b = np.array(pos[lo : lo + bsize])
+            nx += chrom in ("X", "23") and bool(((b > PAR1_MAX) & (b < PAR2_MIN)).any())
+    return n, nx
+
+
 def cross_check_phase(tmp):
     """Small runs (N=2,000) through the port on the card (by default and
     with REGENIE_TPU_I8=0) and on the CPU, every output field within its
     bar: a BED --htp run, a two-chromosome BGEN --minINFO run, a chrX BED
     --htp run and a chrX BGEN run (positions in PAR1, non-PAR and PAR2;
     fused_i8 / bgen_i8 with the male tail), a zstd BGEN run, and a chrX
-    PGEN run with --no-split --gz; each with --remove. Then the two-step
-    workflow on the BED dataset (K-fold and --loocv) and on the PGEN
-    (K-fold)."""
+    PGEN run with --no-split --gz; each with --remove; the runs of the
+    phase's docstring entry 6. The REGENIE_TPU_I8=0 runs of the BED --htp
+    and the BGEN --minINFO runs must launch fused_f32 / bgen_f32 once per
+    block and no other kernel: returns those launches, the float32
+    kernels' on their paths. Then the two-step workflows."""
     P = 4
+    NT = 2  # time-to-event endpoints of the pheno_t2e.txt tables
     kw = dict(seed=2, N=2000, P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
     chrx = dict(chroms=((1, 300), ("X", 300)),
                 positions={"X": chrx_positions(300, 40, 40)})
@@ -3401,7 +3921,8 @@ def cross_check_phase(tmp):
                          for j, name in enumerate(rows[0][2:])))
     # binary traits: each dataset's traits thresholded (cross-check runs
     # with --bt read pheno_bt.txt); count traits: Poisson counts of them
-    # (pheno_ct.txt)
+    # (pheno_ct.txt); time-to-event traits: NT endpoints from their first
+    # traits, T1 with 5% NA times (pheno_t2e.txt)
     for d in [tmp] + [sub[n] for n in ("bgen", "pgen", "chrx_bed", "pgen_dosage",
                                        "bt6k")]:
         Y, X = (np.genfromtxt(f"{d}/{t}.txt", skip_header=1,
@@ -3409,7 +3930,11 @@ def cross_check_phase(tmp):
                 for t, k in (("pheno", P), ("covar", 3)))
         write_bt_table(f"{d}/pheno_bt.txt", np.nan_to_num(Y), seed=3, n_inc=2, X=X)
         write_ct_table(f"{d}/pheno_ct.txt", Y, seed=4)
+        write_t2e_table(f"{d}/pheno_t2e.txt", np.nan_to_num(Y[:, :NT]), seed=5,
+                        n_na=1, X=X)
     split = [f"_Y{p + 1}.regenie" for p in range(P)]
+    t2e = [*t2e_flags(NT), "--firth", "--approx"]
+    t2e_split = [f"_T{p + 1}.regenie" for p in range(NT)]
     runs = {
         "BED --htp": (tmp, ["--bed", prefix, "--htp", "SMOKE"], split),
         "BGEN --minINFO": (sub["bgen"], ["--bgen", geno["bgen"], "--sample",
@@ -3432,6 +3957,13 @@ def cross_check_phase(tmp):
         "BT BED --firth --approx --write-null-firth": (
             tmp, ["--bed", prefix, "--bt", "--firth", "--approx",
                   "--write-null-firth"], split),
+        "T2E BED --firth --approx --htp --htp-with-event": (
+            tmp, ["--bed", prefix, *t2e, "--htp", "SMOKE", "--htp-with-event"],
+            t2e_split),
+        "T2E chrX BED --firth --approx": (
+            sub["chrx_bed"], ["--bed", geno["chrx_bed"], *t2e], t2e_split),
+        "T2E PGEN --firth --approx --coxnofirth": (
+            sub["pgen"], ["--pgen", geno["pgen"], *t2e, "--coxnofirth"], t2e_split),
     }
     # the dense route (no int8 / float32 switch: each runs once on the card)
     dense = {
@@ -3461,10 +3993,20 @@ def cross_check_phase(tmp):
                               "--minHOMs", "1", "--condition-list",
                               f"{tmp}/cond.txt", "--tpheno-file",
                               f"{sub['chrx_bed']}/tpheno.txt"], split, False),
+        "T2E BGEN --firth --approx": (
+            sub["bgen"], ["--bgen", geno["bgen"], "--sample",
+                          f"{sub['bgen']}/geno.sample", *t2e], t2e_split, True),
+        "T2E BED --coxscore-exact": (
+            tmp, ["--bed", prefix, *t2e_flags(NT), "--coxscore-exact"], t2e_split,
+            True),
     }
+    # the float32 kernels' CLI runs (REGENIE_TPU_I8=0), 3 blocks of 256 each
+    f32_runs = {"BED --htp": "fused_f32", "BGEN --minINFO": "bgen_f32"}
+    f32_launches = {}
     for i, (what, (d, args, outs, *_)) in enumerate({**runs, **dense}.items()):
         is_dense = what in dense
-        table = "pheno_bt.txt" if "--bt" in args else "pheno.txt"
+        table = ("pheno_bt.txt" if "--bt" in args else
+                 "pheno_t2e.txt" if "--t2e" in args else "pheno.txt")
         pheno = [] if "--tpheno-file" in args else ["--phenoFile", f"{d}/{table}"]
         common = ["--step", "2", *args, *pheno, "--covarFile", f"{d}/covar.txt",
                   "--remove", f"{d}/remove.txt", "--ignore-pred", "--bsize", "256"]
@@ -3475,6 +4017,34 @@ def cross_check_phase(tmp):
             with _i8_env(off):
                 _reset_counts()
                 run_cli(common + ["--out", f"{d}/{tag}gpu{int(off)}"])
+            if off and what in f32_runs:
+                counts = _read_counts()
+                want = {k: 3 if k == f32_runs[what] else 0 for k in counts}
+                if counts != want:
+                    raise AssertionError(f"{what} (REGENIE_TPU_I8=0): launches "
+                                         f"{counts}, expected {want}")
+                f32_launches[f32_runs[what]] = counts[f32_runs[what]]
+            if what.startswith("T2E") and not is_dense:
+                # the Cox operand through fused_i8, or fused_f32 with
+                # REGENIE_TPU_I8=0, once a block and no other kernel; every
+                # block fused, the chrX non-PAR ones with the male tail
+                kern = "fused_f32" if off else "fused_i8"
+                nblk, nx = _variant_blocks(args)
+                counts = _read_counts()
+                want = {k: nblk if k == kern else 0 for k in counts}
+                if counts != want:
+                    raise AssertionError(f"{what}{' (REGENIE_TPU_I8=0)' if off else ''}"
+                                         f": launches {counts}, expected {want}")
+                log = open(f"{d}/{tag}gpu{int(off)}.log").read()
+                if f"dense route: 0 of {nblk} blocks" not in log:
+                    raise AssertionError(f"{what}: a block left the fused route")
+                if nx and f"on the fused route (male tail): {nx}\n" not in log:
+                    raise AssertionError(f"{what}: the {nx} chrX non-PAR blocks did "
+                                         "not all take the fused route's male tail")
+                print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: {kern} "
+                      f"{counts[kern]} launches for {nblk} blocks, no other kernel"
+                      + (f"; {nx} chrX non-PAR blocks fused with the male tail"
+                         if nx else ""))
         if is_dense:
             log = open(f"{d}/{tag}gpu0.log").read()
             if "dense scorer on cuda" not in log:
@@ -3499,7 +4069,8 @@ def cross_check_phase(tmp):
                          f"(at most {max(w for _, w in nd):.3f} units of the sixth "
                          "significant digit)")
             print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: card vs CPU, "
-                  f"{1 if '--phenoColList' in args else P} traits x {rows} "
+                  f"{P if len(outs) == 1 and '--phenoColList' not in args else len(outs)}"
+                  f" traits x {rows} "
                   f"variants: every field within its bar (largest share of the "
                   f"bar used {worst:.3f}){firth}")
     two_step_cross_check(tmp, ["--bed", prefix], P)
@@ -3529,6 +4100,15 @@ def cross_check_phase(tmp):
                                        f"{sub['bgen']}/geno.sample"], P,
                          modes=(("K-fold", []),), what=" CT on BGEN", trait=["--ct"],
                          table="pheno_ct.txt", kernel=("bgen_i8", 3))
+    # time-to-event traits: Step 1 --t2e K-fold, with --t2e-l1-pi6 and with
+    # --t2e-event-l0, each then Step 2 --t2e on its predictions (fused_i8
+    # once per block)
+    two_step_cross_check(tmp, ["--bed", prefix], P,
+                         modes=(("K-fold", []), ("--t2e-l1-pi6", ["--t2e-l1-pi6"]),
+                                ("--t2e-event-l0", ["--t2e-event-l0"])),
+                         what=" T2E", trait=t2e_flags(NT), table="pheno_t2e.txt",
+                         kernel=("fused_i8", 3), names=[f"T{p + 1}" for p in range(NT)])
+    return f32_launches
 
 
 def native_report():
@@ -3604,36 +4184,40 @@ def main() -> int:
                 print("   ", line.strip())
     native_report()
     print(f"  build phase {time.time() - t0:.1f}s")
-
-    print("[kernel]")
-    quantize_check(dev)
-    rows = []
-    for phase in (fused_i8_phase, bgen_i8_phase, fused_f32_phase, bgen_f32_phase,
-                  fused_bf16_phase, bgen_bf16_phase, decode_planes_phase):
-        rows.append(phase(dev))
+    # the full-width datasets are written in the background from here on
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    data = Datasets(root.name)
+    try:
+        print("[kernel]")
+        quantize_check(dev)
+        rows = []
+        for phase in (fused_i8_phase, bgen_i8_phase, fused_f32_phase, bgen_f32_phase,
+                      fused_bf16_phase, bgen_bf16_phase, decode_planes_phase):
+            rows.append(phase(dev))
+            _free()
+        rows += profile_fused_phase(dev)
         _free()
-    rows += profile_fused_phase(dev)
-    _free()
-    rows += profile_bgen_phase(dev)
-    _free()
-    _phase_time("kernel", t_all)
-    print("[profile path]")
-    launches = profile_path_phase()
-    _free()
-    print("[profile path, BGEN]")
-    launches.update(profile_bgen_path_phase())
-    _free()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        rows += profile_bgen_phase(dev)
+        _free()
+        _phase_time("kernel", t_all)
+        print("[profile path]")
+        launches = profile_path_phase()
+        _free()
+        print("[profile path, BGEN]")
+        launches.update(profile_bgen_path_phase())
+        _free()
+        tmp = data.get("bed")
         print("[bed slice]")
         launches.update(slice_phase(tmp, "bed"))
         _free()
         _phase_time("bed slice", t_all)
         print("[bt slice]")
         bt_launches = bt_slice_phase(tmp)
-    print(f"  fused_i8 launches on the BT path: {bt_launches}")
-    _free()
-    _phase_time("bt slice", t_all)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print(f"  fused_i8 launches on the BT path: {bt_launches}")
+        shutil.rmtree(tmp)
+        _free()
+        _phase_time("bt slice", t_all)
+        tmp = data.get("bgen")
         print("[bgen slice]")
         got, *kept = slice_phase(tmp, "bgen", keep=True)
         launches.update(got)
@@ -3641,32 +4225,45 @@ def main() -> int:
         print("[dense slice]")
         dense_slice_phase(tmp, *kept)
         del kept
-    _free()
-    _phase_time("bgen and dense slices", t_all)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        shutil.rmtree(tmp)
+        _free()
+        _phase_time("bgen and dense slices", t_all)
+        tmp = data.get("step1")
         print("[step1 slice]")
         step1_slice_phase(tmp)
         _free()
         _phase_time("step1 slice", t_all)
         print("[step1 bt slice]")
         step1_bt_slice_phase(tmp)
-    _free()
-    _phase_time("step1 bt slice", t_all)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        _free()
+        _phase_time("step1 bt slice", t_all)
+        print("[t2e slice]")
+        t2e_launches = t2e_slice_phase(tmp)
+        print(f"  fused_i8 launches on the T2E Step-2 path: {t2e_launches}")
+        shutil.rmtree(tmp)
+        _free()
+        _phase_time("t2e slice", t_all)
+        tmp = data.get("pgen")
         print("[pgen chrX slice]")
         pgen_launches = pgen_chrx_slice_phase(tmp)
-    print(f"  fused_i8 launches on the PGEN chrX path: {pgen_launches}")
-    _free()
-    _phase_time("pgen chrX slice", t_all)
+        print(f"  fused_i8 launches on the PGEN chrX path: {pgen_launches}")
+        shutil.rmtree(tmp)
+        _free()
+        _phase_time("pgen chrX slice", t_all)
+    finally:
+        data.close()
+        root.cleanup()
     # decode_planes has no caller on any path of the port, as
     # _decode_kernel has none in the JAX package: 0 launches there
     launches["decode_planes"] = 0
-    for row in rows:
-        row["launches"] = launches[row["name"]]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         print("[cross-check]")
-        cross_check_phase(tmp)
+        # the float32 kernels' CLI runs (REGENIE_TPU_I8=0) are the
+        # cross-check's BED --htp and BGEN --minINFO runs
+        launches.update(cross_check_phase(tmp))
     _phase_time("cross-check", t_all)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     print(f"all phases passed in {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -838,7 +838,6 @@ def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
     None. Every such mode raises NotImplementedError before any work."""
     common = (
-        (params.trait_mode == T2E, "time-to-event traits (--t2e)"),
         (bool(params.set_list), "gene-based tests (--set-list)"),
         (bool(params.interaction_var), "interaction tests"),
         (params.trait_set, "multi-trait tests (--mt)"),
@@ -847,7 +846,7 @@ def unported(params: Params) -> Optional[str]:
         (params.mcc_test, "the MCC test (--mcc)"),
         # case/control frequencies exist for binary traits only
         (params.af_cc and params.trait_mode != BT,
-         "--af-cc on quantitative or count traits"),
+         "--af-cc on quantitative, count or time-to-event traits"),
     )
     if params.step == 1:
         checks = (
@@ -864,10 +863,9 @@ def unported(params: Params) -> Optional[str]:
         )
     else:
         checks = (
-            *common[:1],
             (params.file_type not in ("bed", "bgen", "pgen"),
              f"{params.file_type.upper()} input"),
-            *common[1:],
+            *common,
         )
     for hit, name in checks:
         if hit:

@@ -87,11 +87,18 @@ class GzipWriter:
 
 
 _SPLIT_RE = re.compile(r"[ \t]+")
+# whitespace that str.split() splits on and string_split keeps in a token
+_OTHER_SPACE = "\r\n\v\f\x1c\x1d\x1e\x1f"
 
 
 def string_split(line: str) -> List[str]:
-    """Split on spaces/tabs, like reference string_split(line, "\\t ")."""
-    return [t for t in _SPLIT_RE.split(line.strip("\r\n")) if t]
+    """Split on spaces/tabs, like reference string_split(line, "\\t ").
+    An ASCII line with no other whitespace inside takes str.split(), which
+    gives the same tokens at C speed (a .loco row holds N of them)."""
+    s = line.strip("\r\n")
+    if s.isascii() and not any(c in s for c in _OTHER_SPACE):
+        return s.split()
+    return [t for t in _SPLIT_RE.split(s) if t]
 
 
 def iter_lines(path: str) -> Iterator[List[str]]:

@@ -1,7 +1,8 @@
 """Output writers (the port's copy of regenie_tpu/io/output.py, trimmed
-to quantitative and binary traits): Step-2 summary statistics in the
-split single-trait (with --af-cc's case/control columns), merged
-(--no-split) and HTPv4 formats, and Step 1's LOCO/PRS prediction rows.
+to the single-trait tests of the four trait types): Step-2 summary
+statistics in the split single-trait (with --af-cc's case/control
+columns), merged (--no-split) and HTPv4 formats, and Step 1's LOCO/PRS
+prediction rows.
 
 Mirrors Step2_Models.cpp print_header_output* (:2306) and
 print_sum_stats* (:2410-2646) with C++ default 6-significant-digit
@@ -21,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..config import BT, CT, QT, Params
+from ..config import BT, CT, QT, T2E, Params
 from ..prep import fmt
 from ..utils.stats import convert_logp_raw
 from .bed import SnpInfo
@@ -244,7 +245,7 @@ def format_block_htp(params, prefix_buf, prefix_off, pheno_name, model, skip,
     po = np.ascontiguousarray(prefix_off, np.int64)
     total = lib.format_sumstat_htp(
         pb.ctypes.data, po.ctypes.data, B, skip.ctypes.data, mid.encode(),
-        {BT: 1, CT: 2}.get(params.trait_mode, 0), int(bool(params.firth)),
+        {BT: 1, CT: 2, T2E: 3}.get(params.trait_mode, 0), int(bool(params.firth)),
         int(bool(params.uncapped_pvals)),
         int(has_info), float(params.zcrit),
         beta.ctypes.data, se.ctypes.data, chisq.ctypes.data, logp.ctypes.data,
@@ -330,7 +331,9 @@ def sumstat_line_htp(
     A binary trait's Effect is an odds ratio: exp(beta) with Firth, else
     the allelic OR of the genotype counts; a count trait's is exp(beta),
     its counts those of all samples (no controls), and like a binary
-    trait it prints REGENIE_BETA and REGENIE_SE."""
+    trait it prints REGENIE_BETA and REGENIE_SE. A time-to-event trait's
+    Effect is the hazard ratio exp(beta), its cases and controls those
+    with and without an event."""
     zcrit = params.zcrit
     print_beta = test_pass and se >= 0 and not np.isnan(se)
     print_pv = test_pass and chisq >= 0 and not np.isnan(logp)
@@ -376,7 +379,7 @@ def sumstat_line_htp(
     if mac > 0 and genocounts is not None:
         g = genocounts
         parts += [str(g[0] + g[1] + g[2]), str(g[0]), str(g[1]), str(g[2])]
-        if is_bt:
+        if params.trait_mode in (BT, T2E):
             parts += [str(g[3] + g[4] + g[5]), str(g[3]), str(g[4]), str(g[5])]
         else:
             parts += ["NA", "NA", "NA", "NA"]

@@ -1,6 +1,6 @@
 """Phenotype & covariate tables, missingness masks, covariate basis —
-the port's copy of regenie_tpu/io/pheno.py, trimmed to quantitative
-and binary traits.
+the port's copy of regenie_tpu/io/pheno.py, trimmed to the four trait
+types (quantitative, binary, count and time-to-event).
 
 Equivalent of the reference's `src/Pheno.{hpp,cpp}`: pheno_read
 (Pheno.cpp:148), covariate_read (:573), setMasks (:810), getBasis
@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from scipy.stats import norm as _norm
 
-from ..config import BT, CT, MISSING, QT, Params
+from ..config import BT, CT, MISSING, QT, T2E, Params
 from .files import open_read, string_split
 
 _MISS_STRINGS = ("NA", "nan", "inf", "-nan", "-inf")
@@ -114,7 +114,7 @@ class PhenoData:
     """Mirror of the reference `struct phenodt` (src/Pheno.hpp:35-51)."""
 
     phenotypes: np.ndarray = None  # [N, P] residualized+scaled for QT
-    phenotypes_raw: np.ndarray = None  # [N, P] raw 0/1 (binary traits)
+    phenotypes_raw: np.ndarray = None  # [N, P] raw values (not QT)
     masked_indivs: np.ndarray = None  # [N, P] bool
     new_cov: np.ndarray = None  # [N, K] covariates (orthonormal basis after prep)
     Neff: np.ndarray = None  # [P] per-trait non-masked count
@@ -181,7 +181,9 @@ def read_pheno(
             elif params.pheno_cols:
                 keep_cols[i] = name in params.pheno_cols
             if keep_cols[i] and blup_pheno_names is not None:
-                keep_cols[i] = name in blup_pheno_names
+                # T2E: event columns have no step-1 predictions (Pheno.cpp:183)
+                if not (params.trait_mode == T2E and name in params.event_cols):
+                    keep_cols[i] = name in blup_pheno_names
         names = [nm for nm, k in zip(all_names, keep_cols) if k]
         n_pheno = len(names)
         if n_pheno < 1:
@@ -213,6 +215,7 @@ def read_pheno(
     if ct and (seen & ~miss & (vals < 0)).any():
         raise ValueError("count phenotype value < 0")
     # a missing binary or count value masks the sample for that trait
+    # (time-to-event values are checked after the read, time against event)
     m = ~(miss & (bt or ct or (params.test_mode and params.rm_missing_qt
                                 and params.trait_mode == QT)))
     m[lost] = False
@@ -254,6 +257,16 @@ def read_pheno(
     pd.pheno_names = names
     pd.ind_in_analysis = ind_in_pheno
     pd.pheno_pass = np.ones(n_pheno, dtype=bool)
+    if params.trait_mode == T2E:
+        # pair time/event columns; event columns are not tested themselves
+        # and missing time masks both (pheno_read T2E branch, Pheno.cpp:236)
+        name_idx = {nm: i for i, nm in enumerate(names)}
+        for tname, ename in params.t2e_map.items():
+            ti, ei = name_idx[tname], name_idx[ename]
+            pd.pheno_pass[ei] = False
+            bad = (Y[:, ti] == MISSING) | (Y[:, ti] < 0) | (Y[:, ei] == MISSING)
+            pd.masked_indivs[bad, ti] = False
+            pd.masked_indivs[bad, ei] = False
     params.n_pheno = n_pheno
     params.strict_mode = strict
     return pd
@@ -402,6 +415,10 @@ def pheno_impute_miss(params: Params, pd: PhenoData) -> None:
 def get_basis(X: np.ndarray, params: Params) -> Tuple[np.ndarray, int]:
     """Orthonormal covariate basis via eigendecomposition of X'X
     (reference getBasis, Pheno.cpp:1660). Returns (basis, rank)."""
+    if X.shape[1] == 0:
+        # T2E with no covariates: Cox drops the intercept (the baseline
+        # hazard absorbs it), so the design can legitimately be empty
+        return X.copy(), 0
     xtx = X.T @ X
     D, V = np.linalg.eigh(xtx)
     nz = int((D > D[-1] * params.eigen_val_rel_tol).sum())

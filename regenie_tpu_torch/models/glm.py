@@ -1,10 +1,11 @@
-"""Null GLM fits of binary and count traits (the port's copy of
-regenie_tpu/models/glm.py, without the Cox null), on the host in numpy
-float64, a trait at a time, as in the JAX package.
+"""Null fits of binary, count and time-to-event traits (the port's copy
+of regenie_tpu/models/glm.py), on the host in numpy float64, a trait at a
+time, as in the JAX package.
 
 Re-implements the reference's fit_null_logistic (Step1_Models.cpp:54),
-fit_logistic (:156) and fit_null_poisson (:225). The level-1 ridge of
-these traits is models/step1_bt.py.
+fit_logistic (:156), fit_null_poisson (:225) and Step 1's branch of
+fit_null_cox (:353, the Cox ridge at lambda = 0, models/survival.py). The
+level-1 ridge of these traits is models/step1_bt.py.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import BT, CT, Params
+from ..config import BT, CT, T2E, Params
+from .survival import CoxRidge, SurvivalData
 
 
 ETA_MIN, ETA_MAX = -30.0, 30.0
@@ -154,9 +156,11 @@ def fit_null_offsets(params: Params, pd) -> np.ndarray:
     """Step 1's null model of every passing trait against the covariates
     (fit_null_models, Step1_Models.cpp:54+): the offset matrix [N, P]
     (offset_nullreg in the reference's ests struct), zero outside each
-    trait's mask. A trait whose fit fails stops passing."""
-    if params.trait_mode not in (BT, CT):
-        raise NotImplementedError("null offsets of binary and count traits only")
+    trait's mask. A trait whose fit fails stops passing. A time-to-event
+    trait's offset is its Cox null's linear predictor, on its time column
+    (the event columns are fitted with their time column)."""
+    if params.trait_mode not in (BT, CT, T2E):
+        raise NotImplementedError("null offsets of non-QT traits only")
     N, P = pd.phenotypes_raw.shape
     offsets = np.zeros((N, P))
     zero_off = np.zeros(N)
@@ -165,6 +169,22 @@ def fit_null_offsets(params: Params, pd) -> np.ndarray:
             continue
         y = pd.phenotypes_raw[:, ph]
         mask = pd.masked_indivs[:, ph]
+        if params.trait_mode == T2E:
+            # Cox null: cox_ridge at lambda=0 on covariates (fit_null_cox
+            # step-1 branch, Step1_Models.cpp:353); offset = linear predictor
+            if pd.pheno_names[ph] not in params.t2e_map:
+                continue
+            ei = pd.pheno_names.index(params.t2e_map[pd.pheno_names[ph]])
+            sd = SurvivalData()
+            sd.setup(y, pd.phenotypes_raw[:, ei], mask, norm_weights=True)
+            cr = CoxRidge(sd, pd.new_cov, zero_off, mask, 0.0, params.niter_max,
+                          params.niter_max_line_search, 2.5e-4)
+            cr.fit()
+            if not cr.converge:
+                pd.pheno_pass[ph] = False
+                continue
+            offsets[:, ph] = cr.eta
+            continue
         if params.trait_mode == BT:
             beta, ok = fit_logistic_irls(
                 y, pd.new_cov, zero_off, mask, params.niter_max, params.numtol, True)

@@ -1,13 +1,16 @@
-"""Step 1 level-1 ridge of binary and count traits (the port's copy of
-regenie_tpu/models/step1_bt.py, without the Cox level 1): penalized
-logistic and Poisson fits of the level-0 predictions, K-fold or LOOCV.
+"""Step 1 level-1 ridge of binary, count and time-to-event traits (the
+port's copy of regenie_tpu/models/step1_bt.py): penalized logistic and
+Poisson fits of the level-0 predictions, K-fold or LOOCV, and the
+penalized Cox fit, K-fold.
 
 Re-implements ridge_logistic_level_1 (Step1_Models.cpp:966),
 ridge_logistic_level_1_loocv with run_log_ridge_loocv (:1159-1377),
 ridge_poisson_level_1 (:1429), ridge_poisson_level_1_loocv with
 run_ct_ridge_loocv (:1585, :1680), the ADAM pass of
-run_log_ridge_loocv_adam (:1377) and make_predictions_binary_loocv
-(Data.cpp:1484; --l1-full: make_predictions_binary_loocv_full, :1429).
+run_log_ridge_loocv_adam (:1377), make_predictions_binary_loocv
+(Data.cpp:1484; --l1-full: make_predictions_binary_loocv_full, :1429)
+and ridge_cox_level_1 (Step1_Models.cpp:2228) with cox_ridge's coordinate
+descent (cox_ridge.cpp).
 
 Everything stays on the level-0 predictions' device in float64: the
 trait's design ([K, nmax, F] by fold, or [N, F]), the coefficients, the
@@ -19,6 +22,17 @@ L1_RIDGE_TOL on max |score|, the ADAM retry after a failed Newton fit,
 the argmin of -logLik/N), so the same ridge parameter is chosen on
 either device. K-fold trains on the fold tensor itself, the held-out
 fold weighted out, instead of a stacked copy of the training folds.
+
+The Cox level 1 (_level1_t2e) keeps the trait's sample-major [N, F]
+design on the device. The risk-set order of each fold's samples is the
+host's (survival.SurvivalData: numpy's lexsort, events first within tied
+times), uploaded as a permutation. A coordinate sweep of cox_ridge holds
+the gradient and Hessian fixed, so it is Gauss-Seidel on a quadratic: one
+pass over N forms H = X' diag(hess) X and X' grad on the card, and the
+sweep's F sequential updates are one triangular solve of the F x F system
+there, the same updates in exact arithmetic with no N-length pass per
+coordinate. The host reads three scalars a sweep (the deviance, the
+penalized objective and the largest score).
 """
 
 from __future__ import annotations
@@ -30,11 +44,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import BT, CT, Params, ridge_h2_grid
+from ..config import BT, CT, T2E, Params, ridge_h2_grid
 from ..prep import fmt
 from .glm import get_logist_dev_t as logist_dev
 from .glm import get_pvec_t as get_pvec
 from .step1 import pad_folds
+from .survival import SurvivalData, masked_order
 
 L1_RIDGE_EPS = 1e-5
 L1_RIDGE_TOL = 1e-4  # l1_ridge_tol (Regenie.hpp:289)
@@ -170,18 +185,23 @@ def ct_taus(F: int, rate: float, n_ridge_l1: int) -> np.ndarray:
 def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
                  taus, ph: int, chr_order, spans, fold_sizes, log,
                  trace: Optional[List] = None):
-    """Level-1 ridge of one binary or count trait on the device of its
-    level-0 predictions Wph ([K, nmax, F] by fold with fold_sizes, else
-    [N, F] for LOOCV). taus: the level-1 penalties (binary traits;
-    count traits derive theirs from the trait's rate). Returns
-    (predictions [N, n_chr] numpy float64, converged). trace, if given,
-    gains a dict per fitted ridge parameter (fold, tau index,
-    iterations, seconds)."""
+    """Level-1 ridge of one binary, count or time-to-event trait on the
+    device of its level-0 predictions Wph ([K, nmax, F] by fold with
+    fold_sizes, else [N, F] for LOOCV; a time-to-event trait's are those
+    of its time column, or with --t2e-event-l0 of its event column).
+    taus: the level-1 penalties (binary traits; count traits derive
+    theirs from the trait's rate, time-to-event traits from the largest
+    score or, with --t2e-l1-pi6, from taus). Returns (predictions [N,
+    n_chr] numpy float64, converged). trace, if given, gains a dict per
+    fitted ridge parameter (fold, tau index, iterations, seconds)."""
     if params.trait_mode == CT:
         return _level1_ct(params, pd, Wph, offsets, ph, chr_order, spans,
                           fold_sizes, log, trace)
+    if params.trait_mode == T2E:
+        return _level1_t2e(params, pd, Wph, offsets, taus, ph, chr_order, spans,
+                           fold_sizes, log, trace)
     if params.trait_mode != BT:
-        raise NotImplementedError("level 1 of binary and count traits only")
+        raise NotImplementedError("level 1 of non-QT traits only")
     if fold_sizes is not None:
         return _level1_glm_kfold(params, pd, Wph, offsets,
                                  np.asarray(taus, dtype=np.float64), ph, chr_order,
@@ -462,3 +482,220 @@ def _level1_ct(params, pd, X, offsets, ph, chr_order, spans, fold_sizes, log,
         return None, False
     Ainv, _, s, _ = _loo_quants(X, y, mask, beta, mu, w, tau)
     return _loo_predictions(X, beta, Ainv, s, chr_order, spans).cpu().numpy(), True
+
+
+class _CoxRisk:
+    """A fold's risk-set structure (survival.SurvivalData, set up on the
+    host) as device tensors: the permutation into time order and back,
+    the ordered weights, event flags, tie weights and first-of-tie flags,
+    the weights in sample order, and the saturated log-likelihood."""
+
+    def __init__(self, time_, status, mask, dev, base=None):
+        """base: np.lexsort((-status, time_)) over every sample, shared by
+        the masks of one endpoint (survival.masked_order)."""
+        sd = SurvivalData()
+        sd.setup(time_, status, mask, norm_weights=True,
+                 order=None if base is None else masked_order(base, mask))
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+        inv = np.empty_like(sd.order)
+        inv[sd.order] = np.arange(len(sd.order))
+        self.order = put(sd.order)
+        self.inv = put(inv)
+        self.w, self.w_orig = put(sd.w), put(sd.w_orig)
+        self.ev = put((sd.status_order == 1).astype(np.float64))
+        self.keep = put(sd.keep_order)
+        self.ww = put(sd.ww)
+        self.first = put(sd.dd > 0)
+        self.w_sum = float(sd.w_orig.sum())
+        w_sub = sd.ww_k
+        self.lsat = float(-(w_sub * np.log(np.maximum(w_sub, 1e-300))).sum())
+
+
+def _rev_cumsum(x):
+    return torch.flip(torch.cumsum(torch.flip(x, (0,)), 0), (0,))
+
+
+def _cox_deviance(rk: _CoxRisk, eta):
+    """CoxRidge._deviance of the linear predictor eta [N] (sample order),
+    a 0-d tensor: 2 (saturated - partial log-likelihood), Breslow ties."""
+    eta_o = eta[rk.order]
+    rsk = _rev_cumsum(rk.w * torch.exp(eta_o))
+    logs = torch.where(rk.keep & rk.first,
+                       rk.ww * torch.log(torch.clamp(rsk, min=1e-300)), 0.0)
+    return 2.0 * (rk.lsat - ((rk.w * eta_o * rk.ev).sum() - logs.sum()))
+
+
+def _cox_grad(rk: _CoxRisk, eta):
+    """CoxRidge._grad: the partial log-likelihood's gradient and diagonal
+    Hessian per sample [N] (sample order) at eta."""
+    mean_eta = (eta * rk.w_orig).sum() / rk.w_sum
+    e = torch.exp(eta[rk.order] - mean_eta)
+    rskden = _rev_cumsum(rk.w * e)
+    pos = rk.first & (rskden > 0)
+    rinv = torch.cumsum(torch.where(pos, rk.ww / rskden, 0.0), 0)
+    rinv2 = torch.cumsum(torch.where(pos, rk.ww / rskden**2, 0.0), 0)
+    we = rk.w * e
+    grad = rk.w * (rk.ev - e * rinv)
+    hess = we**2 * rinv2 - we * rinv
+    return grad[rk.inv], hess[rk.inv]
+
+
+def _weighted_gram(X, h, rows=65536):
+    """X' diag(h) X of an [N, F] design, summed over row slices so that
+    the scaled copy stays small."""
+    F = X.shape[1]
+    H = torch.zeros(F, F, dtype=X.dtype, device=X.device)
+    for a in range(0, X.shape[0], rows):
+        Xa = X[a : a + rows]
+        H += Xa.T @ (Xa * h[a : a + rows, None])
+    return H
+
+
+def cox_sweep(X, grad, hess, beta, lam):
+    """One cyclic coordinate-descent sweep of cox_ridge (survival.py's
+    CoxRidge.fit inner loop) at the sweep's fixed gradient and Hessian:
+    coordinate k moves beta_k to (r . x_k + beta_k x_k' H x_k) / (x_k' H x_k
+    - lam), r the Hessian-weighted working residual at the coordinates
+    already moved. With H = X' diag(hess) X and c = X' grad (over the
+    samples of nonzero Hessian), the moves d solve the lower-triangular
+    system (tril(H) - lam I) d = lam beta - c. Returns the new beta."""
+    F = X.shape[1]
+    if F == 0:
+        return beta
+    H = _weighted_gram(X, hess)
+    c = X.T @ torch.where(hess != 0, grad, 0.0)
+    A = torch.tril(H) - lam * torch.eye(F, dtype=X.dtype, device=X.device)
+    d = torch.linalg.solve_triangular(A, (lam * beta - c)[:, None], upper=False)
+    return beta + d[:, 0]
+
+
+def cox_ridge_fit(rk: _CoxRisk, X, offset, maskf, lam, beta0, niter=100,
+                  mxitnr=30, tol=1e-6):
+    """CoxRidge.fit on the device: sweeps (cox_sweep) until the relative
+    change of the penalized deviance or the largest penalized score falls
+    under tol, halving a step that raises the deviance by more than tol.
+    maskf [N] float64 (1 = in the fit). Returns (beta, converged,
+    sweeps)."""
+    beta = beta0.clone()
+    F = X.shape[1]
+
+    def lin(b):
+        return maskf * (X @ b + offset)
+
+    eta = lin(beta)
+    last_d = float(_cox_deviance(rk, eta))
+    last_o = last_d + lam * float((beta**2).sum()) / 2
+    for t in range(1, niter + 1):
+        beta_old = beta
+        grad, hess = _cox_grad(rk, eta)
+        beta = cox_sweep(X, grad, hess, beta, lam)
+        eta = lin(beta)
+        d = _cox_deviance(rk, eta)
+        o = d + lam * (beta**2).sum() / 2
+        score = ((_cox_grad(rk, eta)[0] @ X - lam * beta).abs().max() if F
+                 else torch.zeros((), dtype=X.dtype, device=X.device))
+        d, o, score_max = torch.stack([d, o, score]).tolist()
+        if d - last_d > tol:
+            ii = 0
+            while d - last_d > tol:
+                ii += 1
+                if ii > mxitnr:
+                    return beta, False, t
+                beta = (beta + beta_old) / 2
+                eta = lin(beta)
+                d = float(_cox_deviance(rk, eta))
+                o = d + lam * float((beta**2).sum()) / 2
+            score_max = (float((_cox_grad(rk, eta)[0] @ X - lam * beta).abs().max())
+                         if F else 0.0)
+        conv = abs(o - last_o) / (0.1 + abs(o)) < tol or score_max < tol
+        last_d, last_o = d, o
+        if conv:
+            return beta, True, t
+    return beta, False, niter
+
+
+def _level1_t2e(params, pd, Wl0, offsets, taus, ph, chr_order, spans,
+                fold_sizes, log, trace):
+    """Time-to-event trait, K-fold (ridge_cox_level_1,
+    Step1_Models.cpp:2228): the penalty path from the largest score down
+    by 1e-6 (getCoxLambdaMax, :446; --t2e-l1-pi6: taus x 6 / pi^2,
+    :2106-2110), per held-out fold warm-started Cox ridge fits on the
+    other folds along the path, each scored by its deviance on the
+    held-out fold; the folds' betas at the path's least summed deviance
+    make the predictions. Wl0: the level-0 predictions [K, nmax, F] of
+    the time column (or with --t2e-event-l0 the event column)."""
+    if fold_sizes is None:
+        raise IndexError("--t2e runs its level 1 K-fold only (no --loocv)")
+    dev, dt = Wl0.device, Wl0.dtype
+    ename = params.t2e_map[pd.pheno_names[ph]]
+    ei = pd.pheno_names.index(ename)
+    time_ = pd.phenotypes_raw[:, ph]
+    status = pd.phenotypes_raw[:, ei]
+    mask = pd.masked_indivs[:, ph]
+    K = params.cv_folds
+    ntau = params.n_ridge_l1
+    bounds = np.concatenate([[0], np.cumsum(fold_sizes)]).astype(int)
+    X = torch.cat([Wl0[k, : int(fold_sizes[k])] for k in range(K)], dim=0)
+    N, F = X.shape
+    offset = torch.as_tensor(np.ascontiguousarray(offsets[:, ph], np.float64),
+                             device=dev)
+    maskf_h = mask.astype(np.float64)
+    # the time order of every sample, from which each fold's risk sets
+    # gather theirs
+    base = np.lexsort((-status, time_))
+
+    if params.t2e_l1_pi6:
+        taus_t2e = np.asarray(taus, dtype=np.float64) * 6.0 / (np.pi**2)
+    else:
+        rk = _CoxRisk(time_, status, mask, dev, base)
+        grad, _ = _cox_grad(rk, torch.as_tensor(maskf_h, device=dev) * offset)
+        lambda_max = float((X.T @ grad).abs().max()) / 1e-3
+        idx = np.arange(ntau, dtype=np.float64)
+        taus_t2e = np.exp(idx / (ntau - 1) * np.log(1e-6) + np.log(lambda_max))
+
+    fold_id = np.zeros(N, dtype=int)
+    for k in range(K):
+        fold_id[bounds[k] : bounds[k + 1]] = k
+    devs = np.zeros(ntau)
+    beta_folds = torch.zeros(K, ntau, F, dtype=dt, device=dev)
+    not_conv = False
+    for k in range(K):
+        train = (fold_id != k) & mask
+        test = (fold_id == k) & mask
+        rk_tr = _CoxRisk(time_, status, train, dev, base)
+        rk_te = _CoxRisk(time_, status, test, dev, base)
+        m_tr = torch.as_tensor(train.astype(np.float64), device=dev)
+        m_te = torch.as_tensor(test.astype(np.float64), device=dev)
+        beta = torch.zeros(F, dtype=dt, device=dev)
+        for j, tau in enumerate(taus_t2e):  # the path, warm-started
+            t0 = time.time()
+            beta, ok, sweeps = cox_ridge_fit(
+                rk_tr, X, offset, m_tr, float(tau), beta, params.niter_max_ridge,
+                params.niter_max_line_search, 1e-4)
+            not_conv |= not ok
+            beta_folds[k, j] = beta
+            devs[j] += float(_cox_deviance(rk_te, m_te * (X @ beta + offset)))
+            if trace is not None:
+                trace.append(dict(fold=k, tau=j, iterations=sweeps,
+                                  seconds=time.time() - t0))
+
+    if not_conv:
+        log("WARNING: Cox ridge did not fully converge across folds")
+    best = int(np.argmin(devs))
+    for j in range(ntau):
+        line = f"  {fmt(taus_t2e[j]):>9} : Deviance = {fmt(devs[j])}"
+        if j == best:
+            line += "<- min value"
+        log(line)
+
+    predictions = np.zeros((N, len(chr_order)))
+    for ci, c in enumerate(chr_order):
+        st, nn = spans[c]
+        for k in range(K):
+            rows = slice(bounds[k], bounds[k + 1])
+            predictions[rows, ci] = (X[rows, st : st + nn]
+                                     @ beta_folds[k, best, st : st + nn]).cpu().numpy()
+    return predictions, True

@@ -257,11 +257,11 @@ def bf16_split3(w):
     return hi, mid, lo
 
 
-def _split_operand(W, device):
-    """float64 numpy operand [..., Cp] -> its bf16 [hi|mid|lo] split
-    [..., 3*Cp] on `device` (rounded to float32 first, as the JAX package
-    builds it)."""
-    return torch.cat(bf16_split3(_to_dev(W.astype(np.float32), device)), dim=-1)
+def _split_dev(W):
+    """float64 operand tensor [..., Cp] -> its bf16 [hi|mid|lo] split
+    [..., 3*Cp] on W's device (rounded to float32 first, as the JAX
+    package builds it)."""
+    return torch.cat(bf16_split3(W.to(torch.float32)), dim=-1)
 
 
 def fold3(x):
@@ -308,26 +308,29 @@ def plane_pack(Wext, nb, split, device="cpu", dtype=torch.float64,
     the flip algebra (for "i8" it sums the QUANTIZED values so the flip
     transform stays exact in the quantized system; otherwise the float64
     Wext). Rows must already be zeroed for excluded samples. nbp_tile:
-    byte padding multiple (default _TC). The int8 operand is ordered and
-    quantized on `device` (i8_quantize): Wext goes up as float64 once."""
+    byte padding multiple (default _TC). Every operand is ordered on
+    `device` (the int8 one also quantized there, i8_quantize): Wext goes
+    up as float64 once."""
     N, C = Wext.shape
     Cp = -(-C // 128) * 128
     tile = nbp_tile or _TC
     nbp = -(-nb // tile) * tile
+    # sample order is [nbp, 4] (sample 4c + p): plane p, byte c
+    W = _padded_dev(Wext, 4 * nbp, Cp, device)
     if split == "i8":
         assert N < 8_000_000, "int8 fused path: int32 accumulator bound"
-        # sample order is [nbp, 4] (sample 4c + p); limbs of the padded
-        # rows are zero, and the max, the scales and the sums do not
-        # depend on the row order, so quantize first and reorder the limbs
-        limbs, s, usum = i8_quantize(_padded_dev(Wext, 4 * nbp, Cp, device))
+        # limbs of the padded rows are zero, and the max, the scales and
+        # the sums do not depend on the row order, so quantize first and
+        # reorder the limbs
+        limbs, s, usum = i8_quantize(W)
         limbs = limbs.view(nbp, 4, 4 * Cp).transpose(0, 1).contiguous()
         return _i8_operand(limbs, s), usum
-    Wp = np.zeros((4, nbp, Cp), dtype=np.float64)
-    Wp[..., :C] = _plane_order(Wext, nb, nbp)
     usum = np.pad(Wext.sum(axis=0), (0, Cp - C))
+    Wp = W.view(nbp, 4, Cp).transpose(0, 1).contiguous()
+    del W
     if split:
-        return _split_operand(Wp, device), usum
-    return _to_dev(Wp, device, dtype), usum
+        return _split_dev(Wp), usum
+    return Wp.to(dtype), usum
 
 
 def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
@@ -344,12 +347,11 @@ def sample_pack(Wext, split, device="cpu", dtype=torch.float64):
     if split == "i8":
         limbs, s, usum = i8_quantize(_padded_dev(Wext, Np, Cp, device))
         return _i8_operand(limbs, s), usum
-    W = np.zeros((Np, Cp), dtype=np.float64)
-    W[:N, :C] = Wext
     usum = np.pad(Wext.sum(axis=0), (0, Cp - C))
+    W = _padded_dev(Wext, Np, Cp, device)
     if split:
-        return _split_operand(W, device), usum
-    return _to_dev(W, device, dtype), usum
+        return _split_dev(W), usum
+    return W.to(dtype), usum
 
 
 def plane_order_rows(X, nb, nbp_tile=None):
@@ -779,6 +781,55 @@ def make_bt_block_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
         num, denum, S1cat = _bt_scores(S1c, SQc, SMc, flip, usum_t, xwt_t,
                                        icol, n_ind, ncat, Pn, Kp1, test_type)
         return S1c, SQc, SMc, flip, num, denum, S1cat
+
+    return run
+
+
+def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
+                      Tt, q, use_kernel=True, test_type=0, ref_first=False):
+    """Time-to-event (Cox) block function over packed PLINK bytes (the JAX
+    package's make_t2e_block_fn): products -> the minor-allele flip on the
+    device (ADD only) -> imputation and flip or DOM/REC recoding in
+    product space -> each trait's approximate Cox score pieces
+    (compute_score_cox, Step2_Models.cpp:632-700), in float64:
+
+        Gres   = G - A R'              A = G WX1,  R = X1 (X1' W X1)^-1
+        T      = G v - A (R' v)        v = residual * mask
+      ||Gres||^2 = ||G||^2 - 2 sum_k A'_k A_k + A (R' R) A',   A' = G R
+        denum  = res_var ||Gres||^2
+
+    Wp: the operand of per-trait [WX1 | R | v] blocks (the first Tt (2q +
+    1) columns) with [case | maskf | ind (| chrX male tail)] after them
+    (plane_pack); G^2 sums ride the shared `ind` column. usum: its [Cp]
+    column sums; Rtv [Tt, q], RtR [Tt, q, q] and res_var [Tt]: numpy
+    constants of the null fits. Returns the raw product slices for the
+    host statistics and (flip, Tnum, denum), Tnum and denum [B, Tt].
+    use_kernel=False takes the plain products on any device."""
+    prod = fused_products if use_kernel else fused_products_plain
+    dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+    usum_t, Rtv_t, RtR_t, rv_t = (put(a) for a in (usum[:C_used], Rtv, RtR, res_var))
+    nt = Tt * (2 * q + 1)
+
+    def run(raw):
+        S1, SQ, SM = prod(raw, Wp, torch.float64)
+        S1c, SQc, SMc = (x[:, :C_used].to(torch.float64) for x in (S1, SQ, SM))
+        if ref_first:
+            S1c, SQc = ref_first_products(S1c, SQc, SMc, usum_t)
+        flip = (_bt_flip(S1c, SMc, icol, n_ind) if test_type == 0 else
+                torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device))
+        S1f, SQf = finalized_products(S1c, SQc, SMc, flip, usum_t, icol, n_ind,
+                                      test_type)
+        blk = S1f[:, :nt].reshape(S1f.shape[0], Tt, 2 * q + 1)
+        A, Ap, Gv = blk[..., :q], blk[..., q : 2 * q], blk[..., 2 * q]
+        Tnum = Gv - torch.einsum("btq,tq->bt", A, Rtv_t)
+        denum = rv_t[None, :] * (
+            SQf[:, icol, None] - 2.0 * (A * Ap).sum(-1)
+            + torch.einsum("btk,tkl,btl->bt", A, RtR_t, A))
+        return S1c, SQc, SMc, flip, Tnum, denum
 
     return run
 

@@ -1,6 +1,7 @@
 """Data preparation for both steps (the port's copy of regenie_tpu/prep.py,
-trimmed to quantitative, binary and count traits; Step 2 keeps the
-binary and count phenotypes raw for its null fits): the transposed phenotype
+trimmed to the four trait types; Step 2 keeps the binary, count and
+time-to-event phenotypes raw for its null fits, and Cox drops the
+constant covariate columns and scales the rest): the transposed phenotype
 file (--tpheno-file), conditioning variants joined
 to the covariates (--condition-list, --condition-file),
 --print-cov-betas and the --debug dump of the model inputs.
@@ -18,7 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .config import BT, QT, Params
+from .config import BT, QT, T2E, Params
 from .io.files import iter_lines
 from .io.geno import GenoData, open_geno
 from .io.pheno import (
@@ -92,6 +93,16 @@ def prepare(
         cov_betas = _cov_betas(params, pd, cov_names)
 
     # orthonormal covariate basis (prep_run, Pheno.cpp:1060-1117)
+    if params.trait_mode == T2E:
+        # Cox: drop constant covariates (incl. intercept) and center/scale
+        # (prep_run T2E branch, Pheno.cpp:1080-1105; getBasis :1663-1667)
+        ind = pd.ind_in_analysis
+        mu = pd.new_cov[ind].mean(axis=0)
+        sds = np.linalg.norm(pd.new_cov[ind] - mu[None, :], axis=0) / np.sqrt(
+            params.n_analyzed)
+        keep = sds > 1e-9
+        pd.new_cov = (pd.new_cov[:, keep] - mu[None, keep]) / sds[None, keep]
+        pd.new_cov *= ind[:, None]
     basis, ncov = get_basis(pd.new_cov, params)
     pd.new_cov = basis * pd.ind_in_analysis[:, None]
     params.ncov = ncov

@@ -1,7 +1,7 @@
-"""Step 1 on quantitative, binary and count traits from PLINK BED or
-PGEN hardcalls or BGEN (and PGEN) dosages: whole-genome block ridge ->
-LOCO predictions (the port of the single-device parts of
-regenie_tpu/run_step1.py without the Cox level 1).
+"""Step 1 on quantitative, binary, count and time-to-event traits from
+PLINK BED or PGEN hardcalls or BGEN (and PGEN) dosages: whole-genome
+block ridge -> LOCO predictions (the port of the single-device parts of
+regenie_tpu/run_step1.py).
 
 Replaces the reference's Data::run_step1 (Data.cpp:95-133),
 level_0_calculations (:594), ridge_level_1* (Step1_Models.cpp:772+),
@@ -14,10 +14,11 @@ Level 0 and level 1 run in float64 on the device (models/step1.py: DGEMM
 on the FP64 tensor cores and cuSOLVER eigh on the card); each hardcall
 block ships as packed bytes and is decoded there (ops/geno_ops.py), each
 dosage block (io/csrc/bgen_dosages.cpp, io/csrc/pgen_bytes.cpp on the
-reader thread) as float64. Binary and count traits first fit their null
-models on the host (models/glm.py), then take the penalized logistic or
-Poisson level 1 on the device (models/step1_bt.py). The LOCO rows render
-through io/csrc/loco_rows.cpp.
+reader thread) as float64. Binary, count and time-to-event traits first
+fit their null models on the host (models/glm.py; Cox: models/survival.py),
+then take the penalized logistic, Poisson or Cox level 1 on the device
+(models/step1_bt.py); a time-to-event trait's LOCO file is written for its
+time column. The LOCO rows render through io/csrc/loco_rows.cpp.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import BT, QT, Params, ridge_h2_grid
+from .config import BT, QT, T2E, Params, ridge_h2_grid
 from .io.files import GzipWriter, open_write, string_split
 from .io.geno import make_blocks
 from .io.output import format_value_rows
@@ -147,12 +148,13 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
                       master, run_l0_job, dev)
 
 
-def run_step1(params: Params, log=print, device=None) -> None:
+def run_step1(params: Params, log=print, device=None) -> Step1Setup:
     """Step 1: <out>_<i>.loco per trait and <out>_pred.list (with
     --write-null-firth on binary traits <out>_<i>.firth and
     <out>_firth.list), or a split-L0 role (--split-l0 / --run-l0 /
     --run-l1). `device` as in utils.device.resolve_device (CUDA unless
-    the CPU is asked for)."""
+    the CPU is asked for). Returns the run's setup (open_step1), its
+    genotype source open."""
     st = open_step1(params, log, device)
     gd, pd, blocks, master = st.gd, st.pd, st.blocks, st.master
 
@@ -160,7 +162,7 @@ def run_step1(params: Params, log=print, device=None) -> None:
     if params.split_l0:
         prefix, njobs = params.split_l0.rsplit(",", 1)
         _write_l0_master(params, blocks, prefix, int(njobs), log)
-        return
+        return st
 
     log(f" * block size: [{params.block_size}]")
     log(usage_info_line(params))
@@ -193,7 +195,7 @@ def run_step1(params: Params, log=print, device=None) -> None:
 
     if params.early_exit and st.run_l0_job is None:
         log("--early-exit: stopping after level 0 models")
-        return
+        return st
 
     # ---- run-l0 job: write binary predictions and exit ----
     if st.run_l0_job is not None:
@@ -203,10 +205,11 @@ def run_step1(params: Params, log=print, device=None) -> None:
             # col-major doubles (write_l0_file, Step1_Models.cpp:728)
             Wn[:, :, ph].T.astype(np.float64).tofile(job_prefix + f"_l0_Y{ph+1}")
         log("Done writing level 0 predictions to file.")
-        return
+        return st
 
     _level1_and_output(params, gd, pd, W_all, st.taus, st.h_l1, chr_nblocks,
                        st.fold_sizes, st.device, log, offsets)
+    return st
 
 
 def _read_l0_jobs(jobs, N, J, P, fold_sizes) -> np.ndarray:
@@ -420,10 +423,10 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
                        fold_sizes, dev, log, offsets=None):
     """Level-1 ridge per trait on the device, then its LOCO file
     (ridge_level_1*, make_predictions*, write_predictions): the linear
-    ridge of quantitative traits, the penalized logistic or Poisson ridge
-    of binary and count traits (models/step1_bt.py, on the null
-    `offsets`), and with --write-null-firth a binary trait's .firth file
-    of null Firth fits a chromosome."""
+    ridge of quantitative traits, the penalized logistic, Poisson or Cox
+    ridge of binary, count and time-to-event traits (models/step1_bt.py,
+    on the null `offsets`), and with --write-null-firth a binary trait's
+    .firth file of null Firth fits a chromosome."""
     J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
     ind = pd.ind_in_analysis
     pred_list_path = params.out_prefix + "_pred.list"
@@ -465,11 +468,19 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
             loco_path = params.out_prefix + f"_{ph+1}.loco" + gz
             log(f"phenotype {ph+1} ({name}):")
             predictions = np.zeros((N, len(chr_order)))
-            Wph = _trait_W(W_all, ph, dev)
+            l0_idx = ph
+            if params.trait_mode == T2E and params.t2e_event_l0:
+                # --t2e-event-l0: the event column's level-0 predictions
+                # feed level 1 (l0_idx = event_index, Step1_Models.cpp:2259)
+                l0_idx = pd.pheno_names.index(params.t2e_map[name])
+            Wph = _trait_W(W_all, l0_idx, dev)
             if params.trait_mode != QT:
+                t1 = time.time()
                 predictions, converged = step1_bt.level1_nonqt(
                     params, pd, Wph, offsets, taus, ph, chr_order, spans,
                     fold_sizes, log)
+                if params.verbose:
+                    log(f"  level 1 of {name}: {time.time() - t1:.3f}s")
                 if not converged:
                     log("Level 1 model did not converge. LOCO predictions skipped.")
                     continue

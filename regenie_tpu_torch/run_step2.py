@@ -1,5 +1,5 @@
-"""Step 2 on quantitative, binary and count traits from PLINK BED, PGEN
-or BGEN files (the port of the QT, BT and CT paths of
+"""Step 2 on quantitative, binary, count and time-to-event traits from
+PLINK BED, PGEN or BGEN files (the port of the single-device paths of
 regenie_tpu/run_step2.py), on two routes.
 
 Replaces the reference's Data::test_snps_fast (Data.cpp:2230),
@@ -31,7 +31,14 @@ exact Firth (models/corrections_device.py on the card, the host twins on
 the CPU). Count traits (--ct) refit the null Poisson model per chromosome
 (models/step2_ct.py) and take the same operand and score test with the
 weights W = mu and no correction; their HTP genotype counts are of all
-samples.
+samples. Time-to-event traits (--t2e) refit the Cox null (and with
+--firth --approx the null Cox Firth) per chromosome on the host
+(models/step2_t2e.py); on the fused route, BED and PGEN hardcalls only
+and not with --coxscore-exact, the operand is per trait [WX1 | R | v]
+with [case | maskf | ind] after it (case = the trait's events), so the
+same products give each trait's score T and denum and the event-split
+HTP counts, and the Firth rows are decoded again from the block and
+corrected on the host.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import BT, CT, QT, Params
+from .config import BT, CT, QT, T2E, Params
 from .io.bgen import extract_planes_block, planes_readable
 from .io.files import iter_lines, open_read, open_write, string_split
 from .io.geno import make_blocks
@@ -60,7 +67,7 @@ from .io.output import (block_prefixes, format_block_htp,
                         sumstat_line_all, sumstat_line_htp,
                         sumstat_line_single)
 from .models import step2 as m2
-from .models import step2_bt, step2_ct
+from .models import step2_bt, step2_ct, step2_t2e
 from .ops import fused_score as fsc
 from .ops.geno_ops import (MISSING, decode_bed_packed, finalize_block_step2,
                            pack_hardcalls, snp_stats_block,
@@ -85,6 +92,19 @@ def read_pred_list(path: str) -> Dict[str, str]:
     return out
 
 
+def _loco_columns(line, id_to_ind):
+    """A .loco header line -> (its token count, the columns naming samples
+    of id_to_ind, their sample indices), in header order. Raises unless
+    the header starts with FID_IID."""
+    header = string_split(line)
+    if header[0] != "FID_IID":
+        raise ValueError("header of blup file must start with FID_IID")
+    idx = np.fromiter((id_to_ind.get(k, -1) for k in header[1:]), np.int64,
+                      len(header) - 1)
+    cols = np.flatnonzero(idx >= 0)
+    return len(header), cols + 1, idx[cols]
+
+
 def read_loco_chr(
     path: str, chrom: int, id_to_ind: Dict[str, int], n_samples: int,
     mask: np.ndarray, use_prs: bool = False,
@@ -98,31 +118,24 @@ def read_loco_chr(
     reads, Step2_Models.cpp:60)."""
     blup = np.zeros(n_samples)
     with open_read(path) as fh:
-        header = string_split(fh.readline())
-        if header[0] != "FID_IID":
-            raise ValueError("header of blup file must start with FID_IID")
+        n_tok, cols, idx = _loco_columns(fh.readline(), id_to_ind)
         if not use_prs:
             for _ in range(chrom - 1):
                 fh.readline()
         toks = string_split(fh.readline())
-        if len(toks) != len(header):
+        if len(toks) != n_tok:
             raise ValueError("blup file row length mismatch")
         expect = 0 if use_prs else chrom
         if int(toks[0]) != expect:
             raise ValueError(f"blup file row starts with {toks[0]} instead of {expect}")
-        for col in range(1, len(header)):
-            key = header[col]
-            if key not in id_to_ind:
-                continue
-            idx = id_to_ind[key]
-            if not mask[idx]:
-                continue
-            v = toks[col]
-            if v == "NA":
-                raise ValueError(
-                    f"individual {key} has missing predictions for chr {chrom}"
-                )
-            blup[idx] = float(v)
+    keep = mask[idx]
+    cols, idx = cols[keep], idx[keep]
+    vals = np.asarray(toks, dtype=object)[cols]
+    na = vals == "NA"
+    if na.any():
+        key = next(k for k, i in id_to_ind.items() if i == idx[np.argmax(na)])
+        raise ValueError(f"individual {key} has missing predictions for chr {chrom}")
+    blup[idx] = np.fromiter(map(float, vals), np.float64, len(vals))
     return blup
 
 
@@ -165,17 +178,14 @@ def mask_samples_missing_loco(params, pd, blup_files, id_to_ind):
             continue
         path = blup_files[name]
         with open_read(path) as fh:
-            header = string_split(fh.readline())
+            _, cols, idx = _loco_columns(fh.readline(), id_to_ind)
             vals = string_split(fh.readline())
         if params.use_prs and vals[0] != "0":
             # --use-prs expects whole-genome .prs files (blup_read,
             # Pheno.cpp:1297)
             raise ValueError(f"second line must start with 0 (={vals[0]})")
         present = np.zeros(params.n_samples, dtype=bool)
-        for col in range(1, len(header)):
-            key = header[col]
-            if key in id_to_ind and vals[col] != "NA":
-                present[id_to_ind[key]] = True
+        present[idx[np.asarray(vals, dtype=object)[cols] != "NA"]] = True
         pd.masked_indivs[:, ph] &= present
         if pd.masked_indivs[:, ph].sum() < 1:
             pd.pheno_pass[ph] = False
@@ -227,12 +237,13 @@ def _fetch_packed(vals: dict, fdt=None) -> dict:
     return out
 
 
-class FusedBTSource:
-    """step2_bt.score_block's genotype source on the fused route: the
-    block's num/denum (host) and S1 products (device) from the fused
-    products, and the correction rows decoded again on the card from the
-    block's resident bytes or BGEN planes (the analog of the reference's
-    per-SNP G_res rebuild, Step2_Models.cpp:520-540)."""
+class FusedRowSource:
+    """A fused block's genotype source for the corrections: the block's
+    num/denum (host) and S1 products (device) from the fused products,
+    and the correction rows decoded again on the card from the block's
+    resident bytes or BGEN planes (the analog of the reference's per-SNP
+    G_res rebuild, Step2_Models.cpp:520-540). step2_bt.score_block reads
+    all of it; the Cox route reads only rows_device (S1_all None)."""
 
     def __init__(self, eng, raw, flip, num, denum, S1_all):
         self.eng = eng
@@ -321,11 +332,15 @@ class Step2Engine:
         self.is_bt = params.trait_mode == BT
         # binary and count traits: the GLM score test on the null state
         self.is_glm = params.trait_mode in (BT, CT)
-        self.bt_state = None
+        # time-to-event traits: the Cox score test on the null state
+        self.is_t2e = params.trait_mode == T2E
+        self.null_state = None
         # --use-null-firth: trait name -> .firth file (read_pred_list)
         self.null_firth_files = None
         self.n_corrected = 0
         self.n_failed = 0
+        # chrX non-PAR blocks scored on the fused route with the male tail
+        self.n_male_tail = 0
         # seconds of the BT null fits and of the corrections
         self.bt_times = {"null_s": 0.0, "corr_s": 0.0}
         self._fused_chrom = None
@@ -369,15 +384,20 @@ class Step2Engine:
                             params.n_chrom,
                         )
                     blups[:, ph] -= self._ltco_prs[ph]
-        if self.is_glm:
+        if self.is_glm or self.is_t2e:
             t0 = time.time()
             if self.is_bt:
-                self.bt_state = step2_bt.prep_chromosome(
+                self.null_state = step2_bt.prep_chromosome(
                     params, pd, blups, self.log, self.null_firth_files, chrom)
+            elif self.is_t2e:
+                self.null_state = step2_t2e.prep_chromosome(params, pd, blups, self.log)
             else:
-                self.bt_state = step2_ct.prep_chromosome(params, pd, blups, self.log)
-            self.bt_times["null_s"] += time.time() - t0
-            self.res = self.bt_state.res
+                self.null_state = step2_ct.prep_chromosome(params, pd, blups, self.log)
+            dt = time.time() - t0
+            self.bt_times["null_s"] += dt
+            if params.verbose:
+                self.log(f" * null fits chr{chrom}: {dt:.3f}s (on the host)")
+            self.res = self.null_state.res
             return
         if params.blup_cov:
             # --prs-cov: project the PRS out by a per-trait LM fit instead
@@ -424,6 +444,8 @@ class Step2Engine:
         wgr = "" if p.skip_blups else "-WGR"
         if p.trait_mode == CT:
             return test + wgr + "-POISSON"
+        if self.is_t2e:
+            return test + wgr + ("-COX-FIRTH" if p.firth else "-COX")
         if not self.is_bt:
             return test + wgr + "-LR"
         return test + wgr + ("-FIRTH" if p.firth else "-SPA" if p.use_spa
@@ -458,8 +480,11 @@ class Step2Engine:
         route on either device): BED or PGEN hardcalls, or BGEN planes
         (the ADD test, split output, no --htp: HTP and merged output want
         hardcall-threshold counts, nonlinear in dosages; and a file the
-        plane extractor reads); for QT no --nocov-approx and no --mcc.
-        REGENIE_TPU_FUSED=0 sends every block down the dense route."""
+        plane extractor reads); for QT no --nocov-approx and no --mcc;
+        time-to-event traits on hardcall sources only and not with
+        --coxscore-exact (its per-variant variance needs the dense Gres,
+        Step2_Models.cpp:672). REGENIE_TPU_FUSED=0 sends every block down
+        the dense route."""
         if os.environ.get(FUSED_ENV) == "0":
             return False
         params, gd = self.params, self.gd
@@ -470,6 +495,8 @@ class Step2Engine:
                     and planes_readable(gd._bgen))
         if not (hardcall_src or bgen_src):
             return False
+        if self.is_t2e:
+            return hardcall_src and not params.coxscore_exact
         return self.is_glm or (params.trait_mode == QT and not params.skip_cov_res
                               and not params.mcc_test)
 
@@ -489,11 +516,14 @@ class Step2Engine:
         default dosage compensation (males diploid-coded, scoring
         unchanged), the ADD test and no --af-cc (case/control counts of
         chrX stay on the dense route); for QT on BGEN no --htp (BT BGEN
-        HTP never takes the fused route)."""
+        HTP never takes the fused route); time-to-event traits off BGEN
+        (their fused route is hardcall-only)."""
         p = self.params
         common = (self.gd.sex is not None and bool(p.test_mode)
                   and not p.skip_dosage_comp and not p.af_cc
                   and p.test_type == 0)
+        if self.is_t2e:
+            return common and self.gd._bgen is None
         return common and (self.is_glm or self.gd._bgen is None or not p.htp_out)
 
     @staticmethod
@@ -581,6 +611,9 @@ class Step2Engine:
         if self.is_glm:
             self._ensure_fused_bt()
             return
+        if self.is_t2e:
+            self._ensure_fused_t2e()
+            return
         pd, params = self.pd, self.params
         is_bgen = self.gd._bgen is not None
         nb = (self._fused_nfile() + 3) // 4
@@ -661,7 +694,7 @@ class Step2Engine:
         against Wq, the narrow operand of the columns from gsm^2 on."""
         pd, params, gd = self.pd, self.params, self.gd
         is_bgen = gd._bgen is not None
-        st = self.bt_state
+        st = self.null_state
         P = params.n_pheno
         fc = step2_bt.fused_consts(pd, st)
         Pn = len(fc.cols)
@@ -669,7 +702,7 @@ class Step2Engine:
         ncat = Pn * Kp1
         ind = pd.ind_in_analysis
         indf = ind.astype(np.float64)
-        case = ((pd.phenotypes_raw == 1) & pd.masked_indivs).astype(np.float64)
+        case = self._case_ctrl()[0].astype(np.float64)
         cols = ([fc.Wcat, fc.gsm2] if Pn else []) + [self.maskf, case,
                                                     indf[:, None]]
         Wext_f = self._scatter_file(np.concatenate(cols, axis=1))
@@ -719,6 +752,178 @@ class Step2Engine:
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
 
+    def _ensure_fused_t2e(self):
+        """The Cox fused operand of the chromosome (the T2E branch of the
+        JAX package's _ensure_fused_consts, regenie_tpu/run_step2.py
+        :1156-1227): Wext = [per passing trait WX1*ind | R*ind | v (2q + 1
+        columns, q = K + 1) | case (P) | maskf (P) | ind (1)], with the chrX
+        male tail [male | maskf*male (P) | case*male (P)] whenever
+        _fused_chrx_ok holds. R's rows are zeroed off the analysis so that
+        A' = G R matches the dense route's ind-zeroed G; R'R keeps every
+        kept row, because the dense ||Gres||^2 includes (A R')^2 where G is
+        zero. The null refit changes every column, so the operand is packed
+        again a chromosome."""
+        pd, params, gd = self.pd, self.params, self.gd
+        st = self.null_state
+        P = params.n_pheno
+        passing = step2_t2e.passing_traits(pd, st)
+        q = pd.new_cov.shape[1] + 1
+        indf = pd.ind_in_analysis.astype(np.float64)
+        cols = []
+        for ph in passing:
+            mle = st.mle[ph]
+            cols += [mle.WX1 * indf[:, None], mle.X1_X1WX1inv * indf[:, None],
+                     (mle.residual * pd.masked_indivs[:, ph])[:, None]]
+        # HTP's cases are the events
+        case = self._case_ctrl()[0].astype(np.float64)
+        Wext_f = self._scatter_file(np.concatenate(
+            cols + [case, self.maskf, indf[:, None]], axis=1))
+        nt = len(passing) * (2 * q + 1)
+        has_male = self._fused_chrx_ok()
+        if has_male:
+            malez = self._scatter_file((gd.sex == 1).astype(np.float64) * indf)
+            maskf_f = Wext_f[:, nt + P : nt + 2 * P]
+            case_f = Wext_f[:, nt : nt + P]
+            Wext_f = np.concatenate(
+                [Wext_f, malez[:, None], maskf_f * malez[:, None],
+                 case_f * malez[:, None]], axis=1)
+        nb = (self._fused_nfile() + 3) // 4
+        Wp, usum = fsc.plane_pack(Wext_f, nb, self.split, self.device, self.op_dtype)
+        icol = nt + 2 * P
+        C_used = icol + 1 + ((2 * P + 1) if has_male else 0)
+        Rtv = np.zeros((len(passing), q))
+        RtR = np.zeros((len(passing), q, q))
+        for j, ph in enumerate(passing):
+            R = st.mle[ph].X1_X1WX1inv
+            Rtv[j] = R.T @ (st.mle[ph].residual * pd.masked_indivs[:, ph])
+            RtR[j] = R.T @ R
+        rv = np.array([st.mle[ph].res_var for ph in passing])
+        self._fused_t2e = SimpleNamespace(
+            Wp=Wp, usum=usum, icol=icol, C_used=C_used, has_male=has_male,
+            sl_case=slice(nt, nt + P), sl_mask=slice(nt + P, nt + 2 * P),
+            case_n=case.sum(axis=0), n_ind=float(indf.sum()))
+        self._fused_fn = fsc.make_t2e_block_fn(
+            Wp, usum, Rtv, RtR, rv, C_used, icol, float(indf.sum()), len(passing),
+            q, self.kernel, params.test_type,
+            bool(params.ref_first) and gd._bed is not None)
+        self._fused_nb = nb
+        self._fused_op_nbp = fsc.op_nbp(Wp)
+        self._fused_chrom = self.cur_chrom
+
+    def _fused_variant_stats(self, op, S1h, SQh, SMh, bsnps, with_classes=True):
+        """Per-variant statistics of a GLM or Cox fused block from the raw
+        product columns of its operand `op` (icol, sl_mask, has_male,
+        usum, n_ind): allele counts, frequencies and MAC of all analysed
+        samples and per trait, the hardcall class counts, the chrX
+        hemizygous adjustment of the non-PAR rows (with_classes: also the
+        class moves of all, of each trait and of each trait's cases, from
+        the case*male columns), and the MAC and --minHOMs filters."""
+        params, pd = self.params, self.pd
+        B, P = len(bsnps), params.n_pheno
+        icol, msl = op.icol, op.sl_mask
+        v = SimpleNamespace()
+        v.total1 = total1 = S1h[:, icol]
+        v.ns1 = ns1 = op.n_ind - SMh[:, icol]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v.af1 = total1 / (2.0 * ns1)
+        mac1 = np.minimum(total1, 2.0 * ns1 - total1)
+        v.total_t = total_t = S1h[:, msl]
+        v.ns_t = ns_t = pd.Neff[None, :] - SMh[:, msl]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v.af_t = total_t / (2.0 * ns_t)
+        mac_t = np.minimum(total_t, 2.0 * ns_t - total_t)
+        v.n_aa1 = (SQh[:, icol] - total1) / 2.0
+        v.n_rr1 = ns1 - total1 + v.n_aa1
+        v.n1m_t = v.n1m_case = None
+        if op.has_male:
+            non_par = self.non_par_flags(bsnps)
+            if non_par.any():
+                self.n_male_tail += 1
+                mac1, mac_t, n1m, v.n1m_t = self._hemizygous_adjust(
+                    non_par, S1h, SQh, SMh, op.usum, icol + 1,
+                    slice(icol + 2, icol + 2 + P), total1, ns1, mac1,
+                    total_t, ns_t, mac_t, with_classes=with_classes)
+                if n1m is not None:
+                    v.n_aa1 = v.n_aa1 + n1m
+                    # case-side hemizygous class moves (case*male columns)
+                    cm_sl = slice(icol + 2 + P, icol + 2 + 2 * P)
+                    v.n1m_case = np.where(non_par[:, None],
+                                          2.0 * S1h[:, cm_sl] - SQh[:, cm_sl], 0.0)
+        v.mac_t = mac_t
+        ignored, v.ignored_trait = self._mac_filters(params, bsnps, mac1, mac_t, B)
+        if params.test_type == 2 and params.min_homs > 0:
+            ignored = ignored | self._rec_min_homs(S1h, SQh, SMh, icol, total1, ns1)
+        self.n_ignored += int(ignored.sum())
+        v.ignored = ignored
+        return v
+
+    @staticmethod
+    def _fused_genocounts(op, S1h, SQh, SMh, v, by_case):
+        """[B, 6, P] HTP genotype counts from the raw product columns:
+        by_case, rows 0-2 of the cases (op.sl_case) and rows 3-5 of the
+        rest of the trait's samples; else rows 0-2 of all samples
+        (compute_genocounts, Geno.cpp:2898). Class counts per column set:
+        H = (SQ - S1)/2, E = 2*S1 - SQ; chrX non-PAR males with g >= 1
+        count as hom (update_genocounts hemizygous branch, Geno.cpp:2922)."""
+        msl, csl = op.sl_mask, op.sl_case
+        a_t = (SQh[:, msl] - v.total_t) / 2.0
+        het_t = v.total_t - 2.0 * a_t
+        if v.n1m_t is not None:
+            a_t, het_t = a_t + v.n1m_t, het_t - v.n1m_t
+        rr_t = v.ns_t - het_t - a_t
+        if by_case:
+            tot_case = S1h[:, csl]
+            ns_case = op.case_n[None, :] - SMh[:, csl]
+            a_case = (SQh[:, csl] - tot_case) / 2.0
+            het_case = tot_case - 2.0 * a_case
+            if v.n1m_case is not None:
+                a_case, het_case = a_case + v.n1m_case, het_case - v.n1m_case
+            rr_case = ns_case - het_case - a_case
+            gc = np.stack([rr_case, het_case, a_case, rr_t - rr_case,
+                           het_t - het_case, a_t - a_case], axis=1)
+        else:
+            zero = np.zeros_like(rr_t)
+            gc = np.stack([rr_t, het_t, a_t, zero, zero, zero], axis=1)
+        return np.round(gc).astype(np.int64)
+
+    def _fused_block_t2e(self, raw, bsnps) -> Tuple[BlockResult, np.ndarray]:
+        """Fused Cox pipeline (the JAX package's _fused_block_t2e,
+        regenie_tpu/run_step2.py:1753-1880): the products against the Cox
+        operand give each trait's T and denum on the device, every
+        per-variant statistic (the hemizygous classes of chrX included)
+        and the flips; HTP's genotype counts split by event; the Firth
+        rows are decoded again from the resident block (FusedRowSource)."""
+        params, pd = self.params, self.pd
+        ft = self._fused_t2e
+        raw_t = self._fused_upload(raw)
+        S1, SQ, SM, flip_t, Tnum, denum = self._fused_fn(raw_t)
+        f = _fetch_packed(dict(s1=S1, sq=SQ, sm=SM, fl=flip_t, num=Tnum, den=denum))
+        S1h, SQh, SMh = f["s1"], f["sq"], f["sm"]
+        flipped = f["fl"]
+        v = self._fused_variant_stats(ft, S1h, SQh, SMh, bsnps)
+        source = FusedRowSource(self, raw_t, flip_t, f["num"], f["den"], None)
+
+        def rows_host(idx):
+            return source.rows_device(
+                torch.as_tensor(idx, device=raw_t.device)).cpu().numpy()
+
+        bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_t2e.score_block_fused(
+            params, pd, self.null_state, f["num"], f["den"], flipped, rows_host,
+            v.ignored, v.ignored_trait, self.bt_times)
+        self.n_corrected += ncorr
+        self.n_failed += nfail
+        result = BlockResult(
+            bhat=bhat, se=se, chisq=chisq, logp=logp, test_fail=test_fail,
+            ignored=v.ignored, ignored_trait=v.ignored_trait, af_t=v.af_t,
+            ns_t=v.ns_t, scale_fac=None, mac_t=v.mac_t, af1=v.af1,
+            ns1=np.round(v.ns1).astype(np.int64))
+        result.n_rr = np.round(v.n_rr1).astype(np.int64)
+        result.n_aa = np.round(v.n_aa1).astype(np.int64)
+        if params.htp_out:
+            # cases = events (compute_genocounts trait_mode==3 branch)
+            result.genocounts = self._fused_genocounts(ft, S1h, SQh, SMh, v, True)
+        return result, flipped
+
     def _fused_block_bt(self, raw, bsnps) -> Tuple[BlockResult, np.ndarray]:
         """Fused BT pipeline (the JAX package's _fused_block_bt,
         regenie_tpu/run_step2.py:1579-1752): the products against the BT
@@ -726,10 +931,9 @@ class Step2Engine:
         statistic (--af-cc and the HTP case/control genotype counts
         included) and the flips, decided on the device; the rows past the
         correction threshold are decoded again from the resident block
-        (FusedBTSource)."""
+        (FusedRowSource)."""
         params, pd = self.params, self.pd
         fb = self._fused_bt
-        B, P = len(bsnps), params.n_pheno
         is_bgen = self.gd._bgen is not None
         raw_t = self._fused_upload(raw)
         outs = self._fused_fn(raw_t)
@@ -746,95 +950,44 @@ class Step2Engine:
         f = _fetch_packed(fd)
         S1h, SQh, SMh = f["s1"], f["sq"], f["sm"]
         flipped = f["fl"]
-
-        icol, msl, csl = fb.icol, fb.sl_mask, fb.sl_case
-        total1 = S1h[:, icol]
-        ns1 = fb.n_ind - SMh[:, icol]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            af1 = total1 / (2.0 * ns1)
-        mac1 = np.minimum(total1, 2.0 * ns1 - total1)
-        total_t = S1h[:, msl]
-        ns_t = pd.Neff[None, :] - SMh[:, msl]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            af_t = total_t / (2.0 * ns_t)
-        mac_t = np.minimum(total_t, 2.0 * ns_t - total_t)
-        n_aa1 = (SQh[:, icol] - total1) / 2.0
-        n_rr1 = ns1 - total1 + n_aa1
-        n1m_t = n1m_case = None
-        if fb.has_male:
-            non_par = self.non_par_flags(bsnps)
-            if non_par.any():
-                mac1, mac_t, n1m, n1m_t = self._hemizygous_adjust(
-                    non_par, S1h, SQh, SMh, fb.usum, icol + 1,
-                    slice(icol + 2, icol + 2 + P), total1, ns1, mac1,
-                    total_t, ns_t, mac_t,
-                    # hardcall class counts are nonlinear in dosages
-                    with_classes=not is_bgen)
-                if n1m is not None:
-                    n_aa1 = n_aa1 + n1m
-                    # case-side hemizygous class moves (case*male columns)
-                    cm_sl = slice(icol + 2 + P, icol + 2 + 2 * P)
-                    n1m_case = np.where(non_par[:, None],
-                                        2.0 * S1h[:, cm_sl] - SQh[:, cm_sl], 0.0)
-
-        source = FusedBTSource(self, raw_t, flip_t, f["num"], f["den"], S1_all)
-        mac_ignored, ignored_trait = self._mac_filters(params, bsnps, mac1, mac_t, B)
-        if params.test_type == 2 and params.min_homs > 0:
-            mac_ignored = mac_ignored | self._rec_min_homs(
-                S1h, SQh, SMh, icol, total1, ns1)
-        self.n_ignored += int(mac_ignored.sum())
-        ignored = mac_ignored
+        # hardcall class counts are nonlinear in dosages
+        v = self._fused_variant_stats(fb, S1h, SQh, SMh, bsnps,
+                                      with_classes=not is_bgen)
+        source = FusedRowSource(self, raw_t, flip_t, f["num"], f["den"], S1_all)
+        ignored_trait = v.ignored_trait
         info_t = None
         if is_bgen:
-            info_t = self._fused_info_t(f["il"], SQh, msl, ns_t, af_t)
+            info_t = self._fused_info_t(f["il"], SQh, fb.sl_mask, v.ns_t, v.af_t)
             if params.set_min_info:
                 ignored_trait = ignored_trait | (info_t < params.min_info)
 
         bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_bt.score_block(
-            params, pd, self.bt_state, source, flipped, ignored, ignored_trait,
+            params, pd, self.null_state, source, flipped, v.ignored, ignored_trait,
             self.bt_times)
         self.n_corrected += ncorr
         self.n_failed += nfail
         result = BlockResult(
             bhat=bhat, se=se, chisq=chisq, logp=logp, test_fail=test_fail,
-            ignored=ignored, ignored_trait=ignored_trait, af_t=af_t, ns_t=ns_t,
-            scale_fac=None, mac_t=mac_t, af1=af1,
-            ns1=np.round(ns1).astype(np.int64), info_t=info_t)
+            ignored=v.ignored, ignored_trait=ignored_trait, af_t=v.af_t,
+            ns_t=v.ns_t, scale_fac=None, mac_t=v.mac_t, af1=v.af1,
+            ns1=np.round(v.ns1).astype(np.int64), info_t=info_t)
         if not is_bgen:
-            result.n_rr = np.round(n_rr1).astype(np.int64)
-            result.n_aa = np.round(n_aa1).astype(np.int64)
-
-        # case-side raw products (before the flip, as update_af_cc and
-        # compute_genocounts read G_raw)
-        tot_case = S1h[:, csl]
-        ns_case = fb.case_n[None, :] - SMh[:, csl]
+            result.n_rr = np.round(v.n_rr1).astype(np.int64)
+            result.n_aa = np.round(v.n_aa1).astype(np.int64)
         if params.af_cc and self.is_bt:
+            # case-side raw products (before the flip, as update_af_cc
+            # reads G_raw)
+            tot_case = S1h[:, fb.sl_case]
+            ns_case = fb.case_n[None, :] - SMh[:, fb.sl_case]
             with np.errstate(divide="ignore", invalid="ignore"):
                 result.af_case = tot_case / (2.0 * ns_case)
-                result.af_control = (total_t - tot_case) / (2.0 * (ns_t - ns_case))
+                result.af_control = (v.total_t - tot_case) / (2.0 * (v.ns_t - ns_case))
             result.ns_case = np.round(ns_case).astype(np.int64)
-            result.ns_control = np.round(ns_t - ns_case).astype(np.int64)
+            result.ns_control = np.round(v.ns_t - ns_case).astype(np.int64)
         if params.htp_out:
-            # class counts: H = (SQ - S1)/2, E = 2*S1 - SQ per column set
-            a_t = (SQh[:, msl] - total_t) / 2.0
-            het_t = total_t - 2.0 * a_t
-            a_case = (SQh[:, csl] - tot_case) / 2.0
-            het_case = tot_case - 2.0 * a_case
-            if n1m_t is not None:
-                # chrX non-PAR males with g >= 1 count as hom
-                # (update_genocounts hemizygous branch, Geno.cpp:2922)
-                a_t, het_t = a_t + n1m_t, het_t - n1m_t
-            if n1m_case is not None:
-                a_case, het_case = a_case + n1m_case, het_case - n1m_case
-            rr_t = ns_t - het_t - a_t
-            if self.is_bt:
-                rr_case = ns_case - het_case - a_case
-                gc = np.stack([rr_case, het_case, a_case, rr_t - rr_case,
-                               het_t - het_case, a_t - a_case], axis=1)
-            else:  # CT: all-sample counts (compute_genocounts else-branch)
-                zero = np.zeros_like(rr_t)
-                gc = np.stack([rr_t, het_t, a_t, zero, zero, zero], axis=1)
-            result.genocounts = np.round(gc).astype(np.int64)
+            # CT: all-sample counts (compute_genocounts else-branch)
+            result.genocounts = self._fused_genocounts(fb, S1h, SQh, SMh, v,
+                                                       self.is_bt)
         return result, flipped
 
     @staticmethod
@@ -900,6 +1053,8 @@ class Step2Engine:
         self._ensure_fused_consts()
         if self.is_glm:
             return self._fused_block_bt(raw, bsnps)
+        if self.is_t2e:
+            return self._fused_block_t2e(raw, bsnps)
         consts = self._fused_consts
         B, P = len(bsnps), consts.P
         is_bgen = self.gd._bgen is not None
@@ -935,6 +1090,7 @@ class Step2Engine:
         if consts.has_male:
             non_par = self.non_par_flags(bsnps)
             if non_par.any():
+                self.n_male_tail += 1
                 # hemizygous MAC (+ class counts for hardcalls; BGEN's
                 # narrow Wq carries no male SQ and emits no class rows)
                 mac1, mac_t, n1m, n1m_t = self._hemizygous_adjust(
@@ -1014,7 +1170,7 @@ class Step2Engine:
         if d.chrom != self.cur_chrom:
             d.res = put(self.res)
             d.covt_res = put(pd.new_cov.T @ self.res)
-            if not (params.skip_cov_res or self.strict or self.is_glm):
+            if params.trait_mode == QT and not (params.skip_cov_res or self.strict):
                 K, P = d.cov.shape[1], d.res.shape[1]
                 if d.W is None:
                     CM, d.Mmat, _ = m2.onepass_constants(d.cov, d.maskf, d.res)
@@ -1067,6 +1223,17 @@ class Step2Engine:
         return _fetch_packed(snp_stats_block(G_raw, d.ind, d.mask, **kw),
                              torch.float64)
 
+    def _case_ctrl(self):
+        """[N, P] boolean (case, control) masks of the HTP counts and
+        --af-cc, within each trait's mask: the 1 and 0 values, or for
+        time-to-event traits each time column's events and censored
+        samples (step2_t2e.event_sides)."""
+        pd = self.pd
+        if self.is_t2e:
+            return step2_t2e.event_sides(self.params, pd)
+        return ((pd.phenotypes_raw == 1) & pd.masked_indivs,
+                (pd.phenotypes_raw == 0) & pd.masked_indivs)
+
     def compute_genocounts(self, G_raw, bsnps=None) -> np.ndarray:
         """[B, 6, P] genotype counts of a raw block on the device
         (compute_genocounts, Geno.cpp:2898): rows 0-2 the RR/RA/AA counts
@@ -1085,12 +1252,9 @@ class Step2Engine:
             hi = torch.where(hemi, 1.0, 1.5)
         hc = ((G < lo) & valid, (G >= lo) & (G < hi) & valid, (G >= hi) & valid)
         out = np.zeros((G.shape[0], 6, params.n_pheno))
-        if self.is_bt:
-            pd = self.pd
-            case = (pd.phenotypes_raw == 1) & pd.masked_indivs
-            ctrl = (pd.phenotypes_raw == 0) & pd.masked_indivs
+        if self.is_bt or self.is_t2e:
             sides = [torch.as_tensor(c.astype(np.float64), device=self.device)
-                     for c in (case, ctrl)]
+                     for c in self._case_ctrl()]
         else:
             sides = [d.maskf]
         for side, m in enumerate(sides):
@@ -1109,10 +1273,16 @@ class Step2Engine:
         params, d = self.params, self._ensure_dense_consts()
         B = G.shape[0]
         self.n_ignored += int(ignored.sum())
-        if self.is_glm:
-            bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_bt.score_block(
-                params, self.pd, self.bt_state, step2_bt.DenseGSource(G),
-                flipped, ignored, ignored_trait, self.bt_times)
+        if self.is_glm or self.is_t2e:
+            if self.is_t2e:
+                out = step2_t2e.score_block(params, self.pd, self.null_state, G,
+                                            flipped, ignored, ignored_trait,
+                                            self.bt_times)
+            else:
+                out = step2_bt.score_block(
+                    params, self.pd, self.null_state, step2_bt.DenseGSource(G),
+                    flipped, ignored, ignored_trait, self.bt_times)
+            bhat, se, chisq, logp, test_fail, ncorr, nfail = out
             self.n_corrected += ncorr
             self.n_failed += nfail
             return BlockResult(
@@ -1191,9 +1361,9 @@ class Step2Engine:
         if info_t is not None and params.set_min_info:
             ignored_trait = ignored_trait | (info_t < params.min_info)
 
-        # BT and CT additive tests flip to the minor allele (with_flip,
+        # non-QT additive tests flip to the minor allele (with_flip,
         # Data.cpp:2108); QT never flips
-        if self.is_glm and params.test_type == 0:
+        if params.trait_mode != QT and params.test_type == 0:
             flipped = sb["total"] / sb["ns"] > 1.0
         else:
             flipped = np.zeros(B, dtype=bool)
@@ -1267,6 +1437,14 @@ def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None):
     return writers, out_paths
 
 
+def _htp_trait(params, name):
+    """The HTP Trait column of a trait: with --htp-with-event a time
+    column shows its event column's name."""
+    if params.htp_use_eventname and params.t2e_map:
+        return params.t2e_map.get(name, name)
+    return name
+
+
 def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD",
                      model_type=None):
     B = len(bsnps)
@@ -1278,7 +1456,7 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                 if not pd.pheno_pass[ph] or writers[ph] is None:
                     continue
                 writers[ph].write(format_block_htp(
-                    params, prefix[0], prefix[1], pd.pheno_names[ph],
+                    params, prefix[0], prefix[1], _htp_trait(params, pd.pheno_names[ph]),
                     model_type or test_name,
                     skip=r.ignored | r.ignored_trait[:, ph],
                     beta=r.bhat[:, ph], se=r.se[:, ph], chisq=r.chisq[:, ph],
@@ -1296,7 +1474,7 @@ def write_block_rows(params, pd, writers, bsnps, r: BlockResult, test_name="ADD"
                 if not pd.pheno_pass[ph] or r.ignored_trait[b, ph] or writers[ph] is None:
                     continue
                 writers[ph].write(sumstat_line_htp(
-                    params, bsnps[b], pd.pheno_names[ph],
+                    params, bsnps[b], _htp_trait(params, pd.pheno_names[ph]),
                     model_type or test_name,
                     r.bhat[b, ph], r.se[b, ph], r.chisq[b, ph], r.logp[b, ph],
                     r.af_t[b, ph],
@@ -1598,20 +1776,24 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
     log("\nAssociation results stored separately for each trait in files:")
     for p_ in out_paths:
         log(f"* [{p_}]")
-    if eng.is_bt and (params.firth or params.use_spa):
+    if (eng.is_bt or eng.is_t2e) and (params.firth or params.use_spa):
         log(f"Number of tests with {'Firth' if params.firth else 'SPA'} "
             f"correction : {eng.n_corrected}")
         log(f"Number of failed tests : ({eng.n_failed}/{eng.n_corrected})")
     log(f"Number of ignored tests due to low MAC : {eng.n_ignored * params.n_pheno}")
     for fh in getattr(params, "_null_firth_out", {}).values():
         fh.close()
-    if eng.is_glm:
+    if eng.is_glm or eng.is_t2e:
+        on_dev = eng.is_glm and step2_bt.cdev.enabled(device)
         log(f" * null model fits: {eng.bt_times['null_s']:.3f}s; corrections: "
             f"{eng.bt_times['corr_s']:.3f}s "
-            + ("on the device" if step2_bt.cdev.enabled(device) else "on the host"))
+            + ("on the device" if on_dev else "on the host"))
     log(f" * block loop: {len(todo)} blocks, "
         f"{sum(len(b) for _, b in todo)} variants in {dt:.3f}s")
     log(f" * dense route: {n_dense} of {len(todo)} blocks")
+    if any(c == params.n_chrom for c, _ in todo):
+        log(" * chrX non-PAR blocks on the fused route (male tail): "
+            f"{eng.n_male_tail}")
     for what, secs in (("host block reads", read_s), ("dense block uploads", up_s)):
         if secs:
             log(f" * {what}: {len(secs)} in {sum(secs):.3f}s (mean "

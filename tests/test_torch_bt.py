@@ -263,7 +263,7 @@ def test_null_state_and_block_fn_match_jax(data, monkeypatch):
     chrom, bsnps = blocks[0]
     eng.prep_chrom(chrom)
     jeng.prep_chrom(chrom)
-    st, js = eng.bt_state, jeng.bt_state
+    st, js = eng.null_state, jeng.bt_state
     for f in ("res", "Y_hat", "gamma_sqrt", "gamma_sqrt_mask", "firth_offset",
               "bhat_start", "eta_null"):
         np.testing.assert_allclose(getattr(st, f), getattr(js, f), rtol=1e-9,

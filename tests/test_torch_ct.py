@@ -166,7 +166,7 @@ def test_null_state_matches_jax(data, monkeypatch):
     jeng = JEngine(jp, rd.geno, rd.pheno, None, lambda *a: None)
     eng.prep_chrom(1)
     jeng.prep_chrom(1)
-    st, js = eng.bt_state, jeng.bt_state
+    st, js = eng.null_state, jeng.bt_state
     assert not st.allow_correction
     for f in ("res", "Y_hat", "gamma_sqrt", "gamma_sqrt_mask"):
         np.testing.assert_allclose(getattr(st, f), getattr(js, f), rtol=1e-9,

@@ -213,7 +213,7 @@ def test_batched_and_host_match_jax(data, ph, monkeypatch):
     from regenie_tpu_torch.models import step2_bt
 
     eng, Gf = _rows_and_state(data, monkeypatch)
-    params, pd, st = eng.params, eng.pd, eng.bt_state
+    params, pd, st = eng.params, eng.pd, eng.null_state
     G = Gf[:48]
     ok_b, beta_b, se_b, lrt_b = step2_bt.exact_firth_dev(params, pd, st, ph, G)
     Gh = G.numpy()

@@ -117,6 +117,7 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.models.firth, regenie_tpu_torch.models.spa, "
         "regenie_tpu_torch.models.corrections_device, "
         "regenie_tpu_torch.models.step1_bt, regenie_tpu_torch.models.step2_ct, "
+        "regenie_tpu_torch.models.step2_t2e, regenie_tpu_torch.models.survival, "
         "regenie_tpu_torch.scripts.profile_fused, "
         "regenie_tpu_torch.scripts.profile_bgen\n"
         "from regenie_tpu_torch.io import native\n"
@@ -191,13 +192,15 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # Step 1 runs on BED, PGEN and BGEN on quantitative, binary and count
-    # traits (with --gz) since their slices, and Step 2 on binary traits
-    # with SPA and approximate or exact Firth, on count traits and with the
-    # null Firth checkpoints; these modes still raise
-    ["--step", "1", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2"],
-    ["bgen", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2"],
-    ["--t2e", "--phenoColList", "Y1", "--eventColList", "Y2"],
+    # Step 1 runs on BED, PGEN and BGEN on quantitative, binary, count and
+    # time-to-event traits (with --gz) since their slices, and Step 2 on
+    # binary traits with SPA and approximate or exact Firth, on count and
+    # time-to-event traits and with the null Firth checkpoints; these modes
+    # still raise
+    ["--step", "1", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2",
+     "--print"],
+    ["bgen", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2", "--af-cc"],
+    ["--t2e", "--phenoColList", "Y1", "--eventColList", "Y2", "--af-cc"],
     ["bgen", "--step", "1", "--print"], ["--interaction", "C1"], ["--mcc"],
     ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
     ["bgen", "--step", "1", "--select-l0", "f"], ["--compute-corr"],
@@ -240,3 +243,74 @@ def test_unported_mode_raises(tmp_path, monkeypatch, flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(argv + flags)
     assert not [f for f in os.listdir(tmp_path) if f.startswith("o_")]
+
+
+def _loco_file(path, ids, rows, tab=False):
+    sep = "\t" if tab else " "
+    with open(path, "w") as fh:
+        fh.write("FID_IID" + sep + sep.join(ids) + " \n")
+        for c, vals in enumerate(rows, start=1):
+            fh.write(f"{c}" + sep + sep.join(vals) + " \n")
+
+
+@pytest.mark.parametrize("line", [
+    "FID_IID a_b\tc_d  e_f\n", "  1 0.5\t-2e-7 NA \r\n", "", "\n",
+    "1 0.5\x0b7 NA\n", "x\fy z\x1c w\x85v\xa0u\n", "a\rb c\n", "é ü\tö\n",
+])
+def test_string_split_matches_jax(line):
+    """The port's string_split (str.split() on plain ASCII lines) gives the
+    JAX package's tokens on every line, odd whitespace included."""
+    from regenie_tpu.io import files as jf
+    from regenie_tpu_torch.io import files as pf
+
+    assert pf.string_split(line) == jf.string_split(line)
+
+
+@pytest.mark.parametrize("tab", [False, True])
+def test_read_loco_chr_matches_jax(tmp_path, tab):
+    """read_loco_chr (one numpy parse a row) against the JAX package's
+    row loop: the
+    same values bit for bit on every chromosome, with a header sample the
+    genotypes lack and NA at masked samples; NA at an analysed sample
+    raises the same error; mask_samples_missing_loco masks the same
+    samples."""
+    import numpy as np
+
+    from regenie_tpu import run_step2 as jr
+    from regenie_tpu_torch import run_step2 as pr
+
+    rng = np.random.default_rng(0)
+    n = 50
+    ids = [f"F{i}_I{i}" for i in range(n)]
+    id_to_ind = {k: i for i, k in enumerate(ids[:-1])}  # the last: no genotypes
+    mask = rng.random(n - 1) > 0.2
+    rows = [[repr(float(v)) if rng.random() > 0.01 else "1e-7"
+             for v in rng.normal(size=n)] for _ in range(23)]
+    for r in rows:
+        for i in np.flatnonzero(~mask)[:3]:
+            r[i] = "NA"
+    path = str(tmp_path / "x.loco")
+    _loco_file(path, ids, rows, tab)
+    for chrom in (1, 7, 23):
+        want = jr.read_loco_chr(path, chrom, id_to_ind, n - 1, mask)
+        got = pr.read_loco_chr(path, chrom, id_to_ind, n - 1, mask)
+        assert got.tobytes() == want.tobytes(), chrom
+    bad = mask.copy()
+    bad[np.flatnonzero(~mask)[0]] = True
+    msgs = []
+    for mod in (jr, pr):
+        with pytest.raises(ValueError) as e:
+            mod.read_loco_chr(path, 2, id_to_ind, n - 1, bad)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "missing predictions for chr 2" in msgs[0]
+
+    from types import SimpleNamespace
+
+    outs = []
+    for mod in (jr, pr):
+        pd = SimpleNamespace(pheno_names=["Y1"], masked_indivs=np.ones((n - 1, 1), bool),
+                             pheno_pass=np.ones(1, bool))
+        params = SimpleNamespace(use_prs=False, n_samples=n - 1)
+        mod.mask_samples_missing_loco(params, pd, {"Y1": path}, id_to_ind)
+        outs.append(pd.masked_indivs[:, 0].copy())
+    assert (outs[0] == outs[1]).all() and (~outs[0]).sum() == 3
