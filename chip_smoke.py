@@ -164,6 +164,14 @@ CLI's entry point returned (run_cli_kept).
    fused_i8's time per block, block 1's operand build with the male tail,
    the split / merged / gzipped writes of the two blocks' rows, the CLI
    wall and variants/s.
+5d. gene slice: an exome-like BED at that width (2 x 192 variants, 60%
+   rare, in 16 sets of 24 annotated LoF, missense or synonymous; masks
+   M1 to M3) and one gene-based CLI run on the card (--set-list,
+   --aaf-bins 0.01,0.001, --vc-tests skato,acatv, --joint acat, buckets
+   of 8 sets, the stage table on): no hand-written kernel launches, the
+   50 files are well formed; printed: the wall, sets/s, the stage table,
+   and the first bucket's VC products on the card (against their FP64
+   bound) and on the CPU, within F64_SUM_BAR of each other.
 6. cross-check: small runs (N=2,000) through the port on the card (by
    default and with REGENIE_TPU_I8=0) and on the CPU, each with
    --remove: a BED --htp run, a two-chromosome BGEN --minINFO run (their
@@ -204,7 +212,13 @@ CLI's entry point returned (run_cli_kept).
    BED and on the BGEN, whose Step 2 on the card must launch fused_i8 /
    bgen_i8 once per block and no other kernel; and Step 1 --t2e on the
    BED (K-fold, with --t2e-l1-pi6 and with --t2e-event-l0), each then
-   Step 2 --t2e with its predictions (fused_i8 once per block).
+   Step 2 --t2e with its predictions (fused_i8 once per block). Last,
+   the gene-based runs (gene_cross_check): QT with the six VC tests and
+   five joint tests, QT --rgc-gene-p, BT --firth --approx --htp, BT --spa
+   --write-mask, CT and T2E burden masks, on the card and on the CPU,
+   every row within the bar but the tails' rows of sets whose tails
+   tail_verdict witnessed, which a CPU replay on the card's tail inputs
+   must reproduce; and bucket 1 against 32 on the card, byte for byte.
 
 After each phase a line gives the seconds since the start. The last
 lines of standard output are a JSON line with every kernel's numbers,
@@ -354,15 +368,20 @@ def _pack2(codes):
     return _pack2_rows(codes[None, :], -(-len(codes) // 4))[0]
 
 
-def _hardcall_blocks(rng, N, chroms, P, n_cov, miss, effect_sd, chunk):
+def _hardcall_blocks(rng, N, chroms, P, n_cov, miss, effect_sd, chunk,
+                     af_given=None):
     """The hardcall generator of write_dataset and write_pgen_dataset:
     (beta, X, Y, chunks), where chunks yields (first variant index, [c,
     N] BED 2-bit codes) `chunk` variants at a time; the caller adds each
     chunk's causal effects to Y (_add_effects). The draws are sequential;
-    the codes are made from them in row slices (_in_row_slices)."""
+    the codes are made from them in row slices (_in_row_slices).
+    af_given ([M] allele frequencies, e.g. gene_afs) replaces the
+    frequencies drawn, and every other draw stays as without it."""
     M = sum(n for _, n in chroms)
     af = rng.uniform(0.01, 0.5, size=M)
     af[::17] = max(0.004, 5.0 / N)
+    if af_given is not None:
+        af = np.asarray(af_given, np.float64)
     beta = rng.normal(size=(M, P)) * effect_sd * (rng.random((M, P)) < 0.02)
     X = rng.normal(size=(N, n_cov))
     Y = X @ rng.normal(size=(n_cov, P)) + rng.normal(size=(N, P))
@@ -406,7 +425,7 @@ def _positions(chroms, positions, default):
 
 def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                   na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128,
-                  positions=None):
+                  positions=None, af=None):
     """Synthetic PLINK BED/bim/fam (prefix d/geno), phenotypes
     (d/pheno.txt: Y1..YP, the first n_inc with na_rate NA), covariates
     (d/covar.txt: n_cov columns) and d/remove.txt (n_remove samples).
@@ -420,10 +439,11 @@ def write_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     effect_sd on 2% of the variants. Samples of even index are male in
     the .fam. Variants sit at 1000 + 10 j on each chromosome, or at
     positions[chrom] where given (a chromosome named "X" is chrX; see
-    chrx_positions). Returns the BED prefix."""
+    chrx_positions). af: the variants' allele frequencies instead
+    (gene_afs). Returns the BED prefix."""
     rng = np.random.default_rng(seed)
     beta, X, Y, chunks = _hardcall_blocks(rng, N, chroms, P, n_cov, miss,
-                                          effect_sd, chunk)
+                                          effect_sd, chunk, af)
     nb = (N + 3) // 4
     prefix = os.path.join(d, "geno")
     with open(prefix + ".bed", "wb") as fh:
@@ -485,7 +505,7 @@ def _difflist(ids, codes, N):
 def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
                        na_rate=0.05, n_remove=0, effect_sd=0.0, chunk=128,
                        positions=None, ld_every=4, ld_diff=0.005, dosage=0.0,
-                       bed_prefix=None):
+                       bed_prefix=None, af=None):
     """Synthetic PLINK2 .pgen/.pvar/.psam (prefix d/geno; storage mode
     0x10, 4-bit vrtypes, 3-byte record lengths) with the genotypes of
     write_dataset's generator, and its phenotype, covariate and remove
@@ -500,11 +520,12 @@ def write_pgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.02,
     missing. The .psam has a SEX column (samples of even index male), the
     .pvar REF A and ALT C. With bed_prefix, the same hardcalls are also
     written as a PLINK BED there (.bed/.bim/.fam, write_dataset's allele
-    coding; the dosage tracks left out). Returns the prefix."""
+    coding; the dosage tracks left out). af as in write_dataset.
+    Returns the prefix."""
     rng = np.random.default_rng(seed)
     M = sum(n for _, n in chroms)
     beta, X, Y, chunks = _hardcall_blocks(rng, N, chroms, P, n_cov, miss,
-                                          effect_sd, chunk)
+                                          effect_sd, chunk, af)
     has_dos = rng.random(M) < dosage if dosage > 0 else np.zeros(M, bool)
     to_pgen = np.array([2, 3, 1, 0], np.uint8)  # BED code -> ALT count code
     to_bed = np.array([3, 2, 0, 1], np.uint8)
@@ -785,7 +806,7 @@ def _bgen_probs(k, g, j, gmiss, N, bits, layout, phased):
 def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
                        uncertain=0.1, na_rate=0.05, n_remove=0, effect_sd=0.0,
                        chunk=32, workers=8, positions=None, compress=None,
-                       compression=1, bits=8, layout=2, phased=False):
+                       compression=1, bits=8, layout=2, phased=False, af=None):
     """Synthetic BGEN v1.2 (layout 2, zlib, 8-bit, unphased diploid, with
     sample IDs) at d/geno.bgen, its Oxford sample file d/geno.sample (with
     a sex column), and the phenotype, covariate and remove files of
@@ -803,7 +824,8 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     level 1 by default) with its header flag `compression` (2 for zstd)
     writes another compression; compression=0 stores the records
     uncompressed. bits, phased and layout=1 write the same draws in those
-    encodings (_bgen_probs). Returns the .bgen path."""
+    encodings (_bgen_probs). af as in write_dataset. Returns the .bgen
+    path."""
     import struct
     import zlib
     from concurrent.futures import ThreadPoolExecutor
@@ -816,8 +838,10 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
         chroms, positions, lambda i, n: 1000 + 10 * (start[i] + np.arange(n)))])
     if compress is None:
         compress = lambda b: zlib.compress(b, 1)  # noqa: E731
-    af = rng.uniform(0.01, 0.5, size=M)
+    af_given, af = af, rng.uniform(0.01, 0.5, size=M)
     af[::17] = max(0.004, 5.0 / N)
+    if af_given is not None:
+        af = np.asarray(af_given, np.float64)
     beta = rng.normal(size=(M, P)) * effect_sd * (rng.random((M, P)) < 0.02)
     X = rng.normal(size=(N, n_cov))
     Y = X @ rng.normal(size=(n_cov, P)) + rng.normal(size=(N, P))
@@ -919,6 +943,66 @@ def write_bgen_dataset(d, seed, N, chroms, P, n_inc, n_cov, miss=0.01,
     return path
 
 
+GENE_CATS = ("LoF", "missense", "synonymous")
+# masks of the gene-based runs: M1 = LoF, M2 = LoF,missense, M3 = all
+GENE_MASKS = (("M1", "LoF"), ("M2", "LoF,missense"), ("M3", "LoF,missense,synonymous"))
+
+
+def gene_afs(M, N, seed):
+    """Exome-like allele frequencies of M variants: half ultra-rare at
+    0.5/N (singletons, doubletons and monomorphic variants: a mean minor
+    allele count of 1), a fifth rare, log-uniform from 1.5/N to 0.01, and
+    the rest uniform in [0.01, 0.5]."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(M)
+    af = rng.uniform(0.01, 0.5, size=M)
+    rare = (u >= 0.5) & (u < 0.7)
+    af[rare] = np.exp(rng.uniform(np.log(1.5 / N), np.log(0.01), size=int(rare.sum())))
+    af[u < 0.5] = 0.5 / N
+    return af
+
+
+def write_gene_files(d, chroms, set_size, seed, positions=None, domains=False,
+                     bgen=False):
+    """The gene-based inputs of a dataset whose variants are v0, v1, ...
+    on `chroms` ([(chrom, n)], the writers' argument): d/sets.txt, sets
+    G{k} of `set_size` consecutive variants of a chromosome (SET CHROM
+    POS IDS), d/anno.txt (each variant LoF, missense or synonymous at
+    0.2/0.3/0.5; with domains, a 4th column, each set's variants in two
+    domains D1 and D2), d/masks.txt (GENE_MASKS), d/aaf.txt (--aaf-file:
+    every other variant, a frequency in [0, 0.05]) and d/set_ids.txt (the
+    first half of the sets, for --extract-sets). positions as in the
+    writers; bgen: positions numbered across chromosomes, as
+    write_bgen_dataset places them. Returns the paths by name."""
+    rng = np.random.default_rng(seed)
+    sets, anno, v, k = [], [], 0, 0
+    for chrom, n in chroms:
+        pos = (np.asarray(positions[chrom]) if positions and chrom in positions
+               else 1000 + 10 * ((v if bgen else 0) + np.arange(n)))
+        for lo in range(0, n, set_size):
+            ids = [f"v{v + j}" for j in range(lo, min(lo + set_size, n))]
+            sets.append(f"G{k} {chrom} {int(pos[lo])} {','.join(ids)}\n")
+            cats = rng.choice(len(GENE_CATS), size=len(ids), p=(0.2, 0.3, 0.5))
+            for j, (vid, c) in enumerate(zip(ids, cats)):
+                dom = f" D{1 + (2 * j >= len(ids))}" if domains else ""
+                anno.append(f"{vid} G{k}{dom} {GENE_CATS[c]}\n")
+            k += 1
+        v += n
+    paths = {name: os.path.join(d, f"{name}.txt")
+             for name in ("sets", "anno", "masks", "aaf", "set_ids")}
+    texts = {
+        "sets": "".join(sets), "anno": "".join(anno),
+        "masks": "".join(f"{m} {c}\n" for m, c in GENE_MASKS),
+        "aaf": "".join(f"v{j} {a:.6f}\n" for j, a in
+                       zip(range(0, v, 2), rng.uniform(0, 0.05, size=(v + 1) // 2))),
+        "set_ids": "".join(f"G{j}\n" for j in range(k // 2)),
+    }
+    for name, text in texts.items():
+        with open(paths[name], "w") as fh:
+            fh.write(text)
+    return paths
+
+
 def _bed_slice_data(d):
     f = FULL
     write_dataset(d, seed=1, N=f["N"], chroms=((1, SLICE_BLOCKS * f["B"]),),
@@ -945,10 +1029,26 @@ def _pgen_slice_data(d):
                        positions={"X": chrx_positions(B, B // 8)})
 
 
+# gene-based Step 2 at full width ([gene slice]): an exome-like BED of
+# 2 x 192 variants in 16 sets of 24 (chip_smoke.gene_afs: 60% rare), the
+# sets' products in 2 buckets of 8. The depth is cut from 32 sets, never
+# N or P: the smoke took 1,188 s of its 1,200 s on a slow host with 32
+GENE = dict(chroms=((1, 192), (2, 192)), set_size=24, bucket=8,
+            aaf_bins="0.01,0.001", vc_tests="skato,acatv", joint="acat")
+
+
+def _gene_slice_data(d):
+    f = FULL
+    M = sum(n for _, n in GENE["chroms"])
+    write_dataset(d, seed=17, N=f["N"], chroms=GENE["chroms"], P=f["P"],
+                  n_inc=f["n_inc"], n_cov=f["K"] - 1, af=gene_afs(M, f["N"], 18))
+    write_gene_files(d, GENE["chroms"], GENE["set_size"], 19)
+
+
 # the full-width datasets in the order the phases read them: the BED of
 # [bed slice] and [bt slice], the BGEN of [bgen slice] and [dense slice],
 # the two-chromosome BED of the Step-1, Step-1 BT and T2E slices, the PGEN
-# of [pgen chrX slice]
+# of [pgen chrX slice], the exome-like BED of [gene slice]
 _SHAPE = (f"N={FULL['N']} P={FULL['P']} K={FULL['K']}, "
           f"M={SLICE_BLOCKS} x {FULL['B']}")
 FULL_DATASETS = {
@@ -956,7 +1056,10 @@ FULL_DATASETS = {
     "bgen": (_bgen_slice_data, f"BGEN (8-bit, zlib) {_SHAPE}"),
     "step1": (_step1_slice_data, f"Step-1 BED N={FULL['N']}, "
               + " + ".join(str(n) for _, n in STEP1["chroms"]) + " variants"),
-    "pgen": (_pgen_slice_data, f"PGEN {_SHAPE} (chromosome 1, chrX)")}
+    "pgen": (_pgen_slice_data, f"PGEN {_SHAPE} (chromosome 1, chrX)"),
+    "gene": (_gene_slice_data, f"gene-based BED N={FULL['N']} P={FULL['P']} "
+             f"K={FULL['K']}, {sum(n for _, n in GENE['chroms'])} variants in "
+             f"{sum(n for _, n in GENE['chroms']) // GENE['set_size']} sets")}
 
 
 def _write_datasets(dirs, q):
@@ -3762,6 +3865,745 @@ def pgen_chrx_slice_phase(tmp):
     return launches
 
 
+GENE_TESTS = ("ADD", "ADD-SKATO", "ADD-ACATV", "ADD-BURDEN-ACAT")
+
+
+def _gene_rows(path):
+    """A gene-based .regenie file's (header fields, data rows split), after
+    its ##MASKS= line and the single-trait header."""
+    rows = _read_text(path).splitlines()
+    if not rows or not rows[0].startswith('##MASKS=<M1="LoF";M2="LoF,missense";'):
+        raise AssertionError(f"{path}: no ##MASKS line")
+    head = rows[1].split()
+    if head[:6] != ["CHROM", "GENPOS", "ID", "ALLELE0", "ALLELE1", "A1FREQ"] \
+            or head[-2:] != ["LOG10P", "EXTRA"]:
+        raise AssertionError(f"{path}: header {rows[1]!r}")
+    return head, [r.split() for r in rows[2:]]
+
+
+def _check_gene_files(out, n_traits, n_inc, set_ids):
+    """The [gene slice]'s files are well formed: per trait the ##MASKS
+    line and the header, then for every set its burden rows (one per mask
+    M1-M3 and bin: singleton, 0.001, 0.01, all), its SKATO and ACAT-V
+    rows (the masks of the 'all' bin, the VC bin) and one BURDEN-ACAT
+    row, no (ID, TEST) twice, every number finite (LOG10P >= 0). The 40
+    complete traits test the same masks. Returns the row count per TEST
+    of the files together and the masks per bin."""
+    bins = ("singleton", "0.001", "0.01", "all")
+    totals, per_bin, ref = {}, {}, None
+    for p in range(n_traits):
+        path = f"{out}_Y{p + 1}.regenie"
+        head, rows = _gene_rows(path)
+        iT, iN = head.index("TEST"), head.index("N")
+        seen, sets_with = set(), {}
+        for t in rows:
+            if len(t) != len(head):
+                raise AssertionError(f"{path}: row {t}")
+            test, rid = t[iT], t[2]
+            if test not in GENE_TESTS:
+                raise AssertionError(f"{path}: unexpected test {test}")
+            if (rid, test) in seen:
+                raise AssertionError(f"{path}: {rid} {test} twice")
+            seen.add((rid, test))
+            int(t[0]), int(t[1]), int(t[iN])
+            if not float(t[head.index("LOG10P")]) >= 0:
+                raise AssertionError(f"{path}: LOG10P of {t}")
+            for x in t[5:iN] + t[iT + 1 : -1]:
+                if x != "NA" and not math.isfinite(float(x)):
+                    raise AssertionError(f"{path}: {t}")
+            if test == "ADD-BURDEN-ACAT":
+                sid = rid
+            else:
+                sid, mask, b = rid.split(".", 2)
+                if mask not in ("M1", "M2", "M3") or b not in bins:
+                    raise AssertionError(f"{path}: mask ID {rid}")
+                if test != "ADD" and b != "all":
+                    raise AssertionError(f"{path}: {test} row of bin {b}")
+                if test == "ADD" and p == 0:
+                    per_bin[b] = per_bin.get(b, 0) + 1
+            sets_with.setdefault(sid, set()).add(test)
+            totals[test] = totals.get(test, 0) + 1
+        if set(sets_with) != set(set_ids):
+            raise AssertionError(f"{path}: sets {sorted(set(set_ids) - set(sets_with))} "
+                                 "have no rows")
+        for sid, tests in sets_with.items():
+            if not {"ADD", "ADD-BURDEN-ACAT"} <= tests:
+                raise AssertionError(f"{path}: set {sid} has only {tests}")
+        if p >= n_inc:
+            masks = sorted(k for k in seen if k[1] == "ADD")
+            if ref is not None and masks != ref:
+                raise AssertionError(f"{path}: another mask list than Y{n_inc + 1}")
+            ref = masks
+    return totals, per_bin
+
+
+def gene_slice_phase(tmp):
+    """Gene-based Step 2 at full width on the card: one CLI run with
+    --set-list (the exome-like BED of GENE: burden masks M1-M3 in the
+    bins singleton, 0.001, 0.01 and all, SKATO and ACAT-V, BURDEN-ACAT),
+    the sets' VC products in buckets of GENE['bucket'] and the stage table
+    on (REGENIE_TPU_GENE_PROFILE=1). No hand-written kernel launches (the
+    launch counts set to 0 just before the run and read just after): the
+    burden masks go through the dense scorer and the VC products are
+    float64 torch batched products. The 50 files are well formed
+    (_check_gene_files). Then the first bucket's products again, on the
+    card (timed against their FP64 bound) and on the CPU: GtG, GtX and GtY
+    within F64_SUM_BAR of the same products taken on absolute values.
+    Returns the launches (all 0)."""
+    import torch
+
+    from regenie_tpu_torch.io.bed import decode_bed_bytes
+    from regenie_tpu_torch.models import skat
+    from regenie_tpu_torch.ops import vc_batch
+
+    f = FULL
+    prefix = f"{tmp}/geno"
+    n_var = sum(n for _, n in GENE["chroms"])
+    set_ids = [ln.split()[0] for ln in open(f"{tmp}/sets.txt")]
+    print(f"  BED file {os.path.getsize(prefix + '.bed') / 1e6:.1f} MB: {n_var} "
+          f"variants in {len(set_ids)} sets of {GENE['set_size']}")
+    out = f"{tmp}/gene"
+    argv = ["--step", "2", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--ignore-pred",
+            "--set-list", f"{tmp}/sets.txt", "--anno-file", f"{tmp}/anno.txt",
+            "--mask-def", f"{tmp}/masks.txt", "--aaf-bins", GENE["aaf_bins"],
+            "--vc-tests", GENE["vc_tests"], "--joint", GENE["joint"], "--out", out]
+    first = []
+    orig = skat.vc_products_batched
+
+    def keep_first(params, eng, preps):
+        if not first:
+            first.append([p for p in preps if p is not None])
+        return orig(params, eng, preps)
+
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    os.environ["REGENIE_TPU_GENE_BUCKET"] = str(GENE["bucket"])
+    os.environ["REGENIE_TPU_GENE_PROFILE"] = "1"
+    skat.vc_products_batched = keep_first
+    try:
+        _reset_counts()
+        t0 = time.time()
+        params, eng, log = run_cli_kept(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _read_counts()
+    finally:
+        skat.vc_products_batched = orig
+        for k in ("REGENIE_TPU_GENE_BUCKET", "REGENIE_TPU_GENE_PROFILE"):
+            os.environ.pop(k)
+    if any(counts.values()):
+        raise AssertionError(f"gene-based run launched kernels: {counts}")
+    totals, per_bin = _check_gene_files(out, f["P"], f["n_inc"], set_ids)
+    print(f"  gene-based CLI run: {f['P']} well-formed files, rows {totals}; "
+          f"burden masks per bin (Y1) {per_bin}; launches: {len(counts)} kernels, "
+          "0 each (no hand-written kernel on this path)")
+    print(f"  run wall time {wall:.2f}s = {len(set_ids) / wall:.3f} sets/s "
+          f"({n_var} variants, {f['P']} traits; run-up and output included) on "
+          f"{card_line()}")
+    i = log.index(" * gene-based stage attribution (s):")
+    for ln in log[i:]:
+        if ln.startswith("     "):
+            print(f"  stage {ln.strip()}")
+
+    # the first bucket's largest equal-pad group, card against CPU
+    preps = [p for p in first[0] if p.codes is not None]
+    groups = {}
+    for p in preps:
+        u = p.ur_dense.shape[1]
+        groups.setdefault((p.chrom, vc_batch._pad_dim(p.n_main),
+                           0 if u == 0 else vc_batch._pad_dim(u, 1)), []).append(p)
+    (chrom, Mm, U), ps = max(groups.items(), key=lambda kv: len(kv[1]))
+    ps = ps[: vc_batch.SLOTS_PER_CALL]
+    X, ind = eng.pd.new_cov, eng.pd.ind_in_analysis
+    eng.prep_chrom(chrom)
+    cache = eng._vc_cache
+    cache.set_residuals(chrom, eng.res, X)
+    args = ([p.codes for p in ps], [p.ur_dense for p in ps], [p.flip for p in ps],
+            [p.imp for p in ps], [p.wvec for p in ps])
+    ops = vc_batch.pack_slots(cache, *args, Mm, U)
+    run = lambda: vc_batch._vc_chunks(*ops, cache.ind_c, cache.X_c, cache.Y_c)  # noqa: E731
+    ms = _time_ms(run, 5)
+    t0 = time.time()
+    gpu = vc_batch.bucket_products(cache, *args)
+    call_s = time.time() - t0
+    cpu_cache = vc_batch.VCDeviceCache(X, ind, "cpu")
+    cpu_cache.set_residuals(chrom, eng.res, X)
+    t0 = time.time()
+    cpu = vc_batch.bucket_products(cpu_cache, *args)
+    cpu_s = time.time() - t0
+    N, K, P = X.shape[0], X.shape[1], eng.res.shape[1]
+    worst = 0.0
+    for p, g, c in zip(ps, gpu, cpu):
+        G = decode_bed_bytes(p.codes, N).astype(np.float64)
+        G = np.where(G == -3, p.imp[:, None], np.where(p.flip[:, None], 2 - G, G))
+        A = np.abs(np.concatenate([(G * ind * p.wvec[:, None]).T, p.ur_dense], axis=1))
+        bars = (A.T @ A, A.T @ np.abs(X), A.T @ np.abs(eng.res))
+        for a, b, bar in zip(g, c, bars):
+            worst = max(worst, float((np.abs(a - b) / np.maximum(F64_SUM_BAR * bar,
+                                                                   1e-300)).max()))
+    # the bound counts each set's own columns (m_i + u_i), not the padding
+    S, Mt = len(ps), Mm + U
+    mt = [p.n_main + p.ur_dense.shape[1] for p in ps]
+    ops_n = sum(2.0 * m * (m + K + P) * N for m in mt)
+    nbytes = (sum(p.n_main for p in ps) * (N + 3) // 4 + 8 * N * (K + P + 1)
+              + 8 * N * sum(p.ur_dense.shape[1] for p in ps)
+              + sum(8 * m * (m + K + P) for m in mt))
+    bound_ms, bound_by = _bound(ops_n, nbytes, PEAK_FP64_TC_OPS)
+    print(f"  first bucket's products (chr{chrom}, {S} sets in one call of "
+          f"{vc_batch.SLOTS_PER_CALL} slots padded to Mt={Mt}, the sets' own "
+          f"m_i + u_i {min(mt)} to {max(mt)}: GtG | GtX | GtY over "
+          f"{cache.nch} chunks of {vc_batch.CHUNK_SAMPLES}): card {ms:.3f} ms (median "
+          f"of 5) against the FP64 bound {bound_ms:.3f} ms ({bound_by}; sum of 2 "
+          f"(m_i + u_i) (m_i + u_i + K + P) N = {ops_n:.3e} operations); the call "
+          f"with packing, upload and copy {call_s:.3f}s; the CPU {cpu_s:.2f}s")
+    print(f"  first bucket's products, card against CPU: largest share of "
+          f"F64_SUM_BAR ({F64_SUM_BAR:g} x the product on absolute values) "
+          f"{worst:.3e}")
+    if not worst <= 1.0:
+        raise AssertionError(f"VC products card vs CPU: {worst:.3e} x the bar")
+    eng.gd.close()
+    return counts
+
+
+# what the tails of a gene-based run may move: the VC tests' inputs (score
+# products, calibrations, the SKAT/SKATO inputs) must agree within
+# TAIL_INPUT_BAR of their largest entry; a tails call whose results differ
+# beyond rel 1e-9 is witnessed by WITNESS_DRAWS runs of the reference's own
+# _skato_tests on its inputs scaled entry by entry by 1 + WITNESS_REL z (z
+# standard normal, seeded): its key set must be one the reference gives,
+# and each result's gap at most WITNESS_FACTOR x the reference's spread
+TAIL_INPUT_BAR = 1e-12
+WITNESS_DRAWS, WITNESS_REL, WITNESS_FACTOR = 32, 1e-15, 2.0
+
+
+def _host(a):
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.array(a, copy=True)
+
+
+def _rel_gap(a, b):
+    """max |a - b| over the largest |a| (0 for two empty arrays)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return math.inf
+    if a.size == 0:
+        return 0.0
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+
+
+class TailTap:
+    """What a gene-based run's tails read and gave, keyed by (kind, set
+    ID, the call's index in the set), while installed (a context
+    manager): "prod" the VC score products (Svals, Kmat) of each QT set
+    (vc_finish's prep) and of each BT set and trait (skat._bt_products,
+    or, for a package without it, the products bt_products(params, eng,
+    GW_full) returns per trait), "corr" the Firth LRTs and SPA
+    statistics that calibrate the BT VC tests (values, ok flags, "firth"
+    or "spa"),
+    "tails" each _skato_tests call (params, results before, inputs,
+    results), "qr" each pivoted QR of the joint tests and GENE_P (the
+    columns, the pivots).
+
+    With replay (another run's TailTap), _skato_tests takes that run's
+    inputs and results so far (a QT mask's ACAT-V) and the QR that run's
+    pivots for the same key: the files this run writes are then its
+    code's function of the other run's tail inputs (replay_matches)."""
+
+    def __init__(self, skat, joint, firth, spa, replay=None, bt_products=None):
+        self.mods = (skat, joint, firth, spa)
+        self.replay, self.bt_products = replay, bt_products
+        self.rec, self._n, self._undo, self._sid = {}, {}, [], None
+
+    def _key(self, kind):
+        k = (kind, self._sid)
+        self._n[k] = self._n.get(k, -1) + 1
+        return (kind, self._sid, self._n[k])
+
+    def _wrap(self, mod, name, make):
+        orig = getattr(mod, name)
+        self._undo.append((mod, name, orig))
+        setattr(mod, name, make(orig))
+
+    def _in_set(self, rec_prod=False):
+        def make(orig):
+            def run(params, eng, vset, *a, **kw):
+                self._sid = vset.ID
+                if rec_prod and not a[0].is_bt:
+                    self.rec[self._key("prod")] = (a[0].Svals.copy(), a[0].Kmat.copy())
+                try:
+                    return orig(params, eng, vset, *a, **kw)
+                finally:
+                    self._sid = None
+            return run
+        return make
+
+    def _corr(self, name, ival, iok, good):
+        def make(orig):
+            def run(*a, **kw):
+                out = orig(*a, **kw)
+                if self._sid is not None:
+                    ok = _host(out[iok]).astype(bool)
+                    self.rec[self._key("corr")] = (_host(out[ival]),
+                                                   ok if good else ~ok, name)
+                return out
+            return run
+        return make
+
+    def __enter__(self):
+        skat, joint, firth, spa = self.mods
+        self._wrap(skat, "vc_finish", self._in_set(rec_prod=True))
+        for name in ("run_joint_tests", "run_gene_p"):
+            self._wrap(joint, name, self._in_set())
+        self._wrap(firth, "firth_snp_batch_auto", self._corr("firth", 2, 3, True))
+        self._wrap(spa, "spa_batch_auto", self._corr("spa", 0, 2, False))
+
+        def tails(orig):
+            def run(params, results, *args):
+                key = self._key("tails")
+                if self.replay is not None:
+                    _, before, args, _ = self.replay.rec[key]
+                    results.clear()
+                    results.update({k: v.copy() for k, v in before.items()})
+                before = {k: v.copy(order="K") for k, v in results.items()}
+                # copies in the arrays' own memory order: numpy's
+                # reductions round differently along a strided axis
+                args = tuple(a.copy(order="K") if isinstance(a, np.ndarray) else a
+                             for a in args)
+                orig(params, results, *args)
+                self.rec[key] = (params, before, args,
+                                 {k: v.copy() for k, v in results.items()})
+            return run
+
+        self._wrap(skat, "_skato_tests", tails)
+
+        def qr(orig):
+            def run(G, tol):
+                q, r, piv = orig(G, tol)
+                key = self._key("qr")
+                if self.replay is not None:
+                    piv = list(self.replay.rec[key][1])
+                self.rec[key] = (np.array(G, copy=True), list(piv))
+                return q, r, piv
+            return run
+
+        self._wrap(joint, "_qr_colperm", qr)
+        if hasattr(skat, "_bt_products"):
+            def bt(orig):
+                def run(*a):
+                    out = orig(*a)
+                    self.rec[self._key("prod")] = (_host(out[2]), _host(out[3]))
+                    return out
+                return run
+
+            self._wrap(skat, "_bt_products", bt)
+        elif self.bt_products is not None:
+            def bt_run(orig):
+                def run(params, eng, vset, vc_masks, GW_full, *a):
+                    for s, k in self.bt_products(params, eng, GW_full):
+                        self.rec[self._key("prod")] = (s, k)
+                    return orig(params, eng, vset, vc_masks, GW_full, *a)
+                return run
+
+            self._wrap(skat, "_run_vc_bt", bt_run)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self._undo):
+            setattr(mod, name, orig)
+        self._undo = []
+
+    def of(self, kind):
+        return {k: v for k, v in self.rec.items() if k[0] == kind}
+
+
+def _results_gap(a, b):
+    """The keys of two _skato_tests results whose [P, 2] values differ
+    beyond rel 1e-9 (on max(1, |value|)), and whether the key sets differ."""
+    keys = [k for k in a if k in b and (a[k].shape != b[k].shape or (
+        np.abs(a[k] - b[k]) > 1e-9 * np.maximum(1.0, np.abs(a[k]))).any())]
+    return keys, a.keys() != b.keys()
+
+
+def tail_verdict(ref, got, ref_skat, corr_rtol):
+    """Holds run `got`'s tails to run `ref`'s (TailTaps of the same
+    inputs): the same calls; the products (Svals, Kmat) and the joint
+    tests' QR columns within TAIL_INPUT_BAR of their largest entry, every
+    _skato_tests kernel Km too and its scores Sm of sqrt(max diag Km),
+    or within twice the calibrations' gap where that is larger (a BT
+    kernel is scaled by its calibrations; the other arguments equal); the calibrations with the
+    same flags and within corr_rtol[name] (relative, 1e-12 absolute below
+    1); every tails call whose results differ beyond rel 1e-9 witnessed:
+    the reference's own _skato_tests (ref_skat) on its inputs scaled by 1
+    + r z (r the larger of WITNESS_REL and the call's own input gap) gives
+    got's set of tests in one of WITNESS_DRAWS draws, and moves each
+    result at least 1 / WITNESS_FACTOR of got's gap; every QR whose pivots
+    differ by columns whose norms tie within 1e-12, so that rounding picks
+    the order. Raises AssertionError; returns a summary dict: the worst
+    product, input and calibration gaps and their counts, "gaps" [(set
+    ID, what)] and "sets", the set IDs of the witnessed calls."""
+    if ref.rec.keys() != got.rec.keys():
+        diff = sorted(map(str, ref.rec.keys() ^ got.rec.keys()))[:6]
+        raise AssertionError(f"tails calls differ: {diff}")
+    out = {"prod": 0.0, "n_prod": 0, "inputs": 0.0, "n_tails": 0, "corr": 0.0,
+           "n_corr": 0, "gaps": [], "sets": set()}
+    for key, (s1, k1) in ref.of("prod").items():
+        s2, k2 = got.rec[key]
+        out["prod"] = max(out["prod"], _rel_gap(s1, s2), _rel_gap(k1, k2))
+        out["n_prod"] += 1
+    for key, (v1, ok1, name) in ref.of("corr").items():
+        v2, ok2, _ = got.rec[key]
+        if not np.array_equal(ok1, ok2):
+            raise AssertionError(f"{key}: calibration flags differ")
+        if ok1.any():
+            d = float((np.abs(v1[ok1] - v2[ok1])
+                       / np.maximum(np.abs(v1[ok1]), 1e-12 / corr_rtol[name])).max())
+            if not d <= corr_rtol[name]:
+                raise AssertionError(f"{key}: {name} calibrations differ by rel {d:.3e}")
+            out["corr"] = max(out["corr"], d)
+        out["n_corr"] += 1
+    bar = max(TAIL_INPUT_BAR, 2 * out["corr"])
+    for key, (g1, p1) in ref.of("qr").items():
+        g2, p2 = got.rec[key]
+        out["inputs"] = max(out["inputs"], _rel_gap(g1, g2))
+        if p1 != p2:
+            for g in (g1, g2):
+                nrm = np.linalg.norm(g, axis=0)
+                if not np.allclose(nrm, nrm[0], rtol=1e-12, atol=0):
+                    raise AssertionError(f"{key}: pivots differ without a tie")
+            out["sets"].add(key[1])
+            out["gaps"].append((key[1], "joint tests' QR pivots (tied norms)"))
+    rng = np.random.default_rng(0)
+    for key, (params, before, a1, r1) in ref.of("tails").items():
+        _, _, a2, r2 = got.rec[key]
+        out["n_tails"] += 1
+        for x, y in zip(a1[2:-1], a2[2:-1]):  # rho, nnz, P and the tests
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{key}: tails argument {x!r} against {y!r}")
+        # the scores Sm [P, m] against their own scale, sqrt of the
+        # kernel's diagonal (a score is a sum with cancellation); the
+        # kernel Km [m, m] against its largest entry
+        (s1, k1), (s2, k2) = a1[:2], a2[:2]
+        if s1.shape != s2.shape or k1.shape != k2.shape:
+            raise AssertionError(f"{key}: tails inputs of other shapes")
+        gap_in = max(float(np.abs(s1 - s2).max()
+                           / max(math.sqrt(max(np.diag(k1).max(), 0.0)), 1e-300)),
+                     _rel_gap(k1, k2))
+        out["inputs"] = max(out["inputs"], gap_in)
+        keys, keyset = _results_gap(r1, r2)
+        if not keys and not keyset:
+            continue
+        rel = max(WITNESS_REL, gap_in)
+        seen, spread = {tuple(sorted(r1))}, {}
+        for _ in range(WITNESS_DRAWS):
+            a = list(a1)
+            for i in (0, 1):
+                a[i] = a1[i] * (1 + rel * rng.standard_normal(a1[i].shape))
+            a[1] = (a[1] + a[1].T) / 2
+            res = {k: v.copy() for k, v in before.items()}
+            with np.errstate(all="ignore"):
+                ref_skat._skato_tests(params, res, *a)
+            seen.add(tuple(sorted(res)))
+            for k in res:
+                if k in r1 and res[k].shape == r1[k].shape:
+                    spread[k] = max(spread.get(k, 0.0),
+                                    float(np.abs(res[k] - r1[k]).max()))
+        if tuple(sorted(r2)) not in seen:
+            raise AssertionError(f"{key}: tests {sorted(r2)}, the reference's "
+                                 f"{sorted(seen)} under a {rel:.1e} perturbation")
+        if keyset:
+            out["gaps"].append((key[1], "tests on one side: " + ",".join(
+                sorted(r1.keys() ^ r2.keys())) + f" (both in {WITNESS_DRAWS} "
+                f"draws of a {rel:.1e} perturbation)"))
+        for k in keys:
+            gap = float(np.abs(r1[k] - r2[k]).max())
+            if not gap <= WITNESS_FACTOR * spread.get(k, 0.0):
+                raise AssertionError(
+                    f"{key} {k}: gap {gap:.3e}, the reference's own "
+                    f"{spread.get(k, 0.0):.3e} under a {rel:.1e} perturbation")
+            out["gaps"].append((key[1], f"{k} |d| {gap:.3e}, the reference's own "
+                                f"{spread[k]:.3e} under a {rel:.1e} perturbation"))
+        out["sets"].add(key[1])
+    if not (out["prod"] <= TAIL_INPUT_BAR and out["inputs"] <= bar):
+        raise AssertionError(f"tail inputs differ: products {out['prod']:.3e}, "
+                             f"tails inputs {out['inputs']:.3e} (bar {bar:.1e})")
+    return out
+
+
+def replay_matches(replay, got):
+    """A replay (TailTap with replay=got) gave got's tails results bit for
+    bit, call for call."""
+    if replay.of("tails").keys() != got.of("tails").keys():
+        raise AssertionError("the replay's tails calls differ")
+    for key, rec in replay.of("tails").items():
+        r1, r2 = rec[3], got.rec[key][3]
+        if r1.keys() != r2.keys() or any(not np.array_equal(r1[k], r2[k]) for k in r1):
+            raise AssertionError(f"{key}: the replay's tails differ")
+
+
+def in_sets(row_id, sets):
+    """Whether a row's ID is one of the set IDs or a mask of one."""
+    return any(row_id == s or row_id.startswith(s + ".") for s in sets)
+
+
+# the VC tests' rows and the gene-level rows combined from them
+VC_TESTS = ("SKAT", "SKATO", "SKATO-ACAT", "ACATV", "ACATO", "ACATV-ACAT")
+
+
+def _gene_tail_test(test, complete):
+    """Whether a TEST (or HTP Model) is a row of the tails (TailTap): a VC
+    test's, a gene-level row combined from them, and on a trait with no
+    missing value GATES and SBAT, whose input columns that trait's pivoted
+    QR orders by rounding (ROADMAP.md §3)."""
+    t = test.split("ADD-")[-1].replace("WGR-", "").replace("BURDEN-", "")
+    return (t.split("_")[0] in VC_TESTS or test.startswith("GENE_P")
+            or (complete and t.split("_")[0] in ("GATES", "SBAT")))
+
+
+def _gene_split(path, complete):
+    """(header lines, the row layout, [(key, fields)] of the other rows,
+    {key: fields} of the tails' rows in file order) of a gene-based output
+    file; key = (ID, TEST). HTP rows split at tabs, ';' and '=' (so
+    LOG10P's value follows a "LOG10P" field); the layout is (TEST's index,
+    LOG10P's index or None for HTP)."""
+    rows = _read_text(path).splitlines()
+    hi = next(i for i, r in enumerate(rows) if not r.startswith("#"))
+    htp = "\t" in rows[hi]
+    head = rows[hi].split("\t" if htp else None)
+    it = head.index("Model" if htp else "TEST")
+    iid = head.index("Name" if htp else "ID")
+    other, tails = [], {}
+    for r in rows[hi + 1:]:
+        t = (r.replace(";", "\t").replace("=", "\t").split("\t") if htp
+             else r.split())
+        key = (t[iid], t[it])
+        if _gene_tail_test(t[it], complete):
+            tails[key] = t
+        else:
+            other.append((key, t))
+    return rows[: hi + 1], (it, None if htp else head.index("LOG10P")), other, tails
+
+
+def _gene_fields_ok(ta, tb, layout):
+    """The fields up to TEST identical; every other value equal or one unit
+    of its sixth significant digit apart; LOG10P (and an HTP row's Pval,
+    field 11, as -log10) within 1e-5. Returns (ok, |dLOG10P|)."""
+    it, il = layout
+    if len(ta) != len(tb) or ta[: it + 1] != tb[: it + 1]:
+        return False, math.inf
+    dl = 0.0
+    for i in range(it + 1, len(ta)):
+        x, y = ta[i], tb[i]
+        if x == y:
+            continue
+        try:
+            fx, fy = float(x), float(y)
+        except ValueError:
+            return False, math.inf
+        pval = il is None and i == 11
+        if pval:
+            fx, fy = -math.log10(fx), -math.log10(fy)
+        if pval or i == il or (il is None and ta[i - 1] == "LOG10P"):
+            dl = max(dl, abs(fx - fy))
+            if abs(fx - fy) > LOG10P_TOL:
+                return False, dl
+        if not pval and _sig6_excess(x, y) > 1 + 1e-9:
+            return False, dl
+    return True, dl
+
+
+def _compare_gene_files(f_gpu, f_cpu, complete, sets=None):
+    """A gene-based file on the card against the CPU's: every row the same
+    in order, each within _gene_fields_ok; but a row of the tails
+    (_gene_tail_test) may differ, or be on one side only, where its set is
+    one of `sets` (tail_verdict's witnessed sets; None: none may).
+    Returns (rows, tails' rows, tails' rows outside the bar, max
+    |dLOG10P| of the rows within it)."""
+    ha, layout, oa, va = _gene_split(f_gpu, complete)
+    hb, _, ob, vb = _gene_split(f_cpu, complete)
+    if ha != hb or [k for k, _ in oa] != [k for k, _ in ob]:
+        raise AssertionError(f"{f_gpu}: header or rows differ from the CPU's")
+    worst = 0.0
+    for (k, ta), (_, tb) in zip(oa, ob):
+        ok, dl = _gene_fields_ok(ta, tb, layout)
+        if not ok:
+            raise AssertionError(f"{f_gpu}: {k} differs beyond the bar:\n"
+                                 f"{' '.join(ta)}\n{' '.join(tb)}")
+        worst = max(worst, dl)
+    if [k for k in va if k in vb] != [k for k in vb if k in va]:
+        raise AssertionError(f"{f_gpu}: the tails' rows are in another order")
+    off = 0
+    for k in list(va) + [k for k in vb if k not in va]:
+        ok, dl = (_gene_fields_ok(va[k], vb[k], layout) if k in va and k in vb
+                  else (False, 0.0))
+        if ok:
+            worst = max(worst, dl)
+            continue
+        if sets is None or not in_sets(k[0], sets):
+            raise AssertionError(f"{f_gpu}: {k} differs from the CPU's, its set's "
+                                 "tails unwitnessed")
+        off += 1
+    return len(oa) + len(va), len(va), off, worst
+
+
+def _complete_traits(table, names):
+    """The traits of a phenotype table with no missing value."""
+    head = _read_text(table).splitlines()
+    cols = head[0].split()
+    na = {c: False for c in cols}
+    for r in head[1:]:
+        for c, v in zip(cols, r.split()):
+            na[c] |= v == "NA"
+    return {n for n in names if not na.get(n, True)}
+
+
+def gene_cross_check(tmp):
+    """Gene-based runs at N = 2,000 (20 sets of 12 variants, gene_afs; 4
+    traits, 2 with NA), each on the card and on the CPU: QT with the six
+    VC tests and the five joint tests (--vc-maxAAF 0.01 keeps SBAT's Genz
+    weights to 6 masks a set), QT --rgc-gene-p, BT --firth
+    --approx --htp, BT --spa --write-mask, CT and T2E burden masks. No
+    hand-written kernel launches on the card. Card against CPU
+    (_compare_gene_files): every row in the same order, the fields up to
+    TEST identical, every other printed value equal or adjacent in its
+    last printed digit, |dLOG10P| <= 1e-5. The tails (TailTap, held by
+    tail_verdict): the VC score products of every QT set and every BT set
+    and trait, and every input of the SKAT/SKATO tails, within 1e-12 of
+    their largest entry (the BT inputs within twice the calibrations'
+    gap), the BT calibrations with the same flags and within the slices'
+    bars (Firth rtol 1e-6, SPA 1e-5); a run with VC tests must record
+    products. Where a tails call's results differ, the CPU's own tails on
+    its inputs perturbed by as much must give the card's tests and move as
+    far (tail_verdict); then only that set's tails rows may differ, and a
+    CPU replay that takes the card's tail inputs (TailTap replay) must
+    give the card's tails bit for bit and its files row for row within the
+    bar. GATES and SBAT of an incomplete trait are other rows; of a
+    complete one, rows of the tails. The mask BED is the same bytes. The
+    QT run again with REGENIE_TPU_GENE_BUCKET=1 on the card writes the
+    same bytes as with 32."""
+    from regenie_tpu_torch.models import firth, joint, skat, spa
+
+    P, NT, N = 4, 2, 2000
+    chroms = ((1, 120), (2, 120))
+    d = os.path.join(tmp, "gene")
+    os.makedirs(d)
+    prefix = write_dataset(d, seed=21, N=N, chroms=chroms, P=P, n_inc=2, n_cov=3,
+                           n_remove=10, effect_sd=0.3, af=gene_afs(240, N, 22))
+    write_gene_files(d, chroms, 12, 23)
+    Y, X = (np.genfromtxt(f"{d}/{t}.txt", skip_header=1, usecols=range(2, 2 + k),
+                          missing_values="NA") for t, k in (("pheno", P), ("covar", 3)))
+    write_bt_table(f"{d}/pheno_bt.txt", np.nan_to_num(Y), seed=3, prev=(0.1, 0.3),
+                   n_inc=2, X=X)
+    write_ct_table(f"{d}/pheno_ct.txt", Y, seed=4)
+    write_t2e_table(f"{d}/pheno_t2e.txt", np.nan_to_num(Y[:, :NT]), seed=5, n_na=1, X=X)
+    ys = [f"Y{p + 1}" for p in range(P)]
+    runs = {
+        "QT, six VC tests, --joint minp,acat,ftest,gates,sbat": (
+            "pheno.txt", ["--vc-tests", "skat,skato,skato-acat,acatv,acato,acato-full",
+                          "--joint", "minp,acat,ftest,gates,sbat", "--vc-maxAAF",
+                          "0.01"], ys),
+        "QT --rgc-gene-p": ("pheno.txt", ["--rgc-gene-p"], ys),
+        "BT --firth --approx --htp": (
+            "pheno_bt.txt", ["--bt", "--firth", "--approx", "--htp", "SMOKE",
+                             "--vc-tests", "skato,acatv", "--joint", "acat"], ys),
+        "BT --spa --write-mask": (
+            "pheno_bt.txt", ["--bt", "--spa", "--write-mask", "--vc-tests",
+                             "skat,acatv", "--joint", "acat"], ys),
+        "CT burden": ("pheno_ct.txt", ["--ct", "--joint", "acat"], ys),
+        "T2E burden": ("pheno_t2e.txt", [*t2e_flags(NT), "--firth", "--approx",
+                                         "--joint", "acat"],
+                       [f"T{p + 1}" for p in range(NT)]),
+    }
+    mods = (skat, joint, firth, spa)
+    for i, (what, (table, flags, names)) in enumerate(runs.items()):
+        common = ["--step", "2", "--bed", prefix, "--phenoFile", f"{d}/{table}",
+                  "--covarFile", f"{d}/covar.txt", "--remove", f"{d}/remove.txt",
+                  "--ignore-pred", "--set-list", f"{d}/sets.txt", "--anno-file",
+                  f"{d}/anno.txt", "--mask-def", f"{d}/masks.txt", *flags]
+        complete = _complete_traits(f"{d}/{table}", names)
+        taps, secs = {}, {}
+        try:
+            for where in ("gpu", "cpu", "replay"):
+                os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+                if where != "gpu":
+                    os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
+                if where == "replay":
+                    if not verdict["sets"]:
+                        break
+                    taps[where] = TailTap(*mods, replay=taps["gpu"])
+                else:
+                    taps[where] = TailTap(*mods)
+                _reset_counts()
+                t0 = time.time()
+                with taps[where]:
+                    run_cli(common + ["--out", f"{d}/g{i}{where}"])
+                secs[where] = time.time() - t0
+                if where == "gpu" and any(_read_counts().values()):
+                    raise AssertionError(f"{what}: kernels launched {_read_counts()}")
+                if where == "cpu":
+                    verdict = tail_verdict(taps["cpu"], taps["gpu"], skat,
+                                           corr_rtol={"firth": 1e-6, "spa": 1e-5})
+        finally:
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        vc = any(f in flags for f in ("--vc-tests", "--rgc-gene-p"))
+        if vc and not verdict["n_prod"]:
+            raise AssertionError(f"{what}: no VC products recorded")
+        tot = [0, 0, 0, 0.0]
+        for name in names:
+            n = _compare_gene_files(f"{d}/g{i}gpu_{name}.regenie",
+                                    f"{d}/g{i}cpu_{name}.regenie", name in complete,
+                                    verdict["sets"])
+            tot = [a + b for a, b in zip(tot[:3], n[:3])] + [max(tot[3], n[3])]
+            if "replay" in taps:
+                _compare_gene_files(f"{d}/g{i}gpu_{name}.regenie",
+                                    f"{d}/g{i}replay_{name}.regenie", name in complete)
+        if "replay" in taps:
+            replay_matches(taps["replay"], taps["gpu"])
+        extra = ""
+        if "--write-mask" in flags:
+            for sfx in (".bed", ".bim", ".fam"):
+                a, b = (open(f"{d}/g{i}{w}_masks{sfx}", "rb").read() for w in ("gpu", "cpu"))
+                if a != b:
+                    raise AssertionError(f"{what}: mask {sfx} differs card vs CPU")
+            extra = "; mask BED/BIM/FAM the same bytes"
+        prod = (f"max rel {verdict['prod']:.3e} over {verdict['n_prod']} sets and "
+                f"traits, the tails' inputs {verdict['inputs']:.3e} over "
+                f"{verdict['n_tails']} calls" if verdict["n_prod"]
+                else "not measured (no VC tests)")
+        if verdict["n_corr"]:
+            prod += (f", calibrations rel {verdict['corr']:.3e} over "
+                     f"{verdict['n_corr']} calls")
+        print(f"  gene {what}: card {secs['gpu']:.1f}s, CPU {secs['cpu']:.1f}s; "
+              f"{tot[0]} rows, {tot[0] - tot[2]} within the bar, max |dLOG10P| "
+              f"{tot[3]:.3e}; VC products card vs CPU {prod}{extra}; no kernel "
+              "launched")
+        qr = sorted({sid for sid, t in verdict["gaps"] if t.startswith("joint")})
+        if qr:
+            print(f"    joint tests' QR pivots differ card vs CPU on tied column norms "
+                  f"in {len(qr)} sets: {' '.join(qr)}")
+        for sid, text in verdict["gaps"]:
+            if not text.startswith("joint"):
+                print(f"    tails of set {sid}, card vs CPU: {text}")
+        if "replay" in taps:
+            print(f"  gene {what}: {tot[2]} rows of the tails of "
+                  f"{len(verdict['sets'])} sets outside the bar (ROADMAP.md §3); the "
+                  "CPU on the card's tail inputs gives the card's files within it "
+                  f"({secs['replay']:.1f}s)")
+        if i == 0:
+            os.environ["REGENIE_TPU_GENE_BUCKET"] = "1"
+            try:
+                run_cli(common + ["--out", f"{d}/g{i}b1"])
+            finally:
+                os.environ.pop("REGENIE_TPU_GENE_BUCKET")
+            for name in names:
+                a, b = (open(f"{d}/g{i}{w}_{name}.regenie", "rb").read()
+                        for w in ("gpu", "b1"))
+                if a != b:
+                    raise AssertionError(f"{what}: bucket 1 and 32 differ on the card")
+            print(f"  gene {what}: REGENIE_TPU_GENE_BUCKET=1 on the card writes the "
+                  "same bytes as 32")
+
+
 def two_step_cross_check(tmp, geno, P, modes=(("K-fold", []), ("--loocv", ["--loocv"])),
                          what="", step2=(), trait=(), table="pheno.txt", step1=(),
                          kernel=None, names=None):
@@ -3879,7 +4721,8 @@ def cross_check_phase(tmp):
     phase's docstring entry 6. The REGENIE_TPU_I8=0 runs of the BED --htp
     and the BGEN --minINFO runs must launch fused_f32 / bgen_f32 once per
     block and no other kernel: returns those launches, the float32
-    kernels' on their paths. Then the two-step workflows."""
+    kernels' on their paths. Then the two-step workflows, and the
+    gene-based runs (gene_cross_check)."""
     P = 4
     NT = 2  # time-to-event endpoints of the pheno_t2e.txt tables
     kw = dict(seed=2, N=2000, P=P, n_inc=2, n_cov=3, n_remove=10, effect_sd=0.1)
@@ -4108,6 +4951,8 @@ def cross_check_phase(tmp):
                                 ("--t2e-event-l0", ["--t2e-event-l0"])),
                          what=" T2E", trait=t2e_flags(NT), table="pheno_t2e.txt",
                          kernel=("fused_i8", 3), names=[f"T{p + 1}" for p in range(NT)])
+    # gene-based tests (--set-list) on QT, BT, CT and T2E traits
+    gene_cross_check(tmp)
     return f32_launches
 
 
@@ -4250,6 +5095,12 @@ def main() -> int:
         shutil.rmtree(tmp)
         _free()
         _phase_time("pgen chrX slice", t_all)
+        tmp = data.get("gene")
+        print("[gene slice]")
+        gene_slice_phase(tmp)
+        shutil.rmtree(tmp)
+        _free()
+        _phase_time("gene slice", t_all)
     finally:
         data.close()
         root.cleanup()

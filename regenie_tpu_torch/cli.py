@@ -2,9 +2,9 @@
 takes the same flags as `python -m regenie_tpu` (the reference's flag
 surface, src/Regenie.cpp:146-458). build_parser and args_to_params are
 the port's copies of regenie_tpu/cli.py's; main runs the modes the port
-has (Step 1 on quantitative traits, Step 2 on quantitative and binary
-traits, on PLINK BED, PGEN and BGEN) and raises NotImplementedError for
-every other one (unported).
+has (Step 1 and Step 2 on quantitative, binary, count and time-to-event
+traits, and Step 2's gene-based tests, on PLINK BED, PGEN and BGEN) and
+raises NotImplementedError for every other one (unported).
 
 The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 """
@@ -838,7 +838,6 @@ def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
     None. Every such mode raises NotImplementedError before any work."""
     common = (
-        (bool(params.set_list), "gene-based tests (--set-list)"),
         (bool(params.interaction_var), "interaction tests"),
         (params.trait_set, "multi-trait tests (--mt)"),
         (params.multiphen, "MultiPhen (--multiphen)"),

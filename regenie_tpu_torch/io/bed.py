@@ -142,6 +142,26 @@ def decode_bed_bytes(raw: np.ndarray, n_samples: int) -> np.ndarray:
     return block[:, :n_samples]
 
 
+def encode_bed_bytes(G: np.ndarray) -> np.ndarray:
+    """[B, N] additive hardcalls {0, 1, 2, -3} -> [B, ceil(N/4)] packed
+    2-bit BED codes, the exact inverse of decode_bed_bytes and
+    ops.geno_ops.decode_bed_packed (ref-last coding: 2->00, -3->01,
+    1->10, 0->11; write_genovec, Masks.cpp:1177). The gene-based VC
+    products ship scattered hardcall variants to the device this way
+    (ops/vc_batch.py)."""
+    G = np.asarray(G)
+    B, N = G.shape
+    codes = np.where(
+        G == 2, 0, np.where(G == -3, 1, np.where(G == 1, 2, 3))
+    ).astype(np.uint8)
+    pad = (-N) % 4
+    if pad:
+        codes = np.concatenate([codes, np.zeros((B, pad), np.uint8)], axis=1)
+    codes = codes.reshape(B, -1, 4)
+    return (codes[:, :, 0] | (codes[:, :, 1] << 2) | (codes[:, :, 2] << 4)
+            | (codes[:, :, 3] << 6)).astype(np.uint8)
+
+
 def read_bim(path: str, ref_first: bool = False) -> List[SnpInfo]:
     """.bim: CHR ID GENPOS PHYSPOS A1 A2. Default ref-last (col6 = ref);
     with --ref-first col5 is the reference allele (Geno.cpp:44-49)."""

@@ -1,8 +1,8 @@
 """Output writers (the port's copy of regenie_tpu/io/output.py, trimmed
-to the single-trait tests of the four trait types): Step-2 summary
-statistics in the split single-trait (with --af-cc's case/control
-columns), merged (--no-split) and HTPv4 formats, and Step 1's LOCO/PRS
-prediction rows.
+to the single-trait tests of the four trait types and the gene-based
+p-value rows): Step-2 summary statistics in the split single-trait (with
+--af-cc's case/control columns), merged (--no-split) and HTPv4 formats,
+and Step 1's LOCO/PRS prediction rows.
 
 Mirrors Step2_Models.cpp print_header_output* (:2306) and
 print_sum_stats* (:2410-2646) with C++ default 6-significant-digit
@@ -403,4 +403,36 @@ def sumstat_line_htp(
         infoCol.append(f"MAC={fmt(mac)}")
     infoCol.append(f"LOG10P={fmt(logp)}" if print_pv else "LOG10P=NA")
     parts.append(";".join(infoCol))
+    return "\t".join(parts) + "\n"
+
+
+def htp_pvalue_line(
+    params: Params,
+    snp,
+    pheno_name: str,
+    model: str,
+    logp: float,
+    df: int,
+    n_cases: int,
+    n_controls=None,
+    strongest: str = "",
+) -> str:
+    """HTP row for p-value-only tests: the gene-based VC, joint and
+    GENE_P rows (print_sum_stats_htp_gene, Joint_Tests.cpp:1025-1067)."""
+    test_pass = logp >= 0 and not np.isnan(logp)
+    outp = convert_logp_raw(min(logp, 308.0)) if test_pass else "NA"
+    parts = [snp.ID, str(snp.chrom), str(snp.physpos),
+             getattr(snp, "allele1", "NA"), getattr(snp, "allele2", "NA"),
+             pheno_name, params.cohort_name, model,
+             "NA", "NA", "NA", outp,
+             "NA", str(int(n_cases)), "NA", "NA", "NA",
+             (str(int(n_controls)) if params.trait_mode == BT and n_controls
+              is not None else "NA"),
+             "NA", "NA", "NA"]
+    info = [f"DF={df}" if test_pass else "DF=0"]
+    if strongest:
+        info.append(f"STRONGEST_MASK={strongest}")
+    info.append(f"LOG10P={fmt(logp)}" if test_pass else "LOG10P=NA")
+    info.append("NO_BETA")
+    parts.append(";".join(info))
     return "\t".join(parts) + "\n"

@@ -8,7 +8,9 @@ approximate Firth path), on the host in numpy float64.
 - the single-parameter per-SNP LRT fit (fit_firth, Step2_Models.cpp:1649)
   vectorized over the batch of corrected SNPs: each Newton iteration is
   one [S, N] pass with per-row convergence masks. It is the host twin of
-  models/corrections_device.firth_snp_batch_dev.
+  models/corrections_device.firth_snp_batch_dev;
+- the dispatch firth_snp_batch_auto that the gene-based BT VC tests
+  call (the device solver on a card, the host twin on the CPU).
 
 Penalized deviance: dev = -2 loglik - log|X'WX|; the modified score adds
 the Firth term h*(0.5-pi).
@@ -21,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 from .glm import get_logist_dev, get_pvec
+
+_EPS10 = 10 * np.finfo(np.float64).eps
 
 
 def fit_firth_multi(
@@ -234,6 +238,26 @@ def firth_snp_batch(
     se = np.sqrt(1.0 / np.maximum(xtwx, 1e-300))
     converged &= lrt >= 0
     return beta, se, lrt, converged
+
+
+def firth_snp_batch_auto(y, G, offset, mask, device="cpu", **kw):
+    """The per-SNP Firth LRT where the port's corrections run: on the
+    device (corrections_device.firth_snp_batch_dev) when
+    corrections_device.enabled(device), else the host float64 twin, as
+    the port's Step-2 Firth runs. G: [S, N] numpy or a tensor."""
+    from . import corrections_device as cdev
+
+    if cdev.enabled(device):
+        return cdev.firth_snp_batch_dev(y, G, offset, mask, device=device, **kw)
+    return firth_snp_batch(host_f64(y), host_f64(G), host_f64(offset),
+                           host_f64(mask).astype(bool), **kw)
+
+
+def host_f64(a) -> np.ndarray:
+    """A float64 numpy copy of a tensor or an array."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float64)
 
 
 def firth_adam(

@@ -126,6 +126,25 @@ def _tail_pv(root, tval, lam, Gmod, phat, gamma2, maskf, val_a, val_c):
     return pv, ok
 
 
+def spa_batch_auto(stats, denum, Gres, phat, gamma_sqrt, mask, device="cpu",
+                   **kw):
+    """SPA where the port's corrections run: on the device
+    (corrections_device.spa_batch_dev) when
+    corrections_device.enabled(device), else the host float64 twin. The
+    arrays may be numpy or tensors."""
+    from . import corrections_device as cdev
+
+    if cdev.enabled(device):
+        return cdev.spa_batch_dev(stats, denum, Gres, phat, gamma_sqrt, mask,
+                                  device=device, **kw)
+    from .firth import host_f64
+
+    stats, denum, Gres, phat, gamma_sqrt, mask = (
+        host_f64(a) for a in (stats, denum, Gres, phat, gamma_sqrt, mask))
+    return spa_batch(stats, denum, Gres, phat, gamma_sqrt, mask.astype(bool),
+                     **kw)
+
+
 def spa_batch(
     stats: np.ndarray,
     denum: np.ndarray,

@@ -43,6 +43,7 @@ corrected on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import threading
@@ -216,6 +217,25 @@ class BlockResult:
     af_control: Optional[np.ndarray] = None
     ns_case: Optional[np.ndarray] = None
     ns_control: Optional[np.ndarray] = None
+
+    def slice_rows(self, lo: int, hi: int) -> "BlockResult":
+        """Row window [lo:hi) of every per-variant field (the gene-based
+        loop scores many sets' masks as one block and splits it back)."""
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            kw[f.name] = v[lo:hi] if isinstance(v, np.ndarray) else v
+        return BlockResult(**kw)
+
+    @staticmethod
+    def concat_rows(parts: List["BlockResult"]) -> "BlockResult":
+        """The row-wise concatenation of results of equal layout."""
+        kw = {}
+        for f in dataclasses.fields(parts[0]):
+            v = getattr(parts[0], f.name)
+            kw[f.name] = (np.concatenate([getattr(r, f.name) for r in parts])
+                          if isinstance(v, np.ndarray) else v)
+        return BlockResult(**kw)
 
 
 def _fetch_packed(vals: dict, fdt=None) -> dict:
@@ -436,6 +456,14 @@ class Step2Engine:
             and (p.par1_max_bound < s.physpos < p.par2_min_bound)
             for s in bsnps
         ])
+
+    def pheno_counts(self, ph):
+        """(n_cases_or_total, n_controls_or_None) for HTP gene rows."""
+        if self.is_bt:
+            cases = int(((self.pd.phenotypes_raw[:, ph] == 1)
+                         & self.pd.masked_indivs[:, ph]).sum())
+            return cases, int(self.pd.Neff[ph]) - cases
+        return int(self.pd.Neff[ph]), None
 
     def model_type(self) -> str:
         """HTP Model string (Data.cpp:2093-2102)."""
@@ -1263,16 +1291,26 @@ class Step2Engine:
         return out.astype(np.int64)
 
     def test_prepared_block(self, G, af_t, ns_t, mac_t, ignored, ignored_trait,
-                            flipped, info_t=None) -> BlockResult:
-        """Score a finalized [B, N] float64 block on the device (the QT
-        and BT branches of the JAX package's test_prepared_block, without
-        the mesh, MCC and interaction): for QT, --nocov-approx scores G
-        unadjusted with scale 1; otherwise the one-pass scorer, or in
-        strict mode the residualize-then-score pair. BT: the all-trait
-        score test with its corrections (step2_bt.score_block)."""
+                            flipped, info_t=None, is_mask: bool = False
+                            ) -> BlockResult:
+        """Score a finalized [B, N] float64 block on the device (the JAX
+        package's test_prepared_block, without the mesh, MCC and
+        interaction): for QT, --nocov-approx scores G unadjusted with
+        scale 1; otherwise the one-pass scorer, or in strict mode the
+        residualize-then-score pair. BT/CT/T2E: the all-trait score test
+        with its corrections (step2_bt / step2_t2e .score_block).
+
+        is_mask: a block of gene-based burden masks. Its residualized
+        block (QT; the block itself for the other traits) comes back to
+        the host as last_G_res only when a joint test or GENE_P reads it,
+        and last_scale_fac holds QT's scale factors."""
         params, d = self.params, self._ensure_dense_consts()
         B = G.shape[0]
         self.n_ignored += int(ignored.sum())
+        need_host = is_mask and bool(params.joint_tests
+                                     or params.apply_gene_pval_strategy)
+        self.last_G_res = None
+        self.last_scale_fac = None
         if self.is_glm or self.is_t2e:
             if self.is_t2e:
                 out = step2_t2e.score_block(params, self.pd, self.null_state, G,
@@ -1285,6 +1323,8 @@ class Step2Engine:
             bhat, se, chisq, logp, test_fail, ncorr, nfail = out
             self.n_corrected += ncorr
             self.n_failed += nfail
+            if need_host:
+                self.last_G_res = G.cpu().numpy()
             return BlockResult(
                 bhat=bhat, se=se, chisq=chisq, logp=logp, test_fail=test_fail,
                 ignored=ignored, ignored_trait=ignored_trait, af_t=af_t,
@@ -1295,9 +1335,13 @@ class Step2Engine:
             # skipped, Data.cpp:2513)
             stats, denum = m2.score_qt_block(G, d.res, d.maskf, self.scale_denom,
                                              self.strict)
-            f = _fetch_packed(dict(s=stats, d=denum), torch.float64)
+            fd = dict(s=stats, d=denum)
+            if need_host:
+                fd["G"] = G
+            f = _fetch_packed(fd, torch.float64)
             scale_fac, low_var = np.ones(B), np.zeros(B, dtype=bool)
         else:
+            G_res = None
             if not self.strict:
                 stats, denum, scale_fac, low_var = m2.score_qt_block_onepass(
                     G, d.cov, d.res, d.maskf, None, d.Mmat, d.covt_res,
@@ -1307,9 +1351,15 @@ class Step2Engine:
                     G, d.cov, self.scale_denom)
                 stats, denum = m2.score_qt_block(G_res, d.res, d.maskf,
                                                  self.scale_denom, self.strict)
-            f = _fetch_packed(dict(s=stats, d=denum, g=scale_fac, l=low_var),
-                              torch.float64)
+            fd = dict(s=stats, d=denum, g=scale_fac, l=low_var)
+            if need_host:
+                # the host consumers' G_res rides the same copy
+                fd["G"] = (G_res if G_res is not None else
+                           m2.residualize_scale_block(G, d.cov, self.scale_denom)[0])
+            f = _fetch_packed(fd, torch.float64)
             scale_fac, low_var = f["g"], f["l"]
+        self.last_G_res = f.get("G")
+        self.last_scale_fac = scale_fac
         bhat, se, chisq, logp = self._qt_post(f["s"], f["d"], scale_fac, flipped)
         return BlockResult(
             bhat=bhat, se=se, chisq=chisq, logp=logp,
@@ -1407,15 +1457,18 @@ class Step2Engine:
         return result, flipped
 
 
-def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None):
+def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None,
+                  pre_header: str = ""):
     """The output files, gzipped with --gz: one per trait (split .regenie
     by default, or HTPv4), or with --no-split one merged <out>.regenie,
     shared by every trait, and its <out>.regenie.Ydict of trait names.
+    `pre_header` (the gene-based ##MASKS= line) precedes each header.
     Returns (writers per trait, paths)."""
     gz = ".gz" if params.gz_out else ""
     if not params.split_by_pheno and not params.htp_out:
         path = f"{params.out_prefix}.regenie{gz}"
         fh = open_write(path, gz=params.gz_out)
+        fh.write(pre_header)
         fh.write(header_all(params))
         # Ydict maps trait numbers to names (print_summary,
         # Step2_Models.cpp:2655)
@@ -1431,6 +1484,7 @@ def setup_writers(params: Params, pheno_names: List[str], pheno_pass=None):
             continue
         path = f"{params.out_prefix}_{name}.regenie{gz}"
         fh = open_write(path, gz=params.gz_out)
+        fh.write(pre_header)
         fh.write(hdr)
         writers.append(fh)
         out_paths.append(path)
@@ -1631,8 +1685,9 @@ def _open_null_firth_out(params, eng, pd, log):
 
 
 def run_step2(params: Params, log=print, device=None) -> Step2Engine:
-    """Step 2 (QT, BT or CT) on a BED, PGEN or BGEN file: one output file per
-    trait, or one merged file (--no-split). `device` as in
+    """Step 2 (QT, BT, CT or T2E) on a BED, PGEN or BGEN file: one output
+    file per trait, or one merged file (--no-split); with --set-list the
+    gene-based tests (run_genebased). `device` as in
     utils.device.resolve_device (CUDA unless the CPU is asked for).
     Returns the engine, its output files closed and its genotype source
     open (the caller may score blocks again and closes it)."""
@@ -1647,6 +1702,10 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
         eng.null_firth_files = read_pred_list(params.use_null_firth)
     if params.write_null_firth and eng.is_bt and params.firth_approx:
         _open_null_firth_out(params, eng, pd, log)
+    if params.set_list:
+        from .run_genebased import run_genebased
+
+        return run_genebased(params, eng, log)
     params.total_n_block = len(blocks)
     log(f" * block size: [{params.block_size}]")
     log(usage_info_line(params))

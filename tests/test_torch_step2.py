@@ -119,7 +119,12 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.models.step1_bt, regenie_tpu_torch.models.step2_ct, "
         "regenie_tpu_torch.models.step2_t2e, regenie_tpu_torch.models.survival, "
         "regenie_tpu_torch.scripts.profile_fused, "
-        "regenie_tpu_torch.scripts.profile_bgen\n"
+        "regenie_tpu_torch.scripts.profile_bgen, "
+        "regenie_tpu_torch.run_genebased, regenie_tpu_torch.io.setfiles, "
+        "regenie_tpu_torch.io.bgzf, regenie_tpu_torch.io.remeta, "
+        "regenie_tpu_torch.models.masks, regenie_tpu_torch.models.skat, "
+        "regenie_tpu_torch.models.joint, regenie_tpu_torch.ops.vc_batch, "
+        "regenie_tpu_torch.utils.quadforms\n"
         "from regenie_tpu_torch.io import native\n"
         "lib = native.planes_lib()\n"
         "assert hasattr(lib, native.DOSAGES_SYMBOL)\n"
@@ -202,7 +207,10 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     ["bgen", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2", "--af-cc"],
     ["--t2e", "--phenoColList", "Y1", "--eventColList", "Y2", "--af-cc"],
     ["bgen", "--step", "1", "--print"], ["--interaction", "C1"], ["--mcc"],
-    ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt"],
+    # gene-based tests run since their slice; with a mode still missing
+    # they raise before reading a file
+    ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt",
+     "--mt", "--strict", "--no-split"],
     ["bgen", "--step", "1", "--select-l0", "f"], ["--compute-corr"],
     ["--step", "1", "--debug"], ["bgen", "--step", "1", "--prior-alpha", "0.5"],
     # BED and BGEN runs of modes no slice has ported yet
