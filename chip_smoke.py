@@ -172,6 +172,22 @@ CLI's entry point returned (run_cli_kept).
    50 files are well formed; printed: the wall, sets/s, the stage table,
    and the first bucket's VC products on the card (against their FP64
    bound) and on the CPU, within F64_SUM_BAR of each other.
+5e. interaction slice: on the gene slice's own BED (N = 400,000, P = 50,
+   K = 20), one CLI run of --interaction C1 on chromosome 1 (192
+   variants; 60% rare) at the default robust settings: the HLM null of
+   every trait (L-BFGS-B on the host, the objective on the card), HC3
+   robust chunks for the common SNPs and HLM chunks for those of MAC
+   below --rare-mac 1000, on the card in float64 (models/interaction.py;
+   no hand-written kernel launches: the counts set to 0 just before the
+   run and read just after); the 50 files well formed, both routes run;
+   printed: the wall, variants/s and a stage table. Then through the
+   run's engine: the robust chunk timed against its FP64 or byte bound,
+   4 of its SNPs and an HLM chunk on 3 traits card against CPU on the
+   card's inputs within the bars, and the HLM null of 2 traits again on
+   the CPU (numpy): both converged, objectives within rel 1e-8. BT
+   interaction timing: one fixed-shape chunk of the BT refits (two
+   masked IRLS passes) at N = 400,000 for 50 synthetic traits, timed; two
+   refits against the CPU.
 6. cross-check: small runs (N=2,000) through the port on the card (by
    default and with REGENIE_TPU_I8=0) and on the CPU, each with
    --remove: a BED --htp run, a two-chromosome BGEN --minINFO run (their
@@ -219,6 +235,17 @@ CLI's entry point returned (run_cli_kept).
    every row within the bar but the tails' rows of sets whose tails
    tail_verdict witnessed, which a CPU replay on the card's tail inputs
    must reproduce; and bucket 1 against 32 on the card, byte for byte.
+   Interaction tests (interaction_cross_check), card against the CPU's
+   per-SNP routes (REGENIE_TPU_NO_BATCH_INT=1): QT --interaction C1 (HC3
+   and the HLM), a categorical E3 with --no-condtl --print-vcov (the .vcov
+   files too), --force-hc4, --no-robust, GxG --interaction-snp from the
+   BED and from --interaction-file bgen, GxPRS --interaction-prs on the
+   two-step workflow's own _pred.list, BT --interaction with --firth
+   --approx and with --spa; no kernel launches. The Step-1 options
+   (step1_options_cross_check): --prior-alpha, --test-l0, --select-l0
+   FILE (LOOCV), --print (K-fold and --loocv) and BT --debug, .loco and
+   --print values within one unit of the sixth significant digit, the
+   --debug inputs the same bytes.
 
 After each phase a line gives the seconds since the start. The last
 lines of standard output are a JSON line with every kernel's numbers,
@@ -4065,6 +4092,439 @@ def gene_slice_phase(tmp):
     return counts
 
 
+# interaction tests at full width ([interaction slice]): GxE with the
+# gene slice's covariate C1 on its exome-like BED (60% rare: the HLM takes
+# the SNPs of MAC < --rare-mac 1000, the HC3 sandwich the others), the
+# default robust settings; the depth cut to chromosome 1 (192 variants),
+# never N, P or K
+INTERACTION = dict(chrom="1", evar="C1", bsize=192)
+INT_TESTS = ("ADD-CONDTL", "ADD-INT_SNP", "ADD-INT_SNPxC1", "ADD-INT_2DF")
+HLM_OBJ_REL = 1e-8  # L-BFGS-B stops on a relative decrease of ~2.2e-9
+
+
+def _check_int_file(path):
+    """A trait's file of a one-block interaction run: well formed
+    (_check_rows' header and fields), the block's marginal ADD-CONDTL rows
+    first (its SNPs past the MAC filter), then every tested SNP's three
+    interaction rows in order and in the marginal rows' SNP order.
+    Returns (marginal rows, SNPs with interaction rows)."""
+    rows = _read_text(path).splitlines()
+    head = rows[0].split()
+    _check_rows(path, len(rows) - 1)
+    iT = head.index("TEST")
+    tests = [r.split()[iT] for r in rows[1:]]
+    ids = [r.split()[2] for r in rows[1:]]
+    k = next((i for i, t in enumerate(tests) if t != INT_TESTS[0]), len(tests))
+    rest = tests[k:]
+    if INT_TESTS[0] in rest or len(rest) % 3 or any(
+            rest[i : i + 3] != list(INT_TESTS[1:]) for i in range(0, len(rest), 3)):
+        raise AssertionError(f"{path}: rows out of place")
+    got = ids[k::3]
+    order = {s: i for i, s in enumerate(ids[:k])}
+    if [order[s] for s in got] != sorted(order[s] for s in got):
+        raise AssertionError(f"{path}: interaction rows out of SNP order")
+    return k, got
+
+
+def _wald_bars(tau, V, tau_ref, V_ref):
+    """Largest share of the smoke's bars between two sets of coefficients
+    [..., nc] and covariances [..., nc, nc]: each coefficient's 1-df
+    LOG10P within LOG10P_TOL, the coefficient within BETA_TOL + 1e-5 of
+    its magnitude."""
+    from regenie_tpu_torch.utils.stats import chisq_neglog10
+
+    d, dr = np.diagonal(V, axis1=-2, axis2=-1), np.diagonal(V_ref, axis1=-2, axis2=-1)
+    lp, lpr = chisq_neglog10(tau**2 / d), chisq_neglog10(tau_ref**2 / dr)
+    return max(float((np.abs(lp - lpr) / LOG10P_TOL).max()),
+               float((np.abs(tau - tau_ref) / (BETA_TOL + 1e-5 * np.abs(tau_ref))).max()))
+
+
+def interaction_slice_phase(tmp):
+    """GxE at full width on the card: one CLI run of --interaction C1 on
+    the [gene slice]'s BED (N = 400,000, P = 50 of which 10 incomplete,
+    K = 20), chromosome 1, the default robust settings (HC3 for common
+    SNPs, the HLM below --rare-mac 1000), split output. No hand-written
+    kernel launches (the launch counts set to 0 just before the run and
+    read just after), both routes run (the log's counts), the 50 files
+    are well formed (_check_int_file). Then, through the run's engine:
+    the block's robust chunk (the run's fixed chunk size) timed on the
+    card against its FP64 or byte bound, and 4 of its SNPs, and an HLM
+    chunk of up to 8 rare SNPs on 3 traits (the card's null fits as
+    inputs on both sides), card against CPU within the smoke's bars
+    (_wald_bars); the HLM null of 2 traits fitted again on the CPU (the
+    numpy twin): both converged, objectives within HLM_OBJ_REL. Returns
+    the launches (all 0)."""
+    import torch
+    from types import SimpleNamespace
+
+    from regenie_tpu_torch.io.geno import make_blocks
+    from regenie_tpu_torch.models import interaction as pint
+
+    f = FULL
+    prefix = f"{tmp}/geno"
+    out = f"{tmp}/int"
+    argv = ["--step", "2", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--ignore-pred", "--chr",
+            INTERACTION["chrom"], "--bsize", str(INTERACTION["bsize"]),
+            "--interaction", INTERACTION["evar"], "--out", out]
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    params, eng, log = run_cli_kept(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"interaction run launched kernels: {counts}")
+    line = next(ln for ln in log if ln.startswith(" * interaction tests:"))
+    n_rob = int(line.split("robust ")[1].split()[0])
+    n_hlm = int(line.split("HLM ")[1].split()[0])
+    if not (n_rob > 0 and n_hlm > 0):
+        raise AssertionError(f"interaction run: both routes must run: {line}")
+    if "dense scorer on cuda" not in "\n".join(log):
+        raise AssertionError("interaction run: no dense route on cuda")
+    ic = eng.int_counts
+    loop_s = float(next(ln for ln in log if ln.startswith(" * block loop:"))
+                   .split(" in ")[1].rstrip("s"))
+    blocks = make_blocks(eng.gd, params.block_size)
+    M = sum(len(b) for _, b in blocks)
+    names = eng.pd.pheno_names
+    checked = [_check_int_file(f"{out}_{n}.regenie") for n in names]
+    n_marg = [k for k, _ in checked]
+    n_int = [len(g) for _, g in checked]
+    if min(n_int) == 0:
+        raise AssertionError("interaction run: a trait without interaction rows")
+    h = eng.interaction.hlm
+    fits = [x for x in h.fits if x is not None]
+    print(f"  interaction CLI run (--interaction C1, chr{INTERACTION['chrom']}, {M} "
+          f"variants): {len(names)} well-formed files, marginal rows per trait "
+          f"{min(n_marg)} to {max(n_marg)}, the SNPs with interaction rows "
+          f"{min(n_int)} to {max(n_int)}; robust {n_rob} SNPs, HLM {n_hlm} "
+          f"SNPs; launches: {len(counts)} kernels, 0 each")
+    print(f"  run wall time {wall:.2f}s = {M / wall:.2f} variants/s (run-up, HLM null "
+          f"fits and output included) on {card_line()}")
+    other = loop_s - eng.hlm_null_s - ic["robust_s"] - ic["hlm_s"] - ic["rows_s"]
+    for stage, secs in (("run-up and after the loop (wall - block loop)", wall - loop_s),
+                        (f"HLM null fits ({len(fits)} traits, L-BFGS-B on the host, "
+                         f"{sum(x[3] for x in fits)} objective evaluations on the card)",
+                         eng.hlm_null_s),
+                        ("robust batches (HC3 sandwich, card)", ic["robust_s"]),
+                        ("HLM batches (card)", ic["hlm_s"]),
+                        ("mixed-block rows (Python)", ic["rows_s"]),
+                        ("the rest of the block loop (read, marginal scores and rows)",
+                         other)):
+        print(f"  stage {stage}: {secs:.3f}s")
+
+    # the block again through the run's engine
+    chrom, bsnps = blocks[0]
+    eng.prep_chrom(chrom)
+    result, _ = eng.test_raw_block(eng.upload_dense(eng.read_block_dense(bsnps), bsnps),
+                                   bsnps)
+    G, Gr = eng.last_G_imputed, eng.last_G_int
+    mac = result.af_t * 2 * result.ns_t
+    mac = np.minimum(mac, 2 * result.ns_t - mac)
+    rare = (mac < params.rare_mac_inter).any(axis=1) & ~result.ignored
+    rob = np.flatnonzero(~rare & ~result.ignored)
+    S = eng._int_chunks["robust"]
+    chunk = list(rob[:S]) + [rob[min(S, len(rob)) - 1]] * max(0, S - len(rob))
+    c = pint.RobustConsts(eng)
+    idx = torch.as_tensor(chunk, device=G.device)
+    sd = float(params.n_analyzed - eng.pd.new_cov.shape[1])
+    ms, outs = _events_ms(lambda: pint.robust_batch(G[idx], Gr[idx], c.E, c.E_res, c.cov,
+                                                   c.res, c.maskf, sd, False), 5)
+    N, P = G.shape[1], c.res.shape[1]
+    Ki, C = c.E.shape[1], c.cov.shape[1]
+    nc = c.E_res.shape[1] + 1 + Ki
+    ops = S * N * (4.0 * Ki * C + 4 * nc * nc + nc + P * (4.0 * nc + 2 * nc * nc + 4))
+    nbytes = 8.0 * (2 * S * N + N * (Ki + c.E_res.shape[1] + C) + 2 * N * P)
+    bound_ms, bound_by = _bound(ops, nbytes, PEAK_FP64_TC_OPS)
+    print(f"  robust chunk ({S} SNPs, the run's fixed shape; N={N}, P={P}, nc={nc}): "
+          f"card {ms:.3f} ms (median of 5) against its bound {bound_ms:.3f} ms "
+          f"({bound_by}: {ops:.3e} FP64 operations, {nbytes / 1e9:.3f} GB)")
+    host = [o.cpu().numpy() for o in outs]
+    cpu = [o.numpy() for o in pint.robust_batch(
+        G[idx[:4]].cpu(), Gr[idx[:4]].cpu(), c.E.cpu(), c.E_res.cpu(), c.cov.cpu(),
+        c.res.cpu(), c.maskf.cpu(), sd, False)]
+    tau, V3 = host[3][:4].transpose(0, 2, 1), host[4][:4]
+    worst_r = _wald_bars(tau, V3, cpu[3].transpose(0, 2, 1), cpu[4])
+    hl = np.flatnonzero(rare)[:8]
+    gh = G[torch.as_tensor(hl, device=G.device)]
+    Vlin = torch.as_tensor(h.Vlin, device=G.device)
+    worst_h = 0.0
+    for ph in (0, 1, f["P"] - 1):
+        args = tuple(torch.as_tensor(a, device=G.device) for a in (
+            Vlin[None] * gh[:, :, None], h.Dinv_sqrt[:, ph], h.Px[ph], h.yres[:, ph]))
+        hm, (Dm, Vm, bh) = _events_ms(lambda: pint.hlm_batch(*args), 3)
+        Dc, Vc, bc = (x.numpy() for x in pint.hlm_batch(*(a.cpu() for a in args)))
+        worst_h = max(worst_h, _wald_bars(bh.cpu().numpy(), Vm.cpu().numpy(), bc, Vc))
+    print(f"  card against CPU on the card's inputs (the CPU given the card's null "
+          f"fits): 4 SNPs of the robust chunk x {P} traits, largest share of the bars "
+          f"{worst_r:.3e}; an HLM chunk of {len(hl)} rare SNPs x 3 traits "
+          f"({hm:.3f} ms a trait on the card), {worst_h:.3e}")
+    if not (worst_r <= 1.0 and worst_h <= 1.0):
+        raise AssertionError("interaction chunks: card against CPU beyond the bars")
+
+    # the HLM null of two traits again on the CPU (the numpy twin)
+    pd, st = eng.pd, eng.interaction
+    sel = np.zeros(f["P"], bool)
+    sel[[0, f["P"] - 1]] = True
+    st2 = pint.InteractionState(E=st.E, hlm=pint._hlm_prep(params, pd, st))
+    pdv = SimpleNamespace(phenotypes=pd.phenotypes, pheno_pass=sel, Neff=pd.Neff,
+                          masked_indivs=pd.masked_indivs, new_cov=pd.new_cov)
+    t0 = time.time()
+    pint.hlm_fit_null(params, pdv, st2, None, print, None)
+    cpu_s = time.time() - t0
+    for ph in np.flatnonzero(sel):
+        a, b = h.fits[ph], st2.hlm.fits[ph]
+        gap = abs(a[0] - b[0]) / abs(b[0])
+        dd = float(np.abs(np.asarray(torch.as_tensor(h.Dinv_sqrt[:, ph]).cpu())
+                          - st2.hlm.Dinv_sqrt[:, ph]).max())
+        print(f"  HLM null of {pd.pheno_names[ph]}: card objective {a[0]:.12g} ({a[2]} "
+              f"iterations, {a[3]} evaluations), CPU {b[0]:.12g} ({b[2]}, {b[3]}); "
+              f"relative gap {gap:.3e}, largest |dDinv_sqrt| {dd:.3e}")
+        if not (a[1] and b[1] and gap <= HLM_OBJ_REL):
+            raise AssertionError(f"HLM null of {pd.pheno_names[ph]}: card {a}, CPU {b}")
+    print(f"  the CPU's two HLM null fits took {cpu_s:.2f}s; the card's {len(fits)} "
+          f"took {eng.hlm_null_s:.2f}s")
+    eng.gd.close()
+    return counts
+
+
+def bt_interaction_real_depth(dev):
+    """The BT interaction refits alone at full width: one fixed-shape chunk
+    (the engine's BT chunk size) of bt_design and bt_trait_fit (the two
+    masked IRLS passes, the weighted Gram's eigh) on synthetic data at
+    N = 400,000 for P = 50 traits (prevalence 5-30%, null offsets from
+    the covariates), timed on the card; two (SNP, trait) refits held
+    against the CPU twin (flags equal, coefficients within BETA_TOL +
+    1e-5 of their magnitude)."""
+    import torch
+
+    from regenie_tpu_torch.models import interaction as pint
+
+    f = FULL
+    N, P, K = f["N"], f["P"], f["K"]
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    C = 2  # [G, GxE] in the conditional mode
+    S = int(min(256, max(1, free / 10 / (8.0 * N * C * 8))))
+    cov = torch.linalg.qr(torch.cat([torch.ones(N, 1, dtype=torch.float64, device=dev),
+                                     randn(N, K - 1)], 1))[0]
+    E = randn(N, 1)
+    af = 0.02 + 0.48 * rand(S, 1)
+    g = (rand(S, N) < af).to(torch.float64) + (rand(S, N) < af).to(torch.float64)
+    prev = torch.linspace(0.05, 0.3, P, dtype=torch.float64, device=dev)
+    off = (cov @ (0.3 * randn(K, P))) + torch.log(prev / (1 - prev))[None, :]
+    Y = (rand(N, P) < torch.sigmoid(off)).to(torch.float64)
+    mf = torch.ones(N, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    H, _, _ = pint.bt_design(g, cov, E, torch.zeros(N, 0, dtype=torch.float64,
+                                                       device=dev), N - K)
+    torch.cuda.synchronize()
+    design_s = time.time() - t0
+    per, ok_n, fits = [], 0, {}
+    for ph in range(P):
+        t0 = time.time()
+        b, ok, Dmin, Vmat, _, _ = pint.bt_trait_fit(H, Y[:, ph], off[:, ph], mf, 30, 1e-6)
+        torch.cuda.synchronize()
+        per.append(time.time() - t0)
+        ok_n += int(ok.sum())
+        if ph in (0, P - 1):
+            fits[ph] = (b.cpu().numpy(), ok.cpu().numpy())
+    print(f"  BT interaction refits at N={N}, P={P}: a chunk of {S} SNPs (the engine's "
+          f"fixed BT shape), design {design_s:.3f}s, the two IRLS passes and the eigh "
+          f"{sum(per):.3f}s for {P} traits ({1e3 * np.mean(per):.1f} ms a trait, "
+          f"{1e3 * max(per):.1f} ms the slowest); {ok_n} of {S * P} refits converged; "
+          f"on {card_line()}")
+    worst = 0.0
+    for ph, s in ((0, 0), (P - 1, S - 1)):
+        Hc, _, _ = pint.bt_design(g[s : s + 1].cpu(), cov.cpu(), E.cpu(),
+                                  torch.zeros(N, 0, dtype=torch.float64), N - K)
+        b, ok, *_ = pint.bt_trait_fit(Hc, Y[:, ph].cpu(), off[:, ph].cpu(), mf.cpu(),
+                                      30, 1e-6)
+        bg, okg = fits[ph][0][s], fits[ph][1][s]
+        if bool(ok[0]) != bool(okg):
+            raise AssertionError(f"BT refit (SNP {s}, trait {ph}): flags differ")
+        worst = max(worst, float((np.abs(bg - b[0].numpy())
+                                  / (BETA_TOL + 1e-5 * np.abs(b[0].numpy()))).max()))
+    print(f"  BT refits card against CPU on 2 (SNP, trait) pairs: flags equal, largest "
+          f"share of the coefficient bar {worst:.3e}")
+    if not worst <= 1.0:
+        raise AssertionError("BT interaction refits: card against CPU beyond the bar")
+
+
+def _vcov_close(a_dir, a_prefix, b_prefix):
+    """Every .vcov file of the card's run against the CPU's: the same
+    files, every entry within BETA_TOL + 1e-5 of its magnitude. Returns
+    the file count."""
+    import glob
+
+    got = sorted(glob.glob(f"{a_prefix}_*.vcov"))
+    want = sorted(glob.glob(f"{b_prefix}_*.vcov"))
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"--print-vcov: {len(got)} files on the card, {len(want)} "
+                             "on the CPU")
+    for fa in got:
+        a, b = np.loadtxt(fa), np.loadtxt(fa.replace(a_prefix, b_prefix))
+        if a.shape != b.shape or (np.abs(a - b) > BETA_TOL + 1e-5 * np.abs(b)).any():
+            raise AssertionError(f"{fa}: differs beyond the bar")
+    return len(got)
+
+
+def interaction_cross_check(tmp, prefix, P, sub, geno):
+    """Interaction runs at N=2,000 (--remove; chromosome 2, 200 variants)
+    on the card and on the CPU, every field within its bar: QT --interaction on the continuous C1 (HC3
+    and the HLM), on a categorical E3 with --no-condtl --print-vcov (the
+    .vcov files too), --force-hc4, --no-robust; GxG --interaction-snp from
+    the BED and from --interaction-file bgen; GxPRS --interaction-prs on
+    the two-step workflow's own _pred.list; BT --interaction with --firth
+    --approx and with --spa. The CPU runs take the per-SNP routes
+    (REGENIE_TPU_NO_BATCH_INT=1): the oracle of the card's batched ones,
+    rows in the same order; but with --print-vcov, where the card writes
+    a mixed block's HLM rows before its robust ones as the JAX package's
+    batched route does, the CPU keeps its default routing, which writes
+    them so. No kernel launches on the card."""
+    rng = np.random.default_rng(13)
+    lines = open(f"{tmp}/covar.txt").read().splitlines()
+    lv = rng.choice(["a", "b", "c"], size=len(lines) - 1, p=[0.5, 0.3, 0.2])
+    with open(f"{tmp}/covar_cat.txt", "w") as fh:
+        fh.write(lines[0] + " E3\n" + "".join(f"{ln} {v}\n" for ln, v in
+                                                zip(lines[1:], lv)))
+    split = [f"_Y{p + 1}.regenie" for p in range(P)]
+    runs = {
+        "QT --interaction C1": (["--interaction", "C1"], split),
+        "QT categorical E3 --no-condtl --print-vcov": (
+            ["--interaction", "E3", "--catCovarList", "E3", "--covarFile",
+             f"{tmp}/covar_cat.txt", "--no-condtl", "--print-vcov"], split),
+        "QT --interaction C1 --force-hc4": (["--interaction", "C1", "--force-hc4"], split),
+        "QT --interaction C1 --no-robust": (["--interaction", "C1", "--no-robust"], split),
+        "GxG --interaction-snp": (["--interaction-snp", "v450"], split),
+        "GxG --interaction-file bgen": (
+            ["--interaction-snp", "v450", "--interaction-file", f"bgen,{geno['bgen']}",
+             "--interaction-file-sample", f"{sub['bgen']}/geno.sample"], split),
+        "GxPRS --interaction-prs": (
+            ["--interaction-prs", "--phenoColList", "Y1", "--pred",
+             f"{tmp}/ts_kfold_cpu_pred.list"], ["_Y1.regenie"]),
+        "BT --interaction C1 --firth --approx": (
+            ["--bt", "--interaction", "C1", "--firth", "--approx"], split),
+        "BT --interaction C1 --spa": (["--bt", "--interaction", "C1", "--spa"], split),
+    }
+    for i, (what, (args, outs)) in enumerate(runs.items()):
+        table = "pheno_bt.txt" if "--bt" in args else "pheno.txt"
+        cov = [] if "--covarFile" in args else ["--covarFile", f"{tmp}/covar.txt"]
+        pred = [] if "--pred" in args else ["--ignore-pred"]
+        common = ["--step", "2", "--bed", prefix, "--phenoFile", f"{tmp}/{table}", *cov,
+                  "--remove", f"{tmp}/remove.txt", *pred, "--bsize", "256", "--chr", "2",
+                  *args]
+        gpu, cpu = f"{tmp}/int{i}_gpu", f"{tmp}/int{i}_cpu"
+        os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        _reset_counts()
+        run_cli(common + ["--out", gpu])
+        counts = _read_counts()
+        if any(counts.values()):
+            raise AssertionError(f"{what}: kernels launched: {counts}")
+        log = open(gpu + ".log").read()
+        ln = next(x for x in log.splitlines() if x.startswith(" * interaction tests:"))
+        os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
+        if "--print-vcov" not in args:
+            os.environ["REGENIE_TPU_NO_BATCH_INT"] = "1"
+        try:
+            run_cli(common + ["--out", cpu])
+        finally:
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
+            os.environ.pop("REGENIE_TPU_NO_BATCH_INT", None)
+        worst = max(_compare_files(gpu + o, cpu + o) for o in outs)
+        rows = len(_read_text(cpu + outs[0]).splitlines()) - 1
+        vc = (f"; {_vcov_close(tmp, gpu, cpu)} .vcov files within the bar"
+              if "--print-vcov" in args else "")
+        routes = ln.split(": ", 1)[1].split("; HLM null")[0].split(", mixed")[0]
+        print(f"  {what}: card vs CPU, {len(outs)} traits x {rows} rows: every field "
+              f"within its bar (largest share of the bar used {worst:.3f}){vc}; "
+              f"card routes: {routes}")
+
+
+def step1_options_cross_check(tmp, prefix, P):
+    """The Step-1 options at N=2,000 (--remove) on the card and on the
+    CPU: --prior-alpha 0.5, --test-l0 (K-fold), --select-l0 FILE
+    (LOOCV), --print (K-fold and --loocv, one trait) and --debug on binary
+    traits (LOOCV below 5,000 samples); every .loco value and every number
+    of the --print files within one unit of its sixth significant digit,
+    the --debug inputs (_y.txt, _x.txt, _offset.txt) the same bytes. No
+    kernel launches."""
+    nb = 6  # 600 variants in blocks of 100
+    rng = np.random.default_rng(14)
+    pv = rng.uniform(0.0, 1.0, size=(nb, P))
+    pv[2] = 8.0
+    with open(f"{tmp}/l0_pv.txt", "w") as fh:
+        for b in range(nb):
+            fh.write(f"{1 if b < 4 else 2} {b + 1} " + " ".join(f"{x:.6f}" for x in pv[b])
+                     + "\n")
+    runs = {
+        "--prior-alpha 0.5": (["--prior-alpha", "0.5"], "pheno.txt", [], P),
+        "--test-l0": (["--test-l0", "--l0-pval-thr", "0.01"], "pheno.txt", [], P),
+        "--select-l0 FILE --loocv": (["--select-l0", f"{tmp}/l0_pv.txt", "--loocv"],
+                                     "pheno.txt", [], P),
+        "--print (K-fold)": (["--print", "--phenoColList", "Y1"], "pheno.txt",
+                             ["_level1.betas"], 1),
+        "--print --loocv": (["--print", "--phenoColList", "Y1", "--loocv"], "pheno.txt",
+                            ["_step1_betas.txt"], 1),
+        "BT --debug": (["--bt", "--debug"], "pheno_bt.txt",
+                       ["_y.txt", "_x.txt", "_offset.txt"], P),
+    }
+    for i, (what, (args, table, files, n)) in enumerate(runs.items()):
+        common = ["--step", "1", "--bed", prefix, "--phenoFile", f"{tmp}/{table}",
+                  "--covarFile", f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt",
+                  "--bsize", "100", *args]
+        gpu, cpu = f"{tmp}/s1o{i}_gpu", f"{tmp}/s1o{i}_cpu"
+        os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        _reset_counts()
+        run_cli(common + ["--out", gpu])
+        if any(_read_counts().values()):
+            raise AssertionError(f"Step 1 {what}: kernels launched")
+        os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
+        try:
+            run_cli(common + ["--out", cpu])
+        finally:
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE")
+        ndiff, worst = 0, 0.0
+        for p in range(n):
+            nd, w = _compare_loco(f"{gpu}_{p + 1}.loco", f"{cpu}_{p + 1}.loco")
+            ndiff, worst = ndiff + nd, max(worst, w)
+        extra = []
+        for suf in files:
+            a, b = open(gpu + suf, "rb").read(), open(cpu + suf, "rb").read()
+            if suf.startswith("_") and suf.endswith(".txt") and "betas" not in suf:
+                if a != b:
+                    raise AssertionError(f"Step 1 {what}: {suf} differs")
+                extra.append(f"{suf} the same bytes")
+                continue
+            ta, tb = a.decode().split(), b.decode().split()
+            if len(ta) != len(tb):
+                raise AssertionError(f"Step 1 {what}: {suf} differs in shape")
+            w = 0.0
+            for xa, xb in zip(ta, tb):
+                if xa != xb:
+                    w = max(w, _sig6_excess(xa, xb))
+            if w > 1 + 1e-9:
+                raise AssertionError(f"Step 1 {what}: {suf} beyond one unit of the "
+                                     "sixth significant digit")
+            extra.append(f"{suf} within {w:.3f} units")
+        log = open(gpu + ".log").read()
+        note = ("; top SNPs picked" if "top SNPs per trait" in log else
+                "; blocks selected" if "blocks selected" in log else "")
+        print(f"  Step 1 {what}: card vs CPU, {n} .loco files ({ndiff} values differ, "
+              f"at most {worst:.3f} units of the sixth significant digit)"
+              + "".join(f"; {e}" for e in extra) + note)
+
+
 # what the tails of a gene-based run may move: the VC tests' inputs (score
 # products, calibrations, the SKAT/SKATO inputs) must agree within
 # TAIL_INPUT_BAR of their largest entry; a tails call whose results differ
@@ -4917,6 +5377,10 @@ def cross_check_phase(tmp):
                   f"variants: every field within its bar (largest share of the "
                   f"bar used {worst:.3f}){firth}")
     two_step_cross_check(tmp, ["--bed", prefix], P)
+    # interaction tests (GxPRS on the K-fold run's own _pred.list) and the
+    # Step-1 options
+    interaction_cross_check(tmp, prefix, P, sub, geno)
+    step1_options_cross_check(tmp, prefix, P)
     two_step_cross_check(sub["pgen"], ["--pgen", geno["pgen"]], P,
                          modes=(("K-fold", []),), what=" on PGEN")
     two_step_cross_check(sub["bgen"], ["--bgen", geno["bgen"], "--sample",
@@ -5098,9 +5562,16 @@ def main() -> int:
         tmp = data.get("gene")
         print("[gene slice]")
         gene_slice_phase(tmp)
-        shutil.rmtree(tmp)
         _free()
         _phase_time("gene slice", t_all)
+        print("[interaction slice]")
+        interaction_slice_phase(tmp)
+        shutil.rmtree(tmp)
+        _free()
+        print("[bt interaction timing]")
+        bt_interaction_real_depth(dev)
+        _free()
+        _phase_time("interaction slice", t_all)
     finally:
         data.close()
         root.cleanup()

@@ -3,8 +3,8 @@ takes the same flags as `python -m regenie_tpu` (the reference's flag
 surface, src/Regenie.cpp:146-458). build_parser and args_to_params are
 the port's copies of regenie_tpu/cli.py's; main runs the modes the port
 has (Step 1 and Step 2 on quantitative, binary, count and time-to-event
-traits, and Step 2's gene-based tests, on PLINK BED, PGEN and BGEN) and
-raises NotImplementedError for every other one (unported).
+traits, Step 2's gene-based and interaction tests, on PLINK BED, PGEN
+and BGEN) and raises NotImplementedError for every other one (unported).
 
 The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 """
@@ -838,7 +838,6 @@ def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
     None. Every such mode raises NotImplementedError before any work."""
     common = (
-        (bool(params.interaction_var), "interaction tests"),
         (params.trait_set, "multi-trait tests (--mt)"),
         (params.multiphen, "MultiPhen (--multiphen)"),
         (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
@@ -850,11 +849,6 @@ def unported(params: Params) -> Optional[str]:
     if params.step == 1:
         checks = (
             *common,
-            (params.debug, "Step 1 with --debug"),
-            (params.test_l0, "--test-l0"),
-            (params.select_l0, "--select-l0"),
-            (params.print_block_betas, "--print"),
-            (params.alpha_prior != -1, "--prior-alpha"),
             # the JAX package's sample-sharded level 0 (parallel/mesh.py)
             (bool(os.environ.get("REGENIE_TPU_MESH")
                   or os.environ.get("REGENIE_TPU_MESH_2D")),
@@ -902,6 +896,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         except Exception as e:
             log(f"ERROR: {e}")
             raise
+        if params.debug:
+            from .utils.stats import peak_rss_line
+
+            log(peak_rss_line())
         log(f"Elapsed time : {time.time()-t0:.5g}s")
         log("End time: " + time.strftime("%a %b %d %H:%M:%S %Y"))
     return 0

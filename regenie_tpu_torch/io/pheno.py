@@ -276,18 +276,28 @@ def read_covariates(
     params: Params,
     sample_index: Dict[str, int],
     pheno_names: List[str],
-) -> Tuple[np.ndarray, np.ndarray]:
+) -> tuple:
     """Read covariates -> design matrix [N, 1+C] with intercept + dummies.
 
     Reference covariate_read (Pheno.cpp:573): categorical covariates are
     dummy-coded with first-seen level as baseline; individuals with any
     missing covariate are dropped from the analysis.
-    Returns (new_cov, ind_in_cov, the design's column names).
+    The --interaction covariate is kept apart from the design
+    (covariate_read, Pheno.cpp:673-700): a column [N, 1], or for a
+    categorical one its dummies [N, L - 1] and their level names.
+    Returns (new_cov, ind_in_cov, the design's column names, the
+    interaction covariate as (matrix, is categorical, level names) or
+    None).
     """
     n = params.n_samples
+    inter_name = (params.interaction_var
+                  if (params.interaction_var and not params.interaction_snp
+                      and not params.interaction_prs) else None)
     if not params.cov_file:
+        if inter_name is not None:
+            raise ValueError("cannot find the interaction covariate in the covariate file")
         return (np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool),
-                ["Intercept"])
+                ["Intercept"], None)
 
     with open_read(params.cov_file) as fh:
         header = string_split(fh.readline())
@@ -305,6 +315,7 @@ def read_covariates(
                 keep_cols[i] = (
                     (name in params.cov_cols)
                     or (name in params.cat_cov_cols)
+                    or (name == inter_name)
                 )
             if name in pheno_names:
                 keep_cols[i] = False
@@ -313,8 +324,11 @@ def read_covariates(
         names = [nm for nm, k in zip(all_names, keep_cols) if k]
         n_cov = len(names)
         if n_cov == 0:
+            if inter_name is not None:
+                raise ValueError("cannot find the interaction covariate in the "
+                                 "covariate file")
             return (np.ones((n, 1), dtype=np.float64), np.ones(n, dtype=bool),
-                    ["Intercept"])
+                    ["Intercept"], None)
 
         tok = _table_tokens(fh, 2 + len(all_names), "covariate")
 
@@ -352,11 +366,23 @@ def read_covariates(
 
     X *= ind_in_cov[:, None]
 
-    # build design: intercept + quantitative cols + dummies for categorical
-    # (covariate_read, Pheno.cpp:673-700)
+    # build design: intercept + quantitative cols + dummies for categorical;
+    # the interaction covariate stays apart (covariate_read,
+    # Pheno.cpp:673-700)
     cols = [np.ones(n, dtype=np.float64)]
     col_names = ["Intercept"]
+    inter = None
     for ic, nm in enumerate(names):
+        if nm == inter_name:
+            if is_cat[nm]:
+                nd = int(X[:, ic].max())
+                lv = sorted(cat_maps[nm], key=cat_maps[nm].get)
+                inter = (np.stack([(X[:, ic] == lev).astype(np.float64)
+                                   for lev in range(1, nd + 1)], axis=1),
+                         True, lv[1:])
+            else:
+                inter = (X[:, ic : ic + 1].copy(), False, [nm])
+            continue
         if not is_cat[nm]:
             cols.append(X[:, ic])
             col_names.append(nm)
@@ -369,7 +395,9 @@ def read_covariates(
             for lev in range(1, nd + 1):
                 cols.append((X[:, ic] == lev).astype(np.float64))
                 col_names.append(f"{nm}={lv[lev]}" if lev < len(lv) else f"{nm}={lev}")
-    return np.column_stack(cols), ind_in_cov, col_names
+    if inter_name is not None and inter is None:
+        raise ValueError("cannot find the interaction covariate in the covariate file")
+    return np.column_stack(cols), ind_in_cov, col_names, inter
 
 
 def set_masks(params: Params, pd: PhenoData, ind_in_analysis: np.ndarray) -> None:

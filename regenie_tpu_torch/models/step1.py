@@ -14,7 +14,11 @@ the FP64 tensor cores, batched `torch.linalg.eigh`):
   block and closed-form leave-one-out predictions, batched over a group
   of blocks.
 - level-1 linear ridge, K-fold (:772) and LOOCV (:875), and the LOOCV
-  whole-data refit (make_predictions_loocv, Data.cpp:1269).
+  whole-data refit (make_predictions_loocv, Data.cpp:1269), with
+  --select-l0's per-column penalties and --test-l0's top-SNP PGS;
+- --print's per-SNP level-0 betas (level0_loocv_block_betas), and on the
+  host in numpy --select-l0's block selection (check_l0_selection) and
+  --test-l0's top-SNP pre-screen (test_l0_block).
 
 Every loop of the reference over folds, ridge parameters and samples is
 a tensor axis; folds are padded to a common size so one batched product
@@ -207,6 +211,28 @@ def level0_loocv_block(G, Y, mask, lambdas, Neff):
     return level0_loocv_blocks(G[None], Y, mask, lambdas, Neff)[0]
 
 
+def level0_loocv_block_betas(G, Y, mask, lambdas, Neff):
+    """level0_loocv_block and, for --print, the block's per-SNP level-0
+    betas of the first trait (beta_snp_step1 capture,
+    Step1_Models.cpp:644, standardized like W as at :713). Returns (W
+    [N, J, P], beta_snp [B, J] on the scaled-genotype scale)."""
+    d, V = torch.linalg.eigh(G @ G.T)
+    Wmat = V.T @ (G @ Y)  # [B, P]
+    DL_inv = 1.0 / (d[:, None] + lambdas[None, :])  # [B, J]
+    beta_snp = V @ (DL_inv * Wmat[:, :1])  # [B, J]
+    W = level0_loocv_block(G, Y, mask, lambdas, Neff)
+    # the first trait's prediction sd within the block, as W's scaling
+    VtG = V.T @ G
+    gvec = (VtG * VtG).T @ DL_inv  # [N, J]
+    z2t = VtG.T @ (DL_inv * Wmat[:, :1])  # [N, J]
+    pred = (z2t - gvec * Y[:, :1]) / (1.0 - gvec)
+    m = mask[:, :1]
+    pred = pred * m
+    pred = (pred - pred.sum(dim=0) / Neff[0]) * m
+    p_sd = torch.sqrt((pred * pred).sum(dim=0) / (Neff[0] - 1.0))
+    return W, beta_snp / p_sd[None, :]
+
+
 # ---------------------------------------------------------------------------
 # level 1 (linear / QT)
 # ---------------------------------------------------------------------------
@@ -221,19 +247,22 @@ def _ridge_inv(d, taus, ridge_mult):
 
 
 def level1_linear_kfold(W_folds, Y_folds, valid, taus,
-                        ridge_mult: Optional[torch.Tensor] = None):
+                        ridge_mult: Optional[torch.Tensor] = None, pgs_folds=None):
     """Level-1 linear ridge with K-fold CV for ONE phenotype
     (ridge_level_1, Step1_Models.cpp:772-870).
 
     W_folds: [K, nmax, F] level-0 predictions by fold (F = blocks*J)
     Y_folds: [K, nmax] residualized phenotype by fold
     valid: [K, nmax] padding mask; taus: [T] ridge penalties
-    ridge_mult: [F] per-column penalty multiplier
+    ridge_mult: [F] per-column penalty multiplier (--select-l0)
+    pgs_folds: [K, nmax] --test-l0's top-SNP PGS, removed from the response
     Returns (beta [K, T, F] per-fold solutions, cumsum [5, T] CV metrics
-    Sx, Sy, Sx2, Sy2, Sxy over held-out folds).
+    Sx, Sy, Sx2, Sy2, Sxy over held-out folds[, cumsum_full [5, T] with
+    the PGS added back, against the original response]).
     """
     Wv = W_folds * valid[:, :, None]
-    Yv = Y_folds * valid
+    Yv_orig = Y_folds * valid
+    Yv = (Y_folds - pgs_folds) * valid if pgs_folds is not None else Yv_orig
     XtX_f = Wv.transpose(1, 2) @ Wv  # [K, F, F]
     XtY_f = (Wv.transpose(1, 2) @ Yv[:, :, None])[..., 0]  # [K, F]
     d, V = torch.linalg.eigh(XtX_f.sum(dim=0)[None] - XtX_f)
@@ -248,30 +277,47 @@ def level1_linear_kfold(W_folds, Y_folds, valid, taus,
     Sx2 = (p1 * p1).sum(dim=(0, 1))
     Sy2 = (Yv * Yv).sum().expand_as(Sx)
     Sxy = (p1 * Yv[:, :, None]).sum(dim=(0, 1))
-    return beta, torch.stack([Sx, Sy, Sx2, Sy2, Sxy])
+    cs = torch.stack([Sx, Sy, Sx2, Sy2, Sxy])
+    if pgs_folds is None:
+        return beta, cs
+    pf = p1 + (pgs_folds * valid)[:, :, None]
+    return beta, cs, torch.stack([
+        pf.sum(dim=(0, 1)), Yv_orig.sum().expand_as(Sx), (pf * pf).sum(dim=(0, 1)),
+        (Yv_orig * Yv_orig).sum().expand_as(Sx), (pf * Yv_orig[:, :, None]).sum(dim=(0, 1))])
 
 
 def level1_linear_loocv(W, Y, taus, neff_m_ncov: float,
-                        ridge_mult: Optional[torch.Tensor] = None):
+                        ridge_mult: Optional[torch.Tensor] = None, pgs=None):
     """Level-1 linear ridge LOOCV for ONE phenotype
     (ridge_level_1_loocv, Step1_Models.cpp:875-962).
 
     W: [N, F]; Y: [N]; taus: [T]; neff_m_ncov: Neff - ncov (for Sy2);
-    ridge_mult: [F] per-column penalty multiplier.
-    Returns cumsum [5, T] metrics (Sy = 0 by centring; Sy2 = neff - ncov).
+    ridge_mult: [F] per-column penalty multiplier (--select-l0); pgs: [N]
+    --test-l0's top-SNP PGS removed from the response (Step1_Models.cpp:914).
+    Returns cumsum [5, T] metrics (Sy = 0 by centring; Sy2 = neff - ncov,
+    or with pgs the sum of squares of Y - pgs, no longer standardized,
+    :946), plus cumsum_full [5, T] against Y with the PGS added back when
+    pgs is given.
     """
+    Yfit = Y - pgs if pgs is not None else Y
     d, V = torch.linalg.eigh(W.T @ W)
-    zvec = V.T @ (W.T @ Y)  # [F]
+    zvec = V.T @ (W.T @ Yfit)  # [F]
     tmp = W @ V  # [N, F]
     inv = _ridge_inv(d, taus, ridge_mult)  # [T, F]
     cal = (tmp * tmp) @ inv.T  # [N, T]
     pred = tmp @ (inv * zvec[None, :]).T  # [N, T]
-    pred = (pred - cal * Y[:, None]) / (1.0 - cal)
+    pred = (pred - cal * Yfit[:, None]) / (1.0 - cal)
     Sx = pred.sum(dim=0)
     Sx2 = (pred * pred).sum(dim=0)
-    Sxy = (pred * Y[:, None]).sum(dim=0)
-    return torch.stack([Sx, torch.zeros_like(Sx), Sx2,
-                        torch.full_like(Sx, neff_m_ncov), Sxy])
+    Sxy = (pred * Yfit[:, None]).sum(dim=0)
+    Sy2 = (torch.full_like(Sx, neff_m_ncov) if pgs is None
+           else (Yfit * Yfit).sum().expand_as(Sx))
+    cs = torch.stack([Sx, torch.zeros_like(Sx), Sx2, Sy2, Sxy])
+    if pgs is None:
+        return cs
+    pf = pred + pgs[:, None]
+    return cs, torch.stack([pf.sum(dim=0), Y.sum().expand_as(Sx), (pf * pf).sum(dim=0),
+                            (Y * Y).sum().expand_as(Sx), (pf * Y[:, None]).sum(dim=0)])
 
 
 def level1_linear_full_fit_loocv(W, Y, tau: float,
@@ -307,3 +353,139 @@ def cv_rsq(cumsum: np.ndarray, neff: float) -> np.ndarray:
     num = Sxy - Sx * Sy / neff
     den = (Sx2 - Sx**2 / neff) * (Sy2 - Sy**2 / neff)
     return num**2 / den
+
+
+# ---------------------------------------------------------------------------
+# level-0 selection and the top-SNP pre-screen (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def check_l0_selection(params, pv, log, silent=False):
+    """--select-l0 / --rm-l0-pct level-0 block selection for one trait
+    (check_l0, Step1_Models.cpp:1989-2065).
+
+    pv: [NB] -log10 p per level-0 block (larger = stronger association).
+    Returns (colkeep [NB*J] bool, ridge_mult [NB*J]): with --rm-l0-pct
+    the least significant x% of blocks lose all their J predictors;
+    otherwise strongly-associated blocks (Beta order-statistic outliers)
+    keep only their min-shrinkage column, unpenalized (mult=0).
+    """
+    J = params.n_ridge_l0
+    NB = len(pv)
+    colkeep = np.ones(NB * J, dtype=bool)
+    mult = np.ones(NB * J)
+    qv = np.sort(np.asarray(pv, dtype=np.float64))
+    if not silent:
+        log("   -checking level 0 predictors for strength of associations "
+            "with phenotype...")
+    if params.rm_l0_pct != 0:
+        n_rm = int(NB * (params.rm_l0_pct / 100.0))
+        if n_rm >= NB:
+            raise ValueError("invalid proportion specified for --rm-l0-pct")
+        if not silent:
+            log(f"   -removing the least {params.rm_l0_pct}% significant "
+                "block level 0 predictors...")
+        if n_rm >= 1:
+            thr = qv[n_rm - 1]
+            for i in range(NB):
+                if pv[i] <= thr:
+                    colkeep[i * J : (i + 1) * J] = False
+        return colkeep, mult
+
+    # adaptive: kth order statistic of U(0,1) p-values is Beta(k, NB-k)
+    from scipy.stats import beta as _beta
+
+    conf_alpha = 0.05 / NB
+    thr = qv[NB - 1] + 1e-6
+    for i in range(NB - 1):
+        beta_q = -np.log10(_beta.ppf(conf_alpha / 2.0, i + 1, NB - i - 1))
+        if (qv[NB - i - 1] < beta_q) or (i == NB - 2):
+            if i > 0:
+                thr = qv[NB - i]
+            break
+    ntop = int(np.ceil(0.05 * NB))
+    q1, q2 = NB // 4, NB // 2
+    q3 = q1 + q2
+    if (pv >= thr).sum() >= ntop:
+        iqr = qv[q3] - qv[q1]
+        thr = max(thr, qv[q3] + 3 * iqr)
+    if (pv >= thr).sum() >= ntop:
+        thr = qv[NB - ntop]
+    if not silent:
+        log(f"   -{int((pv >= thr).sum())}/{NB} blocks selected "
+            f"(Upper bound = {thr:.6g})...")
+    for i in range(NB):
+        if pv[i] >= thr:  # keep only the last (min shrinkage) ridge column
+            colkeep[i * J : (i + 1) * J - 1] = False
+            mult[(i + 1) * J - 1] = 0.0
+    return colkeep, mult
+
+
+def test_l0_block(params, Gn, Y, nspns_prev, log):
+    """--test-l0 pre-screen (test_assoc_block + apply_iter_cond,
+    Step1_Models.cpp:1868/2133): per phenotype, iteratively pick the top
+    marginally-associated SNP of the block while p < --l0-pval-thr,
+    conditioning subsequent tests on the picked set and dropping SNPs in
+    high LD (r^2 > 0.9) with each pick. SNPs picked for EVERY phenotype
+    are removed from the level-0 ridge. On the host in numpy (a block's
+    [B, B] products and B small solves).
+
+    Gn: [B, N] residualized+scaled genotypes (GtG diag = N - K);
+    Y: [N, P] residualized+scaled phenotypes.
+    Returns (picked [B, P] bool, n_picked [P], pgs [N, P]) where pgs is
+    the block's top-SNP polygenic score per trait (block_top_pgs,
+    Step1_Models.cpp:2143/2171), later added back to the LOCO
+    predictions and removed from the level-1 response."""
+    from scipy.stats import chi2 as _chi2
+
+    B = Gn.shape[0]
+    P = Y.shape[1]
+    picked = np.zeros((B, P), dtype=bool)
+    n_picked = np.zeros(P, dtype=int)
+    pgs = np.zeros((Gn.shape[1], P))
+    if params.l0_snp_pval_thr <= 0 or B == 1:
+        return picked, n_picked, pgs
+    thr = _chi2.isf(params.l0_snp_pval_thr, df=1)
+    GGt = Gn @ Gn.T
+    GtY = Gn @ Y  # [B, P]
+    ggt = GGt[0, 0]  # = N - K by construction
+    LD = (GGt / (params.n_analyzed - params.ncov_analyzed)) ** 2
+
+    for ph in range(P):
+        gty = GtY[:, ph]
+        ss_y = float(Y[:, ph] @ Y[:, ph])
+        bstart = gty / ggt
+        bvec = bstart.copy()
+        nprev = nspns_prev[ph]
+        v_y = (ss_y - bvec * gty) / (ggt - nprev - 1)
+        v_beta = np.full(B, 1.0 / ggt)
+        cand = np.arange(B)
+        top: list = []
+        for _ in range(1, B):
+            if (~picked[:, ph]).sum() == 1:
+                break
+            chisq_v = bvec**2 / v_beta / np.maximum(v_y, 1e-300)
+            k = int(np.argmax(chisq_v))
+            if chisq_v[k] < thr:
+                break
+            idx = cand[k]
+            top.append(idx)
+            picked[idx, ph] = True
+            n_picked[ph] += 1
+            pgs[:, ph] += Gn[idx] * bvec[k]  # conditional beta at pick time
+            # drop high-LD partners of the pick
+            picked[:, ph] |= LD[:, idx] > 0.9
+            cand = np.flatnonzero(~picked[:, ph])
+            A = GGt[np.ix_(top, top)]
+            try:
+                A_inv = np.linalg.inv(A)
+            except np.linalg.LinAlgError:
+                break
+            X21 = GGt[np.ix_(cand, top)] @ A_inv
+            ss_x1 = float(gty[top] @ A_inv @ gty[top])
+            bvec = bstart[cand] - (X21 @ gty[top]) / ggt
+            v_y = (ss_y - ss_x1 - bvec * gty[cand]) / (
+                ggt - nprev - n_picked[ph] - 1
+            )
+            v_beta = (ggt - (X21 * GGt[np.ix_(cand, top)]).sum(axis=1)) / ggt**2
+    return picked, n_picked, pgs

@@ -61,7 +61,21 @@ def _wgram(X, w):
 
 
 def _ridge(tau, F, X):
+    """The penalty's diagonal matrix: tau a float, or with --select-l0's
+    per-column multiplier an [F] tensor."""
+    if isinstance(tau, torch.Tensor):
+        return torch.diag(tau)
     return torch.diag(torch.full((F,), float(tau), dtype=X.dtype, device=X.device))
+
+
+def _penalty(mult, X):
+    """tau -> the penalty of a ridge parameter: float(tau), or tau times
+    --select-l0's per-column multiplier (mult [F], numpy) as a tensor on
+    X's device (ridge_param_mult, Step1_Models.cpp:1031-1041, 1719-1745)."""
+    if mult is None:
+        return float
+    m = torch.as_tensor(np.asarray(mult, np.float64), dtype=X.dtype, device=X.device)
+    return lambda tau: float(tau) * m
 
 
 def run_log_ridge(y, X, offset, mask, tau: float, beta0, niter_max: int = 100,
@@ -184,7 +198,7 @@ def ct_taus(F: int, rate: float, n_ridge_l1: int) -> np.ndarray:
 
 def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
                  taus, ph: int, chr_order, spans, fold_sizes, log,
-                 trace: Optional[List] = None):
+                 trace: Optional[List] = None, ridge_mult=None):
     """Level-1 ridge of one binary, count or time-to-event trait on the
     device of its level-0 predictions Wph ([K, nmax, F] by fold with
     fold_sizes, else [N, F] for LOOCV; a time-to-event trait's are those
@@ -193,11 +207,18 @@ def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
     theirs from the trait's rate, time-to-event traits from the largest
     score or, with --t2e-l1-pi6, from taus). Returns (predictions [N,
     n_chr] numpy float64, converged). trace, if given, gains a dict per
-    fitted ridge parameter (fold, tau index, iterations, seconds)."""
+    fitted ridge parameter (fold, tau index, iterations, seconds).
+    ridge_mult: [F] --select-l0's per-column penalty multiplier (binary
+    and count traits; the Cox level 1 ignores it, as the reference's)."""
     if params.trait_mode == CT:
         return _level1_ct(params, pd, Wph, offsets, ph, chr_order, spans,
-                          fold_sizes, log, trace)
+                          fold_sizes, log, trace, ridge_mult)
     if params.trait_mode == T2E:
+        if ridge_mult is not None:
+            # the reference's Cox level 1 ignores ridge_param_mult (only the
+            # column subset from check_l0 applies; Step1_Models.cpp:2228+)
+            log("   -note: --select-l0 penalty multipliers are not applied "
+                "in the Cox level-1 fit (matches reference behavior)")
         return _level1_t2e(params, pd, Wph, offsets, taus, ph, chr_order, spans,
                            fold_sizes, log, trace)
     if params.trait_mode != BT:
@@ -205,9 +226,10 @@ def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
     if fold_sizes is not None:
         return _level1_glm_kfold(params, pd, Wph, offsets,
                                  np.asarray(taus, dtype=np.float64), ph, chr_order,
-                                 spans, fold_sizes, log, poisson=False, trace=trace)
+                                 spans, fold_sizes, log, poisson=False, trace=trace,
+                                 ridge_mult=ridge_mult)
     return _level1_bt_loocv(params, pd, Wph, offsets, np.asarray(taus, np.float64),
-                            ph, chr_order, spans, log, trace)
+                            ph, chr_order, spans, log, trace, ridge_mult)
 
 
 def _trait_vectors(pd, offsets, ph, dev):
@@ -255,7 +277,7 @@ def _masked_sums(p1, y, mask, nll):
 
 
 def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
-                     trace):
+                     trace, ridge_mult=None):
     """Binary trait, LOOCV (ridge_logistic_level_1_loocv): warm-started
     penalized fits over the tau grid, each scored by its closed-form
     leave-one-out predictions eta_loo = eta - h (y - pi) / (1 - h w)."""
@@ -266,9 +288,10 @@ def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
     beta = torch.zeros(F, dtype=X.dtype, device=X.device)
     fit = dict(niter_max=params.niter_max_ridge,
                niter_line_search=params.niter_max_line_search, numtol=params.numtol)
+    pen = _penalty(ridge_mult, X)
     for j, tau in enumerate(taus):
         t0 = time.time()
-        tau = float(tau)
+        tau = pen(tau)
         b_start = beta
         if params.use_adam:
             # --use-adam: an ADAM pass before every Newton solve
@@ -296,7 +319,7 @@ def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
     _log_bt_tau_table(log, taus, cumsum, best, neff, F)
 
     # the final fit at the best tau, then the predictions per chromosome
-    tau = float(taus[best])
+    tau = pen(taus[best])
     beta, pi, w, ok = run_log_ridge(y, X, offset, mask, tau,
                                     torch.zeros_like(beta), **fit)
     if not ok:
@@ -312,7 +335,7 @@ def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
 
 
 def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
-                      fold_sizes, log, poisson=False, trace=None):
+                      fold_sizes, log, poisson=False, trace=None, ridge_mult=None):
     """K-fold level-1 penalized GLM ridge (ridge_logistic_level_1,
     Step1_Models.cpp:966; ridge_poisson_level_1 :1429): for each
     held-out fold, warm-started IRLS over the tau grid on the other folds,
@@ -345,6 +368,7 @@ def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
 
     cumsum = np.zeros((6, n_tau))
     beta_hat = torch.zeros(K, F, n_tau, dtype=dt, device=dev)
+    pen = _penalty(ridge_mult, Wf)
     Wflat = Wf.reshape(-1, F)
     for i in range(K):
         # the training weights: every fold but i (and no pad row)
@@ -365,7 +389,7 @@ def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
         eta = of + Wf @ beta
         for j, tau in enumerate(taus_vec):
             t0 = time.time()
-            tau = float(tau)
+            tau = pen(tau)
             for it in range(1, params.niter_max_ridge + 1):
                 mu, w = link(eta)
                 z = torch.where(mt > 0, (eta - of) + (yf - mu) / torch.clamp(w, min=1e-12),
@@ -438,7 +462,7 @@ def _log_bt_tau_table(log, taus, cumsum, best, neff, n_feats):
 
 
 def _level1_ct(params, pd, X, offsets, ph, chr_order, spans, fold_sizes, log,
-               trace):
+               trace, ridge_mult=None):
     """Count trait: the Poisson ridge, K-fold (ridge_poisson_level_1) or
     LOOCV (ridge_poisson_level_1_loocv, Step1_Models.cpp:1585)."""
     F = X.shape[-1]
@@ -447,19 +471,21 @@ def _level1_ct(params, pd, X, offsets, ph, chr_order, spans, fold_sizes, log,
     taus_ct = ct_taus(F, rate, params.n_ridge_l1)
     if fold_sizes is not None:
         return _level1_glm_kfold(params, pd, X, offsets, taus_ct, ph, chr_order,
-                                 spans, fold_sizes, log, poisson=True, trace=trace)
+                                 spans, fold_sizes, log, poisson=True, trace=trace,
+                                 ridge_mult=ridge_mult)
     y, mask, offset = _trait_vectors(pd, offsets, ph, X.device)
     neff = pd.Neff[ph]
     cumsum = np.zeros((6, len(taus_ct)))
     beta = torch.zeros(F, dtype=X.dtype, device=X.device)
+    pen = _penalty(ridge_mult, X)
     for j, tau in enumerate(taus_ct):
         t0 = time.time()
-        beta, mu, w, ok = run_ct_ridge(y, X, offset, mask, float(tau), beta,
+        beta, mu, w, ok = run_ct_ridge(y, X, offset, mask, pen(tau), beta,
                                        params.niter_max_ridge)
         if not ok:
             log("WARNING: ridge poisson regression did not converge! (Increase --niter)")
             return None, False
-        _, h, s, eta_lin = _loo_quants(X, y, mask, beta, mu, w, float(tau))
+        _, h, s, eta_lin = _loo_quants(X, y, mask, beta, mu, w, pen(tau))
         p1 = torch.exp(torch.clamp(eta_lin - h * s + offset, -30.0, 30.0))
         nll = -(y * torch.log(torch.clamp(p1, min=1e-300)) - p1)
         cumsum[:, j] = _masked_sums(p1, y, mask, nll)
@@ -475,7 +501,7 @@ def _level1_ct(params, pd, X, offsets, ph, chr_order, spans, fold_sizes, log,
             line += "<- min value"
         log(line)
 
-    tau = float(taus_ct[best])
+    tau = pen(taus_ct[best])
     beta, mu, w, ok = run_ct_ridge(y, X, offset, mask, tau, torch.zeros_like(beta),
                                    params.niter_max_ridge)
     if not ok:

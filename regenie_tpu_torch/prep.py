@@ -3,7 +3,10 @@ trimmed to the four trait types; Step 2 keeps the binary, count and
 time-to-event phenotypes raw for its null fits, and Cox drops the
 constant covariate columns and scales the rest): the transposed phenotype
 file (--tpheno-file), conditioning variants joined
-to the covariates (--condition-list, --condition-file),
+to the covariates (--condition-list, --condition-file), the interaction
+variable E (--interaction's covariate kept apart, --interaction-snp's
+variant, --interaction-prs's PRS; with the conditional mode E, and for
+binary traits E^2, joined to the covariates),
 --print-cov-betas and the --debug dump of the model inputs.
 
 Mirrors the reference's run-up sequence (Data::run_step2 ->
@@ -59,11 +62,16 @@ def prepare(
             os.unlink(params.pheno_file)
     else:
         pd = read_pheno(params, sample_index, blup_pheno_names)
-    new_cov, ind_in_cov, cov_names = read_covariates(params, sample_index,
-                                                     pd.pheno_names)
+    new_cov, ind_in_cov, cov_names, inter = read_covariates(params, sample_index,
+                                                            pd.pheno_names)
     # covariate-count log line greppable as in the reference (Pheno.cpp:642)
     log(f"n_cov = {new_cov.shape[1] - 1}")
     pd.new_cov = new_cov
+    pd.interaction_cov = None
+    if inter is not None:
+        # the GxE covariate (--interaction), apart from the design
+        pd.interaction_cov = inter[0] * ind_in_cov[:, None]
+        pd.interaction_is_cat, pd.interaction_lvl_names = inter[1], inter[2]
 
     # conditional analysis: add conditioning variants as covariates
     # (extract_condition_snps, Pheno.cpp:940-987), mean-imputed
@@ -75,9 +83,27 @@ def prepare(
             f" n_used = {cond.shape[1]}"
         )
 
+    # GxG/GxPRS: E is extracted here, before the covariate QR, so that
+    # --force-condtl can add it to the covariates (extract_interaction_snp
+    # / extract_interaction_prs, Pheno.cpp:86-90); a missing interaction
+    # genotype drops the individual (read_snp, Geno.cpp:3990-3994)
+    if params.test_mode and (params.interaction_snp or params.interaction_prs):
+        from .models.interaction import extract_interaction_E
+
+        ind_in_cov &= extract_interaction_E(params, pd, gd, log)
+    if params.gwas_condtl and pd.interaction_cov is not None:
+        # conditional GWAS: E joins the covariates (Pheno.cpp:91-95)
+        pd.new_cov = np.concatenate([pd.new_cov, pd.interaction_cov], axis=1)
+
     ind = pd.ind_in_analysis & ind_in_cov
     pd.masked_indivs &= ind[:, None]
     set_masks(params, pd, ind)
+    if pd.interaction_cov is not None:
+        pd.interaction_cov = pd.interaction_cov * pd.ind_in_analysis[:, None]
+        if params.trait_mode == BT and params.gwas_condtl:
+            # conditional BT interaction: E^2 also joins the covariates
+            # (prep_run, Pheno.cpp:1073-1077)
+            pd.new_cov = np.concatenate([pd.new_cov, pd.interaction_cov**2], axis=1)
 
     if params.apply_rint and params.trait_mode == QT:
         for j in range(params.n_pheno):
@@ -226,16 +252,22 @@ def _write_cov_betas(params, pd, betas, se_unit, cov_sds, cov_names):
                          f"{convert_logp_raw(logp)}\n")
 
 
-def write_debug_inputs(params: Params, pd) -> None:
+def write_debug_inputs(params: Params, pd, offsets=None) -> None:
     """--debug analog of write_inputs (Data.cpp:911): the model inputs
     after prep, Y ({out}_y.txt: residualized and scaled for QT, raw for
-    binary traits) and the orthonormal covariate basis ({out}_x.txt), at
-    full precision and space-separated (the reference's Eigen
-    FullPrecision format)."""
+    the other traits), the orthonormal covariate basis ({out}_x.txt) and,
+    where a null fit gives them (Step 1 on binary, count and
+    time-to-event traits), the null offsets ({out}_offset.txt), at full
+    precision and space-separated (the reference's Eigen FullPrecision
+    format)."""
     y = pd.phenotypes if params.trait_mode == QT else pd.phenotypes_raw
-    np.savetxt(params.out_prefix + "_y.txt", np.asarray(y), fmt="%.17g")
+    if y is not None:
+        np.savetxt(params.out_prefix + "_y.txt", np.asarray(y), fmt="%.17g")
     np.savetxt(params.out_prefix + "_x.txt", np.asarray(pd.new_cov),
                fmt="%.17g")
+    if offsets is not None:
+        np.savetxt(params.out_prefix + "_offset.txt", np.asarray(offsets),
+                   fmt="%.17g")
 
 
 def fmt(x: float) -> str:

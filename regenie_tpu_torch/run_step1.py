@@ -32,16 +32,16 @@ import numpy as np
 import torch
 
 from .config import BT, QT, T2E, Params, ridge_h2_grid
-from .io.files import GzipWriter, open_write, string_split
+from .io.files import GzipWriter, iter_lines, open_write, string_split
 from .io.geno import make_blocks
 from .io.output import format_value_rows
 from .models import glm
 from .models import step1 as m1
 from .models import step1_bt
-from .ops.geno_ops import prepare_block_step1
-from .prep import fmt, prepare
+from .ops.geno_ops import MISSING, prepare_block_step1
+from .prep import fmt, prepare, write_debug_inputs
 from .utils.device import resolve_device
-from .utils.stats import usage_info_line
+from .utils.stats import rss_line, usage_info_line
 
 
 def _parse_master(path: str):
@@ -163,10 +163,15 @@ def run_step1(params: Params, log=print, device=None) -> Step1Setup:
         prefix, njobs = params.split_l0.rsplit(",", 1)
         _write_l0_master(params, blocks, prefix, int(njobs), log)
         return st
+    if params.print_block_betas and params.n_pheno > 1:
+        raise ValueError("cannot have run --print in multi-trait mode!")
 
     log(f" * block size: [{params.block_size}]")
     log(usage_info_line(params))
     log(f" * # blocks: [{params.total_n_block}] for {params.n_variants} variants")
+    if params.alpha_prior != -1:
+        log(" * applying a MAF dependent prior to the SNP effect sizes in "
+            f"level 0 models (alpha={fmt(params.alpha_prior)})")
     log(f" * # CV folds: [{params.n_analyzed if params.use_loocv else params.cv_folds}]")
     log(f" * ridge data_l0: [ {params.n_ridge_l0} : " + " ".join(fmt(x) for x in st.h_l0) + " ]")
     log(f" * ridge data_l1: [ {params.n_ridge_l1} : " + " ".join(fmt(x) for x in st.h_l1) + " ]")
@@ -182,6 +187,9 @@ def run_step1(params: Params, log=print, device=None) -> Step1Setup:
         offsets = glm.fit_null_offsets(params, pd)
         log(f" * null model fits: {time.time() - t0:.3f}s "
             f"({int(pd.pheno_pass.sum())} of {P} traits, on the host)")
+    if params.debug:
+        # dump the model inputs (write_inputs, Data.cpp:114/911)
+        write_debug_inputs(params, pd, offsets)
 
     # ---- level 0 (or read it from job files) ----
     if params.run_l1:
@@ -298,13 +306,26 @@ class Level0:
     def residualized(self, G8: torch.Tensor, bsnps) -> torch.Tensor:
         """A block's int8 hardcalls or float64 dosages -> masked, imputed,
         covariate-residualized genotypes of unit variance [B, N]
-        (float64). Raises on a SNP of (near) zero variance."""
+        (float64), with --prior-alpha each row scaled by
+        [p(1-p)]^((1+alpha)/2) (residualize_genotypes, Data.cpp:215).
+        Raises on a SNP of (near) zero variance. The block's scale factors
+        stay in self.scale_G (host)."""
         G = prepare_block_step1(G8, self.ind)
         G, scale_G = m1.residualize_geno_block(G, self.cov, self.scale_denom)
-        sg = scale_G.cpu().numpy()
+        sg = self.scale_G = scale_G.cpu().numpy()
         if not np.all(sg > self.params.numtol):
             bad = bsnps[int(np.argmin(sg))].ID
             raise ValueError(f"SNP {bad} has low variance in step 1 block")
+        if self.params.alpha_prior != -1:
+            # allele frequencies of the analysed samples' non-missing
+            # calls, the power taken on the host as in the JAX package
+            valid = (G8 != MISSING) & self.ind[None, :]
+            tv = torch.stack([torch.where(valid, G8.to(torch.float64), 0.0).sum(dim=1),
+                              valid.sum(dim=1).to(torch.float64)]).cpu().numpy()
+            af = tv[0] / (2.0 * tv[1])
+            G = G * torch.as_tensor(
+                (af * (1.0 - af)) ** (0.5 * (self.params.alpha_prior + 1.0)),
+                device=G.device)[:, None]
         return G
 
     def folds(self, G: torch.Tensor) -> torch.Tensor:
@@ -372,15 +393,35 @@ def _level0(params, st: Step1Setup, log):
 
     t0 = time.time()
     copy_s = 0.0
+    if params.test_l0:
+        params._l0_nspns_picked = np.zeros(P, dtype=int)
+        params._l0_top_pgs = {}
+    if params.print_block_betas:
+        params._print_beta_snp = []
     try:
         for bidx, (chrom, bsnps) in enumerate(blocks):
             chr_nblocks[chrom] = chr_nblocks.get(chrom, 0) + 1
             raw = fut.result()
             if bidx + 1 < len(blocks):
                 fut = pool.submit(gd.read_block_host, blocks[bidx + 1][1])
+            if params.debug:
+                # the reference's per-block memory trail (Data.cpp:594+)
+                log(f"   -level 0 block {bidx + 1}/{len(blocks)} chr {chrom} "
+                    f"[{len(bsnps)} snps] {rss_line()}")
             tb = time.time()
             G = l0.residualized(gd.read_block_device(bsnps, dev, raw), bsnps)
-            if params.use_loocv:
+            if params.test_l0:
+                G = _test_l0(params, st.pd, G, bidx, chrom, log)
+            if params.use_loocv and params.print_block_betas:
+                # --print: the block's per-SNP level-0 betas on the raw
+                # genotype scale (Data.cpp:674), one block at a time
+                Wb, bsnp = m1.level0_loocv_block_betas(G, l0.Y, l0.mask, l0.lambdas,
+                                                       l0.Neff)
+                params._print_beta_snp.append(
+                    (bsnps, bsnp.cpu().numpy() / (l0.scale_G[:, None] / st.pd.scale_Y[0])))
+                torch.from_numpy(W_all[bidx]).copy_(Wb)
+                what = ""
+            elif params.use_loocv:
                 if grp and grp[-1][1].shape != G.shape:
                     flush()
                 grp.append((bidx, G))
@@ -409,6 +450,23 @@ def _level0(params, st: Step1Setup, log):
         f"{params.n_variants / max(secs, 1e-9):.1f} variants/s"
         + ("" if params.use_loocv else f"; W to host {copy_s:.3f}s") + ")")
     return W_all, chr_nblocks
+
+
+def _test_l0(params, pd, G, bidx, chrom, log):
+    """--test-l0 on a residualized block: the top SNPs of each trait
+    (models/step1.test_l0_block, on the host), their PGS summed per
+    chromosome, and the block without the SNPs picked for every trait."""
+    picked, n_new, pgs_blk = m1.test_l0_block(params, G.cpu().numpy(), pd.phenotypes,
+                                             params._l0_nspns_picked, log)
+    params._l0_nspns_picked += n_new
+    if n_new.any():
+        log(f"   -block {bidx + 1}: top SNPs per trait = {[int(x) for x in n_new]}")
+        prev = params._l0_top_pgs.get(chrom)
+        params._l0_top_pgs[chrom] = pgs_blk if prev is None else prev + pgs_blk
+    rm = picked.all(axis=1)
+    if rm.any():
+        G = G[torch.as_tensor(np.flatnonzero(~rm), device=G.device)]
+    return G
 
 
 def _trait_W(W_all, ph, dev) -> torch.Tensor:
@@ -446,13 +504,26 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)
 
-    taus_t = put(taus)
     if params.use_loocv:
         Y_t = put(pd.phenotypes)
     else:
         Y_folds, valid = m1.pad_folds(pd.phenotypes, fold_sizes)
         Yf_t, valid_t = put(Y_folds), put(valid)
         bounds = np.concatenate([[0], np.cumsum(fold_sizes)])
+
+    # --select-l0 FILE: the level-0 blocks' p-values per trait
+    # (prep_l1_models, Data.cpp:785-805)
+    l0_pv_tab = None
+    F_total = ctr
+    if params.select_l0:
+        if not params.l0_pvals_file:
+            raise ValueError(
+                "--select-l0 as a bare flag needs in-run block p-values "
+                "which are not recorded; pass a p-value FILE instead")
+        l0_pv_tab = _read_l0_pvals(params, P)
+    # --test-l0: the top SNPs' PGS per chromosome (top_snp_pgs, Data.cpp:628)
+    pgs_by_chr = getattr(params, "_l0_top_pgs", {}) if params.test_l0 else {}
+    pgs_tot = sum(pgs_by_chr.values()) if pgs_by_chr else None
 
     t0 = time.time()
     write_s = firth_s = 0.0
@@ -474,38 +545,83 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
                 # feed level 1 (l0_idx = event_index, Step1_Models.cpp:2259)
                 l0_idx = pd.pheno_names.index(params.t2e_map[name])
             Wph = _trait_W(W_all, l0_idx, dev)
+            # per-trait level-0 column selection (check_l0,
+            # Step1_Models.cpp:1989): the kept columns, their spans and the
+            # penalties rescaled by the kept share
+            spans_ph, taus_ph, sel_mult = spans, np.asarray(taus), None
+            if l0_pv_tab is not None:
+                colkeep, mult_full = m1.check_l0_selection(params, l0_pv_tab[:, ph], log)
+                if not colkeep.all() or (mult_full != 1).any():
+                    sel_idx = np.flatnonzero(colkeep)
+                    sel_mult = mult_full[colkeep]
+                    spans_ph, ctr2 = {}, 0
+                    for c in chr_order:
+                        st, nn = spans[c]
+                        kept = int(colkeep[st : st + nn].sum())
+                        spans_ph[c] = (ctr2, kept)
+                        ctr2 += kept
+                    taus_ph = np.asarray(taus) * (len(sel_idx) / F_total)
+                    if sel_mult.min() == 1.0:
+                        sel_mult = None  # pure column dropping
+                    Wph = Wph.index_select(-1, torch.as_tensor(sel_idx, device=dev))
+            taus_t = put(taus_ph)
+            mult_t = None if sel_mult is None else put(sel_mult)
             if params.trait_mode != QT:
                 t1 = time.time()
                 predictions, converged = step1_bt.level1_nonqt(
-                    params, pd, Wph, offsets, taus, ph, chr_order, spans,
-                    fold_sizes, log)
+                    params, pd, Wph, offsets, taus_ph, ph, chr_order, spans_ph,
+                    fold_sizes, log, ridge_mult=sel_mult)
                 if params.verbose:
                     log(f"  level 1 of {name}: {time.time() - t1:.3f}s")
                 if not converged:
                     log("Level 1 model did not converge. LOCO predictions skipped.")
                     continue
             elif params.use_loocv:
-                cumsum = m1.level1_linear_loocv(
-                    Wph, Y_t[:, ph], taus_t, float(pd.Neff[ph] - params.ncov)
-                ).cpu().numpy()
+                pgs_t = None if pgs_tot is None else put(pgs_tot[:, ph])
+                out = m1.level1_linear_loocv(
+                    Wph, Y_t[:, ph], taus_t, float(pd.Neff[ph] - params.ncov),
+                    ridge_mult=mult_t, pgs=pgs_t)
+                cumsum, cumsum_full = ((out.cpu().numpy(), None) if pgs_t is None
+                                       else (x.cpu().numpy() for x in out))
                 best = m1.select_best_tau_qt(cumsum, pd.Neff[ph])
-                _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph])
-                b0, _ = m1.level1_linear_full_fit_loocv(Wph, Y_t[:, ph], float(taus[best]))
+                _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph], cumsum_full)
+                Yfit = Y_t[:, ph] if pgs_t is None else Y_t[:, ph] - pgs_t
+                b0, bvec = m1.level1_linear_full_fit_loocv(
+                    Wph, Yfit, float(taus_ph[best]), ridge_mult=mult_t)
                 for ci, c in enumerate(chr_order):
-                    st, nn = spans[c]
+                    st, nn = spans_ph[c]
                     predictions[:, ci] = (Wph[:, st : st + nn]
                                           * b0[st : st + nn].T).sum(dim=1).cpu().numpy()
+                if params.print_block_betas:
+                    _write_step1_betas(params, bvec.cpu().numpy(), log)
             else:
-                beta, cumsum = m1.level1_linear_kfold(Wph, Yf_t[:, :, ph], valid_t, taus_t)
-                cumsum = cumsum.cpu().numpy()
+                pgs_f = None
+                if pgs_tot is not None:
+                    pgs_f = put(m1.pad_folds(pgs_tot[:, ph : ph + 1], fold_sizes)[0][:, :, 0])
+                out = m1.level1_linear_kfold(Wph, Yf_t[:, :, ph], valid_t, taus_t,
+                                             ridge_mult=mult_t, pgs_folds=pgs_f)
+                beta, cumsum = out[0], out[1].cpu().numpy()
+                cumsum_full = None if pgs_f is None else out[2].cpu().numpy()
                 best = m1.select_best_tau_qt(cumsum, pd.Neff[ph])
-                _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph])
+                _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph], cumsum_full)
+                if params.print_block_betas:
+                    # K-fold --print: fold-averaged level-1 betas
+                    # (make_predictions, Data.cpp:1221-1243)
+                    beta_avg = beta[:, best, :].mean(dim=0).cpu().numpy()
+                    with open(params.out_prefix + "_level1.betas", "a") as fh:
+                        fh.write(f"{ph + 1} " + " ".join(fmt(b) for b in beta_avg) + "\n")
                 for ci, c in enumerate(chr_order):
-                    st, nn = spans[c]
+                    st, nn = spans_ph[c]
                     pc = (Wph[:, :, st : st + nn]
                           @ beta[:, best, st : st + nn, None])[..., 0].cpu().numpy()
                     for k in range(params.cv_folds):
                         predictions[bounds[k] : bounds[k + 1], ci] = pc[k, : int(fold_sizes[k])]
+            if params.trait_mode == QT:
+                # the top SNPs' PGS back into its own chromosome's
+                # predictions (Data.cpp:1254/1324)
+                for ci, c in enumerate(chr_order):
+                    if c in pgs_by_chr:
+                        predictions[:, ci] += pgs_by_chr[c][:, ph]
             del Wph
 
             tw = time.time()
@@ -578,14 +694,53 @@ def _write_l0_master(params, blocks, prefix, njobs, log):
     log(f"   -master file written to [{mpath}]")
 
 
-def _log_tau_table(log, h_l1, cumsum, best, neff):
+def _log_tau_table(log, h_l1, cumsum, best, neff, cumsum_full=None):
     rsq = m1.cv_rsq(cumsum, neff)
     sse = (cumsum[2] + cumsum[3] - 2 * cumsum[4]) / neff
+    rsq_full = m1.cv_rsq(cumsum_full, neff) if cumsum_full is not None else None
     for j in range(len(h_l1)):
-        line = f"  {fmt(h_l1[j]):>5} : Rsq = {fmt(rsq[j])}, MSE = {fmt(sse[j])}"
+        line = f"  {fmt(h_l1[j]):>5} : Rsq = {fmt(rsq[j])}"
+        if rsq_full is not None:
+            line += f" (with top_snps_pgs = {fmt(rsq_full[j])})"
+        line += f", MSE = {fmt(sse[j])}"
         if j == best:
             line += "<- min value"
         log(line)
+
+
+def _read_l0_pvals(params: Params, P: int) -> np.ndarray:
+    """--select-l0 FILE: per-block -log10 p per trait (prep_l1_models,
+    Data.cpp:785-805). Rows: CHROM BLOCK pv1..pvP."""
+    pvs = np.zeros((params.total_n_block, P))
+    lineread = 0
+    for toks in iter_lines(params.l0_pvals_file):
+        if lineread >= params.total_n_block:
+            raise ValueError(
+                "number of blocks in file is greater than that analyzed in run.")
+        if len(toks) > P + 2:
+            raise ValueError(
+                "number of phenotypes in file is greater than that analyzed in run.")
+        for i in range(P):
+            pvs[lineread, i] = float(toks[i + 2])
+        lineread += 1
+    return pvs
+
+
+def _write_step1_betas(params: Params, l1_betas: np.ndarray, log) -> None:
+    """--print (LOOCV): <out>_step1_betas.txt with per-SNP level-0 and
+    whole-model betas (print_snp_betas, Data.cpp:1755-1790)."""
+    J = params.n_ridge_l0
+    out = params.out_prefix + "_step1_betas.txt"
+    with open(out, "w") as fh:
+        fh.write("SNP\tCHROM\tGENPOS\tALLELE0\tALLELE1\tBETA_level_0\tBETA\n")
+        for block, (bsnps, bsnp) in enumerate(getattr(params, "_print_beta_snp", [])):
+            bl1 = bsnp * l1_betas[block * J : (block + 1) * J][None, :]
+            for i, s in enumerate(bsnps):
+                fh.write(
+                    f"{s.ID}\t{s.chrom}\t{s.physpos}\t{s.allele1}\t{s.allele2}\t"
+                    f"{fmt(bsnp[i].sum())}\t{fmt(bl1[i].sum())}\n"
+                )
+    log(f"  wrote {out}")
 
 
 def _write_loco(path, header, params: Params, pd, ph, predictions, total,

@@ -367,6 +367,17 @@ class Step2Engine:
         self._fused_static = None
         self._ltco_prs = {}
         self._dense = None
+        # interaction tests (models/interaction.py): E and, for QT, the HLM
+        # design; their blocks take the dense route
+        self.interaction = None
+        self.hlm_null_s = 0.0  # seconds of the HLM null fits
+        self.last_G_imputed = None
+        self.last_G_int = None
+        self.last_flipped = None
+        if params.interaction_var:
+            from .models.interaction import prep_interaction
+
+            self.interaction = prep_interaction(params, pd, gd, log)
         self.fused = self.fused_ok()
         self.planes_rejected = False  # latched by the first rejected block
 
@@ -446,6 +457,16 @@ class Step2Engine:
         )
         self.res = res / self.p_sd_yres[None, :]
         self.scf_sv = pd.scale_Y * self.p_sd_yres
+        if self.interaction is not None and self.interaction.hlm is not None:
+            from .models.interaction import hlm_fit_null
+
+            t0 = time.time()
+            hlm_fit_null(params, pd, self.interaction, blups, self.log, self.device)
+            dt = time.time() - t0
+            self.hlm_null_s += dt
+            if params.verbose:
+                self.log(f" * HLM null fits chr{chrom}: {dt:.3f}s (L-BFGS-B on the "
+                         f"host, objective on {self.device})")
 
     def non_par_flags(self, bsnps) -> np.ndarray:
         """[B] bool: variant on chrX outside PAR1/PAR2 (in_non_par,
@@ -511,9 +532,9 @@ class Step2Engine:
         plane extractor reads); for QT no --nocov-approx and no --mcc;
         time-to-event traits on hardcall sources only and not with
         --coxscore-exact (its per-variant variance needs the dense Gres,
-        Step2_Models.cpp:672). REGENIE_TPU_FUSED=0 sends every block down
-        the dense route."""
-        if os.environ.get(FUSED_ENV) == "0":
+        Step2_Models.cpp:672). Interaction tests and REGENIE_TPU_FUSED=0
+        send every block down the dense route."""
+        if os.environ.get(FUSED_ENV) == "0" or self.interaction is not None:
             return False
         params, gd = self.params, self.gd
         hardcall_src = gd._bed is not None or (
@@ -1294,11 +1315,12 @@ class Step2Engine:
                             flipped, info_t=None, is_mask: bool = False
                             ) -> BlockResult:
         """Score a finalized [B, N] float64 block on the device (the JAX
-        package's test_prepared_block, without the mesh, MCC and
-        interaction): for QT, --nocov-approx scores G unadjusted with
-        scale 1; otherwise the one-pass scorer, or in strict mode the
+        package's test_prepared_block, without the mesh and MCC): for QT, --nocov-approx scores G unadjusted with scale 1;
+        otherwise the one-pass scorer, or in strict mode the
         residualize-then-score pair. BT/CT/T2E: the all-trait score test
-        with its corrections (step2_bt / step2_t2e .score_block).
+        with its corrections (step2_bt / step2_t2e .score_block). With
+        interaction tests (QT) the residualized block stays on the device
+        as last_G_int.
 
         is_mask: a block of gene-based burden masks. Its residualized
         block (QT; the block itself for the other traits) comes back to
@@ -1311,6 +1333,7 @@ class Step2Engine:
                                      or params.apply_gene_pval_strategy)
         self.last_G_res = None
         self.last_scale_fac = None
+        self.last_G_int = None
         if self.is_glm or self.is_t2e:
             if self.is_t2e:
                 out = step2_t2e.score_block(params, self.pd, self.null_state, G,
@@ -1352,10 +1375,13 @@ class Step2Engine:
                 stats, denum = m2.score_qt_block(G_res, d.res, d.maskf,
                                                  self.scale_denom, self.strict)
             fd = dict(s=stats, d=denum, g=scale_fac, l=low_var)
-            if need_host:
-                # the host consumers' G_res rides the same copy
-                fd["G"] = (G_res if G_res is not None else
-                           m2.residualize_scale_block(G, d.cov, self.scale_denom)[0])
+            if need_host or self.interaction is not None:
+                if G_res is None:
+                    G_res = m2.residualize_scale_block(G, d.cov, self.scale_denom)[0]
+                if need_host:
+                    # the host consumers' G_res rides the same copy
+                    fd["G"] = G_res
+                self.last_G_int = G_res
             f = _fetch_packed(fd, torch.float64)
             scale_fac, low_var = f["g"], f["l"]
         self.last_G_res = f.get("G")
@@ -1428,6 +1454,10 @@ class Step2Engine:
                 # (parseSnpfromBed, Geno.cpp:2518)
                 sum_pos = torch.where(G > 0, G, 0.0).sum(dim=1).cpu().numpy()
                 ignored = ignored | (sum_pos < params.min_homs)
+        if self.interaction is not None:
+            # the imputed (for BT flipped) block stays on the device for
+            # the interaction tests
+            self.last_G_imputed, self.last_flipped = G, flipped
         result = self.test_prepared_block(
             G, af, sb["ns_t"], sb["mac"], ignored, ignored_trait, flipped, info_t)
         result.af1 = sb["af1"]
@@ -1725,7 +1755,14 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
         log(dense_line)
 
     test_name = {0: "ADD", 1: "DOM", 2: "REC"}[params.test_type]
+    # interaction runs in the conditional mode mark the marginal rows
+    condtl = "-CONDTL" if params.gwas_condtl else ""
     writers, out_paths = setup_writers(params, pd.pheno_names, pd.pheno_pass)
+    if eng.interaction is not None:
+        from .models.interaction import apply_interaction_block
+
+        log(f" * interaction tests with [{eng.interaction.evar_name}] on {device} "
+            "(float64; rows in Python)")
 
     # --starting-block / --nb window (Data.cpp:2275)
     todo = []
@@ -1806,6 +1843,15 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
                 n_dense += 1
                 result, _ = eng.test_raw_block(data, bsnps)
                 del data
+            if eng.interaction is not None:
+                # the interaction rows follow each block's marginal rows
+                # in the same files: written here, in order
+                write_block_rows(params, pd, writers, bsnps, result,
+                                 test_name + condtl, eng.model_type() + condtl)
+                apply_interaction_block(
+                    params, eng, bsnps, eng.last_G_imputed,
+                    eng.last_G_int, result, writers, test_name)
+                continue
             while len(wpending) > 4:
                 wpending.pop(0).result()
             wpending.append(wpool.submit(
@@ -1849,6 +1895,12 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
             + ("on the device" if on_dev else "on the host"))
     log(f" * block loop: {len(todo)} blocks, "
         f"{sum(len(b) for _, b in todo)} variants in {dt:.3f}s")
+    ic = getattr(eng, "int_counts", None)
+    if eng.interaction is not None and ic is not None:
+        log(f" * interaction tests: robust {ic['robust']} SNPs in "
+            f"{ic['robust_s']:.3f}s, HLM {ic['hlm']} SNPs in {ic['hlm_s']:.3f}s, "
+            f"BT {ic['bt']} SNPs in {ic['bt_s']:.3f}s, mixed-block rows "
+            f"{ic['rows_s']:.3f}s; HLM null fits {eng.hlm_null_s:.3f}s")
     log(f" * dense route: {n_dense} of {len(todo)} blocks")
     if any(c == params.n_chrom for c, _ in todo):
         log(" * chrX non-PAR blocks on the fused route (male tail): "

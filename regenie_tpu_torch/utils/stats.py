@@ -37,6 +37,19 @@ def chisq_neglog10(tstat):
     return out
 
 
+def chisq_neglog10_df(tstat, df):
+    """-log10 p for a df-dof chi-square stat (get_logp, Regenie.cpp:1876);
+    where the p-value underflows, from the log survival function."""
+    tstat = np.asarray(tstat, dtype=np.float64)
+    pv = chi2.sf(tstat, df=df)
+    with np.errstate(divide="ignore"):
+        logp = np.log10(pv)
+    bad = ~np.isfinite(logp)
+    if np.any(bad):
+        logp[bad] = chi2.logsf(tstat[bad], df=df) / np.log(10.0)
+    return -logp
+
+
 def neglog10_to_chisq(logp):
     """-log10 p -> 1-df chisq stat (get_chisq_stat_pv, Regenie.cpp:1892)."""
     logp = np.asarray(logp, dtype=np.float64)
@@ -76,6 +89,32 @@ def convert_logp_raw(logp) -> str:
         res = 0.0
         base += 1
     return "%.1fe-%d" % (10.0**res, base)
+
+
+def rss_line() -> str:
+    """Current resident-set size (print_mem/get_mem, Regenie.cpp:1942:
+    'memory usage=NMB' debug trail in block loops)."""
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return f"memory usage={float(line.split()[1]) / 1024:.0f}MB"
+    except OSError:
+        pass
+    return "memory usage=?"
+
+
+def peak_rss_line() -> str:
+    """Peak resident-set size (get_mem, Regenie.cpp:1942-1959; printed in
+    debug mode at the end of a run)."""
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmHWM:"):
+                    return f" * peak memory usage : {float(line.split()[1]) / 1e6:.1f}GB"
+    except OSError:
+        pass
+    return " * peak memory usage : unavailable"
 
 
 def usage_info_line(params) -> str:

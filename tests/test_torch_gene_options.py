@@ -124,15 +124,16 @@ def test_complete_trait_gates_sbat_follow_the_pivot_order(dirs, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--interaction", "C1"], ["--mt", "--strict", "--no-split"], ["--multiphen", "--strict"],
+    [], ["--interaction", "C1", "--mcc"], ["--mt", "--strict", "--no-split"],
+    ["--multiphen", "--strict"],
     ["--mcc"],
     ["--compute-corr"], ["--af-cc"], ["--ct", "--af-cc"],
 ])
 def test_unported_leaves_gene_based_tests(extra, monkeypatch):
     """cli.unported no longer names gene-based tests: --set-list alone is
     ported, and with any mode still missing the run is refused for that
-    mode (interaction, multi-trait, MultiPhen, MCC, LD mode, --af-cc off
-    binary traits; the Step-1 options and the mesh are held by
+    mode (multi-trait, MultiPhen, MCC, beside interaction tests too, LD
+    mode, --af-cc off binary traits; the mesh is held by
     test_torch_step2.py::test_unported_mode_raises)."""
     from regenie_tpu_torch import cli
 
