@@ -3,14 +3,24 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, each of which must pass. The four full-width datasets (the BED
-of phases 3 and 3b, the BGEN of 4 and 4b, the Step-1 BED of 5 to 5b, the
-PGEN of 5c) are written by one background process from the end of the
-build on, while the card runs phases 2 and 2b, and each slice waits for
-its own; a slice's Step-2 or Step-1 run goes through the port's CLI
-(cli.main, its gate of unported modes and its <out>.log included) in
-this process, and its block checks reuse the engine or setup that the
-CLI's entry point returned (run_cli_kept).
+Phases, each of which must pass. The full-width datasets (the BED of
+phases 3 to 3c with 3b's binary traits, the BGEN of 4 and 4b, the Step-1
+BED of 5 to 5b with their binary and time-to-event tables, the PGEN of
+5c, the gene BED of 5d and 5e) are written by one background process
+from the end of the build on, while the card runs phases 2 and 2b, and
+each slice waits for its own. Phase 3c runs first, alone on the card;
+then the smoke runs in two lanes: a side process runs phase 6 (the
+cross-check) and then phases 5 to 5b (the Step-1 slices), beside this
+process's 3, 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
+thread beside 3 and 3b (3b's host null fits leave the card idle); both
+lanes spend most of their time on the host, and the card is shared
+between them, so a CUDA-event time of a phase after 3c may include
+kernels of the other lane. A slice's Step-2 or
+Step-1 run goes through the port's CLI (cli.main, its gate of unported
+modes and its <out>.log included) in its lane's process, and its block
+checks reuse the engine or setup that the CLI's entry point returned
+(run_cli_kept). The side process's lines print after 3b (phase 6) and
+after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
 
 1. build: compile every CUDA kernel of the port from ops/csrc/ with nvcc
    (one process per source, started together), and report whether the
@@ -79,6 +89,23 @@ CLI's entry point returned (run_cli_kept).
    (the batched float64 solver) for the rows past the threshold of two
    traits (at least 64), timed per row, 2 rows of each against the host
    twin: flags equal, LRT within rel 1e-8, |dLOG10P| within 1e-5.
+3c. LD slice (before 3, alone on the card): on the BED of 3, the port's LD mode
+   (--compute-corr, the default binary r^2 output) through the CLI on
+   the card for M = 2,048 of its variants (every other one, by
+   --extract): a gene region's or a remeta block's size, at N = 400,000,
+   K = 20. No hand-written kernel may launch (the counts set to 0 just
+   before the run and read just after); the .corr file's int32 [N, M]
+   header and M (M - 1) / 2 uint16 codes, and the .corr.snplist, are
+   checked. Printed, beside the card's name and power limit: the CLI wall
+   and run-up, the host read of the packed bytes, their upload (decoded
+   to int8 on the card), the card's imputation, covariate projection and
+   G'G (CUDA events; G'G against its bound, the larger of 2 M^2 N FP64
+   operations at 67 TFLOP/s and G's bytes at 3.35 TB/s), and the host's
+   scaling and write. Then the same int8 codes through the same functions
+   on the CPU (float64): the card's correlations within 1e-10 of the
+   CPU's before quantization, and a uint16 code may differ by 1 only
+   where the CPU's r^2 * 65535 + 0.5 lies within 1e-6 of an integer
+   (counted and printed).
 4. BGEN slice: the same on a synthetic 8-bit zlib BGEN at that shape
    (imputed-like probabilities, 1% missing; M = 2 blocks), through
    --bgen/--sample: bgen_i8 launches once per block and no other kernel
@@ -107,7 +134,7 @@ CLI's entry point returned (run_cli_kept).
    CLI's block lines), the CLI wall and variants/s.
 5. Step-1 slice: a synthetic PLINK BED at that width (N=400,000, P=50,
    K=20) with a polygenic effect, 2 chromosomes x 2,000 variants, and the
-   port's Step-1 CLI on the card in this process (--bsize 1000: 4
+   port's Step-1 CLI on the card in the side process (--bsize 1000: 4
    level-0 blocks; 5-fold CV, J = T = 5), after checking that the
    temporary directory has room for the ~6 GB of LOCO files: no
    hand-written kernel may launch (Step 1 is float64 cuBLAS and
@@ -245,7 +272,19 @@ CLI's entry point returned (run_cli_kept).
    (step1_options_cross_check): --prior-alpha, --test-l0, --select-l0
    FILE (LOOCV), --print (K-fold and --loocv) and BT --debug, .loco and
    --print values within one unit of the sixth significant digit, the
-   --debug inputs the same bytes.
+   --debug inputs the same bytes. The modes of the whole-run entry points
+   (modes_cross_check), card against CPU: --mcc --mcc-skew on a table of
+   skewed traits, --mt --strict --no-split, --multiphen --strict in the
+   default mode and with --multiphen-test cov_score (chromosome 2),
+   --compute-corr with --output-corr-text, with --skip-scaleG --sparse-thr
+   0.2, and with
+   --ld-extract (variant rows, mask rows built from the gene-based run's
+   files, names the data lacks; binary output), every field within its
+   bar, the LD matrices within 1e-10 before quantization and the binary
+   codes as in the LD slice; these launch no kernel. --af-cc on QT (the
+   fused route: fused_i8 once per block and no other kernel, by default
+   and with REGENIE_TPU_I8=0 fused_f32) and on CT (fused_i8 once per
+   block).
 
 After each phase a line gives the seconds since the start. The last
 lines of standard output are a JSON line with every kernel's numbers,
@@ -1030,10 +1069,28 @@ def write_gene_files(d, chroms, set_size, seed, positions=None, domains=False,
     return paths
 
 
+def _table_note(path, t0, **info):
+    """Beside a trait table the background writer wrote: path.json with
+    its summary and the seconds it took, for the phase that reads it."""
+    with open(path + ".json", "w") as fh:
+        json.dump(dict(info, seconds=time.time() - t0), fh)
+
+
+def _read_note(path):
+    with open(path + ".json") as fh:
+        return json.load(fh)
+
+
 def _bed_slice_data(d):
     f = FULL
-    write_dataset(d, seed=1, N=f["N"], chroms=((1, SLICE_BLOCKS * f["B"]),),
-                  P=f["P"], n_inc=f["n_inc"], n_cov=f["K"] - 1)
+    M = SLICE_BLOCKS * f["B"]
+    write_dataset(d, seed=1, N=f["N"], chroms=((1, M),), P=f["P"],
+                  n_inc=f["n_inc"], n_cov=f["K"] - 1)
+    # [bt slice]'s table: the traits thresholded
+    t0 = time.time()
+    Y, X = dataset_traits(1, f["N"], ((1, M),), f["P"], f["K"] - 1)
+    Yb = write_bt_table(f"{d}/pheno_bt.txt", Y, seed=5, n_inc=f["n_inc"], X=X)
+    _table_note(f"{d}/pheno_bt.txt", t0, cases=int(np.nansum(Yb)))
 
 
 def _bgen_slice_data(d):
@@ -1046,6 +1103,22 @@ def _step1_slice_data(d):
     f = FULL
     write_dataset(d, seed=5, N=f["N"], chroms=STEP1["chroms"], P=f["P"],
                   n_inc=f["n_inc"], n_cov=f["K"] - 1, effect_sd=STEP1["effect_sd"])
+    # the tables of [step1 bt slice] and [t2e slice]
+    t0 = time.time()
+    Y, X = dataset_traits(5, f["N"], STEP1["chroms"], f["P"], f["K"] - 1)
+    Yb = write_bt_table(f"{d}/pheno_bt.txt", Y, seed=6, n_inc=f["n_inc"], X=X)
+    miss = np.isnan(Yb)
+    _table_note(f"{d}/pheno_bt.txt", t0, cases=int(np.nansum(Yb)),
+                n_in=int((~miss).any(axis=1).sum()),
+                masked=[int(miss[:, 0].sum()), int(miss[:, -1].sum())])
+    t0 = time.time()
+    nt = T2E["endpoints"]
+    times, events = write_t2e_table(f"{d}/pheno_t2e.txt", Y[:, :nt], seed=7,
+                                    n_na=T2E["n_na"], X=X)
+    rates = np.nanmean(events, axis=0)
+    _table_note(f"{d}/pheno_t2e.txt", t0, rates=[float(rates.min()), float(rates.max())],
+                times_t1=int(len(np.unique(times[:, 0]))),
+                na_t1=int(np.isnan(times[:, 0]).sum()))
 
 
 def _pgen_slice_data(d):
@@ -1073,16 +1146,17 @@ def _gene_slice_data(d):
 
 
 # the full-width datasets in the order the phases read them: the BED of
-# [bed slice] and [bt slice], the BGEN of [bgen slice] and [dense slice],
-# the two-chromosome BED of the Step-1, Step-1 BT and T2E slices, the PGEN
-# of [pgen chrX slice], the exome-like BED of [gene slice]
+# [bed slice] and [bt slice], the two-chromosome BED of the Step-1,
+# Step-1 BT and T2E slices (the side process takes it when [bt slice]
+# starts), the BGEN of [bgen slice] and [dense slice], the PGEN of [pgen
+# chrX slice], the exome-like BED of [gene slice]
 _SHAPE = (f"N={FULL['N']} P={FULL['P']} K={FULL['K']}, "
           f"M={SLICE_BLOCKS} x {FULL['B']}")
 FULL_DATASETS = {
     "bed": (_bed_slice_data, f"BED {_SHAPE}"),
-    "bgen": (_bgen_slice_data, f"BGEN (8-bit, zlib) {_SHAPE}"),
     "step1": (_step1_slice_data, f"Step-1 BED N={FULL['N']}, "
               + " + ".join(str(n) for _, n in STEP1["chroms"]) + " variants"),
+    "bgen": (_bgen_slice_data, f"BGEN (8-bit, zlib) {_SHAPE}"),
     "pgen": (_pgen_slice_data, f"PGEN {_SHAPE} (chromosome 1, chrX)"),
     "gene": (_gene_slice_data, f"gene-based BED N={FULL['N']} P={FULL['P']} "
              f"K={FULL['K']}, {sum(n for _, n in GENE['chroms'])} variants in "
@@ -2749,13 +2823,10 @@ def bt_slice_phase(tmp):
 
     f = FULL
     M = SLICE_BLOCKS * f["B"]
-    t0 = time.time()
-    Y, X = dataset_traits(1, f["N"], ((1, M),), f["P"], f["K"] - 1)
-    Yb = write_bt_table(f"{tmp}/pheno_bt.txt", Y, seed=5, n_inc=f["n_inc"], X=X)
+    note = _read_note(f"{tmp}/pheno_bt.txt")
     print(f"  BT table N={f['N']} P={f['P']} (prevalence 5-30%, covariates "
-          f"10% of the liability, {int(np.nansum(Yb))} cases) written in "
-          f"{time.time() - t0:.1f}s")
-    del Y, X, Yb
+          f"10% of the liability, {note['cases']} cases) written in the "
+          f"background in {note['seconds']:.1f}s")
     out = f"{tmp}/bt"
     argv = ["--step", "2", "--bed", f"{tmp}/geno", "--phenoFile",
             f"{tmp}/pheno_bt.txt", "--covarFile", f"{tmp}/covar.txt",
@@ -2855,6 +2926,235 @@ def bt_slice_phase(tmp):
     _exact_firth_check(eng, x, o8)
     eng.gd.close()
     return counts["fused_i8"]
+
+
+# LD mode at full width ([ld slice]): M variants of the BED slice's file,
+# every other one (--extract), at N = 400,000 and K = 20
+LD_M = 2048
+LD_TIE, LD_BAR = 1e-6, 1e-10  # r^2 * 65535 + 0.5 this near an integer; |dcorr|
+
+
+def _ld_versus_cpu(params, pd, ld, what):
+    """The card's LD run (eng.ld of run_ldcomp) against the same raw block
+    through the same functions on the CPU in float64: the correlations
+    within LD_BAR before quantization, and a binary code may differ by 1
+    only where the CPU's r^2 * 65535 + 0.5 lies within LD_TIE of an
+    integer. Returns (max |dcorr|, codes that differ, CPU seconds)."""
+    import torch
+
+    from regenie_tpu_torch.run_step2 import ld_gram, ld_r2_codes, ld_scale
+
+    t0 = time.time()
+    LD_cpu = ld_scale(params, ld_gram(
+        ld.src.cpu(), ld.rows, ld.vecs, len(ld.names),
+        torch.as_tensor(pd.ind_in_analysis), torch.as_tensor(pd.new_cov)).numpy())
+    secs = time.time() - t0
+    gap = float(np.abs(ld.LD - LD_cpu).max()) if LD_cpu.size else 0.0
+    if not gap <= LD_BAR:
+        raise AssertionError(f"{what}: LD card vs CPU {gap:.3e} > {LD_BAR:g}")
+    ca, cb = ld_r2_codes(ld.LD).astype(np.int64), ld_r2_codes(LD_cpu).astype(np.int64)
+    off = ca != cb
+    v = LD_cpu[np.triu_indices(LD_cpu.shape[0], k=1)] ** 2 * 65535 + 0.5
+    if (np.abs(ca - cb) > 1).any() or (np.abs(v[off] - np.round(v[off])) > LD_TIE).any():
+        raise AssertionError(f"{what}: binary codes differ away from a rounding tie")
+    return gap, int(off.sum()), secs
+
+
+def ld_slice_phase(tmp):
+    """The port's LD mode at full width on the card, on the [bed slice]'s
+    BED: LD_M of its variants (every other one, --extract), the default
+    binary output, through the CLI (run_cli_kept). No kernel may launch;
+    the .corr file and snplist are checked; the times printed. Returns
+    the check of the card's matrix against the CPU's on the same raw
+    block (_ld_versus_cpu), a function that returns its printed line (the
+    raw block moved to the host), so that it can run beside the next
+    phase."""
+    import torch
+
+    f = FULL
+    with open(f"{tmp}/ld_extract.txt", "w") as fh:
+        fh.write("".join(f"v{i}\n" for i in range(0, 2 * LD_M, 2)))
+    out = f"{tmp}/ld"
+    argv = ["--step", "2", "--bed", f"{tmp}/geno", "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--ignore-pred", "--compute-corr",
+            "--extract", f"{tmp}/ld_extract.txt", "--out", out]
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    params, eng, lines = run_cli_kept(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"LD mode launched kernels: {counts}")
+    ld = eng.ld
+    M, N = len(ld.names), params.n_samples
+    names = open(f"{out}.corr.snplist").read().split()
+    if M != LD_M or names != [f"v{i}" for i in range(0, 2 * LD_M, 2)]:
+        raise AssertionError(f"{out}.corr.snplist: {len(names)} names, not {LD_M}")
+    raw = open(f"{out}.corr", "rb").read()
+    head = np.frombuffer(raw[:8], np.int32)
+    from regenie_tpu_torch.run_step2 import ld_r2_codes
+
+    if (list(head) != [N, M] or len(raw) != 8 + M * (M - 1)
+            or raw[8:] != ld_r2_codes(ld.LD).tobytes()):
+        raise AssertionError(f"{out}.corr: header {list(head)} or codes wrong")
+    if not (np.isfinite(ld.LD).all() and np.allclose(np.diag(ld.LD), 1.0)
+            and np.abs(ld.LD).max() <= 1.0 + 1e-12):
+        raise AssertionError("LD matrix: not a correlation matrix")
+    ms = ld.card_ms
+    bound, by = _bound(2.0 * M * M * N, M * N * 8 + M * M * 8, PEAK_FP64_TC_OPS)
+    steps = ld.read_s + ld.upload_s + sum(ms.values()) / 1e3 + ld.write_s
+    for ln in lines:
+        if "LD matrix (" in ln:
+            print(f"  {ln.strip(' *')}")
+    card = card_line()
+    for text in (
+            f"CLI wall {wall:.2f}s for M = {M}, N = {N}, K = {f['K']} "
+            f"({M * (M - 1) // 2 / wall:.0f} pairs/s), run-up {wall - steps:.2f}s",
+            f"host read {ld.read_s:.3f}s (packed bytes of {M} variants)",
+            f"upload {ld.upload_s:.3f}s (decoded to int8 on the card)",
+            f"card imputation {ms['impute']:.3f} ms, projection {ms['project']:.3f} "
+            f"ms, G'G {ms['gram']:.3f} ms against its {bound:.3f} ms bound by {by} "
+            f"({bound / ms['gram'] * 100:.1f}%) (CUDA events)",
+            f"host scaling and write {ld.write_s:.3f}s"):
+        print(f"  LD {text}; on {card}")
+    print("  LD mode: no kernel launched")
+    ld.src = ld.src.cpu()
+    pd = eng.pd
+    del eng.ld
+    eng.gd.close()
+
+    def cpu_check(threads=None):
+        import torch
+
+        before = torch.get_num_threads()
+        torch.set_num_threads(threads or before)
+        try:
+            gap, n_off, secs = _ld_versus_cpu(params, pd, ld, "[ld slice]")
+        finally:
+            torch.set_num_threads(before)
+        return (f"  LD card vs CPU (the same int8 codes, float64, the CPU {secs:.1f}s"
+                f"): max |dcorr| {gap:.3e} (bar {LD_BAR:g}); {n_off} of "
+                f"{M * (M - 1) // 2} binary codes differ by 1, each at a rounding tie")
+    return cpu_check
+
+
+def _ld_files_close(a_prefix, b_prefix, argv):
+    """Card and CPU LD files: the snplists the same bytes; text .corr
+    numbers within 1e-9 relative (|dcorr| <= LD_BAR holds in memory)."""
+    for ext in (".corr.snplist", ".corr.forcedIn.snplist"):
+        a, b = (os.path.exists(x + ext) for x in (a_prefix, b_prefix))
+        if a != b or (a and open(a_prefix + ext).read() != open(b_prefix + ext).read()):
+            raise AssertionError(f"{ext} differs card vs CPU")
+    if "--output-corr-text" in argv or "--skip-scaleG" in argv:
+        la = open(a_prefix + ".corr").read().split()
+        lb = open(b_prefix + ".corr").read().split()
+        if len(la) != len(lb):
+            raise AssertionError(".corr: token count differs card vs CPU")
+        for x, y in zip(la, lb):
+            if x != y and abs(float(x) - float(y)) > 1e-9 * max(1.0, abs(float(x))):
+                raise AssertionError(f".corr: {x} against {y}")
+
+
+def modes_cross_check(tmp, prefix, P):
+    """The whole-run modes at N = 2,000 on the card and on the CPU, with
+    --remove: --mcc --mcc-skew on a table of skewed traits, --mt, --multiphen
+    (default and cov_score), and LD mode (--output-corr-text; --skip-scaleG
+    --sparse-thr; --ld-extract on the gene-based run's BED and files, with
+    variant and mask rows and names the data lacks). No kernel may launch
+    on the card; every .regenie field within its bar (_compare_files), the
+    LD matrices within LD_BAR and their codes as _ld_versus_cpu holds them."""
+    rows = [ln.split() for ln in open(f"{tmp}/pheno.txt").read().splitlines()]
+    with open(f"{tmp}/pheno_skew.txt", "w") as fh:
+        fh.write(" ".join(rows[0]) + "\n")
+        for t in rows[1:]:
+            t = list(t)
+            if t[2] != "NA":
+                t[2] = f"{math.exp(float(t[2]) * 3):.6f}"
+            if t[3] != "NA":
+                t[3] = f"{float(t[3]) ** 3 * 100:.6f}"
+            fh.write(" ".join(t) + "\n")
+    g = os.path.join(tmp, "gene")
+    with open(f"{g}/ldlist.txt", "w") as fh:
+        fh.write("sv v5\nmask G0.M3.0.5 G0\nsv vABSENT\nmask G1.M2.0.05 G1\n"
+                 "mask G2.M1.singleton G2\nsv v130\nmask G3.M9.0.5 G3\n"
+                 "mask G10.M3.0.5 G10\nsv v200\n")
+    split = [f"_Y{p + 1}.regenie" for p in range(P)]
+    gene = ["--set-list", f"{g}/sets.txt", "--anno-file", f"{g}/anno.txt",
+            "--mask-def", f"{g}/masks.txt", "--aaf-bins", "0.05,0.5"]
+    runs = {
+        "--mcc --mcc-skew 0.5 (Y1, Y2 skewed)": (tmp, "pheno_skew.txt", [
+            "--bed", prefix, "--mcc", "--mcc-skew", "0.5"], split),
+        "--mt --strict --no-split": (tmp, "pheno.txt", [
+            "--bed", prefix, "--mt", "--strict", "--no-split"], [".regenie"]),
+        "--multiphen --strict": (tmp, "pheno.txt", [
+            "--bed", prefix, "--multiphen", "--strict"], [".regenie"]),
+        # cov_score's per-SNP covariate fits cost ~20 ms a variant on the
+        # host: chromosome 2 alone (200 variants)
+        "--multiphen --strict --multiphen-test cov_score --chr 2": (tmp, "pheno.txt", [
+            "--bed", prefix, "--multiphen", "--strict", "--multiphen-test",
+            "cov_score", "--chr", "2"], [".regenie"]),
+        "--compute-corr --output-corr-text": (tmp, "pheno.txt", [
+            "--bed", prefix, "--compute-corr", "--output-corr-text"], None),
+        "--compute-corr --skip-scaleG --sparse-thr 0.2": (tmp, "pheno.txt", [
+            "--bed", prefix, "--compute-corr", "--skip-scaleG", "--sparse-thr",
+            "0.2"], None),
+        "--compute-corr --ld-extract (variants, masks, absent names)": (
+            g, "pheno.txt", ["--bed", f"{g}/geno", "--compute-corr", "--ld-extract",
+                             f"{g}/ldlist.txt", *gene], None),
+    }
+    for i, (what, (d, table, args, outs)) in enumerate(runs.items()):
+        common = ["--step", "2", *args, "--phenoFile", f"{d}/{table}", "--covarFile",
+                  f"{d}/covar.txt", "--remove", f"{d}/remove.txt", "--ignore-pred",
+                  "--bsize", "256"]
+        kept = {}
+        secs = {}
+        try:
+            for where in ("gpu", "cpu"):
+                os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+                if where == "cpu":
+                    os.environ["REGENIE_TPU_TORCH_DEVICE"] = "cpu"
+                _reset_counts()
+                t0 = time.time()
+                params, eng, _ = run_cli_kept(common + ["--out", f"{d}/m{i}{where}"])
+                secs[where] = time.time() - t0
+                if where == "gpu" and any(_read_counts().values()):
+                    raise AssertionError(f"{what}: kernels launched {_read_counts()}")
+                if outs is None:
+                    kept[where] = (params, eng.pd, eng.ld)
+                eng.gd.close()
+        finally:
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        a, b = f"{d}/m{i}gpu", f"{d}/m{i}cpu"
+        if outs is None:
+            (params, pd, la), (_, _, lb) = kept["gpu"], kept["cpu"]
+            gap = float(np.abs(la.LD - lb.LD).max())
+            if not gap <= LD_BAR:
+                raise AssertionError(f"{what}: LD card vs CPU {gap:.3e}")
+            n_off = 0
+            if "--output-corr-text" not in args and "--skip-scaleG" not in args:
+                n_off = _ld_versus_cpu(params, pd, la, what)[1]
+            _ld_files_close(a, b, args)
+            forced = (open(a + ".corr.forcedIn.snplist").read().split()
+                      if os.path.exists(a + ".corr.forcedIn.snplist") else [])
+            if "--ld-extract" in args and not (
+                    "vABSENT" in forced
+                    and [m for m in la.names if ".M" in m and m not in forced]):
+                raise AssertionError(f"{what}: no mask row built, or an absent "
+                                     "name not kept")
+            what_ld = "|dcov|" if "--skip-scaleG" in args else "|dcorr|"
+            detail = (f"{len(la.names)} x {len(la.names)}, max {what_ld} {gap:.3e}"
+                      + (f", {len(forced)} names kept as zero rows" if forced else "")
+                      + (f", {n_off} binary codes at a rounding tie"
+                         if "--ld-extract" in args else ""))
+        else:
+            worst = max(_compare_files(a + o, b + o) for o in outs)
+            nrow = len(_read_text(b + outs[0]).splitlines()) - 1
+            detail = (f"{nrow} rows, every field within its bar (largest share of "
+                      f"the bar used {worst:.3f})")
+        print(f"  {what}: card {secs['gpu']:.1f}s, CPU {secs['cpu']:.1f}s; {detail}; "
+              "no kernel launched")
 
 
 def _dense_block_parts(eng, blk, bsnps, reps=3):
@@ -3396,12 +3696,9 @@ def step1_bt_slice_phase(tmp):
     f = FULL
     for path in glob.glob(f"{tmp}/s1_*.loco"):
         os.remove(path)
-    t0 = time.time()
-    Y, X = dataset_traits(5, f["N"], STEP1["chroms"], f["P"], f["K"] - 1)
-    Yb = write_bt_table(f"{tmp}/pheno_bt.txt", Y, seed=6, n_inc=f["n_inc"], X=X)
-    print(f"  BT table N={f['N']} P={f['P']} (prevalence 5-30%, {int(np.nansum(Yb))} "
-          f"cases) written in {time.time() - t0:.1f}s")
-    del Y, X
+    note = _read_note(f"{tmp}/pheno_bt.txt")
+    print(f"  BT table N={f['N']} P={f['P']} (prevalence 5-30%, {note['cases']} "
+          f"cases) written in the background in {note['seconds']:.1f}s")
     out = f"{tmp}/s1bt"
     argv = ["--step", "1", "--bed", f"{tmp}/geno", "--phenoFile",
             f"{tmp}/pheno_bt.txt", "--covarFile", f"{tmp}/covar.txt", "--bt",
@@ -3426,14 +3723,12 @@ def step1_bt_slice_phase(tmp):
     print(f"  BT Step-1 CLI wall time {wall:.2f}s (run-up, null fits, level 0, "
           f"level 1 and the LOCO files); no kernel launched; on {card_line()}")
     t0 = time.time()
-    miss = np.isnan(Yb)
-    n_in = int((~miss).any(axis=1).sum())
-    masked = {p: int(miss[:, p].sum()) for p in (0, f["P"] - 1)}
+    n_in = note["n_in"]
+    masked = dict(zip((0, f["P"] - 1), note["masked"]))
     names = [f"Y{p + 1}" for p in range(f["P"])]
     nbytes = _check_loco_files(out, names, n_in, masked)
     print(f"  {f['P']} LOCO files of {n_in} samples x 23 rows ({nbytes / 1e9:.2f} "
           f"GB) and _pred.list well formed ({time.time() - t0:.1f}s)")
-    del Yb, miss
     level1_bt_real_depth(torch.device("cuda"))
 
 
@@ -3575,15 +3870,11 @@ def t2e_slice_phase(tmp):
     nt = T2E["endpoints"]
     for path in glob.glob(f"{tmp}/s1_*.loco") + glob.glob(f"{tmp}/s1bt_*.loco"):
         os.remove(path)
-    t0 = time.time()
-    Y, X = dataset_traits(5, f["N"], STEP1["chroms"], f["P"], f["K"] - 1)
-    times, events = write_t2e_table(f"{tmp}/pheno_t2e.txt", Y[:, :nt], seed=7,
-                                    n_na=T2E["n_na"], X=X)
-    rates = np.nanmean(events, axis=0)
+    note = _read_note(f"{tmp}/pheno_t2e.txt")
     print(f"  T2E table N={f['N']}: {nt} endpoints, event rates "
-          f"{rates.min():.3f}-{rates.max():.3f}, {len(np.unique(times[:, 0]))} "
-          f"distinct times of T1, written in {time.time() - t0:.1f}s")
-    del Y, X
+          f"{note['rates'][0]:.3f}-{note['rates'][1]:.3f}, {note['times_t1']} "
+          f"distinct times of T1, written in the background in "
+          f"{note['seconds']:.1f}s")
     flags = t2e_flags(nt)
     base = ["--bed", f"{tmp}/geno", "--phenoFile", f"{tmp}/pheno_t2e.txt",
             "--covarFile", f"{tmp}/covar.txt", *flags, "--verbose"]
@@ -3608,11 +3899,10 @@ def t2e_slice_phase(tmp):
     print(f"  T2E Step-1 CLI wall time {wall:.2f}s (run-up, null fits, level 0, "
           f"level 1 and the LOCO files); no kernel launched; on {card_line()}")
     t0 = time.time()
-    masked = {0: int(np.isnan(times[:, 0]).sum()), nt - 1: 0}
+    masked = {0: note["na_t1"], nt - 1: 0}
     nbytes = _check_loco_files(out, [f"T{p + 1}" for p in range(nt)], f["N"], masked)
     print(f"  {nt} LOCO files of {f['N']} samples x 23 rows ({nbytes / 1e9:.2f} GB) "
           f"and _pred.list well formed ({time.time() - t0:.1f}s)")
-    del times, events
     level1_t2e_real_depth(torch.device("cuda"))
     _free()
 
@@ -5267,6 +5557,9 @@ def cross_check_phase(tmp):
             sub["chrx_bed"], ["--bed", geno["chrx_bed"], *t2e], t2e_split),
         "T2E PGEN --firth --approx --coxnofirth": (
             sub["pgen"], ["--pgen", geno["pgen"], *t2e, "--coxnofirth"], t2e_split),
+        # --af-cc off binary traits: the case/control columns hold -1
+        "QT BED --af-cc": (tmp, ["--bed", prefix, "--af-cc"], split),
+        "CT BED --af-cc": (tmp, ["--bed", prefix, "--ct", "--af-cc"], split),
     }
     # the dense route (no int8 / float32 switch: each runs once on the card)
     dense = {
@@ -5309,7 +5602,8 @@ def cross_check_phase(tmp):
     for i, (what, (d, args, outs, *_)) in enumerate({**runs, **dense}.items()):
         is_dense = what in dense
         table = ("pheno_bt.txt" if "--bt" in args else
-                 "pheno_t2e.txt" if "--t2e" in args else "pheno.txt")
+                 "pheno_t2e.txt" if "--t2e" in args else
+                 "pheno_ct.txt" if "--ct" in args else "pheno.txt")
         pheno = [] if "--tpheno-file" in args else ["--phenoFile", f"{d}/{table}"]
         common = ["--step", "2", *args, *pheno, "--covarFile", f"{d}/covar.txt",
                   "--remove", f"{d}/remove.txt", "--ignore-pred", "--bsize", "256"]
@@ -5327,6 +5621,23 @@ def cross_check_phase(tmp):
                     raise AssertionError(f"{what} (REGENIE_TPU_I8=0): launches "
                                          f"{counts}, expected {want}")
                 f32_launches[f32_runs[what]] = counts[f32_runs[what]]
+            if "--af-cc" in args and not what.startswith("BT"):
+                # QT and CT --af-cc on the fused route: fused_i8 (or
+                # fused_f32) once a block and no other kernel
+                kern = "fused_f32" if off else "fused_i8"
+                nblk, _ = _variant_blocks(args)
+                counts = _read_counts()
+                want = {k: nblk if k == kern else 0 for k in counts}
+                if counts != want:
+                    raise AssertionError(f"{what}{' (REGENIE_TPU_I8=0)' if off else ''}"
+                                         f": launches {counts}, expected {want}")
+                lines = _read_text(f"{d}/{tag}gpu{int(off)}{outs[0]}").splitlines()
+                k = lines[0].split().index("A1FREQ_CASES")
+                if not {ln.split()[k] for ln in lines[1:]} <= {"-1", "NA"}:
+                    raise AssertionError(f"{what}: A1FREQ_CASES other than -1")
+                print(f"  {what}{' (REGENIE_TPU_I8=0)' if off else ''}: {kern} "
+                      f"{counts[kern]} launches for {nblk} blocks, no other kernel; "
+                      "the case/control columns -1")
             if what.startswith("T2E") and not is_dense:
                 # the Cox operand through fused_i8, or fused_f32 with
                 # REGENIE_TPU_I8=0, once a block and no other kernel; every
@@ -5417,7 +5728,132 @@ def cross_check_phase(tmp):
                          kernel=("fused_i8", 3), names=[f"T{p + 1}" for p in range(NT)])
     # gene-based tests (--set-list) on QT, BT, CT and T2E traits
     gene_cross_check(tmp)
+    # MCC, multi-trait tests, MultiPhen and LD mode (the last on the gene
+    # files too)
+    modes_cross_check(tmp, prefix, P)
     return f32_launches
+
+
+def _step1_slices(tmp, t_all):
+    """[step1 slice], [step1 bt slice] and [t2e slice] on the Step-1
+    dataset in `tmp`, which is removed after them; "(<phase> done at
+    <s>)" lines count from t_all. Returns the launches of fused_i8 on the
+    T2E Step-2 path."""
+    print("[step1 slice]")
+    step1_slice_phase(tmp)
+    _free()
+    _phase_time("step1 slice", t_all)
+    print("[step1 bt slice]")
+    step1_bt_slice_phase(tmp)
+    _free()
+    _phase_time("step1 bt slice", t_all)
+    print("[t2e slice]")
+    launches = t2e_slice_phase(tmp)
+    print(f"  fused_i8 launches on the T2E Step-2 path: {launches}")
+    shutil.rmtree(tmp)
+    _free()
+    _phase_time("t2e slice", t_all)
+    return launches
+
+
+def _side_child(q, step1_dir, t_all):
+    """The side process: cross_check_phase in a temporary directory of
+    its own, then _step1_slices on step1_dir, each with its printed lines
+    kept; puts (ok, lines, its return value, seconds) on the queue q for
+    each, in that order, and stops at the first that fails."""
+    import io
+    import traceback
+
+    import torch
+
+    def run(fn, *args):
+        buf = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                ret = fn(*args)
+        except BaseException:
+            q.put((False, buf.getvalue() + traceback.format_exc(), None,
+                   time.time() - t0))
+            raise
+        q.put((True, buf.getvalue(), ret, time.time() - t0))
+
+    torch.set_num_threads(SIDE_THREADS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        run(cross_check_phase, tmp)
+    # the Step-1 slices' CPU checks (level 1 at N = 20,000, a block's W)
+    # take twice the cross-check's torch threads
+    torch.set_num_threads(2 * SIDE_THREADS)
+    run(_step1_slices, step1_dir, t_all)
+
+
+# host threads of the side process (BLAS, and torch in the cross-check):
+# the [bt slice]'s null fits beside it are BLAS-bound and slowed 1.8x by a
+# cross-check and a CPU check on all cores
+SIDE_THREADS = 2
+_BLAS_ENV = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+class Side:
+    """A second lane of the smoke: one spawned process that runs the
+    cross-check (N = 2,000) and then the three Step-1 slices at full
+    width, beside the main process's Step-2 slices from [bed slice] on.
+    Both lanes spend most of their time on the host ([bt slice]'s null
+    fits leave the card idle for minutes; the Step-1
+    slices write 11 GB of LOCO text and fit their nulls there), so on a
+    host whose speed varies ~1.4x between machines the two lanes keep
+    the smoke inside its time limit with no check cut. The card is
+    shared: a CUDA-event time of either lane may include kernels of the
+    other (the kernel phase and [ld slice] run before the lane starts).
+    result(what, beside) waits for the next part, prints its lines and
+    returns its value; close() stops the process."""
+
+    def __init__(self, step1_dir, t_all):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.q = ctx.Queue()
+        self.parts = 0  # results read
+        self.proc = ctx.Process(target=_side_child, args=(self.q, step1_dir, t_all))
+        # the child reads its BLAS thread counts from the environment when
+        # it imports numpy
+        saved = {k: os.environ.get(k) for k in _BLAS_ENV}
+        os.environ.update({k: str(SIDE_THREADS) for k in _BLAS_ENV})
+        try:
+            self.proc.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def result(self, what, beside):
+        import queue
+
+        t0 = time.time()
+        while True:
+            try:
+                ok, lines, ret, secs = self.q.get(timeout=10)
+                break
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(f"the side process ended without the "
+                                       f"result of the {what}") from None
+        self.parts += 1
+        print(lines, end="")
+        if not ok:
+            raise RuntimeError(f"the {what} failed")
+        print(f"  {what}: {secs:.1f}s in the side process, beside {beside}; "
+              f"waited {time.time() - t0:.1f}s for it")
+        return ret
+
+    def close(self):
+        # after both parts the process ends by itself; else it is stopped
+        self.proc.join(60 if self.parts == 2 else 0)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(30)
 
 
 def native_report():
@@ -5516,16 +5952,39 @@ def main() -> int:
         launches.update(profile_bgen_path_phase())
         _free()
         tmp = data.get("bed")
-        print("[bed slice]")
-        launches.update(slice_phase(tmp, "bed"))
+        print("[ld slice]")
+        ld_check = ld_slice_phase(tmp)
         _free()
-        _phase_time("bed slice", t_all)
-        print("[bt slice]")
-        bt_launches = bt_slice_phase(tmp)
-        print(f"  fused_i8 launches on the BT path: {bt_launches}")
+        _phase_time("ld slice (the card's part)", t_all)
+        # two lanes from here on: the side process (the cross-check, then
+        # the Step-1 slices) and the LD slice's CPU check (a thread) run
+        # beside the BED and BT slices, whose host run-up and null fits
+        # leave the card idle, and the Step-2 slices after them
+        from concurrent.futures import ThreadPoolExecutor
+
+        side = Side(data.get("step1"), t_all)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            # half the host's cores: the BT null fits beside it are BLAS-bound
+            ld_done = pool.submit(ld_check, max(1, (os.cpu_count() or 2) // 2))
+            print("[bed slice] (the side process and the LD slice's CPU check "
+                  "run beside it and [bt slice])")
+            launches.update(slice_phase(tmp, "bed"))
+            _free()
+            _phase_time("bed slice", t_all)
+            print("[bt slice]")
+            bt_launches = bt_slice_phase(tmp)
+            print(f"  fused_i8 launches on the BT path: {bt_launches}")
+            print("[ld slice, CPU check]")
+            print(ld_done.result())
+        del ld_check, ld_done
         shutil.rmtree(tmp)
         _free()
         _phase_time("bt slice", t_all)
+        print("[cross-check]")
+        # the float32 kernels' CLI runs (REGENIE_TPU_I8=0) are the
+        # cross-check's BED --htp and BGEN --minINFO runs
+        launches.update(side.result("cross-check", "[bed slice] and [bt slice]"))
+        _phase_time("cross-check", t_all)
         tmp = data.get("bgen")
         print("[bgen slice]")
         got, *kept = slice_phase(tmp, "bgen", keep=True)
@@ -5537,21 +5996,6 @@ def main() -> int:
         shutil.rmtree(tmp)
         _free()
         _phase_time("bgen and dense slices", t_all)
-        tmp = data.get("step1")
-        print("[step1 slice]")
-        step1_slice_phase(tmp)
-        _free()
-        _phase_time("step1 slice", t_all)
-        print("[step1 bt slice]")
-        step1_bt_slice_phase(tmp)
-        _free()
-        _phase_time("step1 bt slice", t_all)
-        print("[t2e slice]")
-        t2e_launches = t2e_slice_phase(tmp)
-        print(f"  fused_i8 launches on the T2E Step-2 path: {t2e_launches}")
-        shutil.rmtree(tmp)
-        _free()
-        _phase_time("t2e slice", t_all)
         tmp = data.get("pgen")
         print("[pgen chrX slice]")
         pgen_launches = pgen_chrx_slice_phase(tmp)
@@ -5572,18 +6016,17 @@ def main() -> int:
         bt_interaction_real_depth(dev)
         _free()
         _phase_time("interaction slice", t_all)
+        # the Step-1 slices' lines, from the side process
+        side.result("Step-1 slices", "the Step-2 slices")
+        _phase_time("side process", t_all)
     finally:
+        if "side" in locals():
+            side.close()
         data.close()
         root.cleanup()
     # decode_planes has no caller on any path of the port, as
     # _decode_kernel has none in the JAX package: 0 launches there
     launches["decode_planes"] = 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        print("[cross-check]")
-        # the float32 kernels' CLI runs (REGENIE_TPU_I8=0) are the
-        # cross-check's BED --htp and BGEN --minINFO runs
-        launches.update(cross_check_phase(tmp))
-    _phase_time("cross-check", t_all)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(f"all phases passed in {time.time() - t_all:.1f}s")

@@ -3,8 +3,9 @@ takes the same flags as `python -m regenie_tpu` (the reference's flag
 surface, src/Regenie.cpp:146-458). build_parser and args_to_params are
 the port's copies of regenie_tpu/cli.py's; main runs the modes the port
 has (Step 1 and Step 2 on quantitative, binary, count and time-to-event
-traits, Step 2's gene-based and interaction tests, on PLINK BED, PGEN
-and BGEN) and raises NotImplementedError for every other one (unported).
+traits; Step 2's gene-based, interaction, multi-trait, MultiPhen and MCC
+tests and LD mode; on PLINK BED, PGEN and BGEN, in one process) and
+raises NotImplementedError for every other one (unported).
 
 The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 """
@@ -837,18 +838,16 @@ def args_to_params(args: argparse.Namespace) -> Params:
 def unported(params: Params) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
     None. Every such mode raises NotImplementedError before any work."""
-    common = (
-        (params.trait_set, "multi-trait tests (--mt)"),
-        (params.multiphen, "MultiPhen (--multiphen)"),
-        (params.get_cor_mat, "LD matrix mode (--compute-corr)"),
-        (params.mcc_test, "the MCC test (--mcc)"),
-        # case/control frequencies exist for binary traits only
-        (params.af_cc and params.trait_mode != BT,
-         "--af-cc on quantitative, count or time-to-event traits"),
-    )
+    # the JAX package joins a multi-process run when these are set
+    # (maybe_init_distributed, regenie_tpu/parallel/dist.py); the port
+    # runs one process, which would run the whole job and write the same
+    # files as every other process of the launch
+    multi = (bool(os.environ.get("REGENIE_TPU_COORDINATOR")
+                  or os.environ.get("REGENIE_TPU_DIST")),
+             "multi-process runs (REGENIE_TPU_COORDINATOR / REGENIE_TPU_DIST)")
     if params.step == 1:
         checks = (
-            *common,
+            multi,
             # the JAX package's sample-sharded level 0 (parallel/mesh.py)
             (bool(os.environ.get("REGENIE_TPU_MESH")
                   or os.environ.get("REGENIE_TPU_MESH_2D")),
@@ -858,7 +857,7 @@ def unported(params: Params) -> Optional[str]:
         checks = (
             (params.file_type not in ("bed", "bgen", "pgen"),
              f"{params.file_type.upper()} input"),
-            *common,
+            multi,
         )
     for hit, name in checks:
         if hit:

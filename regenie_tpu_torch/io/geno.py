@@ -154,14 +154,18 @@ class GenoData:
             G = torch.where(G == -3, G, 2 - G)
         return G
 
+    def read_block_host_scattered(self, block_snps: List[SnpInfo]) -> np.ndarray:
+        """read_block_host of an arbitrary (possibly non-contiguous)
+        variant list: a BED's rows are read a variant at a time."""
+        if self._bed is None:
+            return self.read_block_host(block_snps)
+        return np.stack([self._bed.read_block_bytes(s.offset, 1)[0]
+                         for s in block_snps])
+
     def read_block_scattered(self, block_snps: List[SnpInfo]) -> np.ndarray:
         """read_block of an arbitrary (possibly non-contiguous) variant
         list (conditioning variants, extract_condition_snps)."""
-        if self._bed is None:
-            return self.read_block(block_snps)
-        raw = np.stack([self._bed.read_block_bytes(s.offset, 1)[0]
-                        for s in block_snps])
-        return self.read_block(block_snps, raw)
+        return self.read_block(block_snps, self.read_block_host_scattered(block_snps))
 
     def close(self):
         for f in (self._bed, self._bgen,

@@ -110,6 +110,23 @@ def prepare(
             m = (pd.phenotypes[:, j] != -999.0) & pd.masked_indivs[:, j]
             pd.phenotypes[:, j] = rint_values(pd.phenotypes[:, j], m)
 
+    # phenotype skewness gate for --mcc (compute_skew, Pheno.cpp:117-131):
+    # computed on pre-imputation values under each trait's mask
+    if params.mcc_test:
+        skew = np.zeros(params.n_pheno)
+        for j in range(params.n_pheno):
+            m = (pd.phenotypes[:, j] != -999.0) & pd.masked_indivs[:, j]
+            y = pd.phenotypes[m, j]
+            mu = y.mean()
+            skew[j] = ((y - mu) ** 3).mean() / ((y - mu) ** 2).mean() ** 1.5
+        pd.skew_Y = skew
+        if params.mcc_skew == 0.0:
+            pd.mcc_Y = np.ones(params.n_pheno, dtype=bool)
+        else:
+            pd.mcc_Y = np.abs(skew) > params.mcc_skew
+            if not pd.mcc_Y.any():
+                params.mcc_test = False
+
     pheno_impute_miss(params, pd)
 
     # --print-cov-betas: OLS of phenotypes on centered+scaled covariates

@@ -568,3 +568,47 @@ class _MaskBedWriter:
     def close(self):
         self.bed.close()
         self.bim.close()
+
+
+def build_requested_masks(params, eng: Step2Engine, want: Dict[str, List[str]], log):
+    """The burden masks that --ld-extract's mask rows name (check_ld_list,
+    Geno.cpp:1475-1485; the JAX package's build_requested_masks), built
+    from --set-list, --anno-file and --mask-def as the gene-based tests
+    build them.
+
+    want: {set_id: [mask IDs like 'SET1.M1.0.01']}. Returns {mask_id: [N]
+    genotype vector (missing = -3)}."""
+    gd, pd = eng.gd, eng.pd
+    snp_id_to_idx = {s.ID: i for i, s in enumerate(gd.snps)}
+    snp_chroms = np.array([s.chrom for s in gd.snps])
+    cat_bit, cat_disp = (read_anno_labels(params.anno_labels_file)
+                         if params.anno_labels_file else (None, None))
+    anno, cat_bit, _wd, _dom, _rn = read_annotations(
+        params.anno_file, snp_id_to_idx, cat_bit)
+    mask_defs = read_mask_defs(params.mask_def, cat_bit, log, display=cat_disp)
+    all_bits = 0
+    for md in mask_defs:
+        all_bits |= md.bits
+    sets = read_setlist(params, params.set_list, snp_id_to_idx, snp_chroms, anno,
+                        all_bits, None, log)
+    aafs = aaf_bin_values(params)
+    out: Dict[str, np.ndarray] = {}
+    for vset in sets:
+        if vset.ID not in want:
+            continue
+        snps = [gd.snps[i] for i in vset.snp_indices]
+        G = gd.read_block_scattered(snps)
+        sb = eng.block_stats(G)
+        total, ns = sb["total"], sb["ns"]
+        mac1 = np.minimum(total, 2 * ns - total)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            af1 = total / (2.0 * ns)
+        anno_bits = np.array(
+            [anno.get((i, vset.ID), 1) for i in vset.snp_indices], dtype=np.uint64)
+        built, _ = build_masks_for_set(
+            params, vset, G.astype(np.float64), af1, mac1, mac1 < 0.5, anno_bits,
+            mask_defs, aafs, pd.masked_indivs, pd.ind_in_analysis)
+        for bm in built:
+            if bm.snp.ID in want[vset.ID]:
+                out[bm.snp.ID] = bm.raw_vec if bm.raw_vec is not None else bm.G
+    return out

@@ -73,7 +73,7 @@ from .ops import fused_score as fsc
 from .ops.geno_ops import (MISSING, decode_bed_packed, finalize_block_step2,
                            pack_hardcalls, snp_stats_block,
                            snp_stats_block_packed)
-from .prep import prepare, write_debug_inputs
+from .prep import fmt, prepare, write_debug_inputs
 from .cli import unported
 from .utils.device import resolve_device
 from .utils.stats import chisq_neglog10, ttest_neglog10, usage_info_line
@@ -1315,10 +1315,13 @@ class Step2Engine:
                             flipped, info_t=None, is_mask: bool = False
                             ) -> BlockResult:
         """Score a finalized [B, N] float64 block on the device (the JAX
-        package's test_prepared_block, without the mesh and MCC): for QT, --nocov-approx scores G unadjusted with scale 1;
-        otherwise the one-pass scorer, or in strict mode the
-        residualize-then-score pair. BT/CT/T2E: the all-trait score test
-        with its corrections (step2_bt / step2_t2e .score_block). With
+        package's test_prepared_block, without the mesh): for QT,
+        --nocov-approx scores G unadjusted with scale 1; otherwise the
+        one-pass scorer, or in strict mode the residualize-then-score
+        pair; with --mcc the skewed traits' rows then take the DKAT
+        p-values (models/mcc.py, on the host). BT/CT/T2E: the all-trait
+        score test with its corrections (step2_bt / step2_t2e
+        .score_block). With
         interaction tests (QT) the residualized block stays on the device
         as last_G_int.
 
@@ -1356,6 +1359,7 @@ class Step2Engine:
         if params.skip_cov_res:
             # --nocov-approx: G unadjusted, scale_fac = 1 (residualize_geno
             # skipped, Data.cpp:2513)
+            G_res = G
             stats, denum = m2.score_qt_block(G, d.res, d.maskf, self.scale_denom,
                                              self.strict)
             fd = dict(s=stats, d=denum)
@@ -1375,7 +1379,7 @@ class Step2Engine:
                 stats, denum = m2.score_qt_block(G_res, d.res, d.maskf,
                                                  self.scale_denom, self.strict)
             fd = dict(s=stats, d=denum, g=scale_fac, l=low_var)
-            if need_host or self.interaction is not None:
+            if need_host or self.interaction is not None or params.mcc_test:
                 if G_res is None:
                     G_res = m2.residualize_scale_block(G, d.cov, self.scale_denom)[0]
                 if need_host:
@@ -1387,9 +1391,19 @@ class Step2Engine:
         self.last_G_res = f.get("G")
         self.last_scale_fac = scale_fac
         bhat, se, chisq, logp = self._qt_post(f["s"], f["d"], scale_fac, flipped)
+        test_fail = np.zeros((B, params.n_pheno), dtype=bool)
+        if params.mcc_test:
+            # MCC (DKAT) p-values for the skewed traits' rows on the host:
+            # the rows of G_res it needs come back from the device
+            # (test_prepared_block's MCC branch, regenie_tpu/run_step2.py
+            # :700-706)
+            from .models.mcc import apply_mcc_qt
+
+            bhat, se, chisq = np.array(bhat), np.array(se), np.array(chisq)
+            test_fail = apply_mcc_qt(params, self.pd, G_res, self.res, logp,
+                                     se, chisq)
         return BlockResult(
-            bhat=bhat, se=se, chisq=chisq, logp=logp,
-            test_fail=np.zeros((B, params.n_pheno), dtype=bool),
+            bhat=bhat, se=se, chisq=chisq, logp=logp, test_fail=test_fail,
             ignored=ignored | low_var, ignored_trait=ignored_trait,
             af_t=af_t, ns_t=ns_t, scale_fac=scale_fac, mac_t=mac_t,
             af1=None, ns1=None, info_t=info_t,
@@ -1716,8 +1730,10 @@ def _open_null_firth_out(params, eng, pd, log):
 
 def run_step2(params: Params, log=print, device=None) -> Step2Engine:
     """Step 2 (QT, BT, CT or T2E) on a BED, PGEN or BGEN file: one output
-    file per trait, or one merged file (--no-split); with --set-list the
-    gene-based tests (run_genebased). `device` as in
+    file per trait, or one merged file (--no-split); with --compute-corr
+    the LD matrix (run_ldcomp), with --set-list the gene-based tests
+    (run_genebased), with --mt the multi-trait tests (run_multitrait),
+    with --multiphen MultiPhen (run_multiphen). `device` as in
     utils.device.resolve_device (CUDA unless the CPU is asked for).
     Returns the engine, its output files closed and its genotype source
     open (the caller may score blocks again and closes it)."""
@@ -1732,10 +1748,18 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
         eng.null_firth_files = read_pred_list(params.use_null_firth)
     if params.write_null_firth and eng.is_bt and params.firth_approx:
         _open_null_firth_out(params, eng, pd, log)
+    # the whole-run modes, in the JAX package's order
+    # (regenie_tpu/run_step2.py:2251-2263)
+    if params.get_cor_mat:
+        return run_ldcomp(params, eng, log)
     if params.set_list:
         from .run_genebased import run_genebased
 
         return run_genebased(params, eng, log)
+    if params.trait_set:
+        return run_multitrait(params, eng, blocks, log)
+    if params.multiphen:
+        return run_multiphen(params, eng, blocks, log)
     params.total_n_block = len(blocks)
     log(f" * block size: [{params.block_size}]")
     log(usage_info_line(params))
@@ -1910,4 +1934,364 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
             log(f" * {what}: {len(secs)} in {sum(secs):.3f}s (mean "
                 f"{sum(secs) / len(secs):.3f}s, max {max(secs):.3f}s)")
     log(f" * done ({dt:.1f}s)")
+    return eng
+
+
+# ---- the whole-run modes: multi-trait tests, MultiPhen, LD matrix ----
+
+def run_multitrait(params: Params, eng: Step2Engine, blocks, log=print) -> Step2Engine:
+    """Multi-trait testing mode (--mt; the JAX package's run_multitrait,
+    one process): 14 joint tests per variant (test_multitrait,
+    Data.cpp:3289). QT only; one merged output file. Each block is
+    imputed, residualized and scaled on the device, where the tests'
+    [B, N] x [N, 3q] products run (models/multitrait.py); the tests'
+    algebra and tails run on the host."""
+    from .models.multitrait import mt_header, mt_line, run_mt_block, setup_mt
+
+    if params.trait_mode != QT:
+        raise ValueError("multi-trait tests are only supported for QTs")
+    gd, pd = eng.gd, eng.pd
+    params.total_n_block = len(blocks)
+    log(f"Association testing mode (multi-trait tests): {params.n_pheno} traits")
+    log(f" * # blocks: [{params.total_n_block}]")
+    path = f"{params.out_prefix}.regenie" + (".gz" if params.gz_out else "")
+    fh = open_write(path, gz=params.gz_out)
+    fh.write(mt_header(params.n_pheno))
+    t0 = time.time()
+    mt_state = None
+    cur_chrom = None
+    n_ignored = 0
+    try:
+        for chrom, bsnps in blocks:
+            eng.prep_chrom(chrom)
+            if chrom != cur_chrom:
+                cur_chrom = chrom
+                mt_state = setup_mt(eng.res, pd.masked_indivs)
+            d = eng._ensure_dense_consts()
+            G_raw = gd.read_block_device(bsnps, eng.device)
+            sb = eng.block_stats(G_raw)
+            total, ns = sb["total"], sb["ns"]
+            ignored = np.minimum(total, 2 * ns - total) < params.min_mac
+            G = finalize_block_step2(
+                G_raw, d.ind, torch.zeros(len(bsnps), dtype=torch.bool,
+                                          device=eng.device))
+            G_res, _, low_var = m2.residualize_scale_block(G, d.cov, eng.scale_denom)
+            del G
+            ignored = ignored | low_var.cpu().numpy()
+            r = run_mt_block(mt_state, G_res, params)
+            n_ignored += int(ignored.sum())
+            fh.write("".join(
+                mt_line(bsnps[b], sb["mac"][b, 0], sb["af"][b, 0], mt_state.neff0, r, b)
+                for b in range(len(bsnps)) if not ignored[b]))
+    finally:
+        fh.close()
+    log(f"Results written to [{path}]")
+    log(f"Number of ignored tests due to low MAC : {n_ignored}")
+    log(f" * done ({time.time() - t0:.1f}s)")
+    return eng
+
+
+def run_multiphen(params: Params, eng: Step2Engine, blocks, log=print) -> Step2Engine:
+    """MultiPhen testing mode (--multiphen; the JAX package's
+    run_multiphen, one process): reverse ordinal regression of the
+    genotype on all traits (test_multiphen, Data.cpp:3505). QT only; one
+    merged output file. The variant statistics come from the device; the
+    fits run on the host (models/multiphen.py), batched over the block's
+    score stage unless REGENIE_TPU_NO_BATCH_MPHEN is set."""
+    from .models.multiphen import (multiphen_block, multiphen_header,
+                                   multiphen_line, multiphen_snp)
+
+    if params.trait_mode != QT:
+        raise ValueError("MultiPhen test for QTs only")
+    gd, pd = eng.gd, eng.pd
+    params.total_n_block = len(blocks)
+    log(f"Association testing mode (MultiPhen): {params.n_pheno} traits")
+    log(f" * # blocks: [{params.total_n_block}]")
+    path = f"{params.out_prefix}.regenie" + (".gz" if params.gz_out else "")
+    fh = open_write(path, gz=params.gz_out)
+    fh.write(multiphen_header())
+    mask0 = pd.masked_indivs[:, 0]
+    t0 = time.time()
+    n_ignored = 0
+    try:
+        for chrom, bsnps in blocks:
+            eng.prep_chrom(chrom)
+            G_raw = gd.read_block(bsnps)
+            sb = eng.block_stats(G_raw, bsnps)
+            ignored = sb["mac1"] < params.min_mac
+            Gf = np.asarray(G_raw, dtype=np.float64)
+            n_ignored += int(ignored.sum())
+            local = [b for b in range(len(bsnps)) if not ignored[b]]
+            if os.environ.get("REGENIE_TPU_NO_BATCH_MPHEN"):
+                results = {b: multiphen_snp(params, Gf[b], pd.new_cov, eng.res, mask0)
+                           for b in local}
+            else:
+                results = multiphen_block(params, Gf, pd.new_cov, eng.res, mask0, local)
+            fh.write("".join(
+                multiphen_line(bsnps[b], sb["mac1"][b], sb["af1"][b], sb["ns"][b],
+                               results[b])
+                for b in sorted(results)))
+    finally:
+        fh.close()
+    log(f"Results written to [{path}]")
+    log(f"Number of ignored tests due to low MAC : {n_ignored}")
+    log(f" * done ({time.time() - t0:.1f}s)")
+    return eng
+
+
+LD_CHUNK = 256  # rows of G a step of the LD imputation and projection
+
+
+class CardClock:
+    """Milliseconds of consecutive stages of device work: CUDA events on
+    the card (read after one synchronize), the host clock elsewhere."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks = [("start", self._now())]
+
+    def _now(self):
+        if self.cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def mark(self, name):
+        self.marks.append((name, self._now()))
+
+    def ms(self) -> dict:
+        """{stage: ms} from each mark to the next."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        return {n: a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+                for (_, a), (n, b) in zip(self.marks, self.marks[1:])}
+
+
+def _ld_impute(x, ind):
+    """Rows of raw genotypes (missing = -3) mean-imputed over the analysed
+    samples, the others zero, in float64 (ld_comp's imputation; the mean
+    of a row with no observed genotype is 0). Integer codes give sums and
+    counts exact in any order."""
+    x = x.to(torch.float64)
+    miss = x == MISSING
+    valid = ~miss & ind[None, :]
+    n = valid.sum(dim=1)
+    s = torch.where(valid, x, 0.0).sum(dim=1)
+    mu = torch.where(n > 0, s / n.clamp(min=1).to(torch.float64), 0.0)
+    return torch.where(ind[None, :], torch.where(miss, mu[:, None], x), 0.0)
+
+
+def ld_gram(src, rows, vecs, M, ind, cov, clock=None):
+    """LD = G G' of the [M, N] block, mean-imputed and with the covariate
+    basis projected out (G - (G C) C'), in float64 on src's device
+    (ld_comp, Data.cpp:3807-4100). src: [Ms, N] raw genotypes of the
+    variant rows (int8 hardcalls or float64 dosages, missing = -3); rows:
+    [Ms] their rows in G; vecs: {row: [N] host vector} of the mask rows;
+    the other rows are zero. ind: [N] bool analysed samples; cov: [N, K].
+    clock (CardClock) gets the marks "impute", "project" and "gram"."""
+    dev = src.device
+    Ms, N = src.shape
+    if Ms == M and not vecs and list(rows) == list(range(M)):
+        G = torch.empty((M, N), dtype=torch.float64, device=dev)
+        for lo in range(0, M, LD_CHUNK):
+            G[lo : lo + LD_CHUNK] = _ld_impute(src[lo : lo + LD_CHUNK], ind)
+    else:
+        G = torch.zeros((M, N), dtype=torch.float64, device=dev)
+        ridx = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        for lo in range(0, Ms, LD_CHUNK):
+            G[ridx[lo : lo + LD_CHUNK]] = _ld_impute(src[lo : lo + LD_CHUNK], ind)
+        for i, v in vecs.items():
+            G[i] = _ld_impute(torch.as_tensor(np.asarray(v, np.float64),
+                                              device=dev)[None], ind)[0]
+    if clock is not None:
+        clock.mark("impute")
+    for lo in range(0, M, LD_CHUNK):
+        g = G[lo : lo + LD_CHUNK]
+        g -= (g @ cov) @ cov.T
+    if clock is not None:
+        clock.mark("project")
+    LD = G @ G.T
+    if clock is not None:
+        clock.mark("gram")
+    return LD
+
+
+def ld_scale(params: Params, LD: np.ndarray) -> np.ndarray:
+    """The host's part of ld_comp on the [M, M] product (Data.cpp:4104-
+    4117): numerically-zero negative diagonal entries zero their rows and
+    columns; then correlations, or with --skip-scaleG the covariance with
+    its diagonal clamped. Returns a new array."""
+    LD = np.array(LD, dtype=np.float64)
+    dvec = np.diag(LD)
+    bad = (dvec < 0) & (np.abs(dvec) < 1e-8)
+    if bad.any():
+        LD[bad, :] = 0.0
+        LD[:, bad] = 0.0
+    if not params.skip_scaleG:
+        d = np.diag(LD)
+        sds = np.sqrt(np.where(d <= 0, params.numtol, d))
+        np.fill_diagonal(LD, sds**2)  # Data.cpp:4112-4113
+        LD = LD / sds[:, None] / sds[None, :]
+    else:
+        np.fill_diagonal(LD, np.maximum(np.diag(LD), params.numtol))
+    return LD
+
+
+def ld_r2_codes(LD: np.ndarray) -> np.ndarray:
+    """The binary file's uint16 r^2 of the upper triangle (print_ld,
+    Data.cpp:4440)."""
+    iu = np.triu_indices(LD.shape[0], k=1)
+    return (LD[iu] ** 2 * ((1 << 16) - 1) + 0.5).astype(np.uint16)
+
+
+def _ld_rows(params: Params, eng: Step2Engine, log):
+    """The LD matrix's rows (check_ld_list, Geno.cpp:1442-1495; the JAX
+    package's run_ldcomp): (names, the variants to read in file order,
+    each one's rows, {row: mask vector}, names absent from the data, kept
+    in as zero rows)."""
+    gd = eng.gd
+    index = {s.ID: i for i, s in enumerate(gd.snps)}
+    names: List[str] = []
+    var_rows: Dict[int, List[int]] = {}  # variant index -> its rows
+    vecs: Dict[int, np.ndarray] = {}
+    absent: List[str] = []
+
+    def add(name, present=True):
+        names.append(name)
+        if present:
+            var_rows.setdefault(index[name], []).append(len(names) - 1)
+        else:
+            absent.append(name)
+
+    if params.ld_list_file:
+        want_masks: Dict[str, List[str]] = {}
+        order = []
+        for toks in iter_lines(params.ld_list_file):
+            if len(toks) < 2:
+                raise ValueError("incorrectly formatted --ld-extract file")
+            if toks[0] == "sv":
+                order.append(("sv", toks[1]))
+            elif toks[0] == "mask":
+                if len(toks) < 3:
+                    raise ValueError("mask rows need 3 entries in --ld-extract")
+                order.append(("mask", toks[1]))
+                want_masks.setdefault(toks[2], []).append(toks[1])
+            else:
+                raise ValueError(f"unrecognized --ld-extract entry '{toks[0]}'")
+        mask_vecs: Dict[str, np.ndarray] = {}
+        if want_masks:
+            from .run_genebased import build_requested_masks
+
+            mask_vecs = build_requested_masks(params, eng, want_masks, log)
+        for kind, name in order:
+            if kind == "sv":
+                # a forced-in absent variant or mask is a zero row
+                # (get_G_indices, Data.cpp:3850-3860)
+                add(name, name in index)
+            elif name in mask_vecs:
+                names.append(name)
+                vecs[len(names) - 1] = mask_vecs[name]
+            else:
+                add(name, False)
+    elif params.cormat_force_vars and params.extract_files:
+        # --forcein-vars + --extract: the extract file's order; listed
+        # variants absent from the data stay in as zero rows
+        # (check_in_map_from_files, Geno.cpp:1343-1380)
+        seen = set()
+        for toks in iter_lines(params.extract_files[0]):
+            if toks and toks[0] not in seen:
+                seen.add(toks[0])
+                add(toks[0], toks[0] in index)
+    else:
+        for s in gd.snps:
+            add(s.ID)
+    order = sorted(var_rows)
+    return (names, [gd.snps[i] for i in order], [var_rows[i] for i in order],
+            vecs, absent)
+
+
+def _ld_write(params: Params, names, absent, LD, log):
+    """The .corr.snplist, .corr.forcedIn.snplist and .corr files: binary
+    uint16 r^2 with an int32 [N, M] header (the default), --output-corr-
+    text (with --skip-scaleG an "M N" header first) or the sparse text
+    format of --sparse-thr (Data.cpp:1993-2000, :4123-4140, :4350)."""
+    M = len(names)
+    with open_write(params.out_prefix + ".corr.snplist") as fh:
+        fh.write("".join(nm + "\n" for nm in names))
+    if absent:
+        log(" WARNING: there were variants/masks not found in the data; "
+            "these were kept in the LD matrix.\n  + list is written to "
+            f"[{params.out_prefix}.corr.forcedIn.snplist]")
+        with open_write(params.out_prefix + ".corr.forcedIn.snplist") as fh:
+            fh.write("".join(nm + "\n" for nm in absent))
+    if params.ld_sparse_thr > 0:
+        with open_write(params.out_prefix + ".corr") as fh:
+            fh.write(f"{M} {params.n_samples}\n")
+            sds = np.sqrt(np.diag(LD))
+            fh.write(" ".join(fmt(s) for s in sds) + "\n")
+            C = LD / sds[:, None] / sds[None, :]
+            iu_i, iu_j = np.triu_indices(M, k=1)
+            keep = np.abs(C[iu_i, iu_j]) >= params.ld_sparse_thr
+            fh.write("".join(f"{i+1} {j+1} {fmt(C[i, j])}\n"
+                             for i, j in zip(iu_i[keep], iu_j[keep])))
+    elif params.cor_out_txt:
+        with open_write(params.out_prefix + ".corr") as fh:
+            if params.skip_scaleG:
+                fh.write(f"{M} {params.n_samples}\n")
+            fh.write("\n".join(" ".join(fmt(v) for v in row) for row in LD))
+    else:
+        with open(params.out_prefix + ".corr", "wb") as fh:
+            fh.write(np.array([params.n_samples, M], dtype=np.int32).tobytes())
+            fh.write(ld_r2_codes(LD).tobytes())
+    log(f" * wrote [{params.out_prefix}.corr]")
+
+
+def run_ldcomp(params: Params, eng: Step2Engine, log=print) -> Step2Engine:
+    """LD-matrix mode (--compute-corr; the JAX package's run_ldcomp, one
+    process): the scaled G'G of the listed variants and masks (ld_comp,
+    Data.cpp:3807; print_ld :4350). The variants' genotypes go up as
+    their packed bytes (or dosages) and are decoded, imputed and
+    projected on the device, where LD = G G' runs in float64; the [M, M]
+    product comes back for the host's diagonal repair, scaling and
+    writers. eng.ld keeps the run's inputs and times: names, the raw
+    block `src` on the device with its `rows`, `vecs`, the host `LD`,
+    and host read, upload and write seconds, the device stages' ms."""
+    gd, pd, dev = eng.gd, eng.pd, eng.device
+    names, snps, rows, vecs, absent = _ld_rows(params, eng, log)
+    M = len(names)
+    log(f"** Computing LD matrix ** ({M} variants)")
+    t0 = time.time()
+    raw = gd.read_block_host_scattered(snps) if snps else None
+    t1 = time.time()
+    if snps:
+        src = gd.read_block_device(snps, dev, raw)
+    else:
+        src = torch.zeros((0, params.n_samples), dtype=torch.int8, device=dev)
+    del raw
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t2 = time.time()
+    flat = [r for rr in rows for r in rr]
+    if len(flat) > len(snps):  # a variant listed twice: a row per listing
+        pick = torch.as_tensor(np.repeat(np.arange(len(rows)), [len(r) for r in rows]),
+                               device=dev)
+        src = src.index_select(0, pick)
+    ind = torch.as_tensor(pd.ind_in_analysis, device=dev)
+    cov = torch.as_tensor(np.asarray(pd.new_cov, np.float64), device=dev)
+    clock = CardClock(dev)
+    LD_d = ld_gram(src, flat, vecs, M, ind, cov, clock)
+    ms = clock.ms()
+    t3 = time.time()
+    LD = ld_scale(params, LD_d.cpu().numpy())
+    del LD_d
+    _ld_write(params, names, absent, LD, log)
+    t4 = time.time()
+    eng.ld = SimpleNamespace(names=names, src=src, rows=flat, vecs=vecs, LD=LD,
+                             read_s=t1 - t0, upload_s=t2 - t1, card_ms=ms,
+                             write_s=t4 - t3)
+    log(f" * LD matrix ({M} x {M}): host read {t1 - t0:.3f}s, upload "
+        f"{t2 - t1:.3f}s; on {dev}: imputation {ms['impute']:.3f} ms, "
+        f"projection {ms['project']:.3f} ms, G'G {ms['gram']:.3f} ms; host "
+        f"scaling and write {t4 - t3:.3f}s")
     return eng

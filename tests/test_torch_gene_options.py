@@ -130,18 +130,21 @@ def test_complete_trait_gates_sbat_follow_the_pivot_order(dirs, monkeypatch):
     ["--compute-corr"], ["--af-cc"], ["--ct", "--af-cc"],
 ])
 def test_unported_leaves_gene_based_tests(extra, monkeypatch):
-    """cli.unported no longer names gene-based tests: --set-list alone is
-    ported, and with any mode still missing the run is refused for that
-    mode (multi-trait, MultiPhen, MCC, beside interaction tests too, LD
-    mode, --af-cc off binary traits; the mesh is held by
+    """cli.unported names no gene-based test: --set-list is ported, alone
+    and beside the modes ported since (multi-trait, MultiPhen, MCC, beside
+    interaction tests too, LD mode, --af-cc off binary traits); in a
+    multi-process launch the run is refused for that, not for the sets
+    (the other refusals are held by
     test_torch_step2.py::test_unported_mode_raises)."""
     from regenie_tpu_torch import cli
 
+    for var in ("REGENIE_TPU_COORDINATOR", "REGENIE_TPU_DIST"):
+        monkeypatch.delenv(var, raising=False)
     argv = ["--step", "2", "--bed", "g", "--phenoFile", "p", "--ignore-pred",
             "--set-list", "s", "--anno-file", "a", "--mask-def", "m",
             "--out", "o"] + extra
-    why = cli.unported(cli.args_to_params(cli.build_parser().parse_args(argv)))
-    if not extra:
-        assert why is None
-    else:
-        assert why is not None and "gene-based" not in why
+    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    assert cli.unported(params) is None
+    monkeypatch.setenv("REGENIE_TPU_DIST", "1")
+    why = cli.unported(params)
+    assert why is not None and "multi-process" in why and "gene-based" not in why

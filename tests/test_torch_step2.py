@@ -124,7 +124,9 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.io.bgzf, regenie_tpu_torch.io.remeta, "
         "regenie_tpu_torch.models.masks, regenie_tpu_torch.models.skat, "
         "regenie_tpu_torch.models.joint, regenie_tpu_torch.ops.vc_batch, "
-        "regenie_tpu_torch.utils.quadforms, regenie_tpu_torch.models.interaction\n"
+        "regenie_tpu_torch.utils.quadforms, regenie_tpu_torch.models.interaction, "
+        "regenie_tpu_torch.models.mcc, regenie_tpu_torch.models.multitrait, "
+        "regenie_tpu_torch.models.multiphen\n"
         "from regenie_tpu_torch.io import native\n"
         "lib = native.planes_lib()\n"
         "assert hasattr(lib, native.DOSAGES_SYMBOL)\n"
@@ -196,53 +198,39 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     assert not os.path.exists(f"{tmp_path}/s1_pred.list")
 
 
-@pytest.mark.parametrize("flags", [
-    # Step 1 runs on BED, PGEN and BGEN on quantitative, binary, count and
-    # time-to-event traits (with --gz) since their slices, and Step 2 on
-    # binary traits with SPA and approximate or exact Firth, on count and
-    # time-to-event traits and with the null Firth checkpoints; these modes
-    # still raise
-    ["--step", "1", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2",
-     "--mcc"],
-    ["bgen", "--t2e", "--phenoColList", "Y1", "--eventColList", "Y2", "--af-cc"],
-    ["--t2e", "--phenoColList", "Y1", "--eventColList", "Y2", "--af-cc"],
-    ["bgen", "--step", "1", "--multiphen", "--strict"],
-    ["--mt", "--strict", "--no-split"], ["--mcc"],
-    # gene-based tests run since their slice; with a mode still missing
-    # they raise before reading a file
-    ["--set-list", "s.txt", "--anno-file", "a.txt", "--mask-def", "m.txt",
-     "--mt", "--strict", "--no-split"],
-    ["bgen", "--step", "1", "--compute-corr"], ["--compute-corr"],
-    ["--step", "1", "--mcc"], ["bgen", "--step", "1", "--mcc"],
-    # BED and BGEN runs of modes no slice has ported yet
-    # (interaction tests and the Step-1 options run now; a mode
-    # still missing beside them raises all the same)
-    ["chrx", "--multiphen", "--strict"], ["bgen", "--interaction", "C1", "--mcc"],
-    ["bgen", "--step", "1", "--debug", "--af-cc"],
-    ["bgen", "--mcc"], ["bgen", "--compute-corr"], ["--ct", "--af-cc"],
-    ["bgen", "--multiphen", "--strict"],
-    ["bgen", "--step", "1", "--test-l0", "--mt", "--strict", "--no-split"],
-    ["--step", "1", "--test-l0", "--mt", "--strict", "--no-split"],
-    ["--step", "1", "--select-l0", "f", "--compute-corr"],
-    ["--step", "1", "--print", "--multiphen", "--strict"],
-    ["--step", "1", "--prior-alpha", "0.5", "--af-cc"],
+@pytest.mark.parametrize("env,flags", [
+    # one process of a multi-process launch (the JAX package's
+    # maybe_init_distributed) would run the whole job and write the same
+    # files as every other: refused in both steps, whatever the mode
+    (("REGENIE_TPU_COORDINATOR", "localhost:23456"), ["--step", "1"]),
+    (("REGENIE_TPU_COORDINATOR", "localhost:23456"), []),
+    (("REGENIE_TPU_COORDINATOR", "localhost:23456"), ["--mt", "--strict", "--no-split"]),
+    (("REGENIE_TPU_DIST", "1"), ["bgen", "--step", "1"]),
+    (("REGENIE_TPU_DIST", "1"), ["bgen"]),
+    (("REGENIE_TPU_DIST", "1"), ["chrx", "--compute-corr"]),
+    # the sample-sharded level 0 of Step 1
+    (("REGENIE_TPU_MESH", "1"), ["--step", "1"]),
+    (("REGENIE_TPU_MESH_2D", "2x1"), ["bgen", "--step", "1", "--bt"]),
 ])
-def test_unported_mode_raises(tmp_path, monkeypatch, flags):
+def test_unported_mode_raises(tmp_path, monkeypatch, env, flags):
     """Every mode the port does not have raises NotImplementedError, on
-    the CPU too; none silently runs something else. Flags after "bgen"
-    run on a BGEN input, after "chrx" on a BED with chrX non-PAR
-    variants; flags without --step run Step 2."""
+    the CPU too, before any output; none silently runs something else.
+    Flags after "bgen" run on a BGEN input, after "chrx" on a BED with
+    chrX non-PAR variants; flags without --step run Step 2. The modes that
+    ran out of this list when their slices landed are held to the JAX
+    package's outcome in tests/test_torch_formerly_unported.py."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
     monkeypatch.setenv(DEVICE_ENV, "cpu")
+    monkeypatch.setenv(*env)
 
-    if flags[0] == "bgen":
+    if flags and flags[0] == "bgen":
         flags = flags[1:]
         bgen = write_bgen_dataset(str(tmp_path), seed=0, N=40,
                                   chroms=((1, 8),), P=3, n_inc=1, n_cov=3)
         src = ["--bgen", bgen, "--sample", f"{tmp_path}/geno.sample"]
-    elif flags[0] == "chrx":
+    elif flags and flags[0] == "chrx":
         flags = flags[1:]
         src = ["--bed", write_dataset(
             str(tmp_path), seed=0, N=40, chroms=(("X", 8),), P=3, n_inc=1,
@@ -255,7 +243,33 @@ def test_unported_mode_raises(tmp_path, monkeypatch, flags):
         argv = ["--step", "2"] + argv
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(argv + flags)
-    assert not [f for f in os.listdir(tmp_path) if f.startswith("o_")]
+    assert not [f for f in os.listdir(tmp_path) if f.startswith("o")]
+
+
+@pytest.mark.parametrize("step", ["1", "2"])
+@pytest.mark.parametrize("flags", [
+    ["--mt", "--strict", "--no-split"], ["--multiphen", "--strict"],
+    ["--compute-corr"], ["--mcc"], ["--af-cc"], ["--af-cc", "--bt"],
+    ["--af-cc", "--ct"],
+    ["--af-cc", "--t2e", "--phenoColList", "T1", "--eventColList", "E1"],
+])
+def test_ported_modes_are_not_refused(monkeypatch, step, flags):
+    """With no multi-process or (Step 1) mesh variable set, cli.unported
+    names none of the modes ported since: multi-trait tests, MultiPhen, LD
+    mode, MCC and --af-cc on every trait type; in Step 2 a one-card
+    REGENIE_TPU_MESH is the single-device run, as in the JAX package."""
+    from regenie_tpu_torch import cli
+
+    for var in ("REGENIE_TPU_COORDINATOR", "REGENIE_TPU_DIST",
+                "REGENIE_TPU_MESH", "REGENIE_TPU_MESH_2D"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--step", step, "--bed", "g", "--phenoFile", "p.txt",
+            "--ignore-pred", "--out", "o"] + flags
+    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    assert cli.unported(params) is None
+    monkeypatch.setenv("REGENIE_TPU_MESH", "1")
+    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    assert (cli.unported(params) is None) == (step == "2")
 
 
 def _loco_file(path, ids, rows, tab=False):
