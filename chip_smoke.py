@@ -11,11 +11,14 @@ from the end of the build on, while the card runs phases 2 and 2b, and
 each slice waits for its own. Phase 3c runs first, alone on the card;
 then the smoke runs in two lanes: a side process runs phase 6 (the
 cross-check) and then phases 5 to 5b (the Step-1 slices), beside this
-process's 3, 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
+process's 3, 3a, 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
 thread beside 3 and 3b (3b's host null fits leave the card idle); both
 lanes spend most of their time on the host, and the card is shared
 between them, so a CUDA-event time of a phase after 3c may include
-kernels of the other lane. A slice's Step-2 or
+kernels of the other lane. The lanes' largest card allocations, whose
+peaks do not fit in the card's 80 GB together (4b, and level 1 at a real
+depth in 5, 5a and 5b), hold one lock in turn (_card_heavy), and both
+processes' allocators map expandable segments. A slice's Step-2 or
 Step-1 run goes through the port's CLI (cli.main, its gate of unported
 modes and its <out>.log included) in its lane's process, and its block
 checks reuse the engine or setup that the CLI's entry point returned
@@ -52,7 +55,10 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    int8 operand's quantization on the card (fused_score.i8_quantize)
    against the host's numpy quantization on a full-height operand with a
    zero column, half-way ties and maxima at and around 127 x 2^k: limbs
-   and scales bit for bit, column sums exact.
+   and scales bit for bit, column sums exact. The full-width block of
+   fused_i8 and of bgen_i8 is also split into two row shards of the card
+   (parallel/mesh.py), a launch a shard: the products put back together
+   exactly equal the whole block's.
 2b. profile path: the port's profiling entry points in this process at
    the full width with 1 round of 2 blocks, the launch counts set to 0
    just before each run and read just after:
@@ -72,6 +78,15 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    memory) agrees with the port's plain path (float64 operand, plain
    products) on the card: max |dLOG10P| <= 1e-5, max |dBETA| <= 1e-6,
    the repository's cross-backend bar.
+3a. mesh slice: on the BED slice's own BED, the same CLI run on the
+   port's single-process mesh (REGENIE_TPU_MESH=1 with two shards of the
+   one card, REGENIE_TPU_TORCH_MESH_DEVICES=cuda:0,cuda:0): each block's
+   rows split in two, fused_i8 launched once a shard (twice a block, no
+   other kernel) on one shared operand, the rows gathered back in order;
+   its 50 files hold [bed slice]'s text fields and LOG10P / BETA within
+   the slice bars, the rows not byte-identical counted; printed beside
+   [bed slice]'s wall. One card shows the sharding, the per-shard
+   launches and the gather; not copies between cards or their speed.
 3b. BT slice: on the BED slice's own BED, a binary-trait table (its
    traits thresholded at 5-30% prevalence) and one run of the CLI with
    --bt --firth --approx --af-cc: fused_i8
@@ -142,8 +157,11 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    and _pred.list must be well formed. The first block's level-0 parts
    are timed with CUDA events (and eigh with MAGMA beside cuSOLVER, not
    used), its W held against the same functions in float64 on the CPU
-   (max |dW| <= 1e-8), and level1_linear_kfold timed for one trait at a
-   real depth (F = 2,500, 8 GB of synthetic predictions).
+   (max |dW| <= 1e-8), the same block's level 0 sample-sharded on two
+   shards of the card (run_step1.Level0 on a mesh for K-fold, and
+   parallel.mesh.sharded_level0_loocv) against the unsharded K-fold and
+   LOOCV W (max |dW| <= 1e-8), and level1_linear_kfold timed for one
+   trait at a real depth (F = 2,500, 8 GB of synthetic predictions).
 5a. Step-1 BT slice: on the Step-1 slice's own BED (its QT LOCO files
    removed), a binary-trait table of the writer's traits (5-30%
    prevalence) and the port's Step-1 CLI with --bt at the same width
@@ -243,7 +261,15 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    output field meets the same bar (a binary trait's and a Cox Firth
    run's HTP ratios on the log scale), and a BED --bt --firth --approx
    --write-null-firth run (its .firth files within one unit of the sixth
-   significant digit). Then
+   significant digit). The BED --htp (REGENIE_TPU_I8=0), BGEN --minINFO
+   (by default and with REGENIE_TPU_I8=0), BT BED --firth --approx, CT
+   BED --af-cc and T2E BED --htp runs again on the mesh of two shards of
+   the card (mesh_cross_check): their kernel (fused_f32, bgen_i8,
+   bgen_f32, fused_i8) once a shard of every block, every
+   field within its bar of the unsharded card run, the rows not
+   byte-identical counted; and Step 1 K-fold and --loocv on the BED with
+   the sample-sharded level 0 against the unsharded card runs, every
+   .loco value within one unit of its sixth digit. Then
    the two-step workflow on the BED dataset (K-fold and --loocv), on the
    PGEN (K-fold) and on the BGEN (K-fold, Step 2 with --force-ltco 2),
    on the card and on the CPU: Step 1, and Step 2 with --pred on that
@@ -299,6 +325,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1271,6 +1298,38 @@ def _check_i8_exact(raw, limbs_k, what):
     return err
 
 
+def _shard_check(name, fn, x, dev, reps=10):
+    """[mesh] fn (a kernel's wrapper, its operand bound) on x split into two
+    row shards of one card (parallel.mesh.shard: a launch a shard) and put
+    back together in shard order (parallel.mesh.gather) against fn on the
+    whole block: the integer products must be exactly equal. Prints the
+    two shards' launches timed together beside the whole block's launch
+    (CUDA events, the split and the gather not timed). Returns the max
+    abs difference (0)."""
+    import torch
+
+    from regenie_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh([dev, dev])
+    whole = fn(x)
+    shards = pm.shard(mesh, x, 0)
+    parts = [fn(part) for part in shards]
+    got = [pm.gather([p[k] for p in parts], 0, x.shape[0])
+           for k in range(len(whole))]
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, whole))
+    del whole, parts, got
+    ms_whole = _time_ms(lambda: fn(x), reps)
+    ms_shards = _time_ms(lambda: [fn(part) for part in shards], reps)
+    print(f"  {name}, B = {x.shape[0]} on 2 shards of one card "
+          f"({shards[0].shape[0]} rows each): max|sharded - whole| = {err}; "
+          f"the two launches {ms_shards:.3f} ms, the whole block's {ms_whole:.3f} ms")
+    if err != 0:
+        raise AssertionError(f"{name}: the per-shard products differ from the "
+                             f"whole block's (max abs {err})")
+    return err
+
+
 def _random_consts(rng, N, P, n_inc, K, device, pack="plane", split="i8"):
     """The port's fused operand for random inputs of the given shape
     (orthonormal covariates, n_inc traits with 5% missing): the int8
@@ -1335,6 +1394,8 @@ def fused_i8_phase(dev, reps=10):
     Cw4 = limbs_k.shape[0]
     _launch_line("fused_i8", dev, B, Cw4)
     errs.append(_check_i8_exact(raw, limbs_k, "full width"))
+    errs.append(_shard_check(
+        "fused_i8", lambda x: kernels.fused_i8_products(x, limbs_k), raw, dev))
     ms = _time_ms(lambda: kernels.fused_i8_products(raw, limbs_k), reps)
     plain_ms = _time_ms(lambda: kernels.fused_i8_products_plain(raw, limbs_k), 3)
 
@@ -1567,6 +1628,8 @@ def bgen_i8_phase(dev, reps=10):
                             dtype=torch.int8) for cw in (Cw, Cq))
     _launch_line("bgen_i8", dev, B, Cw, Cq)
     errs.append(_check_bgen_exact(planes, wp, wq, "full width"))
+    errs.append(_shard_check(
+        "bgen_i8", lambda x: kernels.bgen_i8_products(x, wp, wq), planes, dev))
     ms = _time_ms(lambda: kernels.bgen_i8_products(planes, wp, wq), reps)
     plain_ms = _time_ms(lambda: kernels.bgen_i8_products_plain(planes, wp, wq), 3)
     # where the kernel's time goes: each operand's tiles with the other
@@ -2479,6 +2542,70 @@ def _i8_env(off):
         os.environ.pop("REGENIE_TPU_I8", None)
 
 
+MESH_DEVICES = "cuda:0,cuda:0"  # two shards of the one card
+
+# held by either lane for its largest card allocations ([dense slice], the
+# Step-1 slices' level 1 at a real depth): the two lanes share the card's
+# 80 GB, and those phases' peaks do not fit together (Side sets it)
+_CARD_LOCK = None
+
+
+@contextlib.contextmanager
+def _card_heavy(what):
+    """Hold the lanes' card lock (when the side lane runs) inside the
+    block; prints the wait when there was one."""
+    if _CARD_LOCK is None:
+        yield
+        return
+    t0 = time.time()
+    # a lane that died holding the lock must not hang the other
+    if not _CARD_LOCK.acquire(timeout=600):
+        raise RuntimeError(f"{what}: the other lane held the card lock 600 s")
+    try:
+        if time.time() - t0 > 0.5:
+            print(f"  ({what} waited {time.time() - t0:.1f}s for the other "
+                  "lane's large card allocations)")
+        yield
+    finally:
+        _CARD_LOCK.release()
+
+
+@contextlib.contextmanager
+def _mesh_env(devices=MESH_DEVICES):
+    """REGENIE_TPU_MESH=1 and REGENIE_TPU_TORCH_MESH_DEVICES=devices set
+    inside the block (the port's single-process mesh), unset after."""
+    keys = ("REGENIE_TPU_MESH", "REGENIE_TPU_TORCH_MESH_DEVICES")
+    os.environ.update(dict(zip(keys, ("1", devices))))
+    try:
+        yield
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+
+
+def _mesh_launches(what, log_path, kern, shards=2):
+    """A mesh run's kernel launches: `kern` once a shard of every block
+    (the block count read from the run's log, every block fused) and no
+    other kernel, the log naming the mesh. Returns (launches, blocks)."""
+    log = open(log_path).read()
+    nblk = int(re.search(r"block loop: (\d+) blocks", log).group(1))
+    if f"multi-device mesh: {shards} shards" not in log:
+        raise AssertionError(f"{what}: the log shows no mesh of {shards} shards")
+    if f"dense route: 0 of {nblk} blocks" not in log:
+        raise AssertionError(f"{what}: a block left the fused route")
+    counts = _read_counts()
+    want = {k: shards * nblk if k == kern else 0 for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    return counts[kern], nblk
+
+
+def _identical_rows(fa, fb):
+    """(rows that are not byte-identical, rows) of two output files."""
+    la, lb = _read_text(fa).splitlines()[1:], _read_text(fb).splitlines()[1:]
+    return sum(a != b for a, b in zip(la, lb)), len(la)
+
+
 def _read_text(path):
     """A text file's contents, decompressed when it ends in .gz."""
     import gzip
@@ -2665,6 +2792,76 @@ def slice_phase(tmp, src, keep=False):
         return launches, eng, blocks, out["int8"]
     eng.gd.close()
     return launches
+
+
+def mesh_slice_phase(tmp):
+    """[mesh slice] The port's Step-2 QT CLI at full width on the BED of
+    [bed slice] on the single-process mesh: REGENIE_TPU_MESH=1 and two
+    shards of the one card (REGENIE_TPU_TORCH_MESH_DEVICES=cuda:0,cuda:0),
+    each block's rows split in two, fused_i8 launched once a shard on one
+    shared operand and the rows gathered back in order. fused_i8 must
+    launch twice a block and no other kernel; the P files must be well
+    formed and hold [bed slice]'s unsharded files' text fields, with
+    |dLOG10P| <= 1e-5 and |dBETA| <= 1e-6 and every other number (SE,
+    CHISQ) within _compare_files' bars (the rows not byte-identical
+    counted). Prints the CLI wall beside [bed slice]'s (its log's elapsed
+    time). Returns fused_i8's launches."""
+    import torch
+
+    f = FULL
+    M = SLICE_BLOCKS * f["B"]
+    argv = ["--step", "2", "--bed", f"{tmp}/geno", "--phenoFile",
+            f"{tmp}/pheno.txt", "--covarFile", f"{tmp}/covar.txt",
+            "--ignore-pred", "--bsize", str(f["B"]), "--verbose", "--out",
+            f"{tmp}/slice_mesh"]
+    os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+    _reset_counts()
+    t0 = time.time()
+    with _mesh_env():
+        _, eng, log = run_cli_kept(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    eng.gd.close()
+    n, nblk = _mesh_launches("[mesh slice]", f"{tmp}/slice_mesh.log", "fused_i8")
+    for ln in log:
+        if ln.startswith("   -block") or "multi-device mesh" in ln:
+            print(f"  {ln.strip()}")
+    worst = {"LOG10P": 0.0, "BETA": 0.0}
+    ndiff, excess = 0, 0.0
+    for p in range(f["P"]):
+        fm, fu = f"{tmp}/slice_mesh_Y{p + 1}.regenie", f"{tmp}/slice_fused_i8_Y{p + 1}.regenie"
+        _check_rows(fm, M)
+        # every field, SE and CHISQ too, at the cross-check's bars
+        excess = max(excess, _compare_files(fm, fu))
+        la, lb = _read_text(fm).splitlines(), _read_text(fu).splitlines()
+        head = la[0].split()
+        if la[0] != lb[0] or len(la) != len(lb):
+            raise AssertionError(f"{fm}: header or rows differ from {fu}")
+        cols = {k: head.index(k) for k in worst}
+        for ra, rb in zip(la[1:], lb[1:]):
+            if ra == rb:
+                continue
+            ndiff += 1
+            ta, tb = ra.split(), rb.split()
+            for i, (x, y) in enumerate(zip(ta, tb)):
+                if x != y and i not in cols.values() and head[i] not in ("SE", "CHISQ"):
+                    raise AssertionError(f"{head[i]} differs:\n{ra}\n{rb}")
+            for k, i in cols.items():
+                if ta[i] != tb[i]:
+                    worst[k] = max(worst[k], abs(float(ta[i]) - float(tb[i])))
+    if worst["LOG10P"] > LOG10P_TOL or worst["BETA"] > BETA_TOL:
+        raise AssertionError(f"[mesh slice] against [bed slice]: {worst}")
+    bed_wall = [ln for ln in open(f"{tmp}/slice_fused_i8.log")
+                if ln.startswith("Elapsed time")][0].split(":")[1].strip()
+    print(f"  fused_i8 {n} launches for {nblk} blocks on 2 shards ({n // 2} a shard), "
+          "no other kernel; "
+          f"{f['P']} files against [bed slice]'s: {ndiff} of {f['P'] * M} rows not "
+          f"byte-identical, max |dLOG10P| {worst['LOG10P']:.3e}, max |dBETA| "
+          f"{worst['BETA']:.3e}; every field within the cross-check's bars "
+          f"(largest excess ratio {excess:.3f})")
+    print(f"  CLI wall {wall:.2f}s ({M / wall:.1f} variants/s) beside [bed slice]'s "
+          f"{bed_wall} (its log); on {card_line()}")
+    return n
 
 
 BT_FLAGS = ["--bt", "--firth", "--approx", "--af-cc"]
@@ -3202,7 +3399,7 @@ def _printed_equal_or_adjacent(path_a, path_b, cols):
     return n_adj
 
 
-def dense_slice_phase(tmp, eng, blocks, fused1):
+def dense_slice_phase(tmp, kept):
     """The dense Step-2 route at full width on the card, on the BGEN
     slice's dataset in `tmp`: the first block through the open engine
     `eng` (read, upload and the card's parts timed; INFO and A1FREQ
@@ -3211,10 +3408,20 @@ def dense_slice_phase(tmp, eng, blocks, fused1):
     REGENIE_TPU_FUSED=0 and the slice's flags, where no hand-written
     kernel may launch, the log must show the dense route on cuda (each
     block's host read and upload), and both blocks' files must meet the
-    slice bars against the default (bgen_i8) run's files."""
+    slice bars against the default (bgen_i8) run's files. kept: the BGEN
+    slice's [engine, blocks, first block's result], emptied here so that
+    the engine is freed before the CLI run. Holds the lanes' card lock."""
+    with _card_heavy("[dense slice]"):
+        _dense_slice(tmp, kept)
+
+
+def _dense_slice(tmp, kept):
     import torch
 
     from regenie_tpu_torch.io.bgen import _read_records
+
+    eng, blocks, fused1 = kept
+    kept.clear()  # this frame holds the only reference to the engine now
 
     f = FULL
     M = SLICE_BLOCKS * f["B"]
@@ -3250,7 +3457,7 @@ def dense_slice_phase(tmp, eng, blocks, fused1):
     _assert_close("block 1 BETA", dense.bhat[keep], fused1.bhat[keep], BETA_TOL, what)
     eng.gd.close()
     del eng
-    torch.cuda.empty_cache()
+    _free()
 
     argv = ["--step", "2", "--bgen", f"{tmp}/geno.bgen", "--sample",
             f"{tmp}/geno.sample", "--phenoFile", f"{tmp}/pheno.txt",
@@ -3657,26 +3864,83 @@ def step1_slice_phase(tmp):
           f"{torch.get_num_threads()} CPU threads): max |dW| {err:.3e} (bar 1e-08)")
     if not err <= 1e-8:
         raise AssertionError(f"first block W: {err:.3e} > 1e-08")
-    del Wb, Wc, lc, l0
+    del Wc, lc
+    mesh_level0_check(params, st, bsnps, raw, l0, Wb)
+    del Wb, l0
     st.gd.close()
     torch.cuda.empty_cache()
 
     # level 1 for one trait at a real depth (F = 500 blocks x J)
-    F, K = STEP1["real_F"], params.cv_folds
-    nmax = -(-f["N"] // K)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    Wr = torch.randn(K, nmax, F, generator=gen, device=dev, dtype=torch.float64)
-    Yr = torch.randn(K, nmax, generator=gen, device=dev, dtype=torch.float64)
-    valid = torch.ones(K, nmax, device=dev, dtype=torch.float64)
-    valid[-1, f["N"] - (K - 1) * nmax:] = 0.0
-    taus = torch.as_tensor(st.taus / len(st.blocks) * (F // params.n_ridge_l0), device=dev)
-    ms, (beta, cs) = _events_ms(lambda: m1.level1_linear_kfold(Wr, Yr, valid, taus), 2)
-    if not torch.isfinite(cs).all():
-        raise AssertionError("level 1 at a real depth: metrics not finite")
-    print(f"  level1_linear_kfold for one trait at F={F}, {K} folds, N={f['N']} "
-          f"({Wr.numel() * 8 / 1e9:.1f} GB float64 on the card): {ms:.1f} ms")
-    del Wr, Yr, valid, beta, cs
+    with _card_heavy("level 1 at a real depth"):
+        F, K = STEP1["real_F"], params.cv_folds
+        nmax = -(-f["N"] // K)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+        Wr = torch.randn(K, nmax, F, generator=gen, device=dev, dtype=torch.float64)
+        Yr = torch.randn(K, nmax, generator=gen, device=dev, dtype=torch.float64)
+        valid = torch.ones(K, nmax, device=dev, dtype=torch.float64)
+        valid[-1, f["N"] - (K - 1) * nmax:] = 0.0
+        taus = torch.as_tensor(st.taus / len(st.blocks) * (F // params.n_ridge_l0),
+                               device=dev)
+        ms, (beta, cs) = _events_ms(
+            lambda: m1.level1_linear_kfold(Wr, Yr, valid, taus), 2)
+        if not torch.isfinite(cs).all():
+            raise AssertionError("level 1 at a real depth: metrics not finite")
+        print(f"  level1_linear_kfold for one trait at F={F}, {K} folds, N={f['N']} "
+              f"({Wr.numel() * 8 / 1e9:.1f} GB float64 on the card): {ms:.1f} ms")
+        del Wr, Yr, valid, beta, cs
+        torch.cuda.empty_cache()
+
+
+def mesh_level0_check(params, st, bsnps, raw, l0, Wk):
+    """[mesh] The first block of [step1 slice] (B = 1,000, N = 400,000)
+    through the sample-sharded level 0 on two shards of the card, its
+    K-fold W (run_step1.Level0 on the mesh: each shard's fold gather, then
+    parallel.mesh.sharded_level0_kfold) against the unsharded Wk, and its
+    LOOCV W (parallel.mesh.sharded_level0_loocv on the trait operands
+    sharded once) against models/step1's unsharded level0_loocv_block:
+    max |dW| <= 1e-8 each (the Step-1 bar). Times each side over the same
+    span with CUDA events (one warm-up, the median of two): K-fold from
+    the residualized block to W, fold gather included, and the sharded
+    K-fold's two parts apart (the per-shard fold gathers; the sharded
+    ridge)."""
+    import torch
+
+    from regenie_tpu_torch.models import step1 as m1
+    from regenie_tpu_torch.parallel import mesh as pm
+    from regenie_tpu_torch.run_step1 import Level0
+
+    dev = st.device
+    mesh = pm.make_mesh([dev, dev])
+    G = l0.residualized(st.gd.read_block_device(bsnps, dev, raw), bsnps)
+    lm = Level0(params, st._replace(mesh=mesh))
+    ms_ku, _ = _events_ms(lambda: l0.kfold(G), 2)
+    ms_k, Wm = _events_ms(lambda: lm.kfold(G), 2)
+    err_k = float((Wm - Wk).abs().max())
+    del Wm
+    ms_fp, parts = _events_ms(lambda: lm.fold_parts(G), 2)
+    ms_kr, _ = _events_ms(lambda: pm.sharded_level0_kfold(
+        mesh, parts, lm.Yf_sh, lm.mf_sh, lm.v_sh, lm.lambdas, lm.Neff), 2)
+    del parts, lm
+    Y = torch.as_tensor(np.asarray(st.pd.phenotypes, np.float64), device=dev)
+    mask = torch.as_tensor(st.pd.masked_indivs.astype(np.float64), device=dev)
+    ms_u, Wu = _events_ms(lambda: m1.level0_loocv_block(
+        G, Y, mask, l0.lambdas, l0.Neff), 2)
+    Y_sh, m_sh = pm.shard(mesh, Y, 0), pm.shard(mesh, mask, 0)
+    N = G.shape[1]
+    ms_l, Wl = _events_ms(lambda: pm.sharded_level0_loocv(
+        mesh, G, Y_sh, m_sh, l0.lambdas, l0.Neff)[:N], 2)
+    err_l = float((Wl - Wu).abs().max())
+    print(f"  [mesh] first block level 0 on 2 shards of the card (B = {G.shape[0]}, "
+          f"N = {N}): K-fold {ms_k:.1f} ms (unsharded {ms_ku:.1f} ms, both from the "
+          f"residualized block; sharded parts: fold gathers {ms_fp:.1f} ms, ridge "
+          f"{ms_kr:.1f} ms), max |dW| {err_k:.3e} against unsharded; LOOCV "
+          f"{ms_l:.1f} ms (unsharded {ms_u:.1f} ms), max |dW| {err_l:.3e} "
+          "(bar 1e-08)")
+    if not (err_k <= 1e-8 and err_l <= 1e-8):
+        raise AssertionError(f"sharded level 0: K-fold {err_k:.3e}, LOOCV "
+                             f"{err_l:.3e} > 1e-08")
+    del G, Wu, Wl, Y_sh, m_sh, Y, mask
     torch.cuda.empty_cache()
 
 
@@ -3729,7 +3993,9 @@ def step1_bt_slice_phase(tmp):
     nbytes = _check_loco_files(out, names, n_in, masked)
     print(f"  {f['P']} LOCO files of {n_in} samples x 23 rows ({nbytes / 1e9:.2f} "
           f"GB) and _pred.list well formed ({time.time() - t0:.1f}s)")
-    level1_bt_real_depth(torch.device("cuda"))
+    with _card_heavy("level 1 BT at a real depth"):
+        level1_bt_real_depth(torch.device("cuda"))
+        _free()
 
 
 def _level1_bt_inputs(N, F, K, seed, dev):
@@ -3903,8 +4169,9 @@ def t2e_slice_phase(tmp):
     nbytes = _check_loco_files(out, [f"T{p + 1}" for p in range(nt)], f["N"], masked)
     print(f"  {nt} LOCO files of {f['N']} samples x 23 rows ({nbytes / 1e9:.2f} GB) "
           f"and _pred.list well formed ({time.time() - t0:.1f}s)")
-    level1_t2e_real_depth(torch.device("cuda"))
-    _free()
+    with _card_heavy("the Cox level 1 at a real depth"):
+        level1_t2e_real_depth(torch.device("cuda"))
+        _free()
 
     # Step 2 on the Step-1 predictions
     M = sum(n for _, n in STEP1["chroms"])
@@ -5461,6 +5728,62 @@ def _variant_blocks(args, bsize=256):
     return n, nx
 
 
+# the cross-check's runs repeated on the mesh (two shards of the card):
+# run -> ((REGENIE_TPU_I8=0, the kernel each shard launches), ...)
+MESH_CROSS = {
+    "BED --htp": ((True, "fused_f32"),),
+    "BGEN --minINFO": ((False, "bgen_i8"), (True, "bgen_f32")),
+    "BT BED --firth --approx --write-null-firth": ((False, "fused_i8"),),
+    "CT BED --af-cc": ((False, "fused_i8"),),
+    "T2E BED --firth --approx --htp --htp-with-event": ((False, "fused_i8"),),
+}
+
+
+def mesh_cross_check(runs, tmp, prefix):
+    """[mesh] The runs of MESH_CROSS again on the port's single-process mesh
+    (REGENIE_TPU_MESH=1, two shards of the card), each against the same run
+    unsharded on the card: the kernel once a shard of every block and no
+    other, every field within the card-vs-CPU bars (_compare_files), the
+    rows that are not byte-identical counted. Then Step 1 K-fold and
+    --loocv (sample-sharded level 0) against the same runs unsharded on
+    the card: every .loco value within one unit of its sixth digit."""
+    for what, (d, common, outs, tag) in runs.items():
+        for off, kern in MESH_CROSS[what]:
+            mtag = f"{d}/{tag}mesh{int(off)}"
+            with _i8_env(off), _mesh_env():
+                _reset_counts()
+                run_cli(common + ["--out", mtag])
+            n, nblk = _mesh_launches(what, f"{mtag}.log", kern)
+            ref = f"{d}/{tag}gpu{int(off)}"
+            worst = max(_compare_files(mtag + o, ref + o) for o in outs)
+            diff = [_identical_rows(mtag + o, ref + o) for o in outs]
+            print(f"  [mesh] {what}{' (REGENIE_TPU_I8=0)' if off else ''}: {kern} "
+                  f"{n} launches for {nblk} blocks on 2 shards; against the "
+                  f"unsharded card run {sum(a for a, _ in diff)} of "
+                  f"{sum(b for _, b in diff)} rows not byte-identical, largest "
+                  f"share of the bar {worst:.3f}")
+    base = ["--step", "1", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt",
+            "--bsize", "100"]
+    for what, extra in (("K-fold", []), ("LOOCV", ["--loocv"])):
+        tag = f"{tmp}/s1mesh_{what.lower().replace('-', '')}"
+        run_cli(base + extra + ["--out", f"{tag}_gpu"])
+        with _mesh_env():
+            _reset_counts()
+            run_cli(base + extra + ["--out", f"{tag}_mesh"])
+        log = open(f"{tag}_mesh.log").read()
+        if "level 0 on 2 shards" not in log or any(_read_counts().values()):
+            raise AssertionError(f"Step 1 {what}: no sharded level 0, or a "
+                                 "kernel launched")
+        names = [ln.split()[0] for ln in open(f"{tag}_gpu_pred.list")]
+        nd = [_compare_loco(f"{tag}_mesh_{p + 1}.loco", f"{tag}_gpu_{p + 1}.loco")
+              for p in range(len(names))]
+        print(f"  [mesh] Step 1 {what}, level 0 on 2 shards of the card against "
+              f"unsharded: {len(names)} .loco files, {sum(n for n, _ in nd)} values "
+              f"differ (at most {max(w for _, w in nd):.3f} units of the sixth "
+              "significant digit)")
+
+
 def cross_check_phase(tmp):
     """Small runs (N=2,000) through the port on the card (by default and
     with REGENIE_TPU_I8=0) and on the CPU, every output field within its
@@ -5599,6 +5922,7 @@ def cross_check_phase(tmp):
     # the float32 kernels' CLI runs (REGENIE_TPU_I8=0), 3 blocks of 256 each
     f32_runs = {"BED --htp": "fused_f32", "BGEN --minINFO": "bgen_f32"}
     f32_launches = {}
+    mesh_runs = {}
     for i, (what, (d, args, outs, *_)) in enumerate({**runs, **dense}.items()):
         is_dense = what in dense
         table = ("pheno_bt.txt" if "--bt" in args else
@@ -5659,6 +5983,8 @@ def cross_check_phase(tmp):
                       f"{counts[kern]} launches for {nblk} blocks, no other kernel"
                       + (f"; {nx} chrX non-PAR blocks fused with the male tail"
                          if nx else ""))
+        if what in MESH_CROSS:
+            mesh_runs[what] = (d, common, outs, tag)
         if is_dense:
             log = open(f"{d}/{tag}gpu0.log").read()
             if "dense scorer on cuda" not in log:
@@ -5687,6 +6013,7 @@ def cross_check_phase(tmp):
                   f" traits x {rows} "
                   f"variants: every field within its bar (largest share of the "
                   f"bar used {worst:.3f}){firth}")
+    mesh_cross_check(mesh_runs, tmp, prefix)
     two_step_cross_check(tmp, ["--bed", prefix], P)
     # interaction tests (GxPRS on the K-fold run's own _pred.list) and the
     # Step-1 options
@@ -5756,15 +6083,19 @@ def _step1_slices(tmp, t_all):
     return launches
 
 
-def _side_child(q, step1_dir, t_all):
+def _side_child(q, step1_dir, t_all, lock):
     """The side process: cross_check_phase in a temporary directory of
     its own, then _step1_slices on step1_dir, each with its printed lines
     kept; puts (ok, lines, its return value, seconds) on the queue q for
-    each, in that order, and stops at the first that fails."""
+    each, in that order, and stops at the first that fails. lock: the
+    lanes' card lock (_card_heavy)."""
     import io
     import traceback
 
     import torch
+
+    global _CARD_LOCK
+    _CARD_LOCK = lock
 
     def run(fn, *args):
         buf = io.StringIO()
@@ -5811,10 +6142,13 @@ class Side:
     def __init__(self, step1_dir, t_all):
         import multiprocessing
 
+        global _CARD_LOCK
         ctx = multiprocessing.get_context("spawn")
         self.q = ctx.Queue()
         self.parts = 0  # results read
-        self.proc = ctx.Process(target=_side_child, args=(self.q, step1_dir, t_all))
+        _CARD_LOCK = ctx.Lock()
+        self.proc = ctx.Process(target=_side_child,
+                                args=(self.q, step1_dir, t_all, _CARD_LOCK))
         # the child reads its BLAS thread counts from the environment when
         # it imports numpy
         saved = {k: os.environ.get(k) for k in _BLAS_ENV}
@@ -5905,6 +6239,9 @@ def _phase_time(name, t_all):
 
 
 def main() -> int:
+    # both lanes' allocators map growing segments, so that memory one phase
+    # frees serves another's larger blocks (the lanes share the card)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -5971,6 +6308,10 @@ def main() -> int:
             launches.update(slice_phase(tmp, "bed"))
             _free()
             _phase_time("bed slice", t_all)
+            print("[mesh slice]")
+            mesh_slice_phase(tmp)
+            _free()
+            _phase_time("mesh slice", t_all)
             print("[bt slice]")
             bt_launches = bt_slice_phase(tmp)
             print(f"  fused_i8 launches on the BT path: {bt_launches}")
@@ -5991,7 +6332,7 @@ def main() -> int:
         launches.update(got)
         _free()
         print("[dense slice]")
-        dense_slice_phase(tmp, *kept)
+        dense_slice_phase(tmp, kept)
         del kept
         shutil.rmtree(tmp)
         _free()

@@ -835,30 +835,30 @@ def args_to_params(args: argparse.Namespace) -> Params:
     return params
 
 
-def unported(params: Params) -> Optional[str]:
+def unported(params: Params, device=None) -> Optional[str]:
     """Name of the first requested mode this port cannot run yet, or
-    None. Every such mode raises NotImplementedError before any work."""
+    None. Every such mode raises NotImplementedError before any work.
+    `device` as in utils.device.resolve_device."""
+    from .parallel.mesh import run_mesh
+    from .utils.device import requested_device
+
     # the JAX package joins a multi-process run when these are set
     # (maybe_init_distributed, regenie_tpu/parallel/dist.py); the port
     # runs one process, which would run the whole job and write the same
     # files as every other process of the launch
-    multi = (bool(os.environ.get("REGENIE_TPU_COORDINATOR")
-                  or os.environ.get("REGENIE_TPU_DIST")),
-             "multi-process runs (REGENIE_TPU_COORDINATOR / REGENIE_TPU_DIST)")
-    if params.step == 1:
-        checks = (
-            multi,
-            # the JAX package's sample-sharded level 0 (parallel/mesh.py)
-            (bool(os.environ.get("REGENIE_TPU_MESH")
-                  or os.environ.get("REGENIE_TPU_MESH_2D")),
-             "multi-device level 0 (REGENIE_TPU_MESH)"),
-        )
-    else:
-        checks = (
-            (params.file_type not in ("bed", "bgen", "pgen"),
-             f"{params.file_type.upper()} input"),
-            multi,
-        )
+    checks = [
+        (bool(os.environ.get("REGENIE_TPU_COORDINATOR")
+              or os.environ.get("REGENIE_TPU_DIST")),
+         "multi-process runs (REGENIE_TPU_COORDINATOR / REGENIE_TPU_DIST)"),
+        # the JAX package tiles a mesh of several devices 2-D (variants x
+        # samples) under this variable and ignores it on one device
+        (bool(os.environ.get("REGENIE_TPU_MESH_2D"))
+         and run_mesh(params, requested_device(device)) is not None,
+         "the 2-D mesh (REGENIE_TPU_MESH_2D)"),
+    ]
+    if params.step == 2:
+        checks.insert(0, (params.file_type not in ("bed", "bgen", "pgen"),
+                          f"{params.file_type.upper()} input"))
     for hit, name in checks:
         if hit:
             return name

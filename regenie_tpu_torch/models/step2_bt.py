@@ -294,6 +294,26 @@ class DenseGSource:
         return self.G[idx]
 
 
+class MeshGSource(DenseGSource):
+    """DenseGSource whose all-trait score products run variant-sharded
+    over a mesh (parallel.mesh.sharded_score_bt; the JAX package's
+    MeshGSource, regenie_tpu/models/step2_bt.py:292-345): replicas (a
+    parallel.mesh.Replicas) keeps the operands' per-shard copies, and the
+    correction rows come from the whole block on the first shard's
+    device."""
+
+    def __init__(self, G, replicas):
+        super().__init__(G)
+        self.replicas = replicas
+
+    def allpass(self, fc):
+        from ..parallel import mesh as pm
+
+        ops = self.replicas("bt", *fc.dev(self.G.device))
+        return pm.sharded_score_bt(self.replicas.mesh, self.G, *ops,
+                                   len(fc.cols), fc.Kmax + 1)
+
+
 def dev_consts(st, pd, ph, device) -> dict:
     """A trait's [N] null-model vectors and its covariate basis as float64
     tensors on `device`, uploaded once a chromosome and reused by every

@@ -189,36 +189,64 @@ def _outputs(params, B):
             np.full((B, P), np.nan), np.zeros((B, P), dtype=bool))
 
 
+def cox_products(G, WX1, R, v):
+    """The Cox score products of a [B, N] float64 block (compute_score_cox,
+    Step2_Models.cpp:632): (Gres, T, the row sums of Gres^2), Gres = G -
+    (G WX1) R' and T = Gres v."""
+    Gres = G - (G @ WX1) @ R.T
+    return Gres, Gres @ v, (Gres**2).sum(dim=1)
+
+
 def score_block(params: Params, pd: PhenoData, st: T2EChromState, G, flipped,
-                ignored, ignored_trait, times=None):
+                ignored, ignored_trait, times=None, replicas=None):
     """Batched Cox score test + Firth correction of a dense block
     (compute_score_cox): G the [B, N] float64 finalized genotypes on the
     scoring device. Per trait the three products Gres, T and ||Gres||^2 run
-    there in float64; --coxscore-exact takes each row's exact variance
-    (_exact_denum) on the host from Gres, and the Firth rows' Gres come to
-    the host. times (a dict), if given, gains the correction seconds
-    under "corr_s". Returns (bhat, se, chisq, logp, test_fail, corrected,
-    failed), the first five [B, P] numpy."""
+    there in float64 (cox_products); --coxscore-exact takes each row's
+    exact variance (_exact_denum) on the host from Gres, and the Firth
+    rows' Gres come to the host. times (a dict), if given, gains the
+    correction seconds under "corr_s". Returns (bhat, se, chisq, logp,
+    test_fail, corrected, failed), the first five [B, P] numpy.
+
+    With replicas (a parallel.mesh.Replicas; not with --coxscore-exact,
+    whose per-row variance needs the whole Gres block), the products run
+    variant-sharded over its mesh (parallel.mesh.sharded_score_t2e, as in
+    regenie_tpu/models/step2_t2e.py:90-150) and the Firth rows' Gres are
+    formed from their G rows."""
     B = G.shape[0]
     bhat, se, chisq, logp, test_fail = _outputs(params, B)
     n_corrected = n_failed = 0
     z_thr = _z_thr(params)
+    if params.coxscore_exact:
+        replicas = None
     for ph in passing_traits(pd, st):
         WX1, R, v = _dev_consts(st, pd, ph, G.device)
-        Gres = G - (G @ WX1) @ R.T
-        T = (Gres @ v).cpu().numpy()
-        dn = st.mle[ph].res_var * (Gres**2).sum(dim=1).cpu().numpy()
-        if params.coxscore_exact:
-            Gh = Gres.cpu().numpy()
-            mask = pd.masked_indivs[:, ph].astype(np.float64)
-            for b in range(B):
-                dn[b] = _exact_denum(st.surv[ph], st.mle[ph], Gh[b], mask)
+        if replicas is not None:
+            from ..parallel import mesh as pm
 
-            def rows(idx, Gh=Gh):
-                return Gh[idx]
+            W_s, R_s, v_s = replicas(("t2e", ph), WX1, R, v)
+            T, d = (x.cpu().numpy() for x in pm.sharded_score_t2e(
+                replicas.mesh, G, W_s, [r.T for r in R_s], [x[:, None] for x in v_s]))
+            dn = st.mle[ph].res_var * d
+
+            def rows(idx, WX1=WX1, R=R, v=v):
+                Gr = G[torch.as_tensor(idx, device=G.device)]
+                return cox_products(Gr, WX1, R, v)[0].cpu().numpy()
         else:
-            def rows(idx, Gres=Gres):
-                return Gres[torch.as_tensor(idx, device=Gres.device)].cpu().numpy()
+            Gres, T, d = cox_products(G, WX1, R, v)
+            T = T.cpu().numpy()
+            dn = st.mle[ph].res_var * d.cpu().numpy()
+            if params.coxscore_exact:
+                Gh = Gres.cpu().numpy()
+                mask = pd.masked_indivs[:, ph].astype(np.float64)
+                for b in range(B):
+                    dn[b] = _exact_denum(st.surv[ph], st.mle[ph], Gh[b], mask)
+
+                def rows(idx, Gh=Gh):
+                    return Gh[idx]
+            else:
+                def rows(idx, Gres=Gres):
+                    return Gres[torch.as_tensor(idx, device=Gres.device)].cpu().numpy()
         t0 = time.time()
         out = _score_tail(params, pd, st, ph, T, dn, flipped, ignored,
                           ignored_trait, rows, z_thr)

@@ -587,6 +587,20 @@ def fused_products_plain(raw, Wp, dtype=torch.float32):
     return S1, SQ, SM
 
 
+_INDEX = {}
+
+
+def _index_on(inc, device):
+    """The index tensor of `inc` on `device`, made once: a host-to-device
+    copy in every block would make the host wait for the device there, and
+    on a mesh would serialize the shards of distinct cards."""
+    key = (tuple(inc), device)
+    idx = _INDEX.get(key)
+    if idx is None:
+        idx = _INDEX[key] = torch.tensor(key[0], device=device)
+    return idx
+
+
 def fused_epilogue(S1, SQ, SM, flip, usum, covt_res, Mmat, K, P, scale_denom,
                    n_ind, test_type=0, inc=None, strict=False):
     """[B, C] products -> (stats, denum, scale_fac, low, af_num) on the
@@ -622,7 +636,7 @@ def fused_epilogue(S1, SQ, SM, flip, usum, covt_res, Mmat, K, P, scale_denom,
     num_raw = numY - A @ covt_res
     denum_raw = g2m - A2[:, None]  # exact for complete traits
     if nI:
-        idx = torch.tensor(inc, device=S1.device)
+        idx = _index_on(inc, S1.device)
         T = S1f[:, K + P : K + P + K * nI].reshape(-1, K, nI)
         denum_inc = (
             g2m[:, idx]
@@ -702,14 +716,41 @@ def impute_flip_products(S1, SQ, SM, flip, usum, icol, n_ind):
     return S1f, SQf
 
 
+def _mesh_rows(mesh, build, operand):
+    """The mesh form of a row-independent block function (the 1-D
+    _mesh_wrap / _mesh_replicate of the JAX package,
+    regenie_tpu/ops/fused_score.py:691-760): `operand` (a tensor, an
+    I8Operand, a FusedConsts or a tuple of them) replicated onto each
+    shard's device, shards on one device sharing one copy, and one block
+    function build(operand there) a device. A block (a tensor, or a
+    parallel.mesh.Sharded from the upload) runs through
+    parallel.mesh.map_rows: its rows padded to the shard count and split,
+    each shard's function on its device, so fused_i8 / bgen_i8 (or the
+    f32 kernels) launch once a shard, all queued before any output is
+    read, and every output's rows back in shard order on the first
+    shard's device with the pad rows cut, so no pad row reaches a
+    statistic."""
+    from ..parallel import mesh as pm
+
+    fns = {}
+    for dev, op in zip(mesh, pm.replicate(mesh, operand)):
+        if dev not in fns:
+            fns[dev] = build(op)
+    per_shard = [fns[dev] for dev in mesh]
+    return lambda block: pm.map_rows(mesh, lambda part, fn: fn(part), block,
+                                     per_shard)
+
+
 def make_qt_block_fn(consts: FusedConsts, use_kernel: bool = True,
                      test_type=0, ref_first=False, mesh=None, strict=False):
     """QT block function: products + epilogue + the raw-product slices
     the host needs for per-variant stats. Built once per chromosome.
-    use_kernel=False takes the plain products on any device."""
+    use_kernel=False takes the plain products on any device. With `mesh`
+    (parallel/mesh.py), the block's rows are scored variant-sharded
+    (_mesh_rows)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh (multi-device) scoring is not yet ported to regenie_tpu_torch")
+        return _mesh_rows(mesh, lambda c: make_qt_block_fn(
+            c, use_kernel, test_type, ref_first, None, strict), consts)
     prod = fused_products if use_kernel else fused_products_plain
     C_used = consts.layout_C()
 
@@ -757,7 +798,7 @@ def _bt_flip(S1c, SMc, icol, n_ind):
 
 
 def make_bt_block_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
-                     use_kernel=True, test_type=0, ref_first=False):
+                     use_kernel=True, test_type=0, ref_first=False, mesh=None):
     """BT block function over packed PLINK bytes (the JAX package's
     make_bt_block_fn): products -> the minor-allele flip on the device
     (ADD only) -> imputation and flip or DOM/REC recoding in product
@@ -765,7 +806,12 @@ def make_bt_block_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
     | gsm^2 | maskf | case | ind (| chrX male tail)] operand (plane_pack);
     usum its [Cp] numpy column sums; xwt [Pn, Kmax] numpy. Returns the raw
     product slices for the host stats and (flip, num, denum, S1cat).
-    use_kernel=False takes the plain products on any device."""
+    use_kernel=False takes the plain products on any device. With `mesh`,
+    variant-sharded (_mesh_rows)."""
+    if mesh is not None:
+        return _mesh_rows(mesh, lambda w: make_bt_block_fn(
+            w, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1, use_kernel,
+            test_type, ref_first), Wp)
     prod = fused_products if use_kernel else fused_products_plain
     dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
     usum_t = torch.as_tensor(np.asarray(usum[:C_used], np.float64), device=dev)
@@ -786,7 +832,8 @@ def make_bt_block_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
 
 
 def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
-                      Tt, q, use_kernel=True, test_type=0, ref_first=False):
+                      Tt, q, use_kernel=True, test_type=0, ref_first=False,
+                      mesh=None):
     """Time-to-event (Cox) block function over packed PLINK bytes (the JAX
     package's make_t2e_block_fn): products -> the minor-allele flip on the
     device (ADD only) -> imputation and flip or DOM/REC recoding in
@@ -804,7 +851,12 @@ def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
     column sums; Rtv [Tt, q], RtR [Tt, q, q] and res_var [Tt]: numpy
     constants of the null fits. Returns the raw product slices for the
     host statistics and (flip, Tnum, denum), Tnum and denum [B, Tt].
-    use_kernel=False takes the plain products on any device."""
+    use_kernel=False takes the plain products on any device. With `mesh`,
+    variant-sharded (_mesh_rows)."""
+    if mesh is not None:
+        return _mesh_rows(mesh, lambda w: make_t2e_block_fn(
+            w, usum, Rtv, RtR, res_var, C_used, icol, n_ind, Tt, q,
+            use_kernel, test_type, ref_first), Wp)
     prod = fused_products if use_kernel else fused_products_plain
     dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
 
@@ -978,7 +1030,7 @@ def _bgen_prepare(S1, SQ, SM, IL, usum, C_used, ref_first):
 
 
 def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
-                    ref_first=False, strict=False):
+                    ref_first=False, mesh=None, strict=False):
     """QT block function over BGEN probability byte planes: the QT score
     outputs plus the raw product slices and the info-linear products
     (for the INFO column). With the kernel, the squared-dosage products
@@ -987,7 +1039,11 @@ def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
     [maskf | ind] operand, whose columns start at qs = C_used - (P + 1),
     or with the chrX male tail P + 1 columns earlier (the tail follows
     ind; Wq carries no male column, which only hardcall class counts
-    would read). use_kernel=False takes the plain products on any device."""
+    would read). use_kernel=False takes the plain products on any device.
+    With `mesh`, variant-sharded (_mesh_rows)."""
+    if mesh is not None:
+        return _mesh_rows(mesh, lambda c: make_qt_bgen_fn(
+            c, use_kernel, ref_first, None, strict), consts)
     C_used = consts.layout_C()
     Wq = consts.Wq if use_kernel else None
     male_off = consts.P + 1 if consts.has_male else 0
@@ -1016,7 +1072,7 @@ def make_qt_bgen_fn(consts: FusedConsts, use_kernel: bool = True,
 
 
 def make_bt_bgen_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
-                    use_kernel=True, ref_first=False, Wq=None):
+                    use_kernel=True, ref_first=False, Wq=None, mesh=None):
     """BT block function over BGEN probability byte planes (the JAX
     package's make_bt_bgen_fn, ADD coding only): products -> the flip on
     the device -> product-space imputation and flip -> all-trait
@@ -1025,7 +1081,11 @@ def make_bt_bgen_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
     sample_pack of the operand's columns from ncat on ([gsm^2 | maskf |
     case | ind (| male tail)]), the only ones SQ feeds. use_kernel=False
     takes the plain products on any device. Returns (S1c, SQc, SMc, ILc,
-    flip, num, denum, S1cat)."""
+    flip, num, denum, S1cat). With `mesh`, variant-sharded (_mesh_rows)."""
+    if mesh is not None:
+        return _mesh_rows(mesh, lambda ops: make_bt_bgen_fn(
+            ops[0], usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
+            use_kernel, ref_first, ops[1]), (Wp, Wq))
     dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
     usum_t = torch.as_tensor(np.asarray(usum[:C_used], np.float64), device=dev)
     xwt_t = torch.as_tensor(np.asarray(xwt, np.float64), device=dev)

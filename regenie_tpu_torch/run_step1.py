@@ -39,6 +39,7 @@ from .models import glm
 from .models import step1 as m1
 from .models import step1_bt
 from .ops.geno_ops import MISSING, prepare_block_step1
+from .parallel import mesh as pm
 from .prep import fmt, prepare, write_debug_inputs
 from .utils.device import resolve_device
 from .utils.stats import rss_line, usage_info_line
@@ -77,15 +78,18 @@ class Step1Setup(NamedTuple):
     master: Optional[Tuple]  # the split-L0 master file, parsed
     run_l0_job: Optional[int]
     device: torch.device
+    # the single-process mesh of level 0 (parallel/mesh.py), or None;
+    # `device` is then its first shard's device
+    mesh: Optional[tuple] = None
 
 
 def open_step1(params: Params, log=print, device=None) -> Step1Setup:
-    """The run-up of run_step1 before level 0: the mode check, the device,
-    the split-L0 role, data preparation, the blocks and the ridge grids.
-    `device` as in utils.device.resolve_device."""
+    """The run-up of run_step1 before level 0: the mode check, the device
+    and the mesh, the split-L0 role, data preparation, the blocks and the
+    ridge grids. `device` as in utils.device.resolve_device."""
     from .cli import unported
 
-    why = unported(params)
+    why = unported(params, device)
     if why is not None:
         raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
     dev = resolve_device(device)
@@ -144,8 +148,18 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
     fold_sizes = None
     if not params.use_loocv:
         fold_sizes = m1.compute_fold_sizes(pd.ind_in_analysis, params.cv_folds)
+    # the sample-sharded level 0 (regenie_tpu/run_step1.py:250-345, its
+    # single-process 1-D mesh): level 0 is the same linear ridge for every
+    # trait type, so the mesh covers QT/BT/CT/T2E, LOOCV and K-fold. Level
+    # 1 runs on the first shard's device.
+    mesh = pm.run_mesh(params, dev)
+    if mesh is not None:
+        dev = mesh[0]
+        log(f" * multi-device mesh: {len(mesh)} shards on "
+            f"{', '.join(str(d) for d in mesh)} (sample-axis sharding for "
+            "level 0)")
     return Step1Setup(gd, pd, blocks, h_l0, lambdas, taus, h_l1, fold_sizes,
-                      master, run_l0_job, dev)
+                      master, run_l0_job, dev, mesh)
 
 
 def run_step1(params: Params, log=print, device=None) -> Step1Setup:
@@ -277,28 +291,52 @@ def _alloc_W(params, shape):
 
 class Level0:
     """The device operands of level 0 for one run, and its per-block
-    steps (level_0_calculations, Data.cpp:594)."""
+    steps (level_0_calculations, Data.cpp:594). On a mesh the trait
+    operands live only sharded over the sample axis, zero-padded to the
+    shard count (K-fold: each fold's padded axis nmax, each shard's fold
+    slots gathered from the block on its own), and each block's ridge runs
+    sample-sharded (parallel.mesh.sharded_level0_loocv /
+    sharded_level0_kfold); the block's residualization stays whole on the
+    first shard's device."""
 
     def __init__(self, params: Params, st: Step1Setup):
         pd, dev = st.pd, st.device
-        self.params, self.device = params, dev
+        self.params, self.device, self.mesh = params, dev, st.mesh
         self.lambdas, self.Neff = self._put(st.lambdas), self._put(pd.Neff)
         self.ind = torch.as_tensor(pd.ind_in_analysis, device=dev)
-        self.cov, self.Y = self._put(pd.new_cov), self._put(pd.phenotypes)
+        self.cov = self._put(pd.new_cov)
         self.scale_denom = float(params.n_analyzed - params.ncov)
+        Y = np.asarray(pd.phenotypes, np.float64)
         maskf = pd.masked_indivs.astype(np.float64)
+        mesh = self.mesh
         if params.use_loocv:
-            self.mask = self._put(maskf)
-        else:
-            Y_folds, valid = m1.pad_folds(pd.phenotypes, st.fold_sizes)
-            mask_folds, _ = m1.pad_folds(maskf, st.fold_sizes)
+            if mesh is None:
+                self.Y, self.mask = self._put(Y), self._put(maskf)
+            else:
+                self.Y_sh, self.mask_sh = pm.shard(mesh, Y, 0), pm.shard(mesh, maskf, 0)
+            return
+        Y_folds, valid = m1.pad_folds(Y, st.fold_sizes)
+        mask_folds, _ = m1.pad_folds(maskf, st.fold_sizes)
+        fold_idx = m1.fold_index(st.fold_sizes)
+        self.nmax = Y_folds.shape[1]
+        if mesh is None:
             self.Y_folds, self.mask_folds = self._put(Y_folds), self._put(mask_folds)
             self.valid = self._put(valid)
             # device-side fold gather: folds are contiguous sample ranges,
             # so [K, nmax] indices replace a host restack; pad slots
             # gather sample 0 and are zeroed by the kernel's valid mask
-            self.fold_idx = torch.as_tensor(
-                m1.fold_index(st.fold_sizes).reshape(-1), device=dev)
+            self.fold_idx = torch.as_tensor(fold_idx.reshape(-1), device=dev)
+            return
+        # the fold axis nmax padded to the shard count (pad slots gather
+        # sample 0 and are zeroed by valid = 0), and each shard's slots
+        # indexed apart
+        self.Yf_sh, self.mf_sh, self.v_sh = (
+            pm.shard(mesh, np.asarray(a, np.float64), 1)
+            for a in (Y_folds, mask_folds, valid))
+        idx, _ = pm.pad_to(fold_idx, len(mesh), 1)
+        self.fold_idx_sh = [torch.as_tensor(np.ascontiguousarray(i).reshape(-1),
+                                            device=dev)
+                            for i in np.split(idx, len(mesh), axis=1)]
 
     def _put(self, a):
         return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
@@ -328,18 +366,34 @@ class Level0:
                 device=G.device)[:, None]
         return G
 
-    def folds(self, G: torch.Tensor) -> torch.Tensor:
-        """[B, N] -> [K, B, nmax] by fold (pad slots from sample 0)."""
-        return G.index_select(1, self.fold_idx).view(
+    def folds(self, G: torch.Tensor, idx=None) -> torch.Tensor:
+        """[B, N] -> [K, B, nmax] by fold (pad slots from sample 0), or
+        the slots that idx indexes."""
+        idx = self.fold_idx if idx is None else idx
+        return G.index_select(1, idx).view(
             G.shape[0], self.params.cv_folds, -1).transpose(0, 1)
+
+    def fold_parts(self, G: torch.Tensor) -> list:
+        """On a mesh: [B, N] -> each shard's [K, B, nmax_pad / shards] fold
+        slots, on that shard's device."""
+        return [self.folds(G, i).to(d) for i, d in zip(self.fold_idx_sh, self.mesh)]
 
     def kfold(self, G: torch.Tensor) -> torch.Tensor:
         """K-fold W of a residualized block: [K, nmax, J, P]."""
+        if self.mesh is not None:
+            return pm.sharded_level0_kfold(
+                self.mesh, self.fold_parts(G), self.Yf_sh, self.mf_sh, self.v_sh,
+                self.lambdas, self.Neff)[:, : self.nmax]
         return m1.level0_kfold_block(self.folds(G), self.Y_folds, self.mask_folds,
                                      self.valid, self.lambdas, self.Neff)
 
     def loocv(self, G3: torch.Tensor) -> torch.Tensor:
         """LOOCV W of a group of residualized blocks: [n, N, J, P]."""
+        if self.mesh is not None:
+            N = G3.shape[2]
+            return torch.stack([pm.sharded_level0_loocv(
+                self.mesh, g, self.Y_sh, self.mask_sh, self.lambdas,
+                self.Neff)[:N] for g in G3])
         return m1.level0_loocv_blocks(G3, self.Y, self.mask, self.lambdas, self.Neff)
 
 
@@ -359,7 +413,8 @@ def _level0(params, st: Step1Setup, log):
     else:
         W_all = _alloc_W(params, (len(blocks), params.cv_folds,
                                   int(st.fold_sizes.max()), J, P))
-    log(f" * level 0 on {dev} (float64)")
+    log(f" * level 0 on {dev} (float64)" if st.mesh is None else
+        f" * level 0 on {len(st.mesh)} shards (float64, sample-sharded)")
 
     # one-block read lookahead: the reader thread reads the next block's
     # packed bytes (or decodes its dosages) while this block solves; the
@@ -370,7 +425,9 @@ def _level0(params, st: Step1Setup, log):
     # LOOCV: consecutive same-shape blocks solve in ONE batched dispatch
     # (batched [n, B, B] eigh; Step1_Models.cpp:494). No block's W depends
     # on another's, so the grouping changes no result.
-    stack1 = max(1, int(os.environ.get("REGENIE_TPU_STEP1_STACK", "4")))
+    # (on a mesh each block is solved alone, as in the JAX package)
+    stack1 = (1 if st.mesh is not None else
+              max(1, int(os.environ.get("REGENIE_TPU_STEP1_STACK", "4"))))
     grp: list = []
 
     def flush():

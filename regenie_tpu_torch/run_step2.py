@@ -73,6 +73,7 @@ from .ops import fused_score as fsc
 from .ops.geno_ops import (MISSING, decode_bed_packed, finalize_block_step2,
                            pack_hardcalls, snp_stats_block,
                            snp_stats_block_packed)
+from .parallel import mesh as pm
 from .prep import fmt, prepare, write_debug_inputs
 from .cli import unported
 from .utils.device import resolve_device
@@ -267,10 +268,19 @@ class FusedRowSource:
 
     def __init__(self, eng, raw, flip, num, denum, S1_all):
         self.eng = eng
-        self.raw = raw  # the uploaded block: [B, nbp] bytes or [B, 2, Np] planes
+        # the uploaded block: [B, nbp] bytes or [B, 2, Np] planes, or on a
+        # mesh its row shards (gathered on the first shard's device when a
+        # correction row is first read)
+        self._raw = raw
         self.flip = flip  # [B] bool tensor on the device
         self._num, self._denum, self._S1 = num, denum, S1_all
         self.n_snps = int(num.shape[0])
+
+    @property
+    def raw(self):
+        if isinstance(self._raw, pm.Sharded):
+            self._raw = pm.gather(self._raw.parts, 0, self._raw.n)
+        return self._raw
 
     def allpass(self, fc):
         return self._num, self._denum, self._S1
@@ -326,7 +336,13 @@ class Step2Engine:
     utils.device.resolve_device). On CUDA the operand is the int8 limbs,
     or with REGENIE_TPU_I8=0 float32, each through its kernel.
     kernel=False keeps a float64 operand and the plain products on any
-    device — the on-card reference the kernel path is checked against."""
+    device — the on-card reference the kernel path is checked against.
+
+    mesh: the single-process mesh (parallel/mesh.py maybe_mesh, on QT, BT,
+    CT and T2E runs outside --strict, as in the JAX package,
+    regenie_tpu/run_step2.py:313-322). The fused blocks' rows and the
+    dense route's score products are then sharded over it; everything
+    else runs on its first shard's device, which becomes `device`."""
 
     def __init__(self, params: Params, gd, pd, blup_files, log, device=None,
                  kernel: bool = True):
@@ -336,6 +352,14 @@ class Step2Engine:
         self.blup_files = blup_files
         self.log = log
         self.device = resolve_device(device)
+        self.mesh = pm.run_mesh(params, self.device)
+        # the per-shard copies of the dense route's operands
+        self.replicas = None
+        if self.mesh is not None:
+            self.device = self.mesh[0]
+            self.replicas = pm.Replicas(self.mesh)
+            log(f" * multi-device mesh: {len(self.mesh)} shards on "
+                f"{', '.join(str(d) for d in self.mesh)} (variant-axis sharding)")
         self.kernel = kernel
         on_gpu = self.device.type == "cuda"
         self.split = fsc.split_mode(on_gpu) if kernel else False
@@ -722,12 +746,12 @@ class Step2Engine:
         if is_bgen:
             self._fused_fn = fsc.make_qt_bgen_fn(
                 self._fused_consts, self.kernel, bool(params.ref_first),
-                strict=self.strict)
+                mesh=self.mesh, strict=self.strict)
         else:
             self._fused_fn = fsc.make_qt_block_fn(
                 self._fused_consts, self.kernel, params.test_type,
                 bool(params.ref_first) and self.gd._bed is not None,
-                strict=self.strict,
+                mesh=self.mesh, strict=self.strict,
             )
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
@@ -791,12 +815,13 @@ class Step2Engine:
             self._fused_fn = fsc.make_bt_bgen_fn(
                 Wp, usum, fc.xwt if Pn else np.zeros((0, 0)), C_used, icol,
                 float(indf.sum()), ncat, Pn, Kp1, self.kernel,
-                bool(params.ref_first), Wq=Wq)
+                bool(params.ref_first), Wq=Wq, mesh=self.mesh)
         else:
             self._fused_fn = fsc.make_bt_block_fn(
                 Wp, usum, fc.xwt if Pn else np.zeros((0, 0)), C_used, icol,
                 float(indf.sum()), ncat, Pn, Kp1, self.kernel,
-                params.test_type, bool(params.ref_first) and gd._bed is not None)
+                params.test_type, bool(params.ref_first) and gd._bed is not None,
+                mesh=self.mesh)
         self._fused_nb = nb
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
@@ -854,7 +879,7 @@ class Step2Engine:
         self._fused_fn = fsc.make_t2e_block_fn(
             Wp, usum, Rtv, RtR, rv, C_used, icol, float(indf.sum()), len(passing),
             q, self.kernel, params.test_type,
-            bool(params.ref_first) and gd._bed is not None)
+            bool(params.ref_first) and gd._bed is not None, mesh=self.mesh)
         self._fused_nb = nb
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
@@ -954,7 +979,7 @@ class Step2Engine:
 
         def rows_host(idx):
             return source.rows_device(
-                torch.as_tensor(idx, device=raw_t.device)).cpu().numpy()
+                torch.as_tensor(idx, device=self.device)).cpu().numpy()
 
         bhat, se, chisq, logp, test_fail, ncorr, nfail = step2_t2e.score_block_fused(
             params, pd, self.null_state, f["num"], f["den"], flipped, rows_host,
@@ -1062,22 +1087,31 @@ class Step2Engine:
         H1 = (SQh[:, icol] - total1) / 2.0
         return (H1 + v * SMh[:, icol]) < self.params.min_homs
 
-    def _fused_upload(self, raw) -> torch.Tensor:
+    def _fused_upload(self, raw):
         """Block -> device tensor, its last (byte or sample) axis zero-
-        padded to the operand's contraction length. Idempotent, so the
-        prefetch thread can upload block k+1 while the device scores
+        padded to the operand's contraction length; on a mesh a
+        parallel.mesh.Sharded, the rows zero-padded to the shard count
+        and each shard uploaded to its own device (the JAX package's
+        _fused_upload, regenie_tpu/run_step2.py:1421-1455, 1-D). Idempotent,
+        so the prefetch thread can upload block k+1 while the device scores
         block k."""
-        if isinstance(raw, torch.Tensor):
+        if isinstance(raw, (torch.Tensor, pm.Sharded)):
             return raw
         with warnings.catch_warnings():
             # mmap views are read-only; nothing writes through them
             warnings.simplefilter("ignore", UserWarning)
             raw_t = torch.from_numpy(raw)
-        raw_t = raw_t.to(self.device)
+        if self.mesh is None:
+            return self._pad_bytes(raw_t.to(self.device))
+        sh = pm.shard_rows(self.mesh, raw_t)
+        return pm.Sharded([self._pad_bytes(p) for p in sh.parts], sh.n)
+
+    def _pad_bytes(self, raw_t):
+        """raw_t with its last axis zero-padded to the operand's length."""
         nbp = self._fused_op_nbp
         if raw_t.shape[-1] < nbp:
             out = torch.zeros(raw_t.shape[:-1] + (nbp,), dtype=torch.uint8,
-                              device=self.device)
+                              device=raw_t.device)
             out[..., : raw_t.shape[-1]] = raw_t
             raw_t = out
         return raw_t
@@ -1219,7 +1253,8 @@ class Step2Engine:
         if d.chrom != self.cur_chrom:
             d.res = put(self.res)
             d.covt_res = put(pd.new_cov.T @ self.res)
-            if params.trait_mode == QT and not (params.skip_cov_res or self.strict):
+            if (params.trait_mode == QT and self.mesh is None
+                    and not (params.skip_cov_res or self.strict)):
                 K, P = d.cov.shape[1], d.res.shape[1]
                 if d.W is None:
                     CM, d.Mmat, _ = m2.onepass_constants(d.cov, d.maskf, d.res)
@@ -1315,8 +1350,9 @@ class Step2Engine:
                             flipped, info_t=None, is_mask: bool = False
                             ) -> BlockResult:
         """Score a finalized [B, N] float64 block on the device (the JAX
-        package's test_prepared_block, without the mesh): for QT,
-        --nocov-approx scores G unadjusted with scale 1; otherwise the
+        package's test_prepared_block): for QT, --nocov-approx scores G
+        unadjusted with scale 1; otherwise on a mesh the variant-sharded
+        residualize-and-score (parallel.mesh.sharded_score_qt), else the
         one-pass scorer, or in strict mode the residualize-then-score
         pair; with --mcc the skewed traits' rows then take the DKAT
         p-values (models/mcc.py, on the host). BT/CT/T2E: the all-trait
@@ -1341,10 +1377,12 @@ class Step2Engine:
             if self.is_t2e:
                 out = step2_t2e.score_block(params, self.pd, self.null_state, G,
                                             flipped, ignored, ignored_trait,
-                                            self.bt_times)
+                                            self.bt_times, replicas=self.replicas)
             else:
+                src = (step2_bt.DenseGSource(G) if self.mesh is None
+                       else step2_bt.MeshGSource(G, self.replicas))
                 out = step2_bt.score_block(
-                    params, self.pd, self.null_state, step2_bt.DenseGSource(G),
+                    params, self.pd, self.null_state, src,
                     flipped, ignored, ignored_trait, self.bt_times)
             bhat, se, chisq, logp, test_fail, ncorr, nfail = out
             self.n_corrected += ncorr
@@ -1369,7 +1407,13 @@ class Step2Engine:
             scale_fac, low_var = np.ones(B), np.zeros(B, dtype=bool)
         else:
             G_res = None
-            if not self.strict:
+            if self.mesh is not None:
+                # variant-sharded residualize-and-score
+                stats, denum, scale_fac = pm.sharded_score_qt(
+                    self.mesh, G, *self.replicas("qt", d.res, d.maskf, d.cov),
+                    self.scale_denom)
+                low_var = scale_fac < 1e-8
+            elif not self.strict:
                 stats, denum, scale_fac, low_var = m2.score_qt_block_onepass(
                     G, d.cov, d.res, d.maskf, None, d.Mmat, d.covt_res,
                     self.scale_denom, W=d.W, maskf1=d.maskf1)
@@ -1672,7 +1716,7 @@ def open_engine(params: Params, log=print, device=None):
     """The run-up of run_step2 before its block loop: the mode check, the
     --pred list, data preparation, the engine and the LOCO sample masks.
     Returns (engine, blocks); `device` as in utils.device.resolve_device."""
-    why = unported(params)
+    why = unported(params, device)
     if why is not None:
         raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
     device = resolve_device(device)

@@ -31,13 +31,18 @@ import torch
 DEVICE_ENV = "REGENIE_TPU_TORCH_DEVICE"
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `device` if given, else
-    $REGENIE_TPU_TORCH_DEVICE, else CUDA. Raises when CUDA is asked for
-    (explicitly or by default) and there is none."""
+def requested_device(device=None) -> torch.device:
+    """The device an entry point is asked to run on: `device` if given,
+    else $REGENIE_TPU_TORCH_DEVICE, else CUDA (not checked)."""
     if device is None:
         device = os.environ.get(DEVICE_ENV) or "cuda"
-    dev = torch.device(device)
+    return torch.device(device)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on (requested_device). Raises when
+    CUDA is asked for (explicitly or by default) and there is none."""
+    dev = requested_device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -2,6 +2,7 @@
 on a synthetic PLINK BED against the JAX package's fused path on the CPU,
 the no-jax import guarantee, and the device policy."""
 
+import glob
 import os
 import subprocess
 import sys
@@ -126,7 +127,8 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.models.joint, regenie_tpu_torch.ops.vc_batch, "
         "regenie_tpu_torch.utils.quadforms, regenie_tpu_torch.models.interaction, "
         "regenie_tpu_torch.models.mcc, regenie_tpu_torch.models.multitrait, "
-        "regenie_tpu_torch.models.multiphen\n"
+        "regenie_tpu_torch.models.multiphen, regenie_tpu_torch.parallel, "
+        "regenie_tpu_torch.parallel.mesh\n"
         "from regenie_tpu_torch.io import native\n"
         "lib = native.planes_lib()\n"
         "assert hasattr(lib, native.DOSAGES_SYMBOL)\n"
@@ -198,19 +200,26 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     assert not os.path.exists(f"{tmp_path}/s1_pred.list")
 
 
+COORD = (("REGENIE_TPU_COORDINATOR", "localhost:23456"),)
+DIST = (("REGENIE_TPU_DIST", "1"),)
+# the 2-D mesh on a mesh of two CPU shards
+MESH_2D = (("REGENIE_TPU_MESH_2D", "2x1"), ("REGENIE_TPU_MESH", "1"),
+           ("REGENIE_TPU_TORCH_MESH_DEVICES", "cpu,cpu"))
+
+
 @pytest.mark.parametrize("env,flags", [
     # one process of a multi-process launch (the JAX package's
     # maybe_init_distributed) would run the whole job and write the same
     # files as every other: refused in both steps, whatever the mode
-    (("REGENIE_TPU_COORDINATOR", "localhost:23456"), ["--step", "1"]),
-    (("REGENIE_TPU_COORDINATOR", "localhost:23456"), []),
-    (("REGENIE_TPU_COORDINATOR", "localhost:23456"), ["--mt", "--strict", "--no-split"]),
-    (("REGENIE_TPU_DIST", "1"), ["bgen", "--step", "1"]),
-    (("REGENIE_TPU_DIST", "1"), ["bgen"]),
-    (("REGENIE_TPU_DIST", "1"), ["chrx", "--compute-corr"]),
-    # the sample-sharded level 0 of Step 1
-    (("REGENIE_TPU_MESH", "1"), ["--step", "1"]),
-    (("REGENIE_TPU_MESH_2D", "2x1"), ["bgen", "--step", "1", "--bt"]),
+    (COORD, ["--step", "1"]),
+    (COORD, []),
+    (COORD, ["--mt", "--strict", "--no-split"]),
+    (DIST, ["bgen", "--step", "1"]),
+    (DIST, ["bgen"]),
+    (DIST, ["chrx", "--compute-corr"]),
+    # the JAX package tiles a mesh of several devices 2-D in both steps
+    (MESH_2D, ["--step", "1"]),
+    (MESH_2D, ["bgen", "--bt"]),
 ])
 def test_unported_mode_raises(tmp_path, monkeypatch, env, flags):
     """Every mode the port does not have raises NotImplementedError, on
@@ -218,12 +227,14 @@ def test_unported_mode_raises(tmp_path, monkeypatch, env, flags):
     Flags after "bgen" run on a BGEN input, after "chrx" on a BED with
     chrX non-PAR variants; flags without --step run Step 2. The modes that
     ran out of this list when their slices landed are held to the JAX
-    package's outcome in tests/test_torch_formerly_unported.py."""
+    package's outcome in tests/test_torch_formerly_unported.py; Step 1
+    under REGENIE_TPU_MESH in test_step1_mesh_matches_unsharded."""
     from regenie_tpu_torch import cli
     from regenie_tpu_torch.utils.device import DEVICE_ENV
 
     monkeypatch.setenv(DEVICE_ENV, "cpu")
-    monkeypatch.setenv(*env)
+    for k, v in env:
+        monkeypatch.setenv(k, v)
 
     if flags and flags[0] == "bgen":
         flags = flags[1:]
@@ -254,10 +265,11 @@ def test_unported_mode_raises(tmp_path, monkeypatch, env, flags):
     ["--af-cc", "--t2e", "--phenoColList", "T1", "--eventColList", "E1"],
 ])
 def test_ported_modes_are_not_refused(monkeypatch, step, flags):
-    """With no multi-process or (Step 1) mesh variable set, cli.unported
-    names none of the modes ported since: multi-trait tests, MultiPhen, LD
-    mode, MCC and --af-cc on every trait type; in Step 2 a one-card
-    REGENIE_TPU_MESH is the single-device run, as in the JAX package."""
+    """With no multi-process variable set, cli.unported names none of the
+    modes ported since: multi-trait tests, MultiPhen, LD mode, MCC and
+    --af-cc on every trait type, in either step under REGENIE_TPU_MESH
+    too (the single-process mesh; on one device the single-device run,
+    as in the JAX package)."""
     from regenie_tpu_torch import cli
 
     for var in ("REGENIE_TPU_COORDINATOR", "REGENIE_TPU_DIST",
@@ -269,7 +281,86 @@ def test_ported_modes_are_not_refused(monkeypatch, step, flags):
     assert cli.unported(params) is None
     monkeypatch.setenv("REGENIE_TPU_MESH", "1")
     params = cli.args_to_params(cli.build_parser().parse_args(argv))
-    assert (cli.unported(params) is None) == (step == "2")
+    assert cli.unported(params) is None
+
+
+@pytest.mark.parametrize("step", ["1", "2"])
+def test_unported_names_other_step2_inputs(monkeypatch, step):
+    """A Step-2 input other than BED, BGEN or PGEN is refused by name (the
+    CLI's flags reach only those three, so the input type is forced
+    here); Step 1 takes no such gate."""
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.config import Params
+
+    for var in ("REGENIE_TPU_COORDINATOR", "REGENIE_TPU_DIST",
+                "REGENIE_TPU_MESH_2D"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--step", step, "--bed", "g", "--phenoFile", "p.txt",
+            "--ignore-pred", "--out", "o"]
+    params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    monkeypatch.setattr(Params, "file_type", property(lambda self: "vcf"))
+    assert cli.unported(params) == (None if step == "1" else "VCF input")
+
+
+def _mesh_env(monkeypatch, shards, mesh_2d=False):
+    from regenie_tpu_torch.utils.device import DEVICE_ENV
+
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    for var in ("REGENIE_TPU_MESH", "REGENIE_TPU_TORCH_MESH_DEVICES",
+                "REGENIE_TPU_MESH_2D"):
+        monkeypatch.delenv(var, raising=False)
+    if shards:
+        monkeypatch.setenv("REGENIE_TPU_MESH", "1")
+        monkeypatch.setenv("REGENIE_TPU_TORCH_MESH_DEVICES",
+                           ",".join(["cpu"] * shards))
+    if mesh_2d:
+        monkeypatch.setenv("REGENIE_TPU_MESH_2D", "2x1")
+
+
+@pytest.mark.parametrize("loocv", [False, True])
+def test_step1_mesh_matches_unsharded(tmp_path, monkeypatch, loocv):
+    """Step 1 under REGENIE_TPU_MESH runs on the CPU mesh (3 shards: N = 40
+    divides by none) and writes the unsharded run's .loco files; on one
+    device (REGENIE_TPU_MESH set, no shards listed) it is the unsharded
+    run, as in the JAX package."""
+    from regenie_tpu_torch import cli
+
+    prefix = _tiny_dataset(tmp_path)
+    argv = ["--step", "1", "--bed", prefix, "--phenoFile", f"{tmp_path}/pheno.txt",
+            "--covarFile", f"{tmp_path}/covar.txt", "--bsize", "4"]
+    if loocv:
+        argv.append("--loocv")
+    outs = {}
+    for tag, shards in (("u", 0), ("m", 3), ("one", 1)):
+        _mesh_env(monkeypatch, shards)
+        if tag == "one":
+            monkeypatch.delenv("REGENIE_TPU_TORCH_MESH_DEVICES")
+        cli.main(argv + ["--out", f"{tmp_path}/{tag}"])
+        log = open(f"{tmp_path}/{tag}.log").read()
+        assert ("multi-device mesh: 3 shards" in log) == (tag == "m")
+        outs[tag] = [open(f"{tmp_path}/{tag}_{i}.loco").read() for i in (1, 2, 3)]
+    assert outs["m"] == outs["u"] == outs["one"]
+
+
+@pytest.mark.parametrize("step", ["1", "2"])
+def test_mesh_2d_ignored_on_one_shard(tmp_path, monkeypatch, step):
+    """REGENIE_TPU_MESH_2D on a run without a mesh of several shards (one
+    shard listed, or none) is ignored, as the JAX package ignores it on
+    one device: the run writes the files of a run without it."""
+    from regenie_tpu_torch import cli
+
+    prefix = _tiny_dataset(tmp_path)
+    argv = ["--step", step, "--bed", prefix, "--phenoFile", f"{tmp_path}/pheno.txt",
+            "--bsize", "4"] + (["--ignore-pred"] if step == "2" else [])
+    ext = ".loco" if step == "1" else ".regenie"
+    outs = []
+    for tag, shards, m2d in (("plain", 0, False), ("one", 1, True),
+                             ("none", 0, True)):
+        _mesh_env(monkeypatch, shards, m2d)
+        cli.main(argv + ["--out", f"{tmp_path}/{tag}"])
+        outs.append(sorted(open(f).read() for f in
+                           glob.glob(f"{tmp_path}/{tag}_*{ext}")))
+    assert outs[0] and outs[0] == outs[1] == outs[2]
 
 
 def _loco_file(path, ids, rows, tab=False):
