@@ -11,18 +11,18 @@ from the end of the build on, while the card runs phases 2 and 2b, and
 each slice waits for its own. Phase 3c runs first, alone on the card;
 then the smoke runs in two lanes: a side process runs phase 6 (the
 cross-check) and then phases 5 to 5b (the Step-1 slices), beside this
-process's 3, 3a, 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
+process's 3, 3a, 3a', 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
 thread beside 3 and 3b (3b's host null fits leave the card idle); both
 lanes spend most of their time on the host, and the card is shared
 between them, so a CUDA-event time of a phase after 3c may include
 kernels of the other lane. The lanes' largest card allocations, whose
-peaks do not fit in the card's 80 GB together (4b, and level 1 at a real
-depth in 5, 5a and 5b), hold one lock in turn (_card_heavy), and both
-processes' allocators map expandable segments. A slice's Step-2 or
-Step-1 run goes through the port's CLI (cli.main, its gate of unported
-modes and its <out>.log included) in its lane's process, and its block
-checks reuse the engine or setup that the CLI's entry point returned
-(run_cli_kept). The side process's lines print after 3b (phase 6) and
+peaks do not fit in the card's 80 GB together (4b, the two processes
+of 3a', and level 1 at a real depth in 5, 5a and 5b), hold one lock in
+turn (_card_heavy), and both processes' allocators map expandable
+segments. A slice's Step-2 or Step-1 run goes through the port's CLI
+(cli.main, its gate of unported modes and its <out>.log included) in its
+lane's process, and its block checks reuse the engine or setup that
+the CLI's entry point returned (run_cli_kept). The side process's lines print after 3b (phase 6) and
 after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
 
 1. build: compile every CUDA kernel of the port from ops/csrc/ with nvcc
@@ -87,6 +87,21 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    the slice bars, the rows not byte-identical counted; printed beside
    [bed slice]'s wall. One card shows the sharding, the per-shard
    launches and the gather; not copies between cards or their speed.
+3a'. multiprocess slice: the same CLI run as two processes of one launch
+   (parallel/dist.py: REGENIE_TPU_COORDINATOR=127.0.0.1:<free port>, each
+   process REGENIE_TPU_TORCH_MESH_DEVICES=cuda:0, so a global mesh of two
+   shards of the one card, gloo between the processes), started together
+   through this file's child entry (python3 chip_smoke.py
+   --multiprocess-child REPORT ARGV, which runs cli.main and reports its
+   launch counts), under the lanes' card lock, beside phase 3b (whose host
+   null fits leave the card idle; its checks print after 3b's lines):
+   each process reads only
+   its own rows of each block and launches fused_i8 once a block and no
+   other kernel; the output host's log shows the distributed and the
+   per-host decode lines; process 1 writes no file and prints nothing;
+   the 50 files hold [mesh slice]'s within _compare_files' bars (|dLOG10P|
+   <= 1e-5), the rows not byte-identical counted; both processes' walls
+   printed beside [mesh slice]'s.
 3b. BT slice: on the BED slice's own BED, a binary-trait table (its
    traits thresholded at 5-30% prevalence) and one run of the CLI with
    --bt --firth --approx --af-cc: fused_i8
@@ -269,7 +284,17 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    field within its bar of the unsharded card run, the rows not
    byte-identical counted; and Step 1 K-fold and --loocv on the BED with
    the sample-sharded level 0 against the unsharded card runs, every
-   .loco value within one unit of its sixth digit. Then
+   .loco value within one unit of its sixth digit. The BT BED, T2E BED
+   and BGEN --minINFO mesh runs, and the BED --htp and BGEN --minINFO
+   REGENIE_TPU_I8=0 ones, again as two processes of one shard each
+   (multiprocess_cross_check; the kernel once a block in each process,
+   the BT launch's processes building fused_i8 at once into one empty
+   directory), Step 1 K-fold and --loocv (the per-host sample window),
+   a gene-based --set-list, a GxE --interaction and a --mt run (the
+   launches two at a time), each against one process on two shards of
+   the card: every field within
+   its bar, .loco values within one unit of the sixth digit, process 1
+   printing nothing and writing no file of its own. Then
    the two-step workflow on the BED dataset (K-fold and --loocv), on the
    PGEN (K-fold) and on the BGEN (K-fold, Step 2 with --force-ltco 2),
    on the card and on the CPU: Step 1, and Step 2 with --pred on that
@@ -322,6 +347,7 @@ before any phase.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -2861,7 +2887,186 @@ def mesh_slice_phase(tmp):
           f"(largest excess ratio {excess:.3f})")
     print(f"  CLI wall {wall:.2f}s ({M / wall:.1f} variants/s) beside [bed slice]'s "
           f"{bed_wall} (its log); on {card_line()}")
-    return n
+    return n, wall
+
+
+# the smoke's entry for one process of a multi-process launch (mp_launch)
+MP_CHILD = "--multiprocess-child"
+# a kernel build directory for a launch's processes (mp_child): both build
+# the kernels they launch into it at once
+MP_BUILD_ENV = "CHIP_SMOKE_BUILD_DIR"
+
+
+def mp_child(report, argv) -> int:
+    """One process of a multi-process launch: the port's CLI on argv in
+    this process (cli.main; the launch's environment names the
+    coordinator, the process and its shards), the launch counts set to 0
+    just before it and read just after. Writes {"counts", "wall" (the
+    CLI's seconds), "t_end" (the host clock at its end), "built" (the
+    libraries in MP_BUILD_ENV's directory, when set)} to the JSON file
+    `report`; the CLI's own lines go to stdout."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from regenie_tpu_torch import cli
+    from regenie_tpu_torch.ops import kernels
+
+    build = os.environ.get(MP_BUILD_ENV)
+    if build:
+        kernels.BUILD_DIR = build
+    _reset_counts()
+    t0 = time.time()
+    cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out = {"counts": _read_counts(), "wall": time.time() - t0, "t_end": time.time(),
+           "built": sorted(os.listdir(build)) if build else None}
+    with open(report, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def mp_launch(argv, what, nproc=2, devices="cuda:0", env=None, timeout=600):
+    """argv through the port's CLI as nproc processes of one launch
+    (REGENIE_TPU_COORDINATOR=127.0.0.1:<a free port>, each process with
+    the shards `devices`), started together through this file's child
+    entry (mp_child). Returns each process's report with its "stdout"
+    and "proc_wall" (its seconds from the launch to the end of its CLI),
+    in process order. Raises when a process fails, and stops every
+    process it started."""
+    import socket
+
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+    sk.close()
+    rdir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    procs = []
+    t0 = time.time()
+    try:
+        for pid in range(nproc):
+            e = dict(os.environ)
+            e.pop("REGENIE_TPU_TORCH_DEVICE", None)
+            e.update({"REGENIE_TPU_MESH": "1", "REGENIE_TPU_TORCH_MESH_DEVICES": devices,
+                      "REGENIE_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                      "REGENIE_TPU_NUM_PROCESSES": str(nproc),
+                      "REGENIE_TPU_PROCESS_ID": str(pid),
+                      "REGENIE_TPU_DIST_TIMEOUT": "300", **(env or {})})
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), MP_CHILD,
+                 f"{rdir}/{pid}.json", *argv], env=e, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+        for pid, (p, (o, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"{what}: process {pid} of the launch exited "
+                                   f"{p.returncode}:\n{o[-3000:]}\n{err[-6000:]}")
+        reports = []
+        for pid, (o, _) in enumerate(outs):
+            with open(f"{rdir}/{pid}.json") as fh:
+                r = json.load(fh)
+            r.update(stdout=o, proc_wall=r["t_end"] - t0)
+            reports.append(r)
+        return reports
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(rdir, ignore_errors=True)
+
+
+def _mp_checks(what, reps, kern, nblk, log_path, lines=()):
+    """A launch's common checks: every process launched `kern` once a
+    block (None: no kernel), process 0's log holds the distributed line
+    and `lines`, process 1 printed nothing. Returns the launches a
+    process."""
+    for pid, r in enumerate(reps):
+        want = {k: nblk if k == kern else 0 for k in r["counts"]}
+        if r["counts"] != want:
+            raise AssertionError(f"{what}: process {pid} launched {r['counts']}, "
+                                 f"expected {want}")
+    log = open(log_path).read()
+    for ln in ("distributed: process 0 of 2",) + tuple(lines):
+        if ln not in log:
+            raise AssertionError(f"{what}: the output host's log lacks {ln!r}")
+    if reps[1]["stdout"]:
+        raise AssertionError(f"{what}: process 1 printed {reps[1]['stdout'][:300]!r}")
+    return [r["counts"].get(kern, 0) if kern else 0 for r in reps]
+
+
+def _same_names(what, prefix, ref):
+    """The files of a run (<prefix>*) are named as the reference run's."""
+    names = lambda pre: sorted(f[len(pre):] for f in glob.glob(pre + "*"))  # noqa: E731
+    if names(prefix) != names(ref):
+        raise AssertionError(f"{what}: files {names(prefix)} against the single "
+                             f"process's {names(ref)}")
+
+
+def multiprocess_slice_launch(tmp):
+    """[multiprocess slice]'s launch: the port's Step-2 QT CLI at full
+    width on the BED of [bed slice] as two processes of one launch on the
+    one card (each REGENIE_TPU_TORCH_MESH_DEVICES=cuda:0: a global mesh of
+    2 shards, gloo between the processes), under the lanes' card lock.
+    Returns mp_launch's reports; multiprocess_slice_phase checks them."""
+    f = FULL
+    argv = ["--step", "2", "--bed", f"{tmp}/geno", "--phenoFile",
+            f"{tmp}/pheno.txt", "--covarFile", f"{tmp}/covar.txt",
+            "--ignore-pred", "--bsize", str(f["B"]), "--verbose", "--out",
+            f"{tmp}/slice_mp"]
+    with _card_heavy("[multiprocess slice]"):
+        return mp_launch(argv, "[multiprocess slice]")
+
+
+def multiprocess_slice_phase(tmp, mesh_wall, reps):
+    """[multiprocess slice] The checks of multiprocess_slice_launch's
+    run (reps, its reports): each process read only its own rows of each
+    block and launched fused_i8 once a block and no other kernel; the
+    output host's log shows the distributed and the per-host decode
+    lines; the run's files are the output host's log and 50 files, and
+    process 1 printed nothing; the 50 files hold [mesh slice]'s within
+    _compare_files' bars (|dLOG10P| <= 1e-5), the rows not byte-identical
+    counted. Prints both processes' walls beside [mesh slice]'s. Returns
+    fused_i8's launches a process."""
+    f = FULL
+    M = SLICE_BLOCKS * f["B"]
+    got = {os.path.basename(x) for x in glob.glob(f"{tmp}/slice_mp*")}
+    want = {"slice_mp.log"} | {f"slice_mp_Y{p + 1}.regenie" for p in range(f["P"])}
+    if got != want:
+        raise AssertionError(f"[multiprocess slice]: files {sorted(got - want)} "
+                             f"written, {sorted(want - got)} missing")
+    log = open(f"{tmp}/slice_mp.log").read()
+    nblk = int(re.search(r"block loop: (\d+) blocks", log).group(1))
+    n = _mp_checks("[multiprocess slice]", reps, "fused_i8", nblk, f"{tmp}/slice_mp.log",
+                   ("multi-device mesh: 2 shards on 2 processes",
+                    "per-host decode: each of 2 processes reads only its own variant",
+                    f"dense route: 0 of {nblk} blocks"))
+    for ln in log.splitlines():
+        if ln.startswith("   -block") or "distributed:" in ln or "per-host" in ln:
+            print(f"  {ln.strip()}")
+    worst, ndiff, lp = 0.0, 0, 0.0
+    for p in range(f["P"]):
+        fm, fr = f"{tmp}/slice_mp_Y{p + 1}.regenie", f"{tmp}/slice_mesh_Y{p + 1}.regenie"
+        _check_rows(fm, M)
+        worst = max(worst, _compare_files(fm, fr))
+        ndiff += _identical_rows(fm, fr)[0]
+        la, lb = _read_text(fm).splitlines(), _read_text(fr).splitlines()
+        i = la[0].split().index("LOG10P")
+        lp = max([lp] + [abs(float(a.split()[i]) - float(b.split()[i]))
+                         for a, b in zip(la[1:], lb[1:])
+                         if a.split()[i] != b.split()[i]])
+    print(f"  fused_i8 {n} launches a process for {nblk} blocks, no other kernel; "
+          f"process 1 wrote no file and printed nothing; {f['P']} files against "
+          f"[mesh slice]'s: {ndiff} of {f['P'] * M} rows not byte-identical, max "
+          f"|dLOG10P| {lp:.3e}, every field within the cross-check's bars (largest "
+          f"share {worst:.3f})")
+    print(f"  CLI wall {reps[0]['wall']:.2f}s (process 0), {reps[1]['wall']:.2f}s "
+          f"(process 1); from the launch {reps[0]['proc_wall']:.2f}s and "
+          f"{reps[1]['proc_wall']:.2f}s (both started at once, start-up included; "
+          f"beside [bt slice]), [mesh slice]'s CLI wall {mesh_wall:.2f}s (alone); "
+          f"on {card_line()}")
+    return n[0]
 
 
 BT_FLAGS = ["--bt", "--firth", "--approx", "--af-cc"]
@@ -5784,6 +5989,144 @@ def mesh_cross_check(runs, tmp, prefix):
               "significant digit)")
 
 
+# the cross-check's runs that mesh_cross_check also runs on two shards,
+# again as two processes of one shard each: (run, REGENIE_TPU_I8=0, the
+# kernel, whether the launch's processes build their kernels into an
+# empty directory at once)
+MP_CROSS = (("BT BED --firth --approx --write-null-firth", False, "fused_i8", True),
+            ("T2E BED --firth --approx --htp --htp-with-event", False, "fused_i8",
+             False),
+            ("BGEN --minINFO", False, "bgen_i8", False),
+            ("BED --htp", True, "fused_f32", False),
+            ("BGEN --minINFO", True, "bgen_f32", False))
+
+
+def multiprocess_cross_check(runs, tmp, prefix, P):
+    """[multiprocess] Runs of the cross-check as two processes of one
+    launch, one shard of the card each (mp_launch), against the same run
+    in one process on two shards of the card: MP_CROSS's Step-2 runs
+    against mesh_cross_check's outputs (each process launching the
+    kernel once a block and no other, fused_i8 / bgen_i8 by default and
+    fused_f32 / bgen_f32 with REGENIE_TPU_I8=0; the first launch's
+    processes build fused_i8 into one empty directory at once), Step 1
+    K-fold and --loocv (the per-host sample window) against its Step-1 mesh runs,
+    and a gene-based --set-list run, a GxE --interaction run and --mt
+    --strict --no-split against their one-process runs here (no kernel
+    launches). Every field within the card-vs-CPU bars (_compare_files),
+    .loco values within one unit of their sixth digit; the rows or values
+    not byte-identical counted; process 1 prints nothing and its files
+    are only the output host's. The launches run two at a time (their
+    start-up is host-bound), beside the one-process references of the
+    last three."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    gdir = os.path.join(tmp, "mpgene")
+    os.makedirs(gdir)
+    g = write_gene_files(gdir, ((1, 400), (2, 200)), 24, seed=7)
+    s2 = ["--step", "2", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+          "--covarFile", f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt",
+          "--ignore-pred", "--bsize", "256"]
+    split = [f"_Y{p + 1}.regenie" for p in range(P)]
+    modes = {
+        "gene-based --set-list": (
+            ["--set-list", g["sets"], "--anno-file", g["anno"], "--mask-def", g["masks"],
+             "--vc-tests", "skato,acatv", "--joint", "acat"], split,
+            "multi-process gene-based tests: 2 processes"),
+        "GxE --interaction C1": (["--interaction", "C1", "--chr", "1"], split, None),
+        "--mt --strict --no-split": (["--mt", "--strict", "--no-split"], [".regenie"],
+                                     "multi-process multi-trait tests: 2 processes"),
+    }
+    base = ["--step", "1", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+            "--covarFile", f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt",
+            "--bsize", "100"]
+    # (what, argv, launch env, the check of its reports)
+    jobs = []
+    build = tempfile.mkdtemp(prefix="chip_smoke_build_")
+
+    def step2(what, off, kern, fresh):
+        d, common, outs, tag = runs[what]
+        mtag, ref = f"{d}/{tag}mp{int(off)}", f"{d}/{tag}mesh{int(off)}"
+        what += " (REGENIE_TPU_I8=0)" if off else ""
+
+        def check(reps):
+            nblk = int(re.search(r"block loop: (\d+) blocks",
+                                 open(f"{mtag}.log").read()).group(1))
+            n = _mp_checks(what, reps, kern, nblk, f"{mtag}.log",
+                           (f"dense route: 0 of {nblk} blocks",))
+            _same_names(what, mtag, ref)
+            worst = max(_compare_files(mtag + o, ref + o) for o in outs)
+            diff = [_identical_rows(mtag + o, ref + o) for o in outs]
+            built = ("; both processes built fused_i8 into one empty directory "
+                     f"at once: {reps[0]['built']}" if fresh else "")
+            print(f"  [multiprocess] {what}: {kern} {n} launches for {nblk} blocks; "
+                  f"against one process on 2 shards {sum(a for a, _ in diff)} of "
+                  f"{sum(b for _, b in diff)} rows not byte-identical, largest share "
+                  f"of the bar {worst:.3f}; walls {reps[0]['proc_wall']:.1f}s, "
+                  f"{reps[1]['proc_wall']:.1f}s{built}")
+
+        env = {MP_BUILD_ENV: build} if fresh else {}
+        jobs.append((what, common + ["--out", mtag],
+                     {**env, "REGENIE_TPU_I8": "0"} if off else env, check))
+
+    def step1(what, extra):
+        tag = f"{tmp}/s1mesh_{what.lower().replace('-', '')}"
+
+        def check(reps):
+            _mp_checks(f"Step 1 {what}", reps, None, 0, f"{tag}_mp.log",
+                       ("level 0 on 2 shards",) + (
+                           ("per-host decode: each of 2 processes unpacks only its "
+                            "own sample byte window",) if extra else ()))
+            _same_names(f"Step 1 {what}", f"{tag}_mp", f"{tag}_mesh")
+            nd = [_compare_loco(f"{tag}_mp_{p + 1}.loco", f"{tag}_mesh_{p + 1}.loco")
+                  for p in range(P)]
+            print(f"  [multiprocess] Step 1 {what}"
+                  f"{' (per-host window)' if extra else ''}: no kernel; against one "
+                  f"process on 2 shards {P} .loco files, {sum(k for k, _ in nd)} "
+                  f"values differ (at most {max(w for _, w in nd):.3f} units of the "
+                  f"sixth digit); walls {reps[0]['proc_wall']:.1f}s, "
+                  f"{reps[1]['proc_wall']:.1f}s")
+
+        jobs.append((f"Step 1 {what}", base + extra + ["--out", f"{tag}_mp"], None,
+                     check))
+
+    def mode(i, what, flags, outs, line):
+        one, mtag = f"{tmp}/mpm{i}_one", f"{tmp}/mpm{i}_mp"
+
+        def check(reps):
+            _mp_checks(what, reps, None, 0, f"{mtag}.log", (line,) if line else ())
+            _same_names(what, mtag, one)
+            worst = max(_compare_files(mtag + o, one + o) for o in outs)
+            diff = [_identical_rows(mtag + o, one + o) for o in outs]
+            print(f"  [multiprocess] {what}: no kernel; against one process on 2 "
+                  f"shards {sum(a for a, _ in diff)} of {sum(b for _, b in diff)} rows "
+                  f"not byte-identical, largest share of the bar {worst:.3f}; walls "
+                  f"{reps[0]['proc_wall']:.1f}s, {reps[1]['proc_wall']:.1f}s")
+
+        jobs.append((what, s2 + flags + ["--out", mtag], None, check))
+
+    for what, off, kern, fresh in MP_CROSS:
+        step2(what, off, kern, fresh)
+    for what, extra in (("K-fold", []), ("LOOCV", ["--loocv"])):
+        step1(what, extra)
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            # the launches whose references exist start at once; the
+            # modes' one-process references run here meanwhile (each
+            # launch sets its own device and mesh variables)
+            futs = [pool.submit(mp_launch, argv, what, env=env)
+                    for what, argv, env, _ in jobs]
+            os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+            for i, (what, (flags, outs, line)) in enumerate(modes.items()):
+                with _mesh_env():
+                    run_cli(s2 + flags + ["--out", f"{tmp}/mpm{i}_one"])
+                mode(i, what, flags, outs, line)
+                futs.append(pool.submit(mp_launch, jobs[-1][1], what, env=None))
+            for (_, _, _, check), fut in zip(jobs, futs):
+                check(fut.result())
+    finally:
+        shutil.rmtree(build, ignore_errors=True)
+
+
 def cross_check_phase(tmp):
     """Small runs (N=2,000) through the port on the card (by default and
     with REGENIE_TPU_I8=0) and on the CPU, every output field within its
@@ -6014,6 +6357,7 @@ def cross_check_phase(tmp):
                   f"variants: every field within its bar (largest share of the "
                   f"bar used {worst:.3f}){firth}")
     mesh_cross_check(mesh_runs, tmp, prefix)
+    multiprocess_cross_check(mesh_runs, tmp, prefix, P)
     two_step_cross_check(tmp, ["--bed", prefix], P)
     # interaction tests (GxPRS on the K-fold run's own _pred.list) and the
     # Step-1 options
@@ -6309,12 +6653,20 @@ def main() -> int:
             _free()
             _phase_time("bed slice", t_all)
             print("[mesh slice]")
-            mesh_slice_phase(tmp)
+            _, mesh_wall = mesh_slice_phase(tmp)
             _free()
             _phase_time("mesh slice", t_all)
-            print("[bt slice]")
-            bt_launches = bt_slice_phase(tmp)
-            print(f"  fused_i8 launches on the BT path: {bt_launches}")
+            # the multi-process launch runs beside [bt slice], whose host
+            # null fits leave the card idle; its checks print after it
+            with ThreadPoolExecutor(max_workers=1) as mp_pool:
+                mp_run = mp_pool.submit(multiprocess_slice_launch, tmp)
+                print("[bt slice] ([multiprocess slice]'s two processes run beside it)")
+                bt_launches = bt_slice_phase(tmp)
+                print(f"  fused_i8 launches on the BT path: {bt_launches}")
+                print("[multiprocess slice]")
+                mp_launches = multiprocess_slice_phase(tmp, mesh_wall, mp_run.result())
+            print(f"  fused_i8 launches a process on the multi-process path: "
+                  f"{mp_launches}")
             print("[ld slice, CPU check]")
             print(ld_done.result())
         del ld_check, ld_done
@@ -6380,4 +6732,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [MP_CHILD]:
+        sys.exit(mp_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

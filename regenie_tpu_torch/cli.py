@@ -842,16 +842,10 @@ def unported(params: Params, device=None) -> Optional[str]:
     from .parallel.mesh import run_mesh
     from .utils.device import requested_device
 
-    # the JAX package joins a multi-process run when these are set
-    # (maybe_init_distributed, regenie_tpu/parallel/dist.py); the port
-    # runs one process, which would run the whole job and write the same
-    # files as every other process of the launch
     checks = [
-        (bool(os.environ.get("REGENIE_TPU_COORDINATOR")
-              or os.environ.get("REGENIE_TPU_DIST")),
-         "multi-process runs (REGENIE_TPU_COORDINATOR / REGENIE_TPU_DIST)"),
         # the JAX package tiles a mesh of several devices 2-D (variants x
-        # samples) under this variable and ignores it on one device
+        # samples) under this variable and ignores it on one device; on a
+        # multi-process run the mesh is the global one
         (bool(os.environ.get("REGENIE_TPU_MESH_2D"))
          and run_mesh(params, requested_device(device)) is not None,
          "the 2-D mesh (REGENIE_TPU_MESH_2D)"),
@@ -868,13 +862,38 @@ def unported(params: Params, device=None) -> Optional[str]:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     params = args_to_params(args)
+    # a multi-process run (parallel/dist.py): join the launch's process
+    # group before any device work; every process runs this invocation
+    # and only the output host writes the log and the files
+    from .parallel import dist
+
+    lines = []  # the distributed line, logged once the log is open
+    dist.maybe_init_distributed(log=lines.append)
+    try:
+        return _run(argv, params, lines)
+    finally:
+        dist.shutdown()
+
+
+def _run(argv, params: Params, lines) -> int:
+    from .parallel.dist import _NullSink, is_output_host, process_count
+    from .parallel.mesh import run_mesh
+    from .utils.device import requested_device
+
     why = unported(params)
     if why is not None:
         raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
+    if process_count() > 1:
+        # a launch whose processes hold different shard counts raises here,
+        # in every process, before any work
+        run_mesh(params, requested_device(None))
 
-    with open(params.out_prefix + ".log", "w") as log_fh:
+    out_host = is_output_host()
+    with (open(params.out_prefix + ".log", "w") if out_host else _NullSink()) as log_fh:
 
         def log(msg=""):
+            if not out_host:
+                return
             print(msg)
             log_fh.write(str(msg) + "\n")
             log_fh.flush()
@@ -882,6 +901,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         log("Start time: " + time.strftime("%a %b %d %H:%M:%S %Y"))
         log("regenie_tpu_torch — PyTorch/CUDA whole-genome regression")
         log("Options in effect: " + " ".join(sys.argv[1:] if argv is None else argv))
+        for line in lines:
+            log(line)
         t0 = time.time()
         try:
             if params.step == 1:

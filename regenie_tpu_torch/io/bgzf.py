@@ -13,6 +13,8 @@ from __future__ import annotations
 import struct
 import zlib
 
+from .files import open_write_bytes
+
 _MAX_BLOCK = 65280  # uncompressed payload per block (htslib default)
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
@@ -20,8 +22,11 @@ BGZF_EOF = bytes.fromhex(
 
 
 class BgzfWriter:
+    """A BGZF file; off the output host of a multi-process run it keeps
+    its offsets and writes nothing."""
+
     def __init__(self, path: str):
-        self._fh = open(path, "wb")
+        self._fh = open_write_bytes(path)
         self._buf = bytearray()
         self._coffset = 0  # compressed bytes written so far
 

@@ -1,5 +1,6 @@
 """File primitives: text IO and table helpers (the port's copy of
-regenie_tpu/io/files.py, single-process: every run writes its own files).
+regenie_tpu/io/files.py). On a multi-process run only the output host
+writes (parallel/dist.py): every writer here is a null sink elsewhere.
 
 Equivalent of the reference's `src/Files.{hpp,cpp}` (string_split,
 gz-transparent reads and gzipped writes).
@@ -14,6 +15,8 @@ import re
 from concurrent.futures import ThreadPoolExecutor
 from typing import IO, Iterator, List
 
+from ..parallel.dist import _NullSink, is_output_host
+
 
 def open_read(path: str) -> IO[str]:
     """Open a text file, transparently handling .gz (Files.hpp:36-100)."""
@@ -24,12 +27,19 @@ def open_read(path: str) -> IO[str]:
 
 def open_write(path: str, gz: bool = False):
     """A text file for writing; with gz (or a .gz path) a GzipWriter on
-    path + ".gz" (open_write, Files.hpp)."""
+    path + ".gz" (open_write, Files.hpp); off the output host a null sink."""
+    if not is_output_host():
+        return _NullSink()
     if gz or path.endswith(".gz"):
         if not path.endswith(".gz"):
             path += ".gz"
         return GzipWriter(path)
     return open(path, "w", encoding="utf-8")
+
+
+def open_write_bytes(path: str):
+    """A binary file for writing; off the output host a null sink."""
+    return open(path, "wb") if is_output_host() else _NullSink()
 
 
 class GzipWriter:
@@ -39,13 +49,14 @@ class GzipWriter:
     keeps pace with their rendering. The file is a standard multi-member
     gzip stream (RFC 1952 §2.2), which gzip.open and zcat read whole;
     its bytes differ from a single-stream writer's, its text does not.
-    Members carry mtime 0, so the same text gives the same bytes."""
+    Members carry mtime 0, so the same text gives the same bytes. Off the
+    output host it writes nothing."""
 
     FLUSH_AT = 8 << 20  # buffered bytes that trigger a flush
     PIECE = 1 << 20  # text bytes a member
 
     def __init__(self, path: str):
-        self._fh = open(path, "wb")
+        self._fh = open_write_bytes(path)
         self._buf = bytearray()
 
     def write(self, s) -> int:
@@ -84,6 +95,23 @@ class GzipWriter:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class RowBuffer:
+    """A writer that keeps the rows written to it, for a later ordered
+    write (a gene set's rows, or a process's rows before the merge of a
+    multi-process run)."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, s):
+        self.parts.append(s)
+
+    def value(self) -> str:
+        return "".join(self.parts)
 
 
 _SPLIT_RE = re.compile(r"[ \t]+")

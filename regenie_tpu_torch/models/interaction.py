@@ -35,7 +35,9 @@ import torch
 from scipy.optimize import minimize
 
 from ..config import BT, QT, Params
+from ..io.files import RowBuffer, open_write
 from ..io.output import native_formatter, sumstat_line_single
+from ..parallel.dist import allgather_py, process_count, process_index
 from ..utils.stats import chisq_neglog10, chisq_neglog10_df
 
 NO_BATCH_ENV = "REGENIE_TPU_NO_BATCH_INT"  # every SNP through the numpy loops
@@ -475,15 +477,29 @@ class _Block:
 
 def apply_interaction_block(params, eng, bsnps, G_raw, G_res, result, writers, test_name):
     """Interaction tests for every SNP of a tested block (the JAX
-    package's apply_interaction_block, single process). G_raw: [B, N]
-    imputed (for BT flipped) genotypes; G_res: [B, N] residualized and
-    scaled (QT); either a tensor on the engine's device or a host array.
-    A QT SNP goes to the HLM when any trait's MAC is below --rare-mac, else
-    to the robust sandwich; the rows of a block mixing both render in one
-    call, in SNP order."""
+    package's apply_interaction_block). G_raw: [B, N] imputed (for BT
+    flipped) genotypes; G_res: [B, N] residualized and scaled (QT); either
+    a tensor on the engine's device or a host array. A QT SNP goes to the
+    HLM when any trait's MAC is below --rare-mac, else to the robust
+    sandwich; the rows of a block mixing both render in one call, in SNP
+    order. On a multi-process run each process tests a contiguous chunk
+    of the block's SNPs and the rendered rows are gathered in process
+    order, which is SNP order (regenie_tpu/models/interaction.py:330-345,
+    :450-460); with --print-vcov, whose files only the output host
+    writes, every process tests every SNP."""
     st = eng.interaction
     B = len(bsnps)
     P = params.n_pheno
+    lo_b, hi_b = 0, B
+    merged = None
+    nproc = process_count()
+    if nproc > 1 and not params.print_vcov:
+        chunk = -(-B // nproc)
+        lo_b = min(process_index() * chunk, B)
+        hi_b = min(lo_b + chunk, B)
+        merged = list({id(w): w for w in writers if w is not None}.values())
+        bufs = {id(w): RowBuffer() for w in merged}
+        writers = [None if w is None else bufs[id(w)] for w in writers]
     blk = _Block(G_raw, G_res, eng.device)
     robust_idx, bt_idx, hlm_idx = [], [], []
     no_batch = bool(os.environ.get(NO_BATCH_ENV))
@@ -493,7 +509,7 @@ def apply_interaction_block(params, eng, bsnps, G_raw, G_res, result, writers, t
         "int_counts", {"robust": 0, "hlm": 0, "bt": 0, "robust_s": 0.0,
                        "hlm_s": 0.0, "bt_s": 0.0, "rows_s": 0.0})
     timer = _Timer(eng)
-    for b in range(B):
+    for b in range(lo_b, hi_b):
         if result.ignored[b]:
             continue
         if st.interaction_snp_name and bsnps[b].ID == st.interaction_snp_name:
@@ -558,6 +574,12 @@ def apply_interaction_block(params, eng, bsnps, G_raw, G_res, result, writers, t
         _render_int_rows(params, eng, writers, bsnps, list(range(B)), out["emit"],
                          out["tests"], out["beta"], out["se"], out["chisq"],
                          out["logp"], result)
+    if merged is not None:
+        payload = [bufs[id(w)].value() for w in merged]
+        for part in allgather_py(payload):
+            for w, text in zip(merged, part):
+                if text:
+                    w.write(text)
     counts["rows_s"] += timer.lap()
 
 
@@ -1549,7 +1571,7 @@ def _write_int_rows(params, eng, writers, snp, b, ph, bhat, Vmat, beg, K,
         Vout = Vmat[: beg + 1 + K, : beg + 1 + K] * sc[:, None] * sc[None, :]
         path = (f"{params.out_prefix}_{pd.pheno_names[ph]}_"
                 f"{eng.interaction.evar_name}_{snp.ID}.vcov")
-        with open(path, "w") as fh:
+        with open_write(path) as fh:
             for row in Vout:
                 fh.write(" ".join(f"{v:.6g}" for v in row) + "\n")
     rows = []

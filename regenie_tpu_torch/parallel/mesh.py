@@ -1,5 +1,7 @@
-"""Single-process device mesh (the port's counterpart of the 1-D parts of
-regenie_tpu/parallel/mesh.py): one process drives every card it sees.
+"""Device mesh (the port's counterpart of the 1-D parts of
+regenie_tpu/parallel/mesh.py): one process drives every card it sees, and
+on a multi-process run (parallel/dist.py) the processes' local shards form
+one global mesh, in process order.
 
 - Step 1 shards the SAMPLE axis: each shard forms its partial Gram
   matrices G G' and G'Y, their sum (psum) is taken on the first shard's
@@ -8,23 +10,32 @@ regenie_tpu/parallel/mesh.py): one process drives every card it sees.
 - Step 2 shards the VARIANT axis: each shard scores its rows against the
   replicated operand, with no reduction; the rows come back in order.
 
-A mesh is an ordered tuple of torch.device, one per shard. Several shards
-may share a device (REGENIE_TPU_TORCH_MESH_DEVICES=cuda:0,cuda:0): a
-replicated operand is then one tensor for all of them, and the sums run in
-shard order whatever the transport, so the results do not depend on how
-the shards map onto cards.
+A mesh is an ordered tuple of torch.device, one per LOCAL shard (a Mesh:
+its `size` is the global shard count and `first` the global index of its
+first local shard; in one process they are len(mesh) and 0). A function
+here takes and returns the local shards' parts; shard() splits over the
+global shards and keeps the local ones, and gather() / psum() run over
+every global shard in shard order, through gloo where the mesh spans
+processes (dist.allgather_tensor), so the sums have the same order
+whatever the process count. Several shards may share a device
+(REGENIE_TPU_TORCH_MESH_DEVICES=cuda:0,cuda:0): a replicated operand is
+then one tensor for all of them, and the sums run in shard order whatever
+the transport, so the results do not depend on how the shards map onto
+cards or processes.
 
 No function here synchronizes the host with a device between one shard's
 work and the next: every shard's kernels are queued before anything waits
 on a result (an eigendecomposition, a copy to the host), so shards on
 distinct cards run at once. Copies between cards (replicate, gather, psum)
 are device-to-device copies, ordered by the streams, not by the host.
+Between processes gather and psum carry host copies of the local shards'
+parts, after all of them are queued.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,16 +43,54 @@ import torch
 MESH_ENV = "REGENIE_TPU_MESH"
 DEVICES_ENV = "REGENIE_TPU_TORCH_MESH_DEVICES"
 
-Mesh = Tuple[torch.device, ...]
+
+class Mesh(tuple):
+    """The devices of this process's shards, in shard order (iterating,
+    indexing and len() see only these), with the global shard count
+    `size` and the global index `first` of the first of them."""
+
+    size: int
+    first: int
+
+    def __new__(cls, devices, size: Optional[int] = None, first: int = 0):
+        self = super().__new__(cls, devices)
+        self.size = len(self) if size is None else int(size)
+        self.first = int(first)
+        return self
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.size != len(self)
+
+    def local(self, items) -> list:
+        """This process's entries of a list of one entry a global shard."""
+        return list(items)[self.first : self.first + len(self)]
+
+    def describe(self) -> str:
+        """'n shards on <devices>' for the run's log; on a mesh that spans
+        processes, the processes and each one's devices."""
+        devs = ", ".join(str(d) for d in self)
+        if not self.spans_processes:
+            return f"{self.size} shards on {devs}"
+        return (f"{self.size} shards on {self.size // len(self)} processes, "
+                f"{len(self)} each ({devs})")
+
+    def replica(self) -> "Mesh":
+        """A single-process mesh of `size` shards on this process's own
+        devices (cycled): the global mesh's splits without its
+        collectives, for work that one process does alone."""
+        return Mesh([self[i % len(self)] for i in range(self.size)])
 
 
 class Sharded(NamedTuple):
-    """A row-sharded block: its per-shard parts (rows zero-padded to a
-    multiple of the shard count, part i on shard i's device) and its row
-    count before the padding."""
+    """A row-sharded block: its local shards' parts (rows zero-padded to a
+    multiple of the global shard count, part i on local shard i's
+    device), its row count before the padding, and, where the mesh spans
+    processes and this process read the whole block, that block (host)."""
 
     parts: List[torch.Tensor]
     n: int
+    whole: Optional[torch.Tensor] = None
 
 
 def _device(d) -> torch.device:
@@ -68,10 +117,23 @@ def make_mesh(devices=None) -> Mesh:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device")
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-    mesh = tuple(_device(d) for d in devices)
+    mesh = Mesh(_device(d) for d in devices)
     if not mesh:
         raise ValueError("make_mesh: no devices")
     return mesh
+
+
+def global_mesh(local: Mesh) -> Mesh:
+    """The global mesh of a multi-process run whose process holds the
+    shards `local`: the processes' shards in process order. Raises, in
+    every process, when the processes hold different shard counts."""
+    from . import dist
+
+    counts = dist.allgather_py(len(local))
+    if len(set(counts)) != 1:
+        raise ValueError("every process of a multi-process run must hold the "
+                         f"same number of mesh shards; they hold {counts}")
+    return Mesh(local, len(local) * len(counts), len(local) * dist.process_index())
 
 
 def maybe_mesh(device) -> Optional[Mesh]:
@@ -79,9 +141,15 @@ def maybe_mesh(device) -> Optional[Mesh]:
     (regenie_tpu/parallel/mesh.py:148-161): on the card, every visible
     card when there are several, or the shards that
     REGENIE_TPU_TORCH_MESH_DEVICES lists; on the CPU, the listed shards,
-    and only under REGENIE_TPU_MESH. A mesh of one shard is None. Raises
-    when a listed device is not of the run's device type."""
+    and only under REGENIE_TPU_MESH. On a multi-process run these are the
+    process's local shards (by default its one device) and the mesh is the
+    global one, of every process's shards, as the JAX package counts
+    jax.device_count() across processes. A mesh of one global shard is
+    None. Raises when a listed device is not of the run's device type."""
+    from . import dist
+
     device = torch.device(device)
+    multi = dist.process_count() > 1
     listed = os.environ.get(DEVICES_ENV, "").strip()
     if listed:
         devs = [torch.device(d.strip()) for d in listed.split(",") if d.strip()]
@@ -94,9 +162,13 @@ def maybe_mesh(device) -> Optional[Mesh]:
         mesh = make_mesh(devs)
     elif device.type == "cuda" and torch.cuda.device_count() > 1:
         mesh = make_mesh()
+    elif multi and (device.type == "cuda" or os.environ.get(MESH_ENV)):
+        mesh = make_mesh([device])
     else:
         return None
-    return mesh if len(mesh) > 1 else None
+    if multi:
+        mesh = global_mesh(mesh)
+    return mesh if mesh.size > 1 else None
 
 
 def run_mesh(params, device) -> Optional[Mesh]:
@@ -158,13 +230,14 @@ def replicate(mesh: Mesh, x) -> list:
 
 def shard(mesh: Mesh, x, axis: int = 0) -> List[torch.Tensor]:
     """x (a tensor or numpy array) split along `axis` into one contiguous
-    part a shard, on that shard's device, the axis zero-padded first to a
-    multiple of the shard count."""
-    xp, _ = pad_to(x, len(mesh), axis)
+    part a global shard, the axis zero-padded first to a multiple of the
+    global shard count: the local shards' parts, each on its device."""
+    xp, _ = pad_to(x, mesh.size, axis)
     if isinstance(xp, np.ndarray):
         xp = torch.from_numpy(xp)
+    parts = mesh.local(torch.chunk(xp, mesh.size, dim=axis))
     return [p.contiguous().to(dev) if p.device != dev or not p.is_contiguous()
-            else p for p, dev in zip(torch.chunk(xp, len(mesh), dim=axis), mesh)]
+            else p for p, dev in zip(parts, mesh)]
 
 
 def shard_rows(mesh: Mesh, x) -> Sharded:
@@ -172,18 +245,37 @@ def shard_rows(mesh: Mesh, x) -> Sharded:
     return Sharded(shard(mesh, x, 0), int(x.shape[0]))
 
 
-def gather(parts, axis: int = 0, n: Optional[int] = None) -> torch.Tensor:
+def gather(parts, axis: int = 0, n: Optional[int] = None,
+           mesh: Optional[Mesh] = None, dst: Optional[int] = None):
     """The per-shard parts concatenated along `axis` in shard order on the
-    first shard's device, cut to n entries along the axis when given."""
+    first shard's device, cut to n entries along the axis when given. On a
+    mesh that spans processes, `parts` are the local shards' and every
+    process's parts come in, in global shard order: to every process, or
+    with dst to process dst alone (None elsewhere)."""
     dev = parts[0].device
     out = torch.cat([p.to(dev) for p in parts], dim=axis)
+    if mesh is not None and mesh.spans_processes:
+        from . import dist
+
+        pieces = dist.allgather_tensor(out, dst)
+        if pieces is None:
+            return None
+        out = torch.cat(pieces, dim=axis).to(dev)
     return out if n is None else out.narrow(axis, 0, n)
 
 
-def psum(parts) -> torch.Tensor:
+def psum(parts, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The sum of the per-shard partials, each copied to the first
-    shard's device and added in shard order."""
+    shard's device and added in shard order. On a mesh that spans
+    processes, `parts` are the local shards' and every global shard's
+    partial is gathered and added, in global shard order (no all_reduce,
+    whose order is the backend's)."""
     dev = parts[0].device
+    if mesh is not None and mesh.spans_processes:
+        from . import dist
+
+        every = dist.allgather_tensor(torch.stack([p.to(dev) for p in parts]))
+        parts = [p.to(dev) for blk in every for p in blk.unbind(0)]
     out = parts[0]
     for p in parts[1:]:
         out = out + p.to(dev)
@@ -221,11 +313,11 @@ def sharded_gram(mesh: Mesh, G, Y):
     Data.cpp:729): G [B, N] sharded over N, Y [N, P] sharded over N.
     Returns (G G' [B, B], G'Y [B, P]) on the first shard's device."""
     Gs, Ys = _parts(mesh, G, 1), _parts(mesh, Y, 0)
-    return (psum([g @ g.T for g in Gs]),
-            psum([g @ y for g, y in zip(Gs, Ys)]))
+    return (psum([g @ g.T for g in Gs], mesh),
+            psum([g @ y for g, y in zip(Gs, Ys)], mesh))
 
 
-def sharded_level0_loocv(mesh: Mesh, G, Y, maskf, lambdas, Neff):
+def sharded_level0_loocv(mesh: Mesh, G, Y, maskf, lambdas, Neff, dst=None):
     """Sample-sharded Step-1 level-0 LOOCV ridge (the mesh form of
     models/step1.level0_loocv_block): the Gram partials summed, ONE B x B
     eigendecomposition on the first shard's device, each shard's
@@ -235,10 +327,11 @@ def sharded_level0_loocv(mesh: Mesh, G, Y, maskf, lambdas, Neff):
     G: [B, N] sharded over N; Y, maskf: [N, P] sharded over N (samples
     past the true N zero, with maskf 0); lambdas [J], Neff [P]. Returns
     W [Npad, J, P] on the first shard's device (the caller cuts the pad
-    rows)."""
+    rows); on a mesh that spans processes, with dst, on process dst alone
+    (None elsewhere)."""
     Gs, Ys, Ms = _parts(mesh, G, 1), _parts(mesh, Y, 0), _parts(mesh, maskf, 0)
-    GGt = psum([g @ g.T for g in Gs])
-    GTY = psum([g @ y for g, y in zip(Gs, Ys)])
+    GGt = psum([g @ g.T for g in Gs], mesh)
+    GTY = psum([g @ y for g, y in zip(Gs, Ys)], mesh)
     dev = GGt.device
     lam = torch.as_tensor(lambdas, dtype=GGt.dtype, device=dev)
     d, V = torch.linalg.eigh(GGt)
@@ -257,17 +350,53 @@ def sharded_level0_loocv(mesh: Mesh, G, Y, maskf, lambdas, Neff):
         pred = (z2t - gvec[..., None] * y[:, None, :]) / (1.0 - gvec)[..., None]
         preds.append(pred * m[:, None, :])
     neff = torch.as_tensor(Neff, dtype=GGt.dtype, device=dev)
-    p_mean = psum([p.sum(dim=0) for p in preds]) / neff  # [J, P]
+    p_mean = psum([p.sum(dim=0) for p in preds], mesh) / neff  # [J, P]
     pm_s = replicate(mesh, p_mean)
     preds = [(p - mu) * m[:, None, :] for p, mu, m in zip(preds, pm_s, Ms)]
-    s2 = psum([(p * p).sum(dim=0) for p in preds])
+    s2 = psum([(p * p).sum(dim=0) for p in preds], mesh)
     p_sd = torch.sqrt(s2 / (neff - 1.0))
     sd_s = replicate(mesh, p_sd)
-    return gather([p / sd for p, sd in zip(preds, sd_s)], 0)
+    return gather([p / sd for p, sd in zip(preds, sd_s)], 0, mesh=mesh, dst=dst)
+
+
+def sharded_level0_loocv_full(mesh: Mesh, G8, ind, cov, Y, maskf, lambdas,
+                              Neff, scale_denom: float, dst=None):
+    """The per-host-window form of the Step-1 level-0 LOOCV chain
+    (regenie_tpu/parallel/mesh.py:232-296): the block's int8 hardcalls
+    arrive sharded on the FILE sample axis, each process having decoded
+    only its own byte window, and prepare -> residualize -> LOOCV runs on
+    the shards, each sum over samples (the imputation means, the
+    covariate projections, the scale norms, the Grams and the prediction
+    moments) a psum over the global shards.
+
+    G8: [B, Np] int8 sharded over Np (MISSING = -3; dropped and pad
+    samples carry ind = 0); ind [Np] float; cov [Np, K] the orthonormal
+    basis rows (zero at dropped and pad samples); Y, maskf [Np, P] (zero
+    rows there); scale_denom = n_analyzed - ncov. Returns (W [Np, J, P]
+    and scale_G [B], both on the first shard's device; W as
+    sharded_level0_loocv gives it with dst)."""
+    from ..ops.geno_ops import MISSING
+
+    G8s, Is = _parts(mesh, G8, 1), _parts(mesh, ind, 0)
+    Cs = _parts(mesh, cov, 0)
+    miss = [g == MISSING for g in G8s]
+    valid = [~m & (i > 0)[None, :] for m, i in zip(miss, Is)]
+    Gs = [g.to(torch.float64) for g in G8s]
+    total = psum([torch.where(v, g, 0.0).sum(dim=1) for v, g in zip(valid, Gs)], mesh)
+    ns = psum([v.sum(dim=1).to(torch.float64) for v in valid], mesh)
+    means = replicate(mesh, total / ns)
+    Gs = [torch.where(m, mu[:, None], g) * i.to(torch.float64)[None, :]
+          for m, mu, g, i in zip(miss, means, Gs, Is)]
+    betas = replicate(mesh, psum([g @ c for g, c in zip(Gs, Cs)], mesh))
+    Gs = [g - b @ c.T for g, b, c in zip(Gs, betas, Cs)]
+    scale_G = (torch.sqrt(psum([(g * g).sum(dim=1) for g in Gs], mesh))
+               / float(np.sqrt(scale_denom)))
+    Gs = [g / s[:, None] for g, s in zip(Gs, replicate(mesh, scale_G))]
+    return sharded_level0_loocv(mesh, Gs, Y, maskf, lambdas, Neff, dst), scale_G
 
 
 def sharded_level0_kfold(mesh: Mesh, G_folds, Y_folds, mask_folds, valid,
-                         lambdas, Neff):
+                         lambdas, Neff, dst=None):
     """Sample-sharded Step-1 level-0 K-fold ridge (the mesh form of
     models/step1.level0_kfold_block; ridge_level_0,
     Step1_Models.cpp:458-560): the fold Gram partials summed, the K
@@ -277,15 +406,15 @@ def sharded_level0_kfold(mesh: Mesh, G_folds, Y_folds, mask_folds, valid,
     G_folds: [K, B, nmax] sharded over nmax; Y_folds, mask_folds: [K,
     nmax, P] sharded over nmax; valid: [K, nmax] sharded over nmax (pad
     slots 0); lambdas [J], Neff [P]. Returns W [K, nmax_pad, J, P] on the
-    first shard's device."""
+    first shard's device (with dst as in sharded_level0_loocv)."""
     from ..models import step1 as m1
 
     Gs = _parts(mesh, G_folds, 2)
     Ys, Ms = _parts(mesh, Y_folds, 1), _parts(mesh, mask_folds, 1)
     Vs = _parts(mesh, valid, 1)
     Gvs = [g * v[:, None, :] for g, v in zip(Gs, Vs)]
-    GGt_f = psum([g @ g.transpose(1, 2) for g in Gvs])
-    GtY_f = psum([g @ y for g, y in zip(Gvs, Ys)])
+    GGt_f = psum([g @ g.transpose(1, 2) for g in Gvs], mesh)
+    GtY_f = psum([g @ y for g, y in zip(Gvs, Ys)], mesh)
     dev = GGt_f.device
     lam = torch.as_tensor(lambdas, dtype=GGt_f.dtype, device=dev)
     d, V = m1.kfold_eigh(GGt_f)
@@ -295,12 +424,13 @@ def sharded_level0_kfold(mesh: Mesh, G_folds, Y_folds, mask_folds, valid,
     preds = [(g.transpose(1, 2) @ b).view(K, -1, J, P) * m[:, :, None, :]
              for g, b, m in zip(Gvs, bflat, Ms)]
     neff = torch.as_tensor(Neff, dtype=GGt_f.dtype, device=dev)[None, :]
-    p_sum = psum([p.sum(dim=(0, 1)) for p in preds])  # [J, P]
-    p_sum2 = psum([(p * p).sum(dim=(0, 1)) for p in preds])
+    p_sum = psum([p.sum(dim=(0, 1)) for p in preds], mesh)  # [J, P]
+    p_sum2 = psum([(p * p).sum(dim=(0, 1)) for p in preds], mesh)
     p_mean = p_sum / neff
     p_invsd = torch.sqrt((neff - 1.0) / (p_sum2 - neff * p_mean**2))
     ms = replicate(mesh, (p_mean, p_invsd))
-    return gather([(p - mu) * s for p, (mu, s) in zip(preds, ms)], 1)
+    return gather([(p - mu) * s for p, (mu, s) in zip(preds, ms)], 1, mesh=mesh,
+                  dst=dst)
 
 
 # ---- Step 2: variant-sharded scorers (no reductions) ----
@@ -319,7 +449,7 @@ def map_rows(mesh: Mesh, fn, G, *ops) -> tuple:
                                             else int(G.shape[0]))
     reps = [_reps(mesh, x) for x in ops]
     outs = [fn(g, *(r[i] for r in reps)) for i, g in enumerate(Gs)]
-    return tuple(gather([o[k] for o in outs], 0, n) for k in range(len(outs[0])))
+    return tuple(gather([o[k] for o in outs], 0, n, mesh) for k in range(len(outs[0])))
 
 
 class Replicas:

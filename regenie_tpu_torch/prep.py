@@ -23,7 +23,7 @@ from typing import List, Optional
 import numpy as np
 
 from .config import BT, QT, T2E, Params
-from .io.files import iter_lines
+from .io.files import iter_lines, open_write
 from .io.geno import GenoData, open_geno
 from .io.pheno import (
     PhenoData,
@@ -36,6 +36,7 @@ from .io.pheno import (
     rint_values,
     set_masks,
 )
+from .parallel.dist import is_output_host
 from .utils.stats import chisq_neglog10, convert_logp_raw
 
 
@@ -165,8 +166,9 @@ def prepare(
     # --nocov-approx: only valid for a single phenotype (Pheno.cpp:1119)
     if params.skip_cov_res and params.n_pheno != 1:
         params.skip_cov_res = False
-        print(" WARNING: --nocov-approx is only available with a single "
-              "phenotype; ignoring it.")
+        if is_output_host():
+            print(" WARNING: --nocov-approx is only available with a single "
+                  "phenotype; ignoring it.")
 
     # residualize and scale the phenotypes: always for QT; binary and
     # count traits only for Step 1's level 0 (Step 2 fits them raw)
@@ -251,7 +253,7 @@ def _cov_betas(params, pd, cov_names):
 def _write_cov_betas(params, pd, betas, se_unit, cov_sds, cov_names):
     """{out}_cov_betas.txt: COVAR PHENO BETA SE PVALUE rows."""
     path = params.out_prefix + "_cov_betas.txt"
-    with open(path, "w") as fh:
+    with open_write(path) as fh:
         fh.write("COVAR\tPHENO\tBETA\tSE\tPVALUE\n")
         for ic, cname in enumerate(cov_names):
             for ph, pname in enumerate(pd.pheno_names):
@@ -276,7 +278,9 @@ def write_debug_inputs(params: Params, pd, offsets=None) -> None:
     where a null fit gives them (Step 1 on binary, count and
     time-to-event traits), the null offsets ({out}_offset.txt), at full
     precision and space-separated (the reference's Eigen FullPrecision
-    format)."""
+    format). Off the output host of a multi-process run, nothing."""
+    if not is_output_host():
+        return
     y = pd.phenotypes if params.trait_mode == QT else pd.phenotypes_raw
     if y is not None:
         np.savetxt(params.out_prefix + "_y.txt", np.asarray(y), fmt="%.17g")

@@ -1,5 +1,5 @@
-"""Gene-based testing (the port's copy of regenie_tpu/run_genebased.py,
-one process): burden masks per variant set, scored as pseudo-variants by
+"""Gene-based testing (the port's copy of regenie_tpu/run_genebased.py):
+burden masks per variant set, scored as pseudo-variants by
 the Step-2 engine's dense scorer, the SKAT/ACAT family on their VC score
 products, and the joint tests and GENE_P over a set's masks.
 
@@ -14,6 +14,15 @@ products (ops/vc_batch.py), then the host tails render rows in set
 order. A set's numbers do not depend on its bucket: every device call
 runs in fixed-shape pieces (MASK_ROWS rows; vc_batch.SLOTS_PER_CALL
 slots), so any bucket size writes the same bytes.
+
+On a multi-process run the sets go round-robin over the processes (unless
+masks, mask snplists or the remeta LD files are written: then every
+process tests every set and the output host writes), each process tests
+its own sets alone, on a single-process copy of the global mesh's splits
+(parallel.mesh.Mesh.replica: the same rows a shard, so the same bytes, and
+no collective where the processes' work differs), and the buffered rows
+are gathered and written in set order
+(regenie_tpu/run_genebased.py:195-215, :520-535).
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import numpy as np
 import torch
 
 from .io.bed import chr_to_int
-from .io.files import iter_lines, open_write
+from .io.files import RowBuffer, iter_lines, open_write, open_write_bytes
 from .io.setfiles import (MaskDef, read_aaf_file, read_anno_labels,
                           read_annotations, read_mask_defs, read_setlist)
 from .models import joint as joint_mod
@@ -34,27 +43,14 @@ from .models import skat as skat_mod
 from .models.masks import (BuiltMask, aaf_bin_values, build_lovo_masks,
                            build_masks_for_set)
 from .ops.geno_ops import MISSING
+from .parallel import mesh as pm
+from .parallel.dist import allgather_py, process_count, process_index
 from .run_step2 import BlockResult, Step2Engine, setup_writers, write_block_rows
 
 # Rows of each device call of the variant statistics and the burden test.
 # FIXED: a row's numbers then do not depend on how many rows share the
 # call (bucket invariance); short calls are padded with empty rows.
 MASK_ROWS = 64
-
-
-class _RowBuffer:
-    """A set's rendered rows for one output file, written in set order."""
-
-    __slots__ = ("parts",)
-
-    def __init__(self):
-        self.parts = []
-
-    def write(self, s):
-        self.parts.append(s)
-
-    def value(self):
-        return "".join(self.parts)
 
 
 def run_genebased(params, eng: Step2Engine, log=print) -> Step2Engine:
@@ -203,6 +199,17 @@ def run_genebased(params, eng: Step2Engine, log=print) -> Step2Engine:
 
     # order sets by chromosome (file order), then set position
     sets.sort(key=lambda s: (s.chrom, s.physpos))
+    nproc = process_count()
+    buffered = None  # this process's sets' rows, on a multi-process run
+    if nproc > 1 and not (params.write_masks or params.write_mask_snplist
+                          or params.remeta_save_ld):
+        sets = sets[process_index()::nproc]
+        buffered = []
+        if eng.mesh is not None:
+            eng.mesh = eng.mesh.replica()
+            eng.replicas = pm.Replicas(eng.mesh)
+        log(f" * multi-process gene-based tests: {nproc} processes, sets "
+            "round-robin")
 
     uniq_writers: List = []
     seen = set()
@@ -237,7 +244,7 @@ def run_genebased(params, eng: Step2Engine, log=print) -> Step2Engine:
         writers. The device calls (the statistics, the burden test) run
         at the group level so one batched call serves many sets.
         Returns (bufs, writers_set, built, ignored)."""
-        bufs = {id(w): _RowBuffer() for w in uniq_writers}
+        bufs = {id(w): RowBuffer() for w in uniq_writers}
         writers_set = [None if w is None else bufs[id(w)] for w in writers]
         total, ns = sb["total"], sb["ns"]
         mac1 = np.minimum(total, 2 * ns - total)
@@ -437,11 +444,24 @@ def run_genebased(params, eng: Step2Engine, log=print) -> Step2Engine:
             elif params.joint_tests:
                 joint_mod.run_joint_tests(params, eng, vset, built, writers_set, log)
 
+            if buffered is not None:
+                buffered.append([bufs[id(w)].value() for w in uniq_writers])
+                continue
             for w in uniq_writers:
                 payload = bufs[id(w)].value()
                 if payload:
                     w.write(payload)
 
+    n_ign = eng.n_ignored - n_ign0
+    if buffered is not None:
+        # the ordered merge: set k of process p is set k * nproc + p
+        every = allgather_py(buffered)
+        n_ign = sum(allgather_py(n_ign))
+        for k in range(len(every[0])):
+            for rows in every:
+                for w, text in zip(uniq_writers, rows[k] if k < len(rows) else ()):
+                    if text:
+                        w.write(text)
     for fh in uniq_writers:
         fh.close()
     for wr in getattr(eng, "remeta_writers", None) or []:
@@ -459,8 +479,7 @@ def run_genebased(params, eng: Step2Engine, log=print) -> Step2Engine:
         log(f"* [{p_}]")
     if mask_bed is not None:
         log(f"Masks written to : [{params.out_prefix}_masks.{{bed,bim,fam}}]")
-    log("Number of ignored tests due to low MAC : "
-        f"{(eng.n_ignored - n_ign0) * params.n_pheno}")
+    log(f"Number of ignored tests due to low MAC : {n_ign * params.n_pheno}")
     if prof_on and prof:
         tot = sum(prof.values()) or 1.0
         log(" * gene-based stage attribution (s):")
@@ -540,7 +559,7 @@ class _MaskBedWriter:
     def __init__(self, params, gd):
         self.params = params
         self.n = params.n_samples
-        self.bed = open(params.out_prefix + "_masks.bed", "wb")
+        self.bed = open_write_bytes(params.out_prefix + "_masks.bed")
         self.bed.write(b"\x6c\x1b\x01")
         self.bim = open_write(params.out_prefix + "_masks.bim")
         with open_write(params.out_prefix + "_masks.fam") as fam:

@@ -32,14 +32,15 @@ import numpy as np
 import torch
 
 from .config import BT, QT, T2E, Params, ridge_h2_grid
-from .io.files import GzipWriter, iter_lines, open_write, string_split
+from .io.files import GzipWriter, iter_lines, open_write, open_write_bytes, string_split
 from .io.geno import make_blocks
 from .io.output import format_value_rows
 from .models import glm
 from .models import step1 as m1
 from .models import step1_bt
-from .ops.geno_ops import MISSING, prepare_block_step1
+from .ops.geno_ops import MISSING, decode_bed_packed, prepare_block_step1
 from .parallel import mesh as pm
+from .parallel.dist import is_output_host, process_count, process_index
 from .prep import fmt, prepare, write_debug_inputs
 from .utils.device import resolve_device
 from .utils.stats import rss_line, usage_info_line
@@ -155,8 +156,7 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
     mesh = pm.run_mesh(params, dev)
     if mesh is not None:
         dev = mesh[0]
-        log(f" * multi-device mesh: {len(mesh)} shards on "
-            f"{', '.join(str(d) for d in mesh)} (sample-axis sharding for "
+        log(f" * multi-device mesh: {mesh.describe()} (sample-axis sharding for "
             "level 0)")
     return Step1Setup(gd, pd, blocks, h_l0, lambdas, taus, h_l1, fold_sizes,
                       master, run_l0_job, dev, mesh)
@@ -219,6 +219,10 @@ def run_step1(params: Params, log=print, device=None) -> Step1Setup:
         log("--early-exit: stopping after level 0 models")
         return st
 
+    # level 1 and its files run on the output host alone (its first
+    # shard's device); the other processes of a launch end after level 0
+    if not is_output_host():
+        return st
     # ---- run-l0 job: write binary predictions and exit ----
     if st.run_l0_job is not None:
         job_prefix = master[2][st.run_l0_job - 1][0]
@@ -309,9 +313,13 @@ class Level0:
         Y = np.asarray(pd.phenotypes, np.float64)
         maskf = pd.masked_indivs.astype(np.float64)
         mesh = self.mesh
+        # the per-host sample window (None unless taken)
+        self.window = None
         if params.use_loocv:
             if mesh is None:
                 self.Y, self.mask = self._put(Y), self._put(maskf)
+            elif self._window_ok(st):
+                self._open_window(st, Y, maskf)
             else:
                 self.Y_sh, self.mask_sh = pm.shard(mesh, Y, 0), pm.shard(mesh, maskf, 0)
             return
@@ -333,13 +341,80 @@ class Level0:
         self.Yf_sh, self.mf_sh, self.v_sh = (
             pm.shard(mesh, np.asarray(a, np.float64), 1)
             for a in (Y_folds, mask_folds, valid))
-        idx, _ = pm.pad_to(fold_idx, len(mesh), 1)
+        idx, _ = pm.pad_to(fold_idx, mesh.size, 1)
         self.fold_idx_sh = [torch.as_tensor(np.ascontiguousarray(i).reshape(-1),
                                             device=dev)
-                            for i in np.split(idx, len(mesh), axis=1)]
+                            for i in mesh.local(np.split(idx, mesh.size, axis=1))]
 
     def _put(self, a):
         return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+
+    def _window_ok(self, st: Step1Setup) -> bool:
+        """Whether each process decodes only its own sample window of a
+        block (regenie_tpu/run_step1.py:270-310): a mesh that spans
+        processes, LOOCV (the caller's test), a BED, no --prior-alpha (its
+        allele frequencies are per block) and no --ref-first."""
+        p = self.params
+        return (self.mesh.spans_processes and st.gd._bed is not None
+                and p.alpha_prior == -1 and not p.ref_first)
+
+    def _open_window(self, st: Step1Setup, Y, maskf):
+        """The per-host window's operands on the FILE sample axis, padded
+        to 4 x the global shard count (whole bytes a shard): ind (0 at
+        dropped and pad samples), the covariate basis, Y and the masks,
+        zero outside the kept samples, sharded over it."""
+        gd, pd, mesh = st.gd, st.pd, self.mesh
+        unit = 4 * mesh.size
+        n_pad = -(-gd._bed.n_samples // unit) * unit
+        keep = (np.arange(self.params.n_samples) if gd._keep_all_samples
+                else np.asarray(gd.sample_keep_idx))
+
+        def scat(x):
+            out = np.zeros((n_pad,) + x.shape[1:])
+            out[keep] = x
+            return pm.shard(mesh, out, 0)
+
+        spp = n_pad // process_count()  # samples a process
+        lo = process_index() * spp
+        self.window = (lo // 4, (lo + spp) // 4, keep)
+        self.ind_sh = scat(pd.ind_in_analysis.astype(np.float64))
+        self.cov_sh = scat(np.asarray(pd.new_cov, np.float64))
+        self.Y_sh, self.mask_sh = scat(Y), scat(maskf)
+
+    def read_window(self, gd, bsnps) -> np.ndarray:
+        """A block's bytes of this process's sample window, [B, bytes]
+        (zero past the file's last byte): all this process reads."""
+        blo, bhi, _ = self.window
+        offsets = np.array([s.offset for s in bsnps])
+        start, stop = int(offsets[0]), int(offsets[-1]) + 1
+        raw = gd._bed.read_block_bytes(start, stop - start)
+        if len(offsets) != stop - start:
+            raw = raw[offsets - start]
+        out = np.zeros((len(bsnps), bhi - blo), np.uint8)
+        take = raw[:, blo : min(bhi, raw.shape[1])]
+        out[:, : take.shape[1]] = take
+        return out
+
+    def window_loocv(self, win: np.ndarray, bsnps):
+        """LOOCV W of a block from this process's window bytes: each local
+        shard's bytes decoded on its device, then the whole chain
+        sample-sharded (parallel.mesh.sharded_level0_loocv_full). Returns
+        W [N, J, P] on the output host (None elsewhere); raises on a SNP of
+        (near) zero variance."""
+        mesh = self.mesh
+        G8 = [decode_bed_packed(torch.from_numpy(np.ascontiguousarray(b)).to(d),
+                                4 * b.shape[1])
+              for b, d in zip(np.split(win, len(mesh), axis=1), mesh)]
+        W, scale_G = pm.sharded_level0_loocv_full(
+            mesh, G8, self.ind_sh, self.cov_sh, self.Y_sh, self.mask_sh,
+            self.lambdas, self.Neff, self.scale_denom, dst=0)
+        sg = scale_G.cpu().numpy()
+        if not np.all(sg > self.params.numtol):
+            bad = bsnps[int(np.argmin(sg))].ID
+            raise ValueError(f"SNP {bad} has low variance in step 1 block")
+        if W is None:
+            return None
+        return W[torch.as_tensor(self.window[2], device=W.device)]
 
     def residualized(self, G8: torch.Tensor, bsnps) -> torch.Tensor:
         """A block's int8 hardcalls or float64 dosages -> masked, imputed,
@@ -379,21 +454,25 @@ class Level0:
         return [self.folds(G, i).to(d) for i, d in zip(self.fold_idx_sh, self.mesh)]
 
     def kfold(self, G: torch.Tensor) -> torch.Tensor:
-        """K-fold W of a residualized block: [K, nmax, J, P]."""
+        """K-fold W of a residualized block: [K, nmax, J, P] (on a mesh
+        that spans processes, on the output host; None elsewhere)."""
         if self.mesh is not None:
-            return pm.sharded_level0_kfold(
+            W = pm.sharded_level0_kfold(
                 self.mesh, self.fold_parts(G), self.Yf_sh, self.mf_sh, self.v_sh,
-                self.lambdas, self.Neff)[:, : self.nmax]
+                self.lambdas, self.Neff, dst=0)
+            return None if W is None else W[:, : self.nmax]
         return m1.level0_kfold_block(self.folds(G), self.Y_folds, self.mask_folds,
                                      self.valid, self.lambdas, self.Neff)
 
     def loocv(self, G3: torch.Tensor) -> torch.Tensor:
-        """LOOCV W of a group of residualized blocks: [n, N, J, P]."""
+        """LOOCV W of a group of residualized blocks: [n, N, J, P] (as
+        kfold on a mesh that spans processes)."""
         if self.mesh is not None:
             N = G3.shape[2]
-            return torch.stack([pm.sharded_level0_loocv(
-                self.mesh, g, self.Y_sh, self.mask_sh, self.lambdas,
-                self.Neff)[:N] for g in G3])
+            Ws = [pm.sharded_level0_loocv(self.mesh, g, self.Y_sh, self.mask_sh,
+                                          self.lambdas, self.Neff, dst=0)
+                  for g in G3]
+            return None if Ws[0] is None else torch.stack([W[:N] for W in Ws])
         return m1.level0_loocv_blocks(G3, self.Y, self.mask, self.lambdas, self.Neff)
 
 
@@ -408,19 +487,34 @@ def _level0(params, st: Step1Setup, log):
     gd, blocks, dev = st.gd, st.blocks, st.device
     l0 = Level0(params, st)
     chr_nblocks: Dict[int, int] = {}
-    if params.use_loocv:
+    # only the output host, which runs level 1, keeps the predictions (on
+    # a mesh that spans processes only it receives them)
+    if not is_output_host():
+        W_all = None
+    elif params.use_loocv:
         W_all = _alloc_W(params, (len(blocks), N, J, P))
     else:
         W_all = _alloc_W(params, (len(blocks), params.cv_folds,
                                   int(st.fold_sizes.max()), J, P))
     log(f" * level 0 on {dev} (float64)" if st.mesh is None else
-        f" * level 0 on {len(st.mesh)} shards (float64, sample-sharded)")
+        f" * level 0 on {st.mesh.size} shards (float64, sample-sharded)")
+
+    def store(bi, W):
+        if W_all is not None:
+            torch.from_numpy(W_all[bi]).copy_(W)
 
     # one-block read lookahead: the reader thread reads the next block's
     # packed bytes (or decodes its dosages) while this block solves; the
-    # upload and the device decode stay on this thread's stream
+    # upload and the device decode stay on this thread's stream. With the
+    # per-host window it reads only this process's window of each block.
+    if l0.window is not None:
+        log(f" * per-host decode: each of {process_count()} processes unpacks "
+            "only its own sample byte window")
+        read = lambda bsnps: l0.read_window(gd, bsnps)  # noqa: E731
+    else:
+        read = gd.read_block_host
     pool = ThreadPoolExecutor(max_workers=1)
-    fut = pool.submit(gd.read_block_host, blocks[0][1]) if blocks else None
+    fut = pool.submit(read, blocks[0][1]) if blocks else None
 
     # LOOCV: consecutive same-shape blocks solve in ONE batched dispatch
     # (batched [n, B, B] eigh; Step1_Models.cpp:494). No block's W depends
@@ -436,7 +530,7 @@ def _level0(params, st: Step1Setup, log):
         try:
             Wg = l0.loocv(torch.stack([g for _, g in grp]))
             for i, (bi, _g) in enumerate(grp):
-                torch.from_numpy(W_all[bi]).copy_(Wg[i])
+                store(bi, None if Wg is None else Wg[i])
         except torch.cuda.OutOfMemoryError:
             # the group holds its blocks, their stack and an [n, B, B]
             # eigh workspace at once; one block at a time may still fit
@@ -445,7 +539,8 @@ def _level0(params, st: Step1Setup, log):
                 "(REGENIE_TPU_STEP1_STACK=1 to silence)")
             torch.cuda.empty_cache()
             for bi, g in grp:
-                torch.from_numpy(W_all[bi]).copy_(l0.loocv(g[None])[0])
+                Wb = l0.loocv(g[None])
+                store(bi, None if Wb is None else Wb[0])
         grp.clear()
 
     t0 = time.time()
@@ -460,12 +555,18 @@ def _level0(params, st: Step1Setup, log):
             chr_nblocks[chrom] = chr_nblocks.get(chrom, 0) + 1
             raw = fut.result()
             if bidx + 1 < len(blocks):
-                fut = pool.submit(gd.read_block_host, blocks[bidx + 1][1])
+                fut = pool.submit(read, blocks[bidx + 1][1])
             if params.debug:
                 # the reference's per-block memory trail (Data.cpp:594+)
                 log(f"   -level 0 block {bidx + 1}/{len(blocks)} chr {chrom} "
                     f"[{len(bsnps)} snps] {rss_line()}")
             tb = time.time()
+            if l0.window is not None:
+                store(bidx, l0.window_loocv(raw, bsnps))
+                if params.verbose:
+                    log(f"   -level 0 block {bidx + 1}/{len(blocks)} chr {chrom} "
+                        f"[{len(bsnps)} snps]: {time.time() - tb:.3f}s")
+                continue
             G = l0.residualized(gd.read_block_device(bsnps, dev, raw), bsnps)
             if params.test_l0:
                 G = _test_l0(params, st.pd, G, bidx, chrom, log)
@@ -476,7 +577,7 @@ def _level0(params, st: Step1Setup, log):
                                                        l0.Neff)
                 params._print_beta_snp.append(
                     (bsnps, bsnp.cpu().numpy() / (l0.scale_G[:, None] / st.pd.scale_Y[0])))
-                torch.from_numpy(W_all[bidx]).copy_(Wb)
+                store(bidx, Wb)
                 what = ""
             elif params.use_loocv:
                 if grp and grp[-1][1].shape != G.shape:
@@ -490,7 +591,8 @@ def _level0(params, st: Step1Setup, log):
                 del G
                 _sync(dev)
                 tc = time.time()
-                torch.from_numpy(W_all[bidx]).copy_(Wb)
+                if Wb is not None:
+                    store(bidx, Wb)
                 del Wb
                 dt = time.time() - tc
                 copy_s += dt
@@ -788,7 +890,7 @@ def _write_step1_betas(params: Params, l1_betas: np.ndarray, log) -> None:
     whole-model betas (print_snp_betas, Data.cpp:1755-1790)."""
     J = params.n_ridge_l0
     out = params.out_prefix + "_step1_betas.txt"
-    with open(out, "w") as fh:
+    with open_write(out) as fh:
         fh.write("SNP\tCHROM\tGENPOS\tALLELE0\tALLELE1\tBETA_level_0\tBETA\n")
         for block, (bsnps, bsnp) in enumerate(getattr(params, "_print_beta_snp", [])):
             bl1 = bsnp * l1_betas[block * J : (block + 1) * J][None, :]
@@ -818,8 +920,9 @@ def _write_loco(path, header, params: Params, pd, ph, predictions, total,
 
 
 def _open_bytes(path):
-    """A file for bytes: a GzipWriter for a .gz path (--gz)."""
-    return GzipWriter(path) if path.endswith(".gz") else open(path, "wb")
+    """A file for bytes: a GzipWriter for a .gz path (--gz); off the
+    output host of a multi-process run a null sink."""
+    return GzipWriter(path) if path.endswith(".gz") else open_write_bytes(path)
 
 
 def _write_null_firth_step1(params, pd, ph, predictions, total, chr_order, log):

@@ -132,9 +132,9 @@ def test_complete_trait_gates_sbat_follow_the_pivot_order(dirs, monkeypatch):
 def test_unported_leaves_gene_based_tests(extra, monkeypatch):
     """cli.unported names no gene-based test: --set-list is ported, alone
     and beside the modes ported since (multi-trait, MultiPhen, MCC, beside
-    interaction tests too, LD mode, --af-cc off binary traits); in a
-    multi-process launch the run is refused for that, not for the sets
-    (the other refusals are held by
+    interaction tests too, LD mode, --af-cc off binary traits), in a
+    multi-process launch too (ported since; its runs are held by
+    tests/test_torch_multiprocess*.py; the other refusals by
     test_torch_step2.py::test_unported_mode_raises)."""
     from regenie_tpu_torch import cli
 
@@ -146,5 +146,4 @@ def test_unported_leaves_gene_based_tests(extra, monkeypatch):
     params = cli.args_to_params(cli.build_parser().parse_args(argv))
     assert cli.unported(params) is None
     monkeypatch.setenv("REGENIE_TPU_DIST", "1")
-    why = cli.unported(params)
-    assert why is not None and "multi-process" in why and "gene-based" not in why
+    assert cli.unported(params) is None

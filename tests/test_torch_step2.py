@@ -128,7 +128,7 @@ def test_port_imports_no_jax():
         "regenie_tpu_torch.utils.quadforms, regenie_tpu_torch.models.interaction, "
         "regenie_tpu_torch.models.mcc, regenie_tpu_torch.models.multitrait, "
         "regenie_tpu_torch.models.multiphen, regenie_tpu_torch.parallel, "
-        "regenie_tpu_torch.parallel.mesh\n"
+        "regenie_tpu_torch.parallel.mesh, regenie_tpu_torch.parallel.dist\n"
         "from regenie_tpu_torch.io import native\n"
         "lib = native.planes_lib()\n"
         "assert hasattr(lib, native.DOSAGES_SYMBOL)\n"
@@ -200,24 +200,15 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     assert not os.path.exists(f"{tmp_path}/s1_pred.list")
 
 
-COORD = (("REGENIE_TPU_COORDINATOR", "localhost:23456"),)
-DIST = (("REGENIE_TPU_DIST", "1"),)
 # the 2-D mesh on a mesh of two CPU shards
 MESH_2D = (("REGENIE_TPU_MESH_2D", "2x1"), ("REGENIE_TPU_MESH", "1"),
            ("REGENIE_TPU_TORCH_MESH_DEVICES", "cpu,cpu"))
 
 
 @pytest.mark.parametrize("env,flags", [
-    # one process of a multi-process launch (the JAX package's
-    # maybe_init_distributed) would run the whole job and write the same
-    # files as every other: refused in both steps, whatever the mode
-    (COORD, ["--step", "1"]),
-    (COORD, []),
-    (COORD, ["--mt", "--strict", "--no-split"]),
-    (DIST, ["bgen", "--step", "1"]),
-    (DIST, ["bgen"]),
-    (DIST, ["chrx", "--compute-corr"]),
     # the JAX package tiles a mesh of several devices 2-D in both steps
+    # (multi-process runs, refused here until they were ported, run in
+    # tests/test_torch_multiprocess*.py)
     (MESH_2D, ["--step", "1"]),
     (MESH_2D, ["bgen", "--bt"]),
 ])
@@ -265,11 +256,11 @@ def test_unported_mode_raises(tmp_path, monkeypatch, env, flags):
     ["--af-cc", "--t2e", "--phenoColList", "T1", "--eventColList", "E1"],
 ])
 def test_ported_modes_are_not_refused(monkeypatch, step, flags):
-    """With no multi-process variable set, cli.unported names none of the
-    modes ported since: multi-trait tests, MultiPhen, LD mode, MCC and
-    --af-cc on every trait type, in either step under REGENIE_TPU_MESH
-    too (the single-process mesh; on one device the single-device run,
-    as in the JAX package)."""
+    """cli.unported names none of the modes ported since: multi-trait
+    tests, MultiPhen, LD mode, MCC and --af-cc on every trait type, in
+    either step under REGENIE_TPU_MESH too (the single-process mesh; on
+    one device the single-device run, as in the JAX package), and with a
+    multi-process variable set."""
     from regenie_tpu_torch import cli
 
     for var in ("REGENIE_TPU_COORDINATOR", "REGENIE_TPU_DIST",
@@ -281,6 +272,11 @@ def test_ported_modes_are_not_refused(monkeypatch, step, flags):
     assert cli.unported(params) is None
     monkeypatch.setenv("REGENIE_TPU_MESH", "1")
     params = cli.args_to_params(cli.build_parser().parse_args(argv))
+    assert cli.unported(params) is None
+    # nor a multi-process launch (its processes join their group in
+    # cli.main, before this check)
+    monkeypatch.setenv("REGENIE_TPU_COORDINATOR", "localhost:23456")
+    monkeypatch.setenv("REGENIE_TPU_DIST", "1")
     assert cli.unported(params) is None
 
 
