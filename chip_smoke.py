@@ -11,13 +11,13 @@ from the end of the build on, while the card runs phases 2 and 2b, and
 each slice waits for its own. Phase 3c runs first, alone on the card;
 then the smoke runs in two lanes: a side process runs phase 6 (the
 cross-check) and then phases 5 to 5b (the Step-1 slices), beside this
-process's 3, 3a, 3a', 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
+process's 3, 3a, 3a', 3a'', 3b, 4, 4b and 5c to 5e, and 3c's CPU check runs in a
 thread beside 3 and 3b (3b's host null fits leave the card idle); both
 lanes spend most of their time on the host, and the card is shared
 between them, so a CUDA-event time of a phase after 3c may include
 kernels of the other lane. The lanes' largest card allocations, whose
-peaks do not fit in the card's 80 GB together (4b, the two processes
-of 3a', and level 1 at a real depth in 5, 5a and 5b), hold one lock in
+peaks do not fit in the card's 80 GB together (4b, the processes
+of 3a' and 3a'', and level 1 at a real depth in 5, 5a and 5b), hold one lock in
 turn (_card_heavy), and both processes' allocators map expandable
 segments. A slice's Step-2 or Step-1 run goes through the port's CLI
 (cli.main, its gate of unported modes and its <out>.log included) in its
@@ -58,7 +58,12 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    and scales bit for bit, column sums exact. The full-width block of
    fused_i8 and of bgen_i8 is also split into two row shards of the card
    (parallel/mesh.py), a launch a shard: the products put back together
-   exactly equal the whole block's.
+   exactly equal the whole block's; and ([mesh2d]) the full-width block of
+   fused_i8 and of fused_f32 cut into the 2-D mesh's two byte windows,
+   a launch a window on the operand's window copy (fused_score.
+   operand_window): the windows' products summed equal the whole
+   block's, exactly for fused_i8 and within the float64 bar for
+   fused_f32, the two launches timed beside the whole block's.
 2b. profile path: the port's profiling entry points in this process at
    the full width with 1 round of 2 blocks, the launch counts set to 0
    just before each run and read just after:
@@ -102,6 +107,14 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    the 50 files hold [mesh slice]'s within _compare_files' bars (|dLOG10P|
    <= 1e-5), the rows not byte-identical counted; both processes' walls
    printed beside [mesh slice]'s.
+3a''. mesh2d slice: the same CLI run under REGENIE_TPU_MESH_2D=1 on four
+   shards of the card (a 2 x 2 grid of variant rows x byte windows), as
+   a process of its own started through the child entry after 3a' and
+   beside 3b, recording the shapes of its int8 products: fused_i8 once a
+   cell (4 a block, each [1,024, nbp / 2] bytes against a [Cw4, 4 nbp /
+   2] window) and no other kernel; the log names the grid; every row of
+   its 50 files byte for byte [mesh slice]'s; its CLI wall printed
+   beside [mesh slice]'s.
 3b. BT slice: on the BED slice's own BED, a binary-trait table (its
    traits thresholded at 5-30% prevalence) and one run of the CLI with
    --bt --firth --approx --af-cc: fused_i8
@@ -175,8 +188,14 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    (max |dW| <= 1e-8), the same block's level 0 sample-sharded on two
    shards of the card (run_step1.Level0 on a mesh for K-fold, and
    parallel.mesh.sharded_level0_loocv) against the unsharded K-fold and
-   LOOCV W (max |dW| <= 1e-8), and level1_linear_kfold timed for one
-   trait at a real depth (F = 2,500, 8 GB of synthetic predictions).
+   LOOCV W (max |dW| <= 1e-8), ([mesh2d]) the slice's first two blocks'
+   LOOCV level 0 at once through run_step1.Level0.loocv on a 2 x 2 grid
+   of four shards of the card against Level0.loocv unsharded (max |dW|
+   <= 1e-8) and one trait's LOOCV level 1 at the real depth (F = 2,500)
+   over two shards against the first device (the CV sums and b0 within
+   1e-9 of their largest), each timed, and level1_linear_kfold
+   timed for one trait at a real depth (F = 2,500, 8 GB of synthetic
+   predictions).
 5a. Step-1 BT slice: on the Step-1 slice's own BED (its QT LOCO files
    removed), a binary-trait table of the writer's traits (5-30%
    prevalence) and the port's Step-1 CLI with --bt at the same width
@@ -294,7 +313,14 @@ after 5e (phases 5 to 5b), its phases' "done at" times on this clock.
    launches two at a time), each against one process on two shards of
    the card: every field within
    its bar, .loco values within one unit of the sixth digit, process 1
-   printing nothing and writing no file of its own. Then
+   printing nothing and writing no file of its own. The 2-D mesh
+   (mesh2d_cross_check): the BED --htp run (by default and with
+   REGENIE_TPU_I8=0), the BT BED and T2E BED runs on a 2 x 2 grid of four
+   shards of the card (the kernel once a cell) against their unsharded
+   or two-shard runs, Step 1 --loocv with its 2-D level 0 against the
+   two-shard run, and the BED --htp run as two processes of one shard (a
+   1 x 2 grid, per-host byte columns) against the unsharded run: every
+   field within its bar, no int8 QT row differing. Then
    the two-step workflow on the BED dataset (K-fold and --loocv), on the
    PGEN (K-fold) and on the BGEN (K-fold, Step 2 with --force-ltco 2),
    on the card and on the CPU: Step 1, and Step 2 with --pred on that
@@ -1356,6 +1382,63 @@ def _shard_check(name, fn, x, dev, reps=10):
     return err
 
 
+def _window_check(name, kern, raw, op, dev, bar=None, ns=2, reps=10):
+    """[mesh2d] The block raw [B, nbp] against the plane-packed operand op
+    (an I8Operand or a float32 [4, nbp, Cp] tensor) cut as the 2-D mesh
+    cuts them: both zero-padded to ns * _TC bytes, each of the ns byte
+    windows a launch of the kernel `kern` (fused_score.operand_window's
+    copies: the int8 operand's contiguous [Cw4, 4 * nbp / ns] K-major
+    window), the windows' products summed in column order against the
+    whole block's (`kern` on raw and op): the int32 sums exactly equal,
+    the float64 ones within F64_SUM_BAR of `bar` (the plain products
+    against |W|). Prints the ns launches timed together beside the whole
+    block's launch (CUDA events; the padding and the copies not timed).
+    Returns the max abs difference."""
+    import torch
+
+    from regenie_tpu_torch.ops import fused_score as fsc
+
+    B, nbp = raw.shape
+    nbp2 = -(-nbp // (ns * fsc._TC)) * ns * fsc._TC
+    w = nbp2 // ns
+    exact = isinstance(op, fsc.I8Operand)
+    if exact:
+        whole_op = op.limbs_k
+        op2 = fsc._i8_operand(torch.nn.functional.pad(op.limbs, (0, 0, 0, nbp2 - nbp)),
+                              op.scale)
+        wins = [fsc.operand_window(op2, c, ns).limbs_k for c in range(ns)]
+        del op2
+    else:
+        whole_op = op
+        wins = [fsc.operand_window(torch.nn.functional.pad(op, (0, 0, 0, nbp2 - nbp)),
+                                   c, ns) for c in range(ns)]
+    raw2 = torch.nn.functional.pad(raw, (0, nbp2 - nbp))
+    raws = [raw2[:, c * w : (c + 1) * w].contiguous() for c in range(ns)]
+    del raw2
+    whole = kern(raw, whole_op)
+    parts = [kern(r, o) for r, o in zip(raws, wins)]
+    got = list(parts[0])
+    for p in parts[1:]:
+        got = [g + x for g, x in zip(got, p)]
+    shape = f"{ns} windows of [{B}, {w}] bytes against {tuple(wins[0].shape)}"
+    if exact:
+        torch.cuda.synchronize()
+        err = max(int((g.long() - x.long()).abs().max()) for g, x in zip(got, whole))
+        print(f"  [mesh2d] {name}, {shape}: max|summed windows - whole block| = {err}")
+        if err != 0:
+            raise AssertionError(f"{name}: the byte windows' products differ from "
+                                 f"the whole block's (max abs {err})")
+    else:
+        err = _check_sums(name, got, whole, bar, f"[mesh2d] {shape}, summed, "
+                          "against the whole block")
+    del whole, parts, got
+    ms_whole = _time_ms(lambda: kern(raw, whole_op), reps)
+    ms_wins = _time_ms(lambda: [kern(r, o) for r, o in zip(raws, wins)], reps)
+    print(f"  [mesh2d] {name}: the {ns} window launches {ms_wins:.3f} ms, the whole "
+          f"block's {ms_whole:.3f} ms ({ms_wins / ms_whole:.3f}x)")
+    return err
+
+
 def _random_consts(rng, N, P, n_inc, K, device, pack="plane", split="i8"):
     """The port's fused operand for random inputs of the given shape
     (orthonormal covariates, n_inc traits with 5% missing): the int8
@@ -1422,6 +1505,7 @@ def fused_i8_phase(dev, reps=10):
     errs.append(_check_i8_exact(raw, limbs_k, "full width"))
     errs.append(_shard_check(
         "fused_i8", lambda x: kernels.fused_i8_products(x, limbs_k), raw, dev))
+    errs.append(_window_check("fused_i8", kernels.fused_i8_products, raw, c.Wp, dev))
     ms = _time_ms(lambda: kernels.fused_i8_products(raw, limbs_k), reps)
     plain_ms = _time_ms(lambda: kernels.fused_i8_products_plain(raw, limbs_k), 3)
 
@@ -1802,6 +1886,8 @@ def fused_f32_phase(dev, reps=10):
     raw = torch.randint(0, 256, (B, nbp), generator=gen, device=dev, dtype=torch.uint8)
     wp = torch.randn((4, nbp, Cp), generator=gen, device=dev)
     check(raw, wp, "full width")
+    errs.append(_window_check("fused_f32", kernels.fused_f32_products, raw, wp, dev,
+                              bar=kernels.fused_f32_products_plain(raw, wp.abs())))
     _launch_line("fused_f32", dev, B, Cp)
     ms = _time_ms(lambda: kernels.fused_f32_products(raw, wp), reps)
     plain_ms = _time_ms(lambda: kernels.fused_f32_products_plain(raw, wp), 3)
@@ -2597,11 +2683,13 @@ def _card_heavy(what):
 
 
 @contextlib.contextmanager
-def _mesh_env(devices=MESH_DEVICES):
+def _mesh_env(devices=MESH_DEVICES, two_d=False):
     """REGENIE_TPU_MESH=1 and REGENIE_TPU_TORCH_MESH_DEVICES=devices set
-    inside the block (the port's single-process mesh), unset after."""
-    keys = ("REGENIE_TPU_MESH", "REGENIE_TPU_TORCH_MESH_DEVICES")
-    os.environ.update(dict(zip(keys, ("1", devices))))
+    inside the block (the port's single-process mesh; two_d: and
+    REGENIE_TPU_MESH_2D=1), unset after."""
+    keys = ("REGENIE_TPU_MESH", "REGENIE_TPU_TORCH_MESH_DEVICES") + (
+        ("REGENIE_TPU_MESH_2D",) if two_d else ())
+    os.environ.update(dict(zip(keys, ("1", devices, "1"))))
     try:
         yield
     finally:
@@ -2895,6 +2983,8 @@ MP_CHILD = "--multiprocess-child"
 # a kernel build directory for a launch's processes (mp_child): both build
 # the kernels they launch into it at once
 MP_BUILD_ENV = "CHIP_SMOKE_BUILD_DIR"
+# set: a launch's process records the shapes of its int8 products
+MP_SHAPES_ENV = "CHIP_SMOKE_I8_SHAPES"
 
 
 def mp_child(report, argv) -> int:
@@ -2903,8 +2993,10 @@ def mp_child(report, argv) -> int:
     coordinator, the process and its shards), the launch counts set to 0
     just before it and read just after. Writes {"counts", "wall" (the
     CLI's seconds), "t_end" (the host clock at its end), "built" (the
-    libraries in MP_BUILD_ENV's directory, when set)} to the JSON file
-    `report`; the CLI's own lines go to stdout."""
+    libraries in MP_BUILD_ENV's directory, when set), "i8_shapes" (with
+    MP_SHAPES_ENV set, the distinct [raw, limbs_k] shapes of the int8
+    operand's products)} to the JSON file `report`; the CLI's own lines go
+    to stdout."""
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
@@ -2915,22 +3007,40 @@ def mp_child(report, argv) -> int:
     build = os.environ.get(MP_BUILD_ENV)
     if build:
         kernels.BUILD_DIR = build
+    shapes = set()
+    if os.environ.get(MP_SHAPES_ENV):
+        # the block functions reach their products through the module's
+        # fused_partials, so a recording shim there sees every block and
+        # cell (the kernel's wrapper, untouched, counts its launches)
+        from regenie_tpu_torch.ops import fused_score as fsc
+
+        partials = fsc.fused_partials
+
+        def recorded(raw, Wp):
+            if isinstance(Wp, fsc.I8Operand):
+                shapes.add((tuple(raw.shape), tuple(fsc._kmajor(Wp).shape)))
+            return partials(raw, Wp)
+
+        fsc.fused_partials = recorded
     _reset_counts()
     t0 = time.time()
     cli.main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     out = {"counts": _read_counts(), "wall": time.time() - t0, "t_end": time.time(),
-           "built": sorted(os.listdir(build)) if build else None}
+           "built": sorted(os.listdir(build)) if build else None,
+           "i8_shapes": sorted(shapes)}
     with open(report, "w") as fh:
         json.dump(out, fh)
     return 0
 
 
-def mp_launch(argv, what, nproc=2, devices="cuda:0", env=None, timeout=600):
+def mp_launch(argv, what, nproc=2, devices="cuda:0", env=None, timeout=600,
+              dist=True):
     """argv through the port's CLI as nproc processes of one launch
     (REGENIE_TPU_COORDINATOR=127.0.0.1:<a free port>, each process with
-    the shards `devices`), started together through this file's child
+    the shards `devices`; dist=False: one process of its own, with no
+    process group), started together through this file's child
     entry (mp_child). Returns each process's report with its "stdout"
     and "proc_wall" (its seconds from the launch to the end of its CLI),
     in process order. Raises when a process fails, and stops every
@@ -2949,10 +3059,11 @@ def mp_launch(argv, what, nproc=2, devices="cuda:0", env=None, timeout=600):
             e = dict(os.environ)
             e.pop("REGENIE_TPU_TORCH_DEVICE", None)
             e.update({"REGENIE_TPU_MESH": "1", "REGENIE_TPU_TORCH_MESH_DEVICES": devices,
-                      "REGENIE_TPU_COORDINATOR": f"127.0.0.1:{port}",
-                      "REGENIE_TPU_NUM_PROCESSES": str(nproc),
-                      "REGENIE_TPU_PROCESS_ID": str(pid),
-                      "REGENIE_TPU_DIST_TIMEOUT": "300", **(env or {})})
+                      **({"REGENIE_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                          "REGENIE_TPU_NUM_PROCESSES": str(nproc),
+                          "REGENIE_TPU_PROCESS_ID": str(pid),
+                          "REGENIE_TPU_DIST_TIMEOUT": "300"} if dist else {}),
+                      **(env or {})})
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), MP_CHILD,
                  f"{rdir}/{pid}.json", *argv], env=e, stdout=subprocess.PIPE,
@@ -3067,6 +3178,85 @@ def multiprocess_slice_phase(tmp, mesh_wall, reps):
           f"beside [bt slice]), [mesh slice]'s CLI wall {mesh_wall:.2f}s (alone); "
           f"on {card_line()}")
     return n[0]
+
+
+MESH2D_DEVICES = "cuda:0,cuda:0,cuda:0,cuda:0"  # four shards: a 2 x 2 grid
+
+
+def mesh2d_slice_launch(tmp):
+    """[mesh2d slice]'s run: [mesh slice]'s CLI (the port's Step-2 QT at
+    full width on [bed slice]'s BED) under REGENIE_TPU_MESH_2D=1 on four
+    shards of the one card, a 2 x 2 grid (variant rows x byte windows),
+    as a process of its own (mp_launch, no process group: it runs beside
+    [bt slice] in the main lane, whose environment it must not touch),
+    recording its fused_i8 shapes, under the lanes' card lock. Returns its
+    report; mesh2d_slice_phase checks it."""
+    f = FULL
+    argv = ["--step", "2", "--bed", f"{tmp}/geno", "--phenoFile",
+            f"{tmp}/pheno.txt", "--covarFile", f"{tmp}/covar.txt",
+            "--ignore-pred", "--bsize", str(f["B"]), "--verbose", "--out",
+            f"{tmp}/slice_m2d"]
+    with _card_heavy("[mesh2d slice]"):
+        return mp_launch(argv, "[mesh2d slice]", nproc=1, devices=MESH2D_DEVICES,
+                         env={"REGENIE_TPU_MESH_2D": "1", MP_SHAPES_ENV: "1"},
+                         dist=False)[0]
+
+
+def mesh2d_slice_phase(tmp, mesh_wall, rep):
+    """[mesh2d slice] The checks of mesh2d_slice_launch's run (rep, its
+    report): the log names the 4 shards and the 2 x 2 grid, and every
+    block takes the fused route; fused_i8 launched once a cell, 4 times a
+    block, and no other kernel, every launch on one cell's [B / 2, nbp /
+    2] bytes against a [Cw4, 4 * nbp / 2] operand window (nbp padded to 2
+    x 256 bytes); the run's files are its log and the P files, well
+    formed, each row byte for byte [mesh slice]'s (the int32 window sums
+    are exact, and the two grid rows are [mesh slice]'s two shards).
+    Prints the CLI wall beside [mesh slice]'s. Returns fused_i8's
+    launches."""
+    f = FULL
+    M = SLICE_BLOCKS * f["B"]
+    got = {os.path.basename(x) for x in glob.glob(f"{tmp}/slice_m2d*")}
+    want = {"slice_m2d.log"} | {f"slice_m2d_Y{p + 1}.regenie" for p in range(f["P"])}
+    if got != want:
+        raise AssertionError(f"[mesh2d slice]: files {sorted(got - want)} written, "
+                             f"{sorted(want - got)} missing")
+    log = open(f"{tmp}/slice_m2d.log").read()
+    nblk = int(re.search(r"block loop: (\d+) blocks", log).group(1))
+    for ln in ("multi-device mesh: 4 shards", "2-D mesh for the fused scorer: 2 x 2",
+               f"dense route: 0 of {nblk} blocks"):
+        if ln not in log:
+            raise AssertionError(f"[mesh2d slice]: the log lacks {ln!r}")
+    counts = rep["counts"]
+    want_c = {k: 4 * nblk if k == "fused_i8" else 0 for k in counts}
+    if counts != want_c:
+        raise AssertionError(f"[mesh2d slice]: launches {counts}, expected {want_c}")
+    nbp2 = -(-((f["N"] + 3) // 4) // 512) * 512
+    w = nbp2 // 2
+    shapes = {(tuple(a), tuple(b)) for a, b in rep["i8_shapes"]}
+    if len(shapes) != 1 or any(a != (f["B"] // 2, w) or b[1] != 4 * w
+                               for a, b in shapes):
+        raise AssertionError(f"[mesh2d slice]: fused_i8 shapes {sorted(shapes)}, "
+                             f"expected [{f['B'] // 2}, {w}] bytes against "
+                             f"[Cw4, {4 * w}] windows")
+    for ln in log.splitlines():
+        if ln.startswith("   -block") or "mesh" in ln:
+            print(f"  {ln.strip()}")
+    ndiff = 0
+    for p in range(f["P"]):
+        fm, fr = f"{tmp}/slice_m2d_Y{p + 1}.regenie", f"{tmp}/slice_mesh_Y{p + 1}.regenie"
+        _check_rows(fm, M)
+        ndiff += _identical_rows(fm, fr)[0]
+    (raw_s, op_s), = shapes
+    print(f"  fused_i8 {counts['fused_i8']} launches for {nblk} blocks on a 2 x 2 grid "
+          f"(4 a block, one a cell), each [{raw_s[0]}, {raw_s[1]}] bytes against a "
+          f"{list(op_s)} window; no other kernel; {f['P']} files against [mesh "
+          f"slice]'s: {ndiff} of {f['P'] * M} rows not byte-identical")
+    if ndiff:
+        raise AssertionError(f"[mesh2d slice]: {ndiff} rows differ from [mesh slice]'s")
+    print(f"  CLI wall {rep['wall']:.2f}s ({M / rep['wall']:.1f} variants/s), "
+          f"{rep['proc_wall']:.2f}s from the launch (beside [bt slice]); [mesh "
+          f"slice]'s {mesh_wall:.2f}s (alone); on {card_line()}")
+    return counts["fused_i8"]
 
 
 BT_FLAGS = ["--bt", "--firth", "--approx", "--af-cc"]
@@ -4145,8 +4335,95 @@ def mesh_level0_check(params, st, bsnps, raw, l0, Wk):
     if not (err_k <= 1e-8 and err_l <= 1e-8):
         raise AssertionError(f"sharded level 0: K-fold {err_k:.3e}, LOOCV "
                              f"{err_l:.3e} > 1e-08")
-    del G, Wu, Wl, Y_sh, m_sh, Y, mask
+    del Wu, Wl, Y_sh, m_sh, G
     torch.cuda.empty_cache()
+    with _card_heavy("[step1 slice] [mesh2d]"):
+        mesh2d_step1_check(params, st, Y, mask)
+    del Y, mask
+    torch.cuda.empty_cache()
+
+
+def mesh2d_step1_check(params, st, Y, mask):
+    """[mesh2d] Step 1 on the 2-D mesh at [step1 slice]'s width, through
+    run_step1.Level0, the entry point that groups a LOOCV run's blocks and
+    zero-pads them: the slice's first two blocks (1,000 variants each,
+    residualized as the run does) solved at once by Level0.loocv on a
+    2 x 2 grid of four shards of the card (parallel.mesh.Mesh2D; a block a
+    variant row, each row's Grams and moments summed over its two sample
+    shards) against Level0.loocv unsharded (models/step1's batched
+    level0_loocv_blocks): max |dW| <= 1e-8. Then one trait's LOOCV level 1
+    at the phase's real depth, F = STEP1["real_F"] (a synthetic design on
+    the card, the trait's Y), over two shards (models/step1's
+    level1_linear_loocv and level1_linear_full_fit_loocv with `mesh`: the
+    rows split, W'W, W'y and the CV sums summed in shard order, b0 kept a
+    shard each) against the mesh of the first device alone: max |dcumsum|
+    and max |db0| within 1e-9 of their largest magnitudes (the level-1
+    bar). Times each side with CUDA events (one warm-up, the median of
+    two), the sharded inputs split beforehand."""
+    import dataclasses
+
+    import torch
+
+    from regenie_tpu_torch.models import step1 as m1
+    from regenie_tpu_torch.parallel import mesh as pm
+    from regenie_tpu_torch.run_step1 import Level0
+
+    dev = st.device
+    p_loo = dataclasses.replace(params, use_loocv=True)
+    mesh4 = pm.make_mesh([dev] * 4)
+    m2 = pm.Mesh2D(mesh4)
+    lu = Level0(p_loo, st._replace(mesh=None, mesh2d=None, fold_sizes=None))
+    l2 = Level0(p_loo, st._replace(mesh=mesh4, mesh2d=m2, fold_sizes=None))
+    Gs = []
+    for _chrom, bsnps in st.blocks[:2]:
+        raw = st.gd.read_block_bytes(bsnps)
+        Gs.append(lu.residualized(st.gd.read_block_device(bsnps, dev, raw), bsnps))
+    B, N = Gs[0].shape
+    ms_u, Wu = _events_ms(lambda: lu.loocv(Gs), 2)
+    ms_2, W2 = _events_ms(lambda: l2.loocv(Gs), 2)
+    err_w = float((W2 - Wu).abs().max())
+    del Wu, W2, Gs, lu, l2
+    torch.cuda.empty_cache()
+    F = STEP1["real_F"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    W = torch.randn((N, F), generator=gen, device=dev, dtype=torch.float64)
+    y = Y[:, 0].contiguous()
+    h2 = torch.tensor([0.01, 0.25, 0.5, 0.75, 0.99], dtype=torch.float64, device=dev)
+    taus = F * (1 - h2) / h2
+    neff = float(mask[:, 0].sum()) - 20.0
+    mesh = pm.make_mesh([dev, dev])
+    Ws, ys = pm.shard(mesh, W, 0), pm.shard(mesh, y, 0)
+
+    def fit(w, yy, me):
+        cs = m1.level1_linear_loocv(w, yy, taus, neff, mesh=me)
+        return (cs,) + m1.level1_linear_full_fit_loocv(w, yy, float(taus[2]), mesh=me)
+
+    ms_1, (cs1, b01, _) = _events_ms(lambda: fit(W, y, None), 2)
+    del W
+    torch.cuda.empty_cache()
+    ms_s, (css, b0s, _) = _events_ms(lambda: fit(Ws, ys, mesh), 2)
+    del Ws, ys
+    d_cs = float((css - cs1).abs().max())
+    # each shard's b0 columns against the same samples' (the pad last)
+    d_b0, st0 = 0.0, 0
+    for part in b0s:
+        n = min(part.shape[1], N - st0)
+        d_b0 = max(d_b0, float((part[:, :n] - b01[0][:, st0 : st0 + n]).abs().max()))
+        st0 += n
+    bar_cs = 1e-9 * float(cs1.abs().max())
+    bar_b0 = 1e-9 * float(b01[0].abs().max())
+    del b01, b0s
+    torch.cuda.empty_cache()
+    print(f"  [mesh2d] the slice's first two blocks' level 0 ({B} variants each, "
+          f"N = {N}) through Level0.loocv on a 2 x 2 grid of the card: {ms_2:.1f} ms "
+          f"against {ms_u:.1f} ms for Level0.loocv unsharded, max |dW| {err_w:.3e} "
+          f"(bar 1e-08); one trait's LOOCV level 1 (F = {F}) over 2 shards: "
+          f"{ms_s:.1f} ms against {ms_1:.1f} ms on the first device, max |dcumsum| "
+          f"{d_cs:.3e} (bar {bar_cs:.3e}), max |db0| {d_b0:.3e} (bar {bar_b0:.3e})")
+    if not (err_w <= 1e-8 and d_cs <= bar_cs and d_b0 <= bar_b0):
+        raise AssertionError(f"[mesh2d] Step 1: max |dW| {err_w:.3e}, |dcumsum| "
+                             f"{d_cs:.3e}, |db0| {d_b0:.3e} beyond their bars")
 
 
 def step1_bt_slice_phase(tmp):
@@ -6127,6 +6404,95 @@ def multiprocess_cross_check(runs, tmp, prefix, P):
         shutil.rmtree(build, ignore_errors=True)
 
 
+# the cross-check's runs again on a 2 x 2 grid of four shards of the card
+# (REGENIE_TPU_MESH_2D=1): (run, REGENIE_TPU_I8=0, the kernel a cell
+# launches, the one-process run held against: "gpu" unsharded on the card,
+# "mesh" mesh_cross_check's on two shards)
+MESH2D_CROSS = (("BED --htp", False, "fused_i8", "gpu"),
+                ("BED --htp", True, "fused_f32", "mesh"),
+                ("BT BED --firth --approx --write-null-firth", False, "fused_i8", "mesh"),
+                ("T2E BED --firth --approx --htp --htp-with-event", False, "fused_i8",
+                 "mesh"))
+
+
+def mesh2d_cross_check(runs, tmp, prefix, P):
+    """[mesh2d] Runs of the cross-check on the 2-D mesh: MESH2D_CROSS's
+    Step-2 runs on a 2 x 2 grid of four shards of the card (the kernel
+    once a cell, 4 times a block, and no other; the log naming the grid)
+    against their one-process unsharded or 1-D runs, every field within
+    the card-vs-CPU bars (_compare_files), the rows not byte-identical
+    counted (none on the int8 QT run, whose window sums are exact); Step 1
+    --loocv with its 2-D level 0 (two blocks at once, each on its row's
+    two sample shards) against mesh_cross_check's 1-D run, every .loco
+    value within one unit of its sixth digit; and, started first and
+    checked last, the int8 QT run as two processes of one shard each, a 1
+    x 2 grid (each process reads every variant row and uploads its own
+    byte columns), each process launching fused_i8 once a block, against
+    the unsharded card run: no row differs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    d, common, outs, tag = runs["BED --htp"]
+    mptag, mpref = f"{d}/{tag}m2dmp", f"{d}/{tag}gpu0"
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # (REGENIE_TPU_I8=1, the default: this thread's runs set the
+        # variable while the launch reads the environment)
+        fut = pool.submit(mp_launch, common + ["--out", mptag], "[mesh2d] two processes",
+                          env={"REGENIE_TPU_MESH_2D": "1", "REGENIE_TPU_I8": "1"})
+        os.environ.pop("REGENIE_TPU_TORCH_DEVICE", None)
+        for what, off, kern, ref in MESH2D_CROSS:
+            d, common, outs, tag = runs[what]
+            mtag, rtag = f"{d}/{tag}m2d{int(off)}", f"{d}/{tag}{ref}{int(off)}"
+            with _i8_env(off), _mesh_env(MESH2D_DEVICES, two_d=True):
+                _reset_counts()
+                run_cli(common + ["--out", mtag])
+            n, nblk = _mesh_launches(what, f"{mtag}.log", kern, shards=4)
+            if "2-D mesh for the fused scorer: 2 x 2" not in open(f"{mtag}.log").read():
+                raise AssertionError(f"[mesh2d] {what}: the log names no 2 x 2 grid")
+            worst = max(_compare_files(mtag + o, rtag + o) for o in outs)
+            nd = sum(_identical_rows(mtag + o, rtag + o)[0] for o in outs)
+            rows = sum(_identical_rows(mtag + o, rtag + o)[1] for o in outs)
+            print(f"  [mesh2d] {what}{' (REGENIE_TPU_I8=0)' if off else ''}: {kern} "
+                  f"{n} launches for {nblk} blocks on a 2 x 2 grid; against the "
+                  f"{'unsharded' if ref == 'gpu' else 'two-shard'} card run {nd} of "
+                  f"{rows} rows not byte-identical, largest share of the bar "
+                  f"{worst:.3f}")
+            if ref == "gpu" and nd:
+                raise AssertionError(f"[mesh2d] {what}: {nd} int8 rows differ")
+        base = ["--step", "1", "--bed", prefix, "--phenoFile", f"{tmp}/pheno.txt",
+                "--covarFile", f"{tmp}/covar.txt", "--remove", f"{tmp}/remove.txt",
+                "--bsize", "100", "--loocv"]
+        tag = f"{tmp}/s1mesh_loocv"
+        with _mesh_env(MESH2D_DEVICES, two_d=True):
+            _reset_counts()
+            run_cli(base + ["--out", f"{tag}_m2d"])
+        log = open(f"{tag}_m2d.log").read()
+        if ("2-D mesh: 2 x 2 (variant-block x sample tiling)" not in log
+                or "level 0 on 4 shards" not in log or any(_read_counts().values())):
+            raise AssertionError("[mesh2d] Step 1 LOOCV: no 2-D level 0, or a kernel "
+                                 "launched")
+        nd = [_compare_loco(f"{tag}_m2d_{p + 1}.loco", f"{tag}_mesh_{p + 1}.loco")
+              for p in range(P)]
+        print(f"  [mesh2d] Step 1 LOOCV, level 0 on a 2 x 2 grid of the card against "
+              f"two shards: {P} .loco files, {sum(k for k, _ in nd)} values differ (at "
+              f"most {max(w for _, w in nd):.3f} units of the sixth significant digit)")
+        reps = fut.result()
+    d, common, outs, tag = runs["BED --htp"]
+    nblk = int(re.search(r"block loop: (\d+) blocks", open(f"{mptag}.log").read()).group(1))
+    n = _mp_checks("[mesh2d] two processes", reps, "fused_i8", nblk, f"{mptag}.log",
+                   ("2-D mesh for the fused scorer: 1 x 2",
+                    "2 processes x rectangular slabs", "per-host 2-D slab decode",
+                    f"dense route: 0 of {nblk} blocks"))
+    _same_names("[mesh2d] two processes", mptag, mpref)
+    worst = max(_compare_files(mptag + o, mpref + o) for o in outs)
+    nd = sum(_identical_rows(mptag + o, mpref + o)[0] for o in outs)
+    print(f"  [mesh2d] BED --htp as two processes of one shard (a 1 x 2 grid, per-host "
+          f"byte columns): fused_i8 {n} launches a process for {nblk} blocks; against the "
+          f"unsharded card run {nd} rows not byte-identical, largest share of the bar "
+          f"{worst:.3f}; walls {reps[0]['proc_wall']:.1f}s, {reps[1]['proc_wall']:.1f}s")
+    if nd:
+        raise AssertionError(f"[mesh2d] two processes: {nd} int8 rows differ")
+
+
 def cross_check_phase(tmp):
     """Small runs (N=2,000) through the port on the card (by default and
     with REGENIE_TPU_I8=0) and on the CPU, every output field within its
@@ -6358,6 +6724,7 @@ def cross_check_phase(tmp):
                   f"bar used {worst:.3f}){firth}")
     mesh_cross_check(mesh_runs, tmp, prefix)
     multiprocess_cross_check(mesh_runs, tmp, prefix, P)
+    mesh2d_cross_check(mesh_runs, tmp, prefix, P)
     two_step_cross_check(tmp, ["--bed", prefix], P)
     # interaction tests (GxPRS on the K-fold run's own _pred.list) and the
     # Step-1 options
@@ -6660,13 +7027,17 @@ def main() -> int:
             # null fits leave the card idle; its checks print after it
             with ThreadPoolExecutor(max_workers=1) as mp_pool:
                 mp_run = mp_pool.submit(multiprocess_slice_launch, tmp)
-                print("[bt slice] ([multiprocess slice]'s two processes run beside it)")
+                m2d_run = mp_pool.submit(mesh2d_slice_launch, tmp)
+                print("[bt slice] ([multiprocess slice]'s two processes, then [mesh2d "
+                      "slice]'s process, run beside it)")
                 bt_launches = bt_slice_phase(tmp)
                 print(f"  fused_i8 launches on the BT path: {bt_launches}")
                 print("[multiprocess slice]")
                 mp_launches = multiprocess_slice_phase(tmp, mesh_wall, mp_run.result())
+                print("[mesh2d slice]")
+                m2d_launches = mesh2d_slice_phase(tmp, mesh_wall, m2d_run.result())
             print(f"  fused_i8 launches a process on the multi-process path: "
-                  f"{mp_launches}")
+                  f"{mp_launches}; on the 2-D mesh path: {m2d_launches}")
             print("[ld slice, CPU check]")
             print(ld_done.result())
         del ld_check, ld_done

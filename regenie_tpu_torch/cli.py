@@ -13,7 +13,6 @@ The device is CUDA unless REGENIE_TPU_TORCH_DEVICE=cpu asks for the CPU.
 from __future__ import annotations
 
 import argparse
-import os
 import re
 import sys
 import time
@@ -835,27 +834,13 @@ def args_to_params(args: argparse.Namespace) -> Params:
     return params
 
 
-def unported(params: Params, device=None) -> Optional[str]:
-    """Name of the first requested mode this port cannot run yet, or
-    None. Every such mode raises NotImplementedError before any work.
-    `device` as in utils.device.resolve_device."""
-    from .parallel.mesh import run_mesh
-    from .utils.device import requested_device
-
-    checks = [
-        # the JAX package tiles a mesh of several devices 2-D (variants x
-        # samples) under this variable and ignores it on one device; on a
-        # multi-process run the mesh is the global one
-        (bool(os.environ.get("REGENIE_TPU_MESH_2D"))
-         and run_mesh(params, requested_device(device)) is not None,
-         "the 2-D mesh (REGENIE_TPU_MESH_2D)"),
-    ]
-    if params.step == 2:
-        checks.insert(0, (params.file_type not in ("bed", "bgen", "pgen"),
-                          f"{params.file_type.upper()} input"))
-    for hit, name in checks:
-        if hit:
-            return name
+def unported(params: Params) -> Optional[str]:
+    """Name of the first requested mode this port cannot run, or None.
+    Every such mode raises NotImplementedError before any work. The CLI
+    reaches only BED, BGEN and PGEN inputs (Params.file_type), which
+    Step 2 takes all; the check stays for a caller that sets another."""
+    if params.step == 2 and params.file_type not in ("bed", "bgen", "pgen"):
+        return f"{params.file_type.upper()} input"
     return None
 
 

@@ -16,6 +16,11 @@ the FP64 tensor cores, batched `torch.linalg.eigh`):
 - level-1 linear ridge, K-fold (:772) and LOOCV (:875), and the LOOCV
   whole-data refit (make_predictions_loocv, Data.cpp:1269), with
   --select-l0's per-column penalties and --test-l0's top-SNP PGS;
+- level 1 over a mesh's shards (the level-1 functions' `mesh`): the
+  design's rows zero-padded to the shard count and split, its row sums
+  (W'W, W'y, the CV sums) summed over the shards in shard order on the
+  first shard's device, the row-wise results kept a shard each (without
+  a mesh, one part on the design's own device: one body for both);
 - --print's per-SNP level-0 betas (level0_loocv_block_betas), and on the
   host in numpy --select-l0's block selection (check_l0_selection) and
   --test-l0's top-SNP pre-screen (test_l0_block).
@@ -31,6 +36,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as pm
 
 # ---------------------------------------------------------------------------
 # fold layout
@@ -246,8 +253,16 @@ def _ridge_inv(d, taus, ridge_mult):
     return 1.0 / (d.unsqueeze(-2) + pen)
 
 
+def _l1_mesh(mesh, x):
+    """The mesh of a level-1 call: `mesh`, or a mesh of x's own device
+    alone, whose one part is x itself (shard, replicate and psum pass it
+    through unchanged)."""
+    return pm.Mesh([x.device]) if mesh is None else mesh
+
+
 def level1_linear_kfold(W_folds, Y_folds, valid, taus,
-                        ridge_mult: Optional[torch.Tensor] = None, pgs_folds=None):
+                        ridge_mult: Optional[torch.Tensor] = None, pgs_folds=None,
+                        mesh=None):
     """Level-1 linear ridge with K-fold CV for ONE phenotype
     (ridge_level_1, Step1_Models.cpp:772-870).
 
@@ -259,35 +274,54 @@ def level1_linear_kfold(W_folds, Y_folds, valid, taus,
     Returns (beta [K, T, F] per-fold solutions, cumsum [5, T] CV metrics
     Sx, Sy, Sx2, Sy2, Sxy over held-out folds[, cumsum_full [5, T] with
     the PGS added back, against the original response]).
+    With `mesh` (parallel/mesh.py), the fold slots (nmax) of W_folds,
+    Y_folds, valid and pgs_folds are split over the shards (zero-padded,
+    valid 0: exact; or given as per-shard parts), and the results land
+    on the first shard's device (the JAX package's place_rows_padded on
+    axis 1, regenie_tpu/run_step1.py:689-705).
     """
-    Wv = W_folds * valid[:, :, None]
-    Yv_orig = Y_folds * valid
-    Yv = (Y_folds - pgs_folds) * valid if pgs_folds is not None else Yv_orig
-    XtX_f = Wv.transpose(1, 2) @ Wv  # [K, F, F]
-    XtY_f = (Wv.transpose(1, 2) @ Yv[:, :, None])[..., 0]  # [K, F]
+    mesh = _l1_mesh(mesh, W_folds)
+    Vs, Ys = pm._parts(mesh, valid, 1), pm._parts(mesh, Y_folds, 1)
+    Wv = [w * v[:, :, None] for w, v in zip(pm._parts(mesh, W_folds, 1), Vs)]
+    Yo = [y * v for y, v in zip(Ys, Vs)]
+    Ps = None if pgs_folds is None else pm._parts(mesh, pgs_folds, 1)
+    Yv = Yo if Ps is None else [(y - p) * v for y, p, v in zip(Ys, Ps, Vs)]
+    XtX_f = pm.psum([w.transpose(1, 2) @ w for w in Wv], mesh)  # [K, F, F]
+    XtY_f = pm.psum([(w.transpose(1, 2) @ y[:, :, None])[..., 0]
+                     for w, y in zip(Wv, Yv)], mesh)  # [K, F]
     d, V = torch.linalg.eigh(XtX_f.sum(dim=0)[None] - XtX_f)
     VtX2 = (V.transpose(1, 2) @ (XtY_f.sum(dim=0)[None] - XtY_f)[:, :, None])[..., 0]
-    inv = _ridge_inv(d, taus, ridge_mult)  # [K, T, F]
+    inv = _ridge_inv(d, taus.to(d.device), ridge_mult)  # [K, T, F]
     beta = (inv * VtX2[:, None, :]) @ V.transpose(1, 2)  # [K, T, F]
 
-    # held-out predictions and CV metrics
-    p1 = Wv @ beta.transpose(1, 2)  # [K, nmax, T]
-    Sx = p1.sum(dim=(0, 1))
-    Sy = Yv.sum().expand_as(Sx)
-    Sx2 = (p1 * p1).sum(dim=(0, 1))
-    Sy2 = (Yv * Yv).sum().expand_as(Sx)
-    Sxy = (p1 * Yv[:, :, None]).sum(dim=(0, 1))
-    cs = torch.stack([Sx, Sy, Sx2, Sy2, Sxy])
-    if pgs_folds is None:
-        return beta, cs
-    pf = p1 + (pgs_folds * valid)[:, :, None]
-    return beta, cs, torch.stack([
-        pf.sum(dim=(0, 1)), Yv_orig.sum().expand_as(Sx), (pf * pf).sum(dim=(0, 1)),
-        (Yv_orig * Yv_orig).sum().expand_as(Sx), (pf * Yv_orig[:, :, None]).sum(dim=(0, 1))])
+    # held-out predictions and CV metrics, summed over the shards
+    T = beta.shape[1]
+    parts = []
+    for i, (w, b) in enumerate(zip(Wv, pm.replicate(mesh, beta))):
+        p1 = w @ b.transpose(1, 2)  # [K, n, T]
+        y = Yv[i]
+        cols = [p1.sum(dim=(0, 1)), y.sum().expand(T), (p1 * p1).sum(dim=(0, 1)),
+                (y * y).sum().expand(T), (p1 * y[:, :, None]).sum(dim=(0, 1))]
+        if Ps is not None:
+            yo, pf = Yo[i], p1 + (Ps[i] * Vs[i])[:, :, None]
+            cols += [pf.sum(dim=(0, 1)), yo.sum().expand(T), (pf * pf).sum(dim=(0, 1)),
+                     (yo * yo).sum().expand(T), (pf * yo[:, :, None]).sum(dim=(0, 1))]
+        parts.append(torch.stack(cols))
+    S = pm.psum(parts, mesh)
+    return (beta, S[:5]) if Ps is None else (beta, S[:5], S[5:10])
+
+
+def _loo_pred(W, Yfit, V, inv, izvec):
+    """The LOO predictions [n, T] of rows W [n, F] of a LOOCV level 1."""
+    tmp = W @ V  # [n, F]
+    cal = (tmp * tmp) @ inv.T  # [n, T]
+    pred = tmp @ izvec.T  # [n, T]
+    return (pred - cal * Yfit[:, None]) / (1.0 - cal)
 
 
 def level1_linear_loocv(W, Y, taus, neff_m_ncov: float,
-                        ridge_mult: Optional[torch.Tensor] = None, pgs=None):
+                        ridge_mult: Optional[torch.Tensor] = None, pgs=None,
+                        mesh=None):
     """Level-1 linear ridge LOOCV for ONE phenotype
     (ridge_level_1_loocv, Step1_Models.cpp:875-962).
 
@@ -297,48 +331,68 @@ def level1_linear_loocv(W, Y, taus, neff_m_ncov: float,
     Returns cumsum [5, T] metrics (Sy = 0 by centring; Sy2 = neff - ncov,
     or with pgs the sum of squares of Y - pgs, no longer standardized,
     :946), plus cumsum_full [5, T] against Y with the PGS added back when
-    pgs is given.
+    pgs is given. With `mesh`, the rows of W, Y and pgs are split over
+    the shards (zero-padded, or given as per-shard parts; a zero row adds
+    nothing) and the results land on the first shard's device
+    (regenie_tpu/run_step1.py:641-673).
     """
-    Yfit = Y - pgs if pgs is not None else Y
-    d, V = torch.linalg.eigh(W.T @ W)
-    zvec = V.T @ (W.T @ Yfit)  # [F]
-    tmp = W @ V  # [N, F]
-    inv = _ridge_inv(d, taus, ridge_mult)  # [T, F]
-    cal = (tmp * tmp) @ inv.T  # [N, T]
-    pred = tmp @ (inv * zvec[None, :]).T  # [N, T]
-    pred = (pred - cal * Yfit[:, None]) / (1.0 - cal)
-    Sx = pred.sum(dim=0)
-    Sx2 = (pred * pred).sum(dim=0)
-    Sxy = (pred * Yfit[:, None]).sum(dim=0)
-    Sy2 = (torch.full_like(Sx, neff_m_ncov) if pgs is None
-           else (Yfit * Yfit).sum().expand_as(Sx))
-    cs = torch.stack([Sx, torch.zeros_like(Sx), Sx2, Sy2, Sxy])
-    if pgs is None:
-        return cs
-    pf = pred + pgs[:, None]
-    return cs, torch.stack([pf.sum(dim=0), Y.sum().expand_as(Sx), (pf * pf).sum(dim=0),
-                            (Y * Y).sum().expand_as(Sx), (pf * Y[:, None]).sum(dim=0)])
+    mesh = _l1_mesh(mesh, W)
+    Ws, Ys = pm._parts(mesh, W, 0), pm._parts(mesh, Y, 0)
+    Ps = None if pgs is None else pm._parts(mesh, pgs, 0)
+    Yf = Ys if Ps is None else [y - p for y, p in zip(Ys, Ps)]
+    d, V = torch.linalg.eigh(pm.psum([w.T @ w for w in Ws], mesh))
+    zvec = V.T @ pm.psum([w.T @ y for w, y in zip(Ws, Yf)], mesh)  # [F]
+    inv = _ridge_inv(d, taus.to(d.device), ridge_mult)  # [T, F]
+    T = inv.shape[0]
+    parts = []
+    for i, (w, (V_s, inv_s, iz_s)) in enumerate(
+            zip(Ws, pm.replicate(mesh, (V, inv, inv * zvec[None, :])))):
+        yf = Yf[i]
+        pred = _loo_pred(w, yf, V_s, inv_s, iz_s)
+        cols = [pred.sum(dim=0), (pred * pred).sum(dim=0),
+                (pred * yf[:, None]).sum(dim=0), (yf * yf).sum().expand(T)]
+        if Ps is not None:
+            y, pf = Ys[i], pred + Ps[i][:, None]
+            cols += [pf.sum(dim=0), y.sum().expand(T), (pf * pf).sum(dim=0),
+                     (y * y).sum().expand(T), (pf * y[:, None]).sum(dim=0)]
+        parts.append(torch.stack(cols))
+    S = pm.psum(parts, mesh)
+    Sx = S[0]
+    Sy2 = torch.full_like(Sx, neff_m_ncov) if Ps is None else S[3]
+    cs = torch.stack([Sx, torch.zeros_like(Sx), S[1], Sy2, S[2]])
+    return cs if Ps is None else (cs, S[4:9])
 
 
 def level1_linear_full_fit_loocv(W, Y, tau: float,
-                                 ridge_mult: Optional[torch.Tensor] = None):
+                                 ridge_mult: Optional[torch.Tensor] = None,
+                                 mesh=None):
     """Whole-data ridge refit + per-sample LOO betas for LOCO predictions
     (make_predictions_loocv, Data.cpp:1269-1345; per-column penalty
     diagonal when --select-l0 is active, Data.cpp:1297).
 
-    Returns (b0 [F, N] per-left-out-sample coefficient vectors, bvec [F]).
+    Returns (b0, bvec [F]): b0 the per-left-out-sample coefficient
+    vectors, a list of each shard's [F, n_shard] columns on its device
+    (the pad samples' last; without `mesh` one [F, N] part). W's and Y's
+    rows are split over `mesh` as in level1_linear_loocv, and bvec lands
+    on the first shard's device.
     """
-    F = W.shape[1]
-    pen = torch.full((F,), tau, dtype=W.dtype, device=W.device)
+    mesh = _l1_mesh(mesh, W)
+    Ws, Ys = pm._parts(mesh, W, 0), pm._parts(mesh, Y, 0)
+    XtX = pm.psum([w.T @ w for w in Ws], mesh)
+    F = XtX.shape[0]
+    pen = torch.full((F,), tau, dtype=XtX.dtype, device=XtX.device)
     if ridge_mult is not None:
         pen = pen * ridge_mult
-    d, V = torch.linalg.eigh(W.T @ W + torch.diag(pen))
+    d, V = torch.linalg.eigh(XtX + torch.diag(pen))
     tmpMat = (V / d[None, :]) @ V.T  # (X'X + tau I)^-1
-    bvec = tmpMat @ (W.T @ Y)  # [F]
-    yres = Y - W @ bvec  # [N]
-    HX = tmpMat @ W.T  # [F, N]
-    cal = (W.T * HX).sum(dim=0)  # [N]
-    return bvec[:, None] - HX * (yres / (1.0 - cal))[None, :], bvec
+    bvec = tmpMat @ pm.psum([w.T @ y for w, y in zip(Ws, Ys)], mesh)  # [F]
+    b0 = []
+    for w, y, (t, b) in zip(Ws, Ys, pm.replicate(mesh, (tmpMat, bvec))):
+        yres = y - w @ b  # [n]
+        HX = t @ w.T  # [F, n]
+        cal = (w.T * HX).sum(dim=0)  # [n]
+        b0.append(b[:, None] - HX * (yres / (1.0 - cal))[None, :])
+    return b0, bvec
 
 
 def select_best_tau_qt(cumsum: np.ndarray, neff: float) -> int:

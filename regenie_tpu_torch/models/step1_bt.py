@@ -13,7 +13,8 @@ and ridge_cox_level_1 (Step1_Models.cpp:2228) with cox_ridge's coordinate
 descent (cox_ridge.cpp).
 
 Everything stays on the level-0 predictions' device in float64: the
-trait's design ([K, nmax, F] by fold, or [N, F]), the coefficients, the
+trait's design ([K, nmax, F] by fold, or [N, F]; on a mesh its sample
+rows split over the shards, Design), the coefficients, the
 weights and the F x F systems (cuBLAS products, cuSOLVER solves and
 inverses on the card). The host sees only the scalars that decide a
 branch (a deviance, a max |score|) and the CV sums. Each branch is taken
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import BT, CT, T2E, Params, ridge_h2_grid
+from ..parallel import mesh as pm
 from ..prep import fmt
 from .glm import get_logist_dev_t as logist_dev
 from .glm import get_pvec_t as get_pvec
@@ -58,6 +60,91 @@ L1_RIDGE_TOL = 1e-4  # l1_ridge_tol (Regenie.hpp:289)
 def _wgram(X, w):
     """X' diag(w) X of an [N, F] design."""
     return X.T @ (X * w[:, None])
+
+
+class Design:
+    """A trait's level-1 design, [N, F] by sample or [K, nmax, F] by fold
+    (the sample axis nmax), its sample axis zero-padded to the shard count
+    of `mesh` (parallel/mesh.py; by default a mesh of X's own device
+    alone) and split over the shards (the JAX package's _place_design and
+    _dev_ops, regenie_tpu/models/step1_bt.py:63-100). The fits reach the
+    design only through these products. Each sum over samples (X'v, X'
+    diag(w) X) is taken on every shard and summed in shard order on the
+    first shard's device, and each row-wise result (X b, the leverages) is
+    gathered there with the pad rows cut; the trait's vectors (y, the
+    offsets, the weights) stay whole on that device. A zero pad row adds
+    nothing to a sum. On a one-device mesh the one part is X itself and
+    each product is X's own."""
+
+    def __init__(self, X, mesh=None):
+        self.folds = X.dim() == 3
+        self.axis = 1 if self.folds else 0
+        self.n, self.F = X.shape[self.axis], X.shape[-1]
+        self.dtype, self.device = X.dtype, X.device
+        self.mesh = pm.Mesh([X.device]) if mesh is None else mesh
+        self.parts = pm.shard(self.mesh, X, self.axis)
+
+    def _each(self, fn, *vecs):
+        """fn(shard's rows, that shard's part of each row vector) a shard."""
+        split = [pm.shard(self.mesh, v, self.axis) for v in vecs]
+        return [fn(x, *(v[i] for v in split)) for i, x in enumerate(self.parts)]
+
+    def _bcast(self, fn, *ops):
+        """fn(shard's rows, that shard's copy of each operand) a shard."""
+        reps = [pm.replicate(self.mesh, o) for o in ops]
+        return [fn(x, *(r[i] for r in reps)) for i, x in enumerate(self.parts)]
+
+    def _rows(self, outs):
+        return pm.gather(outs, self.axis, self.n)
+
+    def xb(self, b):
+        """X b: [N], or by fold [K, nmax]."""
+        return self._rows(self._bcast(lambda x, bs: x @ bs, b))
+
+    def xtv(self, v):
+        """X' v [F] of a row vector v ([N], or [K, nmax] over every fold)."""
+        def one(x, vs):
+            return x.reshape(-1, self.F).T @ vs.reshape(-1) if self.folds else x.T @ vs
+
+        return pm.psum(self._each(one, v))
+
+    def wgram(self, w, folds=None):
+        """X' diag(w) X [F, F]; by fold, summed over `folds` in order."""
+        def one(x, ws):
+            if not self.folds:
+                return _wgram(x, ws)
+            A = torch.zeros(self.F, self.F, dtype=self.dtype, device=x.device)
+            for k in folds:
+                A += _wgram(x[k], ws[k])
+            return A
+
+        return pm.psum(self._each(one, w))
+
+    def lev(self, Ainv):
+        """diag(X Ainv X') [N]."""
+        return self._rows(self._bcast(lambda x, A: ((x @ A) * x).sum(dim=1), Ainv))
+
+    def xb_cols(self, sl, b):
+        """X[..., sl] @ b: [N] for b [n_sl]; by fold [K, nmax, 1] for b
+        [K, n_sl, 1]."""
+        return self._rows(self._bcast(lambda x, bs: x[..., sl] @ bs, b))
+
+    def lev_span(self, sl, Ainv):
+        """x_n[sl]' Ainv[sl, :] x_n for each sample n: [N]."""
+        return self._rows(self._bcast(
+            lambda x, A: ((x[:, sl] @ A[sl, :]) * x).sum(dim=1), Ainv))
+
+    def take(self, idx):
+        """The rows idx (a device index tensor) of a sample-major design:
+        [len(idx), F] on the first shard's device (each shard's hits
+        selected on the device, with no wait on the host)."""
+        per = self.parts[0].shape[0]
+        out = None
+        for i, x in enumerate(self.parts):
+            rows = x[(idx - i * per).clamp(0, per - 1).to(x.device)].to(self.device)
+            out = rows if out is None else torch.where(
+                ((idx // per) == i)[:, None], rows, out)
+        return out
 
 
 def _ridge(tau, F, X):
@@ -82,32 +169,32 @@ def run_log_ridge(y, X, offset, mask, tau: float, beta0, niter_max: int = 100,
                   niter_line_search: int = 5, numtol: float = 1e-6):
     """Penalized logistic Newton fit with step halving on the penalized
     deviance (run_log_ridge_loocv, Step1_Models.cpp:1288-1377). y, offset
-    [N], mask [N] bool, X [N, F], beta0 [F], all on one device. Returns
-    (beta, pi, w, converged)."""
+    [N], mask [N] bool, beta0 [F] on the design's device; X an [N, F]
+    Design. Returns (beta, pi, w, converged)."""
     maskf = mask.to(X.dtype)
-    F = X.shape[1]
+    F = X.F
     beta = beta0.clone()
-    pi = get_pvec(offset + X @ beta)
+    pi = get_pvec(offset + X.xb(beta))
     fn_start = float(logist_dev(y, pi, mask) + (tau * beta**2).sum())
     w = torch.where(mask, pi * (1 - pi), 1.0)
-    score = X.T @ torch.where(mask, y - pi, 0.0) - tau * beta
+    score = X.xtv(torch.where(mask, y - pi, 0.0)) - tau * beta
     dev_conv = False
     fn_end = fn_start
     for _ in range(niter_max):
-        A = _ridge(tau, F, X) + _wgram(X, maskf * w)
+        A = _ridge(tau, F, X) + X.wgram(maskf * w)
         try:
             step = torch.linalg.solve(A, score)
         except RuntimeError:  # a singular system (torch.linalg.LinAlgError)
             return beta, pi, w, False
         for _ls in range(niter_line_search):
             betanew = beta + step
-            pi = get_pvec(offset + X @ betanew)
+            pi = get_pvec(offset + X.xb(betanew))
             fn_end = float(logist_dev(y, pi, mask) + (tau * betanew**2).sum())
             w = torch.where(mask, pi * (1 - pi), 1.0)
             if fn_end < fn_start + numtol:
                 break
             step = step / 2
-        score = X.T @ torch.where(mask, y - pi, 0.0) - tau * betanew
+        score = X.xtv(torch.where(mask, y - pi, 0.0)) - tau * betanew
         dev_conv = abs(fn_end - fn_start) / (0.01 + abs(fn_end)) < numtol
         if float(score.abs().max()) < L1_RIDGE_TOL:
             return betanew, pi, w, True
@@ -118,25 +205,25 @@ def run_log_ridge(y, X, offset, mask, tau: float, beta0, niter_max: int = 100,
 
 def run_ct_ridge(y, X, offset, mask, tau: float, beta0, niter_max: int = 100):
     """Penalized Poisson IRLS (run_ct_ridge_loocv, Step1_Models.cpp:1680).
-    Returns (beta, mu, w, converged) with w = mu."""
+    X an [N, F] Design. Returns (beta, mu, w, converged) with w = mu."""
     maskf = mask.to(X.dtype)
-    F = X.shape[1]
+    F = X.F
     beta = beta0.clone()
     mu = None
     for _ in range(niter_max):
-        eta = offset + X @ beta
+        eta = offset + X.xb(beta)
         mu = torch.where(mask, torch.exp(torch.clamp(eta, -30.0, 30.0)), 0.0)
         if bool((mu[mask] == 0).any()):
             return beta, mu, mu, False
         z = torch.where(mask, (eta - offset) + (y - mu) / mu, 0.0)
-        A = _ridge(tau, F, X) + _wgram(X, maskf * mu)
+        A = _ridge(tau, F, X) + X.wgram(maskf * mu)
         try:
-            betanew = torch.linalg.solve(A, X.T @ (maskf * mu * z))
+            betanew = torch.linalg.solve(A, X.xtv(maskf * mu * z))
         except RuntimeError:
             return beta, mu, mu, False
-        eta = offset + X @ betanew
+        eta = offset + X.xb(betanew)
         mu = torch.where(mask, torch.exp(torch.clamp(eta, -30.0, 30.0)), 0.0)
-        score = X.T @ torch.where(mask, y - mu, 0.0) - tau * betanew
+        score = X.xtv(torch.where(mask, y - mu, 0.0)) - tau * betanew
         beta = betanew
         if float(score.abs().max()) < L1_RIDGE_TOL:
             return beta, mu, mu, True
@@ -153,7 +240,7 @@ def adam_log_ridge(y, X, offset, mask, tau: float, beta0, niter: int = 500,
     from numpy's default_rng(seed) (the JAX package's stream, so both
     packages take the same rows; the reference's --adam-mini,
     adam_batch_size = 128, Regenie.hpp:243), the gradient scaled by the
-    batch size and a step-size stopping rule."""
+    batch size and a step-size stopping rule. X an [N, F] Design."""
     beta = beta0.clone()
     mt = torch.zeros_like(beta)
     vt = torch.zeros_like(beta)
@@ -163,7 +250,7 @@ def adam_log_ridge(y, X, offset, mask, tau: float, beta0, niter: int = 500,
         for it in range(1, niter + 1):
             bidx = torch.as_tensor(rows[rng.integers(0, len(rows), size=batch_size)],
                                    device=X.device)
-            Xb = X[bidx]
+            Xb = X.take(bidx)
             eta = torch.clamp(offset[bidx] + Xb @ beta, -30.0, 30.0)
             pi = 1.0 / (1.0 + torch.exp(-eta))
             grad = (tau * beta - Xb.T @ (y[bidx] - pi)) / batch_size
@@ -177,9 +264,9 @@ def adam_log_ridge(y, X, offset, mask, tau: float, beta0, niter: int = 500,
         return beta
     maskf = mask.to(X.dtype)
     for it in range(1, niter + 1):
-        eta = torch.clamp(offset + X @ beta, -30.0, 30.0)
+        eta = torch.clamp(offset + X.xb(beta), -30.0, 30.0)
         pi = 1.0 / (1.0 + torch.exp(-eta))
-        grad = -(X.T @ (maskf * (y - pi)) - tau * beta)
+        grad = -(X.xtv(maskf * (y - pi)) - tau * beta)
         if float(grad.abs().max()) < tol:
             break
         mt = b1 * mt + (1 - b1) * grad
@@ -198,7 +285,7 @@ def ct_taus(F: int, rate: float, n_ridge_l1: int) -> np.ndarray:
 
 def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
                  taus, ph: int, chr_order, spans, fold_sizes, log,
-                 trace: Optional[List] = None, ridge_mult=None):
+                 trace: Optional[List] = None, ridge_mult=None, mesh=None):
     """Level-1 ridge of one binary, count or time-to-event trait on the
     device of its level-0 predictions Wph ([K, nmax, F] by fold with
     fold_sizes, else [N, F] for LOOCV; a time-to-event trait's are those
@@ -209,10 +296,13 @@ def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
     n_chr] numpy float64, converged). trace, if given, gains a dict per
     fitted ridge parameter (fold, tau index, iterations, seconds).
     ridge_mult: [F] --select-l0's per-column penalty multiplier (binary
-    and count traits; the Cox level 1 ignores it, as the reference's)."""
+    and count traits; the Cox level 1 ignores it, as the reference's).
+    mesh: the binary and count traits' design rows split over its shards
+    (Design); the Cox level 1 stays on Wph's device, as in the JAX
+    package."""
     if params.trait_mode == CT:
-        return _level1_ct(params, pd, Wph, offsets, ph, chr_order, spans,
-                          fold_sizes, log, trace, ridge_mult)
+        return _level1_ct(params, pd, Design(Wph, mesh), offsets, ph, chr_order,
+                          spans, fold_sizes, log, trace, ridge_mult)
     if params.trait_mode == T2E:
         if ridge_mult is not None:
             # the reference's Cox level 1 ignores ridge_param_mult (only the
@@ -223,12 +313,13 @@ def level1_nonqt(params: Params, pd, Wph: torch.Tensor, offsets: np.ndarray,
                            fold_sizes, log, trace)
     if params.trait_mode != BT:
         raise NotImplementedError("level 1 of non-QT traits only")
+    X = Design(Wph, mesh)
     if fold_sizes is not None:
-        return _level1_glm_kfold(params, pd, Wph, offsets,
+        return _level1_glm_kfold(params, pd, X, offsets,
                                  np.asarray(taus, dtype=np.float64), ph, chr_order,
                                  spans, fold_sizes, log, poisson=False, trace=trace,
                                  ridge_mult=ridge_mult)
-    return _level1_bt_loocv(params, pd, Wph, offsets, np.asarray(taus, np.float64),
+    return _level1_bt_loocv(params, pd, X, offsets, np.asarray(taus, np.float64),
                             ph, chr_order, spans, log, trace, ridge_mult)
 
 
@@ -246,22 +337,21 @@ def _loo_quants(X, y, mask, beta, pi, w, tau):
     """The leverage identity's pieces at a fit (ridge_logistic_level_1_loocv,
     Step1_Models.cpp:1238-1262): A^-1 = (X'WX + tau I)^-1, h = diag(X A^-1
     X'), s = (y - pi) / (1 - h w) and X beta."""
-    A = _ridge(tau, X.shape[1], X) + _wgram(X, mask.to(X.dtype) * w)
+    A = _ridge(tau, X.F, X) + X.wgram(mask.to(X.dtype) * w)
     Ainv = torch.linalg.inv(A)
-    h = ((X @ Ainv) * X).sum(dim=1)
+    h = X.lev(Ainv)
     s = (y - pi) / (1.0 - h * w)
-    return Ainv, h, s, X @ beta
+    return Ainv, h, s, X.xb(beta)
 
 
 def _loo_predictions(X, beta, Ainv, s, chr_order, spans):
     """LOCO-ready predictions [N, n_chr] from the LOO pieces
     (make_predictions_binary_loocv, Data.cpp:1484)."""
-    out = torch.zeros(X.shape[0], len(chr_order), dtype=X.dtype, device=X.device)
+    out = torch.zeros(X.n, len(chr_order), dtype=X.dtype, device=X.device)
     for ci, c in enumerate(chr_order):
         st, nn = spans[c]
         sl = slice(st, st + nn)
-        q = ((X[:, sl] @ Ainv[sl, :]) * X).sum(dim=1)
-        out[:, ci] = X[:, sl] @ beta[sl] - q * s
+        out[:, ci] = X.xb_cols(sl, beta[sl]) - X.lev_span(sl, Ainv) * s
     return out
 
 
@@ -282,7 +372,7 @@ def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
     penalized fits over the tau grid, each scored by its closed-form
     leave-one-out predictions eta_loo = eta - h (y - pi) / (1 - h w)."""
     y, mask, offset = _trait_vectors(pd, offsets, ph, X.device)
-    F = X.shape[1]
+    F = X.F
     neff = pd.Neff[ph]
     cumsum = np.zeros((6, len(taus)))
     beta = torch.zeros(F, dtype=X.dtype, device=X.device)
@@ -327,7 +417,7 @@ def _level1_bt_loocv(params, pd, X, offsets, taus, ph, chr_order, spans, log,
     if params.l1_full_samples:
         # --l1-full: the full-sample fit itself, no LOO correction
         log("  * making predictions (using all samples)...")
-        pred = torch.stack([X[:, st : st + nn] @ beta[st : st + nn]
+        pred = torch.stack([X.xb_cols(slice(st, st + nn), beta[st : st + nn])
                             for st, nn in (spans[c] for c in chr_order)], dim=1)
         return pred.cpu().numpy(), True
     Ainv, _, s, _ = _loo_quants(X, y, mask, beta, pi, w, tau)
@@ -341,10 +431,10 @@ def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
     held-out fold, warm-started IRLS over the tau grid on the other folds,
     the held-out predictions summed into the CV metrics; the folds' betas
     at the best tau make the LOCO predictions. Wf: [K, nmax, F] (pad rows
-    zero)."""
+    zero), a Design."""
     K = params.cv_folds
     dev, dt = Wf.device, Wf.dtype
-    F = Wf.shape[2]
+    F = Wf.F
     N = pd.phenotypes_raw.shape[0]
     bounds = np.concatenate([[0], np.cumsum(fold_sizes)]).astype(int)
 
@@ -369,24 +459,13 @@ def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
     cumsum = np.zeros((6, n_tau))
     beta_hat = torch.zeros(K, F, n_tau, dtype=dt, device=dev)
     pen = _penalty(ridge_mult, Wf)
-    Wflat = Wf.reshape(-1, F)
     for i in range(K):
         # the training weights: every fold but i (and no pad row)
         mt = mf.clone()
         mt[i] = 0.0
         others = [k for k in range(K) if k != i]
-
-        def xtv(v):
-            return Wflat.T @ v.reshape(-1)
-
-        def wgram(wm):
-            A = torch.zeros(F, F, dtype=dt, device=dev)
-            for k in others:
-                A += _wgram(Wf[k], wm[k])
-            return A
-
         beta = torch.zeros(F, dtype=dt, device=dev)
-        eta = of + Wf @ beta
+        eta = of + Wf.xb(beta)
         for j, tau in enumerate(taus_vec):
             t0 = time.time()
             tau = pen(tau)
@@ -394,15 +473,15 @@ def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
                 mu, w = link(eta)
                 z = torch.where(mt > 0, (eta - of) + (yf - mu) / torch.clamp(w, min=1e-12),
                                 0.0)
-                A = wgram(w * mt) + _ridge(tau, F, Wf)
+                A = Wf.wgram(w * mt, others) + _ridge(tau, F, Wf)
                 try:
-                    beta_new = torch.linalg.solve(A, xtv((w * mt) * z))
+                    beta_new = torch.linalg.solve(A, Wf.xtv((w * mt) * z))
                 except RuntimeError:
                     log("WARNING: singular system in level-1 K-fold ridge")
                     return None, False
-                eta = of + Wf @ beta_new
+                eta = of + Wf.xb(beta_new)
                 mu2, _ = link(eta)
-                score = xtv(mt * (yf - mu2)) - tau * beta_new
+                score = Wf.xtv(mt * (yf - mu2)) - tau * beta_new
                 beta = beta_new
                 if float(score.abs().max()) < L1_RIDGE_TOL:
                     break
@@ -438,8 +517,8 @@ def _level1_glm_kfold(params, pd, Wf, offsets, taus_vec, ph, chr_order, spans,
     predictions = np.zeros((N, len(chr_order)))
     for ci, c in enumerate(chr_order):
         st, nn = spans[c]
-        pc = (Wf[:, :, st : st + nn] @ beta_hat[:, st : st + nn, best, None])[..., 0]
-        pc = pc.cpu().numpy()
+        pc = Wf.xb_cols(slice(st, st + nn), beta_hat[:, st : st + nn, best, None])
+        pc = pc[..., 0].cpu().numpy()
         for k in range(K):
             predictions[bounds[k] : bounds[k + 1], ci] = pc[k, : int(fold_sizes[k])]
     return predictions, True
@@ -465,7 +544,7 @@ def _level1_ct(params, pd, X, offsets, ph, chr_order, spans, fold_sizes, log,
                trace, ridge_mult=None):
     """Count trait: the Poisson ridge, K-fold (ridge_poisson_level_1) or
     LOOCV (ridge_poisson_level_1_loocv, Step1_Models.cpp:1585)."""
-    F = X.shape[-1]
+    F = X.F
     mask_h = pd.masked_indivs[:, ph]
     rate = pd.phenotypes_raw[mask_h, ph].sum() / pd.Neff[ph]
     taus_ct = ct_taus(F, rate, params.n_ridge_l1)

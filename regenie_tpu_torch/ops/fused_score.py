@@ -523,36 +523,81 @@ def fused_products(raw, Wp, dtype=torch.float32):
     I8Operand, a float32 [4, nbp, C] operand, the bf16 [4, nbp, 3*Cp]
     split, or on the CPU a float64 one. Returns (S1, SQ, SM) each [B, Cp]:
     from the int8 operand in `dtype`, from the float32 and the bf16
-    operands in float64, else in the operand's dtype.
+    operands in float64, else in the operand's dtype: the fold
+    (fold_partials) of the block's fused_partials.
 
-    The int8 operand goes through kernels.fused_i8_products on its K-major
-    copy limbs_k (_kmajor), the float32 operand through
-    kernels.fused_f32_products (exact products, float64 sums), the bf16
-    split through kernels.fused_bf16_products (float64 products against
-    each third, folded hi + mid + lo in float64) — each the CUDA kernel
-    for a CUDA tensor, its plain version for a CPU tensor — and the class
-    products fold as the JAX package does: S1 = 2H+E, SQ = 4H+E, SM = M. A
-    float64 operand takes the plain products on the CPU and raises on
-    CUDA, where no kernel takes it.
     Padding safety: pad bytes decode to code 0 (hom-alt), but the
     corresponding operand rows are zero, so padded samples contribute 0
     to every product."""
+    return fold_partials(fused_partials(raw, Wp), Wp, dtype)
+
+
+def fused_partials(raw, Wp):
+    """The additive products of packed bytes against an operand, or of one
+    byte window against that window of the operand (operand_window): the
+    int8 operand through kernels.fused_i8_products on its K-major copy
+    limbs_k (_kmajor), exact int32 H, E, M; the float32 operand through
+    kernels.fused_f32_products (exact products, float64 sums), the bf16
+    split through kernels.fused_bf16_products (float64 products against
+    each third, folded hi + mid + lo in float64), float64 H, E, M — each
+    the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor
+    — and a float64 operand's plain S1, SQ, SM on the CPU (it raises on
+    CUDA, where no kernel takes it). The windows' partials of a block,
+    summed, are the block's: exactly for int32, within rounding for
+    float64."""
     if isinstance(Wp, I8Operand):
-        H, E, M = kernels.fused_i8_products(raw, _kmajor(Wp))
-        Hf, Ef, Mf = (i8_fold(x, Wp.scale, dtype) for x in (H, E, M))
-        return 2.0 * Hf + Ef, 4.0 * Hf + Ef, Mf
+        return kernels.fused_i8_products(raw, _kmajor(Wp))
     if Wp.dtype == torch.float32:
-        H, E, M = kernels.fused_f32_products(raw, Wp)
-        return 2.0 * H + E, 4.0 * H + E, M
+        return kernels.fused_f32_products(raw, Wp)
     if Wp.dtype == torch.bfloat16:
-        H, E, M = (fold3(x) for x in kernels.fused_bf16_products(raw, Wp))
-        return 2.0 * H + E, 4.0 * H + E, M
+        return tuple(fold3(x) for x in kernels.fused_bf16_products(raw, Wp))
     if raw.is_cuda:
         raise TypeError(
             f"fused_products: no kernel takes a {Wp.dtype} operand on CUDA "
             "(the card's float operand is float32); use_kernel=False takes "
             "the plain products")
     return fused_products_plain(raw, Wp)
+
+
+def fold_partials(parts, Wp, dtype=torch.float32):
+    """fused_partials' products -> (S1, SQ, SM): the int8 limbs' H, E, M
+    folded into `dtype` (i8_fold) and the float H, E, M combined as the
+    JAX package folds the class products, S1 = 2H + E, SQ = 4H + E, SM =
+    M; a float64 operand's S1, SQ, SM as they are."""
+    if isinstance(Wp, I8Operand):
+        H, E, M = (i8_fold(x, Wp.scale, dtype) for x in parts)
+    elif Wp.dtype in (torch.float32, torch.bfloat16):
+        H, E, M = parts
+    else:
+        return tuple(parts)
+    return 2.0 * H + E, 4.0 * H + E, M
+
+
+def operand_window(op, c: int, ns: int):
+    """Byte window c of ns of a plane-packed operand (its nbp a multiple of
+    ns * _TC when packed for a 2-D mesh): a float or bf16 [4, nbp, X]
+    tensor cut on axis 1 into a contiguous [4, nbp / ns, X] copy; an
+    I8Operand's limbs viewed the same way and its K-major limbs_k, whose
+    column p*nbp + c holds plane p of byte c (so a byte window is four
+    strided column windows), copied into a contiguous [Cw4, 4 * nbp / ns]
+    operand with column p*w + c' (the layout fused_i8 reads); FusedConsts
+    with its Wp so cut, and a tuple item by item. Cells of one column on
+    one device share one window."""
+    if isinstance(op, FusedConsts):
+        return op._replace(Wp=operand_window(op.Wp, c, ns))
+    if isinstance(op, I8Operand):
+        nbp = op.limbs.shape[-2]
+        w = nbp // ns
+        limbs = op.limbs[..., c * w : (c + 1) * w, :]
+        Wk = None
+        if op.limbs_k is not None:
+            Wk = op.limbs_k.view(op.limbs_k.shape[0], 4, nbp)[:, :, c * w : (c + 1) * w]
+            Wk = Wk.reshape(op.limbs_k.shape[0], 4 * w)
+        return I8Operand(limbs, op.scale, Wk)
+    if isinstance(op, tuple):
+        return type(op)(operand_window(x, c, ns) for x in op)
+    w = op.shape[-2] // ns
+    return op[..., c * w : (c + 1) * w, :].contiguous()
 
 
 def _decode_planes(raw):
@@ -729,9 +774,11 @@ def _mesh_rows(mesh, build, operand):
     f32 kernels) launch once a shard, all queued before any output is
     read, and every output's rows back in shard order on the first
     shard's device with the pad rows cut, so no pad row reaches a
-    statistic."""
+    statistic. On a 2-D mesh (parallel.mesh.Mesh2D), _mesh_cells."""
     from ..parallel import mesh as pm
 
+    if isinstance(mesh, pm.Mesh2D):
+        return _mesh_cells(mesh, build, operand)
     fns = {}
     for dev, op in zip(mesh, pm.replicate(mesh, operand)):
         if dev not in fns:
@@ -741,28 +788,107 @@ def _mesh_rows(mesh, build, operand):
                                      per_shard)
 
 
+def _mesh_cells(m2, build, operand):
+    """The 2-D form of a plane-packed block function (the JAX package's
+    _mesh_wrap on a (var, smp) mesh with the psum of its block functions,
+    regenie_tpu/ops/fused_score.py:684-760): the operand's byte window of
+    each sample column (operand_window; its nbp padded to ns * _TC) on
+    each device that holds a cell of that column, and one block function
+    build(window there) per (device, column). A block is the local cells'
+    tiles (parallel.mesh.Sharded from the upload, block_cells: rows padded
+    to a multiple of nv, a tile [rows / nv, nbp / ns]; or a padded [B,
+    nbp] tensor, cut here); the kernel launches once a cell,
+    every launch queued before any output is read; each variant row's
+    partial products are summed over its cells in column order on the
+    row's first device (parallel.mesh.psum_rows: int32 for the int8
+    operand, so the sums are exact), and only then folded and finished
+    (the epilogue, the flip and the score pieces read the whole row's
+    products, never a window's); the rows' outputs come back in row order
+    on the first shard's device, the pad rows cut."""
+    from ..parallel import mesh as pm
+
+    windows, fns = {}, {}
+    for _r, c, dev in m2.cells:
+        if (dev, c) not in fns:
+            if c not in windows:
+                windows[c] = operand_window(operand, c, m2.ns)
+            fns[dev, c] = build(pm._to(windows[c], dev))
+    per_cell = [fns[dev, c] for _r, c, dev in m2.cells]
+    first = {}
+    for r, c, dev in m2.cells:
+        first.setdefault(r, fns[dev, c])
+
+    def run(block):
+        if isinstance(block, torch.Tensor):
+            block = pm.Sharded(block_cells(m2, block, block.shape[-1]), block.shape[0])
+        parts = [torch.stack(fn.partials(t)) for fn, t in zip(per_cell, block.parts)]
+        sums = pm.psum_rows(m2, parts)
+        outs = {r: first[r].finish(*first[r].fold(s.unbind(0)))
+                for r, s in sums.items()}
+        return pm.gather_rows(m2, outs, block.n)
+
+    return run
+
+
+def block_cells(m2, rows, nbp: int, n=None, lo: int = 0) -> list:
+    """The local cells' tiles of a packed block on the 2-D grid m2: a block
+    of n rows (default len(rows)) whose rows [lo, lo + len(rows)) are
+    `rows` ([r, nb] uint8, nb <= nbp), the rows padded to a multiple of nv
+    and the bytes to the operand's nbp, each cell's [n / nv, nbp / ns]
+    tile zero-filled on its device and its part of `rows` copied in
+    (regenie_tpu/run_step2.py:1396-1452)."""
+    n = rows.shape[0] if n is None else n
+    rpg, w = -(-n // m2.nv), nbp // m2.ns
+    tiles = []
+    for r, c, dev in m2.cells:
+        tile = torch.zeros((rpg, w), dtype=torch.uint8, device=dev)
+        part = rows[max(r * rpg - lo, 0) : max((r + 1) * rpg - lo, 0),
+                    c * w : (c + 1) * w]
+        tile[: part.shape[0], : part.shape[1]] = part.to(dev)
+        tiles.append(tile)
+    return tiles
+
+
+def _block_fn(finish, partials, fold):
+    """A block function run(raw) = finish(*fold(partials(raw))), with its
+    three stages kept as attributes for the 2-D mesh (_mesh_cells)."""
+    def run(raw):
+        return finish(*fold(partials(raw)))
+
+    run.partials, run.fold, run.finish = partials, fold, finish
+    return run
+
+
+def _stages(Wp, use_kernel, dtype):
+    """(partials, fold) of a block function's products against Wp: the
+    kernels' additive products and their fold (fused_partials,
+    fold_partials), or use_kernel=False the plain S1, SQ, SM, which add
+    as they are."""
+    if use_kernel:
+        return (lambda raw: fused_partials(raw, Wp),
+                lambda parts: fold_partials(parts, Wp, dtype))
+    return lambda raw: fused_products_plain(raw, Wp, dtype), tuple
+
+
 def make_qt_block_fn(consts: FusedConsts, use_kernel: bool = True,
                      test_type=0, ref_first=False, mesh=None, strict=False):
     """QT block function: products + epilogue + the raw-product slices
     the host needs for per-variant stats. Built once per chromosome.
     use_kernel=False takes the plain products on any device. With `mesh`
     (parallel/mesh.py), the block's rows are scored variant-sharded
-    (_mesh_rows)."""
+    (_mesh_rows), or on a 2-D mesh by (variant rows x byte window) cells
+    (_mesh_cells)."""
     if mesh is not None:
         return _mesh_rows(mesh, lambda c: make_qt_block_fn(
             c, use_kernel, test_type, ref_first, None, strict), consts)
-    prod = fused_products if use_kernel else fused_products_plain
     C_used = consts.layout_C()
 
-    def run(raw):
-        # an int8 operand folds its exact int32 products into the dtype
-        # of the constants, so the epilogue runs in one dtype
-        S1, SQ, SM = prod(raw, consts.Wp, consts.usum.dtype)
+    def finish(S1, SQ, SM):
         S1c, SQc, SMc = S1[:, :C_used], SQ[:, :C_used], SM[:, :C_used]
         usum = consts.usum.to(S1c.dtype)
         if ref_first:
             S1c, SQc = ref_first_products(S1c, SQc, SMc, usum[:C_used])
-        flip = torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device)
+        flip = torch.zeros(S1.shape[0], dtype=torch.bool, device=S1.device)
         stats, denum, scale_fac, low, _af = fused_epilogue(
             S1c, SQc, SMc, flip, usum, consts.covt_res.to(S1c.dtype),
             consts.Mmat.to(S1c.dtype), consts.K, consts.P,
@@ -770,7 +896,9 @@ def make_qt_block_fn(consts: FusedConsts, use_kernel: bool = True,
         )
         return stats, denum, scale_fac, low, S1c, SQc, SMc
 
-    return run
+    # an int8 operand folds its exact int32 products into the dtype of the
+    # constants, so the epilogue runs in one dtype
+    return _block_fn(finish, *_stages(consts.Wp, use_kernel, consts.usum.dtype))
 
 
 def _bt_scores(S1c, SQc, SMc, flip, usum, xwt, icol, n_ind, ncat, Pn, Kp1,
@@ -807,28 +935,26 @@ def make_bt_block_fn(Wp, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1,
     usum its [Cp] numpy column sums; xwt [Pn, Kmax] numpy. Returns the raw
     product slices for the host stats and (flip, num, denum, S1cat).
     use_kernel=False takes the plain products on any device. With `mesh`,
-    variant-sharded (_mesh_rows)."""
+    variant-sharded (_mesh_rows), or by cells on a 2-D mesh."""
     if mesh is not None:
         return _mesh_rows(mesh, lambda w: make_bt_block_fn(
             w, usum, xwt, C_used, icol, n_ind, ncat, Pn, Kp1, use_kernel,
             test_type, ref_first), Wp)
-    prod = fused_products if use_kernel else fused_products_plain
     dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
     usum_t = torch.as_tensor(np.asarray(usum[:C_used], np.float64), device=dev)
     xwt_t = torch.as_tensor(np.asarray(xwt, np.float64), device=dev)
 
-    def run(raw):
-        S1, SQ, SM = prod(raw, Wp, torch.float64)
+    def finish(S1, SQ, SM):
         S1c, SQc, SMc = (x[:, :C_used].to(torch.float64) for x in (S1, SQ, SM))
         if ref_first:
             S1c, SQc = ref_first_products(S1c, SQc, SMc, usum_t)
         flip = (_bt_flip(S1c, SMc, icol, n_ind) if test_type == 0 else
-                torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device))
+                torch.zeros(S1.shape[0], dtype=torch.bool, device=S1.device))
         num, denum, S1cat = _bt_scores(S1c, SQc, SMc, flip, usum_t, xwt_t,
                                        icol, n_ind, ncat, Pn, Kp1, test_type)
         return S1c, SQc, SMc, flip, num, denum, S1cat
 
-    return run
+    return _block_fn(finish, *_stages(Wp, use_kernel, torch.float64))
 
 
 def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
@@ -852,12 +978,11 @@ def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
     constants of the null fits. Returns the raw product slices for the
     host statistics and (flip, Tnum, denum), Tnum and denum [B, Tt].
     use_kernel=False takes the plain products on any device. With `mesh`,
-    variant-sharded (_mesh_rows)."""
+    variant-sharded (_mesh_rows), or by cells on a 2-D mesh."""
     if mesh is not None:
         return _mesh_rows(mesh, lambda w: make_t2e_block_fn(
             w, usum, Rtv, RtR, res_var, C_used, icol, n_ind, Tt, q,
             use_kernel, test_type, ref_first), Wp)
-    prod = fused_products if use_kernel else fused_products_plain
     dev = (Wp.limbs if isinstance(Wp, I8Operand) else Wp).device
 
     def put(a):
@@ -866,13 +991,12 @@ def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
     usum_t, Rtv_t, RtR_t, rv_t = (put(a) for a in (usum[:C_used], Rtv, RtR, res_var))
     nt = Tt * (2 * q + 1)
 
-    def run(raw):
-        S1, SQ, SM = prod(raw, Wp, torch.float64)
+    def finish(S1, SQ, SM):
         S1c, SQc, SMc = (x[:, :C_used].to(torch.float64) for x in (S1, SQ, SM))
         if ref_first:
             S1c, SQc = ref_first_products(S1c, SQc, SMc, usum_t)
         flip = (_bt_flip(S1c, SMc, icol, n_ind) if test_type == 0 else
-                torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device))
+                torch.zeros(S1.shape[0], dtype=torch.bool, device=S1.device))
         S1f, SQf = finalized_products(S1c, SQc, SMc, flip, usum_t, icol, n_ind,
                                       test_type)
         blk = S1f[:, :nt].reshape(S1f.shape[0], Tt, 2 * q + 1)
@@ -883,7 +1007,7 @@ def make_t2e_block_fn(Wp, usum, Rtv, RtR, res_var, C_used, icol, n_ind,
             + torch.einsum("btk,tkl,btl->bt", A, RtR_t, A))
         return S1c, SQc, SMc, flip, Tnum, denum
 
-    return run
+    return _block_fn(finish, *_stages(Wp, use_kernel, torch.float64))
 
 
 def score_block_fused(raw, flip, consts: FusedConsts, use_kernel=True):

@@ -35,7 +35,7 @@ parts, after all of them are queued.
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -319,44 +319,22 @@ def sharded_gram(mesh: Mesh, G, Y):
 
 def sharded_level0_loocv(mesh: Mesh, G, Y, maskf, lambdas, Neff, dst=None):
     """Sample-sharded Step-1 level-0 LOOCV ridge (the mesh form of
-    models/step1.level0_loocv_block): the Gram partials summed, ONE B x B
-    eigendecomposition on the first shard's device, each shard's
-    leave-one-out predictions, and their centring and scaling moments
+    models/step1.level0_loocv_block): sharded_level0_blocks_2d of the one
+    block on a [1, size] grid, so the Gram partials are summed, ONE B x B
+    eigendecomposition runs on the first shard's device, each shard
+    predicts its own samples, and their centring and scaling moments are
     summed.
 
-    G: [B, N] sharded over N; Y, maskf: [N, P] sharded over N (samples
-    past the true N zero, with maskf 0); lambdas [J], Neff [P]. Returns
-    W [Npad, J, P] on the first shard's device (the caller cuts the pad
-    rows); on a mesh that spans processes, with dst, on process dst alone
-    (None elsewhere)."""
-    Gs, Ys, Ms = _parts(mesh, G, 1), _parts(mesh, Y, 0), _parts(mesh, maskf, 0)
-    GGt = psum([g @ g.T for g in Gs], mesh)
-    GTY = psum([g @ y for g, y in zip(Gs, Ys)], mesh)
-    dev = GGt.device
-    lam = torch.as_tensor(lambdas, dtype=GGt.dtype, device=dev)
-    d, V = torch.linalg.eigh(GGt)
-    Vt = V.T
-    Wmat = Vt @ GTY  # [B, P]
-    DL_inv = 1.0 / (d[:, None] + lam[None, :])  # [B, J]
-    B, J, P = Vt.shape[0], lam.shape[0], Wmat.shape[1]
-    # z2t[n, j, p] = sum_b VtG[b, n] DL_inv[b, j] Wmat[b, p]
-    DW = (DL_inv[..., None] * Wmat[:, None, :]).reshape(B, J * P)
-    ops = replicate(mesh, (Vt, DL_inv, DW))
-    preds = []
-    for g, y, m, (Vt_s, DL_s, DW_s) in zip(Gs, Ys, Ms, ops):
-        VtG = Vt_s @ g  # [B, n_loc]
-        gvec = (VtG * VtG).T @ DL_s  # [n_loc, J]
-        z2t = (VtG.T @ DW_s).view(-1, J, P)
-        pred = (z2t - gvec[..., None] * y[:, None, :]) / (1.0 - gvec)[..., None]
-        preds.append(pred * m[:, None, :])
-    neff = torch.as_tensor(Neff, dtype=GGt.dtype, device=dev)
-    p_mean = psum([p.sum(dim=0) for p in preds], mesh) / neff  # [J, P]
-    pm_s = replicate(mesh, p_mean)
-    preds = [(p - mu) * m[:, None, :] for p, mu, m in zip(preds, pm_s, Ms)]
-    s2 = psum([(p * p).sum(dim=0) for p in preds], mesh)
-    p_sd = torch.sqrt(s2 / (neff - 1.0))
-    sd_s = replicate(mesh, p_sd)
-    return gather([p / sd for p, sd in zip(preds, sd_s)], 0, mesh=mesh, dst=dst)
+    G: [B, N] sharded over N (a tensor, or the local shards' [B, n_s]
+    parts); Y, maskf: [N, P] sharded over N (samples past the true N
+    zero, with maskf 0); lambdas [J], Neff [P]. Returns W [Npad, J, P] on
+    the first shard's device (the caller cuts the pad rows); on a mesh
+    that spans processes, with dst, on process dst alone (None
+    elsewhere)."""
+    G3 = [g[None] for g in _parts(mesh, G, 1)] if isinstance(G, (list, Sharded)) else G[None]
+    W = sharded_level0_blocks_2d(Mesh2D(mesh, (1, mesh.size)), G3, _parts(mesh, Y, 0),
+                                 _parts(mesh, maskf, 0), lambdas, Neff, dst)
+    return None if W is None else W[0]
 
 
 def sharded_level0_loocv_full(mesh: Mesh, G8, ind, cov, Y, maskf, lambdas,
@@ -511,3 +489,302 @@ def sharded_score_t2e(mesh: Mesh, G, WX1, Xinv_t, resmask):
 
     return map_rows(mesh, lambda g, W, Xi, rm: step2_t2e.cox_products(
         g, W, Xi.T, rm[:, 0])[1:], G, WX1, Xinv_t, resmask)
+
+
+# ---- the 2-D mesh: variant rows x sample columns ----
+#
+# REGENIE_TPU_MESH_2D tiles the global shards as an [nv, ns] grid
+# (regenie_tpu/parallel/mesh.py:383-571): each shard holds one (variant
+# rows x sample window) cell; the sums over samples run over the ns cells
+# of one variant row (psum_rows, in column order), and the rows never
+# exchange anything. The Step-2 fused scorer takes it on the hardcall
+# routes (ops/fused_score._mesh_cells) and Step 1's level 0 under LOOCV
+# solves nv blocks at once (sharded_level0_blocks_2d).
+
+MESH_2D_ENV = "REGENIE_TPU_MESH_2D"
+
+
+def mesh_2d_shape(n_devices: int) -> Tuple[int, int]:
+    """(n_var, n_smp) grid of n_devices global shards: the most-square
+    factorization, the larger factor on the sample axis
+    (regenie_tpu/parallel/mesh.py:399-405)."""
+    a = int(np.sqrt(n_devices))
+    while n_devices % a:
+        a -= 1
+    return a, n_devices // a
+
+
+class Shard(NamedTuple):
+    """A global shard of the grid: its process and its index among that
+    process's shards (a torch.device carries neither)."""
+
+    process: int
+    index: int
+
+
+def arrange_devices_2d(shards, nv: int, ns: int) -> List[list]:
+    """The [nv, ns] grid (a list of rows) of `shards`, sorted by (process,
+    local index) and laid row-major, so that a process's shards fill whole
+    rows, or adjacent cells of one row, and process boundaries fall
+    between rows where the counts allow (the JAX package's
+    arrange_devices_2d, whose (slice, process, id) key this is)."""
+    order = sorted(shards)  # by (process, index)
+    if len(order) != nv * ns:
+        raise ValueError(f"{len(order)} shards for a {nv} x {ns} grid")
+    return [order[r * ns : (r + 1) * ns] for r in range(nv)]
+
+
+def process_grid_rect(grid, pid: int):
+    """((r0, nr), (c0, nc)): the rectangle of grid cells whose shards live
+    on process `pid`, or None when they do not tile a rectangle (or it has
+    none). A function of the grid alone, so every process finds the same
+    answer for every pid."""
+    pos = [(r, c) for r, row in enumerate(grid) for c, s in enumerate(row)
+           if s.process == pid]
+    if not pos:
+        return None
+    rs, cs = [p[0] for p in pos], [p[1] for p in pos]
+    r0, c0 = min(rs), min(cs)
+    nr, nc = max(rs) - r0 + 1, max(cs) - c0 + 1
+    if len(pos) != nr * nc:
+        return None
+    return (r0, nr), (c0, nc)
+
+
+def all_process_rects(grid, nproc: int):
+    """Each process's rectangle, or None when any process's cells are
+    ragged (the same answer on every process, so safe to branch on)."""
+    rects = [process_grid_rect(grid, p) for p in range(nproc)]
+    return rects if all(r is not None for r in rects) else None
+
+
+class Mesh2D:
+    """The [nv, ns] grid of a global mesh's shards (mesh_2d_shape, or
+    `shape`; arrange_devices_2d): `cells`, this process's cells as (row, column,
+    device) in global shard order; `rects`, every process's rectangle
+    (None when a process's cells are ragged: the callers then keep the
+    1-D mesh, as the JAX package does); `rect`, this process's."""
+
+    def __init__(self, mesh: Mesh, shape: Optional[Tuple[int, int]] = None):
+        self.mesh = mesh
+        self.nv, self.ns = mesh_2d_shape(mesh.size) if shape is None else shape
+        L = len(mesh)
+        nproc, me = mesh.size // L, mesh.first // L
+        self.grid = arrange_devices_2d(
+            [Shard(p, i) for p in range(nproc) for i in range(L)], self.nv, self.ns)
+        self.cells = [(r, c, mesh[s.index]) for r, row in enumerate(self.grid)
+                      for c, s in enumerate(row) if s.process == me]
+        self.rects = all_process_rects(self.grid, nproc)
+        self.rect = None if self.rects is None else self.rects[me]
+        # this process's rows, and each one's first local cell's device
+        self.row_dev = {}
+        for r, _c, dev in self.cells:
+            self.row_dev.setdefault(r, dev)
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.mesh.spans_processes
+
+    def describe(self) -> str:
+        return f"{self.nv} x {self.ns}"
+
+
+def cell_parts(m2: Mesh2D, x, row_axis=None, col_axis=None) -> List[torch.Tensor]:
+    """x (a tensor or numpy array) cut into the grid's cells: `row_axis`
+    zero-padded to a multiple of nv and split over the rows, `col_axis`
+    to a multiple of ns and split over the columns (None: whole along
+    that side). The local cells' parts, each contiguous on its device;
+    cells with one (row, column) part on one device share it."""
+    xp = x
+    if row_axis is not None:
+        xp, _ = pad_to(xp, m2.nv, row_axis)
+    if col_axis is not None:
+        xp, _ = pad_to(xp, m2.ns, col_axis)
+    if isinstance(xp, np.ndarray):
+        xp = torch.from_numpy(np.ascontiguousarray(xp))
+    made = {}
+    out = []
+    for r, c, dev in m2.cells:
+        key = (None if row_axis is None else r, None if col_axis is None else c, dev)
+        if key not in made:
+            p = xp
+            if row_axis is not None:
+                p = torch.chunk(p, m2.nv, dim=row_axis)[r]
+            if col_axis is not None:
+                p = torch.chunk(p, m2.ns, dim=col_axis)[c]
+            made[key] = p.contiguous().to(dev)
+        out.append(made[key])
+    return out
+
+
+def _cells(m2: Mesh2D, x, row_axis=None, col_axis=None) -> list:
+    """The local cells' parts of an argument: a list of parts as it is,
+    else cell_parts of the whole tensor or array."""
+    if isinstance(x, list):
+        if len(x) != len(m2.cells):
+            raise ValueError(f"{len(x)} parts for {len(m2.cells)} local cells")
+        return x
+    return cell_parts(m2, x, row_axis, col_axis)
+
+
+def _all_cells(m2: Mesh2D, parts) -> list:
+    """Every global cell's part, in global shard (row-major) order, on the
+    host: the local cells' parts of every process, gathered in process
+    order (one allgather; each process's parts stacked)."""
+    from . import dist
+
+    every = dist.allgather_tensor(torch.stack([p.cpu() for p in parts]))
+    return [p for blk in every for p in blk.unbind(0)]
+
+
+def psum_rows(m2: Mesh2D, parts) -> dict:
+    """{row: the sum of that row's partials} for this process's rows, one
+    partial a local cell (all of one shape): the row's cells' partials
+    added in column order on the device of the row's first local cell,
+    so a row's sum is the same bits whichever process or device takes it.
+    Where rows span processes (or a process's cells are ragged) every
+    cell's partial is gathered first (no all_reduce)."""
+    if m2.spans_processes and (m2.rect is None or m2.rect[1][1] < m2.ns):
+        every = _all_cells(m2, parts)
+        cols = {r: [every[r * m2.ns + c] for c in range(m2.ns)] for r in m2.row_dev}
+    else:
+        cols = {}
+        for (r, _c, _d), p in zip(m2.cells, parts):
+            cols.setdefault(r, []).append(p)
+    out = {}
+    for r, ps in cols.items():
+        dev = m2.row_dev[r]
+        s = ps[0].to(dev)
+        for p in ps[1:]:
+            s = s + p.to(dev)
+        out[r] = s
+    return out
+
+
+def to_cells(m2: Mesh2D, by_row: dict) -> list:
+    """A per-row value (psum_rows's) for each local cell, on the cell's
+    device (one copy a row and device)."""
+    made = {}
+    out = []
+    for r, _c, dev in m2.cells:
+        if (r, dev) not in made:
+            made[r, dev] = _to(by_row[r], dev)
+        out.append(made[r, dev])
+    return out
+
+
+def gather_rows(m2: Mesh2D, by_row: dict, n: Optional[int] = None):
+    """Per-row outputs (tuples of tensors whose leading axis is the row's
+    variants) -> each output's rows of every grid row, in row order on the
+    first local shard's device, cut to n. On a mesh that spans processes
+    every process's rows come in (from the processes whose rectangle holds
+    column 0)."""
+    dev = m2.mesh[0]
+    rows = sorted(by_row)
+    k = len(by_row[rows[0]])
+    local = [torch.cat([by_row[r][i].to(dev) for r in rows]) for i in range(k)]
+    if m2.spans_processes and m2.rect[0][1] < m2.nv:
+        from . import dist
+
+        heads = [p for p, rc in enumerate(m2.rects) if rc[1][0] == 0]
+        outs = []
+        for t in local:
+            every = dist.allgather_tensor(t)
+            outs.append(torch.cat([every[p] for p in heads]).to(dev))
+        local = outs
+    return tuple(t if n is None else t[:n] for t in local)
+
+
+def gather_cells(m2: Mesh2D, parts, dst: Optional[int] = None):
+    """The local cells' parts (one shape) -> the [nv, ns, ...] stack of
+    every cell's part on the first local shard's device; on a mesh that
+    spans processes, with dst on process dst alone (None elsewhere)."""
+    dev = m2.mesh[0]
+    if m2.spans_processes:
+        from . import dist
+
+        every = dist.allgather_tensor(torch.stack([p.cpu() for p in parts]), dst)
+        if every is None:
+            return None
+        flat = [p for blk in every for p in blk.unbind(0)]
+    else:
+        flat = list(parts)
+    return torch.stack([p.to(dev) for p in flat]).view(
+        m2.nv, m2.ns, *flat[0].shape)
+
+
+def sharded_level0_blocks_2d(m2: Mesh2D, G3, Y, maskf, lambdas, Neff, dst=None):
+    """Step-1 level-0 LOOCV of several blocks at once on the grid
+    (regenie_tpu/parallel/mesh.py:493-538): G3 [Bk, B, N], its blocks
+    split over the variant rows (Bk zero-padded to a multiple of nv) and
+    its samples over the columns (or the local cells' [Bk / nv, B, n_s]
+    parts); Y, maskf [N, P] over the columns
+    (samples past the true N zero, with maskf 0; or their cell_parts, kept
+    by a caller across blocks); lambdas [J], Neff [P].
+    Each row sums its blocks' Grams over its own cells only
+    (psum_rows), takes the B x B eigendecompositions once on its first
+    device and predicts each cell's samples, the moments summed the same
+    way; rows never meet. Returns W [Bk, Npad, J, P] on the first local
+    shard's device (a zero-padded block's W is NaN and is never read),
+    with dst on process dst alone (None elsewhere)."""
+    Bk = None if isinstance(G3, list) else G3.shape[0]
+    Gs = _cells(m2, G3, 0, 2)  # [Bk / nv, B, n_s] a cell
+    Ys, Ms = _cells(m2, Y, None, 0), _cells(m2, maskf, None, 0)
+    GGt = psum_rows(m2, [g @ g.transpose(1, 2) for g in Gs])
+    GTY = psum_rows(m2, [g @ y for g, y in zip(Gs, Ys)])
+    ops, neff = {}, {}
+    for r, dev in m2.row_dev.items():
+        lam = torch.as_tensor(lambdas, dtype=GGt[r].dtype, device=dev)
+        d, V = torch.linalg.eigh(GGt[r])  # [bpr, B], [bpr, B, B]
+        Vt = V.transpose(1, 2)
+        Wmat = Vt @ GTY[r]  # [bpr, B, P]
+        DL_inv = 1.0 / (d[..., None] + lam)  # [bpr, B, J]
+        bpr, B, J = DL_inv.shape
+        P = Wmat.shape[2]
+        DW = (DL_inv[..., None] * Wmat[:, :, None, :]).reshape(bpr, B, J * P)
+        ops[r] = (Vt, DL_inv, DW)
+        neff[r] = torch.as_tensor(Neff, dtype=GGt[r].dtype, device=dev)
+    preds = []
+    for g, y, m, (Vt, DL, DW) in zip(Gs, Ys, Ms, to_cells(m2, ops)):
+        VtG = Vt @ g  # [bpr, B, n_s]
+        gvec = (VtG * VtG).transpose(1, 2) @ DL  # [bpr, n_s, J]
+        J = gvec.shape[2]
+        z2t = (VtG.transpose(1, 2) @ DW).view(VtG.shape[0], -1, J, y.shape[1])
+        pred = (z2t - gvec[..., None] * y[None, :, None, :]) / (1.0 - gvec)[..., None]
+        preds.append(pred * m[None, :, None, :])
+    p_sum = psum_rows(m2, [p.sum(dim=1) for p in preds])
+    p_mean = {r: s / neff[r] for r, s in p_sum.items()}  # [bpr, J, P]
+    preds = [(p - mu[:, None]) * m[None, :, None, :]
+             for p, mu, m in zip(preds, to_cells(m2, p_mean), Ms)]
+    s2 = psum_rows(m2, [(p * p).sum(dim=1) for p in preds])
+    p_sd = {r: torch.sqrt(s / (neff[r] - 1.0)) for r, s in s2.items()}
+    W = gather_cells(m2, [p / sd[:, None] for p, sd in zip(preds, to_cells(m2, p_sd))],
+                     dst)
+    if W is None:
+        return None
+    # [nv, ns, bpr, n_s, J, P] -> [nv * bpr, ns * n_s, J, P]
+    nv, ns, bpr, n_s = W.shape[:4]
+    W = W.permute(0, 2, 1, 3, 4, 5).reshape(nv * bpr, ns * n_s, *W.shape[4:])
+    return W if Bk is None else W[:Bk]
+
+
+def sharded_score_qt_2d(m2: Mesh2D, G, res, maskf, cov, scale_denom: float):
+    """Step-2 QT score test with both axes sharded
+    (regenie_tpu/parallel/mesh.py:541-571): G [B, N] over (rows, columns),
+    res, maskf, cov [N, *] over the columns. Each cell's partial products
+    over its sample window are summed over its row (psum_rows); the rows
+    stay apart. Returns (stats [B, P], denum [B, P], scale_fac [B]) on the
+    first local shard's device."""
+    B = G.shape[0]
+    Gs = cell_parts(m2, G, 0, 1)
+    Rs, Ms, Cs = (cell_parts(m2, a, None, 0) for a in (res, maskf, cov))
+    beta = to_cells(m2, psum_rows(m2, [g @ c for g, c in zip(Gs, Cs)]))
+    Gr = [g - b @ c.T for g, b, c in zip(Gs, beta, Cs)]
+    nrm2 = psum_rows(m2, [(g * g).sum(dim=1) for g in Gr])
+    sf = {r: torch.sqrt(s / scale_denom) for r, s in nrm2.items()}
+    Gr = [g / torch.where(s < 1e-12, 1.0, s)[:, None]
+          for g, s in zip(Gr, to_cells(m2, sf))]
+    num = psum_rows(m2, [g @ rr for g, rr in zip(Gr, Rs)])
+    den = psum_rows(m2, [(g * g) @ m for g, m in zip(Gr, Ms)])
+    out = {r: (num[r] / torch.sqrt(den[r]), den[r], sf[r]) for r in num}
+    return gather_rows(m2, out, B)

@@ -82,6 +82,9 @@ class Step1Setup(NamedTuple):
     # the single-process mesh of level 0 (parallel/mesh.py), or None;
     # `device` is then its first shard's device
     mesh: Optional[tuple] = None
+    # REGENIE_TPU_MESH_2D under LOOCV: the [nv, ns] grid of level 0
+    # (parallel.mesh.Mesh2D, nv > 1), or None
+    mesh2d: Optional[object] = None
 
 
 def open_step1(params: Params, log=print, device=None) -> Step1Setup:
@@ -90,7 +93,7 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
     ridge grids. `device` as in utils.device.resolve_device."""
     from .cli import unported
 
-    why = unported(params, device)
+    why = unported(params)
     if why is not None:
         raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
     dev = resolve_device(device)
@@ -149,17 +152,27 @@ def open_step1(params: Params, log=print, device=None) -> Step1Setup:
     fold_sizes = None
     if not params.use_loocv:
         fold_sizes = m1.compute_fold_sizes(pd.ind_in_analysis, params.cv_folds)
-    # the sample-sharded level 0 (regenie_tpu/run_step1.py:250-345, its
-    # single-process 1-D mesh): level 0 is the same linear ridge for every
-    # trait type, so the mesh covers QT/BT/CT/T2E, LOOCV and K-fold. Level
-    # 1 runs on the first shard's device.
+    # the sample-sharded level 0 (regenie_tpu/run_step1.py:250-345): level
+    # 0 is the same linear ridge for every trait type, so the mesh covers
+    # QT/BT/CT/T2E, LOOCV and K-fold. Level 1's rows are sharded over the
+    # output host's own shards (_level1_mesh).
     mesh = pm.run_mesh(params, dev)
+    mesh2d = None
     if mesh is not None:
         dev = mesh[0]
         log(f" * multi-device mesh: {mesh.describe()} (sample-axis sharding for "
             "level 0)")
+        # REGENIE_TPU_MESH_2D: under LOOCV, a grid of more than one variant
+        # row solves that many blocks at once, each on its row's sample
+        # shards (regenie_tpu/run_step1.py:313-327); K-fold, or a grid of
+        # one row, keeps the 1-D mesh
+        if params.use_loocv and os.environ.get(pm.MESH_2D_ENV):
+            m2 = pm.Mesh2D(mesh)
+            if m2.nv > 1:
+                mesh2d = m2
+                log(f" * 2-D mesh: {m2.describe()} (variant-block x sample tiling)")
     return Step1Setup(gd, pd, blocks, h_l0, lambdas, taus, h_l1, fold_sizes,
-                      master, run_l0_job, dev, mesh)
+                      master, run_l0_job, dev, mesh, mesh2d)
 
 
 def run_step1(params: Params, log=print, device=None) -> Step1Setup:
@@ -234,8 +247,19 @@ def run_step1(params: Params, log=print, device=None) -> Step1Setup:
         return st
 
     _level1_and_output(params, gd, pd, W_all, st.taus, st.h_l1, chr_nblocks,
-                       st.fold_sizes, st.device, log, offsets)
+                       st.fold_sizes, st.device, log, offsets,
+                       _level1_mesh(st.mesh, st.device))
     return st
+
+
+def _level1_mesh(mesh, dev) -> pm.Mesh:
+    """The mesh of level 1, which splits each trait's design rows over the
+    global shard count as the JAX package's place_rows_padded does
+    (regenie_tpu/parallel/mesh.py:164-180), on the output host's own
+    devices (Mesh.replica: level 1 runs there alone, so a run of several
+    processes sums the same partials in the same order as one process
+    with every shard); without a mesh, a mesh of `dev` alone."""
+    return pm.Mesh([dev]) if mesh is None else mesh.replica()
 
 
 def _read_l0_jobs(jobs, N, J, P, fold_sizes) -> np.ndarray:
@@ -299,13 +323,16 @@ class Level0:
     operands live only sharded over the sample axis, zero-padded to the
     shard count (K-fold: each fold's padded axis nmax, each shard's fold
     slots gathered from the block on its own), and each block's ridge runs
-    sample-sharded (parallel.mesh.sharded_level0_loocv /
+    sample-sharded (LOOCV: parallel.mesh.sharded_level0_blocks_2d on the
+    2-D grid, or on a [1, size] grid for the 1-D mesh; K-fold:
     sharded_level0_kfold); the block's residualization stays whole on the
     first shard's device."""
 
     def __init__(self, params: Params, st: Step1Setup):
         pd, dev = st.pd, st.device
         self.params, self.device, self.mesh = params, dev, st.mesh
+        # LOOCV's grid: the 2-D one, or the 1-D mesh as one variant row
+        self.grid = st.mesh2d
         self.lambdas, self.Neff = self._put(st.lambdas), self._put(pd.Neff)
         self.ind = torch.as_tensor(pd.ind_in_analysis, device=dev)
         self.cov = self._put(pd.new_cov)
@@ -318,10 +345,14 @@ class Level0:
         if params.use_loocv:
             if mesh is None:
                 self.Y, self.mask = self._put(Y), self._put(maskf)
-            elif self._window_ok(st):
+            elif self.grid is None and self._window_ok(st):
                 self._open_window(st, Y, maskf)
             else:
-                self.Y_sh, self.mask_sh = pm.shard(mesh, Y, 0), pm.shard(mesh, maskf, 0)
+                # Y and the masks over the grid's sample columns, padded to
+                # ns (on the 2-D grid not to the shard count)
+                self.grid = self.grid or pm.Mesh2D(mesh, (1, mesh.size))
+                self.Y_cells = pm.cell_parts(self.grid, Y, None, 0)
+                self.mask_cells = pm.cell_parts(self.grid, maskf, None, 0)
             return
         Y_folds, valid = m1.pad_folds(Y, st.fold_sizes)
         mask_folds, _ = m1.pad_folds(maskf, st.fold_sizes)
@@ -353,10 +384,12 @@ class Level0:
         """Whether each process decodes only its own sample window of a
         block (regenie_tpu/run_step1.py:270-310): a mesh that spans
         processes, LOOCV (the caller's test), a BED, no --prior-alpha (its
-        allele frequencies are per block) and no --ref-first."""
+        allele frequencies are per block), no --ref-first, and not under
+        REGENIE_TPU_MESH_2D (regenie_tpu/run_step1.py:282-287)."""
         p = self.params
         return (self.mesh.spans_processes and st.gd._bed is not None
-                and p.alpha_prior == -1 and not p.ref_first)
+                and p.alpha_prior == -1 and not p.ref_first
+                and not os.environ.get(pm.MESH_2D_ENV))
 
     def _open_window(self, st: Step1Setup, Y, maskf):
         """The per-host window's operands on the FILE sample axis, padded
@@ -464,16 +497,26 @@ class Level0:
         return m1.level0_kfold_block(self.folds(G), self.Y_folds, self.mask_folds,
                                      self.valid, self.lambdas, self.Neff)
 
-    def loocv(self, G3: torch.Tensor) -> torch.Tensor:
-        """LOOCV W of a group of residualized blocks: [n, N, J, P] (as
-        kfold on a mesh that spans processes)."""
-        if self.mesh is not None:
-            N = G3.shape[2]
-            Ws = [pm.sharded_level0_loocv(self.mesh, g, self.Y_sh, self.mask_sh,
-                                          self.lambdas, self.Neff, dst=0)
-                  for g in G3]
-            return None if Ws[0] is None else torch.stack([W[:N] for W in Ws])
-        return m1.level0_loocv_blocks(G3, self.Y, self.mask, self.lambdas, self.Neff)
+    def loocv(self, Gs: list) -> torch.Tensor:
+        """LOOCV W of a group of residualized blocks (a list of [B_i, N]):
+        [n, N, J, P] (as kfold on a mesh that spans processes). On a grid
+        the group's blocks, zero-padded to the largest B (exact: a zero row
+        adds nothing to a Gram or a moment), go one a variant row
+        (parallel.mesh.sharded_level0_blocks_2d)."""
+        N = Gs[0].shape[1]
+        if self.grid is not None:
+            G3 = Gs[0][None]
+            if len(Gs) > 1:
+                G3 = torch.zeros((len(Gs), max(g.shape[0] for g in Gs), N),
+                                 dtype=Gs[0].dtype, device=Gs[0].device)
+                for i, g in enumerate(Gs):
+                    G3[i, : g.shape[0]] = g
+            W = pm.sharded_level0_blocks_2d(self.grid, G3, self.Y_cells,
+                                            self.mask_cells, self.lambdas,
+                                            self.Neff, dst=0)
+            return None if W is None else W[:, :N]
+        return m1.level0_loocv_blocks(torch.stack(Gs), self.Y, self.mask,
+                                      self.lambdas, self.Neff)
 
 
 def _level0(params, st: Step1Setup, log):
@@ -519,16 +562,17 @@ def _level0(params, st: Step1Setup, log):
     # LOOCV: consecutive same-shape blocks solve in ONE batched dispatch
     # (batched [n, B, B] eigh; Step1_Models.cpp:494). No block's W depends
     # on another's, so the grouping changes no result.
-    # (on a mesh each block is solved alone, as in the JAX package)
-    stack1 = (1 if st.mesh is not None else
-              max(1, int(os.environ.get("REGENIE_TPU_STEP1_STACK", "4"))))
+    # (on a 1-D mesh each block is solved alone, and on the 2-D grid nv
+    # blocks of any shapes at once, as in the JAX package)
+    stack1 = (st.mesh2d.nv if st.mesh2d is not None else 1 if st.mesh is not None
+              else max(1, int(os.environ.get("REGENIE_TPU_STEP1_STACK", "4"))))
     grp: list = []
 
     def flush():
         if not grp:
             return
         try:
-            Wg = l0.loocv(torch.stack([g for _, g in grp]))
+            Wg = l0.loocv([g for _, g in grp])
             for i, (bi, _g) in enumerate(grp):
                 store(bi, None if Wg is None else Wg[i])
         except torch.cuda.OutOfMemoryError:
@@ -539,7 +583,7 @@ def _level0(params, st: Step1Setup, log):
                 "(REGENIE_TPU_STEP1_STACK=1 to silence)")
             torch.cuda.empty_cache()
             for bi, g in grp:
-                Wb = l0.loocv(g[None])
+                Wb = l0.loocv([g])
                 store(bi, None if Wb is None else Wb[0])
         grp.clear()
 
@@ -580,7 +624,7 @@ def _level0(params, st: Step1Setup, log):
                 store(bidx, Wb)
                 what = ""
             elif params.use_loocv:
-                if grp and grp[-1][1].shape != G.shape:
+                if grp and grp[-1][1].shape != G.shape and st.mesh2d is None:
                     flush()
                 grp.append((bidx, G))
                 if len(grp) >= stack1 or bidx == len(blocks) - 1:
@@ -637,13 +681,16 @@ def _trait_W(W_all, ph, dev) -> torch.Tensor:
 
 
 def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
-                       fold_sizes, dev, log, offsets=None):
+                       fold_sizes, dev, log, offsets, l1):
     """Level-1 ridge per trait on the device, then its LOCO file
     (ridge_level_1*, make_predictions*, write_predictions): the linear
     ridge of quantitative traits, the penalized logistic, Poisson or Cox
     ridge of binary, count and time-to-event traits (models/step1_bt.py,
     on the null `offsets`), and with --write-null-firth a binary trait's
-    .firth file of null Firth fits a chromosome."""
+    .firth file of null Firth fits a chromosome. l1: the level-1 mesh
+    (_level1_mesh), over whose shards each trait's design rows are split
+    (LOOCV: the samples; K-fold: the fold slots nmax, pad slots with
+    valid 0); the Cox level 1 stays on `dev`."""
     J, P, N = params.n_ridge_l0, params.n_pheno, params.n_samples
     ind = pd.ind_in_analysis
     pred_list_path = params.out_prefix + "_pred.list"
@@ -729,7 +776,8 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
                 t1 = time.time()
                 predictions, converged = step1_bt.level1_nonqt(
                     params, pd, Wph, offsets, taus_ph, ph, chr_order, spans_ph,
-                    fold_sizes, log, ridge_mult=sel_mult)
+                    fold_sizes, log, ridge_mult=sel_mult,
+                    mesh=None if params.trait_mode == T2E else l1)
                 if params.verbose:
                     log(f"  level 1 of {name}: {time.time() - t1:.3f}s")
                 if not converged:
@@ -737,28 +785,35 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
                     continue
             elif params.use_loocv:
                 pgs_t = None if pgs_tot is None else put(pgs_tot[:, ph])
+                Yfit = Y_t[:, ph] if pgs_t is None else Y_t[:, ph] - pgs_t
+                # the rows of the design, Y, the PGS and the response split
+                # over the level-1 mesh once, for the three steps
+                W1, Y1, F1 = (pm.shard(l1, a, 0) for a in (Wph, Y_t[:, ph], Yfit))
+                P1 = None if pgs_t is None else pm.shard(l1, pgs_t, 0)
                 out = m1.level1_linear_loocv(
-                    Wph, Y_t[:, ph], taus_t, float(pd.Neff[ph] - params.ncov),
-                    ridge_mult=mult_t, pgs=pgs_t)
+                    W1, Y1, taus_t, float(pd.Neff[ph] - params.ncov),
+                    ridge_mult=mult_t, pgs=P1, mesh=l1)
                 cumsum, cumsum_full = ((out.cpu().numpy(), None) if pgs_t is None
                                        else (x.cpu().numpy() for x in out))
                 best = m1.select_best_tau_qt(cumsum, pd.Neff[ph])
                 _log_tau_table(log, h_l1, cumsum, best, pd.Neff[ph], cumsum_full)
-                Yfit = Y_t[:, ph] if pgs_t is None else Y_t[:, ph] - pgs_t
                 b0, bvec = m1.level1_linear_full_fit_loocv(
-                    Wph, Yfit, float(taus_ph[best]), ridge_mult=mult_t)
-                for ci, c in enumerate(chr_order):
-                    st, nn = spans_ph[c]
-                    predictions[:, ci] = (Wph[:, st : st + nn]
-                                          * b0[st : st + nn].T).sum(dim=1).cpu().numpy()
+                    W1, F1, float(taus_ph[best]), ridge_mult=mult_t, mesh=l1)
+                predictions = pm.gather([_loocv_loco(w, b, spans_ph, chr_order)
+                                         for w, b in zip(W1, b0)], 0, N).cpu().numpy()
                 if params.print_block_betas:
                     _write_step1_betas(params, bvec.cpu().numpy(), log)
             else:
                 pgs_f = None
                 if pgs_tot is not None:
                     pgs_f = put(m1.pad_folds(pgs_tot[:, ph : ph + 1], fold_sizes)[0][:, :, 0])
-                out = m1.level1_linear_kfold(Wph, Yf_t[:, :, ph], valid_t, taus_t,
-                                             ridge_mult=mult_t, pgs_folds=pgs_f)
+                nmax = Wph.shape[1]
+                # the fold slots split over the level-1 mesh (pad slots
+                # valid 0)
+                Wph, Yk, vk = (pm.shard(l1, a, 1) for a in (Wph, Yf_t[:, :, ph], valid_t))
+                pgs_f = None if pgs_f is None else pm.shard(l1, pgs_f, 1)
+                out = m1.level1_linear_kfold(Wph, Yk, vk, taus_t, ridge_mult=mult_t,
+                                             pgs_folds=pgs_f, mesh=l1)
                 beta, cumsum = out[0], out[1].cpu().numpy()
                 cumsum_full = None if pgs_f is None else out[2].cpu().numpy()
                 best = m1.select_best_tau_qt(cumsum, pd.Neff[ph])
@@ -771,8 +826,10 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
                         fh.write(f"{ph + 1} " + " ".join(fmt(b) for b in beta_avg) + "\n")
                 for ci, c in enumerate(chr_order):
                     st, nn = spans_ph[c]
-                    pc = (Wph[:, :, st : st + nn]
-                          @ beta[:, best, st : st + nn, None])[..., 0].cpu().numpy()
+                    b = beta[:, best, st : st + nn, None]
+                    pc = pm.gather([(w[:, :, st : st + nn] @ bs)[..., 0] for w, bs
+                                    in zip(Wph, pm.replicate(l1, b))], 1, nmax)
+                    pc = pc.cpu().numpy()
                     for k in range(params.cv_folds):
                         predictions[bounds[k] : bounds[k + 1], ci] = pc[k, : int(fold_sizes[k])]
             if params.trait_mode == QT:
@@ -819,6 +876,14 @@ def _level1_and_output(params, gd, pd, W_all, taus, h_l1, chr_nblocks,
         + (f", null Firth files {firth_s:.3f}s" if firth_list is not None else "")
         + ")")
     log(f"List of blup files written to: [{pred_list_path}]")
+
+
+def _loocv_loco(W, b0, spans, chr_order) -> torch.Tensor:
+    """A LOOCV level 1's per-chromosome predictions [n, n_chr] of the rows
+    W [n, F] from their LOO coefficient vectors b0 [F, n]
+    (make_predictions_loocv, Data.cpp:1269-1345)."""
+    return torch.stack([(W[:, st : st + nn] * b0[st : st + nn].T).sum(dim=1)
+                        for st, nn in (spans[c] for c in chr_order)], dim=1)
 
 
 def _write_l0_master(params, blocks, prefix, njobs, log):

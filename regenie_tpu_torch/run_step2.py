@@ -372,6 +372,20 @@ class Step2Engine:
             self.replicas = pm.Replicas(self.mesh)
             log(f" * multi-device mesh: {self.mesh.describe()} (variant-axis "
                 "sharding)")
+        # REGENIE_TPU_MESH_2D: the fused scorer's hardcall routes tile the
+        # global shards as variant rows x sample windows (Mesh2D;
+        # regenie_tpu/run_step2.py:324-355); BGEN and the dense route keep
+        # the 1-D mesh (_fused_mesh), and so does a multi-process run whose
+        # processes' cells do not each form a rectangle of the grid
+        self.mesh2d = None
+        if self.mesh is not None and os.environ.get(pm.MESH_2D_ENV):
+            m2 = pm.Mesh2D(self.mesh)
+            if m2.rects is not None:
+                self.mesh2d = m2
+                slabs = (f", {process_count()} processes x rectangular slabs"
+                         if self.mesh.spans_processes else "")
+                log(f" * 2-D mesh for the fused scorer: {m2.describe()} "
+                    f"(variant x sample tiling{slabs})")
         self.kernel = kernel
         on_gpu = self.device.type == "cuda"
         self.split = fsc.split_mode(on_gpu) if kernel else False
@@ -641,13 +655,38 @@ class Step2Engine:
         return mac1, mac_t, n1m, n1m_t
 
     @property
+    def _fused_mesh(self):
+        """The mesh of the fused route: the 2-D grid on the hardcall
+        routes under REGENIE_TPU_MESH_2D, else the 1-D mesh (or None)."""
+        if self.mesh2d is not None and self.gd._bgen is None:
+            return self.mesh2d
+        return self.mesh
+
+    @property
     def per_host_rows(self) -> bool:
         """Whether each process reads only its own rows of a fused block:
-        a QT run on a mesh that spans processes (BT, CT and Cox read whole
-        blocks, which their corrections need; regenie_tpu/run_step2.py
-        :887-912)."""
+        a QT run on a 1-D mesh that spans processes (BT, CT and Cox read
+        whole blocks, which their corrections need;
+        regenie_tpu/run_step2.py:887-912)."""
         return (self.mesh is not None and self.mesh.spans_processes
-                and self.params.trait_mode == QT)
+                and self.params.trait_mode == QT and self._fused_mesh is self.mesh)
+
+    @property
+    def per_host_rect(self) -> bool:
+        """Whether each process reads only its rectangle's variant rows of
+        a fused block and uploads only its byte columns: a QT run on a 2-D
+        grid that spans processes (regenie_tpu/run_step2.py:914-940)."""
+        return (self.mesh2d is not None and self.mesh2d.spans_processes
+                and self.params.trait_mode == QT and self._fused_mesh is self.mesh2d)
+
+    def rect_rows(self, B: int) -> Tuple[int, int]:
+        """The rows [lo, hi) of a block of B rows in this process's
+        rectangle of the 2-D grid (the rows padded to a multiple of nv)."""
+        m2 = self.mesh2d
+        rpg = -(-B // m2.nv)
+        (r0, nr), _ = m2.rect
+        lo = min(r0 * rpg, B)
+        return lo, min((r0 + nr) * rpg, B)
 
     def local_rows(self, B: int) -> Tuple[int, int]:
         """The rows [lo, hi) of a block of B rows that this process's
@@ -667,10 +706,11 @@ class Step2Engine:
         sample axis, from the port's native block decoder. BGEN: [B, 2,
         N_file] probability byte planes from the native extractor, which
         raises PlanesRejected for records it cannot read. Each native
-        reader raises on a record it cannot read. With per_host_rows a
-        LocalRows of this process's rows alone."""
-        if self.per_host_rows:
-            lo, hi = self.local_rows(len(bsnps))
+        reader raises on a record it cannot read. With per_host_rows (or
+        per_host_rect) a LocalRows of this process's rows alone."""
+        if self.per_host_rows or self.per_host_rect:
+            lo, hi = (self.local_rows if self.per_host_rows
+                      else self.rect_rows)(len(bsnps))
             if hi > lo:
                 rows = self._read_raw(bsnps[lo:hi])
             else:
@@ -733,6 +773,7 @@ class Step2Engine:
         pd, params = self.pd, self.params
         is_bgen = self.gd._bgen is not None
         nb = (self._fused_nfile() + 3) // 4
+        tile = self._nbp_tile()
         res_f = self._scatter_file(self.res)
         if self._fused_static is None:
             cov_f = self._scatter_file(pd.new_cov)
@@ -747,7 +788,7 @@ class Step2Engine:
                 cov_f, np.zeros_like(res_f), mask_f, ind_f, self.scale_denom,
                 nb=nb, device=self.device, split=self.split,
                 pack="sample" if is_bgen else "plane", op_dtype=self.op_dtype,
-                male=male_f,
+                male=male_f, nbp_tile=tile,
             )
             covz_f = cov_f * ind_f.astype(np.float64)[:, None]
             Cp = -(-base.layout_C() // 128) * 128
@@ -768,7 +809,7 @@ class Step2Engine:
             res_pl = np.zeros((fsc.op_nbp(base.Wp), P))
             res_pl[: res_f.shape[0]] = res_f
         else:
-            res_pl = fsc.plane_order_rows(res_f, nb)
+            res_pl = fsc.plane_order_rows(res_f, nb, tile)
         # float32 for the int8 operand (quantized on the device) and for
         # the float32 operand, as the JAX package rounds them on a TPU
         res_pl = torch.from_numpy(res_pl).to(
@@ -794,7 +835,7 @@ class Step2Engine:
             self._fused_fn = fsc.make_qt_block_fn(
                 self._fused_consts, self.kernel, params.test_type,
                 bool(params.ref_first) and self.gd._bed is not None,
-                mesh=self.mesh, strict=self.strict,
+                mesh=self._fused_mesh, strict=self.strict,
             )
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
@@ -838,7 +879,7 @@ class Step2Engine:
                                        self.op_dtype)
         else:
             Wp, usum = fsc.plane_pack(Wext_f, nb, self.split, self.device,
-                                      self.op_dtype)
+                                      self.op_dtype, self._nbp_tile())
         icol = ncat + Pn + 2 * P
         C_used = icol + 1 + ((2 * P + 1) if has_male else 0)
         self._fused_bt = SimpleNamespace(
@@ -864,7 +905,7 @@ class Step2Engine:
                 Wp, usum, fc.xwt if Pn else np.zeros((0, 0)), C_used, icol,
                 float(indf.sum()), ncat, Pn, Kp1, self.kernel,
                 params.test_type, bool(params.ref_first) and gd._bed is not None,
-                mesh=self.mesh)
+                mesh=self._fused_mesh)
         self._fused_nb = nb
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
@@ -905,7 +946,8 @@ class Step2Engine:
                 [Wext_f, malez[:, None], maskf_f * malez[:, None],
                  case_f * malez[:, None]], axis=1)
         nb = (self._fused_nfile() + 3) // 4
-        Wp, usum = fsc.plane_pack(Wext_f, nb, self.split, self.device, self.op_dtype)
+        Wp, usum = fsc.plane_pack(Wext_f, nb, self.split, self.device, self.op_dtype,
+                                  self._nbp_tile())
         icol = nt + 2 * P
         C_used = icol + 1 + ((2 * P + 1) if has_male else 0)
         Rtv = np.zeros((len(passing), q))
@@ -922,10 +964,18 @@ class Step2Engine:
         self._fused_fn = fsc.make_t2e_block_fn(
             Wp, usum, Rtv, RtR, rv, C_used, icol, float(indf.sum()), len(passing),
             q, self.kernel, params.test_type,
-            bool(params.ref_first) and gd._bed is not None, mesh=self.mesh)
+            bool(params.ref_first) and gd._bed is not None, mesh=self._fused_mesh)
         self._fused_nb = nb
         self._fused_op_nbp = fsc.op_nbp(Wp)
         self._fused_chrom = self.cur_chrom
+
+    def _nbp_tile(self):
+        """The byte padding of a plane-packed operand: on the 2-D grid ns x
+        the kernel tile, so that each sample column's byte window is
+        tile-aligned (regenie_tpu/run_step2.py:1067-1073); else the
+        default."""
+        m = self._fused_mesh
+        return fsc._TC * m.ns if isinstance(m, pm.Mesh2D) else None
 
     def _fused_variant_stats(self, op, S1h, SQh, SMh, bsnps, with_classes=True):
         """Per-variant statistics of a GLM or Cox fused block from the raw
@@ -1140,8 +1190,17 @@ class Step2Engine:
         block k."""
         if isinstance(raw, (torch.Tensor, pm.Sharded)):
             return raw
-        mesh = self.mesh
-        if isinstance(raw, LocalRows):
+        mesh = self._fused_mesh
+        if isinstance(mesh, pm.Mesh2D):
+            if isinstance(raw, LocalRows):
+                with warnings.catch_warnings():
+                    # mmap views are read-only; nothing writes through them
+                    warnings.simplefilter("ignore", UserWarning)
+                    rows = torch.from_numpy(np.ascontiguousarray(raw.rows))
+                return pm.Sharded(fsc.block_cells(mesh, rows, self._fused_op_nbp,
+                                                  raw.n, self.rect_rows(raw.n)[0]),
+                                  raw.n)
+        elif isinstance(raw, LocalRows):
             # this process's rows: its shards' parts of the padded block
             per = -(-raw.n // mesh.size)
             slab = torch.zeros((len(mesh), per) + raw.rows.shape[1:], dtype=torch.uint8)
@@ -1155,6 +1214,10 @@ class Step2Engine:
             raw_t = torch.from_numpy(raw)
         if mesh is None:
             return self._pad_bytes(raw_t.to(self.device))
+        if isinstance(mesh, pm.Mesh2D):
+            # the whole block stays on the host for the correction rows
+            return pm.Sharded(fsc.block_cells(mesh, raw_t, self._fused_op_nbp),
+                              raw_t.shape[0], raw_t)
         sh = pm.shard_rows(mesh, raw_t)
         # a process of a multi-process run keeps the whole block for the
         # correction rows (FusedRowSource), which a gather would not give
@@ -1771,7 +1834,7 @@ def open_engine(params: Params, log=print, device=None):
     """The run-up of run_step2 before its block loop: the mode check, the
     --pred list, data preparation, the engine and the LOCO sample masks.
     Returns (engine, blocks); `device` as in utils.device.resolve_device."""
-    why = unported(params, device)
+    why = unported(params)
     if why is not None:
         raise NotImplementedError(f"{why}: not yet ported to regenie_tpu_torch")
     device = resolve_device(device)
@@ -1877,6 +1940,10 @@ def run_step2(params: Params, log=print, device=None) -> Step2Engine:
         if eng.per_host_rows:
             log(f" * per-host decode: each of {process_count()} processes reads "
                 "only its own variant byte ranges")
+        elif eng.per_host_rect:
+            (_, nr), (_, nc) = eng.mesh2d.rect
+            log(" * per-host 2-D slab decode: each process reads only its own "
+                f"{nr}x{nc} grid rectangle of variant rows x byte columns")
     else:
         log(dense_line)
     # on a multi-process run every process scores every block and only the

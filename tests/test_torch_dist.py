@@ -60,7 +60,9 @@ def _collectives(rank, d):
     os.environ["REGENIE_TPU_MESH_2D"] = "1"
     params = cli.args_to_params(cli.build_parser().parse_args(
         ["--step", "2", "--bed", "g", "--phenoFile", "p", "--ignore-pred", "--out", "o"]))
-    out["unported_2d"] = cli.unported(params, "cpu")
+    out["unported_2d"] = cli.unported(params)
+    m2 = pm.Mesh2D(m1)
+    out["grid_2d"] = [m2.nv, m2.ns, [(r, c) for r, c, _ in m2.cells], m2.rects]
     # every writer writes on the output host alone
     with open_write(f"{d}/text{rank}.txt") as fh:
         fh.write("x\n")
@@ -165,12 +167,17 @@ def test_psum_in_global_shard_order(launched):
 
 
 def test_one_local_shard_is_a_global_mesh(launched):
-    """A process with one local shard has a mesh of the global count, on
-    which cli.unported refuses the 2-D mesh."""
+    """A process with one local shard has a mesh of the global count,
+    which cli.unported no longer refuses under REGENIE_TPU_MESH_2D: its
+    2-D grid is the JAX package's 1 x 2 of the two processes' shards, each
+    process holding the cell of its own column, every rectangle the same
+    on both processes."""
     _, res = launched
-    for r in res:
+    for rank, r in enumerate(res):
         assert r["one_local"] == [2, 1]
-        assert r["unported_2d"] == "the 2-D mesh (REGENIE_TPU_MESH_2D)"
+        assert r["unported_2d"] is None
+        assert r["grid_2d"] == [1, 2, [[0, rank]],
+                                [[[0, 1], [0, 1]], [[0, 1], [1, 1]]]]
 
 
 def test_writers_write_on_the_output_host_alone(launched):

@@ -377,6 +377,37 @@ def test_fused_f32_kernel_matches_plain_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+def test_fused_f32_byte_windows_on_cuda(cuda):
+    """The 2-D mesh's launches of fused_f32: a [4, nbp, Cp] float32 operand
+    padded to ns * _TC bytes, cut on axis 1 into ns contiguous [4, nbp /
+    ns, Cp] windows (fused_score.operand_window); the kernel on each
+    window of the block, one launch a window, summed, within 1e-12 of the
+    whole block's products against |wp| (float64 sums in another order)."""
+    rng = np.random.default_rng(23)
+    for B, ns, N, C in ((37, 2, 1201, 130), (130, 4, 3001, 40)):
+        nb = (N + 3) // 4
+        wp, _ = tfs.plane_pack(rng.normal(size=(N, C)), nb, False, device=cuda,
+                               dtype=torch.float32, nbp_tile=ns * tfs._TC)
+        nbp = wp.shape[1]
+        w = nbp // ns
+        raw = torch.from_numpy(tfs.pad_raw(
+            rng.integers(0, 256, (B, nb), dtype=np.uint8), nbp)).to(cuda)
+        want = kernels.fused_f32_products(raw, wp)
+        bar = kernels.fused_f32_products_plain(raw, wp.abs())
+        n0 = kernels.fused_f32_products.launches
+        parts = []
+        for c in range(ns):
+            win = tfs.operand_window(wp, c, ns)
+            assert win.shape == (4, w, wp.shape[2]) and win.is_contiguous()
+            parts.append(kernels.fused_f32_products(raw[:, c * w:(c + 1) * w].contiguous(),
+                                                    win))
+        assert kernels.fused_f32_products.launches == n0 + ns
+        torch.cuda.synchronize()
+        got = [sum(p[i] for p in parts[1:]) + parts[0][i] for i in range(3)]
+        _assert_within_bar(got, want, bar)
+
+
+@pytest.mark.cuda
 def test_bgen_f32_kernel_matches_plain_on_cuda(cuda):
     """bgen_f32 against its plain version on the card, on ragged shapes
     (rows off the 64-row tile, samples off the 128-sample stage, columns

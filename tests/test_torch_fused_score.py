@@ -464,6 +464,42 @@ def test_fused_i8_kernel_matches_plain_on_cuda(cuda):
                                             device=cuda))
 
 
+
+@pytest.mark.cuda
+def test_fused_i8_byte_windows_on_cuda(cuda):
+    """The 2-D mesh's launches (fused_score.operand_window): a plane-packed
+    int8 operand padded to ns * _TC bytes, cut into ns byte windows, each
+    a contiguous [Cw4, 4 * nbp / ns] K-major copy of four strided column
+    windows; fused_i8 on each window of the block, one launch a window,
+    summed, equals the whole block's products exactly (int32), on ragged
+    row counts and on 2 and 4 windows."""
+    rng = np.random.default_rng(21)
+    for B, ns, N, C in ((37, 2, 1201, 130), (130, 4, 3001, 40), (1, 2, 513, 300)):
+        nb = (N + 3) // 4
+        Wp, _ = tfs.plane_pack(rng.normal(size=(N, C)), nb, "i8", device=cuda,
+                               nbp_tile=ns * tfs._TC)
+        nbp = tfs.op_nbp(Wp)
+        w = nbp // ns
+        raw = torch.from_numpy(tfs.pad_raw(
+            rng.integers(0, 256, (B, nb), dtype=np.uint8), nbp)).to(cuda)
+        want = kernels.fused_i8_products(raw, Wp.limbs_k)
+        n0 = kernels.fused_i8_products.launches
+        parts = []
+        for c in range(ns):
+            win = tfs.operand_window(Wp, c, ns)
+            assert win.limbs_k.shape == (Wp.limbs_k.shape[0], 4 * w)
+            assert win.limbs_k.is_contiguous()
+            parts.append(kernels.fused_i8_products(raw[:, c * w:(c + 1) * w].contiguous(),
+                                                   win.limbs_k))
+        assert kernels.fused_i8_products.launches == n0 + ns
+        torch.cuda.synchronize()
+        for i, whole in enumerate(want):
+            got = parts[0][i]
+            for p in parts[1:]:
+                got = got + p[i]
+            assert torch.equal(got, whole)
+
+
 def _quantize_columns(rng):
     """Columns that probe the int8 quantizer: random spans over many
     octaves, an all-zero column, half-way ties at every limb (k + 0.5

@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from chip_smoke import chrx_positions, write_bgen_dataset, write_dataset
+from chip_smoke import write_bgen_dataset, write_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -200,52 +200,49 @@ def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
     assert not os.path.exists(f"{tmp_path}/s1_pred.list")
 
 
-# the 2-D mesh on a mesh of two CPU shards
-MESH_2D = (("REGENIE_TPU_MESH_2D", "2x1"), ("REGENIE_TPU_MESH", "1"),
-           ("REGENIE_TPU_TORCH_MESH_DEVICES", "cpu,cpu"))
+@pytest.mark.parametrize("flags", [["--step", "1"], ["bgen", "--bt"]])
+def test_formerly_refused_2d_mesh_runs(tmp_path, monkeypatch, flags):
+    """REGENIE_TPU_MESH_2D on a mesh of two CPU shards, which the port
+    refused until the 2-D mesh was ported, runs where the JAX package runs
+    and keeps the 1-D mesh where the JAX package keeps it: Step 1 on a 1 x
+    2 grid (one variant row: the 1-D sample-sharded level 0) and Step 2 on
+    a BGEN (the 1-D variant mesh) write the 1-D mesh run's files byte for
+    byte. Flags after "bgen" run on a BGEN input; flags without --step run
+    Step 2. tests/test_torch_mesh2d_cli.py holds both against the JAX
+    package's runs."""
+    from test_torch_mesh_cli import _tables
 
-
-@pytest.mark.parametrize("env,flags", [
-    # the JAX package tiles a mesh of several devices 2-D in both steps
-    # (multi-process runs, refused here until they were ported, run in
-    # tests/test_torch_multiprocess*.py)
-    (MESH_2D, ["--step", "1"]),
-    (MESH_2D, ["bgen", "--bt"]),
-])
-def test_unported_mode_raises(tmp_path, monkeypatch, env, flags):
-    """Every mode the port does not have raises NotImplementedError, on
-    the CPU too, before any output; none silently runs something else.
-    Flags after "bgen" run on a BGEN input, after "chrx" on a BED with
-    chrX non-PAR variants; flags without --step run Step 2. The modes that
-    ran out of this list when their slices landed are held to the JAX
-    package's outcome in tests/test_torch_formerly_unported.py; Step 1
-    under REGENIE_TPU_MESH in test_step1_mesh_matches_unsharded."""
     from regenie_tpu_torch import cli
-    from regenie_tpu_torch.utils.device import DEVICE_ENV
 
-    monkeypatch.setenv(DEVICE_ENV, "cpu")
-    for k, v in env:
-        monkeypatch.setenv(k, v)
-
-    if flags and flags[0] == "bgen":
+    if flags[0] == "bgen":
         flags = flags[1:]
-        bgen = write_bgen_dataset(str(tmp_path), seed=0, N=40,
-                                  chroms=((1, 8),), P=3, n_inc=1, n_cov=3)
+        bgen = write_bgen_dataset(str(tmp_path), seed=0, N=40, chroms=((1, 8),), P=3,
+                                  n_inc=1, n_cov=3)
         src = ["--bgen", bgen, "--sample", f"{tmp_path}/geno.sample"]
-    elif flags and flags[0] == "chrx":
-        flags = flags[1:]
-        src = ["--bed", write_dataset(
-            str(tmp_path), seed=0, N=40, chroms=(("X", 8),), P=3, n_inc=1,
-            n_cov=3, positions={"X": chrx_positions(8, 2)})]
     else:
         src = ["--bed", _tiny_dataset(tmp_path)]
-    argv = src + ["--phenoFile", f"{tmp_path}/pheno.txt",
-                  "--ignore-pred", "--out", f"{tmp_path}/o"]
-    if "--step" not in flags:
-        argv = ["--step", "2"] + argv
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(argv + flags)
-    assert not [f for f in os.listdir(tmp_path) if f.startswith("o")]
+    # the binary traits' table: the QT table's traits thresholded
+    _tables(str(tmp_path))
+    table = "pheno_bt.txt" if "--bt" in flags else "pheno.txt"
+    argv = src + ["--phenoFile", f"{tmp_path}/{table}", "--covarFile",
+                  f"{tmp_path}/covar.txt", "--bsize", "4"] + flags
+    step2 = "--step" not in flags
+    if step2:
+        argv = ["--step", "2", "--ignore-pred"] + argv
+    outs, logs = {}, {}
+    for tag, m2d in (("m1", False), ("m2", True)):
+        _mesh_env(monkeypatch, 2, m2d)
+        cli.main(argv + ["--out", f"{tmp_path}/{tag}"])
+        logs[tag] = open(f"{tmp_path}/{tag}.log").read()
+        outs[tag] = {f[len(f"{tmp_path}/{tag}"):]: open(f, "rb").read() for f in
+                     glob.glob(f"{tmp_path}/{tag}_*.regenie")
+                     + glob.glob(f"{tmp_path}/{tag}_*.loco")}
+    assert "multi-device mesh: 2 shards" in logs["m2"]
+    # Step 2 builds the grid and keeps the 1-D mesh on the BGEN route; Step
+    # 1 builds none on a grid of one variant row
+    assert ("2-D mesh for the fused scorer: 1 x 2" in logs["m2"]) == step2
+    assert "2-D mesh:" not in logs["m2"]
+    assert outs["m1"] and outs["m2"] == outs["m1"]
 
 
 @pytest.mark.parametrize("step", ["1", "2"])
